@@ -4,20 +4,30 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the four CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the eight CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once);
-3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card;
+3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
+   and on the host hold the kernels' composed chain lists at this mesh against
+   the dense one-hot chain, stage by stage (float64, relative tolerance 1e-12);
 4. hold each kernel against its plain PyTorch version on the card at the
-   shapes the vmult gives it (relative tolerance 1e-5 in float32), and time
-   both with CUDA events (median over repetitions after warm-up);
+   shapes the vmult and refill give it (relative tolerance 1e-5 in float32),
+   and time kernel, plain version and, where one PyTorch call computes the
+   same function, that call, with CUDA events on a busy card (device time;
+   median over repetitions after warm-up);
 5. the end-to-end constrained vmult at nref=7 in float32 through the kernels,
    held against the plain float64 path on the card (after zeroing the
    hanging entries, relative tolerance 1e-5), with every kernel's launch
-   count read from that run; its time and DoF/s;
-6. the float64 vmult at nref=4 through the kernels against the scipy oracle
-   (relative tolerance 1e-12);
-7. a JSON line with the vmult's numbers, one with the kernels' numbers,
-   then the device line.
+   count read from that run; its time and DoF/s; a profile of where its
+   device time goes (no device launch outside the port's kernels);
+6. ``refill`` of the vmult's output at nref=7 in float32 through the
+   kernels against the plain float64 refill on the card (1e-5), with its
+   launch counts, time and profile (no launch outside the kernels);
+7. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
+   its plain version, the vmult against the scipy oracle and refill against
+   the plain path; at quadrant nref=2 p=6 the vmult against the oracle
+   (relative tolerance 1e-12 each);
+8. a JSON line with the vmult's and refill's numbers, one with the
+   kernels' numbers, then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -43,13 +53,20 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, from CUDA events around each call."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, device_only: bool = False) -> float:
+    """Median time of fn() in ms, from CUDA events around each call.
+    device_only: before each call the card spins for ~0.5 ms, so the host
+    enqueues the events and the call's launches while the card is busy and
+    the events time the device work alone, not the host's launch time (a
+    call whose launches take the host longer than the spin still shows
+    part of it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
+        if device_only:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -71,21 +88,23 @@ def bound(nbytes: int, flops: int | None, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_vmult(op, x, kernel_names, reps: int = 10) -> None:
-    """Where a vmult's time goes: device time by kernel from torch.profiler
-    over `reps` vmults, the four port kernels against everything else (the
-    plain-PyTorch chain), and the device's idle share of the wall time."""
+def profile_path(what, fn, kernel_names, reps: int = 10):
+    """Where one call's time goes: device time by kernel from torch.profiler
+    over `reps` calls of fn, the port's kernels against everything else, and
+    the device's idle share of the wall time. Returns the numbers per call;
+    fails where the profiler saw no device time or any device launch
+    outside the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        op.vmult(x)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            op.vmult(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = []  # device kernels only: the aten ops that launch them would count twice
@@ -97,17 +116,250 @@ def profile_vmult(op, x, kernel_names, reps: int = 10) -> None:
             dev_us = ev.self_cuda_time_total
         if dev_us > 0:
             rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
+    check(bool(rows), f"the profiler saw no device time in the {what}")
+    ours = lambda key: any(k in key for k in kernel_names)
     busy = sum(r[0] for r in rows)
-    if not rows:
-        print("profile: the profiler saw no device time (not measured)")
-        return
-    ours = sum(r[0] for r in rows if any(k in r[2] for k in kernel_names))
-    print(f"profile (per vmult, {reps} vmults): wall {wall_ms:.4f} ms, device busy "
-          f"{busy:.4f} ms (idle {100 * (1 - busy / wall_ms):.1f} %), port kernels "
-          f"{ours:.4f} ms, other device work {busy - ours:.4f} ms in "
-          f"{sum(r[1] for r in rows if not any(k in r[2] for k in kernel_names))} launches")
+    own_ms = sum(r[0] for r in rows if ours(r[2]))
+    res = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+               port_kernels_ms=own_ms, other_ms=busy - own_ms,
+               other_launches=sum(r[1] for r in rows if not ours(r[2])))
+    print(f"profile (per {what}, {reps} calls): wall {wall_ms:.4f} ms, device busy "
+          f"{busy:.4f} ms (idle {100 * res['idle_share']:.1f} %), port kernels "
+          f"{own_ms:.4f} ms, other device work {res['other_ms']:.4f} ms in "
+          f"{res['other_launches']} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+    check(res["other_launches"] == 0,
+          f"{res['other_launches']} device launches per {what} outside the port's kernels")
+    return res
+
+
+def sparse_csr(rows, cols, vals, shape):
+    """A CSR matrix on the card from COO entries (the library yardsticks)."""
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape).coalesce() \
+        .to_sparse_csr()
+
+
+def yardsticks(op, filled, own, u_sub, sub_raw, plain_rows):
+    """One cuSPARSE product per chain kernel computing the same function on
+    the same data, the lists written as one CSR matrix (built here, outside
+    the timing): hn_apply (both directions) as block-diagonal products over
+    the constrained rows, fill_hn over the subset brick nodes, corr_compact
+    over sub_raw and plain stacked. Returns {name: [fn per part]}."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.fill_hn import cell_nodes
+
+    n_loc, dev, dt = op.n_loc, u_sub.device, u_sub.dtype
+    ar = lambda n: torch.arange(n, device=dev)
+    rep = torch.repeat_interleave
+    nS = op.n_hn * n_loc
+
+    def hn_matrix(d):
+        ptr, col = getattr(op, f"hn_{d}_ptr").long(), getattr(op, f"hn_{d}_col").long()
+        w = getattr(op, f"hn_{d}_w")
+        nq = ptr.shape[0]
+        slot_of = rep(ar(n_loc).repeat(nq), (ptr[:, 1:] - ptr[:, :-1]).reshape(-1))
+        q = op.hn_q.long()
+        qr = torch.nonzero(q >= 0)[:, 0]
+        cnt = (ptr[:, -1] - ptr[:, 0])[q[qr]]
+        r = rep(qr, cnt)
+        e = rep(ptr[q[qr], 0], cnt) + ar(int(cnt.sum())) - rep(torch.cumsum(cnt, 0) - cnt, cnt)
+        ident = (torch.nonzero(q < 0)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
+        rows = torch.cat([r * n_loc + slot_of[e], ident])
+        cols = torch.cat([r * n_loc + col[e], ident])
+        vals = torch.cat([w[e], torch.ones(len(ident), dtype=dt, device=dev)])
+        return sparse_csr(rows, cols, vals, (nS, nS))
+
+    ent_row = lambda ptr: rep(ar(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
+    kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
+    nodes = cell_nodes(op.hn_sub, op.B, op.p, op.N3p, dev).reshape(-1)
+    fill = sparse_csr(
+        torch.cat([kept, ent_row(op.fill_row_ptr) * n_loc + op.fill_ent_slot.long()]),
+        torch.cat([nodes[kept], op.fill_ent_src.long()]),
+        torch.ones(len(kept) + op.fill_ent_src.numel(), dtype=dt, device=dev),
+        (nS, u_sub.numel()))
+    code = op.cell_code.long()
+    n_rows = code.numel()
+    hn_cells = op.hn_sub.long()
+    minus = (torch.nonzero(code != -1)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
+    corr = sparse_csr(
+        torch.cat([ent_row(op.corr_row_ptr) * n_loc + op.corr_ent_slot.long(),
+                   (hn_cells[:, None] * n_loc + ar(n_loc)).reshape(-1)[kept], minus]),
+        torch.cat([op.corr_ent_src.long(), kept, nS + minus]),
+        torch.cat([torch.ones(op.corr_ent_src.numel() + len(kept), dtype=dt, device=dev),
+                   -torch.ones(len(minus), dtype=dt, device=dev)]),
+        (n_rows * n_loc, nS + n_rows * n_loc))
+    fwd, bwd = hn_matrix("fwd"), hn_matrix("bwd")
+    x_fwd, x_bwd, x_u = filled.reshape(-1), own.reshape(-1), u_sub.reshape(-1)
+    x_corr = torch.cat([sub_raw.reshape(-1), plain_rows.reshape(-1)])
+    return {"hn_apply": [lambda: fwd @ x_fwd, lambda: bwd @ x_bwd],
+            "fill_hn": [lambda: fill @ x_u], "corr_compact": [lambda: corr @ x_corr]}
+
+
+def kernel_calls(op, x, y):
+    """Every kernel's call on the card at the shapes the vmult (input x) and
+    refill (input y, a vmult output) give it: {name: [(mode, kernel, plain,
+    (bytes, flops), fresh)]}, fresh computing (kernel, plain) outputs anew
+    for the kernels that work in place."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, cell_apply, cols_overlap_add, corr_compact, dss_surface, fill_hn,
+        hn_apply, refill_update,
+    )
+
+    isz = x.element_size()
+    u_sub = x[: op.n_sub]
+    v0 = brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p)
+    plain_rows = cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B)
+    filled = op._fill_hn_compact(u_sub)
+    u_hat = op._hn_apply(filled, False)
+    own = cell_apply.cell_apply(u_hat, op.K, op.geo_hn)
+    sub_raw = op._hn_apply(own, True)
+    dcols = op._corr_compact(plain_rows, sub_raw)
+    v1 = v0.clone()
+    cols_overlap_add.cols_overlap_add(v1[: op.n_sub], dcols, brick_size=op.B)
+    u_hat_r = op._fill_rows(y[: op.n_sub])
+    dss_args = (op.face_other, op.edge_contrib, op.corner_contrib, op.node_valid, op.NB)
+    hn_args = lambda d: (op.hn_q, getattr(op, f"hn_{d}_ptr"), getattr(op, f"hn_{d}_col"),
+                         getattr(op, f"hn_{d}_w"))
+    fill_args = (op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot, op.fill_ent_src, op.B)
+    corr_args = (op.cell_code, op.keep_hn, op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src)
+    refill_args = (op.node_valid, op.cell_code, op.refill_pos, op.fill_invden_X, op.B)
+    v_tmp = v0[: op.n_sub].clone()
+    torch.cuda.synchronize()
+    return {
+        "brick_apply": [(
+            "bricks",
+            lambda: brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p),
+            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo),
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz), None,
+        )],
+        "cell_apply": [(
+            "from_bricks",
+            lambda: cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B),
+            lambda: cell_apply.cell_apply_plain(u_sub, op.K, op.geo_cell_sub, op.B),
+            cell_apply.bytes_and_flops(u_sub.numel(), plain_rows.shape[0], op.n_loc, isz), None,
+        ), (
+            "from_rows",
+            lambda: cell_apply.cell_apply(u_hat, op.K, op.geo_hn),
+            lambda: cell_apply.cell_apply_plain(u_hat, op.K, op.geo_hn),
+            cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None,
+        )],
+        "cols_overlap_add": [(
+            "into_bricks",
+            lambda: cols_overlap_add.cols_overlap_add(v_tmp, dcols, op.B),
+            lambda: cols_overlap_add.cols_overlap_add_plain(v_tmp, dcols, op.B),
+            cols_overlap_add.bytes_and_flops(op.n_sub, op.B, op.p, op.N3p, isz),
+            lambda: (cols_overlap_add.cols_overlap_add(v0[: op.n_sub].clone(), dcols, op.B),
+                     cols_overlap_add.cols_overlap_add_plain(v0[: op.n_sub].clone(), dcols,
+                                                             op.B)),
+        )],
+        "dss_surface": [(
+            "bricks",
+            lambda: dss_surface.dss_surface(v1, *dss_args),
+            lambda: dss_surface.dss_surface_plain(v1, *dss_args),
+            dss_surface.bytes_and_flops(op.node_valid, op.face_other, op.edge_contrib,
+                                        op.corner_contrib, op.NB, isz), None,
+        )],
+        "hn_apply": [(
+            mode,
+            lambda rows=rows, d=d: hn_apply.hn_apply(rows, *hn_args(d)),
+            lambda rows=rows, d=d: hn_apply.hn_apply_plain(rows, *hn_args(d)),
+            hn_apply.bytes_and_flops(op.hn_q, getattr(op, f"hn_{d}_ptr"),
+                                     getattr(op, f"hn_{d}_col"), op.n_loc, isz), None,
+        ) for mode, rows, d in (("forward", filled, "fwd"), ("transposed", own, "bwd"))],
+        "fill_hn": [(
+            "from_bricks",
+            lambda: fill_hn.fill_hn(u_sub, *fill_args),
+            lambda: fill_hn.fill_hn_plain(u_sub, *fill_args),
+            fill_hn.bytes_and_flops(u_sub, op.hn_sub, op.keep_hn, op.fill_row_ptr,
+                                    op.fill_ent_src, op.B), None,
+        )],
+        "corr_compact": [(
+            "dcols",
+            lambda: corr_compact.corr_compact(plain_rows, sub_raw, *corr_args),
+            lambda: corr_compact.corr_compact_plain(plain_rows, sub_raw, *corr_args),
+            corr_compact.bytes_and_flops(plain_rows, sub_raw, op.cell_code, op.corr_row_ptr,
+                                         op.corr_ent_src), None,
+        )],
+        "refill_update": [(
+            "bricks",
+            lambda: refill_update.refill_update(y, u_hat_r, *refill_args),
+            lambda: refill_update.refill_update_plain(y, u_hat_r, *refill_args),
+            refill_update.bytes_and_flops(y, u_hat_r, op.cell_code, op.refill_pos,
+                                          op.fill_invden_X, op.B), None,
+        )],
+    }, dict(filled=filled, own=own, u_sub=u_sub, u_hat=u_hat, sub_raw=sub_raw,
+            plain_rows=plain_rows, dcols=dcols, v_tmp=v_tmp)
+
+
+def check_chain_tables(mf, op, seed):
+    """Host only, float64: the composed gather lists that ``kernel_tables``
+    hands the chain kernels, run through the plain versions on CPU tensors,
+    against the dense one-hot chain computed stage by stage (``dense_fill``,
+    ``dense_corr``) and against rows @ Q per mask range, on random rows.
+    Returns {part: relative error}; fails above 1e-12."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (
+        dense_corr, dense_fill, kernel_tables, operator_tables,
+    )
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import corr_compact, fill_hn, hn_apply
+
+    t, m = operator_tables(mf, op.bs)
+    k = {key: torch.from_numpy(np.ascontiguousarray(v)) for key, v in kernel_tables(t, m).items()}
+    rng = np.random.default_rng(seed)
+    n_hn, n_loc = t["keep_hn"].shape
+    rows = rng.standard_normal((n_hn, n_loc))
+    u_sub = rng.standard_normal((m["n_sub"], m["N3p"]))
+    plain = rng.standard_normal((m["n_sub"] * m["B"] ** 3, n_loc))
+    got, ref = {}, {}
+    for d in ("fwd", "bwd"):
+        got[f"hn_apply[{d}]"] = hn_apply.hn_apply_plain(
+            torch.from_numpy(rows), k["hn_q"], k[f"hn_{d}_ptr"], k[f"hn_{d}_col"], k[f"hn_{d}_w"])
+        ref[f"hn_apply[{d}]"] = rows.copy()
+        for s, e, qi in m["hn_bounds"]:
+            if qi is not None:
+                Q = np.asarray(t["hn_Q"][qi])
+                ref[f"hn_apply[{d}]"][s:e] = rows[s:e] @ (Q if d == "fwd" else Q.T)
+    got["fill_hn"] = fill_hn.fill_hn_plain(
+        torch.from_numpy(u_sub), k["hn_sub"], k["keep_hn"], k["fill_row_ptr"],
+        k["fill_ent_slot"], k["fill_ent_src"], m["B"])
+    ref["fill_hn"] = dense_fill(t, m, u_sub)
+    got["corr_compact"] = corr_compact.corr_compact_plain(
+        torch.from_numpy(plain), torch.from_numpy(rows), k["cell_code"], k["keep_hn"],
+        k["corr_row_ptr"], k["corr_ent_slot"], k["corr_ent_src"])
+    ref["corr_compact"] = dense_corr(t, m, plain, rows)
+    errs = {name: errors(got[name], torch.from_numpy(ref[name]))[1] for name in got}
+    print(f"chain tables vs the dense one-hot chain ({m['n_fill_tails']} fill and "
+          f"{m['n_corr_tails']} fold tail stages), max rel err per part (tol 1e-12): {errs}",
+          flush=True)
+    for name, err in errs.items():
+        check(err <= 1e-12, f"{name}'s lists disagree with the dense chain: {err:.3e}")
+    return errs
+
+
+def check_kernels(calls, tol, what):
+    """Each kernel's output against its plain version; returns {name: [(abs, rel)]}."""
+    out = {}
+    for name, parts in calls.items():
+        for mode, kern, plain, _, fresh in parts:
+            got, ref = fresh() if fresh else (kern(), plain())
+            torch.cuda.synchronize()
+            abs_err, rel_err = errors(got, ref)
+            check(bool(torch.isfinite(got).all()), f"{name}[{mode}] gave non-finite values")
+            check(rel_err <= tol, f"{name}[{mode}] disagrees with its plain version ({what}): "
+                                  f"{rel_err:.3e}")
+            out.setdefault(name, []).append((abs_err, rel_err))
+    print(f"{what}: every kernel matches its plain version (max rel err "
+          f"{max(r for v in out.values() for _, r in v):.3e}, tol {tol:g})", flush=True)
+    return out
+
+
+def counted(wrappers, fn):
+    """Run fn once with every launch count set to 0 just before; return
+    its result and the counts read just after."""
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {name: wrapper.launches for name, wrapper in wrappers.items()}
 
 
 def main() -> int:
@@ -118,7 +370,7 @@ def main() -> int:
 
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, brick_apply, cell_apply, cols_overlap_add, dss_surface,
+        KERNEL_MODULES, _build, cols_overlap_add,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -149,68 +401,29 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: {time.perf_counter() - t0:.1f} s  (quadrant nref=7 p=4 f32: "
           f"{mf.n_dofs} DoFs, {tria.n_active_cells} cells, {op.n_bricks} bricks, "
-          f"{op.n_sub} subset bricks, {op.n_hn} constrained rows)", flush=True)
+          f"{op.n_sub} subset bricks, {op.n_hn} constrained rows, "
+          f"{op.fill_ent_src.numel()} fill and {op.corr_ent_src.numel()} fold entries)",
+          flush=True)
+    t0 = time.perf_counter()
+    check_chain_tables(mf, op, SEED)
+    print(f"chain table check: {time.perf_counter() - t0:.1f} s", flush=True)
     u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
     x = op.from_dof_vector(u)
-
-    # the main path's intermediates, as the vmult hands them to each kernel
-    u_sub = x[: op.n_sub]
-    v0 = brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p)
-    plain_rows = cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B)
-    u_hat = op._fill_rows(u_sub)
-    own = cell_apply.cell_apply(u_hat, op.K, op.geo_hn)
-    dcols = op._corr_compact(plain_rows, plain_rows[op.hn_sub], op._hn_apply(own, True))
-    v1 = v0.clone()
-    cols_overlap_add.cols_overlap_add(v1[: op.n_sub], dcols, brick_size=op.B)
-    torch.cuda.synchronize()
+    y = op.vmult(x)  # refill's input: a vmult output (reduced)
 
     # ---- 4. each kernel against its plain version ---------------------------
     tol32 = 1e-5
-    isz = x.element_size()
-    dss_args = (op.face_other, op.edge_contrib, op.corner_contrib, op.node_valid, op.NB)
-    calls = {
-        "brick_apply": [(
-            "bricks",
-            lambda: brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p),
-            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo),
-            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz), None,
-        )],
-        "cell_apply": [(
-            "from_bricks",
-            lambda: cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B),
-            lambda: cell_apply.cell_apply_plain(u_sub, op.K, op.geo_cell_sub, op.B),
-            cell_apply.bytes_and_flops(u_sub.numel(), plain_rows.shape[0], op.n_loc, isz), None,
-        ), (
-            "from_rows",
-            lambda: cell_apply.cell_apply(u_hat, op.K, op.geo_hn),
-            lambda: cell_apply.cell_apply_plain(u_hat, op.K, op.geo_hn),
-            cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None,
-        )],
-    }
-    v_tmp = v0[: op.n_sub].clone()
+    calls, inter = kernel_calls(op, x, y)
+    check_kernels(calls, tol32, "nref=7 f32")
+    # library yardsticks: one PyTorch call computing the same function (timed
+    # here only; the port never calls them)
     flat_idx = cols_overlap_add.overlap_add_index(op.n_sub, op.B, op.p, op.N3p, dev)
-    calls["cols_overlap_add"] = [(
-        "into_bricks",
-        lambda: cols_overlap_add.cols_overlap_add(v_tmp, dcols, op.B),
-        lambda: cols_overlap_add.cols_overlap_add_plain(v_tmp, dcols, op.B),
-        cols_overlap_add.bytes_and_flops(op.n_sub, op.B, op.p, op.N3p, isz),
-        lambda: v_tmp.view(-1).index_add_(0, flat_idx, dcols.view(-1)),
-    )]
-    calls["dss_surface"] = [(
-        "bricks",
-        lambda: dss_surface.dss_surface(v1, *dss_args),
-        lambda: dss_surface.dss_surface_plain(v1, *dss_args),
-        dss_surface.bytes_and_flops(op.node_valid, op.face_other, op.edge_contrib,
-                                    op.corner_contrib, op.NB, isz),
-        None,
-    )]
-    # correctness on fresh copies (the overlap-add works in place)
-    fresh = {
-        "cols_overlap_add": (
-            cols_overlap_add.cols_overlap_add(v0[: op.n_sub].clone(), dcols, op.B),
-            cols_overlap_add.cols_overlap_add_plain(v0[: op.n_sub].clone(), dcols, op.B),
-        ),
-    }
+    library = {name: [None] * len(parts) for name, parts in calls.items()}
+    library["cell_apply"][1] = lambda: torch.mm(inter["u_hat"], op.K.T)
+    library["cols_overlap_add"][0] = lambda: inter["v_tmp"].view(-1).index_add_(
+        0, flat_idx, inter["dcols"].view(-1))
+    library.update(yardsticks(op, *(inter[k] for k in ("filled", "own", "u_sub", "sub_raw",
+                                                        "plain_rows"))))
     wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
     results = {}
     for mod in KERNEL_MODULES:
@@ -221,44 +434,38 @@ def main() -> int:
                    ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None,
                    parts=[])
         bound_parts = []
-        for mode, kern, plain, (nbytes, flops), library in parts:
-            if name in fresh:
-                got, ref = fresh[name]
-            else:
-                got, ref = kern(), plain()
+        for (mode, kern, plain, (nbytes, flops), fresh), lib in zip(parts, library[name]):
+            got, ref = fresh() if fresh else (kern(), plain())
             torch.cuda.synchronize()
             abs_err, rel_err = errors(got, ref)
-            check(bool(torch.isfinite(got).all()), f"{name} gave non-finite values")
-            check(rel_err <= tol32, f"{name} disagrees with its plain version: {rel_err:.3e}")
-            k_ms, p_ms = time_ms(kern), time_ms(plain)
+            k_ms, p_ms = time_ms(kern, device_only=True), time_ms(plain, device_only=True)
             b_ms, b_by = bound(nbytes, flops, x.dtype)
+            l_ms = None if lib is None else time_ms(lib, device_only=True)
             bound_parts.append((b_ms, b_by))
             rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
             rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
             rec["ms"] += k_ms
             rec["plain_ms"] += p_ms
             rec["bound_ms"] += b_ms
-            if library is not None:
-                rec["library_ms"] = time_ms(library)
+            if l_ms is not None:
+                rec["library_ms"] = (rec["library_ms"] or 0.0) + l_ms
             rec["parts"].append(dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                     bound_by=b_by, max_abs_err=abs_err, max_rel_err=rel_err))
+                                     bound_by=b_by, library_ms=l_ms, max_abs_err=abs_err,
+                                     max_rel_err=rel_err))
             print(f"{name}[{mode}]: max rel err {rel_err:.3e} (tol {tol32:g}), max abs err "
                   f"{abs_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
                   f"{(flops or 0) / 1e9:.3f} GFLOP)"
-                  + (f", library {rec['library_ms']:.4f} ms" if library else ""), flush=True)
+                  + (f", library {l_ms:.4f} ms" if l_ms is not None else ""), flush=True)
         rec["bound_by"] = max(bound_parts)[1]
         results[name] = rec
+    del calls, inter, library
 
     # ---- 5. end-to-end vmult, nref=7, float32, through the kernels ---------
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
     x64 = x.double()
     ref = op64.to_dof_vector(op64.vmult(x64, plain=True), zero_hanging=True)
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-    y = op.vmult(x)
-    torch.cuda.synchronize()
-    counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    y, counts = counted(wrappers, lambda: op.vmult(x))
     got = op.to_dof_vector(y, zero_hanging=True)
     abs_err, rel_err = errors(got, ref)
     print(f"vmult nref=7 f32 vs plain f64 path: max rel err {rel_err:.3e} (tol 1e-5), "
@@ -266,29 +473,66 @@ def main() -> int:
     check(bool(torch.isfinite(y).all()) and got.shape == (mf.n_dofs,), "vmult output malformed")
     check(rel_err <= 1e-5, f"vmult disagrees with the float64 path: {rel_err:.3e}")
     for name, n in counts.items():
-        check(n > 0, f"the vmult never launched {name}")
-        results[name]["launches"] = n
+        if name != "refill_update":
+            check(n > 0, f"the vmult never launched {name}")
+            results[name]["launches"] = n
     vm_ms = time_ms(lambda: op.vmult(x), reps=30, warmup=5)
     vm_plain_ms = time_ms(lambda: op.vmult(x, plain=True), reps=10, warmup=2)
     print(f"vmult nref=7 p=4 f32 on {smi}: {vm_ms:.4f} ms ({mf.n_dofs / vm_ms / 1e6:.4f} "
           f"GDoF/s); plain path {vm_plain_ms:.4f} ms", flush=True)
-    del op64, x64, ref
-    profile_vmult(op, x, set(wrappers))
+    vm_prof = profile_path("vmult", lambda: op.vmult(x), set(wrappers))
 
-    # ---- 6. float64 at nref=4 through the kernels against the oracle -------
+    # ---- 6. refill, nref=7, float32, through the kernels --------------------
+    ref = op64.refill(y.double(), plain=True)
+    got, rcounts = counted(wrappers, lambda: op.refill(y))
+    abs_err, rf_err = errors(got, ref)
+    print(f"refill nref=7 f32 vs plain f64 refill: max rel err {rf_err:.3e} (tol 1e-5), "
+          f"launches per refill {rcounts}", flush=True)
+    check(bool(torch.isfinite(got).all()) and got.shape == y.shape, "refill output malformed")
+    check(rf_err <= 1e-5, f"refill disagrees with the float64 path: {rf_err:.3e}")
+    for name in ("fill_hn", "hn_apply", "refill_update"):
+        check(rcounts[name] > 0, f"refill never launched {name}")
+    results["refill_update"]["launches"] = rcounts["refill_update"]
+    rf_ms = time_ms(lambda: op.refill(y), reps=30, warmup=5)
+    rf_plain_ms = time_ms(lambda: op.refill(y, plain=True), reps=10, warmup=2)
+    print(f"refill nref=7 p=4 f32 on {smi}: {rf_ms:.4f} ms; plain path {rf_plain_ms:.4f} ms",
+          flush=True)
+    rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers))
+    del op64, x64, ref, got
+
+    # ---- 7. float64 through the kernels --------------------------------------
     tria4 = mt.create_quadrant(3, 4)
     mf4 = mt.MatrixFree(tria4, 4, dtype=np.float64)
     op4 = mt.BrickLaplaceMM(mf4, device=dev)
     u4 = np.random.default_rng(SEED).standard_normal(mf4.n_dofs)
-    got4 = op4.to_dof_vector(op4.vmult(op4.from_dof_vector(u4)), zero_hanging=True)
+    x4 = op4.from_dof_vector(u4)
+    y4 = op4.vmult(x4)
+    check_kernels(kernel_calls(op4, x4, y4)[0], 1e-12, "nref=4 f64")
+    got4 = op4.to_dof_vector(y4, zero_hanging=True)
     ref4 = vmult_oracle(tria4, 4, u4)
     err4 = float(np.abs(got4.cpu().numpy() - ref4).max() / np.abs(ref4).max())
     print(f"vmult nref=4 f64 vs scipy oracle: max rel err {err4:.3e} (tol 1e-12)", flush=True)
     check(err4 <= 1e-12, f"float64 vmult disagrees with the oracle: {err4:.3e}")
+    rf4 = errors(op4.refill(y4), op4.refill(y4, plain=True))[1]
+    print(f"refill nref=4 f64 vs plain f64 refill: max rel err {rf4:.3e} (tol 1e-12)", flush=True)
+    check(rf4 <= 1e-12, f"float64 refill disagrees with its plain path: {rf4:.3e}")
+    tria6 = mt.create_quadrant(3, 2)
+    mf6 = mt.MatrixFree(tria6, 6, dtype=np.float64)
+    op6 = mt.BrickLaplaceMM(mf6, device=dev)
+    u6 = np.random.default_rng(SEED).standard_normal(mf6.n_dofs)
+    got6 = op6.to_dof_vector(op6.vmult(op6.from_dof_vector(u6)), zero_hanging=True)
+    ref6 = vmult_oracle(tria6, 6, u6)
+    err6 = float(np.abs(got6.cpu().numpy() - ref6).max() / np.abs(ref6).max())
+    print(f"vmult nref=2 p=6 f64 vs scipy oracle: max rel err {err6:.3e} (tol 1e-12)",
+          flush=True)
+    check(err6 <= 1e-12, f"float64 p=6 vmult disagrees with the oracle: {err6:.3e}")
 
-    # ---- 7. the numbers ------------------------------------------------------
+    # ---- 8. the numbers ------------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": mf.n_dofs,
-                                "gdofs_per_s": mf.n_dofs / vm_ms / 1e6, "card": smi}}))
+                                "gdofs_per_s": mf.n_dofs / vm_ms / 1e6, "launches": counts,
+                                "profile": vm_prof, "card": smi},
+                      "refill": {"ms": rf_ms, "plain_ms": rf_plain_ms, "launches": rcounts,
+                                 "profile": rf_prof, "card": smi}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

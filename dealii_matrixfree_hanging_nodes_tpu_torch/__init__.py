@@ -3,8 +3,9 @@ matrix-free degree >= 4 Laplace vmult with in-operator hanging-node
 constraints on the brick layout, for NVIDIA Hopper (H100).
 
 The host setup (mesh, DoFs, constraints, brick tables) is NumPy; the
-operator is a ``torch.nn.Module`` whose device work runs in four
-hand-written CUDA kernels (``kernels/``, sources in ``csrc/``). Entry points
+operator is a ``torch.nn.Module`` whose device work (vmult and refill)
+runs in eight hand-written CUDA kernels (``kernels/``, sources in
+``csrc/``). Entry points
 run on the card unless the caller passes ``device="cpu"``, where every
 kernel takes its plain PyTorch version.
 

@@ -11,15 +11,18 @@ row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained cells
 
 vmult = brick_apply (separable operator x geo, every brick)
       + on the subset: cell_apply (cells read from the bricks, times K),
-        the fill / HN / fold chain on the constrained rows (plain PyTorch),
-        cols_overlap_add (per-cell deltas summed back into the bricks)
+        on the constrained rows fill_hn, hn_apply, cell_apply, hn_apply^T,
+        then corr_compact (the fold and the sparse delta of every subset
+        cell row), cols_overlap_add (the deltas summed back into the bricks)
       -> dss_surface (sum each shared face/edge/corner over its pool,
         zero the hole nodes).
+refill = fill_hn, hn_apply, refill_update (the coverage-divided write-back).
 
 The reference expresses the data movement with one-hot matmuls because the
 TPU gathers slowly; here every one-hot operator is an index map (``slot_idx``
 for E, the surface node list for Es, X-node / position maps for EsI, EscX
-and EFX), and the four device steps are hand-written CUDA kernels
+and EFX; ``kernel_tables`` turns the transfer stacks and composite Q's into
+gather lists), and every device step is a hand-written CUDA kernel
 (``kernels/``).
 """
 
@@ -28,13 +31,23 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 from torch import nn
 
 from .constraints import _active_lookup, decompress_mask
 from .dof_handler import local_lattice
 from .elements import shape_info
-from .kernels import brick_apply, cell_apply, cols_overlap_add, dss_surface
+from .kernels import (
+    brick_apply,
+    cell_apply,
+    cols_overlap_add,
+    corr_compact,
+    dss_surface,
+    fill_hn,
+    hn_apply,
+    refill_update,
+)
 from .kernels.dss_surface import surface_nodes
 from .matrix_free import MatrixFree
 from .ops.hanging_nodes import hn_composite_matrix
@@ -731,6 +744,257 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure):
 
 
 # ===========================================================================
+# The kernels' index form of the chain tables
+def _transfer_pairs(T):
+    """(read slot a, written slot b) of every 1 in a transfer matrix T
+    (rows @ T copies rows[:, a] to out[:, b]); raises unless T is a 0/1
+    partial permutation."""
+    T = np.asarray(T)
+    a, b = np.nonzero(T)
+    if not (np.all(T[a, b] == 1.0) and len(np.unique(a)) == len(a)
+            and len(np.unique(b)) == len(b)):
+        raise ValueError("a fold/fill transfer matrix is not a 0/1 partial permutation")
+    return a, b
+
+
+def _sparse(rows, cols, shape, vals=None):
+    vals = np.ones(len(rows)) if vals is None else vals
+    return sp.csr_matrix((vals, (rows, cols)), shape=shape)
+
+
+def _stage1_entries(arrays, meta, direction):
+    """(padded position k, read slot a, written slot b) of every slot copy
+    of the stage-1 transfers (the 1s of the [G, n_loc, n_loc] stacks)."""
+    ks, As, Bs = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for si, off, G, m in meta[f"{direction}_segs"]:
+        for g, T in enumerate(arrays[f"{direction}_T{si}"]):
+            a, b = _transfer_pairs(T)
+            ks.append(np.repeat(off + g * m + np.arange(m), len(a)))
+            As.append(np.tile(a, m))
+            Bs.append(np.tile(b, m))
+    return np.concatenate(ks), np.concatenate(As), np.concatenate(Bs)
+
+
+def _tail_entries(arrays, ti, direction, sel=None):
+    """(pair index, read slot a, written slot b) of tail stage ti."""
+    Ts = arrays[f"{direction}_tail{ti}_T"]
+    idx = np.arange(len(Ts)) if sel is None else np.asarray(sel)
+    ks, As, Bs = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for i in idx:
+        a, b = _transfer_pairs(Ts[i])
+        ks.append(np.full(len(a), i))
+        As.append(a)
+        Bs.append(b)
+    return np.concatenate(ks), np.concatenate(As), np.concatenate(Bs)
+
+
+def _gather_lists(M, n_rows, n_loc, what):
+    """By-destination gather lists of a 0/1 map M [n_rows*n_loc, *] whose
+    rows are (row, slot) pairs: row_ptr [n_rows+1] into entries sorted by
+    (row, slot, source), each entry's slot and source, all int32."""
+    M = M.tocsr()
+    M.eliminate_zeros()
+    M.sort_indices()
+    if not np.all(M.data == 1.0):
+        raise ValueError(f"{what}: a slot receives one source more than once")
+    if M.shape[1] > np.iinfo(np.int32).max:
+        raise NotImplementedError(f"{what}: sources exceed int32")
+    dst = np.repeat(np.arange(M.shape[0]), np.diff(M.indptr))
+    return dict(row_ptr=M.indptr[np.arange(n_rows + 1) * n_loc].astype(np.int32),
+                ent_slot=(dst % n_loc).astype(np.int32),
+                ent_src=M.indices.astype(np.int32))
+
+
+def _corr_lists(arrays, meta, hn_dst, keep, cell_code, nF, nR):
+    """Gather lists of the composed fold: dcols rows (subset cell rows) by
+    slot over the nF slots of sub_raw. hn_dst: the dcols slot of each
+    sub_raw slot. cur = (I + A) sub_raw on the constrained rows, N sub_raw
+    on the others; each tail reads cur before this stage's updates."""
+    n_loc = keep.shape[1]
+    A = _sparse([], [], (nF, nF))
+    N = _sparse([], [], (nR, nF))
+    if nF and len(arrays["corr_src"]):
+        k, a, b = _stage1_entries(arrays, meta, "corr")
+        src = np.asarray(arrays["corr_src"])[k] * n_loc + a
+        for pos, dsts in (("corr_hn_pos", "corr_hn_dst"), ("corr_nh_pos", "corr_nh_dst")):
+            which = np.full(len(arrays["corr_src"]), -1)
+            which[arrays[pos]] = np.asarray(arrays[dsts])
+            s = which[k] >= 0
+            if pos == "corr_hn_pos":
+                A = A + _sparse(which[k[s]] * n_loc + b[s], src[s], (nF, nF))
+            else:
+                N = N + _sparse(which[k[s]] * n_loc + b[s], src[s], (nR, nF))
+    for ti in range(meta["n_corr_tails"]):
+        cur = sp.identity(nF, format="csr") + A
+        tsrc = np.asarray(arrays[f"corr_tail{ti}_src"])
+        upd = {}
+        for pos, dsts, rows in (("hn_pos", "hn_dst", nF), ("nh_pos", "nh_dst", nR)):
+            kk, a, b = _tail_entries(arrays, ti, "corr", arrays[f"corr_tail{ti}_{pos}"])
+            dmap = np.full(len(tsrc), -1)
+            dmap[arrays[f"corr_tail{ti}_{pos}"]] = arrays[f"corr_tail{ti}_{dsts}"]
+            upd[pos] = _sparse(dmap[kk] * n_loc + b, tsrc[kk] * n_loc + a, (rows, nF)) @ cur
+        A, N = A + upd["hn_pos"], N + upd["nh_pos"]
+    if (cell_code[np.unique(N.tocoo().row // n_loc)] != -1).any():
+        raise ValueError("a fold lands on a constrained or absent row outside the hn set")
+    kept = _sparse(hn_dst, np.arange(nF), (nR, nF), keep.reshape(-1).astype(np.float64))
+    return _gather_lists(kept @ A + N, nR // n_loc, n_loc, "corr")
+
+
+def kernel_tables(arrays: dict, meta: dict) -> dict:
+    """The tables the eight kernels read, derived on the host from the
+    reference-layout tables of ``operator_tables`` (or
+    ``convert.reference_tables``): the dense one-hot stacks T and the
+    composite Q become index lists, checked as they are built.
+
+    - fill: the compact fill chain (stage 1 and its tails, bricks.py:
+      2728-2773) is linear in the subset bricks and every transfer is a 0/1
+      partial permutation, so the stages compose on the host into one
+      gather list per (constrained row, slot): its own node when the keep
+      mask holds it, plus the master nodes that the chain copies into it. A
+      source that is itself a constrained row reads its masked base
+      (``fill_fix_idx``); the tails read the rows after stage 1.
+    - corr: the compact fold (bricks.py:2775-2849) likewise composes into
+      one gather list per (subset cell row, slot) over the slots of
+      ``sub_raw``: the tails read ``sub_raw + acc`` before the keep mask,
+      and a constrained row keeps only the slots its keep mask holds.
+      ``cell_code`` tells each subset cell row's kind: its constrained row
+      (>= 0), -1 (none), -2 (absent cell).
+    - hn: the nonzeros of each composite Q by output slot, for u @ Q
+      (fwd) and u @ Q^T (bwd), and each constrained row's Q (-1: identity).
+    - refill: each brick node's position in ``fill_invden_X`` where the fill
+      writes it (-1 elsewhere).
+
+    Returns the buffers of ``BrickLaplaceMM``: the brick and DSS tables as
+    given, these lists, and no dense T or Q."""
+    C = int(meta["B"]) ** 3
+    n_loc = (int(meta["p"]) + 1) ** 3
+    N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
+    i32 = lambda x: np.asarray(x).astype(np.int32)
+    out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "K", "geo", "geo_cell_sub",
+                                              "node_valid")}
+    out.update({k: i32(arrays[k]) for k in ("face_other", "edge_contrib", "corner_contrib")})
+    hn_sub = np.asarray(arrays["hn_sub"], dtype=np.int64)
+    absent = np.asarray(arrays["absent_sub"], dtype=np.int64)
+    n_hn, n_rows = len(hn_sub), n_sub * C
+    cell_code = np.full(n_rows, -1, dtype=np.int32)
+    cell_code[absent] = -2
+    cell_code[hn_sub] = np.arange(n_hn)
+    keep = (np.asarray(arrays["keep_hn"]) != 0) if n_hn else np.zeros((0, n_loc), bool)
+    out.update(cell_code=cell_code, hn_sub=i32(hn_sub), keep_hn=keep)
+    if n_sub * N3p > np.iinfo(np.int32).max:
+        raise NotImplementedError("subset brick nodes exceed int32")
+    h_all = np.repeat(np.arange(n_hn), n_loc)
+    j_all = np.tile(np.arange(n_loc), n_hn)
+    nF, nU, nR = n_hn * n_loc, n_sub * N3p, n_rows * n_loc
+    out.update({f"corr_{k}": v for k, v in _corr_lists(
+        arrays, meta, hn_sub[h_all] * n_loc + j_all, keep, cell_code, nF, nR).items()})
+    if not n_hn:
+        return out
+
+    slot_idx = np.asarray(arrays["slot_idx"], dtype=np.int64)
+    node = lambda cell, slot: (cell // C) * N3p + slot_idx[cell % C, slot]
+
+    # ---- fill: filled = M u over the subset brick nodes
+    own = _sparse(np.arange(nF), node(hn_sub[h_all], j_all), (nF, nU),
+                  keep.reshape(-1).astype(np.float64))
+    M = own
+    if len(arrays["fill_src"]):
+        k, a, b = _stage1_entries(arrays, meta, "fill")
+        real = np.full(len(arrays["fill_src"]), -1)
+        real[arrays["fill_real_pos"]] = np.arange(len(arrays["fill_real_pos"]))
+        fix = np.full(len(arrays["fill_src"]), -1)
+        fix[arrays["fill_fix_idx"]] = arrays["fill_fix_local"]
+        k, a, b = k[real[k] >= 0], a[real[k] >= 0], b[real[k] >= 0]
+        dst = np.asarray(arrays["fill_dst_local"])[real[k]] * n_loc + b
+        f = fix[k] >= 0  # the source is a constrained row: its masked base
+        M = (M + _sparse(dst[~f], node(np.asarray(arrays["fill_src"])[k[~f]], a[~f]), (nF, nU))
+             + _sparse(dst[f], fix[k[f]] * n_loc + a[f], (nF, nF)) @ own)
+    for ti in range(meta["n_fill_tails"]):
+        kk, a, b = _tail_entries(arrays, ti, "fill")
+        src = np.asarray(arrays[f"fill_tail{ti}_src"])[kk] * n_loc + a
+        dst = np.asarray(arrays[f"fill_tail{ti}_dst"])[kk] * n_loc + b
+        M = M + _sparse(dst, src, (nF, nF)) @ M
+    out.update({f"fill_{k}": v for k, v in
+                _gather_lists(M - own, n_hn, n_loc, "fill").items()})
+
+    # ---- hn: the nonzeros of each composite Q by output slot
+    hn_q = np.full(n_hn, -1, dtype=np.int32)
+    for s, e, qi in meta["hn_bounds"]:
+        if qi is not None:
+            hn_q[s:e] = qi
+    out["hn_q"] = hn_q
+    Qs = np.asarray(arrays["hn_Q"], dtype=np.float64)
+    for name, mats in (("fwd", Qs.transpose(0, 2, 1)), ("bwd", Qs)):
+        # row j of mats[q] lists the weights of output slot j
+        q, j, i = np.nonzero(mats)
+        ptr = np.searchsorted(q * n_loc + j, np.arange(len(Qs) * n_loc + 1))
+        out.update({f"hn_{name}_ptr": i32(ptr[np.arange(len(Qs))[:, None] * n_loc
+                                              + np.arange(n_loc + 1)]),
+                    f"hn_{name}_col": i32(i), f"hn_{name}_w": mats[q, j, i]})
+
+    # ---- refill: the fill's written nodes and their positions
+    node_of_pos = np.asarray(arrays["node_of_pos"], dtype=np.int64)
+    efx_src, efx_pos = (np.asarray(arrays[k], dtype=np.int64) for k in ("efx_src", "efx_pos"))
+    if not np.array_equal(node_of_pos[efx_pos], slot_idx.reshape(-1)[efx_src]):
+        raise ValueError("refill positions do not match their brick nodes")
+    refill_pos = np.full(N3p, -1, dtype=np.int32)
+    refill_pos[node_of_pos[efx_pos]] = efx_pos
+    out.update(refill_pos=refill_pos, fill_invden_X=np.asarray(arrays["fill_invden_X"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The chain on the dense one-hot stacks (NumPy, host), stage by stage as
+# bricks.py:2728-2849 computes it: the independent form that the composed
+# lists of ``kernel_tables`` are checked against.
+def _dense_segments(sel, arrays, meta, d):
+    n_loc = sel.shape[1]
+    return np.concatenate([np.zeros((0, n_loc))] + [
+        np.einsum("gmi,gij->gmj", sel[off: off + G * m].reshape(G, m, n_loc),
+                  arrays[f"{d}_T{si}"]).reshape(-1, n_loc)
+        for si, off, G, m in meta[f"{d}_segs"]])
+
+
+def dense_fill(arrays, meta, u_sub):
+    """The compact fill chain's constrained rows [n_hn, n_loc] from the
+    subset bricks u_sub [n_sub, N3p]."""
+    t, C, N3p = arrays, meta["B"] ** 3, meta["N3p"]
+    r = np.arange(u_sub.shape[0] * C)
+    cols = u_sub.reshape(-1)[(r // C)[:, None] * N3p + np.asarray(t["slot_idx"])[r % C]]
+    base = cols[t["hn_sub"]] * t["keep_hn"]
+    filled = base.copy()
+    sel = cols[t["fill_src"]]
+    sel[t["fill_fix_idx"]] = base[t["fill_fix_local"]]
+    np.add.at(filled, t["fill_dst_local"],
+              _dense_segments(sel, t, meta, "fill")[t["fill_real_pos"]])
+    for ti in range(meta["n_fill_tails"]):
+        out = np.einsum("ki,kij->kj", filled[t[f"fill_tail{ti}_src"]], t[f"fill_tail{ti}_T"])
+        np.add.at(filled, t[f"fill_tail{ti}_dst"], out)
+    return filled
+
+
+def dense_corr(arrays, meta, plain, sub_raw):
+    """The compact fold chain and its sparse delta: dcols [n_sub*C, n_loc]
+    from the plain cell rows and the constrained rows' HN^T output."""
+    t = arrays
+    outs = _dense_segments(sub_raw[t["corr_src"]], t, meta, "corr")
+    acc = np.zeros_like(sub_raw)
+    np.add.at(acc, t["corr_hn_dst"], outs[t["corr_hn_pos"]])
+    nh = [(t["corr_nh_dst"], outs[t["corr_nh_pos"]])]
+    for ti in range(meta["n_corr_tails"]):
+        out = np.einsum("ki,kij->kj", (sub_raw + acc)[t[f"corr_tail{ti}_src"]],
+                        t[f"corr_tail{ti}_T"])
+        np.add.at(acc, t[f"corr_tail{ti}_hn_dst"], out[t[f"corr_tail{ti}_hn_pos"]])
+        nh.append((t[f"corr_tail{ti}_nh_dst"], out[t[f"corr_tail{ti}_nh_pos"]]))
+    dcols = np.zeros_like(plain)
+    dcols[t["absent_sub"]] = -plain[t["absent_sub"]]
+    dcols[t["hn_sub"]] = (sub_raw + acc) * t["keep_hn"] - plain[t["hn_sub"]]
+    for idx, rows in nh:
+        np.add.at(dcols, idx, rows)
+    return dcols
+
+
+# ===========================================================================
 def resolve_device(device=None) -> torch.device:
     """The port runs on the card unless the caller asks for another device:
     device=None means CUDA and raises where no card is present."""
@@ -745,9 +1009,6 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
-
-
-_INDEX32 = ("face_other", "edge_contrib", "corner_contrib")  # kernel tables
 
 
 class BrickLaplaceMM(nn.Module):
@@ -808,25 +1069,21 @@ class BrickLaplaceMM(nn.Module):
         return self.Kb.dtype
 
     def _load(self, arrays, meta, device, dtype):
+        """Register the kernels' tables (``kernel_tables``) as buffers:
+        floating ones cast to dtype, index ones as built (int32)."""
         self._meta = meta
         for k in ("B", "p", "NB", "N3", "N3p", "n_sub"):
             setattr(self, k, int(meta[k]))
         self.C = self.B**3
         self.n_loc = (self.p + 1) ** 3
         self.n_bricks = int(arrays["geo"].shape[0])
-        for name, a in arrays.items():
-            a = np.asarray(a)
-            if a.dtype.kind == "f":
-                t = torch.from_numpy(a.astype(np.float64)).to(device, dtype)
-            elif a.dtype.kind == "b":
-                t = torch.from_numpy(a).to(device)
-            else:
-                t = torch.from_numpy(a.astype(
-                    np.int32 if name in _INDEX32 else np.int64)).to(device)
-            self.register_buffer(name, t.contiguous())
-        self.n_hn = int(arrays["hn_sub"].shape[0])
-        if self.n_hn:
-            self.register_buffer("geo_hn", self.geo_cell_sub[self.hn_sub])
+        for name, a in kernel_tables(arrays, meta).items():
+            a = np.ascontiguousarray(a)
+            t = torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a)
+            self.register_buffer(name, t.to(device, dtype) if a.dtype.kind == "f"
+                                 else t.to(device))
+        self.n_hn = int(self.hn_sub.shape[0])
+        self.register_buffer("geo_hn", self.geo_cell_sub[self.hn_sub.long()])
 
     # ------------------------------------------------------------ conversions
     def from_dof_vector(self, u) -> torch.Tensor:
@@ -871,93 +1128,34 @@ class BrickLaplaceMM(nn.Module):
         return torch.sqrt(self.dot(u, u))
 
     # ------------------------------------------------------------ the chain
-    def _cols_rows(self, u_sub, rows):
-        """Cell rows [len(rows), n_loc] of the subset bricks (the rows of
-        the reference's _extract_cols that the chain reads)."""
-        C = self.C
-        idx = (rows // C)[:, None] * self.N3p + self.slot_idx[rows % C]
-        return u_sub.reshape(-1)[idx]
+    def _kernel(self, mod, plain: bool):
+        """A kernel module's wrapper, or its plain version when plain."""
+        return getattr(mod, f"{mod.NAME}_plain" if plain else mod.NAME)
 
-    def _hn_apply(self, rows, transpose: bool):
-        """One composite Q per mask range (identity ranges pass through)."""
-        parts = []
-        for s, e, qi in self._meta["hn_bounds"]:
-            if qi is None:
-                parts.append(rows[s:e])
-            else:
-                Q = self.hn_Q[qi]
-                parts.append(rows[s:e] @ (Q.T if transpose else Q))
-        return torch.cat(parts, dim=0)
+    def _hn_apply(self, rows, transpose: bool, plain: bool = False):
+        """rows @ Q (the fill) or rows @ Q^T (HN^T), one Q per mask range."""
+        d = "bwd" if transpose else "fwd"
+        return self._kernel(hn_apply, plain)(
+            rows, self.hn_q, getattr(self, f"hn_{d}_ptr"), getattr(self, f"hn_{d}_col"),
+            getattr(self, f"hn_{d}_w"))
 
-    def _segments(self, sel, direction):
-        """Stage-1 transfers: [G, m, n_loc] x [G, n_loc, n_loc] per bucket."""
-        outs = []
-        for si, off, G, m in self._meta[f"{direction}_segs"]:
-            x = sel[off: off + G * m].reshape(G, m, self.n_loc)
-            outs.append(torch.bmm(x, getattr(self, f"{direction}_T{si}"))
-                        .reshape(G * m, self.n_loc))
-        return torch.cat(outs, dim=0)
+    def _fill_hn_compact(self, u_sub, plain: bool = False):
+        """Compact fill chain (bricks.py:2728-2773) on the constrained rows."""
+        return self._kernel(fill_hn, plain)(
+            u_sub, self.hn_sub, self.keep_hn, self.fill_row_ptr, self.fill_ent_slot,
+            self.fill_ent_src, self.B)
 
-    @staticmethod
-    def _rows_times(x, T):
-        return torch.bmm(x[:, None, :], T)[:, 0]
-
-    def _fill_hn_compact(self, u_sub):
-        """Compact fill chain (bricks.py:2728-2773): the constrained rows
-        with their closure slots zeroed, then the master values folded in
-        coarse-first."""
-        base = self._cols_rows(u_sub, self.hn_sub) * self.keep_hn
-        filled = base
-        if self.fill_src.numel():
-            sel = self._cols_rows(u_sub, self.fill_src)
-            if self.fill_fix_idx.numel():
-                sel[self.fill_fix_idx] = base[self.fill_fix_local]
-            outs = self._segments(sel, "fill")
-            filled = base.index_add(0, self.fill_dst_local,
-                                    outs[self.fill_real_pos])
-        for ti in range(self._meta["n_fill_tails"]):
-            out_t = self._rows_times(filled[getattr(self, f"fill_tail{ti}_src")],
-                                     getattr(self, f"fill_tail{ti}_T"))
-            filled = filled.index_add(0, getattr(self, f"fill_tail{ti}_dst"), out_t)
-        return filled
-
-    def _fill_rows(self, u_sub):
+    def _fill_rows(self, u_sub, plain: bool = False):
         """Filled constrained rows (bricks.py:2687-2694)."""
-        return self._hn_apply(self._fill_hn_compact(u_sub), transpose=False)
+        return self._hn_apply(self._fill_hn_compact(u_sub, plain), False, plain)
 
-    def _corr_compact(self, plain, plain_hn, sub_raw):
+    def _corr_compact(self, plain_rows, sub_raw, plain: bool = False):
         """Compact correction chain + sparse delta (bricks.py:2775-2849):
         dcols = final - plain, nonzero on hole, constrained and fold-target
         rows only."""
-        acc = None
-        nh_parts = []
-        if self.corr_src.numel():
-            outs = self._segments(sub_raw[self.corr_src], "corr")
-            if self.corr_hn_pos.numel():
-                acc = torch.zeros_like(sub_raw).index_add(
-                    0, self.corr_hn_dst, outs[self.corr_hn_pos])
-            if self.corr_nh_pos.numel():
-                nh_parts.append((self.corr_nh_dst, outs[self.corr_nh_pos]))
-        for ti in range(self._meta["n_corr_tails"]):
-            cur = sub_raw if acc is None else sub_raw + acc
-            out_t = self._rows_times(cur[getattr(self, f"corr_tail{ti}_src")],
-                                     getattr(self, f"corr_tail{ti}_T"))
-            hn_pos = getattr(self, f"corr_tail{ti}_hn_pos")
-            if hn_pos.numel():
-                acc = (torch.zeros_like(sub_raw) if acc is None else acc).index_add(
-                    0, getattr(self, f"corr_tail{ti}_hn_dst"), out_t[hn_pos])
-            nh_pos = getattr(self, f"corr_tail{ti}_nh_pos")
-            if nh_pos.numel():
-                nh_parts.append((getattr(self, f"corr_tail{ti}_nh_dst"),
-                                 out_t[nh_pos]))
-        final_hn = (sub_raw if acc is None else sub_raw + acc) * self.keep_hn
-        dcols = torch.zeros_like(plain)
-        if self.absent_sub.numel():
-            dcols[self.absent_sub] = -plain[self.absent_sub]
-        dcols[self.hn_sub] = final_hn - plain_hn
-        for idx, rows in nh_parts:
-            dcols.index_add_(0, idx, rows)
-        return dcols
+        return self._kernel(corr_compact, plain)(
+            plain_rows, sub_raw, self.cell_code, self.keep_hn, self.corr_row_ptr,
+            self.corr_ent_slot, self.corr_ent_src)
 
     # ---------------------------------------------------------------- vmult
     def _check(self, bv):
@@ -974,45 +1172,31 @@ class BrickLaplaceMM(nn.Module):
         kernel's plain PyTorch version on the operator's device instead: the
         reference the card's kernels are held against."""
         self._check(bv)
-        if plain:
-            ba, ca = brick_apply.brick_apply_plain, cell_apply.cell_apply_plain
-            coa = cols_overlap_add.cols_overlap_add_plain
-            dss = dss_surface.dss_surface_plain
-        else:
-            ba, ca = brick_apply.brick_apply, cell_apply.cell_apply
-            coa, dss = cols_overlap_add.cols_overlap_add, dss_surface.dss_surface
-        v = ba(bv, self.Kb, self.Mb, self.geo, self.p)
+        ca = self._kernel(cell_apply, plain)
+        v = self._kernel(brick_apply, plain)(bv, self.Kb, self.Mb, self.geo, self.p)
         if self.n_sub:
             u_sub = bv[: self.n_sub]
             plain_rows = ca(u_sub, self.K, self.geo_cell_sub, brick_size=self.B)
             if self.n_hn:
-                plain_hn = plain_rows[self.hn_sub]
-                own = ca(self._fill_rows(u_sub), self.K, self.geo_hn)
-                sub_raw = self._hn_apply(own, transpose=True)
-                dcols = self._corr_compact(plain_rows, plain_hn, sub_raw)
+                own = ca(self._fill_rows(u_sub, plain), self.K, self.geo_hn)
+                sub_raw = self._hn_apply(own, True, plain)
             else:
-                dcols = torch.zeros_like(plain_rows)
-                dcols[self.absent_sub] = -plain_rows[self.absent_sub]
-            coa(v[: self.n_sub], dcols, brick_size=self.B)
-        return dss(v, self.face_other, self.edge_contrib, self.corner_contrib,
-                   self.node_valid, self.NB)
+                sub_raw = bv.new_empty((0, self.n_loc))
+            dcols = self._corr_compact(plain_rows, sub_raw, plain)
+            self._kernel(cols_overlap_add, plain)(v[: self.n_sub], dcols, brick_size=self.B)
+        return self._kernel(dss_surface, plain)(
+            v, self.face_other, self.edge_contrib, self.corner_contrib, self.node_valid, self.NB)
 
-    def refill(self, v: torch.Tensor) -> torch.Tensor:
+    def refill(self, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Restore the hanging copies of a brick vector whose conforming
         copies agree (reference ``_refill_impl``, input-fill branch): the
         fill chain on the constrained rows, then the coverage-divided
-        closure-slot updates written back at their brick nodes."""
+        closure-slot updates written back at their brick nodes. plain=True
+        runs the kernels' plain versions, as for vmult."""
         self._check(v)
         if not (self.n_sub and self.n_hn):
             return v
-        n_sub, C, n_loc = self.n_sub, self.C, self.n_loc
-        v_sub = v[:n_sub]
-        diff = self._fill_rows(v_sub) - self._cols_rows(v_sub, self.hn_sub)
-        dcols = torch.zeros((n_sub * C, n_loc), dtype=v.dtype, device=v.device)
-        dcols[self.hn_sub] = diff
-        dflat = dcols.reshape(n_sub, C * n_loc)
-        add = torch.zeros_like(self.fill_invden_X).index_add_(
-            1, self.efx_pos, dflat[:, self.efx_src]) * self.fill_invden_X
-        out = v.clone()
-        out[:n_sub].index_add_(1, self.node_of_pos, add)
-        return torch.where(self.node_valid, out, 0.0)
+        u_hat = self._fill_rows(v[: self.n_sub], plain)
+        return self._kernel(refill_update, plain)(
+            v, u_hat, self.node_valid, self.cell_code, self.refill_pos, self.fill_invden_X,
+            self.B)

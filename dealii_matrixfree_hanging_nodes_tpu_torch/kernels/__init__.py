@@ -3,6 +3,16 @@ hand-written CUDA kernel (``csrc/<name>.cu``) on CUDA tensors and takes the
 plain PyTorch version in the same module on CPU tensors, with a launch count
 on the wrapper (``<wrapper>.launches``)."""
 
-from . import brick_apply, cell_apply, cols_overlap_add, dss_surface  # noqa: F401
+from . import (  # noqa: F401
+    brick_apply,
+    cell_apply,
+    cols_overlap_add,
+    corr_compact,
+    dss_surface,
+    fill_hn,
+    hn_apply,
+    refill_update,
+)
 
-KERNEL_MODULES = (brick_apply, cell_apply, cols_overlap_add, dss_surface)
+KERNEL_MODULES = (brick_apply, cell_apply, cols_overlap_add, dss_surface, hn_apply, fill_hn,
+                  corr_compact, refill_update)

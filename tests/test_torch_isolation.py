@@ -110,7 +110,8 @@ def cuda():
 def test_kernels_match_plain_on_card(cuda, dtype):
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        brick_apply, cell_apply, cols_overlap_add, dss_surface,
+        brick_apply, cell_apply, cols_overlap_add, corr_compact, dss_surface, fill_hn,
+        hn_apply, refill_update,
     )
 
     tol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -121,7 +122,20 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
     rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
     dss = (op.face_other, op.edge_contrib, op.corner_contrib, op.node_valid, op.NB)
-    pairs = [
+    chain = [
+        (hn_apply, (rows, op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col, op.hn_fwd_w)),
+        (hn_apply, (rows, op.hn_q, op.hn_bwd_ptr, op.hn_bwd_col, op.hn_bwd_w)),
+        (fill_hn, (bv[: op.n_sub], op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot,
+                   op.fill_ent_src, op.B)),
+        (corr_compact, (cols, rows, op.cell_code, op.keep_hn, op.corr_row_ptr,
+                        op.corr_ent_slot, op.corr_ent_src)),
+        (refill_update, (bv, rows, op.node_valid, op.cell_code, op.refill_pos,
+                         op.fill_invden_X, op.B)),
+    ]
+    pairs = [(getattr(mod, mod.NAME)(*args), getattr(mod, f"{mod.NAME}_plain")(*args))
+             for mod, args in chain]
+    pairs += [
+        (op.refill(bv), op.refill(bv, plain=True)),
         (brick_apply.brick_apply(bv, op.Kb, op.Mb, op.geo, op.p),
          brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo)),
         (cell_apply.cell_apply(bv[: op.n_sub], op.K, op.geo_cell_sub, brick_size=op.B),

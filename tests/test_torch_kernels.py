@@ -109,7 +109,7 @@ def test_corr_compact(geo, nref, p):
     hn = np.asarray(a["hn_sub"])
     ref = bl._corr_compact(jnp.asarray(plain), jnp.asarray(plain[hn]),
                            jnp.asarray(sub_raw), a)
-    got = op._corr_compact(T(plain), T(plain[hn]), T(sub_raw))
+    got = op._corr_compact(T(plain), T(sub_raw))  # reads plain at hn_sub itself
     assert rel_err(got, ref) < RTOL
 
 
@@ -122,15 +122,25 @@ def test_cpu_tensors_take_the_plain_version(mod):
     wrapper = getattr(mod, mod.NAME)
     plain = getattr(mod, f"{mod.NAME}_plain")
     before = wrapper.launches
-    if mod is brick_apply:
-        args, kw = (T(rng_array(11, op.n_bricks, op.N3p)), op.Kb, op.Mb, op.geo, op.p), {}
-    elif mod is cell_apply:
-        args, kw = (T(rng_array(12, op.n_sub, op.N3p)), op.K, op.geo_cell_sub), {"brick_size": op.B}
-    elif mod is cols_overlap_add:
-        args, kw = (T(rng_array(13, op.n_sub, op.N3p)), T(rng_array(14, op.n_sub * op.C, op.n_loc))), {"brick_size": op.B}
-    else:
-        args, kw = (T(rng_array(15, op.n_bricks, op.N3p)), op.face_other, op.edge_contrib,
-                    op.corner_contrib, op.node_valid, op.NB), {}
+    bricks = lambda seed: T(rng_array(seed, op.n_bricks, op.N3p))
+    sub = lambda seed: T(rng_array(seed, op.n_sub, op.N3p))
+    cells = lambda seed: T(rng_array(seed, op.n_sub * op.C, op.n_loc))
+    hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
+    args, kw = {
+        "brick_apply": lambda: ((bricks(11), op.Kb, op.Mb, op.geo, op.p), {}),
+        "cell_apply": lambda: ((sub(12), op.K, op.geo_cell_sub), {"brick_size": op.B}),
+        "cols_overlap_add": lambda: ((sub(13), cells(14)), {"brick_size": op.B}),
+        "dss_surface": lambda: ((bricks(15), op.face_other, op.edge_contrib,
+                                 op.corner_contrib, op.node_valid, op.NB), {}),
+        "hn_apply": lambda: ((hn_rows(16), op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col,
+                              op.hn_fwd_w), {}),
+        "fill_hn": lambda: ((sub(17), op.hn_sub, op.keep_hn, op.fill_row_ptr,
+                             op.fill_ent_slot, op.fill_ent_src, op.B), {}),
+        "corr_compact": lambda: ((cells(18), hn_rows(19), op.cell_code, op.keep_hn,
+                                  op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src), {}),
+        "refill_update": lambda: ((bricks(20), hn_rows(21), op.node_valid, op.cell_code,
+                                   op.refill_pos, op.fill_invden_X, op.B), {}),
+    }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)
     want = plain(*clone(args), **kw)
