@@ -5,15 +5,20 @@
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
 2. build the eight CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once), with each kernel's registers and spills;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
-   and on the host hold the kernels' composed chain lists at this mesh against
-   the dense one-hot chain, stage by stage (float64, relative tolerance 1e-12);
+   print the sizes of dss_surface's work lists, and on the host hold the kernels'
+   composed chain lists at this mesh against the dense one-hot chain, stage by
+   stage (float64, relative tolerance 1e-12);
 4. hold each kernel against its plain PyTorch version on the card at the
-   shapes the vmult and refill give it (relative tolerance 1e-5 in float32),
-   and time kernel, plain version and, where one PyTorch call computes the
-   same function, that call, with CUDA events on a busy card (device time;
-   median over repetitions after warm-up);
+   shapes the vmult and refill give it (relative tolerance 1e-5 in float32;
+   the kernels that work in place on their own copies), and time kernel,
+   plain version and, where one PyTorch call computes the same function, that
+   call, with CUDA events on a busy card (device time; median over
+   repetitions after warm-up; dss_surface's timed calls work on a scratch
+   copy refreshed before each, outside the timed window); dss_surface's
+   traffic counted in 32-byte sectors (surface blocks touched together and
+   apart) printed beside its bound;
 5. the end-to-end constrained vmult at nref=7 in float32 through the kernels,
    held against the plain float64 path on the card (after zeroing the
    hanging entries, relative tolerance 1e-5), with every kernel's launch
@@ -53,20 +58,26 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3, device_only: bool = False) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3, device_only: bool = False,
+            reset=None) -> float:
     """Median time of fn() in ms, from CUDA events around each call.
     device_only: before each call the card spins for ~0.5 ms, so the host
     enqueues the events and the call's launches while the card is busy and
     the events time the device work alone, not the host's launch time (a
     call whose launches take the host longer than the spin still shows
-    part of it)."""
+    part of it). reset: run before each call, outside the timed window
+    (refreshes the input of a call that works in place)."""
     for _ in range(warmup):
+        if reset:
+            reset()
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         if device_only:
             torch.cuda._sleep(1_000_000)
+        if reset:
+            reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -198,8 +209,10 @@ def yardsticks(op, filled, own, u_sub, sub_raw, plain_rows):
 def kernel_calls(op, x, y):
     """Every kernel's call on the card at the shapes the vmult (input x) and
     refill (input y, a vmult output) give it: {name: [(mode, kernel, plain,
-    (bytes, flops), fresh)]}, fresh computing (kernel, plain) outputs anew
-    for the kernels that work in place."""
+    (bytes, flops), fresh, reset)]}, fresh computing (kernel, plain) outputs
+    anew on their own copies for the kernels that work in place, reset
+    refreshing the scratch copy that the timed calls of such a kernel work
+    on where repeated calls would grow it without bound."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         brick_apply, cell_apply, cols_overlap_add, corr_compact, dss_surface, fill_hn,
         hn_apply, refill_update,
@@ -208,40 +221,42 @@ def kernel_calls(op, x, y):
     isz = x.element_size()
     u_sub = x[: op.n_sub]
     v0 = brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p)
-    plain_rows = cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B)
+    plain_rows = cell_apply.cell_apply(u_sub, *op.factors_host, op.geo_cell_sub, brick_size=op.B)
     filled = op._fill_hn_compact(u_sub)
     u_hat = op._hn_apply(filled, False)
-    own = cell_apply.cell_apply(u_hat, op.K, op.geo_hn)
+    own = cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn)
     sub_raw = op._hn_apply(own, True)
     dcols = op._corr_compact(plain_rows, sub_raw)
     v1 = v0.clone()
     cols_overlap_add.cols_overlap_add(v1[: op.n_sub], dcols, brick_size=op.B)
     u_hat_r = op._fill_rows(y[: op.n_sub])
-    dss_args = (op.face_other, op.edge_contrib, op.corner_contrib, op.node_valid, op.NB)
+    dss_args = op.dss_tables()
     hn_args = lambda d: (op.hn_q, getattr(op, f"hn_{d}_ptr"), getattr(op, f"hn_{d}_col"),
                          getattr(op, f"hn_{d}_w"))
     fill_args = (op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot, op.fill_ent_src, op.B)
     corr_args = (op.cell_code, op.keep_hn, op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src)
     refill_args = (op.node_valid, op.cell_code, op.refill_pos, op.fill_invden_X, op.B)
     v_tmp = v0[: op.n_sub].clone()
+    v_dss = v1.clone()  # the timed dss_surface calls' scratch, refreshed from v1 before each
     torch.cuda.synchronize()
     return {
         "brick_apply": [(
             "bricks",
             lambda: brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p),
             lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo),
-            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz), None,
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz), None, None,
         )],
         "cell_apply": [(
             "from_bricks",
-            lambda: cell_apply.cell_apply(u_sub, op.K, op.geo_cell_sub, brick_size=op.B),
-            lambda: cell_apply.cell_apply_plain(u_sub, op.K, op.geo_cell_sub, op.B),
+            lambda: cell_apply.cell_apply(u_sub, *op.factors_host, op.geo_cell_sub, op.B),
+            lambda: cell_apply.cell_apply_plain(u_sub, op.K1, op.M1, op.geo_cell_sub, op.B),
             cell_apply.bytes_and_flops(u_sub.numel(), plain_rows.shape[0], op.n_loc, isz), None,
+            None,
         ), (
             "from_rows",
-            lambda: cell_apply.cell_apply(u_hat, op.K, op.geo_hn),
-            lambda: cell_apply.cell_apply_plain(u_hat, op.K, op.geo_hn),
-            cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None,
+            lambda: cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn),
+            lambda: cell_apply.cell_apply_plain(u_hat, op.K1, op.M1, op.geo_hn),
+            cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None, None,
         )],
         "cols_overlap_add": [(
             "into_bricks",
@@ -251,44 +266,47 @@ def kernel_calls(op, x, y):
             lambda: (cols_overlap_add.cols_overlap_add(v0[: op.n_sub].clone(), dcols, op.B),
                      cols_overlap_add.cols_overlap_add_plain(v0[: op.n_sub].clone(), dcols,
                                                              op.B)),
+            None,
         )],
         "dss_surface": [(
             "bricks",
-            lambda: dss_surface.dss_surface(v1, *dss_args),
-            lambda: dss_surface.dss_surface_plain(v1, *dss_args),
-            dss_surface.bytes_and_flops(op.node_valid, op.face_other, op.edge_contrib,
-                                        op.corner_contrib, op.NB, isz), None,
+            lambda: dss_surface.dss_surface(v_dss, *dss_args),
+            lambda: dss_surface.dss_surface_plain(v_dss, *dss_args),
+            dss_surface.bytes_and_flops(v1, *dss_args),
+            lambda: (dss_surface.dss_surface(v1.clone(), *dss_args),
+                     dss_surface.dss_surface_plain(v1.clone(), *dss_args)),
+            lambda: v_dss.copy_(v1),
         )],
         "hn_apply": [(
             mode,
             lambda rows=rows, d=d: hn_apply.hn_apply(rows, *hn_args(d)),
             lambda rows=rows, d=d: hn_apply.hn_apply_plain(rows, *hn_args(d)),
             hn_apply.bytes_and_flops(op.hn_q, getattr(op, f"hn_{d}_ptr"),
-                                     getattr(op, f"hn_{d}_col"), op.n_loc, isz), None,
+                                     getattr(op, f"hn_{d}_col"), op.n_loc, isz), None, None,
         ) for mode, rows, d in (("forward", filled, "fwd"), ("transposed", own, "bwd"))],
         "fill_hn": [(
             "from_bricks",
             lambda: fill_hn.fill_hn(u_sub, *fill_args),
             lambda: fill_hn.fill_hn_plain(u_sub, *fill_args),
             fill_hn.bytes_and_flops(u_sub, op.hn_sub, op.keep_hn, op.fill_row_ptr,
-                                    op.fill_ent_src, op.B), None,
+                                    op.fill_ent_src, op.B), None, None,
         )],
         "corr_compact": [(
             "dcols",
             lambda: corr_compact.corr_compact(plain_rows, sub_raw, *corr_args),
             lambda: corr_compact.corr_compact_plain(plain_rows, sub_raw, *corr_args),
             corr_compact.bytes_and_flops(plain_rows, sub_raw, op.cell_code, op.corr_row_ptr,
-                                         op.corr_ent_src), None,
+                                         op.corr_ent_src), None, None,
         )],
         "refill_update": [(
             "bricks",
             lambda: refill_update.refill_update(y, u_hat_r, *refill_args),
             lambda: refill_update.refill_update_plain(y, u_hat_r, *refill_args),
             refill_update.bytes_and_flops(y, u_hat_r, op.cell_code, op.refill_pos,
-                                          op.fill_invden_X, op.B), None,
+                                          op.fill_invden_X, op.B), None, None,
         )],
     }, dict(filled=filled, own=own, u_sub=u_sub, u_hat=u_hat, sub_raw=sub_raw,
-            plain_rows=plain_rows, dcols=dcols, v_tmp=v_tmp)
+            plain_rows=plain_rows, dcols=dcols, v_tmp=v_tmp, v1=v1)
 
 
 def check_chain_tables(mf, op, seed):
@@ -339,7 +357,7 @@ def check_kernels(calls, tol, what):
     """Each kernel's output against its plain version; returns {name: [(abs, rel)]}."""
     out = {}
     for name, parts in calls.items():
-        for mode, kern, plain, _, fresh in parts:
+        for mode, kern, plain, _, fresh, _ in parts:
             got, ref = fresh() if fresh else (kern(), plain())
             torch.cuda.synchronize()
             abs_err, rel_err = errors(got, ref)
@@ -369,8 +387,9 @@ def main() -> int:
         return 2
 
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, cols_overlap_add,
+        KERNEL_MODULES, _build, cols_overlap_add, dss_surface,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -389,9 +408,8 @@ def main() -> int:
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} kernel libraries")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, usage in _build.ptxas_usage(log):
+            print(f"  {kernel}: {usage}")
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
     t0 = time.perf_counter()
@@ -404,6 +422,17 @@ def main() -> int:
           f"{op.n_sub} subset bricks, {op.n_hn} constrained rows, "
           f"{op.fill_ent_src.numel()} fill and {op.corr_ent_src.numel()} fold entries)",
           flush=True)
+    hole_bits = op.dss_hole_bits.cpu().numpy()
+    n_holes = int(np.unpackbits(hole_bits.view(np.uint8)).sum())
+    lone = lambda pools: int(((pools >= 0).sum(dim=1) == 1).sum())
+    print(f"dss work lists: {op.dss_face_pairs.shape[0]} face entries, "
+          f"{op.dss_edge_pools.shape[0]} edge pools and {op.dss_corner_pools.shape[0]} corner "
+          f"pools (of one copy: {lone(op.dss_face_pairs)}, {lone(op.dss_edge_pools)}, "
+          f"{lone(op.dss_corner_pools)}); "
+          f"{n_holes} invalid nodes off the surface in {hole_bits.shape[0]} hole bricks, "
+          f"as bits {hole_bits.nbytes + 4 * hole_bits.shape[0]} B (a node list: {4 * n_holes} B)",
+          flush=True)
+
     t0 = time.perf_counter()
     check_chain_tables(mf, op, SEED)
     print(f"chain table check: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -419,7 +448,8 @@ def main() -> int:
     # here only; the port never calls them)
     flat_idx = cols_overlap_add.overlap_add_index(op.n_sub, op.B, op.p, op.N3p, dev)
     library = {name: [None] * len(parts) for name, parts in calls.items()}
-    library["cell_apply"][1] = lambda: torch.mm(inter["u_hat"], op.K.T)
+    K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
+    library["cell_apply"][1] = lambda: torch.mm(inter["u_hat"], K.T)
     library["cols_overlap_add"][0] = lambda: inter["v_tmp"].view(-1).index_add_(
         0, flat_idx, inter["dcols"].view(-1))
     library.update(yardsticks(op, *(inter[k] for k in ("filled", "own", "u_sub", "sub_raw",
@@ -434,11 +464,13 @@ def main() -> int:
                    ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None,
                    parts=[])
         bound_parts = []
-        for (mode, kern, plain, (nbytes, flops), fresh), lib in zip(parts, library[name]):
+        for (mode, kern, plain, (nbytes, flops), fresh, reset), lib in zip(parts,
+                                                                             library[name]):
             got, ref = fresh() if fresh else (kern(), plain())
             torch.cuda.synchronize()
             abs_err, rel_err = errors(got, ref)
-            k_ms, p_ms = time_ms(kern, device_only=True), time_ms(plain, device_only=True)
+            k_ms = time_ms(kern, device_only=True, reset=reset)
+            p_ms = time_ms(plain, device_only=True, reset=reset)
             b_ms, b_by = bound(nbytes, flops, x.dtype)
             l_ms = None if lib is None else time_ms(lib, device_only=True)
             bound_parts.append((b_ms, b_by))
@@ -459,6 +491,15 @@ def main() -> int:
                   + (f", library {l_ms:.4f} ms" if l_ms is not None else ""), flush=True)
         rec["bound_by"] = max(bound_parts)[1]
         results[name] = rec
+    # dss_surface's traffic in 32-byte sectors: an estimate printed beside its
+    # bound, not a bound (the kernels line carries only the bound)
+    dss = results["dss_surface"]
+    for apart in (False, True):
+        sectors = dss_surface.sector_bytes(inter["v1"], *op.dss_tables(), apart=apart)
+        s_ms = sectors / PEAK_BYTES_PER_S * 1e3
+        print(f"dss_surface in 32-byte sectors, surface blocks touched "
+              f"{'apart' if apart else 'together'}: {sectors / 1e6:.1f} MB, {s_ms:.4f} ms "
+              f"(kernel {dss['ms']:.4f} ms, bound {dss['bound_ms']:.4f} ms in words)", flush=True)
     del calls, inter, library
 
     # ---- 5. end-to-end vmult, nref=7, float32, through the kernels ---------

@@ -10,12 +10,13 @@ row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained cells
 (the "subset") come first, so every subset access is a leading slice.
 
 vmult = brick_apply (separable operator x geo, every brick)
-      + on the subset: cell_apply (cells read from the bricks, times K),
-        on the constrained rows fill_hn, hn_apply, cell_apply, hn_apply^T,
-        then corr_compact (the fold and the sparse delta of every subset
-        cell row), cols_overlap_add (the deltas summed back into the bricks)
-      -> dss_surface (sum each shared face/edge/corner over its pool,
-        zero the hole nodes).
+      + on the subset: cell_apply (cells read from the bricks, times K by
+        sum factorization of its 1-D factors K1, M1), on the constrained
+        rows fill_hn, hn_apply, cell_apply, hn_apply^T, then corr_compact
+        (the fold and the sparse delta of every subset cell row),
+        cols_overlap_add (the deltas summed back into the bricks)
+      -> dss_surface (in place: sum each shared face/edge/corner over its
+        pool, zero the hole nodes).
 refill = fill_hn, hn_apply, refill_update (the coverage-divided write-back).
 
 The reference expresses the data movement with one-hot matmuls because the
@@ -576,13 +577,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure):
     w = si.quad_w
     M1 = np.einsum("q,qi,qj->ij", w, si.S, si.S)
     K1 = np.einsum("q,qi,qj->ij", w, si.D, si.D)
-    K = np.zeros((n_loc, n_loc))
-    for d in range(dim):
-        facs = [K1 if t == d else M1 for t in range(dim)]
-        A = facs[dim - 1]
-        for t in range(dim - 2, -1, -1):
-            A = np.kron(A, facs[t])
-        K += A
+    K = kronecker_sum(K1, M1)
 
     # per-slot node indices within a brick (the one-hot E as an index map)
     lat = local_lattice(p, dim)
@@ -840,6 +835,105 @@ def _corr_lists(arrays, meta, hn_dst, keep, cell_code, nF, nR):
     return _gather_lists(kept @ A + N, nR // n_loc, n_loc, "corr")
 
 
+def kronecker_sum(K1, M1):
+    """K1⊗M1⊗M1 + M1⊗K1⊗M1 + M1⊗M1⊗K1 on x-fastest local nodes (the
+    axis-d term has K1 on axis d, operator_tables' K)."""
+    K = 0.0
+    for d in range(3):
+        f = [K1 if t == d else M1 for t in range(3)]
+        K = K + np.kron(np.kron(f[2], f[1]), f[0])
+    return K
+
+
+def _cell_factors(Kb, Mb, K, p):
+    """The cell's 1-D stiffness and mass K1, M1 [p+1, p+1] from the brick
+    factors Kb, Mb [NB, NB]: the first cell block, whose [p, p] entry also
+    holds the next cell's [0, 0], takes [p, p] from the last cell's corner.
+    Raises unless their Kronecker sum is the dense K to 1e-13."""
+    n, L = p + 1, Kb.shape[0] - 1
+    fac = {}
+    for name, A in (("K1", Kb), ("M1", Mb)):
+        f = np.array(A[:n, :n], dtype=np.float64)
+        f[p, p] = A[L, L]
+        fac[name] = f
+    err = np.abs(kronecker_sum(fac["K1"], fac["M1"]) - K).max()
+    if not err <= 1e-13 * np.abs(K).max():
+        raise ValueError(f"the Kronecker sum of K1 and M1 is not K (max error {err:.3e})")
+    return fac
+
+
+def _pack_bits(mask):
+    """[rows, n] bool -> [rows, ceil(n/32)] int32 words, bit k of a row in
+    word k // 32 at position k % 32."""
+    rows, n = mask.shape
+    pad = np.zeros((rows, -(-n // 32) * 32), dtype=bool)
+    pad[:, :n] = mask
+    return np.packbits(pad, axis=1, bitorder="little").view("<u4").view(np.int32)
+
+
+def _pool_lists(contrib, n_copies, what):
+    """One row per pool from a contributor table (row r: the flat copies of
+    r's pool in canonical order, sentinel-padded): the row of each pool's
+    first copy, -1 padded. Raises unless every row is its pool's list and
+    every copy lies in exactly one pool."""
+    rows = np.asarray(contrib, dtype=np.int64).copy()
+    rows[rows >= n_copies] = -1
+    lists = rows[rows[:, 0] == np.arange(n_copies)]
+    entry = np.full(n_copies, -1)
+    for c in range(lists.shape[1]):
+        real = lists[:, c] >= 0
+        if (entry[lists[real, c]] >= 0).any():
+            raise ValueError(f"dss: a {what} copy lies in two pools")
+        entry[lists[real, c]] = np.nonzero(real)[0]
+    if (entry < 0).any() or not np.array_equal(rows, lists[entry]):
+        raise ValueError(f"dss: the {what} contributor lists do not partition the copies")
+    return lists
+
+
+def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB):
+    """The dss_surface kernel's tables: face pairs (a lone face has -1 as
+    its partner), edge pools and corner pools, each a list of flat copies
+    in pool-canonical order; the validity of every surface copy at one bit
+    per surface position (``surface_nodes`` order); and the invalid nodes
+    off the surface, as the bricks that hold any with one bit per brick node
+    (fewer bytes than a list of node indices: holes come a few thousand to
+    a hole brick). The padding N3..N3p is zeroed without a table. Checked
+    as built: every surface copy of every brick lies in exactly one pool
+    entry."""
+    nb, N3p = node_valid.shape
+    N3 = NB**3
+    if nb * N3p > np.iinfo(np.int32).max:
+        raise NotImplementedError("brick nodes exceed int32")
+    if node_valid[:, N3:].any():
+        raise ValueError("dss: a padding node is marked valid")
+    r = np.arange(nb * 6)
+    fo = np.asarray(face_other, dtype=np.int64)
+    other = fo[:, 0].copy() if fo.shape[1] else np.full(nb * 6, nb * 6)
+    other[other >= nb * 6] = -1
+    paired = other >= 0
+    if (other[other[paired]] != r[paired]).any() or (
+            (other[paired] % 6) != ((r[paired] % 6) ^ 1)).any():
+        raise ValueError("dss: face partners must be mutual, on opposite sides of one axis")
+    first = ~paired | (r < other)
+    face_pairs = np.stack([r[first], other[first]], axis=1)
+    lists = {"face": face_pairs,
+             "edge": _pool_lists(edge_contrib, nb * 12, "edge"),
+             "corner": _pool_lists(corner_contrib, nb * 8, "corner")}
+    if not np.array_equal(np.bincount(face_pairs[face_pairs >= 0], minlength=nb * 6),
+                          np.ones(nb * 6, dtype=np.int64)):
+        raise ValueError("dss: a face copy lies in no pair or in two")
+    surf = surface_nodes(NB)
+    hole = ~node_valid[:, :N3]
+    hole[:, surf] = False
+    hole_bricks = np.nonzero(hole.any(axis=1))[0]
+    return dict(dss_face_pairs=lists["face"].astype(np.int32),
+                dss_edge_pools=lists["edge"].astype(np.int32),
+                dss_corner_pools=lists["corner"].astype(np.int32),
+                dss_valid_bits=_pack_bits(node_valid[:, surf]),
+                dss_hole_bricks=hole_bricks.astype(np.int32),
+                dss_hole_bits=_pack_bits(hole[hole_bricks]))
+
+
 def kernel_tables(arrays: dict, meta: dict) -> dict:
     """The tables the eight kernels read, derived on the host from the
     reference-layout tables of ``operator_tables`` (or
@@ -863,16 +957,22 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       (fwd) and u @ Q^T (bwd), and each constrained row's Q (-1: identity).
     - refill: each brick node's position in ``fill_invden_X`` where the fill
       writes it (-1 elsewhere).
+    - cell: the 1-D factors K1 and M1 of the cell stiffness, read off the
+      assembled brick factors (``_cell_factors``).
+    - dss: the interface pools as work lists with the surface validity and
+      the holes as bit tables (``_dss_work_lists``).
 
-    Returns the buffers of ``BrickLaplaceMM``: the brick and DSS tables as
-    given, these lists, and no dense T or Q."""
+    Returns the buffers of ``BrickLaplaceMM``: the brick tables as given,
+    these lists, and no dense K, T or Q (``kronecker_sum(K1, M1)`` builds
+    K where a check needs it)."""
     C = int(meta["B"]) ** 3
     n_loc = (int(meta["p"]) + 1) ** 3
     N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
     i32 = lambda x: np.asarray(x).astype(np.int32)
-    out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "K", "geo", "geo_cell_sub",
-                                              "node_valid")}
-    out.update({k: i32(arrays[k]) for k in ("face_other", "edge_contrib", "corner_contrib")})
+    out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "geo", "geo_cell_sub", "node_valid")}
+    out.update(_cell_factors(out["Kb"], out["Mb"], np.asarray(arrays["K"]), int(meta["p"])))
+    out.update(_dss_work_lists(arrays["face_other"], arrays["edge_contrib"],
+                               arrays["corner_contrib"], out["node_valid"], int(meta["NB"])))
     hn_sub = np.asarray(arrays["hn_sub"], dtype=np.int64)
     absent = np.asarray(arrays["absent_sub"], dtype=np.int64)
     n_hn, n_rows = len(hn_sub), n_sub * C
@@ -1084,6 +1184,8 @@ class BrickLaplaceMM(nn.Module):
                                  else t.to(device))
         self.n_hn = int(self.hn_sub.shape[0])
         self.register_buffer("geo_hn", self.geo_cell_sub[self.hn_sub.long()])
+        # cell_apply's kernel takes K1 and M1 by value, as launch parameters
+        self.factors_host = (self.K1.cpu(), self.M1.cpu())
 
     # ------------------------------------------------------------ conversions
     def from_dof_vector(self, u) -> torch.Tensor:
@@ -1173,19 +1275,24 @@ class BrickLaplaceMM(nn.Module):
         reference the card's kernels are held against."""
         self._check(bv)
         ca = self._kernel(cell_apply, plain)
+        fac = (self.K1, self.M1) if plain else self.factors_host
         v = self._kernel(brick_apply, plain)(bv, self.Kb, self.Mb, self.geo, self.p)
         if self.n_sub:
             u_sub = bv[: self.n_sub]
-            plain_rows = ca(u_sub, self.K, self.geo_cell_sub, brick_size=self.B)
+            plain_rows = ca(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
             if self.n_hn:
-                own = ca(self._fill_rows(u_sub, plain), self.K, self.geo_hn)
+                own = ca(self._fill_rows(u_sub, plain), *fac, self.geo_hn)
                 sub_raw = self._hn_apply(own, True, plain)
             else:
                 sub_raw = bv.new_empty((0, self.n_loc))
             dcols = self._corr_compact(plain_rows, sub_raw, plain)
             self._kernel(cols_overlap_add, plain)(v[: self.n_sub], dcols, brick_size=self.B)
-        return self._kernel(dss_surface, plain)(
-            v, self.face_other, self.edge_contrib, self.corner_contrib, self.node_valid, self.NB)
+        return self._kernel(dss_surface, plain)(v, *self.dss_tables())
+
+    def dss_tables(self):
+        """dss_surface's arguments after v: its work lists, bit tables and NB."""
+        return (self.dss_face_pairs, self.dss_edge_pools, self.dss_corner_pools,
+                self.dss_valid_bits, self.dss_hole_bricks, self.dss_hole_bits, self.NB)
 
     def refill(self, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Restore the hanging copies of a brick vector whose conforming

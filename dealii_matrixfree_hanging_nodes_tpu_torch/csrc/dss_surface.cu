@@ -1,6 +1,7 @@
-// dss_surface: out[b, node] = node_valid[b, node] ? dss(v)[b, node] : 0 on v [nb, N3p],
-// where dss replaces every copy of a shared brick-surface node by the sum of all its copies
-// over the interface pool, and leaves interior nodes and unshared copies as they are.
+// dss_surface, in place on v [nb, N3p] (node (z, y, x) of a brick at (z*NB + y)*NB + x):
+// every copy of a shared brick-surface node becomes the sum of all the copies of its
+// interface pool, then every node outside the mesh (node_valid false: holes and padding)
+// becomes 0. Interior nodes and valid unshared copies keep their values.
 //
 // Replaces: the input-fill branch of BrickLaplaceMM._dss_fill
 //   (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2562-2568, 2608-2612) with
@@ -8,137 +9,284 @@
 //   face/edge/corner scatter-add and gather-back, the one-hot scatter of the delta, and the
 //   node_valid mask. The TPU side ran it as XLA matmuls and scatters (no Pallas kernel).
 //
-// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p=4992): memory, for
-//   the function done in place on v. Each brick's 1,538 surface copies read once and written
-//   once (2 x 27.1 MB), a zero written at each hole or padding node off the surface (padding
-//   alone 1.4 MB), the hole pattern at one bit per node (2.7 MB) and the pair tables
-//   (1.7 MB): about 63 MB, 19 us at 3.35 TB/s. This out-of-place kernel moves 199 MB (all of
-//   v and node_valid read, all of out written); an in-place two-pass form would not.
+// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p=4992): memory. In
+//   words (kernels/dss_surface.py:moved_nodes, bytes_and_flops): every copy of a pool of
+//   two or more copies read once and written once, a zero written at each invalid copy of
+//   a pool of one copy and at each hole or padding node off the surface (valid unshared
+//   copies and interior nodes do not move), and the work lists and bit tables as this
+//   kernel reads them: 55.7 MB, 16.6 us at 3.35 TB/s. In 32-byte sectors, the unit the
+//   memory moves (sector_bytes, an estimate beside the bound): x is the fastest axis, so a
+//   node of an x-face shares its sector only with the node across the next row, which
+//   belongs to the brick's other x-face. The moved nodes cover 111.1 MB of sectors, each
+//   read and written once (33 us); where each surface block of a brick (its two x-faces
+//   above all) pays its own sectors, 199.8 MB (60 us). The kernel (~104 us) stands nearer
+//   that sector traffic than the bound in words.
 //
-// Design: one fused pass, one thread per (brick, node), gather only. A node's coordinates
-//   say what it is: no coordinate on the brick boundary (0 or NB-1) is interior, one is a
-//   face interior, two an edge interior, three a corner. A face copy adds its one partner
-//   (face_other; faces pair at most two bricks); an edge or corner copy sums the full
-//   contributor list of its pool (edge_contrib, corner_contrib), which is the same list in
-//   the same pool-canonical order for every copy. So all copies of a node come out
-//   bit-identical with no atomics: a + b == b + a exactly, and longer sums run in one order.
-//   The partner node's position follows from the partner's face/edge/corner index and the
-//   shared coordinates. Reads and writes of v and out are coalesced across x; the partner
-//   reads land on the partner brick's matching face row.
+// Design: gather by pool, in place, one launch. The host turns the pools into work lists
+//   (bricks.kernel_tables): face pairs (or a lone face), edge pools and corner pools, each
+//   with its copies in pool-canonical order as flat indices (face b*6+f, f = 2d+side;
+//   edge b*12 + 4e + 2sa + sb; corner b*8 + c, bit d of c set where the corner sits at
+//   NB-1 on axis d), the validity of every surface copy as one bit per surface position
+//   (the order of kernels/dss_surface.py:surface_nodes), and the hole bricks with one bit
+//   per brick node at the invalid nodes off the surface. The pools are disjoint, so each
+//   has one owner that reads its copies from the unchanged v, sums them in canonical order
+//   and writes the sum to each valid copy and 0 to each invalid one: copies come out
+//   bit-identical with no atomics and no race. A pool of one copy is only zeroed where it
+//   is invalid. Roles by block range, the long-latency ones first so that the bulk hides
+//   them:
+//     holes:   a block per hole brick, a thread per node whose bit is set;
+//     corners: a thread per corner pool;
+//     faces:   a warp per face entry, lanes over (row i, column j) of the face, 16 columns
+//              a row, so on a y- or z-face a half-warp reads one contiguous row and on an
+//              x-face a lane per (y, z) node; a lane loads all its nodes before it stores;
+//     edges:   16 lanes per edge pool, a lane per edge node;
+//     padding: a warp per brick zeroes N3..N3p.
+//   NB is a template parameter (11, 13, 15, 17), so the loops over a face unroll.
+//   Positions come from the table entry (brick and face, edge or corner, decoded once per
+//   copy) and the loop counters; interior nodes are never read, node_valid bytes never.
+//   Resources (ptxas, sm_90a, CUDA 12.8): 64 registers in f32 at NB=17 (4 blocks of 256
+//   threads an SM; the batched face loads take the registers), 80 in f64, 40-62 at NB=11-15;
+//   no shared memory, no spills, no stack.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int THREADS = 256;
+constexpr int MAXC = 8;  // copies of a pool: 2 (face), 4 (edge), 8 (corner) in 3-D
+constexpr int FACE_PER_BLOCK = THREADS / 32;
+constexpr int EDGE_PER_BLOCK = THREADS / 16;
+constexpr int PAD_PER_BLOCK = THREADS / 32;
+
+struct Tables {
+  const int* face_pairs;  // [n_face, 2], second -1 for a lone face
+  const int* edge_pools;  // [n_edge, edge_w], -1 padded
+  const int* corner_pools;  // [n_corner, corner_w], -1 padded
+  const unsigned* valid_bits;  // [nb, valid_words]: bit s <-> surface position s
+  const int* hole_bricks;  // [n_hole]
+  const unsigned* hole_bits;  // [n_hole, hole_words]: bit k <-> brick node k
+  int n_face, n_edge, edge_w, n_corner, corner_w, valid_words, n_hole, hole_words;
+  int nb, N3p;
+  int hole_blocks, corner_blocks, face_blocks, edge_blocks;
+};
+
+__device__ __forceinline__ bool bit(const unsigned* __restrict__ w, int i) {
+  return (w[i >> 5] >> (i & 31)) & 1u;
+}
+
+template <int NB>
+__device__ __forceinline__ int stride(int axis) {
+  return axis == 0 ? 1 : (axis == 1 ? NB : NB * NB);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void holes(T* __restrict__ v, const Tables& t, int h) {
+  T* __restrict__ vb = v + t.hole_bricks[h] * t.N3p;
+  const unsigned* __restrict__ w = t.hole_bits + h * t.hole_words;
+  for (int k = threadIdx.x; k < NB * NB * NB; k += THREADS)
+    if (bit(w, k)) vb[k] = T(0);
+}
+
+// The copies of one edge or corner pool: their first nodes and first validity bits.
 template <typename T>
-__global__ void dss_surface_kernel(const T* __restrict__ v, const int* __restrict__ face_other,
-                                   int face_w, const int* __restrict__ edge_contrib,
-                                   int edge_w, const int* __restrict__ corner_contrib,
-                                   int corner_w, const bool* __restrict__ node_valid,
-                                   T* __restrict__ out, int nb, int NB, int N3p) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(nb) * N3p) return;
-  const int b = static_cast<int>(t / N3p);
-  const int node = static_cast<int>(t - static_cast<long long>(b) * N3p);
-  const int N3 = NB * NB * NB;
-  if (node >= N3 || !node_valid[t]) {
-    out[t] = T(0);
+__device__ __forceinline__ void pool_sum(T* __restrict__ v, const unsigned* __restrict__ vbits,
+                                         const int (&pos)[MAXC], const int (&vb)[MAXC],
+                                         int cnt, int o, int k) {
+  if (cnt == 1) {
+    if (!bit(vbits, vb[0] + k)) v[pos[0] + o] = T(0);
     return;
   }
-  const int L = NB - 1;
-  int c[3] = {node % NB, (node / NB) % NB, node / (NB * NB)};
-  int on[3], n_on = 0;
+  T x[MAXC];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    on[d] = (c[d] == 0 || c[d] == L);
-    n_on += on[d];
+  for (int c = 0; c < MAXC; ++c)
+    if (c < cnt) x[c] = v[pos[c] + o];
+  T s = x[0];
+#pragma unroll
+  for (int c = 1; c < MAXC; ++c)
+    if (c < cnt) s += x[c];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c)
+    if (c < cnt) v[pos[c] + o] = bit(vbits, vb[c] + k) ? s : T(0);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void corners(T* __restrict__ v, const Tables& t, int blk) {
+  constexpr int L = NB - 1, M = NB - 2;
+  const int e = blk * THREADS + threadIdx.x;
+  if (e >= t.n_corner) return;
+  const int* list = t.corner_pools + e * t.corner_w;
+  int pos[MAXC], vb[MAXC], cnt = 0;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    const int r = c < t.corner_w ? list[c] : -1;
+    if (r < 0) continue;
+    const int b = r >> 3, k = r & 7;  // bit d of k: the corner sits at NB-1 on axis d
+    pos[c] = b * t.N3p + ((k & 1) + ((k >> 1) & 1) * NB + ((k >> 2) & 1) * NB * NB) * L;
+    vb[c] = b * 32 * t.valid_words + 6 * M * M + 12 * M + k;
+    cnt = c + 1;
   }
-  auto at = [&](int brick, const int* cc) -> T {
-    return v[static_cast<size_t>(brick) * N3p + (cc[2] * NB + cc[1]) * NB + cc[0]];
-  };
-  T val;
-  if (n_on == 0) {
-    val = v[t];
-  } else if (n_on == 1) {  // face interior: self + partner
-    const int d = on[0] ? 0 : (on[1] ? 1 : 2);
-    val = v[t];
-    if (face_w) {
-      const int r = face_other[b * 6 + 2 * d + (c[d] == L)];
-      if (r < nb * 6) {
-        const int f2 = r % 6;
-        int c2[3] = {c[0], c[1], c[2]};
-        c2[f2 >> 1] = (f2 & 1) ? L : 0;
-        val = val + at(r / 6, c2);
-      }
+  pool_sum(v, t.valid_bits, pos, vb, cnt, 0, 0);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void faces(T* __restrict__ v, const Tables& t, int blk) {
+  constexpr int L = NB - 1, M = NB - 2, R = (M + 1) / 2;
+  static_assert(M <= 16, "a face row fits in 16 lanes");
+  const int e = blk * FACE_PER_BLOCK + (threadIdx.x >> 5);
+  if (e >= t.n_face) return;
+  const int r0 = t.face_pairs[2 * e], r1 = t.face_pairs[2 * e + 1];
+  // face f = 2d + side: node (i, j) at side*L on axis d, i+1 on the slower tangential
+  // axis, j+1 on the faster one (x, or y on an x-face); a partner is on the other side
+  const int d = (r0 % 6) >> 1;
+  const int sd = stride<NB>(d), si = stride<NB>(d == 2 ? 1 : 2), sj = stride<NB>(d == 0);
+  const int vbits = 32 * t.valid_words;
+  auto base = [&](int r) { return (r / 6) * t.N3p + ((r % 6) & 1) * L * sd + si + sj; };
+  auto vbase = [&](int r) { return (r / 6) * vbits + (r % 6) * M * M; };
+  const int p0 = base(r0), b0 = vbase(r0);
+  const int lane = threadIdx.x & 31, i0 = lane >> 4, j = lane & 15;
+  if (j >= M) return;
+  if (r1 < 0) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = i0 + 2 * q;
+      if (i < M && !bit(t.valid_bits, b0 + i * M + j)) v[p0 + i * si + j * sj] = T(0);
     }
-  } else if (n_on == 2) {  // edge interior along axis e, the other axes ascending (a, a2)
-    const int e = !on[0] ? 0 : (!on[1] ? 1 : 2);
-    const int a = (e == 0) ? 1 : 0;
-    const int a2 = (e == 2) ? 1 : 2;
-    const int idx = e * 4 + (c[a] == L) * 2 + (c[a2] == L);
-    const int* list = edge_contrib + static_cast<size_t>(b * 12 + idx) * edge_w;
-    val = T(0);
-    for (int k = 0; k < edge_w; ++k) {
-      const int r = list[k];
-      if (r >= nb * 12) continue;
-      const int i2 = r % 12;
-      int c2[3];
-      c2[e] = c[e];
-      c2[a] = ((i2 >> 1) & 1) ? L : 0;
-      c2[a2] = (i2 & 1) ? L : 0;
-      val += at(r / 12, c2);
-    }
-  } else {  // corner: bit d set where the corner sits at NB-1 on axis d
-    const int combo = (c[0] == L) | ((c[1] == L) << 1) | ((c[2] == L) << 2);
-    const int* list = corner_contrib + static_cast<size_t>(b * 8 + combo) * corner_w;
-    val = T(0);
-    for (int k = 0; k < corner_w; ++k) {
-      const int r = list[k];
-      if (r >= nb * 8) continue;
-      const int co = r % 8;
-      int c2[3] = {(co & 1) ? L : 0, ((co >> 1) & 1) ? L : 0, ((co >> 2) & 1) ? L : 0};
-      val += at(r / 8, c2);
+    return;
+  }
+  const int p1 = base(r1), b1 = vbase(r1);
+  T x0[R], x1[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = i0 + 2 * q;
+    if (i < M) {
+      x0[q] = v[p0 + i * si + j * sj];
+      x1[q] = v[p1 + i * si + j * sj];
     }
   }
-  out[t] = val;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = i0 + 2 * q;
+    if (i < M) {
+      const T s = x0[q] + x1[q];
+      const int o = i * si + j * sj, k = i * M + j;
+      v[p0 + o] = bit(t.valid_bits, b0 + k) ? s : T(0);
+      v[p1 + o] = bit(t.valid_bits, b1 + k) ? s : T(0);
+    }
+  }
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void edges(T* __restrict__ v, const Tables& t, int blk) {
+  constexpr int L = NB - 1, M = NB - 2;
+  const int e = blk * EDGE_PER_BLOCK + (threadIdx.x >> 4), j = threadIdx.x & 15;
+  if (e >= t.n_edge || j >= M) return;
+  const int* list = t.edge_pools + e * t.edge_w;
+  // edge l = 4 ax + 2 sa + sb along axis ax, at sa*L, sb*L on the other axes (ascending)
+  int pos[MAXC], vb[MAXC], cnt = 0, step = 0;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    const int r = c < t.edge_w ? list[c] : -1;
+    if (r < 0) continue;
+    const int b = r / 12, l = r - 12 * b, ax = l >> 2;
+    step = stride<NB>(ax);
+    pos[c] = b * t.N3p + ((l >> 1) & 1) * L * stride<NB>(ax == 0 ? 1 : 0) +
+             (l & 1) * L * stride<NB>(ax == 2 ? 1 : 2) + step;
+    vb[c] = b * 32 * t.valid_words + 6 * M * M + l * M;
+    cnt = c + 1;
+  }
+  pool_sum(v, t.valid_bits, pos, vb, cnt, j * step, j);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void padding(T* __restrict__ v, const Tables& t, int blk) {
+  const int b = blk * PAD_PER_BLOCK + (threadIdx.x >> 5);
+  if (b >= t.nb) return;
+  for (int k = NB * NB * NB + (threadIdx.x & 31); k < t.N3p; k += 32) v[b * t.N3p + k] = T(0);
+}
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(THREADS) dss_surface_kernel(T* __restrict__ v, Tables t) {
+  int blk = blockIdx.x;
+  if (blk < t.hole_blocks) return holes<T, NB>(v, t, blk);
+  blk -= t.hole_blocks;
+  if (blk < t.corner_blocks) return corners<T, NB>(v, t, blk);
+  blk -= t.corner_blocks;
+  if (blk < t.face_blocks) return faces<T, NB>(v, t, blk);
+  blk -= t.face_blocks;
+  if (blk < t.edge_blocks) return edges<T, NB>(v, t, blk);
+  padding<T, NB>(v, t, blk - t.edge_blocks);
+}
+
+template <typename T, int NB>
+int launch(void* v, Tables t, cudaStream_t stream) {
+  auto blocks = [](int n, int per) { return (n + per - 1) / per; };
+  t.hole_blocks = t.n_hole;
+  t.corner_blocks = blocks(t.n_corner, THREADS);
+  t.face_blocks = blocks(t.n_face, FACE_PER_BLOCK);
+  t.edge_blocks = blocks(t.n_edge, EDGE_PER_BLOCK);
+  const int total = t.hole_blocks + t.corner_blocks + t.face_blocks + t.edge_blocks +
+                    blocks(t.nb, PAD_PER_BLOCK);
+  if (total > 0)
+    dss_surface_kernel<T, NB><<<total, THREADS, 0, stream>>>(static_cast<T*>(v), t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* v, const void* face_other, int face_w, const void* edge_contrib,
-           int edge_w, const void* corner_contrib, int corner_w, const void* node_valid,
-           void* out, int nb, int NB, int N3p, cudaStream_t stream) {
-  const long long total = static_cast<long long>(nb) * N3p;
-  if (total > 0) {
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-    dss_surface_kernel<T><<<blocks, threads, 0, stream>>>(
-        static_cast<const T*>(v), static_cast<const int*>(face_other), face_w,
-        static_cast<const int*>(edge_contrib), edge_w,
-        static_cast<const int*>(corner_contrib), corner_w,
-        static_cast<const bool*>(node_valid), static_cast<T*>(out), nb, NB, N3p);
+int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, int n_edge,
+          int edge_w, const void* corner_pools, int n_corner, int corner_w,
+          const void* valid_bits, int valid_words, const void* hole_bricks,
+          const void* hole_bits, int n_hole, int hole_words, int nb, int NB, int N3p,
+          void* stream) {
+  if (edge_w > MAXC || corner_w > MAXC) return static_cast<int>(cudaErrorInvalidValue);
+  Tables t{};
+  t.face_pairs = static_cast<const int*>(face_pairs);
+  t.edge_pools = static_cast<const int*>(edge_pools);
+  t.corner_pools = static_cast<const int*>(corner_pools);
+  t.valid_bits = static_cast<const unsigned*>(valid_bits);
+  t.hole_bricks = static_cast<const int*>(hole_bricks);
+  t.hole_bits = static_cast<const unsigned*>(hole_bits);
+  t.n_face = n_face;
+  t.n_edge = n_edge;
+  t.edge_w = edge_w;
+  t.n_corner = n_corner;
+  t.corner_w = corner_w;
+  t.valid_words = valid_words;
+  t.n_hole = n_hole;
+  t.hole_words = hole_words;
+  t.nb = nb;
+  t.N3p = N3p;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (NB) {  // NB = B*p + 1 of the brick size rule: p=5, 6, 7 at B=2; p=4 at B=4, p=8 at B=2
+    case 11: return launch<T, 11>(v, t, s);
+    case 13: return launch<T, 13>(v, t, s);
+    case 15: return launch<T, 15>(v, t, s);
+    case 17: return launch<T, 17>(v, t, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-int dss_surface_f32(const void* v, const void* face_other, int face_w,
-                    const void* edge_contrib, int edge_w, const void* corner_contrib,
-                    int corner_w, const void* node_valid, void* out, int nb, int NB, int N3p,
-                    void* stream) {
-  return launch<float>(v, face_other, face_w, edge_contrib, edge_w, corner_contrib, corner_w,
-                       node_valid, out, nb, NB, N3p, static_cast<cudaStream_t>(stream));
+int dss_surface_f32(void* v, const void* face_pairs, int n_face, const void* edge_pools,
+                    int n_edge, int edge_w, const void* corner_pools, int n_corner,
+                    int corner_w, const void* valid_bits, int valid_words,
+                    const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
+                    int nb, int NB, int N3p, void* stream) {
+  return entry<float>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
+                      n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
+                      n_hole, hole_words, nb, NB, N3p, stream);
 }
 
-int dss_surface_f64(const void* v, const void* face_other, int face_w,
-                    const void* edge_contrib, int edge_w, const void* corner_contrib,
-                    int corner_w, const void* node_valid, void* out, int nb, int NB, int N3p,
-                    void* stream) {
-  return launch<double>(v, face_other, face_w, edge_contrib, edge_w, corner_contrib,
-                        corner_w, node_valid, out, nb, NB, N3p,
-                        static_cast<cudaStream_t>(stream));
+int dss_surface_f64(void* v, const void* face_pairs, int n_face, const void* edge_pools,
+                    int n_edge, int edge_w, const void* corner_pools, int n_corner,
+                    int corner_w, const void* valid_bits, int valid_words,
+                    const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
+                    int nb, int NB, int N3p, void* stream) {
+  return entry<double>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
+                       n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
+                       n_hole, hole_words, nb, NB, N3p, stream);
 }
 
 const char* kernel_error_string(int code) {

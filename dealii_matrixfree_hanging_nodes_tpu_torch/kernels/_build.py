@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -75,6 +76,22 @@ def build(names=KERNELS) -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs
+
+
+def ptxas_usage(log: str):
+    """[(kernel, "N registers, S bytes spill stores, ...")] from an nvcc log:
+    each entry function's template arguments in mangled form, e.g.
+    ``cell_apply_kernel<IfLi4ELi4E>`` for <float, 4, 4>."""
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"([a-z][a-z_]*_kernel)(I\w*?E)?E*v", line)
+        if "Compiling entry function" in line and m:
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            out.append((kernel, line.split("Used", 1)[1].strip() + "; " + spill))
+    return out
 
 
 def function(name: str, symbol: str, argtypes):

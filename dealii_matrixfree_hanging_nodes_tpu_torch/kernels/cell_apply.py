@@ -1,5 +1,7 @@
-"""Kernel 2, ``cell_apply``: the dense local stiffness on cell rows,
-out[r] = scale[r] * (K x_r), in one of two input modes:
+"""Kernel 2, ``cell_apply``: the local stiffness on cell rows, out[r] =
+scale[r] * (K x_r), with K the Kronecker sum of the 1-D factors K1 and M1
+(``K1⊗M1⊗M1 + M1⊗K1⊗M1 + M1⊗M1⊗K1``, x fastest), applied by sum
+factorization, in one of two input modes:
 
 - from bricks (``brick_size=B``): x_r are the (p+1)^3 nodes of cell r read
   from its brick, src [m, N3p] -> out [m*B^3, n_loc] — the reference's
@@ -22,11 +24,10 @@ NAME = "cell_apply"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2178"
 
 
-def cell_degree(K) -> int:
-    n = round(K.shape[0] ** (1.0 / 3.0))
-    if n**3 != K.shape[0] or K.shape != (n**3, n**3):
-        raise ValueError(f"K must be [(p+1)^3, (p+1)^3], got {tuple(K.shape)}")
-    return n - 1
+def cell_degree(K1) -> int:
+    if K1.dim() != 2 or K1.shape[0] != K1.shape[1] or K1.shape[0] < 2:
+        raise ValueError(f"K1 must be [p+1, p+1], got {tuple(K1.shape)}")
+    return K1.shape[0] - 1
 
 
 def brick_slot_index(B: int, p: int, device=None) -> torch.Tensor:
@@ -42,24 +43,43 @@ def brick_slot_index(B: int, p: int, device=None) -> torch.Tensor:
     )
 
 
-def cell_apply_plain(src, K, scale, brick_size=None):
-    """Plain PyTorch version: gather the cell rows, one matmul, scale."""
+def cell_apply_plain(src, K1, M1, scale, brick_size=None):
+    """Plain PyTorch version: gather the cell rows, then the sweeps of the
+    1-D factors on the [rows, z, y, x] view (x: M1, K1; y: M1 on both, K1
+    on the M1 branch; z: on the two sums), then the scale."""
+    n = cell_degree(K1) + 1
     if brick_size is not None:
-        idx = brick_slot_index(brick_size, cell_degree(K), src.device)
-        src = src[:, idx.reshape(-1)].reshape(-1, K.shape[0])
-    return (src @ K.T) * scale[:, None]
+        idx = brick_slot_index(brick_size, n - 1, src.device)
+        src = src[:, idx.reshape(-1)]
+    x = src.reshape(-1, n, n, n)
+    along = lambda A, t, ax: torch.einsum(
+        {0: "ij,rzyj->rzyi", 1: "ij,rzjx->rzix", 2: "ij,rjyx->riyx"}[ax], A, t)
+    a, b = along(M1, x, 0), along(K1, x, 0)
+    c1 = along(M1, b, 1) + along(K1, a, 1)
+    c2 = along(M1, a, 1)
+    out = along(M1, c1, 2) + along(K1, c2, 2)
+    return out.reshape(-1, n**3) * scale[:, None]
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def cell_apply(src, K, scale, brick_size=None):
-    """Launch the kernel on CUDA tensors; the plain version on CPU ones."""
+def cell_apply(src, K1, M1, scale, brick_size=None):
+    """Launch the kernel on CUDA tensors; the plain version on CPU ones.
+    The kernel takes K1 and M1 by value, as launch parameters: on the
+    kernel path they must be CPU tensors (``BrickLaplaceMM.factors_host``);
+    factors on the card raise rather than cost a synchronising copy."""
     if src.device.type == "cpu":
-        return cell_apply_plain(src, K, scale, brick_size)
-    dev = _build.check_cuda(NAME, src.dtype, src=src, K=K, scale=scale)
-    p = cell_degree(K)
-    n_loc = K.shape[0]
+        return cell_apply_plain(src, K1, M1, scale, brick_size)
+    dev = _build.check_cuda(NAME, src.dtype, src=src, scale=scale)
+    p = cell_degree(K1)
+    n_loc = (p + 1) ** 3
+    if M1.shape != K1.shape:
+        raise ValueError(f"{NAME}: M1 must be {tuple(K1.shape)}, got {tuple(M1.shape)}")
+    if K1.device.type != "cpu" or M1.device.type != "cpu":
+        raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
+                         f"(op.factors_host), got them on {K1.device} and {M1.device}")
+    K1, M1 = (f.detach().to(src.dtype).contiguous() for f in (K1, M1))
     m = src.shape[0]
     if brick_size is None:
         rows, B, N3p = m, 0, 0
@@ -74,8 +94,8 @@ def cell_apply(src, K, scale, brick_size=None):
         raise ValueError(f"{NAME}: scale must be [{rows}], got {tuple(scale.shape)}")
     out = torch.empty((rows, n_loc), dtype=src.dtype, device=src.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(K), _build.ptr(scale),
-                  _build.ptr(out), rows, p, B, N3p)
+    _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(K1), _build.ptr(M1),
+                  _build.ptr(scale), _build.ptr(out), rows, p, B, N3p)
     cell_apply.launches += 1
     return out
 
@@ -84,7 +104,9 @@ cell_apply.launches = 0
 
 
 def bytes_and_flops(src_elems, rows, n_loc, itemsize):
-    """Least traffic (src read once, out written once, K and scale) and the
-    dense product's operation count."""
-    nbytes = (src_elems + rows * n_loc + n_loc * n_loc + rows) * itemsize
-    return nbytes, 2 * rows * n_loc * n_loc
+    """Least traffic (src read once, out written once, K1, M1 and scale) and
+    the sum-factorized operation count: 7 sweeps of 2 n^4 and the scale,
+    per row."""
+    n = round(n_loc ** (1.0 / 3.0))
+    nbytes = (src_elems + rows * n_loc + 2 * n * n + rows) * itemsize
+    return nbytes, rows * (7 * 2 * n**4 + n**3)

@@ -1,7 +1,7 @@
-"""Kernel 4, ``dss_surface``: the cross-brick direct-stiffness summation.
-Every shared face / edge / corner node of a brick gets the sum of all its
-copies over the interface pool, and the nodes outside the mesh (holes,
-padding) are zeroed: out = where(node_valid, dss(v), 0).
+"""Kernel 4, ``dss_surface``: the cross-brick direct-stiffness summation,
+in place. Every shared face / edge / corner node of a brick gets the sum of
+all its copies over the interface pool, and the nodes outside the mesh
+(holes, padding) are zeroed: v <- where(node_valid, dss(v), 0).
 
 Replaces the input-fill branch of the reference's ``_dss_fill``
 (bricks.py:2562-2568 and 2608-2612) with ``_dss_surface``
@@ -10,9 +10,12 @@ Replaces the input-fill branch of the reference's ``_dss_fill``
 The surface of a brick is ordered as in the reference: the 6 face
 interiors ((NB-2)^2 nodes each, faces 2d+side), the 12 edge interiors
 (NB-2 nodes each, edge e*4 + 2*sa + sb along axis e), the 8 corners (bit d
-set where the corner sits at NB-1 on axis d). The pair tables hold flat
-indices into those blocks (face b*6+f, edge b*12+e, corner b*8+c), with
-the block size times n_bricks as the sentinel."""
+set where the corner sits at NB-1 on axis d). The work lists
+(``bricks.kernel_tables``) hold, per pool, its copies as flat indices into
+those blocks (face b*6+f, edge b*12+e, corner b*8+c) in pool-canonical
+order, padded with -1; the validity of each surface copy is one bit per
+surface position, the invalid nodes off the surface one bit per brick node
+of each hole brick (padding is zeroed without a table)."""
 
 from __future__ import annotations
 
@@ -58,87 +61,163 @@ def surface_nodes(NB: int) -> np.ndarray:
     return np.concatenate(surf).astype(np.int64)
 
 
-def dss_surface_plain(v, face_other, edge_contrib, corner_contrib, node_valid, NB):
-    """Plain PyTorch version, the reference's gather-only ("pair") form:
-    extract the surface, sum each copy's contributors, write the delta
-    back, mask. Returns a new tensor."""
-    nb = v.shape[0]
-    surf_idx = torch.from_numpy(surface_nodes(NB)).to(v.device)
-    surf = v[:, surf_idx]
-    fsize, esize = (NB - 2) ** 2, NB - 2
-    zero = lambda w: torch.zeros((1, w), dtype=v.dtype, device=v.device)
-    fflat = surf[:, : 6 * fsize].reshape(nb * 6, fsize)
-    fnew = fflat
-    if face_other.shape[1]:
-        fpad = torch.cat([fflat, zero(fsize)])
-        fnew = fflat + fpad[face_other[:, 0].long()]
-    off = 6 * fsize
-    eflat = surf[:, off: off + 12 * esize].reshape(nb * 12, esize)
-    epad = torch.cat([eflat, zero(esize)])
-    enew = epad[edge_contrib.reshape(-1).long()].reshape(nb * 12, -1, esize).sum(1)
-    off += 12 * esize
-    cflat = surf[:, off: off + 8].reshape(-1, 1)
-    cpad = torch.cat([cflat, zero(1)])[:, 0]
-    cnew = cpad[corner_contrib.reshape(-1).long()].reshape(nb * 8, -1).sum(1)
-    surf_new = torch.cat(
-        [fnew.reshape(nb, -1), enew.reshape(nb, -1), cnew.reshape(nb, 8)], dim=1)
-    out = v.clone()
-    out[:, surf_idx] += surf_new - surf
-    return torch.where(node_valid, out, 0.0)
+POOL_KINDS = ("face", "edge", "corner")
+
+
+def pool_positions(pools, kind, NB, N3p):
+    """(brick [e, c], surface position [e, c, m], flat node [e, c, m], real
+    [e, c]) of every copy of every pool in a work list, m nodes per copy;
+    padding copies (-1) are not real and point at brick 0."""
+    M = NB - 2
+    K, width, off = {"face": (6, M * M, 0), "edge": (12, M, 6 * M * M),
+                     "corner": (8, 1, 6 * M * M + 12 * M)}[kind]
+    surf = torch.from_numpy(surface_nodes(NB)).to(pools.device)
+    real = pools >= 0
+    r = pools.long().clamp(min=0)
+    b = r // K
+    s = off + (r % K)[..., None] * width + torch.arange(width, device=pools.device)
+    return b, s, b[..., None] * N3p + surf[s], real
+
+
+def bit_set(words, row, k):
+    """Bit k of row `row` of a packed [rows, words] int32 bit table."""
+    return ((words[row, k >> 5] >> (k & 31)) & 1).bool()
+
+
+def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks,
+                      hole_bits, NB):
+    """Plain PyTorch version on the same work lists: gather each pool's
+    copies, sum them in canonical order, write the sum to the valid copies
+    and 0 to the invalid ones, then zero the padding and the holes off the
+    surface. Updates v in place and returns it."""
+    flat = v.view(-1)
+    writes = []
+    for pools, kind in zip((face_pairs, edge_pools, corner_pools), POOL_KINDS):
+        b, s, node, real = pool_positions(pools, kind, NB, v.shape[1])
+        vals = flat[node]
+        tot = vals[:, 0]
+        for c in range(1, vals.shape[1]):
+            tot = torch.where(real[:, c, None], tot + vals[:, c], tot)
+        new = torch.where(bit_set(valid_bits, b[..., None], s), tot[:, None], 0.0)
+        writes.append((node[real], new[real]))
+    for node, new in writes:  # the pools are disjoint: every read came first
+        flat[node] = new
+    N3 = NB**3
+    v[:, N3:] = 0.0
+    if hole_bricks.numel():
+        rows = hole_bricks.long()
+        k = torch.arange(N3, device=v.device)
+        hole = bit_set(hole_bits, torch.arange(len(rows), device=v.device)[:, None], k)
+        v[rows, :N3] = torch.where(hole, 0.0, v[rows, :N3])
+    return v
 
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+          ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+         + [ctypes.c_void_p])
 
 
-def dss_surface(v, face_other, edge_contrib, corner_contrib, node_valid, NB):
-    """v [nb, N3p]; face_other [nb*6, 0|1], edge_contrib [nb*12, *],
-    corner_contrib [nb*8, *] int32; node_valid [nb, N3p] bool -> new tensor."""
+def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks, hole_bits,
+                NB):
+    """v [nb, N3p], updated in place and returned; face_pairs [*, 2],
+    edge_pools [*, <= 8], corner_pools [*, <= 8], valid_bits [nb, *],
+    hole_bricks [h], hole_bits [h, *], all int32."""
     if v.device.type == "cpu":
-        return dss_surface_plain(v, face_other, edge_contrib, corner_contrib,
-                                 node_valid, NB)
-    dev = _build.check_cuda(NAME, v.dtype, v=v, face_other=face_other,
-                            edge_contrib=edge_contrib, corner_contrib=corner_contrib,
-                            node_valid=node_valid)
+        return dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits,
+                                 hole_bricks, hole_bits, NB)
+    tables = dict(face_pairs=face_pairs, edge_pools=edge_pools, corner_pools=corner_pools,
+                  valid_bits=valid_bits, hole_bricks=hole_bricks, hole_bits=hole_bits)
+    dev = _build.check_cuda(NAME, v.dtype, v=v, **tables)
     nb, N3p = v.shape
-    for key, t, rows in (("face_other", face_other, 6), ("edge_contrib", edge_contrib, 12),
-                         ("corner_contrib", corner_contrib, 8)):
-        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != nb * rows:
-            raise ValueError(f"{NAME}: {key} must be int32 [{nb * rows}, k]")
-    if face_other.shape[1] > 1:
-        raise ValueError(f"{NAME}: a face pairs at most two bricks")
-    if node_valid.dtype != torch.bool or node_valid.shape != v.shape or N3p < NB**3:
-        raise ValueError(f"{NAME}: node_valid must be bool {tuple(v.shape)}")
-    out = torch.empty_like(v)
+    M, N3 = NB - 2, NB**3
+    for key, t in tables.items():
+        dims = 1 if key == "hole_bricks" else 2
+        if t.dtype != torch.int32 or t.dim() != dims:
+            raise ValueError(f"{NAME}: {key} must be int32 with {dims} dims, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if face_pairs.shape[1] != 2 or edge_pools.shape[1] > 8 or corner_pools.shape[1] > 8:
+        raise ValueError(f"{NAME}: pools hold 2 face, <= 8 edge and <= 8 corner copies")
+    if valid_bits.shape[0] != nb or 32 * valid_bits.shape[1] < 6 * M * M + 12 * M + 8:
+        raise ValueError(f"{NAME}: valid_bits must hold a bit per surface node of each brick")
+    if hole_bits.shape[0] != hole_bricks.shape[0] or 32 * hole_bits.shape[1] < N3:
+        raise ValueError(f"{NAME}: hole_bits must hold a bit per node of each hole brick")
+    if N3p < N3 or nb * N3p > np.iinfo(np.int32).max:
+        raise ValueError(f"{NAME}: v must be [nb, >= {N3}] with int32 node indices")
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(v.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, _build.ptr(v), _build.ptr(face_other), face_other.shape[1],
-                  _build.ptr(edge_contrib), edge_contrib.shape[1], _build.ptr(corner_contrib),
-                  corner_contrib.shape[1], _build.ptr(node_valid), _build.ptr(out),
-                  nb, NB, N3p)
+    _build.launch(NAME, fn, dev, _build.ptr(v), _build.ptr(face_pairs), face_pairs.shape[0],
+                  _build.ptr(edge_pools), edge_pools.shape[0], edge_pools.shape[1],
+                  _build.ptr(corner_pools), corner_pools.shape[0], corner_pools.shape[1],
+                  _build.ptr(valid_bits), valid_bits.shape[1], _build.ptr(hole_bricks),
+                  _build.ptr(hole_bits), hole_bits.shape[0], hole_bits.shape[1], nb, NB, N3p)
     dss_surface.launches += 1
-    return out
+    return v
 
 
 dss_surface.launches = 0
 
 
-def bytes_and_flops(node_valid, face_other, edge_contrib, corner_contrib, NB, itemsize):
-    """Least traffic of the function done in place on v (v is a temporary
-    of the vmult): every surface copy read once and written once, a zero
-    written at every hole or padding node off the surface (valid interior
-    nodes do not move), the hole pattern read at one bit per node, and the
-    pair tables read once. One add per extra contributor of each surface
-    copy, counted from these tables."""
-    nb, N3p = node_valid.shape
-    surf = torch.from_numpy(surface_nodes(NB)).to(node_valid.device)
-    off_surface = torch.ones(N3p, dtype=torch.bool, device=node_valid.device)
-    off_surface[surf] = False
-    holes = int((~node_valid[:, off_surface]).sum())
-    nbytes = ((2 * nb * surf.numel() + holes) * itemsize + nb * N3p // 8
-              + 4 * (face_other.numel() + edge_contrib.numel() + corner_contrib.numel()))
-    valid = lambda t, rows: (t < nb * rows).sum(dim=1)
-    flops = (int(valid(face_other, 6).sum()) * (NB - 2) ** 2
-             + int((valid(edge_contrib, 12) - 1).clamp(min=0).sum()) * (NB - 2)
-             + int((valid(corner_contrib, 8) - 1).clamp(min=0).sum()))
+def moved_nodes(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks, hole_bits,
+                NB):
+    """The nodes of v that the function must move in place: ((read, group),
+    (written, group)), flat indices into v and the surface block each lies
+    in (face f, 6 + edge, 18 + corner; 26 for a hole, 27 for padding). Every
+    copy of a pool of two or more copies is read and written; a pool of one
+    copy is written (0) only where it is invalid, as is every hole or
+    padding node off the surface; interior nodes and valid unshared copies
+    do not move."""
+    nb, N3p = v.shape
+    M, N3, dev = NB - 2, NB**3, v.device
+    block = torch.cat([torch.arange(6).repeat_interleave(M * M),
+                       6 + torch.arange(12).repeat_interleave(M), 18 + torch.arange(8)]).to(dev)
+    read, written = [], []
+    for pools, kind in zip((face_pairs, edge_pools, corner_pools), POOL_KINDS):
+        b, s, node, real = pool_positions(pools, kind, NB, N3p)
+        shared = real & (real.sum(dim=1, keepdim=True) > 1)
+        lone = (real & ~shared)[..., None] & ~bit_set(valid_bits, b[..., None], s)
+        read.append((node[shared].reshape(-1), block[s[shared]].reshape(-1)))
+        written += [read[-1], (node[lone], block[s[lone]])]
+    k = torch.arange(N3, device=dev)
+    rows = hole_bricks.long()
+    hole = bit_set(hole_bits, torch.arange(len(rows), device=dev)[:, None], k)
+    holes = (rows[:, None] * N3p + k)[hole]
+    pad = (torch.arange(nb, device=dev)[:, None] * N3p + torch.arange(N3, N3p, device=dev))
+    written += [(holes, torch.full_like(holes, 26)), (pad.reshape(-1), torch.full_like(
+        pad.reshape(-1), 27))]
+    cat = lambda parts: tuple(torch.cat(t) for t in zip(*parts))
+    return cat(read), cat(written)
+
+
+def _table_bytes(tables):
+    return sum(4 * t.numel() for t in tables if isinstance(t, torch.Tensor))
+
+
+def bytes_and_flops(v, *tables):
+    """Least traffic of the function in place on v (v is a temporary of the
+    vmult), in words: the nodes of ``moved_nodes`` read and written once,
+    and the work lists and bit tables at the encoding the kernel reads
+    (validity one bit per surface copy, holes one bit per node of a hole
+    brick). One add per extra copy of each pool node, counted from the
+    lists. ``tables``: dss_surface's arguments after v."""
+    (read, _), (written, _) = moved_nodes(v, *tables)
+    face_pairs, edge_pools, corner_pools, NB = tables[0], tables[1], tables[2], tables[-1]
+    nbytes = (read.numel() + written.numel()) * v.element_size() + _table_bytes(tables)
+    extra = lambda t: int(((t >= 0).sum(dim=1) - 1).sum())
+    flops = extra(face_pairs) * (NB - 2) ** 2 + extra(edge_pools) * (NB - 2) + extra(corner_pools)
     return nbytes, flops
+
+
+def sector_bytes(v, *tables, apart=False):
+    """The same traffic with v's nodes counted in 32-byte sectors, each
+    sector read once and written once: what the function moves in this
+    layout, where x is the fastest axis, so a node of an x-face shares its
+    sector only with the node across the next row, which lies on the brick's
+    other x-face (brick rows start on a sector boundary). apart: a sector
+    is paid once for each surface block that touches it, as when the
+    blocks of a brick (its two x-faces above all) are not touched
+    together."""
+    total = _table_bytes(tables)
+    for nodes, group in moved_nodes(v, *tables):
+        key = nodes * v.element_size() // 32
+        total += 32 * torch.unique(key * 32 + group if apart else key).numel()
+    return total

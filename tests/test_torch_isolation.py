@@ -121,7 +121,6 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
     cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
     rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
-    dss = (op.face_other, op.edge_contrib, op.corner_contrib, op.node_valid, op.NB)
     chain = [
         (hn_apply, (rows, op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col, op.hn_fwd_w)),
         (hn_apply, (rows, op.hn_q, op.hn_bwd_ptr, op.hn_bwd_col, op.hn_bwd_w)),
@@ -138,17 +137,20 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         (op.refill(bv), op.refill(bv, plain=True)),
         (brick_apply.brick_apply(bv, op.Kb, op.Mb, op.geo, op.p),
          brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo)),
-        (cell_apply.cell_apply(bv[: op.n_sub], op.K, op.geo_cell_sub, brick_size=op.B),
-         cell_apply.cell_apply_plain(bv[: op.n_sub], op.K, op.geo_cell_sub, op.B)),
-        (cell_apply.cell_apply(rows, op.K, op.geo_hn),
-         cell_apply.cell_apply_plain(rows, op.K, op.geo_hn)),
+        (cell_apply.cell_apply(bv[: op.n_sub], *op.factors_host, op.geo_cell_sub, brick_size=op.B),
+         cell_apply.cell_apply_plain(bv[: op.n_sub], op.K1, op.M1, op.geo_cell_sub, op.B)),
+        (cell_apply.cell_apply(rows, *op.factors_host, op.geo_hn),
+         cell_apply.cell_apply_plain(rows, op.K1, op.M1, op.geo_hn)),
         (cols_overlap_add.cols_overlap_add(bv[: op.n_sub].clone(), cols, op.B),
          cols_overlap_add.cols_overlap_add_plain(bv[: op.n_sub].clone(), cols, op.B)),
-        (dss_surface.dss_surface(bv, *dss), dss_surface.dss_surface_plain(bv, *dss)),
+        (dss_surface.dss_surface(bv.clone(), *op.dss_tables()),
+         dss_surface.dss_surface_plain(bv.clone(), *op.dss_tables())),
     ]
     torch.cuda.synchronize()
     for got, ref in pairs:
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
+    with pytest.raises(ValueError, match="host tensors"):  # no hidden copy to the host
+        cell_apply.cell_apply(rows, op.K1, op.M1, op.geo_hn)
 
 
 @pytest.mark.cuda

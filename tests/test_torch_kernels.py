@@ -1,6 +1,7 @@
 """Each kernel's plain PyTorch version, and each step of the plain fold/HN
 chain, against the JAX package's function on the same inputs (float64,
-CPU, relative tolerance 1e-12)."""
+CPU, relative tolerance 1e-12), and the host tables that cell_apply and
+dss_surface read (``bricks.kernel_tables``)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,13 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     cols_overlap_add,
     dss_surface,
 )
-from torch_port_cases import CASES, IDS, RTOL, port, reference, rel_err, rng_array  # noqa: E402
+from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
+    kernel_tables,
+    kronecker_sum,
+)
+from torch_port_cases import (  # noqa: E402
+    CASES, IDS, RTOL, port, port_tables, reference, rel_err, rng_array,
+)
 
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)
 T = torch.from_numpy
@@ -38,7 +45,7 @@ def test_cell_apply_from_bricks(geo, nref, p):
     op = port(geo, nref, p)[2]
     u_sub = rng_array(2, op.n_sub, op.N3p)
     ref = jnp.dot(bl._extract_cols(jnp.asarray(u_sub), a), a["K"].T) * a["geo_cell_sub"][:, None]
-    got = cell_apply.cell_apply(T(u_sub), op.K, op.geo_cell_sub, brick_size=op.B)
+    got = cell_apply.cell_apply(T(u_sub), op.K1, op.M1, op.geo_cell_sub, brick_size=op.B)
     assert got.shape == ref.shape
     assert rel_err(got, ref) < RTOL
 
@@ -49,7 +56,7 @@ def test_cell_apply_from_rows(geo, nref, p):
     op = port(geo, nref, p)[2]
     rows = rng_array(3, op.n_hn, op.n_loc)
     ref = jnp.dot(jnp.asarray(rows), a["K"].T) * jnp.take(a["geo_cell_sub"], a["hn_sub"])[:, None]
-    got = cell_apply.cell_apply(T(rows), op.K, op.geo_hn)
+    got = cell_apply.cell_apply(T(rows), op.K1, op.M1, op.geo_hn)
     assert rel_err(got, ref) < RTOL
 
 
@@ -73,9 +80,84 @@ def test_dss_surface(geo, nref, p):
     op = port(geo, nref, p)[2]
     v = rng_array(6, op.n_bricks, op.N3p)
     ref = bl._dss_fill(jnp.asarray(v), a, None)
-    got = dss_surface.dss_surface(T(v), op.face_other, op.edge_contrib,
-                                  op.corner_contrib, op.node_valid, op.NB)
+    vt = T(v.copy())
+    got = dss_surface.dss_surface(vt, *op.dss_tables())
+    assert got is vt  # in place
     assert rel_err(got, ref) < RTOL
+
+
+@case
+def test_cell_factors_make_K(geo, nref, p):
+    """K1 and M1, read off the brick factors, give the dense K as their
+    Kronecker sum, and are the 1-D stiffness and mass of the element."""
+    from dealii_matrixfree_hanging_nodes_tpu.elements import shape_info
+
+    op = port(geo, nref, p)[2]
+    K1, M1, K = op.K1.numpy(), op.M1.numpy(), np.asarray(port_tables(geo, nref, p)[0]["K"])
+    assert K1.shape == M1.shape == (p + 1, p + 1)
+    assert np.abs(kronecker_sum(K1, M1) - K).max() <= 1e-13 * np.abs(K).max()
+    si = shape_info(p)
+    np.testing.assert_allclose(K1, np.einsum("q,qi,qj->ij", si.quad_w, si.D, si.D),
+                               rtol=0, atol=1e-13 * np.abs(K1).max())
+    np.testing.assert_allclose(M1, np.einsum("q,qi,qj->ij", si.quad_w, si.S, si.S),
+                               rtol=0, atol=1e-13 * np.abs(M1).max())
+
+
+@case
+def test_dss_work_lists_cover_the_surface(geo, nref, p):
+    """Every surface copy of every brick lies in exactly one pool entry, the
+    validity bits are node_valid on the surface, and the hole bits (with
+    the padding) are exactly the invalid nodes off the pools."""
+    op = port(geo, nref, p)[2]
+    nb, N3p, NB = op.n_bricks, op.N3p, op.NB
+    valid = op.node_valid.reshape(-1)
+    hits = torch.zeros(nb * N3p, dtype=torch.int64)
+    for pools, kind in zip(op.dss_tables()[:3], dss_surface.POOL_KINDS):
+        b, s, node, real = dss_surface.pool_positions(pools, kind, NB, N3p)
+        hits.index_add_(0, node[real].reshape(-1), torch.ones_like(node[real]).reshape(-1))
+        bits = dss_surface.bit_set(op.dss_valid_bits, b[..., None], s)
+        assert torch.equal(bits[real], valid[node[real]])
+    surf = torch.from_numpy(dss_surface.surface_nodes(NB))
+    on_surface = torch.zeros(N3p, dtype=torch.bool)
+    on_surface[surf] = True
+    assert torch.equal(hits.reshape(nb, N3p), on_surface.expand(nb, N3p).long())
+    holes = torch.zeros(nb, N3p, dtype=torch.bool)
+    holes[:, NB**3:] = True  # the padding, zeroed without a table
+    k = torch.arange(NB**3)
+    rows = op.dss_hole_bricks.long()
+    holes[rows, : NB**3] = dss_surface.bit_set(op.dss_hole_bits,
+                                                torch.arange(len(rows))[:, None], k)
+    assert torch.equal(holes, ~op.node_valid & ~on_surface)
+
+
+@case
+def test_dss_bound_counts_the_nodes_that_change(geo, nref, p):
+    """The nodes dss_surface's bound counts as written are exactly those
+    the function changes on a random vector (every pooled sum and every
+    zeroed node differs from its input), and it reads only those."""
+    op = port(geo, nref, p)[2]
+    v = T(rng_array(22, op.n_bricks, op.N3p))
+    (read, _), (written, _) = dss_surface.moved_nodes(v, *op.dss_tables())
+    changed = torch.nonzero(dss_surface.dss_surface(v.clone(), *op.dss_tables()).reshape(-1)
+                            != v.reshape(-1))[:, 0]
+    assert torch.equal(torch.sort(written).values, changed)
+    assert torch.isin(read, written).all()
+    nbytes, _ = dss_surface.bytes_and_flops(v, *op.dss_tables())
+    together = dss_surface.sector_bytes(v, *op.dss_tables())
+    assert nbytes <= together <= dss_surface.sector_bytes(v, *op.dss_tables(), apart=True)
+
+
+def test_kernel_tables_check_what_they_derive():
+    """A K that is not the Kronecker sum of the brick factors' cell blocks,
+    or contributor lists that do not partition the copies, raise."""
+    t, m = port_tables(*CASES[2])
+    bad = dict(t, K=t["K"] * (1.0 + 1e-9))
+    with pytest.raises(ValueError, match="Kronecker sum"):
+        kernel_tables(bad, m)
+    ec = np.array(t["edge_contrib"])
+    ec[0] = ec[1]
+    with pytest.raises(ValueError, match="edge"):
+        kernel_tables(dict(t, edge_contrib=ec), m)
 
 
 @case
@@ -128,10 +210,9 @@ def test_cpu_tensors_take_the_plain_version(mod):
     hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
     args, kw = {
         "brick_apply": lambda: ((bricks(11), op.Kb, op.Mb, op.geo, op.p), {}),
-        "cell_apply": lambda: ((sub(12), op.K, op.geo_cell_sub), {"brick_size": op.B}),
+        "cell_apply": lambda: ((sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
         "cols_overlap_add": lambda: ((sub(13), cells(14)), {"brick_size": op.B}),
-        "dss_surface": lambda: ((bricks(15), op.face_other, op.edge_contrib,
-                                 op.corner_contrib, op.node_valid, op.NB), {}),
+        "dss_surface": lambda: ((bricks(15), *op.dss_tables()), {}),
         "hn_apply": lambda: ((hn_rows(16), op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col,
                               op.hn_fwd_w), {}),
         "fill_hn": lambda: ((sub(17), op.hn_sub, op.keep_hn, op.fill_row_ptr,
