@@ -4,26 +4,33 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the eight CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
-   (one nvcc per source, all at once), with each kernel's registers and spills;
+2. build the seven CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+   (one nvcc per source, all at once), with each kernel's registers and spills, and
+   brick_apply's shared memory and blocks per SM at each degree;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists, and on the host hold the kernels'
    composed chain lists at this mesh against the dense one-hot chain, stage by
    stage (float64, relative tolerance 1e-12);
 4. hold each kernel against its plain PyTorch version on the card at the
    shapes the vmult and refill give it (relative tolerance 1e-5 in float32;
-   the kernels that work in place on their own copies), and time kernel,
+   the kernels that work in place on their own copies; brick_apply as the
+   vmult launches it, with the overlap-add of the vmult's own cell-row
+   deltas in its epilogue), and time kernel,
    plain version and, where one PyTorch call computes the same function, that
    call, with CUDA events on a busy card (device time; median over
    repetitions after warm-up; dss_surface's timed calls work on a scratch
    copy refreshed before each, outside the timed window); dss_surface's
    traffic counted in 32-byte sectors (surface blocks touched together and
-   apart) printed beside its bound;
+   apart) printed beside its bound; printed beside brick_apply: its time
+   without the cell rows (the function earlier versions timed) and
+   ``index_add_`` of the cell rows alone;
 5. the end-to-end constrained vmult at nref=7 in float32 through the kernels,
    held against the plain float64 path on the card (after zeroing the
    hanging entries, relative tolerance 1e-5), with every kernel's launch
-   count read from that run; its time and DoF/s; a profile of where its
-   device time goes (no device launch outside the port's kernels);
+   count read from that run (8 launches per vmult); its time and DoF/s; the
+   host's time to issue one vmult and one fused brick_apply (``host_ms``); a
+   profile of where its device time goes (8 launches of the port's
+   kernels, no device launch outside them);
 6. ``refill`` of the vmult's output at nref=7 in float32 through the
    kernels against the plain float64 refill on the card (1e-5), with its
    launch counts, time and profile (no launch outside the kernels);
@@ -88,6 +95,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, device_only: bool = False,
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def host_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median host time in ms to issue fn(), its launches enqueued and not
+    waited for; the card spins before each call, so no launch waits on it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
 def errors(got: torch.Tensor, ref: torch.Tensor):
     diff = float((got.double() - ref.double()).abs().max())
     return diff, diff / max(float(ref.double().abs().max()), 1e-300)
@@ -133,10 +156,12 @@ def profile_path(what, fn, kernel_names, reps: int = 10):
     own_ms = sum(r[0] for r in rows if ours(r[2]))
     res = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
                port_kernels_ms=own_ms, other_ms=busy - own_ms,
+               port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
     print(f"profile (per {what}, {reps} calls): wall {wall_ms:.4f} ms, device busy "
           f"{busy:.4f} ms (idle {100 * res['idle_share']:.1f} %), port kernels "
-          f"{own_ms:.4f} ms, other device work {res['other_ms']:.4f} ms in "
+          f"{own_ms:.4f} ms in {res['port_launches']} launches, other device work "
+          f"{res['other_ms']:.4f} ms in "
           f"{res['other_launches']} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
@@ -214,21 +239,19 @@ def kernel_calls(op, x, y):
     refreshing the scratch copy that the timed calls of such a kernel work
     on where repeated calls would grow it without bound."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        brick_apply, cell_apply, cols_overlap_add, corr_compact, dss_surface, fill_hn,
-        hn_apply, refill_update,
+        brick_apply, cell_apply, corr_compact, dss_surface, fill_hn, hn_apply, refill_update,
     )
 
     isz = x.element_size()
     u_sub = x[: op.n_sub]
-    v0 = brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p)
     plain_rows = cell_apply.cell_apply(u_sub, *op.factors_host, op.geo_cell_sub, brick_size=op.B)
     filled = op._fill_hn_compact(u_sub)
     u_hat = op._hn_apply(filled, False)
     own = cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn)
     sub_raw = op._hn_apply(own, True)
     dcols = op._corr_compact(plain_rows, sub_raw)
-    v1 = v0.clone()
-    cols_overlap_add.cols_overlap_add(v1[: op.n_sub], dcols, brick_size=op.B)
+    fused = dict(dcols=dcols, brick_size=op.B)
+    v1 = brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p, **fused)
     u_hat_r = op._fill_rows(y[: op.n_sub])
     dss_args = op.dss_tables()
     hn_args = lambda d: (op.hn_q, getattr(op, f"hn_{d}_ptr"), getattr(op, f"hn_{d}_col"),
@@ -236,15 +259,15 @@ def kernel_calls(op, x, y):
     fill_args = (op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot, op.fill_ent_src, op.B)
     corr_args = (op.cell_code, op.keep_hn, op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src)
     refill_args = (op.node_valid, op.cell_code, op.refill_pos, op.fill_invden_X, op.B)
-    v_tmp = v0[: op.n_sub].clone()
     v_dss = v1.clone()  # the timed dss_surface calls' scratch, refreshed from v1 before each
     torch.cuda.synchronize()
     return {
         "brick_apply": [(
-            "bricks",
-            lambda: brick_apply.brick_apply(x, op.Kb, op.Mb, op.geo, op.p),
-            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo),
-            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz), None, None,
+            "fused",
+            lambda: brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p, **fused),
+            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo, op.p, **fused),
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz, op.n_sub), None,
+            None,
         )],
         "cell_apply": [(
             "from_bricks",
@@ -257,16 +280,6 @@ def kernel_calls(op, x, y):
             lambda: cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn),
             lambda: cell_apply.cell_apply_plain(u_hat, op.K1, op.M1, op.geo_hn),
             cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None, None,
-        )],
-        "cols_overlap_add": [(
-            "into_bricks",
-            lambda: cols_overlap_add.cols_overlap_add(v_tmp, dcols, op.B),
-            lambda: cols_overlap_add.cols_overlap_add_plain(v_tmp, dcols, op.B),
-            cols_overlap_add.bytes_and_flops(op.n_sub, op.B, op.p, op.N3p, isz),
-            lambda: (cols_overlap_add.cols_overlap_add(v0[: op.n_sub].clone(), dcols, op.B),
-                     cols_overlap_add.cols_overlap_add_plain(v0[: op.n_sub].clone(), dcols,
-                                                             op.B)),
-            None,
         )],
         "dss_surface": [(
             "bricks",
@@ -306,7 +319,7 @@ def kernel_calls(op, x, y):
                                           op.fill_invden_X, op.B), None, None,
         )],
     }, dict(filled=filled, own=own, u_sub=u_sub, u_hat=u_hat, sub_raw=sub_raw,
-            plain_rows=plain_rows, dcols=dcols, v_tmp=v_tmp, v1=v1)
+            plain_rows=plain_rows, dcols=dcols, v1=v1)
 
 
 def check_chain_tables(mf, op, seed):
@@ -389,7 +402,7 @@ def main() -> int:
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, cols_overlap_add, dss_surface,
+        KERNEL_MODULES, _build, brick_apply, dss_surface,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -410,6 +423,11 @@ def main() -> int:
     for name, log in logs.items():
         for kernel, usage in _build.ptxas_usage(log):
             print(f"  {kernel}: {usage}")
+    for dt in (torch.float32, torch.float64):
+        for p in sorted(q for _, q in brick_apply.SUPPORTED):
+            plans = [brick_apply.plan(dt, p, m, device=dev) for m in (0, 1)]
+            print(f"  brick_apply_kernel {dt} p={p}: shared memory bytes, blocks per SM "
+                  f"{plans[0]} without cell rows, {plans[1]} with")
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
     t0 = time.perf_counter()
@@ -446,12 +464,9 @@ def main() -> int:
     check_kernels(calls, tol32, "nref=7 f32")
     # library yardsticks: one PyTorch call computing the same function (timed
     # here only; the port never calls them)
-    flat_idx = cols_overlap_add.overlap_add_index(op.n_sub, op.B, op.p, op.N3p, dev)
     library = {name: [None] * len(parts) for name, parts in calls.items()}
     K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
     library["cell_apply"][1] = lambda: torch.mm(inter["u_hat"], K.T)
-    library["cols_overlap_add"][0] = lambda: inter["v_tmp"].view(-1).index_add_(
-        0, flat_idx, inter["dcols"].view(-1))
     library.update(yardsticks(op, *(inter[k] for k in ("filled", "own", "u_sub", "sub_raw",
                                                         "plain_rows"))))
     wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
@@ -491,6 +506,21 @@ def main() -> int:
                   + (f", library {l_ms:.4f} ms" if l_ms is not None else ""), flush=True)
         rec["bound_by"] = max(bound_parts)[1]
         results[name] = rec
+    # beside the fused brick_apply (printed, not in the kernels line): the launch
+    # without cell rows, as earlier versions timed it, and the overlap-add alone as
+    # one index_add_
+    nbytes, flops = brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p,
+                                                x.element_size())
+    bare_ms = time_ms(lambda: brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p),
+                      device_only=True)
+    print(f"brick_apply without cell rows: {bare_ms:.4f} ms, bound "
+          f"{bound(nbytes, flops, x.dtype)[0]:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+    dcols = inter["dcols"]
+    idx = brick_apply.overlap_add_index(op.n_sub, op.B, op.p, op.N3p, dev)
+    v_sub = inter["v1"][: op.n_sub].clone()
+    ia_ms = time_ms(lambda: v_sub.view(-1).index_add_(0, idx, dcols.view(-1)), device_only=True)
+    print(f"index_add_ of the cell rows alone (the overlap-add's library yardstick): "
+          f"{ia_ms:.4f} ms", flush=True)
     # dss_surface's traffic in 32-byte sectors: an estimate printed beside its
     # bound, not a bound (the kernels line carries only the bound)
     dss = results["dss_surface"]
@@ -517,11 +547,19 @@ def main() -> int:
         if name != "refill_update":
             check(n > 0, f"the vmult never launched {name}")
             results[name]["launches"] = n
+    check(sum(counts.values()) == 8, f"{sum(counts.values())} kernel launches per vmult, not 8")
     vm_ms = time_ms(lambda: op.vmult(x), reps=30, warmup=5)
     vm_plain_ms = time_ms(lambda: op.vmult(x, plain=True), reps=10, warmup=2)
     print(f"vmult nref=7 p=4 f32 on {smi}: {vm_ms:.4f} ms ({mf.n_dofs / vm_ms / 1e6:.4f} "
           f"GDoF/s); plain path {vm_plain_ms:.4f} ms", flush=True)
+    vm_host_ms = host_ms(lambda: op.vmult(x))
+    ba_host_ms = host_ms(lambda: brick_apply.brick_apply(
+        x, *op.brick_factors_host, op.geo, op.p, dcols=dcols, brick_size=op.B))
+    print(f"host time to issue a vmult (8 launches): {vm_host_ms:.4f} ms; one fused "
+          f"brick_apply: {ba_host_ms:.4f} ms", flush=True)
     vm_prof = profile_path("vmult", lambda: op.vmult(x), set(wrappers))
+    check(vm_prof["port_launches"] == 8,
+          f"the profile saw {vm_prof['port_launches']} kernel launches per vmult, not 8")
 
     # ---- 6. refill, nref=7, float32, through the kernels --------------------
     ref = op64.refill(y.double(), plain=True)
@@ -571,6 +609,7 @@ def main() -> int:
     # ---- 8. the numbers ------------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": mf.n_dofs,
                                 "gdofs_per_s": mf.n_dofs / vm_ms / 1e6, "launches": counts,
+                                "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
                                 "profile": vm_prof, "card": smi},
                       "refill": {"ms": rf_ms, "plain_ms": rf_plain_ms, "launches": rcounts,
                                  "profile": rf_prof, "card": smi}}))

@@ -9,12 +9,12 @@ stores the NB^3 (NB = B*p+1) nodes of its cell block, padded to N3p, as one
 row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained cells
 (the "subset") come first, so every subset access is a leading slice.
 
-vmult = brick_apply (separable operator x geo, every brick)
-      + on the subset: cell_apply (cells read from the bricks, times K by
+vmult = on the subset: cell_apply (cells read from the bricks, times K by
         sum factorization of its 1-D factors K1, M1), on the constrained
         rows fill_hn, hn_apply, cell_apply, hn_apply^T, then corr_compact
-        (the fold and the sparse delta of every subset cell row),
-        cols_overlap_add (the deltas summed back into the bricks)
+        (the fold and the sparse delta of every subset cell row)
+      -> brick_apply (separable operator x geo, every brick; its epilogue
+        sums the subset's deltas back into their bricks)
       -> dss_surface (in place: sum each shared face/edge/corner over its
         pool, zero the hole nodes).
 refill = fill_hn, hn_apply, refill_update (the coverage-divided write-back).
@@ -42,7 +42,6 @@ from .elements import shape_info
 from .kernels import (
     brick_apply,
     cell_apply,
-    cols_overlap_add,
     corr_compact,
     dss_surface,
     fill_hn,
@@ -862,6 +861,21 @@ def _cell_factors(Kb, Mb, K, p):
     return fac
 
 
+def _brick_factors(Kb, Mb, p):
+    """brick_apply's factors: the structural nonzeros of Kb and Mb, packed
+    row by row (``brick_apply.factor_structure``). Raises unless they
+    rebuild Kb and Mb exactly."""
+    rows, cols = brick_apply.factor_structure(Kb.shape[0], p)
+    out = {}
+    for name, A in (("Kb", Kb), ("Mb", Mb)):
+        rebuilt = np.zeros_like(A)
+        rebuilt[rows, cols] = A[rows, cols]
+        if not np.array_equal(rebuilt, A):
+            raise ValueError(f"{name} has nonzeros outside the structure of its cell blocks")
+        out[f"{name}_packed"] = A[rows, cols]
+    return out
+
+
 def _pack_bits(mask):
     """[rows, n] bool -> [rows, ceil(n/32)] int32 words, bit k of a row in
     word k // 32 at position k % 32."""
@@ -935,7 +949,7 @@ def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB):
 
 
 def kernel_tables(arrays: dict, meta: dict) -> dict:
-    """The tables the eight kernels read, derived on the host from the
+    """The tables the seven kernels read, derived on the host from the
     reference-layout tables of ``operator_tables`` (or
     ``convert.reference_tables``): the dense one-hot stacks T and the
     composite Q become index lists, checked as they are built.
@@ -959,18 +973,22 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       writes it (-1 elsewhere).
     - cell: the 1-D factors K1 and M1 of the cell stiffness, read off the
       assembled brick factors (``_cell_factors``).
+    - brick: the structural nonzeros of Kb and Mb, packed row by row for
+      brick_apply (``_brick_factors``).
     - dss: the interface pools as work lists with the surface validity and
       the holes as bit tables (``_dss_work_lists``).
 
-    Returns the buffers of ``BrickLaplaceMM``: the brick tables as given,
-    these lists, and no dense K, T or Q (``kronecker_sum(K1, M1)`` builds
-    K where a check needs it)."""
+    Returns the tables of ``BrickLaplaceMM`` (its buffers, and the packed
+    brick factors it keeps on the host): the brick tables as given, these
+    lists, and no dense K, T or Q (``kronecker_sum(K1, M1)`` builds K where
+    a check needs it)."""
     C = int(meta["B"]) ** 3
     n_loc = (int(meta["p"]) + 1) ** 3
     N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
     i32 = lambda x: np.asarray(x).astype(np.int32)
     out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "geo", "geo_cell_sub", "node_valid")}
     out.update(_cell_factors(out["Kb"], out["Mb"], np.asarray(arrays["K"]), int(meta["p"])))
+    out.update(_brick_factors(out["Kb"], out["Mb"], int(meta["p"])))
     out.update(_dss_work_lists(arrays["face_other"], arrays["edge_contrib"],
                                arrays["corner_contrib"], out["node_valid"], int(meta["NB"])))
     hn_sub = np.asarray(arrays["hn_sub"], dtype=np.int64)
@@ -1170,21 +1188,26 @@ class BrickLaplaceMM(nn.Module):
 
     def _load(self, arrays, meta, device, dtype):
         """Register the kernels' tables (``kernel_tables``) as buffers:
-        floating ones cast to dtype, index ones as built (int32)."""
+        floating ones cast to dtype, index ones as built (int32); brick_apply's
+        packed factors stay on the host."""
         self._meta = meta
         for k in ("B", "p", "NB", "N3", "N3p", "n_sub"):
             setattr(self, k, int(meta[k]))
         self.C = self.B**3
         self.n_loc = (self.p + 1) ** 3
         self.n_bricks = int(arrays["geo"].shape[0])
-        for name, a in kernel_tables(arrays, meta).items():
+        tables = kernel_tables(arrays, meta)
+        # cell_apply's and brick_apply's kernels take their factors by value,
+        # as launch parameters
+        self.brick_factors_host = tuple(torch.from_numpy(tables.pop(f"{n}_packed")).to(dtype)
+                                        for n in ("Kb", "Mb"))
+        for name, a in tables.items():
             a = np.ascontiguousarray(a)
             t = torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a)
             self.register_buffer(name, t.to(device, dtype) if a.dtype.kind == "f"
                                  else t.to(device))
         self.n_hn = int(self.hn_sub.shape[0])
         self.register_buffer("geo_hn", self.geo_cell_sub[self.hn_sub.long()])
-        # cell_apply's kernel takes K1 and M1 by value, as launch parameters
         self.factors_host = (self.K1.cpu(), self.M1.cpu())
 
     # ------------------------------------------------------------ conversions
@@ -1270,13 +1293,15 @@ class BrickLaplaceMM(nn.Module):
 
     def vmult(self, bv: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """v = A bv (reference ``_vmult_impl``, non-assembled compact-chain
-        input-fill branch, then ``_dss_fill``). plain=True runs every
-        kernel's plain PyTorch version on the operator's device instead: the
+        input-fill branch, then ``_dss_fill``). The chain reads only bv, so
+        it runs first and brick_apply adds its deltas (dcols) into the
+        subset bricks as it stores them. plain=True runs every kernel's
+        plain PyTorch version on the operator's device instead: the
         reference the card's kernels are held against."""
         self._check(bv)
         ca = self._kernel(cell_apply, plain)
         fac = (self.K1, self.M1) if plain else self.factors_host
-        v = self._kernel(brick_apply, plain)(bv, self.Kb, self.Mb, self.geo, self.p)
+        dcols = None
         if self.n_sub:
             u_sub = bv[: self.n_sub]
             plain_rows = ca(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
@@ -1286,7 +1311,9 @@ class BrickLaplaceMM(nn.Module):
             else:
                 sub_raw = bv.new_empty((0, self.n_loc))
             dcols = self._corr_compact(plain_rows, sub_raw, plain)
-            self._kernel(cols_overlap_add, plain)(v[: self.n_sub], dcols, brick_size=self.B)
+        v = self._kernel(brick_apply, plain)(
+            bv, *((self.Kb, self.Mb) if plain else self.brick_factors_host), self.geo, self.p,
+            dcols=dcols, brick_size=self.B)
         return self._kernel(dss_surface, plain)(v, *self.dss_tables())
 
     def dss_tables(self):

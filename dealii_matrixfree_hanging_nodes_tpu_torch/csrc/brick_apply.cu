@@ -1,81 +1,197 @@
 // brick_apply: v_b = geo_b * (Mz (x) (My (x) Kx + Ky (x) Mx) + Kz (x) My (x) Mx) u_b
 // on every brick b of a [n_bricks, N3p] vector (node (z, y, x) at (z*NB + y)*NB + x,
-// N3 = NB^3 nodes, padded to N3p).
+// N3 = NB^3 nodes, padded to N3p), and on the first m bricks, as an epilogue, the
+// overlap-add of their cell rows: v_b[node] += the 1-8 entries dcols[b*B^3 + slot, j] of
+// the (cell slot, local node) pairs that sit on that node (dcols [m*B^3, n_loc],
+// n_loc = (p+1)^3, NB = B*p + 1, cell slots and local nodes x fastest).
 //
 // Replaces: experiments/queue/_mb_main.py:63 pallas_fused, the unadopted Pallas form
 //   of BrickLaplaceMM._main_apply (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2321-2348)
-//   times the per-brick geo scale (bricks.py:2367).
+//   times the per-brick geo scale (bricks.py:2367); and, in the epilogue, _scatter_cols /
+//   _col2im_sep (bricks.py:2196-2241) with the merge v.at[:n_sub].add(corr)
+//   (bricks.py:2553-2559), which the TPU side ran as a one-hot matmul.
 //
-// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4400 bricks, NB=17, N3p=4992):
-//   memory. The least traffic is one read of u and one write of v, 2 x 87.9 MB = 176 MB,
-//   52 us at 3.35 TB/s. The sweeps below do 2.4 GFLOP, 35 us at 67 TFLOP/s (f32 outside the
-//   tensor cores), so the bytes bound.
+// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4400 bricks, NB=17, N3p=4992, 1025
+//   bricks with cell rows): memory. u's N3 nodes are read once (86.5 MB), v is written once
+//   with its zero padding (87.9 MB) and the cell rows read once (32.8 MB): 207.1 MB, 61.8 us
+//   at 3.35 TB/s (52.0 us without the cell rows). Kb and Mb are assembled
+//   from cell blocks, so row i of either has 97 structural nonzeros in all at p=4 (p+1 in a
+//   row inside a cell, 2p+1 on an interior cell boundary): the 7 sweeps below do 1.73 GFLOP,
+//   26 us at 67 TFLOP/s (f32 outside the tensor cores).
 //
-// Design: one block per brick; the brick lives in shared memory (two NB^3 buffers, 39 KB
-//   in f32, 79 KB in f64) and is read from and written to device memory once, coalesced.
-//   The operator is applied as three rounds of 1-D sweeps instead of the TPU kernel's
-//   289 x 289 xy-plane matmuls:
-//     x round, one thread per (z, y) line:  a = Mb u,          b = Kb u
-//     y round, one thread per (z, x) line:  c1 = Mb b + Kb a,  c2 = Mb a
-//     z round, one thread per (y, x) line:  v = geo (Mb c1 + Kb c2), stored to device memory
-//   A thread keeps its lines in registers (NB and p are template parameters, so every loop
-//   unrolls) and writes its results back in place. Kb and Mb are assembled from cell
-//   blocks, so row i is zero outside |i - j| <= p: each output sums at most 2p+1 terms.
-//   Line strides are odd (NB, NB^2), so the f32 shared-memory accesses do not conflict.
-//   The padded tail N3..N3p is written as zeros.
+// Design: one block per brick; the brick lives in shared memory and is read from and
+//   written to device memory once. The operator is applied as 1-D sweeps in three rounds,
+//   one line per thread (NB^2 lines, 289 in 320 threads at NB=17):
+//     x round, line (z, y), contiguous:  a = Mb u,          b = Kb u
+//     y round, line (z, x), stride NB:   c1 = Mb b + Kb a,  c2 = Mb a
+//     z round, line (y, x), stride NB^2: v = geo (Mb c1 + Kb c2) [+ the cell rows' entries]
+//   A thread holds its line in registers and writes its results back in place, so a brick
+//   needs two buffers; the z round stores to device memory directly, coalesced (a warp's
+//   lanes write neighbouring x), and the padded tail N3..N3p is written as zeros.
+//   Factors: only the structural nonzeros of Kb and Mb, packed row by row on the host
+//   (97 per factor at p=4: 776 B in f32; 2,576 B in f64 at p=8), travel with the launch as
+//   its parameters (the constant bank). NB and p are template parameters, so every loop
+//   unrolls, the structure folds at compile time and each factor entry is an operand of
+//   its FMA (ptxas brings them in with ULDC into uniform registers): no sweep loads a
+//   factor from shared or device memory. Each product is its own FMA: a sum of two
+//   products added to an accumulator compiles to FMUL, FFMA and FADD.
+//   Loads: the brick and, for the first m bricks, its B^3 contiguous cell rows (32,000 B
+//   in f32 at p=4) come in with 16-byte cp.async copies in two groups; the x round waits
+//   for the brick only, the z round for the cell rows. Three blocks stay resident on an SM
+//   in f32 at p=4, so one block's copies run under the others' sweeps.
+//   Epilogue: a node's entries are summed in a fixed order, z cells outer, then y, then x,
+//   each axis listing a node inside a cell once and a node on an interior cell boundary
+//   twice (the cell before at local p, the cell after at local 0), from 0, then added to
+//   geo * the sweeps: no atomics, deterministic.
+//   What holds it back at p=4 f32: the instruction stream, not bytes. Per line a thread
+//   runs 679 FFMA (7 sweeps of 97 nonzeros), a ULDC for every one or two factor entries, 85
+//   shared loads, 68 shared stores and 17 global stores; a brick takes 10 warps (the tenth
+//   holds one line), each running all of that.
+//   Tried and not kept: two or three lines per thread, to share each ULDC (ptxas then
+//   asks for 168-255 registers and spills); the factors in __constant__ memory (the same
+//   ULDC code, plus a copy a launch); a y round without bank conflicts (no faster: shared
+//   memory does not bound it); persistent blocks that prefetch their next brick with
+//   cp.async into a third buffer (no faster on the fused launch than resident blocks).
+//   Resources (ptxas, sm_90a, CUDA 12.8; chip_smoke.py phase 2 prints them; no spills and
+//   no stack in any instantiation; shared memory without / with cell rows):
+//     f32 p=4: 56 registers, 320 threads, 39,328 / 71,328 B, 3 blocks an SM
+//     f32 p=5: 48, 128, 10,656 / 17,568 B, 10;  p=6: 48, 192, 17,600 / 28,576 B, 6
+//     f32 p=7: 48, 256, 27,008 / 43,392 B, 5;   p=8: 56, 320, 39,328 / 62,656 B, 3
+//     f64 p=4: 100 registers, 78,624 / 142,624 B, 1 block an SM
+//     f64 p=5: 84, 21,312 / 35,136 B, 5;  p=6: 94, 35,168 / 57,120 B, 3
+//     f64 p=7: 93, 54,016 / 86,784 B, 2;  p=8: 100, 78,624 / 125,280 B, 1
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
+
 namespace {
 
-// Kb and Mb vanish outside the band |i - j| <= P. With i and j unrolled loop counters
-// the test folds at compile time, so the lines stay in registers.
-template <int P>
-__device__ __forceinline__ constexpr bool in_band(int i, int j) {
-  return j >= i - P && j <= i + P;
+// Structural nonzeros of row i of a brick factor: columns lo(i)..hi(i).
+template <int NB, int P>
+__host__ __device__ constexpr int lo(int i) {
+  return i == 0 ? 0 : (i - 1) / P * P;
+}
+template <int NB, int P>
+__host__ __device__ constexpr int hi(int i) {
+  return (i / P + 1) * P < NB - 1 ? (i / P + 1) * P : NB - 1;
+}
+// Offset of row i in the packed factor: p+1 entries a row, p more on each interior cell
+// boundary before row i.
+template <int NB, int P>
+__host__ __device__ constexpr int row_offset(int i) {
+  const int b = i == 0 ? 0 : (i - 1) / P;
+  return i * (P + 1) + P * (b < (NB - 1) / P - 1 ? b : (NB - 1) / P - 1);
 }
 
 template <typename T, int NB, int P>
-__global__ void __launch_bounds__(320)
-brick_apply_kernel(const T* __restrict__ u, const T* __restrict__ Kb,
-                   const T* __restrict__ Mb, const T* __restrict__ geo,
-                   T* __restrict__ v, int N3p) {
-  constexpr int N2 = NB * NB;
-  constexpr int N3 = N2 * NB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s0 = reinterpret_cast<T*>(smem_raw);
-  T* s1 = s0 + N3;
-  T* sK = s1 + N3;
-  T* sM = sK + N2;
+struct Cfg {
+  static constexpr int B = (NB - 1) / P;
+  static constexpr int N2 = NB * NB;
+  static constexpr int N3 = N2 * NB;
+  static constexpr int VW = 16 / sizeof(T);               // values per 16-byte word
+  static constexpr int N3R = (N3 + VW - 1) / VW * VW;     // a brick buffer, whole words
+  static constexpr int NL = (P + 1) * (P + 1) * (P + 1);  // local nodes of a cell
+  static constexpr int DC = B * B * B * NL;               // a brick's cell rows
+  static constexpr int DCR = (DC + VW - 1) / VW * VW;
+  static constexpr int NNZ = row_offset<NB, P>(NB);
+  static constexpr int THREADS = (N2 + 31) / 32 * 32;
+  static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
+};
 
-  const size_t base = static_cast<size_t>(blockIdx.x) * N3p;
-  const T* ub = u + base;
-  T* vb = v + base;
-  for (int i = threadIdx.x; i < N3; i += blockDim.x) s0[i] = ub[i];
-  for (int i = threadIdx.x; i < N2; i += blockDim.x) {
-    sK[i] = Kb[i];
-    sM[i] = Mb[i];
+// The structural nonzeros of Kb and Mb, packed row by row, as launch parameters.
+template <typename T, int NNZ>
+struct Factors {
+  T K[NNZ];
+  T M[NNZ];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying `count` values into shared memory: 16-byte cp.async copies where both
+// sides allow them (the tail may read up to the next 16 bytes, inside the callers' padding),
+// else plain loads, complete on return.
+template <typename T>
+__device__ __forceinline__ void stage(T* __restrict__ dst, const T* __restrict__ src,
+                                      int count, bool vec) {
+  if (vec) {
+    constexpr int VW = 16 / sizeof(T);
+    for (int i = threadIdx.x; i * VW < count; i += blockDim.x) cp_async16(dst + i * VW, src + i * VW);
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
   }
+}
+
+// The 1-2 (cell, local node) pairs of coordinate c along one axis, as offsets into a brick's
+// cell rows with that axis' cell and local strides; returns their number.
+template <int NB, int P>
+__device__ __forceinline__ int axis_terms(int c, int cell_stride, int loc_stride, int (&off)[2]) {
+  const int q = c / P, r = c - q * P;
+  if (c == NB - 1) {
+    off[0] = (q - 1) * cell_stride + P * loc_stride;
+    return 1;
+  }
+  if (r == 0 && c > 0) {
+    off[0] = (q - 1) * cell_stride + P * loc_stride;
+    off[1] = q * cell_stride;
+    return 2;
+  }
+  off[0] = q * cell_stride + r * loc_stride;
+  return 1;
+}
+
+template <typename T, int NB, int P>
+__global__ void __launch_bounds__(Cfg<T, NB, P>::THREADS, sizeof(T) == 4 ? 2 : 1)
+brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ> f,
+                   const T* __restrict__ geo, const T* __restrict__ dcols, T* __restrict__ v,
+                   int m, int N3p, int vec_u, int vec_d) {
+  using S = Cfg<T, NB, P>;
+  constexpr int N2 = S::N2, N3 = S::N3, N = P + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s0 = reinterpret_cast<T*>(smem_raw);  // the brick, then a, then c1
+  T* const s1 = s0 + S::N3R;                     // b, then c2
+  T* const sd = s1 + S::N3R;                     // the brick's cell rows (k < m)
+
+  const int k = blockIdx.x;
+  const bool rows = k < m;
+  stage(s0, u + static_cast<size_t>(k) * N3p, N3, vec_u);
+  cp_async_commit();
+  if (rows) stage(sd, dcols + static_cast<size_t>(k) * S::DC, S::DC, vec_d);
+  cp_async_commit();
+  T* const vb = v + static_cast<size_t>(k) * N3p;
   for (int i = N3 + threadIdx.x; i < N3p; i += blockDim.x) vb[i] = T(0);
+  cp_async_wait<1>();  // the brick; its cell rows may still be in flight
   __syncthreads();
 
-  // One line per thread in each round (blockDim >= N2). A loop over lines would let the
-  // compiler hoist all 2 NB^2 factor entries into registers across iterations and spill.
+  // One line per thread in each round; the threads past N2 only copy and wait.
   const int l = threadIdx.x;
+  const bool active = l < N2;
 
   // x round: line l = (z, y), contiguous
-  if (l < N2) {
+  if (active) {
     T r[NB];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) r[k] = s0[l * NB + k];
+    for (int j = 0; j < NB; ++j) r[j] = s0[l * NB + j];
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       T a = T(0), b = T(0);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        if (in_band<P>(i, j)) {
-          a += sM[i * NB + j] * r[j];
-          b += sK[i * NB + j] * r[j];
+        if (j >= lo<NB, P>(i) && j <= hi<NB, P>(i)) {
+          const int e = row_offset<NB, P>(i) + j - lo<NB, P>(i);
+          a += f.M[e] * r[j];
+          b += f.K[e] * r[j];
         }
       }
       s0[l * NB + i] = a;
@@ -85,79 +201,133 @@ brick_apply_kernel(const T* __restrict__ u, const T* __restrict__ Kb,
   __syncthreads();
 
   // y round: line l = (z, x), stride NB
-  if (l < N2) {
+  if (active) {
     const int z = l / NB;
     const int o = z * N2 + (l - z * NB);
     T a[NB], b[NB];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      a[k] = s0[o + k * NB];
-      b[k] = s1[o + k * NB];
+    for (int j = 0; j < NB; ++j) {
+      a[j] = s0[o + j * NB];
+      b[j] = s1[o + j * NB];
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       T c1 = T(0), c2 = T(0);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        if (in_band<P>(i, j)) {
-          c1 += sM[i * NB + j] * b[j] + sK[i * NB + j] * a[j];
-          c2 += sM[i * NB + j] * a[j];
+        if (j >= lo<NB, P>(i) && j <= hi<NB, P>(i)) {
+          const int e = row_offset<NB, P>(i) + j - lo<NB, P>(i);
+          c1 += f.M[e] * b[j];  // one FMA a term: a sum of two products
+          c1 += f.K[e] * a[j];  // would compile to FMUL, FFMA and FADD
+          c2 += f.M[e] * a[j];
         }
       }
       s0[o + i * NB] = c1;
       s1[o + i * NB] = c2;
     }
   }
+  cp_async_wait<0>();  // the cell rows
   __syncthreads();
 
-  // z round: line l = (y, x), stride N2; results go straight to device memory
-  if (l < N2) {
-    const T g = geo[blockIdx.x];
+  // z round: line l = (y, x), stride N2; results straight to device memory
+  if (active) {
+    int oy[2] = {0, 0}, ox[2] = {0, 0};  // the cell-row offsets of (y, x)
+    const int ny = axis_terms<NB, P>(l / NB, S::B * S::NL, N, oy);
+    const int nx = axis_terms<NB, P>(l % NB, S::NL, 1, ox);
+    const T g = geo[k];
     T c1[NB], c2[NB];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      c1[k] = s0[l + k * N2];
-      c2[k] = s1[l + k * N2];
+    for (int j = 0; j < NB; ++j) {
+      c1[j] = s0[l + j * N2];
+      c2[j] = s1[l + j * N2];
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       T acc = T(0);
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
-        if (in_band<P>(i, j)) acc += sM[i * NB + j] * c1[j] + sK[i * NB + j] * c2[j];
+        if (j >= lo<NB, P>(i) && j <= hi<NB, P>(i)) {
+          const int e = row_offset<NB, P>(i) + j - lo<NB, P>(i);
+          acc += f.M[e] * c1[j];
+          acc += f.K[e] * c2[j];
+        }
       }
-      vb[l + i * N2] = g * acc;
+      T out = g * acc;
+      if (rows) {
+        int oz[2] = {0, 0};
+        const int nz = axis_terms<NB, P>(i, S::B * S::B * S::NL, N * N, oz);
+        T corr = T(0);  // fixed indices, so the term lists stay in registers
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (a < nz && b < ny && c < nx) corr += sd[oz[a] + oy[b] + ox[c]];
+        out += corr;
+      }
+      vb[l + i * N2] = out;
     }
   }
 }
 
+// Raise the kernel's dynamic shared-memory limit to its largest launch (with cell rows),
+// once per device and instantiation: no attribute call on the launches after the first.
 template <typename T, int NB, int P>
-int launch(const void* u, const void* Kb, const void* Mb, const void* geo, void* v,
-           int nb, int N3p, cudaStream_t stream) {
-  constexpr int N2 = NB * NB;
-  constexpr int N3 = N2 * NB;
-  const int smem = static_cast<int>((2 * N3 + 2 * N2) * sizeof(T));
-  auto kernel = brick_apply_kernel<T, NB, P>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t allow_smem() {
+  using S = Cfg<T, NB, P>;
+  static unsigned long long done = 0;  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(brick_apply_kernel<T, NB, P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>((2 * S::N3R + S::DCR) * sizeof(T)));
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+template <typename T, int NB, int P>
+int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
+           void* v, int nb, int m, int N3p, int* info, cudaStream_t stream) {
+  using S = Cfg<T, NB, P>;
+  const int smem = static_cast<int>((2 * S::N3R + (m > 0 ? S::DCR : 0)) * sizeof(T));
+  cudaError_t err = allow_smem<T, NB, P>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = ((N2 + 31) / 32) * 32;
+  if (info) {  // a dry run: report shared memory and blocks per SM, launch nothing
+    info[0] = smem;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &info[1], brick_apply_kernel<T, NB, P>, S::THREADS, smem));
+  }
+  Factors<T, S::NNZ> f;
+  std::memcpy(f.K, Kp, sizeof(f.K));
+  std::memcpy(f.M, Mp, sizeof(f.M));
+  // 16-byte copies need 16-byte rows: N3p and the cell rows of a brick in whole words
+  const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0;
+  const int vec_d = reinterpret_cast<uintptr_t>(dcols) % 16 == 0 && S::DC % S::VW == 0;
   if (nb > 0) {
-    kernel<<<nb, threads, smem, stream>>>(
-        static_cast<const T*>(u), static_cast<const T*>(Kb), static_cast<const T*>(Mb),
-        static_cast<const T*>(geo), static_cast<T*>(v), N3p);
+    brick_apply_kernel<T, NB, P><<<nb, S::THREADS, smem, stream>>>(
+        static_cast<const T*>(u), f, static_cast<const T*>(geo), static_cast<const T*>(dcols),
+        static_cast<T*>(v), m, N3p, vec_u, vec_d);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// (NB, p) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
 template <typename T>
-int dispatch(const void* u, const void* Kb, const void* Mb, const void* geo, void* v,
-             int nb, int NB, int p, int N3p, cudaStream_t stream) {
-  if (NB == 17 && p == 4) return launch<T, 17, 4>(u, Kb, Mb, geo, v, nb, N3p, stream);
-  if (NB == 11 && p == 5) return launch<T, 11, 5>(u, Kb, Mb, geo, v, nb, N3p, stream);
-  if (NB == 13 && p == 6) return launch<T, 13, 6>(u, Kb, Mb, geo, v, nb, N3p, stream);
-  if (NB == 15 && p == 7) return launch<T, 15, 7>(u, Kb, Mb, geo, v, nb, N3p, stream);
-  if (NB == 17 && p == 8) return launch<T, 17, 8>(u, Kb, Mb, geo, v, nb, N3p, stream);
+int dispatch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
+             void* v, int nb, int m, int NB, int p, int N3p, int* info, cudaStream_t stream) {
+#define BRICK_CASE(nb_, p_) \
+  if (NB == nb_ && p == p_) \
+    return launch<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, info, stream);
+  BRICK_CASE(17, 4)
+  BRICK_CASE(11, 5)
+  BRICK_CASE(13, 6)
+  BRICK_CASE(15, 7)
+  BRICK_CASE(17, 8)
+#undef BRICK_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -165,15 +335,19 @@ int dispatch(const void* u, const void* Kb, const void* Mb, const void* geo, voi
 
 extern "C" {
 
-int brick_apply_f32(const void* u, const void* Kb, const void* Mb, const void* geo,
-                    void* v, int nb, int NB, int p, int N3p, void* stream) {
-  return dispatch<float>(u, Kb, Mb, geo, v, nb, NB, p, N3p,
+// Kp, Mp: host pointers to the packed factors (copied into the launch's parameters).
+// info: null to launch; else [shared-memory bytes, blocks per SM] of the launch, not launched.
+int brick_apply_f32(const void* u, const void* Kp, const void* Mp, const void* geo,
+                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p,
+                    int* info, void* stream) {
+  return dispatch<float>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, info,
                          static_cast<cudaStream_t>(stream));
 }
 
-int brick_apply_f64(const void* u, const void* Kb, const void* Mb, const void* geo,
-                    void* v, int nb, int NB, int p, int N3p, void* stream) {
-  return dispatch<double>(u, Kb, Mb, geo, v, nb, NB, p, N3p,
+int brick_apply_f64(const void* u, const void* Kp, const void* Mp, const void* geo,
+                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p,
+                    int* info, void* stream) {
+  return dispatch<double>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, info,
                           static_cast<cudaStream_t>(stream));
 }
 

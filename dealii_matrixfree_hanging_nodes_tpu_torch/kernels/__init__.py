@@ -6,7 +6,6 @@ on the wrapper (``<wrapper>.launches``)."""
 from . import (  # noqa: F401
     brick_apply,
     cell_apply,
-    cols_overlap_add,
     corr_compact,
     dss_surface,
     fill_hn,
@@ -14,5 +13,5 @@ from . import (  # noqa: F401
     refill_update,
 )
 
-KERNEL_MODULES = (brick_apply, cell_apply, cols_overlap_add, dss_surface, hn_apply, fill_hn,
-                  corr_compact, refill_update)
+KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_apply, fill_hn, corr_compact,
+                  refill_update)

@@ -1,19 +1,30 @@
 """Kernel 1, ``brick_apply``: the separable brick Laplace times the brick's
 geometry factor, v_b = geo_b (Mz⊗(My⊗Kx + Ky⊗Mx) + Kz⊗My⊗Mx) u_b, on every
-brick of a [n_bricks, N3p] vector (x fastest, padded tail zero).
+brick of a [n_bricks, N3p] vector (x fastest, padded tail zero), with, on
+the first m bricks, the overlap-add of their cell rows ``dcols`` [m*B^3,
+(p+1)^3] as an epilogue: each brick node gains the 1-8 cell entries that
+sit on it.
 
 Replaces ``experiments/queue/_mb_main.py:63`` ``pallas_fused``, the Pallas
 form of ``BrickLaplaceMM._main_apply`` (bricks.py:2321-2348) times ``geo``
-(bricks.py:2367). CUDA source: ``csrc/brick_apply.cu``."""
+(bricks.py:2367), and in the epilogue ``_scatter_cols`` (bricks.py:
+2196-2241) with the merge ``v.at[:n_sub].add(corr)`` (bricks.py:2553-2559).
+CUDA source: ``csrc/brick_apply.cu``.
+
+The kernel takes the structural nonzeros of Kb and Mb, packed row by row
+(``factor_structure``), as launch parameters: on the kernel path they are
+host tensors (``BrickLaplaceMM.brick_factors_host``)."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .cell_apply import brick_slot_index
 
 NAME = "brick_apply"
 REPLACES = "experiments/queue/_mb_main.py:63"
@@ -21,9 +32,62 @@ REPLACES = "experiments/queue/_mb_main.py:63"
 SUPPORTED = {(17, 4), (11, 5), (13, 6), (15, 7), (17, 8)}
 
 
-def brick_apply_plain(bv, Kb, Mb, geo, p=None):
+def factor_structure(NB: int, p: int):
+    """(rows, cols) of the structural nonzeros of a brick factor [NB, NB]
+    assembled from cell blocks of degree p, row by row (the packed order):
+    a node inside a cell couples with its cell's p+1 nodes, a node on an
+    interior cell boundary with both cells', 2p+1."""
+    i = np.arange(NB)
+    lo = np.where(i == 0, 0, (i - 1) // p * p)
+    hi = np.minimum(NB - 1, (i // p + 1) * p)
+    rows = np.repeat(i, hi - lo + 1)
+    return rows, np.concatenate([np.arange(a, b + 1) for a, b in zip(lo, hi)])
+
+
+def factor_width(n_packed: int, p: int) -> int:
+    """NB of a packed factor: it holds 1 + B p (p+2) values, NB = B p + 1."""
+    B, rest = divmod(n_packed - 1, p * (p + 2))
+    if rest or B < 1:
+        raise ValueError(f"{NAME}: {n_packed} values are no packed factor of degree {p}")
+    return B * p + 1
+
+
+def unpack_factor(packed, p):
+    """The dense factor [NB, NB] of a packed one."""
+    NB = factor_width(packed.shape[0], p)
+    rows, cols = (torch.from_numpy(a) for a in factor_structure(NB, p))
+    dense = packed.new_zeros(NB, NB)
+    dense[rows.to(packed.device), cols.to(packed.device)] = packed
+    return dense
+
+
+def overlap_add_index(m, B, p, N3p, device=None):
+    """Flat index into v [m, N3p] of every entry of cell rows [m*B^3, n_loc]."""
+    idx = brick_slot_index(B, p, device).reshape(-1)
+    return (torch.arange(m, device=device)[:, None] * N3p + idx[None, :]).reshape(-1)
+
+
+def _rows_of(dcols, brick_size, nb, N3p):
+    """(m, p) of the cell rows dcols [m*B^3, (p+1)^3] of the first m bricks."""
+    if brick_size is None:
+        raise ValueError(f"{NAME}: dcols needs brick_size")
+    B = int(brick_size)
+    p = round(dcols.shape[1] ** (1.0 / 3.0)) - 1
+    m, rest = divmod(dcols.shape[0], B**3)
+    if dcols.dim() != 2 or (p + 1) ** 3 != dcols.shape[1] or rest or m > nb \
+            or N3p < (B * p + 1) ** 3:
+        raise ValueError(f"{NAME}: dcols {tuple(dcols.shape)} are no cell rows of "
+                         f"B={B} bricks of [{nb}, {N3p}]")
+    return m, p
+
+
+def brick_apply_plain(bv, Kb, Mb, geo, p=None, dcols=None, brick_size=None):
     """Plain PyTorch version, the reference's algebra: the 289x289 xy
-    factors Fxy = Mb⊗Kb + Kb⊗Mb and Mxy = Mb⊗Mb, then the z contractions."""
+    factors Fxy = Mb⊗Kb + Kb⊗Mb and Mxy = Mb⊗Mb, then the z contractions;
+    then one ``index_add_`` of dcols into the first m bricks. Kb, Mb dense
+    [NB, NB] or packed (then p is needed)."""
+    if Kb.dim() == 1:
+        Kb, Mb = unpack_factor(Kb, p), unpack_factor(Mb, p)
     nb, N3p = bv.shape
     NB = Kb.shape[0]
     N3 = NB**3
@@ -32,29 +96,54 @@ def brick_apply_plain(bv, Kb, Mb, geo, p=None):
     Mxy = torch.kron(Mb, Mb)
     t = torch.einsum("wz,bzr->bwr", Mb, u3 @ Fxy.T)
     s = torch.einsum("wz,bzr->bwr", Kb, u3)
-    v = (t + s @ Mxy.T).reshape(nb, N3)
-    return F.pad(v, (0, N3p - N3)) * geo[:, None]
+    v = F.pad((t + s @ Mxy.T).reshape(nb, N3), (0, N3p - N3)) * geo[:, None]
+    if dcols is not None:
+        m, pc = _rows_of(dcols, brick_size, nb, N3p)
+        idx = overlap_add_index(m, int(brick_size), pc, N3p, v.device)
+        v.view(-1).index_add_(0, idx, dcols.reshape(-1))
+    return v
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
-def brick_apply(bv, Kb, Mb, geo, p):
-    """bv [nb, N3p], Kb/Mb [NB, NB] (degree p: banded, |i-j| <= p), geo [nb]
-    -> v [nb, N3p]."""
+def _packed_host(Fp, p, dtype):
+    if Fp.device.type != "cpu":
+        raise ValueError(f"{NAME}: the kernel takes the packed Kb and Mb as host tensors "
+                         f"(op.brick_factors_host), got them on {Fp.device}")
+    if Fp.dim() != 1:
+        raise ValueError(f"{NAME}: the kernel takes packed factors "
+                         f"(op.brick_factors_host), got shape {tuple(Fp.shape)}")
+    factor_width(Fp.shape[0], p)
+    return Fp.detach().to(dtype).contiguous()
+
+
+def brick_apply(bv, Kb, Mb, geo, p, dcols=None, brick_size=None):
+    """bv [nb, N3p], geo [nb], dcols [m*B^3, n_loc] or None -> v [nb, N3p].
+    On the kernel path Kb and Mb are the packed host factors
+    (``op.brick_factors_host``); on CPU tensors the plain version takes them
+    dense or packed."""
     if bv.device.type == "cpu":
-        return brick_apply_plain(bv, Kb, Mb, geo)
-    dev = _build.check_cuda(NAME, bv.dtype, bv=bv, Kb=Kb, Mb=Mb, geo=geo)
+        return brick_apply_plain(bv, Kb, Mb, geo, p, dcols, brick_size)
+    extra = {} if dcols is None else {"dcols": dcols}
+    dev = _build.check_cuda(NAME, bv.dtype, bv=bv, geo=geo, **extra)
+    Kp, Mp = (_packed_host(Fp, p, bv.dtype) for Fp in (Kb, Mb))
     nb, N3p = bv.shape
-    NB = Kb.shape[0]
-    if (NB, p) not in SUPPORTED or Mb.shape != (NB, NB) or Kb.shape != (NB, NB):
-        raise ValueError(f"{NAME}: unsupported brick width NB={NB}")
+    NB = factor_width(Kp.shape[0], p)
+    if (NB, p) not in SUPPORTED or Mp.shape != Kp.shape:
+        raise ValueError(f"{NAME}: unsupported brick width NB={NB} at p={p}")
     if geo.shape != (nb,) or N3p < NB**3:
         raise ValueError(f"{NAME}: shapes bv {tuple(bv.shape)}, geo {tuple(geo.shape)}")
+    m = 0
+    if dcols is not None:
+        m, pc = _rows_of(dcols, brick_size, nb, N3p)
+        if pc != p or int(brick_size) * p + 1 != NB:
+            raise ValueError(f"{NAME}: dcols of p={pc}, B={brick_size} for NB={NB}, p={p}")
     out = torch.empty_like(bv)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(bv.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, _build.ptr(bv), _build.ptr(Kb), _build.ptr(Mb),
-                  _build.ptr(geo), _build.ptr(out), nb, NB, p, N3p)
+    _build.launch(NAME, fn, dev, _build.ptr(bv), _build.ptr(Kp), _build.ptr(Mp),
+                  _build.ptr(geo), None if dcols is None else _build.ptr(dcols),
+                  _build.ptr(out), nb, m, NB, p, N3p, None)
     brick_apply.launches += 1
     return out
 
@@ -62,11 +151,24 @@ def brick_apply(bv, Kb, Mb, geo, p):
 brick_apply.launches = 0
 
 
-def bytes_and_flops(nb, NB, p, N3p, itemsize):
-    """Least traffic (read u and write v once, the factors and geo) and the
-    kernel's operation count: seven sweeps, each summing the band
-    |i-j| <= p of one factor per node."""
-    band = sum(min(NB - 1, i + p) - max(0, i - p) + 1 for i in range(NB))
-    nbytes = (2 * nb * N3p + 2 * NB * NB + nb) * itemsize
-    flops = 7 * 2 * band * NB * NB * nb
+def plan(dtype, p, m=0, device=None):
+    """(shared-memory bytes, blocks per SM) of a launch at degree p with
+    m > 0 or m == 0 bricks of cell rows; launches nothing."""
+    NB = next(w for w, q in SUPPORTED if q == p)
+    info = (ctypes.c_int * 2)()
+    fn = _build.function(NAME, f"{NAME}_{_build.suffix(dtype)}", _ARGS)
+    _build.launch(NAME, fn, torch.device("cuda") if device is None else device, None, None,
+                  None, None, None, None, 1, m, NB, p, NB**3, info)
+    return tuple(info)
+
+
+def bytes_and_flops(nb, NB, p, N3p, itemsize, m=0):
+    """Least traffic (read u's NB^3 nodes once, write v with its padding
+    once, the packed factors, geo, and the m bricks' cell rows) and the
+    operation count: seven sweeps, each summing the structural nonzeros of
+    one factor per node, the geo scale and one add per cell-row entry."""
+    nnz = len(factor_structure(NB, p)[0])
+    n_rows = m * ((NB - 1) // p) ** 3 * (p + 1) ** 3
+    nbytes = (nb * NB**3 + nb * N3p + 2 * nnz + nb + n_rows) * itemsize
+    flops = (7 * 2 * nnz * NB * NB + NB**3) * nb + n_rows
     return nbytes, flops

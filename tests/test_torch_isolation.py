@@ -110,8 +110,7 @@ def cuda():
 def test_kernels_match_plain_on_card(cuda, dtype):
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        brick_apply, cell_apply, cols_overlap_add, corr_compact, dss_surface, fill_hn,
-        hn_apply, refill_update,
+        brick_apply, cell_apply, corr_compact, dss_surface, fill_hn, hn_apply, refill_update,
     )
 
     tol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -135,14 +134,16 @@ def test_kernels_match_plain_on_card(cuda, dtype):
              for mod, args in chain]
     pairs += [
         (op.refill(bv), op.refill(bv, plain=True)),
-        (brick_apply.brick_apply(bv, op.Kb, op.Mb, op.geo, op.p),
-         brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo)),
+        (brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p),
+         brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p)),
+        (brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p, dcols=cols,
+                                 brick_size=op.B),
+         brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p, dcols=cols,
+                                       brick_size=op.B)),
         (cell_apply.cell_apply(bv[: op.n_sub], *op.factors_host, op.geo_cell_sub, brick_size=op.B),
          cell_apply.cell_apply_plain(bv[: op.n_sub], op.K1, op.M1, op.geo_cell_sub, op.B)),
         (cell_apply.cell_apply(rows, *op.factors_host, op.geo_hn),
          cell_apply.cell_apply_plain(rows, op.K1, op.M1, op.geo_hn)),
-        (cols_overlap_add.cols_overlap_add(bv[: op.n_sub].clone(), cols, op.B),
-         cols_overlap_add.cols_overlap_add_plain(bv[: op.n_sub].clone(), cols, op.B)),
         (dss_surface.dss_surface(bv.clone(), *op.dss_tables()),
          dss_surface.dss_surface_plain(bv.clone(), *op.dss_tables())),
     ]
@@ -151,6 +152,32 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
     with pytest.raises(ValueError, match="host tensors"):  # no hidden copy to the host
         cell_apply.cell_apply(rows, op.K1, op.M1, op.geo_hn)
+    with pytest.raises(ValueError, match="host tensors"):
+        brick_apply.brick_apply(bv, *(f.to(cuda) for f in op.brick_factors_host), op.geo, op.p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [5, 6, 7, 8])
+def test_brick_apply_degrees_on_card(cuda, p, dtype):
+    """brick_apply at the degrees of two cells a brick side, without and
+    with cell rows (on the leading half of the bricks), against its plain
+    version."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_apply
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 3), p), device=cuda, dtype=dtype)
+    assert (op.NB, op.p) in brick_apply.SUPPORTED and op.B == 2
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    m = (op.n_bricks + 1) // 2
+    cols = torch.randn(m * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    for extra in ({}, {"dcols": cols, "brick_size": op.B}):
+        got = brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p, **extra)
+        ref = brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p, **extra)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max() / ref.abs().max()) < tol
 
 
 @pytest.mark.cuda

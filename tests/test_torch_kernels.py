@@ -1,7 +1,7 @@
 """Each kernel's plain PyTorch version, and each step of the plain fold/HN
 chain, against the JAX package's function on the same inputs (float64,
-CPU, relative tolerance 1e-12), and the host tables that cell_apply and
-dss_surface read (``bricks.kernel_tables``)."""
+CPU, relative tolerance 1e-12), and the host tables that brick_apply,
+cell_apply and dss_surface read (``bricks.kernel_tables``)."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,6 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     KERNEL_MODULES,
     brick_apply,
     cell_apply,
-    cols_overlap_add,
     dss_surface,
 )
 from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
@@ -61,17 +60,39 @@ def test_cell_apply_from_rows(geo, nref, p):
 
 
 @case
-def test_cols_overlap_add(geo, nref, p):
+def test_brick_apply_with_overlap(geo, nref, p):
+    """The fused plain version, on the packed host factors as the vmult
+    passes them: the main apply times geo, plus the overlap-add of the
+    subset's cell rows into the leading bricks."""
     _, _, bl, a = reference(geo, nref, p)
     op = port(geo, nref, p)[2]
-    v_sub = rng_array(4, op.n_sub, op.N3p)
-    cols = rng_array(5, op.n_sub * op.C, op.n_loc)
-    ref = jnp.asarray(v_sub) + bl._scatter_cols(jnp.asarray(cols), a)
-    v = T(v_sub.copy())
-    out = cols_overlap_add.cols_overlap_add(v, T(cols), brick_size=op.B)
-    assert out is v  # in place
-    # the padded tail is untouched (the reference's corr is zero there)
-    assert rel_err(out, ref) < RTOL
+    bv = rng_array(4, op.n_bricks, op.N3p)
+    dcols = rng_array(5, op.n_sub * op.C, op.n_loc)
+    ref = (bl._main_apply(jnp.asarray(bv), a) * a["geo"][:, None]).at[: op.n_sub].add(
+        bl._scatter_cols(jnp.asarray(dcols), a))
+    got = brick_apply.brick_apply(T(bv), *op.brick_factors_host, op.geo, op.p, dcols=T(dcols),
+                                  brick_size=op.B)
+    assert got.shape == ref.shape
+    assert rel_err(got, ref) < RTOL
+
+
+@case
+def test_brick_factor_packing(geo, nref, p):
+    """The packed factors rebuild Kb and Mb exactly, with 1 + B p (p+2)
+    structural nonzeros each (97 / 71 / 97 at p = 4 / 5 / 6), are kept on
+    the host only, and a Kb with a nonzero outside the structure of its cell
+    blocks raises."""
+    op = port(geo, nref, p)[2]
+    nnz = {4: 97, 5: 71, 6: 97}[p]
+    for dense, packed in zip((op.Kb, op.Mb), op.brick_factors_host):
+        assert packed.shape == (nnz,) and packed.device.type == "cpu"
+        assert torch.equal(brick_apply.unpack_factor(packed, p), dense)
+    assert not [name for name, _ in op.named_buffers() if name.endswith("_packed")]
+    t, m = port_tables(geo, nref, p)
+    Kb = np.array(t["Kb"])
+    Kb[0, p + 1] = 1e-30  # row 0 couples only with its cell's p+1 nodes
+    with pytest.raises(ValueError, match="outside the structure"):
+        kernel_tables(dict(t, Kb=Kb), m)
 
 
 @case
@@ -195,10 +216,15 @@ def test_corr_compact(geo, nref, p):
     assert rel_err(got, ref) < RTOL
 
 
-@pytest.mark.parametrize("mod", KERNEL_MODULES, ids=lambda m: m.NAME)
-def test_cpu_tensors_take_the_plain_version(mod):
+CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + [
+    pytest.param(brick_apply, True, id="brick_apply-dcols")]
+
+
+@pytest.mark.parametrize("mod,with_rows", CPU_CASES)
+def test_cpu_tensors_take_the_plain_version(mod, with_rows):
     """On CPU tensors a wrapper computes its plain version and launches
-    nothing, so its launch count stays put."""
+    nothing, so its launch count stays put (brick_apply also with the
+    subset's cell rows)."""
     geo, nref, p = CASES[0]
     op = port(geo, nref, p)[2]
     wrapper = getattr(mod, mod.NAME)
@@ -209,9 +235,9 @@ def test_cpu_tensors_take_the_plain_version(mod):
     cells = lambda seed: T(rng_array(seed, op.n_sub * op.C, op.n_loc))
     hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
     args, kw = {
-        "brick_apply": lambda: ((bricks(11), op.Kb, op.Mb, op.geo, op.p), {}),
+        "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
+                                {"dcols": cells(13), "brick_size": op.B} if with_rows else {}),
         "cell_apply": lambda: ((sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
-        "cols_overlap_add": lambda: ((sub(13), cells(14)), {"brick_size": op.B}),
         "dss_surface": lambda: ((bricks(15), *op.dss_tables()), {}),
         "hn_apply": lambda: ((hn_rows(16), op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col,
                               op.hn_fwd_w), {}),
