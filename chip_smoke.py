@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the seven CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the six CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills, and
    brick_apply's shared memory and blocks per SM at each degree;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
@@ -23,17 +23,21 @@ Phases (any failure exits non-zero before the last line is printed):
    traffic counted in 32-byte sectors (surface blocks touched together and
    apart) printed beside its bound; printed beside brick_apply: its time
    without the cell rows (the function earlier versions timed) and
-   ``index_add_`` of the cell rows alone;
+   ``index_add_`` of the cell rows alone; hn_cell's library call (each mode)
+   is one CSR product with its whole map composed into one matrix, and
+   beside it stands the sum of the library calls for its steps; every
+   library call is held against the plain version (1e-4);
 5. the end-to-end constrained vmult at nref=7 in float32 through the kernels,
    held against the plain float64 path on the card (after zeroing the
    hanging entries, relative tolerance 1e-5), with every kernel's launch
-   count read from that run (8 launches per vmult); its time and DoF/s; the
+   count read from that run (5 launches per vmult); its time and DoF/s; the
    host's time to issue one vmult and one fused brick_apply (``host_ms``); a
-   profile of where its device time goes (8 launches of the port's
+   profile of where its device time goes (5 launches of the port's
    kernels, no device launch outside them);
 6. ``refill`` of the vmult's output at nref=7 in float32 through the
    kernels against the plain float64 refill on the card (1e-5), with its
-   launch counts, time and profile (no launch outside the kernels);
+   launch counts (2 per refill), time and profile (no launch outside the
+   kernels);
 7. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
    its plain version, the vmult against the scipy oracle and refill against
    the plain path; at quadrant nref=2 p=6 the vmult against the oracle
@@ -58,6 +62,12 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
 SEED = 0
+VMULT_LAUNCHES, REFILL_LAUNCHES = 5, 2
+LIBRARY_TOL = 1e-4  # a library yardstick against the plain version, float32, relative
+# parts timed in phase 4 that refill launches and the vmult does not: in the
+# kernels line they stand in "parts" only, and a kernel's totals are those
+# of its vmult launches
+REFILL_PARTS = {("hn_cell", "fill")}
 
 
 def check(ok: bool, what: str) -> None:
@@ -176,24 +186,30 @@ def sparse_csr(rows, cols, vals, shape):
         .to_sparse_csr()
 
 
-def yardsticks(op, filled, own, u_sub, sub_raw, plain_rows):
-    """One cuSPARSE product per chain kernel computing the same function on
-    the same data, the lists written as one CSR matrix (built here, outside
-    the timing): hn_apply (both directions) as block-diagonal products over
-    the constrained rows, fill_hn over the subset brick nodes, corr_compact
-    over sub_raw and plain stacked. Returns {name: [fn per part]}."""
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.fill_hn import cell_nodes
+def yardsticks(op, filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, K):
+    """Library calls on the same data, the lists written as CSR matrices
+    (built here, outside the timing): corr_compact as one cuSPARSE product
+    over sub_raw and plain stacked; hn_cell as one cuSPARSE product per mode
+    over the subset brick nodes, its whole map composed into one matrix
+    (``hn_composed``); and hn_cell's steps one call each, as the kernels
+    that it replaced were timed: the fill over the subset brick nodes, Q and
+    Q^T as block-diagonal products over the constrained rows,
+    ``torch.mm(u_hat, K.T)`` for K (no scale). Returns ({name: [fn per
+    part]}, {hn_cell mode: [fn per step]}, {hn_cell mode: nonzeros})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
 
     n_loc, dev, dt = op.n_loc, u_sub.device, u_sub.dtype
     ar = lambda n: torch.arange(n, device=dev)
     rep = torch.repeat_interleave
     nS = op.n_hn * n_loc
 
+    def slots_of(ptr):  # each list entry's output slot, entries in order
+        return rep(ar(n_loc).repeat(ptr.shape[0]), (ptr[:, 1:] - ptr[:, :-1]).reshape(-1))
+
     def hn_matrix(d):
         ptr, col = getattr(op, f"hn_{d}_ptr").long(), getattr(op, f"hn_{d}_col").long()
         w = getattr(op, f"hn_{d}_w")
-        nq = ptr.shape[0]
-        slot_of = rep(ar(n_loc).repeat(nq), (ptr[:, 1:] - ptr[:, :-1]).reshape(-1))
+        slot_of = slots_of(ptr)
         q = op.hn_q.long()
         qr = torch.nonzero(q >= 0)[:, 0]
         cnt = (ptr[:, -1] - ptr[:, 0])[q[qr]]
@@ -205,14 +221,39 @@ def yardsticks(op, filled, own, u_sub, sub_raw, plain_rows):
         vals = torch.cat([w[e], torch.ones(len(ident), dtype=dt, device=dev)])
         return sparse_csr(rows, cols, vals, (nS, nS))
 
+    def hn_dense(d):  # [nQ + 1, n_loc, n_loc]: out_row = Q @ in_row, the last one I
+        ptr, col = getattr(op, f"hn_{d}_ptr").long(), getattr(op, f"hn_{d}_col").long()
+        nq, n_ent = ptr.shape[0], int(ptr[-1, -1]) if ptr.numel() else 0
+        Q = torch.eye(n_loc, dtype=dt, device=dev).repeat(nq + 1, 1, 1)
+        Q[:nq] = 0
+        Q.index_put_((rep(ar(nq), ptr[:, -1] - ptr[:, 0]), slots_of(ptr), col[:n_ent]),
+                     getattr(op, f"hn_{d}_w")[:n_ent], accumulate=True)
+        return Q
+
+    def hn_composed(mode):
+        """hn_cell[mode] as one matrix from u_sub to the rows: fill entry
+        (row r, slot j, source s) contributes column j of row r's dense map
+        to column s (the map is Q_f, or scale_r Q_b K Q_f in the full mode)."""
+        Qf = hn_dense("fwd")
+        maps = Qf if mode == "fill" else hn_dense("bwd") @ K @ Qf
+        q = op.hn_q.long()
+        qq = torch.where(q >= 0, q, maps.shape[0] - 1)
+        r, j = fill_rows // n_loc, fill_rows % n_loc
+        vals = maps[qq[r], :, j]
+        if mode == "full":
+            vals = vals * op.geo_hn[r][:, None]
+        rows = r[:, None] * n_loc + ar(n_loc)
+        nz = vals != 0
+        return sparse_csr(rows[nz], fill_cols[:, None].expand(-1, n_loc)[nz], vals[nz],
+                          (nS, u_sub.numel()))
+
     ent_row = lambda ptr: rep(ar(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
     kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
     nodes = cell_nodes(op.hn_sub, op.B, op.p, op.N3p, dev).reshape(-1)
-    fill = sparse_csr(
-        torch.cat([kept, ent_row(op.fill_row_ptr) * n_loc + op.fill_ent_slot.long()]),
-        torch.cat([nodes[kept], op.fill_ent_src.long()]),
-        torch.ones(len(kept) + op.fill_ent_src.numel(), dtype=dt, device=dev),
-        (nS, u_sub.numel()))
+    fill_rows = torch.cat([kept, ent_row(op.fill_row_ptr) * n_loc + op.fill_ent_slot.long()])
+    fill_cols = torch.cat([nodes[kept], op.fill_ent_src.long()])
+    fill = sparse_csr(fill_rows, fill_cols, torch.ones(len(fill_rows), dtype=dt, device=dev),
+                      (nS, u_sub.numel()))
     code = op.cell_code.long()
     n_rows = code.numel()
     hn_cells = op.hn_sub.long()
@@ -227,8 +268,15 @@ def yardsticks(op, filled, own, u_sub, sub_raw, plain_rows):
     fwd, bwd = hn_matrix("fwd"), hn_matrix("bwd")
     x_fwd, x_bwd, x_u = filled.reshape(-1), own.reshape(-1), u_sub.reshape(-1)
     x_corr = torch.cat([sub_raw.reshape(-1), plain_rows.reshape(-1)])
-    return {"hn_apply": [lambda: fwd @ x_fwd, lambda: bwd @ x_bwd],
-            "fill_hn": [lambda: fill @ x_u], "corr_compact": [lambda: corr @ x_corr]}
+    fill_steps = [lambda: fill @ x_u, lambda: fwd @ x_fwd]
+    one = {mode: hn_composed(mode) for mode in ("full", "fill")}
+    x_u_r = u_sub_r.reshape(-1)
+    return ({"corr_compact": [lambda: corr @ x_corr],
+             # in the order of kernel_calls' hn_cell parts: full on u_sub, fill on u_sub_r
+             "hn_cell": [lambda: one["full"] @ x_u, lambda: one["fill"] @ x_u_r]},
+            {"fill": fill_steps,
+             "full": fill_steps + [lambda: torch.mm(u_hat, K.T), lambda: bwd @ x_bwd]},
+            {mode: m._nnz() for mode, m in one.items()})
 
 
 def kernel_calls(op, x, y):
@@ -239,24 +287,24 @@ def kernel_calls(op, x, y):
     refreshing the scratch copy that the timed calls of such a kernel work
     on where repeated calls would grow it without bound."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        brick_apply, cell_apply, corr_compact, dss_surface, fill_hn, hn_apply, refill_update,
+        brick_apply, cell_apply, corr_compact, dss_surface, hn_cell, refill_update,
     )
 
     isz = x.element_size()
-    u_sub = x[: op.n_sub]
+    u_sub, u_sub_r = x[: op.n_sub], y[: op.n_sub]
     plain_rows = cell_apply.cell_apply(u_sub, *op.factors_host, op.geo_cell_sub, brick_size=op.B)
+    # hn_cell's steps one by one (plain versions on the card): the yardsticks' inputs
     filled = op._fill_hn_compact(u_sub)
     u_hat = op._hn_apply(filled, False)
-    own = cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn)
-    sub_raw = op._hn_apply(own, True)
+    own = cell_apply.cell_apply_plain(u_hat, op.K1, op.M1, op.geo_hn)
+    sub_raw = op._hn_cell(u_sub, "full")
     dcols = op._corr_compact(plain_rows, sub_raw)
     fused = dict(dcols=dcols, brick_size=op.B)
     v1 = brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p, **fused)
-    u_hat_r = op._fill_rows(y[: op.n_sub])
+    u_hat_r = op._hn_cell(u_sub_r, "fill")
     dss_args = op.dss_tables()
-    hn_args = lambda d: (op.hn_q, getattr(op, f"hn_{d}_ptr"), getattr(op, f"hn_{d}_col"),
-                         getattr(op, f"hn_{d}_w"))
-    fill_args = (op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot, op.fill_ent_src, op.B)
+    hn_args = (*op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    hn_plain_args = (*op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B)
     corr_args = (op.cell_code, op.keep_hn, op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src)
     refill_args = (op.node_valid, op.cell_code, op.refill_pos, op.fill_invden_X, op.B)
     v_dss = v1.clone()  # the timed dss_surface calls' scratch, refreshed from v1 before each
@@ -275,11 +323,6 @@ def kernel_calls(op, x, y):
             lambda: cell_apply.cell_apply_plain(u_sub, op.K1, op.M1, op.geo_cell_sub, op.B),
             cell_apply.bytes_and_flops(u_sub.numel(), plain_rows.shape[0], op.n_loc, isz), None,
             None,
-        ), (
-            "from_rows",
-            lambda: cell_apply.cell_apply(u_hat, *op.factors_host, op.geo_hn),
-            lambda: cell_apply.cell_apply_plain(u_hat, op.K1, op.M1, op.geo_hn),
-            cell_apply.bytes_and_flops(u_hat.numel(), op.n_hn, op.n_loc, isz), None, None,
         )],
         "dss_surface": [(
             "bricks",
@@ -290,20 +333,12 @@ def kernel_calls(op, x, y):
                      dss_surface.dss_surface_plain(v1.clone(), *dss_args)),
             lambda: v_dss.copy_(v1),
         )],
-        "hn_apply": [(
+        "hn_cell": [(
             mode,
-            lambda rows=rows, d=d: hn_apply.hn_apply(rows, *hn_args(d)),
-            lambda rows=rows, d=d: hn_apply.hn_apply_plain(rows, *hn_args(d)),
-            hn_apply.bytes_and_flops(op.hn_q, getattr(op, f"hn_{d}_ptr"),
-                                     getattr(op, f"hn_{d}_col"), op.n_loc, isz), None, None,
-        ) for mode, rows, d in (("forward", filled, "fwd"), ("transposed", own, "bwd"))],
-        "fill_hn": [(
-            "from_bricks",
-            lambda: fill_hn.fill_hn(u_sub, *fill_args),
-            lambda: fill_hn.fill_hn_plain(u_sub, *fill_args),
-            fill_hn.bytes_and_flops(u_sub, op.hn_sub, op.keep_hn, op.fill_row_ptr,
-                                    op.fill_ent_src, op.B), None, None,
-        )],
+            lambda src=src, mode=mode: hn_cell.hn_cell(src, *hn_args, mode=mode),
+            lambda src=src, mode=mode: hn_cell.hn_cell_plain(src, *hn_plain_args, mode=mode),
+            hn_cell.bytes_and_flops(src, *op.hn_tables(), op.B, mode=mode), None, None,
+        ) for mode, src in (("full", u_sub), ("fill", u_sub_r))],
         "corr_compact": [(
             "dcols",
             lambda: corr_compact.corr_compact(plain_rows, sub_raw, *corr_args),
@@ -318,7 +353,7 @@ def kernel_calls(op, x, y):
             refill_update.bytes_and_flops(y, u_hat_r, op.cell_code, op.refill_pos,
                                           op.fill_invden_X, op.B), None, None,
         )],
-    }, dict(filled=filled, own=own, u_sub=u_sub, u_hat=u_hat, sub_raw=sub_raw,
+    }, dict(filled=filled, u_hat=u_hat, own=own, u_sub=u_sub, u_sub_r=u_sub_r, sub_raw=sub_raw,
             plain_rows=plain_rows, dcols=dcols, v1=v1)
 
 
@@ -331,7 +366,7 @@ def check_chain_tables(mf, op, seed):
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (
         dense_corr, dense_fill, kernel_tables, operator_tables,
     )
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import corr_compact, fill_hn, hn_apply
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import corr_compact, hn_cell
 
     t, m = operator_tables(mf, op.bs)
     k = {key: torch.from_numpy(np.ascontiguousarray(v)) for key, v in kernel_tables(t, m).items()}
@@ -342,17 +377,17 @@ def check_chain_tables(mf, op, seed):
     plain = rng.standard_normal((m["n_sub"] * m["B"] ** 3, n_loc))
     got, ref = {}, {}
     for d in ("fwd", "bwd"):
-        got[f"hn_apply[{d}]"] = hn_apply.hn_apply_plain(
+        got[f"Q[{d}]"] = hn_cell.hn_apply_plain(
             torch.from_numpy(rows), k["hn_q"], k[f"hn_{d}_ptr"], k[f"hn_{d}_col"], k[f"hn_{d}_w"])
-        ref[f"hn_apply[{d}]"] = rows.copy()
+        ref[f"Q[{d}]"] = rows.copy()
         for s, e, qi in m["hn_bounds"]:
             if qi is not None:
                 Q = np.asarray(t["hn_Q"][qi])
-                ref[f"hn_apply[{d}]"][s:e] = rows[s:e] @ (Q if d == "fwd" else Q.T)
-    got["fill_hn"] = fill_hn.fill_hn_plain(
+                ref[f"Q[{d}]"][s:e] = rows[s:e] @ (Q if d == "fwd" else Q.T)
+    got["fill"] = hn_cell.fill_hn_plain(
         torch.from_numpy(u_sub), k["hn_sub"], k["keep_hn"], k["fill_row_ptr"],
         k["fill_ent_slot"], k["fill_ent_src"], m["B"])
-    ref["fill_hn"] = dense_fill(t, m, u_sub)
+    ref["fill"] = dense_fill(t, m, u_sub)
     got["corr_compact"] = corr_compact.corr_compact_plain(
         torch.from_numpy(plain), torch.from_numpy(rows), k["cell_code"], k["keep_hn"],
         k["corr_row_ptr"], k["corr_ent_slot"], k["corr_ent_src"])
@@ -466,9 +501,11 @@ def main() -> int:
     # here only; the port never calls them)
     library = {name: [None] * len(parts) for name, parts in calls.items()}
     K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
-    library["cell_apply"][1] = lambda: torch.mm(inter["u_hat"], K.T)
-    library.update(yardsticks(op, *(inter[k] for k in ("filled", "own", "u_sub", "sub_raw",
-                                                        "plain_rows"))))
+    lib_calls, hn_steps, hn_nnz = yardsticks(op, *(inter[k] for k in (
+        "filled", "u_hat", "own", "u_sub", "u_sub_r", "sub_raw", "plain_rows")), K)
+    library.update(lib_calls)
+    print(f"hn_cell composed into one CSR matrix a mode (its library call): {hn_nnz} nonzeros",
+          flush=True)
     wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
     results = {}
     for mod in KERNEL_MODULES:
@@ -488,22 +525,37 @@ def main() -> int:
             p_ms = time_ms(plain, device_only=True, reset=reset)
             b_ms, b_by = bound(nbytes, flops, x.dtype)
             l_ms = None if lib is None else time_ms(lib, device_only=True)
-            bound_parts.append((b_ms, b_by))
             rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
             rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
-            rec["ms"] += k_ms
-            rec["plain_ms"] += p_ms
-            rec["bound_ms"] += b_ms
-            if l_ms is not None:
-                rec["library_ms"] = (rec["library_ms"] or 0.0) + l_ms
-            rec["parts"].append(dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=l_ms, max_abs_err=abs_err,
-                                     max_rel_err=rel_err))
+            part = dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=l_ms, max_abs_err=abs_err, max_rel_err=rel_err)
+            if lib is not None:  # the library call computes the same function
+                part["library_rel_err"] = errors(lib().reshape(-1), ref.reshape(-1))[1]
+                check(part["library_rel_err"] <= LIBRARY_TOL,
+                      f"{name}[{mode}]'s library call disagrees with its plain version: "
+                      f"{part['library_rel_err']:.3e}")
+            if name == "hn_cell":  # beside it: its steps' library calls, one each
+                steps_ms = [time_ms(fn, device_only=True) for fn in hn_steps[mode]]
+                part["library_steps_ms"] = steps_ms
+                print(f"hn_cell[{mode}]'s steps as library calls (fill, Q"
+                      + (", torch.mm for K, Q^T" if mode == "full" else "") + "): "
+                      + " + ".join(f"{t:.4f}" for t in steps_ms)
+                      + f" = {sum(steps_ms):.4f} ms (beside the kernel, not its library_ms)",
+                      flush=True)
+            rec["parts"].append(part)
+            if (name, mode) not in REFILL_PARTS:
+                rec["ms"] += k_ms
+                rec["plain_ms"] += p_ms
+                rec["bound_ms"] += b_ms
+                if l_ms is not None:
+                    rec["library_ms"] = (rec["library_ms"] or 0.0) + l_ms
+                bound_parts.append((b_ms, b_by))
             print(f"{name}[{mode}]: max rel err {rel_err:.3e} (tol {tol32:g}), max abs err "
                   f"{abs_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
                   f"{(flops or 0) / 1e9:.3f} GFLOP)"
-                  + (f", library {l_ms:.4f} ms" if l_ms is not None else ""), flush=True)
+                  + (f", library {l_ms:.4f} ms (rel err {part['library_rel_err']:.3e})"
+                     if l_ms is not None else ""), flush=True)
         rec["bound_by"] = max(bound_parts)[1]
         results[name] = rec
     # beside the fused brick_apply (printed, not in the kernels line): the launch
@@ -530,7 +582,7 @@ def main() -> int:
         print(f"dss_surface in 32-byte sectors, surface blocks touched "
               f"{'apart' if apart else 'together'}: {sectors / 1e6:.1f} MB, {s_ms:.4f} ms "
               f"(kernel {dss['ms']:.4f} ms, bound {dss['bound_ms']:.4f} ms in words)", flush=True)
-    del calls, inter, library
+    del calls, inter, library, lib_calls, hn_steps
 
     # ---- 5. end-to-end vmult, nref=7, float32, through the kernels ---------
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
@@ -547,7 +599,8 @@ def main() -> int:
         if name != "refill_update":
             check(n > 0, f"the vmult never launched {name}")
             results[name]["launches"] = n
-    check(sum(counts.values()) == 8, f"{sum(counts.values())} kernel launches per vmult, not 8")
+    check(sum(counts.values()) == VMULT_LAUNCHES,
+          f"{sum(counts.values())} kernel launches per vmult, not {VMULT_LAUNCHES}")
     vm_ms = time_ms(lambda: op.vmult(x), reps=30, warmup=5)
     vm_plain_ms = time_ms(lambda: op.vmult(x, plain=True), reps=10, warmup=2)
     print(f"vmult nref=7 p=4 f32 on {smi}: {vm_ms:.4f} ms ({mf.n_dofs / vm_ms / 1e6:.4f} "
@@ -555,11 +608,12 @@ def main() -> int:
     vm_host_ms = host_ms(lambda: op.vmult(x))
     ba_host_ms = host_ms(lambda: brick_apply.brick_apply(
         x, *op.brick_factors_host, op.geo, op.p, dcols=dcols, brick_size=op.B))
-    print(f"host time to issue a vmult (8 launches): {vm_host_ms:.4f} ms; one fused "
+    print(f"host time to issue a vmult ({VMULT_LAUNCHES} launches): {vm_host_ms:.4f} ms; one fused "
           f"brick_apply: {ba_host_ms:.4f} ms", flush=True)
     vm_prof = profile_path("vmult", lambda: op.vmult(x), set(wrappers))
-    check(vm_prof["port_launches"] == 8,
-          f"the profile saw {vm_prof['port_launches']} kernel launches per vmult, not 8")
+    check(vm_prof["port_launches"] == VMULT_LAUNCHES,
+          f"the profile saw {vm_prof['port_launches']} kernel launches per vmult, "
+          f"not {VMULT_LAUNCHES}")
 
     # ---- 6. refill, nref=7, float32, through the kernels --------------------
     ref = op64.refill(y.double(), plain=True)
@@ -569,14 +623,19 @@ def main() -> int:
           f"launches per refill {rcounts}", flush=True)
     check(bool(torch.isfinite(got).all()) and got.shape == y.shape, "refill output malformed")
     check(rf_err <= 1e-5, f"refill disagrees with the float64 path: {rf_err:.3e}")
-    for name in ("fill_hn", "hn_apply", "refill_update"):
+    for name in ("hn_cell", "refill_update"):
         check(rcounts[name] > 0, f"refill never launched {name}")
+    check(sum(rcounts.values()) == REFILL_LAUNCHES,
+          f"{sum(rcounts.values())} kernel launches per refill, not {REFILL_LAUNCHES}")
     results["refill_update"]["launches"] = rcounts["refill_update"]
     rf_ms = time_ms(lambda: op.refill(y), reps=30, warmup=5)
     rf_plain_ms = time_ms(lambda: op.refill(y, plain=True), reps=10, warmup=2)
     print(f"refill nref=7 p=4 f32 on {smi}: {rf_ms:.4f} ms; plain path {rf_plain_ms:.4f} ms",
           flush=True)
     rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers))
+    check(rf_prof["port_launches"] == REFILL_LAUNCHES,
+          f"the profile saw {rf_prof['port_launches']} kernel launches per refill, "
+          f"not {REFILL_LAUNCHES}")
     del op64, x64, ref, got
 
     # ---- 7. float64 through the kernels --------------------------------------

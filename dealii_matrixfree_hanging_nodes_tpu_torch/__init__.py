@@ -4,7 +4,7 @@ constraints on the brick layout, for NVIDIA Hopper (H100).
 
 The host setup (mesh, DoFs, constraints, brick tables) is NumPy; the
 operator is a ``torch.nn.Module`` whose device work (vmult and refill)
-runs in seven hand-written CUDA kernels (``kernels/``, sources in
+runs in six hand-written CUDA kernels (``kernels/``, sources in
 ``csrc/``). Entry points
 run on the card unless the caller passes ``device="cpu"``, where every
 kernel takes its plain PyTorch version.

@@ -10,14 +10,15 @@ row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained cells
 (the "subset") come first, so every subset access is a leading slice.
 
 vmult = on the subset: cell_apply (cells read from the bricks, times K by
-        sum factorization of its 1-D factors K1, M1), on the constrained
-        rows fill_hn, hn_apply, cell_apply, hn_apply^T, then corr_compact
+        sum factorization of its 1-D factors K1, M1), hn_cell (the
+        constrained rows: fill, Q, K, Q^T in one launch), then corr_compact
         (the fold and the sparse delta of every subset cell row)
       -> brick_apply (separable operator x geo, every brick; its epilogue
         sums the subset's deltas back into their bricks)
       -> dss_surface (in place: sum each shared face/edge/corner over its
-        pool, zero the hole nodes).
-refill = fill_hn, hn_apply, refill_update (the coverage-divided write-back).
+        pool, zero the hole nodes): 5 launches.
+refill = hn_cell in its fill mode (fill and Q), refill_update (the
+        coverage-divided write-back): 2 launches.
 
 The reference expresses the data movement with one-hot matmuls because the
 TPU gathers slowly; here every one-hot operator is an index map (``slot_idx``
@@ -44,8 +45,7 @@ from .kernels import (
     cell_apply,
     corr_compact,
     dss_surface,
-    fill_hn,
-    hn_apply,
+    hn_cell,
     refill_update,
 )
 from .kernels.dss_surface import surface_nodes
@@ -949,7 +949,7 @@ def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB):
 
 
 def kernel_tables(arrays: dict, meta: dict) -> dict:
-    """The tables the seven kernels read, derived on the host from the
+    """The tables the six kernels read, derived on the host from the
     reference-layout tables of ``operator_tables`` (or
     ``convert.reference_tables``): the dense one-hot stacks T and the
     composite Q become index lists, checked as they are built.
@@ -960,7 +960,8 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       gather list per (constrained row, slot): its own node when the keep
       mask holds it, plus the master nodes that the chain copies into it. A
       source that is itself a constrained row reads its masked base
-      (``fill_fix_idx``); the tails read the rows after stage 1.
+      (``fill_fix_idx``); the tails read the rows after stage 1. hn_cell
+      reads these lists (its fill).
     - corr: the compact fold (bricks.py:2775-2849) likewise composes into
       one gather list per (subset cell row, slot) over the slots of
       ``sub_raw``: the tails read ``sub_raw + acc`` before the keep mask,
@@ -968,11 +969,13 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       ``cell_code`` tells each subset cell row's kind: its constrained row
       (>= 0), -1 (none), -2 (absent cell).
     - hn: the nonzeros of each composite Q by output slot, for u @ Q
-      (fwd) and u @ Q^T (bwd), and each constrained row's Q (-1: identity).
+      (fwd) and u @ Q^T (bwd), and each constrained row's Q (-1: identity):
+      hn_cell's Q and Q^T.
     - refill: each brick node's position in ``fill_invden_X`` where the fill
       writes it (-1 elsewhere).
     - cell: the 1-D factors K1 and M1 of the cell stiffness, read off the
-      assembled brick factors (``_cell_factors``).
+      assembled brick factors (``_cell_factors``): cell_apply's and
+      hn_cell's sweeps.
     - brick: the structural nonzeros of Kb and Mb, packed row by row for
       brick_apply (``_brick_factors``).
     - dss: the interface pools as work lists with the surface validity and
@@ -1257,22 +1260,35 @@ class BrickLaplaceMM(nn.Module):
         """A kernel module's wrapper, or its plain version when plain."""
         return getattr(mod, f"{mod.NAME}_plain" if plain else mod.NAME)
 
-    def _hn_apply(self, rows, transpose: bool, plain: bool = False):
+    def hn_tables(self):
+        """hn_cell's tables after u_sub: the fill lists, each row's Q and the
+        Q lists in both directions."""
+        return (self.hn_sub, self.keep_hn, self.fill_row_ptr, self.fill_ent_slot,
+                self.fill_ent_src, self.hn_q, self.hn_fwd_ptr, self.hn_fwd_col, self.hn_fwd_w,
+                self.hn_bwd_ptr, self.hn_bwd_col, self.hn_bwd_w)
+
+    def _hn_cell(self, u_sub, mode: str, plain: bool = False):
+        """The constrained rows from the subset bricks: sub_raw (mode "full",
+        bricks.py:2465-2474) or the filled rows u_hat (mode "fill")."""
+        fac = (self.K1, self.M1) if plain else self.factors_host
+        return self._kernel(hn_cell, plain)(u_sub, *self.hn_tables(), *fac, self.geo_hn,
+                                            self.B, mode=mode)
+
+    # the steps of hn_cell one by one (plain versions; the tests hold them
+    # against the reference's functions)
+    def _hn_apply(self, rows, transpose: bool):
         """rows @ Q (the fill) or rows @ Q^T (HN^T), one Q per mask range."""
         d = "bwd" if transpose else "fwd"
-        return self._kernel(hn_apply, plain)(
-            rows, self.hn_q, getattr(self, f"hn_{d}_ptr"), getattr(self, f"hn_{d}_col"),
-            getattr(self, f"hn_{d}_w"))
+        return hn_cell.hn_apply_plain(rows, self.hn_q, getattr(self, f"hn_{d}_ptr"),
+                                      getattr(self, f"hn_{d}_col"), getattr(self, f"hn_{d}_w"))
 
-    def _fill_hn_compact(self, u_sub, plain: bool = False):
+    def _fill_hn_compact(self, u_sub):
         """Compact fill chain (bricks.py:2728-2773) on the constrained rows."""
-        return self._kernel(fill_hn, plain)(
-            u_sub, self.hn_sub, self.keep_hn, self.fill_row_ptr, self.fill_ent_slot,
-            self.fill_ent_src, self.B)
+        return hn_cell.fill_hn_plain(u_sub, *self.hn_tables()[:5], self.B)
 
-    def _fill_rows(self, u_sub, plain: bool = False):
+    def _fill_rows(self, u_sub):
         """Filled constrained rows (bricks.py:2687-2694)."""
-        return self._hn_apply(self._fill_hn_compact(u_sub, plain), False, plain)
+        return self._hn_apply(self._fill_hn_compact(u_sub), False)
 
     def _corr_compact(self, plain_rows, sub_raw, plain: bool = False):
         """Compact correction chain + sparse delta (bricks.py:2775-2849):
@@ -1306,8 +1322,7 @@ class BrickLaplaceMM(nn.Module):
             u_sub = bv[: self.n_sub]
             plain_rows = ca(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
             if self.n_hn:
-                own = ca(self._fill_rows(u_sub, plain), *fac, self.geo_hn)
-                sub_raw = self._hn_apply(own, True, plain)
+                sub_raw = self._hn_cell(u_sub, "full", plain)
             else:
                 sub_raw = bv.new_empty((0, self.n_loc))
             dcols = self._corr_compact(plain_rows, sub_raw, plain)
@@ -1324,13 +1339,13 @@ class BrickLaplaceMM(nn.Module):
     def refill(self, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Restore the hanging copies of a brick vector whose conforming
         copies agree (reference ``_refill_impl``, input-fill branch): the
-        fill chain on the constrained rows, then the coverage-divided
+        filled constrained rows (hn_cell's fill mode), then the coverage-divided
         closure-slot updates written back at their brick nodes. plain=True
         runs the kernels' plain versions, as for vmult."""
         self._check(v)
         if not (self.n_sub and self.n_hn):
             return v
-        u_hat = self._fill_rows(v[: self.n_sub], plain)
+        u_hat = self._hn_cell(v[: self.n_sub], "fill", plain)
         return self._kernel(refill_update, plain)(
             v, u_hat, self.node_valid, self.cell_code, self.refill_pos, self.fill_invden_X,
             self.B)

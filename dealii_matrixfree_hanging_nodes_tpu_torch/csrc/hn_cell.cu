@@ -1,0 +1,300 @@
+// hn_cell: the constrained rows of the vmult, from the subset bricks to HN^T, in one launch.
+// Row h is cell c = hn_sub[h] of the subset bricks u [n_sub, N3p] (brick c / B^3, slot c % B^3,
+// x fastest; its node (ix, iy, iz) at brick node ((sz*p + iz)*NB + sy*p + iy)*NB + sx*p + ix,
+// NB = B*p + 1). With n = p+1, n_loc = n^3 and Q_h the composite hanging-node matrix of row h
+// (q_of_row[h] < 0: the identity):
+//   1. fill:  filled[h, j] = (keep[h, j] ? u(c, j) : 0) + sum of u_flat[ent_src[e]] over the
+//             entries e of row h (row_ptr[h] .. row_ptr[h+1], sorted by slot) with
+//             ent_slot[e] == j: the fill chain, composed on the host;
+//   2. Q:     u_hat = filled @ Q_h, from the lists of Q by output slot (fwd_ptr, fwd_col, fwd_w);
+//   3. K:     own = scale[h] * (K u_hat), K the Kronecker sum of the 1-D factors K1, M1;
+//   4. Q^T:   out = own @ Q_h^T, from the lists of Q^T (bwd_ptr, bwd_col, bwd_w).
+// The fill mode (FILL) stops after step 2 and writes u_hat (refill's input).
+//
+// Replaces: BrickLaplaceMM._fill_rows (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687-2694:
+//   _fill_hn_compact, 2728-2773, fed by _extract_cols, 2178-2194, then _hn_apply forward,
+//   2244-2258), the constrained rows' `u_hat @ K.T * geo_cell_sub[hn_sub]` (2469-2471) and the
+//   transposed _hn_apply (2474). The TPU side ran these as XLA gathers, one-hot MXU matmuls,
+//   scatters and one dense [n_loc, n_loc] matmul per mask range and direction (no Pallas
+//   kernel).
+//
+// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (16,744 rows, 426,424 fill entries, 25 Q's
+//   of 137-881 nonzeros): memory. The distinct brick nodes the rows read, out written once
+//   (8.4 MB), the fill lists, keep at one bit a slot and the Q lists: 17.5 MB, 5.2 us at
+//   3.35 TB/s (hn_cell.bytes_and_flops); the adds of the entries, the multiply-adds of Q and
+//   Q^T and the 7 sweeps (8,875 operations a row) are 0.175 GFLOP, 2.6 us at 67 TFLOP/s.
+//
+// Design: one block per G contiguous rows (G = 16 at p = 4, 8 at p = 5..8, as cell_apply's
+//   groups), the rows held in two shared-memory buffers of G n_loc values from the gather to
+//   the write, so no intermediate row goes through device memory:
+//   - fill: the block's threads write the masked own nodes into buffer A, each thread's keep
+//     flags and then its nodes loaded together (reads along x contiguous); the block's entries
+//     are one contiguous range (row_ptr[h0] .. row_ptr[h0+G]), and the thread holding a run's
+//     first entry (one row, one slot) sums the run in order and adds it into the slot after
+//     the barrier that ends the base write, so no two threads write one slot and no atomics
+//     are needed (as fill_hn did, one warp a row). A thread's first run is loaded before that
+//     barrier, its checks and first source together, so the two gathers overlap;
+//   - Q and Q^T: output (g, j) goes to thread t with g = t % G, j = t / G, so a warp's lanes take
+//     one or two slots of all G rows: they walk one entry list (rows of one mask range share
+//     their Q; rows are sorted by mask, so a block holds one Q or two) and the list's loads are
+//     broadcasts through the read-only path (__ldg), with the row reads spread over the banks
+//     (row stride n_loc, odd at p = 4). One thread a (row, slot), as hn_apply did, diverged
+//     across a warp's 32 slots of 1 to ~25 entries;
+//   - K: cell_apply's 7 sweeps (sum_factorization.cuh), carried over as they are, the rows'
+//     scales loaded with the block's tables; the z sweep writes over its own line, so buffer
+//     B holds own;
+//   - out: Q^T writes into buffer A and the block stores it with 16-byte stores, coalesced.
+//   8 barriers a block (4 in the fill mode). The shared-memory limit (above 48 KB at p = 8 in
+//   f64) is raised once per device, not on every launch.
+//   Resources (ptxas, sm_90a, CUDA 12.8; no spills, no stack in any instantiation): f32: 32
+//   registers at every degree; f64: 32 registers at p = 4, 66 at p = 8; p=4 f32: 416
+//   threads, 16.3 KB of shared memory, 4 blocks an SM (the thread limit).
+//   What holds it back: a block's phases run one after another, each a short chain of
+//   dependent loads (the fill's gathers, the Q lists through L1) or of sweeps, and 4 blocks an
+//   SM do not hide them. Tried on the card and not kept (none faster, most slower): staging
+//   the block's Q lists in shared memory, 8 rows a block at p = 4 (9 blocks an SM), the Q
+//   loops unrolled, each thread's Q ranges loaded ahead, the last product stored straight to
+//   device memory, the fill started without the setup barrier.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+#include "sum_factorization.cuh"
+
+namespace {
+
+using sf::Cfg;
+using sf::Factors;
+
+// dst[g, j] = src[g, :] @ Q_g[:, j] for the G rows of the block, Q_g from lists by output slot
+// (q[g] < 0: a copy)
+template <typename T, int P>
+__device__ __forceinline__ void apply_q(const T* src, T* dst, const int* s_q,
+                                        const int* __restrict__ ptr, const int* __restrict__ col,
+                                        const T* __restrict__ w) {
+  using S = Cfg<P>;
+  constexpr int NL = S::NL, G = S::G;
+  for (int t = threadIdx.x; t < G * NL; t += S::THREADS) {
+    const int j = t / G, g = t % G;
+    const int q = s_q[g];
+    const T* x = src + g * NL;
+    T acc;
+    if (q < 0) {
+      acc = x[j];
+    } else {
+      const int* pq = ptr + q * (NL + 1) + j;
+      const int e1 = __ldg(pq + 1);
+      acc = T(0);
+      for (int e = __ldg(pq); e < e1; ++e) acc += __ldg(w + e) * x[__ldg(col + e)];
+    }
+    dst[g * NL + j] = acc;
+  }
+}
+
+// The sum of u_flat[ent_src[k]] over the run of entries that starts at e (one row g, one slot
+// s; entries sorted by row, then slot), in entry order, with dst = g * NL + s; dst = -1 and 0
+// where e is not the first entry of its run.
+template <typename T, int G, int NL>
+__device__ __forceinline__ T run_sum(int e, const int* s_rp, const int* __restrict__ ent_slot,
+                                     const int* __restrict__ ent_src, const T* __restrict__ u,
+                                     int& dst) {
+  int g = 0;  // the row of entry e: the last g with s_rp[g] <= e
+#pragma unroll
+  for (int k = 1; k < G; ++k) g += s_rp[k] <= e;
+  // the checks and the first source are loaded together: most runs hold one entry
+  const int r_end = s_rp[g + 1];
+  const int s = ent_slot[e];
+  const int prev = e > s_rp[g] ? ent_slot[e - 1] : -1;
+  const int next = e + 1 < r_end ? ent_slot[e + 1] : -1;
+  const T first = u[ent_src[e]];
+  dst = -1;
+  if (prev == s) return T(0);  // not the first entry of its run
+  T acc = first;
+  if (next == s)
+    for (int k = e + 1; k < r_end && ent_slot[k] == s; ++k) acc += u[ent_src[k]];
+  dst = g * NL + s;
+  return acc;
+}
+
+template <typename T, int P, int B, bool FILL>
+__global__ void __launch_bounds__(Cfg<P>::THREADS)
+hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
+               const bool* __restrict__ keep, const int* __restrict__ row_ptr,
+               const int* __restrict__ ent_slot, const int* __restrict__ ent_src,
+               const int* __restrict__ q_of_row, const int* __restrict__ fwd_ptr,
+               const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
+               const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
+               const T* __restrict__ bwd_w, const Factors<T, P + 1> f,
+               const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p) {
+  using S = Cfg<P>;
+  constexpr int N = S::N, N2 = S::N2, NL = S::NL, G = S::G;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B * B;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sa = reinterpret_cast<T*>(smem_raw);  // buffer A
+  T* sb = sa + S::SCR;                     // buffer B
+  T* s_scale = sb + S::SCR;                         // [G] each row's scale (full mode)
+  int* s_rp = reinterpret_cast<int*>(s_scale + G);  // [G + 1] the block's row_ptr
+  int* s_q = s_rp + G + 1;                          // [G] each row's Q
+  int* s_base = s_q + G;                            // [G] each row's cell origin in u
+
+  const int tid = threadIdx.x;
+  const int h0 = blockIdx.x * G;
+  const int nrows = min(G, n_hn - h0);
+  if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
+  if (tid < G) {
+    int q = -1, base = 0;
+    if (tid < nrows) {
+      const int cell = hn_sub[h0 + tid];
+      const int brick = cell / C, slot = cell % C;
+      const int sx = slot % B, sy = (slot / B) % B, sz = slot / (B * B);
+      q = q_of_row[h0 + tid];
+      base = brick * N3p + (sz * P * NB + sy * P) * NB + sx * P;
+    }
+    s_q[tid] = q;
+    s_base[tid] = base;
+    if constexpr (!FILL) s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
+  }
+  __syncthreads();
+
+  // 1. fill: the masked own nodes into buffer A; each run of entries (one row, one slot) summed
+  //    by the thread holding its first entry. A thread's first run is loaded before the
+  //    barrier that ends the base write, so the two gathers overlap; it is added after it.
+  const int e0 = s_rp[0] + tid, e_end = s_rp[G];
+  int run_dst = -1;
+  T acc = e0 < e_end ? run_sum<T, G, NL>(e0, s_rp, ent_slot, ent_src, u, run_dst) : T(0);
+  {  // all of a thread's keep flags, then all its nodes, in flight together
+    constexpr int IT = (G * NL + S::THREADS - 1) / S::THREADS;
+    const bool* kb = keep + static_cast<size_t>(h0) * NL;
+    bool kept[IT];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int t = tid + i * S::THREADS;
+      kept[i] = t < nrows * NL && kb[t];
+    }
+    T v[IT];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int t = tid + i * S::THREADS, g = t / NL, j = t - g * NL;
+      const int ix = j % N, iy = (j / N) % N, iz = j / N2;
+      v[i] = kept[i] ? u[s_base[g] + (iz * NB + iy) * NB + ix] : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i)
+      if (tid + i * S::THREADS < G * NL) sa[tid + i * S::THREADS] = v[i];
+  }
+  __syncthreads();
+  if (run_dst >= 0) sa[run_dst] += acc;
+  for (int e = e0 + S::THREADS; e < e_end; e += S::THREADS) {  // blocks of many entries
+    acc = run_sum<T, G, NL>(e, s_rp, ent_slot, ent_src, u, run_dst);
+    if (run_dst >= 0) sa[run_dst] += acc;
+  }
+  __syncthreads();
+
+  // 2. Q: u_hat into buffer B
+  apply_q<T, P>(sa, sb, s_q, fwd_ptr, fwd_col, fwd_w);
+  __syncthreads();
+  T* res = sb;
+  if constexpr (!FILL) {
+    // 3. K: the sweeps on buffer B with A as scratch; own lands in B
+    const int l = tid;
+    const bool active = l < G * N2;
+    if (active) {
+      T r[N];
+      sf::load_line<T, N, 1>(sb + l * N, r);
+      sf::sweep_x(f, r, sb, sa, l);
+    }
+    __syncthreads();
+    if (active) sf::sweep_y(f, sb, sa, l);
+    __syncthreads();
+    if (active) {
+      const int g = l / N2;
+      sf::sweep_z(f, sb, sa, l, s_scale[g], sb + g * NL + (l - g * N2));
+    }
+    __syncthreads();
+    // 4. Q^T: out into buffer A
+    apply_q<T, P>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
+    __syncthreads();
+    res = sa;
+  }
+  // the block's rows are contiguous in out: a full tile is whole 16-byte words
+  T* dst = out + static_cast<size_t>(h0) * NL;
+  sf::copy_block(dst, res, nrows * NL,
+                 nrows == G && reinterpret_cast<uintptr_t>(dst) % 16 == 0);
+}
+
+template <typename T, int P, int B, bool FILL>
+int launch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int N3p,
+           cudaStream_t stream) {
+  using S = Cfg<P>;
+  // the rows' two buffers and their scales, then row_ptr, q and the cell origins
+  const int smem =
+      static_cast<int>((2 * S::SCR + S::G) * sizeof(T) + (3 * S::G + 1) * sizeof(int));
+  auto kernel = hn_cell_kernel<T, P, B, FILL>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Factors<T, P + 1> f{};
+  if (!FILL) {
+    std::memcpy(f.K, K1, sizeof(f.K));
+    std::memcpy(f.M, M1, sizeof(f.M));
+  }
+  const int blocks = (n_hn + S::G - 1) / S::G;
+  if (blocks > 0) {
+    kernel<<<blocks, S::THREADS, smem, stream>>>(
+        static_cast<const T*>(a[0]), static_cast<const int*>(a[1]),
+        static_cast<const bool*>(a[2]), static_cast<const int*>(a[3]),
+        static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
+        static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
+        static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
+        static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
+        static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]), static_cast<T*>(out),
+        n_hn, N3p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
+template <typename T>
+int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
+             int B, int N3p, int fill, cudaStream_t stream) {
+#define HN_CASE(p_, b_)                                                             \
+  if (p == p_ && B == b_)                                                           \
+    return fill ? launch<T, p_, b_, true>(a, K1, M1, out, n_hn, N3p, stream)        \
+                : launch<T, p_, b_, false>(a, K1, M1, out, n_hn, N3p, stream);
+  HN_CASE(4, 4)
+  HN_CASE(5, 2)
+  HN_CASE(6, 2)
+  HN_CASE(7, 2)
+  HN_CASE(8, 2)
+#undef HN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+// a: device pointers, in order: u, hn_sub, keep, row_ptr, ent_slot, ent_src, q_of_row, fwd_ptr,
+// fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, scale (the last four unread in the fill mode).
+// K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; unread in the
+// fill mode).
+int hn_cell_f32(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
+                int p, int B, int N3p, int fill, void* stream) {
+  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, fill,
+                         static_cast<cudaStream_t>(stream));
+}
+
+int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
+                int p, int B, int N3p, int fill, void* stream) {
+  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, fill,
+                          static_cast<cudaStream_t>(stream));
+}
+
+const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

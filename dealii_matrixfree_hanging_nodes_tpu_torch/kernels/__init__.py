@@ -8,10 +8,8 @@ from . import (  # noqa: F401
     cell_apply,
     corr_compact,
     dss_surface,
-    fill_hn,
-    hn_apply,
+    hn_cell,
     refill_update,
 )
 
-KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_apply, fill_hn, corr_compact,
-                  refill_update)
+KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update)

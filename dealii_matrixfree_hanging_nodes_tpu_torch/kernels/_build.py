@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Libraries
 go to ``build/kernels/`` beside the package (the repository's ``build/``),
-named by a hash of the source and flags, so an edited source is rebuilt and
-an unchanged one is reused. ``build()`` starts one ``nvcc`` per missing
+named by a hash of the source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+reused. ``build()`` starts one ``nvcc`` per missing
 library, all at once. Nothing is compiled or loaded at import.
 """
 
@@ -22,8 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("brick_apply", "cell_apply", "dss_surface", "hn_apply", "fill_hn", "corr_compact",
-           "refill_update")
+KERNELS = ("brick_apply", "cell_apply", "dss_surface", "hn_cell", "corr_compact", "refill_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,10 +40,22 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """path and every ``csrc`` header it includes, directly or through
+    another header, each once, in the order first included."""
+    if path not in seen:
+        seen.append(path)
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            _sources(CSRC / inc, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:

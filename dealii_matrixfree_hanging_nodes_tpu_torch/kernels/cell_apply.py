@@ -1,16 +1,16 @@
 """Kernel 2, ``cell_apply``: the local stiffness on cell rows, out[r] =
 scale[r] * (K x_r), with K the Kronecker sum of the 1-D factors K1 and M1
 (``K1⊗M1⊗M1 + M1⊗K1⊗M1 + M1⊗M1⊗K1``, x fastest), applied by sum
-factorization, in one of two input modes:
+factorization. The kernel reads x_r, the (p+1)^3 nodes of cell r, from its
+brick (``brick_size=B``): src [m, N3p] -> out [m*B^3, n_loc] — the
+reference's ``_extract_cols`` (bricks.py:2178-2194) fused with ``cols @ K.T
+* geo_cell_sub`` (bricks.py:2449-2453). The plain version also takes rows
+(``brick_size=None``): src [m, n_loc] -> out [m, n_loc] — the reference's
+``u_hat @ K.T * geo_cell_sub[hn_sub]`` (bricks.py:2469-2471), which on the
+card runs inside ``hn_cell``.
 
-- from bricks (``brick_size=B``): x_r are the (p+1)^3 nodes of cell r read
-  from its brick, src [m, N3p] -> out [m*B^3, n_loc] — the reference's
-  ``_extract_cols`` (bricks.py:2178-2194) fused with ``cols @ K.T *
-  geo_cell_sub`` (bricks.py:2449-2453);
-- from rows (``brick_size=None``): src [m, n_loc] -> out [m, n_loc] — the
-  reference's ``u_hat @ K.T * geo_cell_sub[hn_sub]`` (bricks.py:2469-2471).
-
-CUDA source: ``csrc/cell_apply.cu``."""
+CUDA source: ``csrc/cell_apply.cu`` (the sweeps in
+``csrc/sum_factorization.cuh``, shared with ``hn_cell``)."""
 
 from __future__ import annotations
 
@@ -43,6 +43,13 @@ def brick_slot_index(B: int, p: int, device=None) -> torch.Tensor:
     )
 
 
+def cell_nodes(cells, brick_size, p, N3p, device):
+    """[len(cells), n_loc] flat index into [*, N3p] bricks of each cell's nodes."""
+    C = brick_size**3
+    cells = cells.long()
+    return (cells // C)[:, None] * N3p + brick_slot_index(brick_size, p, device)[cells % C]
+
+
 def cell_apply_plain(src, K1, M1, scale, brick_size=None):
     """Plain PyTorch version: gather the cell rows, then the sweeps of the
     1-D factors on the [rows, z, y, x] view (x: M1, K1; y: M1 on both, K1
@@ -64,7 +71,7 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None):
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def cell_apply(src, K1, M1, scale, brick_size=None):
+def cell_apply(src, K1, M1, scale, brick_size):
     """Launch the kernel on CUDA tensors; the plain version on CPU ones.
     The kernel takes K1 and M1 by value, as launch parameters: on the
     kernel path they must be CPU tensors (``BrickLaplaceMM.factors_host``);
@@ -80,16 +87,10 @@ def cell_apply(src, K1, M1, scale, brick_size=None):
         raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
                          f"(op.factors_host), got them on {K1.device} and {M1.device}")
     K1, M1 = (f.detach().to(src.dtype).contiguous() for f in (K1, M1))
-    m = src.shape[0]
-    if brick_size is None:
-        rows, B, N3p = m, 0, 0
-        if src.shape != (m, n_loc):
-            raise ValueError(f"{NAME}: rows must be [m, {n_loc}], got {tuple(src.shape)}")
-    else:
-        B = int(brick_size)
-        if src.dim() != 2 or src.shape[1] < (B * p + 1) ** 3:
-            raise ValueError(f"{NAME}: bricks must be [m, >= NB^3], got {tuple(src.shape)}")
-        rows, N3p = m * B**3, src.shape[1]
+    B = int(brick_size)
+    if src.dim() != 2 or src.shape[1] < (B * p + 1) ** 3:
+        raise ValueError(f"{NAME}: bricks must be [m, >= NB^3], got {tuple(src.shape)}")
+    rows, N3p = src.shape[0] * B**3, src.shape[1]
     if scale.shape != (rows,):
         raise ValueError(f"{NAME}: scale must be [{rows}], got {tuple(scale.shape)}")
     out = torch.empty((rows, n_loc), dtype=src.dtype, device=src.device)

@@ -22,10 +22,21 @@ import ctypes
 import torch
 
 from . import _build
-from .fill_hn import gather_sums
 
 NAME = "corr_compact"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2775"
+
+
+def gather_sums(src_flat, row_ptr, ent_slot, ent_src, n_loc):
+    """[n_rows, n_loc] sums of src_flat[ent_src] by (row, slot): the
+    entries' part, summed in entry order (shared with the fill's plain
+    version, ``hn_cell.fill_hn_plain``)."""
+    n_rows = row_ptr.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=src_flat.device),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    acc = torch.zeros(n_rows * n_loc, dtype=src_flat.dtype, device=src_flat.device)
+    acc.index_add_(0, rows * n_loc + ent_slot.long(), src_flat[ent_src.long()])
+    return acc.view(n_rows, n_loc)
 
 
 def corr_compact_plain(plain, sub_raw, cell_code, keep, row_ptr, ent_slot, ent_src):

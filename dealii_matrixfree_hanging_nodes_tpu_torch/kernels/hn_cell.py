@@ -1,0 +1,172 @@
+"""Kernel 5, ``hn_cell``: the constrained rows of the vmult in one launch,
+from the subset bricks u_sub [n_sub, N3p] to HN^T. Row h is cell hn_sub[h]:
+
+1. fill: the masked own nodes of the cell plus the master nodes that the
+   fill chain copies into each slot (``fill_hn_plain``);
+2. Q: u_hat = filled @ Q_h, Q_h the composite hanging-node matrix of the
+   row's mask range (identity ranges pass through; ``hn_apply_plain``);
+3. K: own = scale[h] * (K u_hat), by sum factorization of K1, M1
+   (``cell_apply_plain``'s row mode);
+4. Q^T: out = own @ Q_h^T.
+
+``mode="fill"`` stops after step 2 and returns u_hat (refill's input).
+
+Replaces the reference's ``_fill_rows`` (bricks.py:2687-2694: the compact
+fill chain ``_fill_hn_compact``, 2728-2773, fed by ``_extract_cols``, then
+``_hn_apply`` forward, 2244-2258), the constrained rows' ``u_hat @ K.T *
+geo`` (2469-2471) and the transposed ``_hn_apply`` (2474). The tables are
+``bricks.kernel_tables``' (``BrickLaplaceMM.hn_tables()``): the fill chain
+composed on the host into gather lists (row_ptr [n_hn+1] into entries
+sorted by (row, slot); ent_slot, ent_src int32, ent_src a flat index into
+u_sub), and each Q's nonzeros by output slot for u @ Q (fwd) and u @ Q^T
+(bwd): q [n_hn] the row's Q (-1: identity), ptr [nQ, n_loc+1] int32 into
+col int32 and w. CUDA source: ``csrc/hn_cell.cu``."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .cell_apply import cell_apply_plain, cell_degree, cell_nodes
+from .corr_compact import gather_sums
+
+NAME = "hn_cell"
+REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687"
+MODES = ("full", "fill")
+
+
+def fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size):
+    """Step 1, the compact fill chain on the constrained rows: masked
+    gather of each row's own nodes, then the entries' sums added."""
+    n_loc = keep.shape[1]
+    p = round(n_loc ** (1.0 / 3.0)) - 1
+    flat = u_sub.reshape(-1)
+    base = torch.where(keep, flat[cell_nodes(hn_sub, brick_size, p, u_sub.shape[1],
+                                             u_sub.device)], 0.0)
+    return base + gather_sums(flat, row_ptr, ent_slot, ent_src, n_loc)
+
+
+def hn_apply_plain(rows, q, ptr, col, w):
+    """rows @ Q (fwd lists) or rows @ Q^T (bwd lists), one Q per row's mask
+    range: for each Q, gather the weighted inputs of every entry and sum
+    them by output slot; rows with q < 0 pass through."""
+    out = rows.clone()
+    n_loc = rows.shape[1]
+    for qi in range(ptr.shape[0]):
+        sel = torch.nonzero(q == qi)[:, 0]
+        if not sel.numel():
+            continue
+        e0, e1 = int(ptr[qi, 0]), int(ptr[qi, -1])
+        slot = torch.repeat_interleave(torch.arange(n_loc, device=rows.device),
+                                       (ptr[qi, 1:] - ptr[qi, :-1]).long())
+        vals = rows[sel][:, col[e0:e1].long()] * w[e0:e1]
+        out[sel] = torch.zeros((len(sel), n_loc), dtype=rows.dtype,
+                               device=rows.device).index_add_(1, slot, vals)
+    return out
+
+
+def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
+                  bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full"):
+    """Plain PyTorch version: the four steps one after another, each
+    through device memory (K1, M1 and scale are not read in the fill
+    mode)."""
+    filled = fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size)
+    u_hat = hn_apply_plain(filled, q, fwd_ptr, fwd_col, fwd_w)
+    if _mode(mode) == "fill":
+        return u_hat
+    own = cell_apply_plain(u_hat, K1, M1, scale)
+    return hn_apply_plain(own, q, bwd_ptr, bwd_col, bwd_w)
+
+
+def _mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"{NAME}: mode must be one of {MODES}, got {mode!r}")
+    return mode
+
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
+            bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full"):
+    """u_sub [n_sub, N3p]; hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot,
+    ent_src, the Q lists' ptr [nQ, n_loc+1] and col int32; keep [n_hn,
+    n_loc] bool; w and scale [n_hn] of u_sub's dtype -> new [n_hn, n_loc]
+    tensor. The kernel takes K1 and M1 by value, as launch parameters: on
+    the kernel path they must be CPU tensors (``op.factors_host``). In the
+    fill mode K1, M1 and scale may be None."""
+    args = (u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
+            bwd_ptr, bwd_col, bwd_w)
+    fill = _mode(mode) == "fill"
+    if u_sub.device.type == "cpu":
+        return hn_cell_plain(*args, K1, M1, scale, brick_size, mode)
+    names = ("u_sub", "hn_sub", "keep", "row_ptr", "ent_slot", "ent_src", "q", "fwd_ptr",
+             "fwd_col", "fwd_w", "bwd_ptr", "bwd_col", "bwd_w")
+    tensors = dict(zip(names, args))
+    if not fill:
+        tensors["scale"] = scale
+    dev = _build.check_cuda(NAME, u_sub.dtype, **tensors)
+    n_hn, n_loc = keep.shape
+    B, p = int(brick_size), round(n_loc ** (1.0 / 3.0)) - 1
+    if any(t.dtype != torch.int32 for t in (hn_sub, row_ptr, ent_slot, ent_src, q, fwd_ptr,
+                                            fwd_col, bwd_ptr, bwd_col)):
+        raise TypeError(f"{NAME}: the index tables must be int32")
+    if (keep.dtype != torch.bool or (p + 1) ** 3 != n_loc or hn_sub.shape != (n_hn,)
+            or q.shape != (n_hn,) or row_ptr.shape != (n_hn + 1,)
+            or ent_slot.shape != ent_src.shape or u_sub.dim() != 2
+            or u_sub.shape[1] < (B * p + 1) ** 3
+            or any(ptr.dim() != 2 or ptr.shape[1] != n_loc + 1 or col.shape != w.shape
+                   for ptr, col, w in ((fwd_ptr, fwd_col, fwd_w), (bwd_ptr, bwd_col, bwd_w)))):
+        raise ValueError(f"{NAME}: shapes u_sub {tuple(u_sub.shape)}, keep "
+                         f"{tuple(keep.shape)}, row_ptr {tuple(row_ptr.shape)}, Q lists "
+                         f"{tuple(fwd_ptr.shape)} / {tuple(bwd_ptr.shape)}")
+    if fill:
+        factors = (None, None)
+    else:
+        if cell_degree(K1) != p or M1.shape != K1.shape or scale.shape != (n_hn,):
+            raise ValueError(f"{NAME}: K1, M1 must be [{p + 1}, {p + 1}] and scale [{n_hn}]")
+        if K1.device.type != "cpu" or M1.device.type != "cpu":
+            raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
+                             f"(op.factors_host), got them on {K1.device} and {M1.device}")
+        factors = tuple(f.detach().to(u_sub.dtype).contiguous() for f in (K1, M1))
+    out = torch.empty((n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
+    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in args),
+                                  None if fill else scale.data_ptr())
+    fn = _build.function(NAME, f"{NAME}_{_build.suffix(u_sub.dtype)}", _ARGS)
+    _build.launch(NAME, fn, dev, ptrs, *(None if f is None else _build.ptr(f) for f in factors),
+                  _build.ptr(out), n_hn, p, B, u_sub.shape[1], int(fill))
+    hn_cell.launches += 1
+    return out
+
+
+hn_cell.launches = 0
+
+
+def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col,
+                    fwd_w, bwd_ptr, bwd_col, bwd_w, brick_size, mode="full"):
+    """Least traffic: each distinct brick node the rows read (kept own nodes
+    and entry sources) read once, out written once, the keep mask at one
+    bit a slot, hn_sub, q, the fill lists and the Q lists read once, and in
+    the full mode scale, K1 and M1. Operations: an add per fill entry, a
+    multiply and an add per nonzero of each row's Q (and of Q^T), and in the
+    full mode the 7 sweeps of 2 n^4 and the scale a row."""
+    n_hn, n_loc = keep.shape
+    n = round(n_loc ** (1.0 / 3.0))
+    isz = u_sub.element_size()
+    own = cell_nodes(hn_sub, brick_size, n - 1, u_sub.shape[1], u_sub.device)[keep]
+    n_read = torch.unique(torch.cat([own, ent_src.long()])).numel()
+    n_ent = ent_src.numel()
+    lists = [(fwd_ptr, fwd_col)] + ([(bwd_ptr, bwd_col)] if _mode(mode) == "full" else [])
+    nbytes = ((n_read + n_hn * n_loc) * isz + (keep.numel() + 7) // 8
+              + 4 * (2 * n_hn + row_ptr.numel() + ent_slot.numel() + n_ent)
+              + sum(4 * ptr.numel() + (4 + isz) * col.numel() for ptr, col in lists))
+    flops = n_ent
+    for ptr, _ in lists if fwd_ptr.shape[0] else []:
+        nnz = ptr[:, -1] - ptr[:, 0]
+        flops += 2 * int(torch.where(q >= 0, nnz[q.long().clamp(min=0)], 0).sum())
+    if mode == "full":
+        nbytes += (n_hn + 2 * n * n) * isz
+        flops += n_hn * (7 * 2 * n**4 + n**3)
+    return nbytes, flops

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from . import _build
-from .fill_hn import cell_nodes
+from .cell_apply import cell_nodes
 
 NAME = "refill_update"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2884"

@@ -18,8 +18,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
 )
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     corr_compact,
-    fill_hn,
-    hn_apply,
+    hn_cell,
 )
 from torch_port_cases import (  # noqa: E402
     CASES, IDS, RTOL, port, port_tables, reference, rel_err, rng_array,
@@ -43,11 +42,11 @@ def test_index_tables_reproduce_dense_products(geo, nref, p):
     for qi, Q in enumerate(t["hn_Q"]):
         q = torch.full((n_hn,), qi, dtype=torch.int32)
         for d, Qd in (("fwd", Q), ("bwd", Q.T)):
-            got = hn_apply.hn_apply_plain(T(rows), q, k[f"hn_{d}_ptr"], k[f"hn_{d}_col"],
-                                          k[f"hn_{d}_w"])
+            got = hn_cell.hn_apply_plain(T(rows), q, k[f"hn_{d}_ptr"], k[f"hn_{d}_col"],
+                                         k[f"hn_{d}_w"])
             assert rel_err(got, rows @ Qd) < RTOL
     u_sub = rng_array(31, m["n_sub"], m["N3p"])
-    got = fill_hn.fill_hn_plain(T(u_sub), k["hn_sub"], k["keep_hn"], k["fill_row_ptr"],
+    got = hn_cell.fill_hn_plain(T(u_sub), k["hn_sub"], k["keep_hn"], k["fill_row_ptr"],
                                 k["fill_ent_slot"], k["fill_ent_src"], m["B"])
     assert rel_err(got, dense_fill(t, m, u_sub)) < RTOL
     plain = rng_array(32, m["n_sub"] * m["B"] ** 3, n_loc)
@@ -70,7 +69,7 @@ def test_kernel_tables_reject_a_non_permutation():
 
 @case
 def test_refill_matches_reference(geo, nref, p):
-    """refill (fill_hn, hn_apply, refill_update) on a random brick vector."""
+    """refill (hn_cell's fill mode, refill_update) on a random brick vector."""
     _, _, bl, _ = reference(geo, nref, p)
     op = port(geo, nref, p)[2]
     v = rng_array(33, op.n_bricks, op.N3p)

@@ -83,6 +83,27 @@ def test_kernel_module_has_source_and_counter(mod):
     assert (REPO / path).exists() and int(line) > 0
 
 
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source and the csrc headers it
+    includes, so an edited header rebuilds every kernel that includes it
+    and no other."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
+
+    for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh"):
+        shutil.copy(PKG / "csrc" / name, tmp_path)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("cell_apply", "hn_cell", "brick_apply")
+    before = {n: _build.library_path(n) for n in names}
+    assert [p.name for p in _build._sources(tmp_path / "hn_cell.cu", [])] == [
+        "hn_cell.cu", "sum_factorization.cuh"]
+    header = tmp_path / "sum_factorization.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["cell_apply"] != before["cell_apply"]
+    assert after["hn_cell"] != before["hn_cell"]
+    assert after["brick_apply"] == before["brick_apply"]
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card the smoke script exits non-zero and prints no result;
     copied alone into an empty directory it cannot run either."""
@@ -110,7 +131,7 @@ def cuda():
 def test_kernels_match_plain_on_card(cuda, dtype):
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        brick_apply, cell_apply, corr_compact, dss_surface, fill_hn, hn_apply, refill_update,
+        brick_apply, cell_apply, corr_compact, dss_surface, hn_cell, refill_update,
     )
 
     tol = 1e-5 if dtype == torch.float32 else 1e-12
@@ -120,11 +141,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
     cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
     rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    hn_args = (bv[: op.n_sub], *op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
     chain = [
-        (hn_apply, (rows, op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col, op.hn_fwd_w)),
-        (hn_apply, (rows, op.hn_q, op.hn_bwd_ptr, op.hn_bwd_col, op.hn_bwd_w)),
-        (fill_hn, (bv[: op.n_sub], op.hn_sub, op.keep_hn, op.fill_row_ptr, op.fill_ent_slot,
-                   op.fill_ent_src, op.B)),
         (corr_compact, (cols, rows, op.cell_code, op.keep_hn, op.corr_row_ptr,
                         op.corr_ent_slot, op.corr_ent_src)),
         (refill_update, (bv, rows, op.node_valid, op.cell_code, op.refill_pos,
@@ -132,7 +150,11 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     ]
     pairs = [(getattr(mod, mod.NAME)(*args), getattr(mod, f"{mod.NAME}_plain")(*args))
              for mod, args in chain]
+    pairs += [(hn_cell.hn_cell(*hn_args, mode=mode),
+               hn_cell.hn_cell_plain(*hn_args[:-4], op.K1, op.M1, *hn_args[-2:], mode=mode))
+              for mode in hn_cell.MODES]
     pairs += [
+        (op.vmult(bv), op.vmult(bv, plain=True)),
         (op.refill(bv), op.refill(bv, plain=True)),
         (brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p),
          brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p)),
@@ -142,8 +164,6 @@ def test_kernels_match_plain_on_card(cuda, dtype):
                                        brick_size=op.B)),
         (cell_apply.cell_apply(bv[: op.n_sub], *op.factors_host, op.geo_cell_sub, brick_size=op.B),
          cell_apply.cell_apply_plain(bv[: op.n_sub], op.K1, op.M1, op.geo_cell_sub, op.B)),
-        (cell_apply.cell_apply(rows, *op.factors_host, op.geo_hn),
-         cell_apply.cell_apply_plain(rows, op.K1, op.M1, op.geo_hn)),
         (dss_surface.dss_surface(bv.clone(), *op.dss_tables()),
          dss_surface.dss_surface_plain(bv.clone(), *op.dss_tables())),
     ]
@@ -151,7 +171,9 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     for got, ref in pairs:
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
     with pytest.raises(ValueError, match="host tensors"):  # no hidden copy to the host
-        cell_apply.cell_apply(rows, op.K1, op.M1, op.geo_hn)
+        cell_apply.cell_apply(bv[: op.n_sub], op.K1, op.M1, op.geo_cell_sub, brick_size=op.B)
+    with pytest.raises(ValueError, match="host tensors"):
+        hn_cell.hn_cell(*hn_args[:-4], op.K1, op.M1, *hn_args[-2:])
     with pytest.raises(ValueError, match="host tensors"):
         brick_apply.brick_apply(bv, *(f.to(cuda) for f in op.brick_factors_host), op.geo, op.p)
 
@@ -176,6 +198,29 @@ def test_brick_apply_degrees_on_card(cuda, p, dtype):
     for extra in ({}, {"dcols": cols, "brick_size": op.B}):
         got = brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p, **extra)
         ref = brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p, **extra)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [5, 6, 7, 8])
+def test_hn_cell_degrees_on_card(cuda, p, dtype):
+    """hn_cell at the degrees of two cells a brick side (8 rows a block), in
+    both modes, against its plain version."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import hn_cell
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 3), p), device=cuda, dtype=dtype)
+    assert op.B == 2 and op.n_hn > 8
+    g = torch.Generator(device=cuda).manual_seed(p)
+    u_sub = torch.randn(op.n_sub, op.N3p, generator=g, device=cuda, dtype=dtype)
+    for mode in hn_cell.MODES:
+        got = hn_cell.hn_cell(u_sub, *op.hn_tables(), *op.factors_host, op.geo_hn, op.B,
+                              mode=mode)
+        ref = hn_cell.hn_cell_plain(u_sub, *op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B,
+                                    mode=mode)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
 

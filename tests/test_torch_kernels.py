@@ -15,6 +15,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     brick_apply,
     cell_apply,
     dss_surface,
+    hn_cell,
 )
 from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
     kernel_tables,
@@ -55,7 +56,7 @@ def test_cell_apply_from_rows(geo, nref, p):
     op = port(geo, nref, p)[2]
     rows = rng_array(3, op.n_hn, op.n_loc)
     ref = jnp.dot(jnp.asarray(rows), a["K"].T) * jnp.take(a["geo_cell_sub"], a["hn_sub"])[:, None]
-    got = cell_apply.cell_apply(T(rows), op.K1, op.M1, op.geo_hn)
+    got = cell_apply.cell_apply_plain(T(rows), op.K1, op.M1, op.geo_hn)
     assert rel_err(got, ref) < RTOL
 
 
@@ -217,14 +218,15 @@ def test_corr_compact(geo, nref, p):
 
 
 CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + [
-    pytest.param(brick_apply, True, id="brick_apply-dcols")]
+    pytest.param(brick_apply, True, id="brick_apply-dcols"),
+    pytest.param(hn_cell, True, id="hn_cell-fill")]
 
 
-@pytest.mark.parametrize("mod,with_rows", CPU_CASES)
-def test_cpu_tensors_take_the_plain_version(mod, with_rows):
+@pytest.mark.parametrize("mod,variant", CPU_CASES)
+def test_cpu_tensors_take_the_plain_version(mod, variant):
     """On CPU tensors a wrapper computes its plain version and launches
     nothing, so its launch count stays put (brick_apply also with the
-    subset's cell rows)."""
+    subset's cell rows, hn_cell also in its fill mode)."""
     geo, nref, p = CASES[0]
     op = port(geo, nref, p)[2]
     wrapper = getattr(mod, mod.NAME)
@@ -236,13 +238,11 @@ def test_cpu_tensors_take_the_plain_version(mod, with_rows):
     hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
     args, kw = {
         "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
-                                {"dcols": cells(13), "brick_size": op.B} if with_rows else {}),
+                                {"dcols": cells(13), "brick_size": op.B} if variant else {}),
         "cell_apply": lambda: ((sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
         "dss_surface": lambda: ((bricks(15), *op.dss_tables()), {}),
-        "hn_apply": lambda: ((hn_rows(16), op.hn_q, op.hn_fwd_ptr, op.hn_fwd_col,
-                              op.hn_fwd_w), {}),
-        "fill_hn": lambda: ((sub(17), op.hn_sub, op.keep_hn, op.fill_row_ptr,
-                             op.fill_ent_slot, op.fill_ent_src, op.B), {}),
+        "hn_cell": lambda: ((sub(17), *op.hn_tables(), *op.factors_host, op.geo_hn, op.B),
+                            {"mode": "fill" if variant else "full"}),
         "corr_compact": lambda: ((cells(18), hn_rows(19), op.cell_code, op.keep_hn,
                                   op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src), {}),
         "refill_update": lambda: ((bricks(20), hn_rows(21), op.node_valid, op.cell_code,
