@@ -5,10 +5,12 @@
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
 2. build the six CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
-   (one nvcc per source, all at once), with each kernel's registers and spills, and
+   (one nvcc per source, all at once), with each kernel's registers and spills,
+   refill_update's and corr_compact's stack frames (refill_update must have none), and
    brick_apply's shared memory and blocks per SM at each degree;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
-   print the sizes of dss_surface's work lists, and on the host hold the kernels'
+   print the sizes of dss_surface's work lists and the subset cell rows by kind,
+   and on the host hold the kernels'
    composed chain lists at this mesh against the dense one-hot chain, stage by
    stage (float64, relative tolerance 1e-12);
 4. hold each kernel against its plain PyTorch version on the card at the
@@ -23,10 +25,15 @@ Phases (any failure exits non-zero before the last line is printed):
    traffic counted in 32-byte sectors (surface blocks touched together and
    apart) printed beside its bound; printed beside brick_apply: its time
    without the cell rows (the function earlier versions timed) and
-   ``index_add_`` of the cell rows alone; hn_cell's library call (each mode)
-   is one CSR product with its whole map composed into one matrix, and
-   beside it stands the sum of the library calls for its steps; every
-   library call is held against the plain version (1e-4);
+   ``index_add_`` of the cell rows alone; beside refill_update its masked copy
+   alone and a device ``copy_`` of the brick vector, beside corr_compact its
+   rows without their runs; the library calls of corr_compact,
+   refill_update, dss_surface, cell_apply and hn_cell (each mode) are one
+   CSR product each, the kernel's whole map composed into one matrix (their
+   nonzeros printed, with those of brick_apply, whose matrix is too large
+   to build), and beside hn_cell stands the sum of the library calls
+   for its steps; every library call is held against the plain version
+   (1e-4);
 5. the end-to-end constrained vmult at nref=7 in float32 through the kernels,
    held against the plain float64 path on the card (after zeroing the
    hanging entries, relative tolerance 1e-5), with every kernel's launch
@@ -36,8 +43,8 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels, no device launch outside them);
 6. ``refill`` of the vmult's output at nref=7 in float32 through the
    kernels against the plain float64 refill on the card (1e-5), with its
-   launch counts (2 per refill), time and profile (no launch outside the
-   kernels);
+   launch counts (2 per refill), time, the host's time to issue one refill and
+   its profile (no launch outside the kernels);
 7. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
    its plain version, the vmult against the scipy oracle and refill against
    the plain path; at quadrant nref=2 p=6 the vmult against the oracle
@@ -136,30 +143,38 @@ def profile_path(what, fn, kernel_names, reps: int = 10):
     """Where one call's time goes: device time by kernel from torch.profiler
     over `reps` calls of fn, the port's kernels against everything else, and
     the device's idle share of the wall time. Returns the numbers per call;
-    fails where the profiler saw no device time or any device launch
-    outside the port's kernels."""
+    fails where the profiler saw no device time in three sessions, or any
+    device launch outside the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = []  # device kernels only: the aten ops that launch them would count twice
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
+    # a later profiler session in one process has been seen to record no device
+    # activity at all while the calls ran (once in a dozen runs on an H100): such
+    # a session is run again, at most twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        rows = []  # device kernels only: the aten ops that launch them would count twice
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            if dev_us > 0:
+                rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
+        if rows:
+            break
+        print(f"profile of the {what}: the profiler recorded no device time "
+              f"(session {attempt + 1} of 3)", flush=True)
     check(bool(rows), f"the profiler saw no device time in the {what}")
     ours = lambda key: any(k in key for k in kernel_names)
     busy = sum(r[0] for r in rows)
@@ -186,18 +201,25 @@ def sparse_csr(rows, cols, vals, shape):
         .to_sparse_csr()
 
 
-def yardsticks(op, filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, K):
-    """Library calls on the same data, the lists written as CSR matrices
-    (built here, outside the timing): corr_compact as one cuSPARSE product
-    over sub_raw and plain stacked; hn_cell as one cuSPARSE product per mode
-    over the subset brick nodes, its whole map composed into one matrix
-    (``hn_composed``); and hn_cell's steps one call each, as the kernels
-    that it replaced were timed: the fill over the subset brick nodes, Q and
-    Q^T as block-diagonal products over the constrained rows,
-    ``torch.mm(u_hat, K.T)`` for K (no scale). Returns ({name: [fn per
-    part]}, {hn_cell mode: [fn per step]}, {hn_cell mode: nonzeros})."""
+def yardsticks(op, inter, K):
+    """Library calls on the same data (``kernel_calls``' intermediates
+    `inter`), each map written as one CSR matrix (built here, outside the
+    timing): corr_compact as one cuSPARSE product over sub_raw and plain
+    stacked; refill_update over v and u_hat stacked; dss_surface over v (its
+    pool sums); cell_apply over the subset brick nodes (``cell_composed``);
+    hn_cell as one product per mode over the subset brick nodes,
+    its whole map composed into one matrix (``hn_composed``); and hn_cell's
+    steps one call each, as the kernels that it replaced were timed: the
+    fill over the subset brick nodes, Q and Q^T as block-diagonal products
+    over the constrained rows, ``torch.mm(u_hat, K.T)`` for K (no scale).
+    Returns ({name: [fn per part]}, {hn_cell mode: [fn per step]},
+    {matrix: nonzeros})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dss_surface, refill_update
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
 
+    filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, v1, y, u_hat_r = (inter[k] for k in (
+        "filled", "u_hat", "own", "u_sub", "u_sub_r", "sub_raw", "plain_rows", "v1", "y",
+        "u_hat_r"))
     n_loc, dev, dt = op.n_loc, u_sub.device, u_sub.dtype
     ar = lambda n: torch.arange(n, device=dev)
     rep = torch.repeat_interleave
@@ -247,6 +269,70 @@ def yardsticks(op, filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, K):
         return sparse_csr(rows[nz], fill_cols[:, None].expand(-1, n_loc)[nz], vals[nz],
                           (nS, u_sub.numel()))
 
+    def refill_composed():
+        """refill_update as one matrix over [v; u_hat]: a valid node keeps
+        v, times 1 - invden * (its holders that are constrained rows) where
+        the update runs, and takes invden times each such holder's u_hat
+        entry; an invalid node is zero."""
+        n_nodes = y.numel()
+        valid = refill_update.valid_mask(op.refill_valid_bits, op.N3p).reshape(-1)
+        hv = op.refill_holders.long()
+        codes = op.cell_code.view(op.n_sub, op.C).long()[:, torch.where(hv >= 0, hv >> 16, 0)]
+        used = (hv >= 0) & (codes >= 0)  # [n_sub, n_w, 8]
+        w_rows = ar(op.n_sub)[:, None] * op.N3p + op.refill_nodes.long()  # [n_sub, n_w]
+        diag = torch.ones(n_nodes, dtype=dt, device=dev)
+        diag[w_rows.reshape(-1)] = (1 - op.refill_invden * used.sum(dim=-1)).reshape(-1)
+        diag = torch.where(valid, diag, 0.0)
+        nz = torch.nonzero(diag)[:, 0]
+        take = used & valid[w_rows][..., None]
+        ent_rows = w_rows[..., None].expand_as(take)[take]
+        ent_cols = n_nodes + (codes * n_loc + (hv & 0xFFFF))[take]
+        ent_vals = op.refill_invden[..., None].expand(take.shape)[take]
+        return sparse_csr(torch.cat([nz, ent_rows]), torch.cat([nz, ent_cols]),
+                          torch.cat([diag[nz], ent_vals]), (n_nodes, n_nodes + u_hat_r.numel()))
+
+    def dss_composed():
+        """dss_surface as one matrix on v, from dss_surface's own tables: a
+        valid copy of a pool takes the sum of the pool's copies, a node off
+        the surface keeps its value unless it is padding or a hole, every
+        other node is zero."""
+        tables = op.dss_tables()
+        valid_bits, hole_bricks, hole_bits, NB = tables[3], tables[4].long(), tables[5], tables[-1]
+        rows, cols = [], []
+        for pools, kind in zip(tables[:3], dss_surface.POOL_KINDS):
+            b, s, node, real = dss_surface.pool_positions(pools, kind, NB, op.N3p)
+            ok = real[..., None] & dss_surface.bit_set(valid_bits, b[..., None], s)
+            for c in range(pools.shape[1]):
+                sel = ok & real[:, c, None, None]
+                rows.append(node[sel])
+                cols.append(node[:, c: c + 1].expand_as(node)[sel])
+        N3 = NB**3
+        keeps = torch.zeros(v1.shape, dtype=torch.bool, device=dev)
+        keeps[:, :N3] = True
+        keeps[:, torch.from_numpy(dss_surface.surface_nodes(NB)).to(dev)] = False
+        hole = dss_surface.bit_set(hole_bits, ar(len(hole_bricks))[:, None], ar(N3))
+        keeps[hole_bricks, :N3] = keeps[hole_bricks, :N3] & ~hole
+        own_node = torch.nonzero(keeps.reshape(-1))[:, 0]
+        rows, cols = torch.cat(rows + [own_node]), torch.cat(cols + [own_node])
+        return sparse_csr(rows, cols, torch.ones(len(rows), dtype=dt, device=dev),
+                          (v1.numel(), v1.numel()))
+
+    def cell_composed():
+        """cell_apply as one matrix over the subset brick nodes: row (cell
+        r, slot i) takes scale_r K[i, j] at cell r's node j, for each
+        nonzero of K. Built directly as CSR with int32 indices (1.0 G
+        nonzeros at nref=7: 8.2 GB, where int64 columns would take 12.3)."""
+        kr, kc = torch.nonzero(K, as_tuple=True)  # row-major: sorted by kr
+        nodes = cell_nodes(ar(op.n_sub * op.C), op.B, op.p, op.N3p, dev).to(torch.int32)
+        R, nnz_k = nodes.shape[0], kr.numel()
+        k_ptr = torch.cumsum(torch.bincount(kr, minlength=n_loc), 0) - torch.bincount(
+            kr, minlength=n_loc)
+        crow = torch.cat([(ar(R)[:, None] * nnz_k + k_ptr).reshape(-1),
+                          torch.tensor([R * nnz_k], device=dev)]).to(torch.int32)
+        return torch.sparse_csr_tensor(crow, nodes[:, kc].reshape(-1),
+                                       (op.geo_cell_sub[:, None] * K[kr, kc]).reshape(-1),
+                                       (R * n_loc, u_sub.numel()))
+
     ent_row = lambda ptr: rep(ar(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
     kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
     nodes = cell_nodes(op.hn_sub, op.B, op.p, op.N3p, dev).reshape(-1)
@@ -259,7 +345,7 @@ def yardsticks(op, filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, K):
     hn_cells = op.hn_sub.long()
     minus = (torch.nonzero(code != -1)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
     corr = sparse_csr(
-        torch.cat([ent_row(op.corr_row_ptr) * n_loc + op.corr_ent_slot.long(),
+        torch.cat([rep(op.corr_seg_dst.long(), (op.corr_seg_ptr[1:] - op.corr_seg_ptr[:-1]).long()),
                    (hn_cells[:, None] * n_loc + ar(n_loc)).reshape(-1)[kept], minus]),
         torch.cat([op.corr_ent_src.long(), kept, nS + minus]),
         torch.cat([torch.ones(op.corr_ent_src.numel() + len(kept), dtype=dt, device=dev),
@@ -269,14 +355,21 @@ def yardsticks(op, filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, K):
     x_fwd, x_bwd, x_u = filled.reshape(-1), own.reshape(-1), u_sub.reshape(-1)
     x_corr = torch.cat([sub_raw.reshape(-1), plain_rows.reshape(-1)])
     fill_steps = [lambda: fill @ x_u, lambda: fwd @ x_fwd]
-    one = {mode: hn_composed(mode) for mode in ("full", "fill")}
+    one = {f"hn_cell[{mode}]": hn_composed(mode) for mode in ("full", "fill")}
+    one.update(refill_update=refill_composed(), dss_surface=dss_composed(),
+               cell_apply=cell_composed())
     x_u_r = u_sub_r.reshape(-1)
+    x_refill = torch.cat([y.reshape(-1), u_hat_r.reshape(-1)])
+    x_v1 = v1.reshape(-1)
     return ({"corr_compact": [lambda: corr @ x_corr],
+             "cell_apply": [lambda: one["cell_apply"] @ x_u],
              # in the order of kernel_calls' hn_cell parts: full on u_sub, fill on u_sub_r
-             "hn_cell": [lambda: one["full"] @ x_u, lambda: one["fill"] @ x_u_r]},
+             "hn_cell": [lambda: one["hn_cell[full]"] @ x_u, lambda: one["hn_cell[fill]"] @ x_u_r],
+             "refill_update": [lambda: one["refill_update"] @ x_refill],
+             "dss_surface": [lambda: one["dss_surface"] @ x_v1]},
             {"fill": fill_steps,
              "full": fill_steps + [lambda: torch.mm(u_hat, K.T), lambda: bwd @ x_bwd]},
-            {mode: m._nnz() for mode, m in one.items()})
+            {name: m._nnz() for name, m in one.items()})
 
 
 def kernel_calls(op, x, y):
@@ -305,8 +398,8 @@ def kernel_calls(op, x, y):
     dss_args = op.dss_tables()
     hn_args = (*op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
     hn_plain_args = (*op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B)
-    corr_args = (op.cell_code, op.keep_hn, op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src)
-    refill_args = (op.node_valid, op.cell_code, op.refill_pos, op.fill_invden_X, op.B)
+    corr_args = op.corr_tables()
+    refill_args = op.refill_tables()
     v_dss = v1.clone()  # the timed dss_surface calls' scratch, refreshed from v1 before each
     torch.cuda.synchronize()
     return {
@@ -343,18 +436,16 @@ def kernel_calls(op, x, y):
             "dcols",
             lambda: corr_compact.corr_compact(plain_rows, sub_raw, *corr_args),
             lambda: corr_compact.corr_compact_plain(plain_rows, sub_raw, *corr_args),
-            corr_compact.bytes_and_flops(plain_rows, sub_raw, op.cell_code, op.corr_row_ptr,
-                                         op.corr_ent_src), None, None,
+            corr_compact.bytes_and_flops(plain_rows, sub_raw, *corr_args), None, None,
         )],
         "refill_update": [(
             "bricks",
             lambda: refill_update.refill_update(y, u_hat_r, *refill_args),
             lambda: refill_update.refill_update_plain(y, u_hat_r, *refill_args),
-            refill_update.bytes_and_flops(y, u_hat_r, op.cell_code, op.refill_pos,
-                                          op.fill_invden_X, op.B), None, None,
+            refill_update.bytes_and_flops(y, u_hat_r, *refill_args), None, None,
         )],
     }, dict(filled=filled, u_hat=u_hat, own=own, u_sub=u_sub, u_sub_r=u_sub_r, sub_raw=sub_raw,
-            plain_rows=plain_rows, dcols=dcols, v1=v1)
+            plain_rows=plain_rows, dcols=dcols, v1=v1, y=y, u_hat_r=u_hat_r)
 
 
 def check_chain_tables(mf, op, seed):
@@ -390,7 +481,7 @@ def check_chain_tables(mf, op, seed):
     ref["fill"] = dense_fill(t, m, u_sub)
     got["corr_compact"] = corr_compact.corr_compact_plain(
         torch.from_numpy(plain), torch.from_numpy(rows), k["cell_code"], k["keep_hn"],
-        k["corr_row_ptr"], k["corr_ent_slot"], k["corr_ent_src"])
+        k["corr_seg_ptr"], k["corr_seg_dst"], k["corr_ent_src"], k["corr_blocks"])
     ref["corr_compact"] = dense_corr(t, m, plain, rows)
     errs = {name: errors(got[name], torch.from_numpy(ref[name]))[1] for name in got}
     print(f"chain tables vs the dense one-hot chain ({m['n_fill_tails']} fill and "
@@ -437,7 +528,7 @@ def main() -> int:
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, brick_apply, dss_surface,
+        KERNEL_MODULES, _build, brick_apply, corr_compact, dss_surface, refill_update,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -458,6 +549,15 @@ def main() -> int:
     for name, log in logs.items():
         for kernel, usage in _build.ptxas_usage(log):
             print(f"  {kernel}: {usage}")
+    # the stack frames of the two kernels redesigned last (refill_update must have none)
+    frames = {name: [(k, u.split("; ", 1)[1]) for k, u in _build.ptxas_usage(
+        _build.library_path(name).with_suffix(".log").read_text())]
+        for name in ("refill_update", "corr_compact")}
+    for name, usage in frames.items():
+        print(f"  {name} stack frames: " + "; ".join(f"{k}: {u}" for k, u in usage), flush=True)
+    check(bool(frames["refill_update"]) and all(
+        u == "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+        for _, u in frames["refill_update"]), "refill_update has a stack frame or spills")
     for dt in (torch.float32, torch.float64):
         for p in sorted(q for _, q in brick_apply.SUPPORTED):
             plans = [brick_apply.plan(dt, p, m, device=dev) for m in (0, 1)]
@@ -473,8 +573,9 @@ def main() -> int:
     print(f"setup: {time.perf_counter() - t0:.1f} s  (quadrant nref=7 p=4 f32: "
           f"{mf.n_dofs} DoFs, {tria.n_active_cells} cells, {op.n_bricks} bricks, "
           f"{op.n_sub} subset bricks, {op.n_hn} constrained rows, "
-          f"{op.fill_ent_src.numel()} fill and {op.corr_ent_src.numel()} fold entries)",
-          flush=True)
+          f"{op.fill_ent_src.numel()} fill and {op.corr_ent_src.numel()} fold entries; the fold "
+          f"in {op.corr_seg_dst.numel()} runs over {op.corr_blocks.shape[0] - 1} blocks; "
+          f"{op.refill_nodes.numel()} written nodes a subset brick)", flush=True)
     hole_bits = op.dss_hole_bits.cpu().numpy()
     n_holes = int(np.unpackbits(hole_bits.view(np.uint8)).sum())
     lone = lambda pools: int(((pools >= 0).sum(dim=1) == 1).sum())
@@ -485,6 +586,13 @@ def main() -> int:
           f"{n_holes} invalid nodes off the surface in {hole_bits.shape[0]} hole bricks, "
           f"as bits {hole_bits.nbytes + 4 * hole_bits.shape[0]} B (a node list: {4 * n_holes} B)",
           flush=True)
+
+    code = op.cell_code
+    fold_rows = torch.bincount(op.corr_seg_dst.long() // op.n_loc, minlength=code.numel()) > 0
+    print(f"subset cell rows: {code.numel()}: {int((code >= 0).sum())} constrained, "
+          f"{int((code == -2).sum())} absent, {int(((code == -1) & fold_rows).sum())} fold "
+          f"targets, {int(((code == -1) & ~fold_rows).sum())} zero in dcols; "
+          f"{int(fold_rows.sum())} rows hold every fold entry", flush=True)
 
     t0 = time.perf_counter()
     check_chain_tables(mf, op, SEED)
@@ -501,11 +609,13 @@ def main() -> int:
     # here only; the port never calls them)
     library = {name: [None] * len(parts) for name, parts in calls.items()}
     K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
-    lib_calls, hn_steps, hn_nnz = yardsticks(op, *(inter[k] for k in (
-        "filled", "u_hat", "own", "u_sub", "u_sub_r", "sub_raw", "plain_rows")), K)
+    lib_calls, hn_steps, lib_nnz = yardsticks(op, inter, K)
     library.update(lib_calls)
-    print(f"hn_cell composed into one CSR matrix a mode (its library call): {hn_nnz} nonzeros",
-          flush=True)
+    # not built: brick_apply's bricks times the cube of a 1-D factor's structural nonzeros, past
+    # int32 indices (4.0 G at nref=7; about 48 GB as CSR with int64 columns)
+    big = {"brick_apply": op.n_bricks * len(brick_apply.factor_structure(op.NB, op.p)[0]) ** 3}
+    print(f"maps composed into one CSR matrix each (the library calls), nonzeros: {lib_nnz}; "
+          f"not built: {big}", flush=True)
     wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
     results = {}
     for mod in KERNEL_MODULES:
@@ -557,6 +667,8 @@ def main() -> int:
                   + (f", library {l_ms:.4f} ms (rel err {part['library_rel_err']:.3e})"
                      if l_ms is not None else ""), flush=True)
         rec["bound_by"] = max(bound_parts)[1]
+        if name in frames:
+            rec["ptxas"] = [f"{k}: {u}" for k, u in frames[name]]
         results[name] = rec
     # beside the fused brick_apply (printed, not in the kernels line): the launch
     # without cell rows, as earlier versions timed it, and the overlap-add alone as
@@ -573,6 +685,23 @@ def main() -> int:
     ia_ms = time_ms(lambda: v_sub.view(-1).index_add_(0, idx, dcols.view(-1)), device_only=True)
     print(f"index_add_ of the cell rows alone (the overlap-add's library yardstick): "
           f"{ia_ms:.4f} ms", flush=True)
+    # beside refill_update and corr_compact (printed, not in the kernels line): the masked copy
+    # alone (no subset bricks), a device copy_ of the same brick vector, and corr_compact's
+    # rows without their runs
+    y, u_hat_r = inter["y"], inter["u_hat_r"]
+    bits, code, nodes, holders, invden, B = op.refill_tables()
+    out = torch.empty_like(y)
+    copy_ms = time_ms(lambda: refill_update.refill_update(y, u_hat_r, bits, code[:0], nodes,
+                                                          holders, invden[:0], B), device_only=True)
+    devcopy_ms = time_ms(lambda: out.copy_(y), device_only=True)
+    ct = op.corr_tables()
+    no_runs = (*ct[:2], ct[2][:1], ct[3][:0], ct[4][:0], torch.from_numpy(corr_compact.schedule(
+        np.zeros(ct[0].numel(), np.int64), op.n_loc)).to(dev))
+    rows_ms = time_ms(lambda: corr_compact.corr_compact(inter["plain_rows"], inter["sub_raw"],
+                                                        *no_runs), device_only=True)
+    print(f"refill_update's masked copy alone (no subset bricks): {copy_ms:.4f} ms; copy_ of the "
+          f"brick vector: {devcopy_ms:.4f} ms; corr_compact's rows without their runs: "
+          f"{rows_ms:.4f} ms", flush=True)
     # dss_surface's traffic in 32-byte sectors: an estimate printed beside its
     # bound, not a bound (the kernels line carries only the bound)
     dss = results["dss_surface"]
@@ -582,7 +711,7 @@ def main() -> int:
         print(f"dss_surface in 32-byte sectors, surface blocks touched "
               f"{'apart' if apart else 'together'}: {sectors / 1e6:.1f} MB, {s_ms:.4f} ms "
               f"(kernel {dss['ms']:.4f} ms, bound {dss['bound_ms']:.4f} ms in words)", flush=True)
-    del calls, inter, library, lib_calls, hn_steps
+    del calls, inter, library, lib_calls, hn_steps, out
 
     # ---- 5. end-to-end vmult, nref=7, float32, through the kernels ---------
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
@@ -630,7 +759,9 @@ def main() -> int:
     results["refill_update"]["launches"] = rcounts["refill_update"]
     rf_ms = time_ms(lambda: op.refill(y), reps=30, warmup=5)
     rf_plain_ms = time_ms(lambda: op.refill(y, plain=True), reps=10, warmup=2)
-    print(f"refill nref=7 p=4 f32 on {smi}: {rf_ms:.4f} ms; plain path {rf_plain_ms:.4f} ms",
+    rf_host_ms = host_ms(lambda: op.refill(y))
+    print(f"refill nref=7 p=4 f32 on {smi}: {rf_ms:.4f} ms; plain path {rf_plain_ms:.4f} ms; "
+          f"host time to issue a refill ({REFILL_LAUNCHES} launches) {rf_host_ms:.4f} ms",
           flush=True)
     rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers))
     check(rf_prof["port_launches"] == REFILL_LAUNCHES,
@@ -671,7 +802,7 @@ def main() -> int:
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
                                 "profile": vm_prof, "card": smi},
                       "refill": {"ms": rf_ms, "plain_ms": rf_plain_ms, "launches": rcounts,
-                                 "profile": rf_prof, "card": smi}}))
+                                 "host_ms": rf_host_ms, "profile": rf_prof, "card": smi}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -799,6 +799,59 @@ def _gather_lists(M, n_rows, n_loc, what):
                 ent_src=M.indices.astype(np.int32))
 
 
+def _runs(row_ptr, ent_slot, ent_src, n_loc):
+    """corr_compact's form of by-destination gather lists: the entries as
+    runs that land on one (row, slot), seg_ptr [n_seg+1] into ent_src and
+    seg_dst = row * n_loc + slot ascending, and the block schedule over the
+    rows (``corr_compact.schedule``). Raises unless the entries are sorted
+    by destination, so that each (row, slot) is one run."""
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    n_rows = len(row_ptr) - 1
+    if n_rows * n_loc > np.iinfo(np.int32).max:
+        raise NotImplementedError("corr: dcols slots exceed int32")
+    dst = np.repeat(np.arange(n_rows), np.diff(row_ptr)) * n_loc + np.asarray(ent_slot)
+    first = np.ones(len(dst), dtype=bool)
+    first[1:] = dst[1:] != dst[:-1]
+    seg_ptr = np.append(np.nonzero(first)[0], len(dst))
+    seg_dst = dst[first]
+    if (np.diff(seg_dst) <= 0).any():
+        raise ValueError("corr: the fold entries are not sorted into runs by destination")
+    blocks = corr_compact.schedule(np.bincount(seg_dst // n_loc, minlength=n_rows), n_loc)
+    return dict(seg_ptr=seg_ptr.astype(np.int32), seg_dst=seg_dst.astype(np.int32),
+                ent_src=np.asarray(ent_src, dtype=np.int32), blocks=blocks)
+
+
+def _refill_tables(refill_pos, slot_idx, invden_X, node_valid):
+    """refill_update's tables: the nodes the fill writes (refill_pos >= 0),
+    ascending; for each, the cells of a brick that hold it as slot << 16 | j
+    in ascending slot order, -1 padded to 8; the coverage divisor at each
+    written node, [n_sub, n_w]; node_valid at one bit a node. Checked as
+    built: every (slot, j) whose node is written is listed once, under that
+    node."""
+    C, n_loc = slot_idx.shape
+    nodes = np.nonzero(refill_pos >= 0)[0]
+    w_of_node = np.full(len(refill_pos), -1, dtype=np.int64)
+    w_of_node[nodes] = np.arange(len(nodes))
+    w_of = w_of_node[slot_idx.reshape(-1)]  # per (slot, j), slot-major
+    held = np.nonzero(w_of >= 0)[0]
+    w = w_of[held]
+    counts = np.bincount(w, minlength=len(nodes))
+    if len(nodes) and (counts.min() < 1 or counts.max() > refill_update.MAX_HOLDERS):
+        raise ValueError("refill: a written node is held by no cell or by more than 8")
+    order = np.argsort(w, kind="stable")  # by node; slots stay ascending within
+    rank = np.arange(len(held)) - np.repeat(np.cumsum(counts) - counts, counts)
+    holders = np.full((len(nodes), refill_update.MAX_HOLDERS), -1, dtype=np.int64)
+    holders[w[order], rank] = (held[order] // n_loc) << 16 | held[order] % n_loc
+    real = holders >= 0
+    slot, j = holders >> 16, holders & 0xFFFF
+    if (not np.array_equal(slot_idx[slot[real], j[real]], nodes[np.nonzero(real)[0]])
+            or (np.diff(np.where(real, slot, C), axis=1) <= 0)[real[:, 1:]].any()):
+        raise ValueError("refill: the holder lists do not match the cells' nodes")
+    return dict(refill_valid_bits=_pack_bits(node_valid),
+                refill_nodes=nodes.astype(np.int32), refill_holders=holders.astype(np.int32),
+                refill_invden=np.asarray(invden_X)[:, refill_pos[nodes]])
+
+
 def _corr_lists(arrays, meta, hn_dst, keep, cell_code, nF, nR):
     """Gather lists of the composed fold: dcols rows (subset cell rows) by
     slot over the nF slots of sub_raw. hn_dst: the dcols slot of each
@@ -965,14 +1018,17 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     - corr: the compact fold (bricks.py:2775-2849) likewise composes into
       one gather list per (subset cell row, slot) over the slots of
       ``sub_raw``: the tails read ``sub_raw + acc`` before the keep mask,
-      and a constrained row keeps only the slots its keep mask holds.
-      ``cell_code`` tells each subset cell row's kind: its constrained row
-      (>= 0), -1 (none), -2 (absent cell).
+      and a constrained row keeps only the slots its keep mask holds. The
+      list is handed to corr_compact as runs of entries that land on one
+      (row, slot), with a block schedule that spreads the heavy fold rows
+      (``_runs``). ``cell_code`` tells each subset cell row's kind: its
+      constrained row (>= 0), -1 (none), -2 (absent cell).
     - hn: the nonzeros of each composite Q by output slot, for u @ Q
       (fwd) and u @ Q^T (bwd), and each constrained row's Q (-1: identity):
       hn_cell's Q and Q^T.
-    - refill: each brick node's position in ``fill_invden_X`` where the fill
-      writes it (-1 elsewhere).
+    - refill: the brick nodes the fill writes, the cells of a brick that
+      hold each, ``fill_invden_X`` at those nodes and node_valid as bits
+      (``_refill_tables``).
     - cell: the 1-D factors K1 and M1 of the cell stiffness, read off the
       assembled brick factors (``_cell_factors``): cell_apply's and
       hn_cell's sweeps.
@@ -982,18 +1038,20 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       the holes as bit tables (``_dss_work_lists``).
 
     Returns the tables of ``BrickLaplaceMM`` (its buffers, and the packed
-    brick factors it keeps on the host): the brick tables as given, these
-    lists, and no dense K, T or Q (``kronecker_sum(K1, M1)`` builds K where
-    a check needs it)."""
+    brick factors it keeps on the host): the brick tables as given (node
+    validity only as the dss and refill bit tables), these lists, and no
+    dense K, T or Q (``kronecker_sum(K1, M1)`` builds K where a check needs
+    it)."""
     C = int(meta["B"]) ** 3
     n_loc = (int(meta["p"]) + 1) ** 3
     N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
     i32 = lambda x: np.asarray(x).astype(np.int32)
-    out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "geo", "geo_cell_sub", "node_valid")}
+    out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "geo", "geo_cell_sub")}
+    node_valid = np.asarray(arrays["node_valid"])  # on the card only as bit tables
     out.update(_cell_factors(out["Kb"], out["Mb"], np.asarray(arrays["K"]), int(meta["p"])))
     out.update(_brick_factors(out["Kb"], out["Mb"], int(meta["p"])))
     out.update(_dss_work_lists(arrays["face_other"], arrays["edge_contrib"],
-                               arrays["corner_contrib"], out["node_valid"], int(meta["NB"])))
+                               arrays["corner_contrib"], node_valid, int(meta["NB"])))
     hn_sub = np.asarray(arrays["hn_sub"], dtype=np.int64)
     absent = np.asarray(arrays["absent_sub"], dtype=np.int64)
     n_hn, n_rows = len(hn_sub), n_sub * C
@@ -1007,8 +1065,9 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     h_all = np.repeat(np.arange(n_hn), n_loc)
     j_all = np.tile(np.arange(n_loc), n_hn)
     nF, nU, nR = n_hn * n_loc, n_sub * N3p, n_rows * n_loc
-    out.update({f"corr_{k}": v for k, v in _corr_lists(
-        arrays, meta, hn_sub[h_all] * n_loc + j_all, keep, cell_code, nF, nR).items()})
+    out.update({f"corr_{k}": v for k, v in _runs(**_corr_lists(
+        arrays, meta, hn_sub[h_all] * n_loc + j_all, keep, cell_code, nF, nR),
+        n_loc=n_loc).items()})
     if not n_hn:
         return out
 
@@ -1053,14 +1112,14 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
                                               + np.arange(n_loc + 1)]),
                     f"hn_{name}_col": i32(i), f"hn_{name}_w": mats[q, j, i]})
 
-    # ---- refill: the fill's written nodes and their positions
+    # ---- refill: the fill's written nodes, their holders and divisors
     node_of_pos = np.asarray(arrays["node_of_pos"], dtype=np.int64)
     efx_src, efx_pos = (np.asarray(arrays[k], dtype=np.int64) for k in ("efx_src", "efx_pos"))
     if not np.array_equal(node_of_pos[efx_pos], slot_idx.reshape(-1)[efx_src]):
         raise ValueError("refill positions do not match their brick nodes")
-    refill_pos = np.full(N3p, -1, dtype=np.int32)
+    refill_pos = np.full(N3p, -1, dtype=np.int64)
     refill_pos[node_of_pos[efx_pos]] = efx_pos
-    out.update(refill_pos=refill_pos, fill_invden_X=np.asarray(arrays["fill_invden_X"]))
+    out.update(_refill_tables(refill_pos, slot_idx, arrays["fill_invden_X"], node_valid))
     return out
 
 
@@ -1290,13 +1349,17 @@ class BrickLaplaceMM(nn.Module):
         """Filled constrained rows (bricks.py:2687-2694)."""
         return self._hn_apply(self._fill_hn_compact(u_sub), False)
 
+    def corr_tables(self):
+        """corr_compact's tables after plain_rows and sub_raw: the row codes,
+        the keep mask, the fold runs and the block schedule."""
+        return (self.cell_code, self.keep_hn, self.corr_seg_ptr, self.corr_seg_dst,
+                self.corr_ent_src, self.corr_blocks)
+
     def _corr_compact(self, plain_rows, sub_raw, plain: bool = False):
         """Compact correction chain + sparse delta (bricks.py:2775-2849):
         dcols = final - plain, nonzero on hole, constrained and fold-target
         rows only."""
-        return self._kernel(corr_compact, plain)(
-            plain_rows, sub_raw, self.cell_code, self.keep_hn, self.corr_row_ptr,
-            self.corr_ent_slot, self.corr_ent_src)
+        return self._kernel(corr_compact, plain)(plain_rows, sub_raw, *self.corr_tables())
 
     # ---------------------------------------------------------------- vmult
     def _check(self, bv):
@@ -1346,6 +1409,10 @@ class BrickLaplaceMM(nn.Module):
         if not (self.n_sub and self.n_hn):
             return v
         u_hat = self._hn_cell(v[: self.n_sub], "fill", plain)
-        return self._kernel(refill_update, plain)(
-            v, u_hat, self.node_valid, self.cell_code, self.refill_pos, self.fill_invden_X,
-            self.B)
+        return self._kernel(refill_update, plain)(v, u_hat, *self.refill_tables())
+
+    def refill_tables(self):
+        """refill_update's arguments after v and u_hat: the validity bits,
+        the row codes, the written nodes, their holders and divisors, B."""
+        return (self.refill_valid_bits, self.cell_code, self.refill_nodes, self.refill_holders,
+                self.refill_invden, self.B)

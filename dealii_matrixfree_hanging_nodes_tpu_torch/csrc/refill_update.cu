@@ -1,10 +1,11 @@
 // refill_update: out [nb, N3p] from a brick vector v [nb, N3p] and the filled constrained rows
-// u_hat [n_hn, n_loc]. For brick b and node (x, y, z) (x fastest, NB = B*p + 1 per axis):
-//   out = node_valid ? v + invden[b, pos] * sum (u_hat[h, j] - v) : 0,
-// where pos = refill_pos[node] >= 0 marks a node the fill writes (no update where pos < 0 or
-// b >= n_sub), and the sum runs over the cells of brick b that hold the node, in cell-slot
-// order (slot = cx + B*(cy + B*cz)), that are constrained rows h = cell_code[b*B^3 + slot] >= 0,
-// with j the node's local index in that cell.
+// u_hat [n_hn, n_loc]. For brick b and node k:
+//   out = valid ? v + invden[b, w] * sum (u_hat[h, j] - v) : 0,
+// valid = bit k % 32 of word k / 32 of brick b's row of valid_bits [nb, N3p/32]. The update runs
+// only at the written nodes k = nodes[w] of the subset bricks (b < n_sub); the sum runs over the
+// node's holders holders[w, 0..7] = slot << 16 | j (the cells of a brick that hold the node, in
+// ascending slot order, -1 padded) whose cell is a constrained row h = cell_code[b*C + slot] >= 0,
+// in that order (the plain version's), with j the node's local index in the cell.
 //
 // Replaces: the write-back of BrickLaplaceMM._refill_impl (dealii_matrixfree_hanging_nodes_tpu/
 //   bricks.py:2884-2899) through _fill_chain_efx (2851-2865): the zeroed [n_sub*B^3, n_loc]
@@ -12,92 +13,154 @@
 //   one-hot scatters back into the bricks and the node_valid mask. The TPU side ran these as
 //   XLA matmuls and scatters (no Pallas kernel).
 //
-// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p = 4992): memory. v
-//   read once and out written once (2 x 87.9 MB), node_valid as stored (22 MB, one byte a
-//   node), u_hat (8.4 MB), invden (12.2 MB) and the small tables: about 218 MB, 65 us at
-//   3.35 TB/s.
+// Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p = 4992; 1,025 subset
+//   bricks with 1,538 written nodes each): memory. out written once at every node (87.9 MB),
+//   v read once at the valid nodes only (94.6 % of them, 83.1 MB), the validity at one bit a
+//   node (2.75 MB), the u_hat entries that valid written nodes read (at most 8.4 MB), invden
+//   at the valid written nodes (at most 6.3 MB) and the small tables: about 184 MB, 55 us at
+//   3.35 TB/s (refill_update.bytes_and_flops).
 //
-// Design: one thread per (brick, node), gather only: a node's coordinates give the 1-8 cells
-//   of its brick that hold it and its local index in each, so the thread sums the
-//   differences of the constrained ones in cell-slot order (the plain version's order) with
-//   no atomics and no per-brick lists. Every writer of a node carries the same value, so the
-//   coverage mean restores it up to rounding. v, node_valid and out are read and written
-//   coalesced; only the subset bricks' written nodes (a small share) do more than copy.
+// Design: one block per brick, so the brick comes from blockIdx and no thread divides.
+//   - pass 1, the masked copy out = valid ? v : 0, in 16-byte vectors (a brick row of N3p, a
+//     multiple of 32, is whole vectors in f32 and f64): each thread loads its UNROLL vectors and
+//     their validity words before it stores any, so a block keeps ~20 KB in flight; the validity
+//     is one bit a node, 8x less than a bool;
+//   - pass 2, in the subset bricks' blocks only, after the barrier that orders it after pass 1's
+//     stores: one thread a written node. Its two 16-byte holder loads come from a table that
+//     every brick shares (~49 KB at p=4, so it stays in L1 / L2), the brick's cell codes from
+//     shared memory (staged once), so the u_hat loads of all 8 holders are issued together and
+//     summed in holder order; the result overwrites out at the node. The loops over the 8
+//     holders are unrolled, so every holder stays in a register and nothing goes to the stack.
+//   No atomics: every output value is written by one block, pass 2 after pass 1. The subset
+//   bricks lead the grid, so their longer blocks start in the first wave.
+//   Resources (ptxas, sm_90a): 48 registers in f32 and f64, 256 bytes of shared memory, no
+//   stack, no spills; 5 blocks of 256 threads an SM (the registers).
+//   What holds it back: pass 2 (chip_smoke.py prints the masked copy alone, with no subset
+//   bricks, beside a device copy_ of v): a chain of dependent loads (the node, then v and the
+//   bits; the holders, then the codes, then u_hat), six nodes a thread at p=4, that the subset
+//   blocks run in the first wave. Tried on the card in scratch builds and not kept (each
+//   slower): the subset bricks spread through the grid, pass 2 unrolled by two, 512 threads
+//   with 3 vectors a thread, 128 with 10, 3 vectors a thread, streaming cache hints on the copy.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-// The cells (along one axis) holding lattice coordinate x: their cell coordinate and the
-// node's local index in each, ascending in the cell coordinate. Returns how many (1 or 2).
-__device__ __forceinline__ int holders(int x, int p, int B, int* c, int* i) {
-  const int q = x / p, r = x - (x / p) * p;
-  if (r != 0) {
-    c[0] = q;
-    i[0] = r;
-    return 1;
-  }
-  int k = 0;
-  if (q >= 1) {
-    c[k] = q - 1;
-    i[k++] = p;
-  }
-  if (q <= B - 1) {
-    c[k] = q;
-    i[k++] = 0;
-  }
-  return k;
+constexpr int THREADS = 256;
+constexpr int UNROLL = 5;   // vectors a thread has in flight: 1,248 f32 vectors a brick at p=4
+constexpr int MAX_C = 64;   // cells a brick (B = 4)
+constexpr int HOLDERS = 8;  // the cells of a brick that share a node: 2 an axis
+static_assert(THREADS >= MAX_C, "a block stages its brick's cell codes one a thread");
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int W = 4;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+  static constexpr int W = 2;
+};
+
+// x with the values whose bit in m (lowest bit first) is clear set to zero
+__device__ __forceinline__ float4 masked(float4 x, unsigned m) {
+  x.x = (m & 1u) ? x.x : 0.0f;
+  x.y = (m & 2u) ? x.y : 0.0f;
+  x.z = (m & 4u) ? x.z : 0.0f;
+  x.w = (m & 8u) ? x.w : 0.0f;
+  return x;
+}
+
+__device__ __forceinline__ double2 masked(double2 x, unsigned m) {
+  x.x = (m & 1u) ? x.x : 0.0;
+  x.y = (m & 2u) ? x.y : 0.0;
+  return x;
 }
 
 template <typename T>
-__global__ void refill_update_kernel(const T* __restrict__ v, const T* __restrict__ u_hat,
-                                     const bool* __restrict__ node_valid,
-                                     const int* __restrict__ cell_code,
-                                     const int* __restrict__ refill_pos,
-                                     const T* __restrict__ invden, T* __restrict__ out, int nb,
-                                     int n_sub, int n_pos, int N3p, int n_loc, int p, int B) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(nb) * N3p) return;
-  if (!node_valid[t]) {
-    out[t] = T(0);
-    return;
+__global__ void __launch_bounds__(THREADS)
+refill_update_kernel(const T* __restrict__ v, const T* __restrict__ u_hat,
+                     const unsigned* __restrict__ valid_bits, const int* __restrict__ cell_code,
+                     const int* __restrict__ nodes, const int4* __restrict__ holders,
+                     const T* __restrict__ invden, T* __restrict__ out, int n_sub, int n_w,
+                     int N3p, int n_loc, int C) {
+  using V = typename Vec<T>::type;
+  constexpr int W = Vec<T>::W;
+  __shared__ int s_code[MAX_C];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t row = static_cast<size_t>(b) * N3p;
+  const unsigned* bits = valid_bits + static_cast<size_t>(b) * (N3p / 32);
+  const bool sub = b < n_sub;  // the same for the whole block
+  if (sub && tid < C) s_code[tid] = cell_code[b * C + tid];
+
+  // pass 1: the masked copy
+  const V* src = reinterpret_cast<const V*>(v + row);
+  V* dst = reinterpret_cast<V*>(out + row);
+  const int nv = N3p / W;
+  for (int i0 = tid; i0 < nv; i0 += UNROLL * THREADS) {
+    V x[UNROLL];
+    unsigned m[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < nv) {
+        x[u] = src[i];
+        m[u] = bits[(i * W) >> 5] >> ((i * W) & 31);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < nv) dst[i] = masked(x[u], m[u]);
+    }
   }
-  const int b = static_cast<int>(t / N3p);
-  const int node = static_cast<int>(t - static_cast<long long>(b) * N3p);
-  T val = v[t];
-  const int pos = b < n_sub ? refill_pos[node] : -1;
-  if (pos >= 0) {
-    const int NB = B * p + 1, n = p + 1, C = B * B * B;
-    int cx[2], ix[2], cy[2], iy[2], cz[2], iz[2];
-    const int nx = holders(node % NB, p, B, cx, ix);
-    const int ny = holders((node / NB) % NB, p, B, cy, iy);
-    const int nz = holders(node / (NB * NB), p, B, cz, iz);
-    const int* codes = cell_code + static_cast<size_t>(b) * C;
+  if (!sub) return;
+  __syncthreads();
+
+  // pass 2: the written nodes
+  const T* vb = v + row;
+  T* ob = out + row;
+  const T* inv = invden + static_cast<size_t>(b) * n_w;
+  for (int w = tid; w < n_w; w += THREADS) {
+    const int node = __ldg(nodes + w);
+    const int4 ha = __ldg(holders + 2 * w), hb = __ldg(holders + 2 * w + 1);
+    const T val = vb[node];
+    const T scale = inv[w];
+    const bool valid = (bits[node >> 5] >> (node & 31)) & 1u;
+    const int hv[HOLDERS] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+    T term[HOLDERS];
+    bool use[HOLDERS];
+#pragma unroll
+    for (int k = 0; k < HOLDERS; ++k) {
+      const int h = hv[k] >= 0 ? s_code[hv[k] >> 16] : -1;
+      use[k] = h >= 0;
+      const size_t o = static_cast<size_t>(h) * n_loc + (hv[k] & 0xFFFF);
+      term[k] = use[k] ? __ldg(u_hat + o) : T(0);
+    }
     T acc = T(0);
-    for (int a = 0; a < nz; ++a)
-      for (int e = 0; e < ny; ++e)
-        for (int f = 0; f < nx; ++f) {
-          const int h = codes[cx[f] + B * (cy[e] + B * cz[a])];
-          if (h >= 0) acc += u_hat[static_cast<size_t>(h) * n_loc + ix[f] + n * (iy[e] + n * iz[a])] - val;
-        }
-    val = val + acc * invden[static_cast<size_t>(b) * n_pos + pos];
+#pragma unroll
+    for (int k = 0; k < HOLDERS; ++k)
+      if (use[k]) acc += term[k] - val;
+    if (valid) ob[node] = val + acc * scale;  // an invalid node keeps pass 1's zero
   }
-  out[t] = val;
 }
 
 template <typename T>
-int launch(const void* v, const void* u_hat, const void* node_valid, const void* cell_code,
-           const void* refill_pos, const void* invden, void* out, int nb, int n_sub, int n_pos,
-           int N3p, int n_loc, int p, int B, cudaStream_t stream) {
-  const long long total = static_cast<long long>(nb) * N3p;
-  if (total > 0) {
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-    refill_update_kernel<T><<<blocks, threads, 0, stream>>>(
+int launch(const void* v, const void* u_hat, const void* valid_bits, const void* cell_code,
+           const void* nodes, const void* holders, const void* invden, void* out, int nb,
+           int n_sub, int n_w, int N3p, int n_loc, int C, cudaStream_t stream) {
+  if (C > MAX_C || N3p % 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb > 0) {
+    refill_update_kernel<T><<<nb, THREADS, 0, stream>>>(
         static_cast<const T*>(v), static_cast<const T*>(u_hat),
-        static_cast<const bool*>(node_valid), static_cast<const int*>(cell_code),
-        static_cast<const int*>(refill_pos), static_cast<const T*>(invden), static_cast<T*>(out),
-        nb, n_sub, n_pos, N3p, n_loc, p, B);
+        static_cast<const unsigned*>(valid_bits), static_cast<const int*>(cell_code),
+        static_cast<const int*>(nodes), static_cast<const int4*>(holders),
+        static_cast<const T*>(invden), static_cast<T*>(out), n_sub, n_w, N3p, n_loc, C);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -106,20 +169,20 @@ int launch(const void* v, const void* u_hat, const void* node_valid, const void*
 
 extern "C" {
 
-int refill_update_f32(const void* v, const void* u_hat, const void* node_valid,
-                      const void* cell_code, const void* refill_pos, const void* invden,
-                      void* out, int nb, int n_sub, int n_pos, int N3p, int n_loc, int p, int B,
-                      void* stream) {
-  return launch<float>(v, u_hat, node_valid, cell_code, refill_pos, invden, out, nb, n_sub,
-                       n_pos, N3p, n_loc, p, B, static_cast<cudaStream_t>(stream));
+int refill_update_f32(const void* v, const void* u_hat, const void* valid_bits,
+                      const void* cell_code, const void* nodes, const void* holders,
+                      const void* invden, void* out, int nb, int n_sub, int n_w, int N3p,
+                      int n_loc, int C, void* stream) {
+  return launch<float>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
+                       n_w, N3p, n_loc, C, static_cast<cudaStream_t>(stream));
 }
 
-int refill_update_f64(const void* v, const void* u_hat, const void* node_valid,
-                      const void* cell_code, const void* refill_pos, const void* invden,
-                      void* out, int nb, int n_sub, int n_pos, int N3p, int n_loc, int p, int B,
-                      void* stream) {
-  return launch<double>(v, u_hat, node_valid, cell_code, refill_pos, invden, out, nb, n_sub,
-                        n_pos, N3p, n_loc, p, B, static_cast<cudaStream_t>(stream));
+int refill_update_f64(const void* v, const void* u_hat, const void* valid_bits,
+                      const void* cell_code, const void* nodes, const void* holders,
+                      const void* invden, void* out, int nb, int n_sub, int n_w, int N3p,
+                      int n_loc, int C, void* stream) {
+  return launch<double>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
+                        n_w, N3p, n_loc, C, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

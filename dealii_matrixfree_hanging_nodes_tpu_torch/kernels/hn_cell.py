@@ -30,11 +30,21 @@ import torch
 
 from . import _build
 from .cell_apply import cell_apply_plain, cell_degree, cell_nodes
-from .corr_compact import gather_sums
 
 NAME = "hn_cell"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687"
 MODES = ("full", "fill")
+
+
+def gather_sums(src_flat, row_ptr, ent_slot, ent_src, n_loc):
+    """[n_rows, n_loc] sums of src_flat[ent_src] by (row, slot): the
+    entries' part of the fill, summed in entry order."""
+    n_rows = row_ptr.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(n_rows, device=src_flat.device),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    acc = torch.zeros(n_rows * n_loc, dtype=src_flat.dtype, device=src_flat.device)
+    acc.index_add_(0, rows * n_loc + ent_slot.long(), src_flat[ent_src.long()])
+    return acc.view(n_rows, n_loc)
 
 
 def fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size):

@@ -1,19 +1,25 @@
 """Kernel 8, ``refill_update``: the write-back of ``refill``. For every brick
 node of v [nb, N3p]:
 
-    out = node_valid ? v + invden[b, pos(node)] * sum (u_hat[h, j] - v) : 0
+    out = valid ? v + invden[b, w] * sum (u_hat[h, j] - v) : 0
 
-where the sum runs over the constrained rows h of brick b's cells (b <
-n_sub) that hold the node as their slot j, in cell-slot order, and
-pos(node) = refill_pos[node] >= 0 marks the nodes the fill writes (no
-update elsewhere). u_hat [n_hn, n_loc] are the filled constrained rows;
-invden [n_sub, n_pos] is the coverage divisor (every writer of a node
+where valid is the node's bit in valid_bits [nb, N3p/32] (bit k of a brick
+in word k // 32 at position k % 32), and the update runs only at the
+written nodes w of the subset bricks (b < n_sub): nodes[w] is the brick
+node the fill writes, holders[w] the cells of a brick that hold it as
+slot << 16 | j (slot the cell's place in its brick, j the node's local
+index in that cell) in ascending slot order, -1 padded to 8, and the sum
+runs over those whose cell is a constrained row h = cell_code[b*B^3 + slot]
+>= 0. u_hat [n_hn, n_loc] are the filled constrained rows; invden [n_sub,
+n_w] is the coverage divisor at each written node (every writer of a node
 carries the same value, so the mean restores it).
 
 Replaces the write-back of the reference's ``_refill_impl``
 (bricks.py:2884-2899) through ``_fill_chain_efx`` (bricks.py:2851-2865):
 the zeroed [n_sub*B^3, n_loc] delta, the EFX product, the Es / EsI
-scatters and the node_valid mask. CUDA source: ``csrc/refill_update.cu``."""
+scatters and the node_valid mask. The tables are ``bricks.kernel_tables``'
+(``BrickLaplaceMM.refill_tables()``). CUDA source:
+``csrc/refill_update.cu``."""
 
 from __future__ import annotations
 
@@ -22,59 +28,72 @@ import ctypes
 import torch
 
 from . import _build
-from .cell_apply import cell_nodes
 
 NAME = "refill_update"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2884"
+MAX_HOLDERS = 8  # the cells of a brick that share a node: 2 an axis
 
 
-def refill_update_plain(v, u_hat, node_valid, cell_code, refill_pos, invden, brick_size):
-    """Plain PyTorch version on the same tables: the differences summed
-    per node with one ``index_add_`` in cell-slot order, scaled, added."""
-    n_loc = u_hat.shape[1]
-    p = round(n_loc ** (1.0 / 3.0)) - 1
-    n_sub, N3p = invden.shape[0], v.shape[1]
-    cells = torch.nonzero(cell_code >= 0)[:, 0]  # ascending: cell-slot order
-    nodes = cell_nodes(cells, brick_size, p, N3p, v.device)
-    flat = v[:n_sub].reshape(-1)
-    written = refill_pos[nodes % N3p] >= 0
-    diff = u_hat[cell_code[cells].long()] - flat[nodes]
-    acc = torch.zeros_like(flat).index_add_(0, nodes[written], diff[written])
-    pos = refill_pos.long()
-    scale = torch.where(pos >= 0, invden[:, pos.clamp(min=0)], 0.0)
-    out = v.clone()
-    out[:n_sub] += acc.view(n_sub, N3p) * scale
-    return torch.where(node_valid, out, 0.0)
+def valid_mask(valid_bits, N3p):
+    """[nb, N3p] bool from the one-bit-a-node table."""
+    k = torch.arange(N3p, device=valid_bits.device)
+    return ((valid_bits[:, k >> 5] >> (k & 31)) & 1).bool()
 
 
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-
-def refill_update(v, u_hat, node_valid, cell_code, refill_pos, invden, brick_size):
-    """v [nb, N3p]; u_hat [n_hn, n_loc]; node_valid [nb, N3p] bool;
-    cell_code [n_sub*B^3], refill_pos [N3p] int32; invden [n_sub, n_pos]
-    -> new [nb, N3p] tensor."""
-    if v.device.type == "cpu":
-        return refill_update_plain(v, u_hat, node_valid, cell_code, refill_pos, invden,
-                                   brick_size)
-    dev = _build.check_cuda(NAME, v.dtype, v=v, u_hat=u_hat, node_valid=node_valid,
-                            cell_code=cell_code, refill_pos=refill_pos, invden=invden)
+def refill_update_plain(v, u_hat, valid_bits, cell_code, nodes, holders, invden, brick_size):
+    """Plain PyTorch version on the same tables: the masked copy, then at
+    the written nodes of the subset bricks the differences summed holder by
+    holder in ascending cell-slot order, scaled, added."""
     nb, N3p = v.shape
-    n_hn, n_loc = u_hat.shape
-    n_sub, n_pos = invden.shape
-    B, p = int(brick_size), round(n_loc ** (1.0 / 3.0)) - 1
-    if cell_code.dtype != torch.int32 or refill_pos.dtype != torch.int32:
-        raise TypeError(f"{NAME}: cell_code and refill_pos must be int32")
-    if (node_valid.dtype != torch.bool or node_valid.shape != v.shape or (p + 1) ** 3 != n_loc
-            or cell_code.shape != (n_sub * B**3,) or refill_pos.shape != (N3p,)
-            or n_sub > nb or N3p < (B * p + 1) ** 3):
-        raise ValueError(f"{NAME}: shapes v {tuple(v.shape)}, u_hat {tuple(u_hat.shape)}, "
-                         f"invden {tuple(invden.shape)}, cell_code {tuple(cell_code.shape)}")
+    n_sub = invden.shape[0]
+    valid = valid_mask(valid_bits, N3p)
+    out = torch.where(valid, v, 0.0)
+    if not (n_sub and nodes.numel()):
+        return out
+    w_node = nodes.long()
+    val = v[:n_sub, w_node]
+    codes = cell_code.view(n_sub, brick_size**3).long()
+    acc = torch.zeros_like(val)
+    for k in range(holders.shape[1]):
+        hv = holders[:, k].long()
+        real = hv >= 0
+        h = torch.where(real, codes[:, torch.where(real, hv >> 16, 0)], -1)
+        term = u_hat[h.clamp(min=0), torch.where(real, hv & 0xFFFF, 0)] - val
+        acc = torch.where(h >= 0, acc + term, acc)
+    out[:n_sub, w_node] = torch.where(valid[:n_sub, w_node], val + acc * invden, 0.0)
+    return out
+
+
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def refill_update(v, u_hat, valid_bits, cell_code, nodes, holders, invden, brick_size):
+    """v [nb, N3p]; u_hat [n_hn, n_loc]; valid_bits [nb, N3p/32],
+    cell_code [n_sub*B^3], nodes [n_w], holders [n_w, 8] int32; invden
+    [n_sub, n_w] -> new [nb, N3p] tensor."""
+    if v.device.type == "cpu":
+        return refill_update_plain(v, u_hat, valid_bits, cell_code, nodes, holders, invden,
+                                   brick_size)
+    dev = _build.check_cuda(NAME, v.dtype, v=v, u_hat=u_hat, valid_bits=valid_bits,
+                            cell_code=cell_code, nodes=nodes, holders=holders, invden=invden)
+    nb, N3p = v.shape
+    n_sub, n_w = invden.shape
+    C = int(brick_size) ** 3
+    if not (valid_bits.dtype == cell_code.dtype == nodes.dtype == holders.dtype == torch.int32):
+        raise TypeError(f"{NAME}: valid_bits, cell_code, nodes and holders must be int32")
+    if (valid_bits.shape != (nb, N3p // 32) or N3p % 32 or C > 64 or n_sub > nb
+            or cell_code.shape != (n_sub * C,) or nodes.shape != (n_w,)
+            or holders.shape != (n_w, MAX_HOLDERS) or u_hat.dim() != 2):
+        raise ValueError(f"{NAME}: shapes v {tuple(v.shape)}, valid_bits "
+                         f"{tuple(valid_bits.shape)}, invden {tuple(invden.shape)}, nodes "
+                         f"{tuple(nodes.shape)}, holders {tuple(holders.shape)}")
+    if v.data_ptr() % 16 or holders.data_ptr() % 16:
+        raise ValueError(f"{NAME}: v and holders must start 16-byte aligned (16-byte loads)")
     out = torch.empty_like(v)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(v.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, _build.ptr(v), _build.ptr(u_hat), _build.ptr(node_valid),
-                  _build.ptr(cell_code), _build.ptr(refill_pos), _build.ptr(invden),
-                  _build.ptr(out), nb, n_sub, n_pos, N3p, n_loc, p, B)
+    _build.launch(NAME, fn, dev, _build.ptr(v), _build.ptr(u_hat), _build.ptr(valid_bits),
+                  _build.ptr(cell_code), _build.ptr(nodes), _build.ptr(holders),
+                  _build.ptr(invden), _build.ptr(out), nb, n_sub, n_w, N3p, u_hat.shape[1], C)
     refill_update.launches += 1
     return out
 
@@ -82,15 +101,23 @@ def refill_update(v, u_hat, node_valid, cell_code, refill_pos, invden, brick_siz
 refill_update.launches = 0
 
 
-def bytes_and_flops(v, u_hat, cell_code, refill_pos, invden, brick_size):
-    """Least traffic: v read once and out written once, the node_valid
-    pattern at one bit a node, u_hat, invden, cell_code and
-    refill_pos read once. Operations: a subtract and an add per writer of a
-    written node, a multiply and an add per written node of a subset brick."""
-    n_sub, N3p = invden.shape[0], v.shape[1]
-    p = round(u_hat.shape[1] ** (1.0 / 3.0)) - 1
-    nodes = cell_nodes(torch.nonzero(cell_code >= 0)[:, 0], brick_size, p, N3p, v.device)
-    n_writers = int((refill_pos[nodes % N3p] >= 0).sum())
-    nbytes = ((2 * v.numel() + u_hat.numel() + invden.numel()) * v.element_size()
-              + (v.numel() + 7) // 8 + 4 * (cell_code.numel() + refill_pos.numel()))
-    return nbytes, 2 * n_writers + 2 * int((refill_pos >= 0).sum()) * n_sub
+def bytes_and_flops(v, u_hat, valid_bits, cell_code, nodes, holders, invden, brick_size):
+    """Least traffic: out written once at every node; v read once at the
+    valid nodes only (an invalid node is written 0 without it); the
+    validity at one bit a node; invden at the valid written nodes, and the
+    u_hat entries that some valid written node reads; cell_code, nodes and
+    holders read once. Operations: a subtract and an add per holder term, a
+    multiply and an add per valid written node of a subset brick."""
+    n_sub = invden.shape[0]
+    valid = valid_mask(valid_bits, v.shape[1])
+    w_valid = valid[:n_sub, nodes.long()]  # [n_sub, n_w]
+    hv = holders.long()
+    real = hv >= 0
+    codes = cell_code.view(n_sub, brick_size**3).long()[:, (hv >> 16).clamp(min=0)]
+    used = real & (codes >= 0) & w_valid[..., None]  # [n_sub, n_w, 8]
+    entries = codes[used] * u_hat.shape[1] + (hv & 0xFFFF).expand_as(codes)[used]
+    n_read = torch.unique(entries).numel()
+    n_w_valid = int(w_valid.sum())
+    nbytes = ((v.numel() + int(valid.sum()) + n_read + n_w_valid) * v.element_size()
+              + 4 * (valid_bits.numel() + cell_code.numel() + nodes.numel() + holders.numel()))
+    return nbytes, 2 * int(used.sum()) + 2 * n_w_valid

@@ -51,8 +51,8 @@ def test_index_tables_reproduce_dense_products(geo, nref, p):
     assert rel_err(got, dense_fill(t, m, u_sub)) < RTOL
     plain = rng_array(32, m["n_sub"] * m["B"] ** 3, n_loc)
     got = corr_compact.corr_compact_plain(T(plain), T(rows), k["cell_code"], k["keep_hn"],
-                                          k["corr_row_ptr"], k["corr_ent_slot"],
-                                          k["corr_ent_src"])
+                                          k["corr_seg_ptr"], k["corr_seg_dst"],
+                                          k["corr_ent_src"], k["corr_blocks"])
     assert rel_err(got, dense_corr(t, m, plain, rows)) < RTOL
 
 

@@ -143,10 +143,8 @@ def test_kernels_match_plain_on_card(cuda, dtype):
     rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
     hn_args = (bv[: op.n_sub], *op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
     chain = [
-        (corr_compact, (cols, rows, op.cell_code, op.keep_hn, op.corr_row_ptr,
-                        op.corr_ent_slot, op.corr_ent_src)),
-        (refill_update, (bv, rows, op.node_valid, op.cell_code, op.refill_pos,
-                         op.fill_invden_X, op.B)),
+        (corr_compact, (cols, rows, *op.corr_tables())),
+        (refill_update, (bv, rows, *op.refill_tables())),
     ]
     pairs = [(getattr(mod, mod.NAME)(*args), getattr(mod, f"{mod.NAME}_plain")(*args))
              for mod, args in chain]
@@ -221,6 +219,31 @@ def test_hn_cell_degrees_on_card(cuda, p, dtype):
                               mode=mode)
         ref = hn_cell.hn_cell_plain(u_sub, *op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B,
                                     mode=mode)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max() / ref.abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [5, 6, 7, 8])
+def test_refill_corr_degrees_on_card(cuda, p, dtype):
+    """refill_update and corr_compact at the degrees of two cells a brick
+    side (their block schedule and holders at each n_loc) against their
+    plain versions."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import corr_compact, refill_update
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 3), p), device=cuda, dtype=dtype)
+    assert op.B == 2 and op.n_hn > 0
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    for mod, args in ((corr_compact, (cols, rows, *op.corr_tables())),
+                      (refill_update, (bv, rows, *op.refill_tables()))):
+        got = getattr(mod, mod.NAME)(*args)
+        ref = getattr(mod, f"{mod.NAME}_plain")(*args)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
 

@@ -132,7 +132,8 @@ def test_dss_work_lists_cover_the_surface(geo, nref, p):
     the padding) are exactly the invalid nodes off the pools."""
     op = port(geo, nref, p)[2]
     nb, N3p, NB = op.n_bricks, op.N3p, op.NB
-    valid = op.node_valid.reshape(-1)
+    node_valid = T(port_tables(geo, nref, p)[0]["node_valid"])
+    valid = node_valid.reshape(-1)
     hits = torch.zeros(nb * N3p, dtype=torch.int64)
     for pools, kind in zip(op.dss_tables()[:3], dss_surface.POOL_KINDS):
         b, s, node, real = dss_surface.pool_positions(pools, kind, NB, N3p)
@@ -149,7 +150,7 @@ def test_dss_work_lists_cover_the_surface(geo, nref, p):
     rows = op.dss_hole_bricks.long()
     holes[rows, : NB**3] = dss_surface.bit_set(op.dss_hole_bits,
                                                 torch.arange(len(rows))[:, None], k)
-    assert torch.equal(holes, ~op.node_valid & ~on_surface)
+    assert torch.equal(holes, ~node_valid & ~on_surface)
 
 
 @case
@@ -243,10 +244,8 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
         "dss_surface": lambda: ((bricks(15), *op.dss_tables()), {}),
         "hn_cell": lambda: ((sub(17), *op.hn_tables(), *op.factors_host, op.geo_hn, op.B),
                             {"mode": "fill" if variant else "full"}),
-        "corr_compact": lambda: ((cells(18), hn_rows(19), op.cell_code, op.keep_hn,
-                                  op.corr_row_ptr, op.corr_ent_slot, op.corr_ent_src), {}),
-        "refill_update": lambda: ((bricks(20), hn_rows(21), op.node_valid, op.cell_code,
-                                   op.refill_pos, op.fill_invden_X, op.B), {}),
+        "corr_compact": lambda: ((cells(18), hn_rows(19), *op.corr_tables()), {}),
+        "refill_update": lambda: ((bricks(20), hn_rows(21), *op.refill_tables()), {}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)
