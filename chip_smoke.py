@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the six CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the nine CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none), and
    brick_apply's shared memory and blocks per SM at each degree;
@@ -19,7 +19,8 @@ Phases (any failure exits non-zero before the last line is printed):
    vmult launches it, with the overlap-add of the vmult's own cell-row
    deltas in its epilogue), and time kernel,
    plain version and, where one PyTorch call computes the same function, that
-   call, with CUDA events on a busy card (device time; median over
+   call (brick_apply's: one ``torch.mm`` by the dense brick operator, TF32
+   off), with CUDA events on a busy card (device time; median over
    repetitions after warm-up; dss_surface's timed calls work on a scratch
    copy refreshed before each, outside the timed window); dss_surface's
    traffic counted in 32-byte sectors (surface blocks touched together and
@@ -40,17 +41,30 @@ Phases (any failure exits non-zero before the last line is printed):
    count read from that run (5 launches per vmult); its time and DoF/s; the
    host's time to issue one vmult and one fused brick_apply (``host_ms``); a
    profile of where its device time goes (5 launches of the port's
-   kernels, no device launch outside them);
+   kernels, no device launch outside them); then vmult_plain the same way
+   (4 launches) and the HN overhead, vmult over vmult_plain;
 6. ``refill`` of the vmult's output at nref=7 in float32 through the
    kernels against the plain float64 refill on the card (1e-5), with its
    launch counts (2 per refill), time, the host's time to issue one refill and
    its profile (no launch outside the kernels);
-7. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
+7. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3 on
+   the nref=7 mesh, p=2 and p=1 at quadrant nref=8), float32 through the
+   kernels: its sizes (masked cells against the subset's, plane-covered
+   cells, levels), every kernel against its plain version (1e-5) and timed
+   with its bound and library call, vmult, vmult_plain and refill against
+   the plain float64 path (1e-5) with their launches counted and checked
+   (8, 3, 3 at p <= 2; 5, 3, 2 at p=3), timed, profiled, and the HN
+   overhead per degree;
+8. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
    its plain version, the vmult against the scipy oracle and refill against
-   the plain path; at quadrant nref=2 p=6 the vmult against the oracle
+   the plain path; at quadrant nref=2 p=6 the vmult against the oracle; at
+   quadrant nref=4 p=3 and p=2 every kernel against its plain version, the
+   vmult against the oracle, vmult_plain and refill against the plain path
    (relative tolerance 1e-12 each);
-8. a JSON line with the vmult's and refill's numbers, one with the
-   kernels' numbers, then the device line.
+9. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+   each degree's, one with the kernels' numbers (the new instances as
+   parts named by degree; masked_quad's, plane_fill's and plane_fold's
+   totals from p=2), then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -70,6 +84,12 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
 SEED = 0
 VMULT_LAUNCHES, REFILL_LAUNCHES = 5, 2
+PLAIN_LAUNCHES = {"cell_apply": 1, "corr_compact": 1, "brick_apply": 1, "dss_surface": 1}
+# the degree <= 3 phases: (degree, quadrant nref), each in float32 through the kernels
+LOW_DEGREES = ((3, 7), (2, 8), (1, 8))
+MASKED_CSR_CAP = 300_000_000  # masked_quad's library matrix: entries before summation
+# the kernel of the degree <= 3 schedule whose parts give a new kernel's totals
+LOW_MAIN_DEGREE = 2
 LIBRARY_TOL = 1e-4  # a library yardstick against the plain version, float32, relative
 # parts timed in phase 4 that refill launches and the vmult does not: in the
 # kernels line they stand in "parts" only, and a kernel's totals are those
@@ -139,12 +159,16 @@ def bound(nbytes: int, flops: int | None, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_path(what, fn, kernel_names, reps: int = 10):
+def profile_path(what, fn, kernel_names, expect: int, reps: int = 10):
     """Where one call's time goes: device time by kernel from torch.profiler
     over `reps` calls of fn, the port's kernels against everything else, and
-    the device's idle share of the wall time. Returns the numbers per call;
-    fails where the profiler saw no device time in three sessions, or any
-    device launch outside the port's kernels."""
+    the device's idle share of the wall time. CUPTI has left out whole calls
+    of a session (1-3 of 10 at degree <= 3), so the numbers are per call
+    recorded: the port's kernel records over `expect` launches a call (the
+    launches themselves are counted exactly by ``counted``). The first
+    session of three that records every call is kept, else the one that
+    recorded the most. Fails where no session saw device time, or where the
+    kept one saw any device launch outside the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,7 +177,9 @@ def profile_path(what, fn, kernel_names, reps: int = 10):
     torch.cuda.synchronize()
     # a later profiler session in one process has been seen to record no device
     # activity at all while the calls ran (once in a dozen runs on an H100): such
-    # a session is run again, at most twice
+    # a session is run again, at most twice, as is one that left out calls
+    ours = lambda key: any(k in key for k in kernel_names)
+    best = None
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
@@ -170,26 +196,29 @@ def profile_path(what, fn, kernel_names, reps: int = 10):
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
             if dev_us > 0:
-                rows.append((dev_us / reps / 1e3, ev.count // reps, ev.key))
-        if rows:
+                rows.append((dev_us / 1e3, ev.count, ev.key))
+        calls = sum(r[1] for r in rows if ours(r[2])) / expect
+        if best is None or calls > best[0]:
+            best = (calls, rows, wall_ms)
+        if rows and calls == reps:
             break
-        print(f"profile of the {what}: the profiler recorded no device time "
-              f"(session {attempt + 1} of 3)", flush=True)
-    check(bool(rows), f"the profiler saw no device time in the {what}")
-    ours = lambda key: any(k in key for k in kernel_names)
+        print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
+              f"of {reps} calls (session {attempt + 1} of 3)", flush=True)
+    calls, rows, wall_ms = best
+    check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
+    rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
     busy = sum(r[0] for r in rows)
     own_ms = sum(r[0] for r in rows if ours(r[2]))
     res = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
-               port_kernels_ms=own_ms, other_ms=busy - own_ms,
+               port_kernels_ms=own_ms, other_ms=busy - own_ms, calls_recorded=calls,
                port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
-    print(f"profile (per {what}, {reps} calls): wall {wall_ms:.4f} ms, device busy "
-          f"{busy:.4f} ms (idle {100 * res['idle_share']:.1f} %), port kernels "
-          f"{own_ms:.4f} ms in {res['port_launches']} launches, other device work "
-          f"{res['other_ms']:.4f} ms in "
-          f"{res['other_launches']} launches")
+    print(f"profile (per {what}, {calls:g} of {reps} calls recorded): wall {wall_ms:.4f} ms, "
+          f"device busy {busy:.4f} ms (idle {100 * res['idle_share']:.1f} %), port kernels "
+          f"{own_ms:.4f} ms in {res['port_launches']:g} launches, other device work "
+          f"{res['other_ms']:.4f} ms in {res['other_launches']:g} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
-        print(f"  {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+        print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
     check(res["other_launches"] == 0,
           f"{res['other_launches']} device launches per {what} outside the port's kernels")
     return res
@@ -201,7 +230,7 @@ def sparse_csr(rows, cols, vals, shape):
         .to_sparse_csr()
 
 
-def yardsticks(op, inter, K):
+def yardsticks(op, inter, K, cell=True):
     """Library calls on the same data (``kernel_calls``' intermediates
     `inter`), each map written as one CSR matrix (built here, outside the
     timing): corr_compact as one cuSPARSE product over sub_raw and plain
@@ -212,6 +241,8 @@ def yardsticks(op, inter, K):
     steps one call each, as the kernels that it replaced were timed: the
     fill over the subset brick nodes, Q and Q^T as block-diagonal products
     over the constrained rows, ``torch.mm(u_hat, K.T)`` for K (no scale).
+    Under the degree <= 3 schedule plain_rows is None (corr_compact reads
+    no plain rows there) and cell=False (no cell_apply on that path).
     Returns ({name: [fn per part]}, {hn_cell mode: [fn per step]},
     {matrix: nonzeros})."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dss_surface, refill_update
@@ -340,29 +371,33 @@ def yardsticks(op, inter, K):
     fill_cols = torch.cat([nodes[kept], op.fill_ent_src.long()])
     fill = sparse_csr(fill_rows, fill_cols, torch.ones(len(fill_rows), dtype=dt, device=dev),
                       (nS, u_sub.numel()))
-    code = op.cell_code.long()
+    code = op.corr_tables()[0].long()
     n_rows = code.numel()
     hn_cells = op.hn_sub.long()
     minus = (torch.nonzero(code != -1)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
+    if plain_rows is None:
+        minus = minus[:0]
     corr = sparse_csr(
         torch.cat([rep(op.corr_seg_dst.long(), (op.corr_seg_ptr[1:] - op.corr_seg_ptr[:-1]).long()),
                    (hn_cells[:, None] * n_loc + ar(n_loc)).reshape(-1)[kept], minus]),
         torch.cat([op.corr_ent_src.long(), kept, nS + minus]),
         torch.cat([torch.ones(op.corr_ent_src.numel() + len(kept), dtype=dt, device=dev),
                    -torch.ones(len(minus), dtype=dt, device=dev)]),
-        (n_rows * n_loc, nS + n_rows * n_loc))
+        (n_rows * n_loc, nS + (0 if plain_rows is None else n_rows * n_loc)))
     fwd, bwd = hn_matrix("fwd"), hn_matrix("bwd")
     x_fwd, x_bwd, x_u = filled.reshape(-1), own.reshape(-1), u_sub.reshape(-1)
-    x_corr = torch.cat([sub_raw.reshape(-1), plain_rows.reshape(-1)])
+    x_corr = sub_raw.reshape(-1) if plain_rows is None else torch.cat(
+        [sub_raw.reshape(-1), plain_rows.reshape(-1)])
     fill_steps = [lambda: fill @ x_u, lambda: fwd @ x_fwd]
     one = {f"hn_cell[{mode}]": hn_composed(mode) for mode in ("full", "fill")}
-    one.update(refill_update=refill_composed(), dss_surface=dss_composed(),
-               cell_apply=cell_composed())
+    one.update(refill_update=refill_composed(), dss_surface=dss_composed())
+    if cell:
+        one["cell_apply"] = cell_composed()
     x_u_r = u_sub_r.reshape(-1)
     x_refill = torch.cat([y.reshape(-1), u_hat_r.reshape(-1)])
     x_v1 = v1.reshape(-1)
     return ({"corr_compact": [lambda: corr @ x_corr],
-             "cell_apply": [lambda: one["cell_apply"] @ x_u],
+             **({"cell_apply": [lambda: one["cell_apply"] @ x_u]} if cell else {}),
              # in the order of kernel_calls' hn_cell parts: full on u_sub, fill on u_sub_r
              "hn_cell": [lambda: one["hn_cell[full]"] @ x_u, lambda: one["hn_cell[fill]"] @ x_u_r],
              "refill_update": [lambda: one["refill_update"] @ x_refill],
@@ -448,6 +483,260 @@ def kernel_calls(op, x, y):
             plain_rows=plain_rows, dcols=dcols, v1=v1, y=y, u_hat_r=u_hat_r)
 
 
+def low_launches(op):
+    """Kernel launches per call on the degree <= 3 schedule (a mesh with
+    constrained rows and holes): {call: {kernel: launches}}."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import plane_fold
+
+    planes = ({"plane_fill": 1, "plane_fold": plane_fold.LAUNCHES} if op.planes else {})
+    return {"vmult": {"hn_cell": 1, "corr_compact": 1, "brick_apply": 1, "masked_quad": 1,
+                      "dss_surface": 1, **planes},
+            "vmult_plain": {"brick_apply": 1, "masked_quad": 1, "dss_surface": 1},
+            "refill": {"hn_cell": 1, "refill_update": 1,
+                       **({"plane_fill": 1} if op.planes else {})}}
+
+
+def in_place(mode, mod, src, args, plain_args=None):
+    """The part of a kernel that works in place on src (updated and
+    returned), as kernel_calls gives it: the timed calls work on a scratch
+    copy that reset refreshes before each, fresh runs kernel and plain
+    version on their own copies."""
+    fn, plain_fn = getattr(mod, mod.NAME), getattr(mod, f"{mod.NAME}_plain")
+    plain_args = args if plain_args is None else plain_args
+    scratch = src.clone()
+    return (mode, lambda: fn(scratch, *args), lambda: plain_fn(scratch, *plain_args),
+            mod.bytes_and_flops(src, *args),
+            lambda: (fn(src.clone(), *args), plain_fn(src.clone(), *plain_args)),
+            lambda: scratch.copy_(src))
+
+
+def low_kernel_calls(op, x, y):
+    """kernel_calls for the degree <= 3 schedule: every kernel of the vmult
+    (input x), the vmult_plain's masked removal and the refill (input y) at
+    the shapes those calls give it, its parts named by the degree. Returns
+    (calls, intermediates for ``yardsticks``)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, cell_apply, corr_compact, dss_surface, hn_cell, masked_quad, plane_fill,
+        plane_fold, refill_update,
+    )
+
+    tag, isz = f"p={op.p}", x.element_size()
+    u = op._plane_fill(x, False) if op.planes else x
+    yf = op._plane_fill(y, False) if op.planes else y
+    u_sub, yf_sub = u[: op.n_sub], yf[: op.n_sub]
+    sub_raw = op._hn_cell(u_sub, "full")
+    dcols = op._corr_compact(None, sub_raw)
+    fused = dict(dcols=dcols, brick_size=op.B)
+    v0 = brick_apply.brick_apply(u, *op.brick_factors_host, op.geo, op.p, **fused)
+    v_abs = brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p)
+    v1 = op._masked_quad(v0.clone(), u, "rem")
+    v2 = plane_fold.plane_fold(v1.clone(), *op.plane_fold_tables()) if op.planes else v1
+    u_hat_r = op._hn_cell(yf_sub, "fill")
+    filled = op._fill_hn_compact(u_sub)
+    u_hat = op._hn_apply(filled, False)
+    own = cell_apply.cell_apply_plain(u_hat, op.K1, op.M1, op.geo_hn)
+    hn_args = (*op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    hn_plain_args = (*op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B)
+    calls = {
+        "brick_apply": [(
+            f"{tag} fused",
+            lambda: brick_apply.brick_apply(u, *op.brick_factors_host, op.geo, op.p, **fused),
+            lambda: brick_apply.brick_apply_plain(u, op.Kb, op.Mb, op.geo, op.p, **fused),
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz, op.n_chainb),
+            None, None)],
+        "hn_cell": [(
+            f"{tag} {mode}",
+            lambda src=src, mode=mode: hn_cell.hn_cell(src, *hn_args, mode=mode),
+            lambda src=src, mode=mode: hn_cell.hn_cell_plain(src, *hn_plain_args, mode=mode),
+            hn_cell.bytes_and_flops(src, *op.hn_tables(), op.B, mode=mode), None, None,
+        ) for mode, src in (("full", u_sub), ("fill", yf_sub))],
+        "corr_compact": [(
+            f"{tag} dcols",
+            lambda: corr_compact.corr_compact(None, sub_raw, *op.corr_tables()),
+            lambda: corr_compact.corr_compact_plain(None, sub_raw, *op.corr_tables()),
+            corr_compact.bytes_and_flops(None, sub_raw, *op.corr_tables()), None, None)],
+        "masked_quad": [in_place(
+            f"{tag} {kind}", masked_quad, v,
+            (src, *op.masked_tables(kind), *op.factors_host, op.geo, op.B),
+            (src, *op.masked_tables(kind), op.K1, op.M1, op.geo, op.B))
+            for kind, v, src in (("rem", v0, u), ("absent", v_abs, x))],
+        "dss_surface": [in_place(tag, dss_surface, v2, op.dss_tables())],
+        "refill_update": [(
+            f"{tag}",
+            lambda: refill_update.refill_update(yf, u_hat_r, *op.refill_tables()),
+            lambda: refill_update.refill_update_plain(yf, u_hat_r, *op.refill_tables()),
+            refill_update.bytes_and_flops(yf, u_hat_r, *op.refill_tables()), None, None)],
+    }
+    if op.planes:
+        calls["plane_fill"] = [(
+            f"{tag}", lambda: plane_fill.plane_fill(x, *op.plane_fill_tables()),
+            lambda: plane_fill.plane_fill_plain(x, *op.plane_fill_tables()),
+            plane_fill.bytes_and_flops(x, *op.plane_fill_tables()), None, None)]
+        calls["plane_fold"] = [in_place(tag, plane_fold, v1, op.plane_fold_tables())]
+    torch.cuda.synchronize()
+    return calls, dict(filled=filled, u_hat=u_hat, own=own, u_sub=u_sub, u_sub_r=yf_sub,
+                       sub_raw=sub_raw, plain_rows=None, v1=v2, y=yf, u_hat_r=u_hat_r,
+                       u=u, x=x, v0=v0, v_abs=v_abs, v_fold=v1)
+
+
+def low_yardsticks(op, inter, K):
+    """The library calls of the degree <= 3 schedule's kernels, by name and
+    part (``low_kernel_calls``' order), with their matrices' nonzeros:
+    ``yardsticks`` for hn_cell, corr_compact, refill_update and dss_surface;
+    ``brick_library`` for brick_apply; one CSR product each for the new
+    kernels, their maps composed: masked_quad over [v; u] (its cells'
+    stiffness entries, built only below MASKED_CSR_CAP entries before
+    summation), plane_fill over u, plane_fold over v."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import masked_quad
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    lib, hn_steps, nnz = yardsticks(op, inter, K, cell=False)
+    hn_steps = {f"p={op.p} {mode}": fns for mode, fns in hn_steps.items()}
+    lib["brick_apply"] = [brick_library(op, inter["u"])]
+    dev, dt = K.device, K.dtype
+    ar = lambda n: torch.arange(n, device=dev)
+
+    def masked_csr(kind, v, u):
+        cells = masked_quad.selected_cells(*op.masked_tables(kind), op.B)
+        n_ent = cells.numel() * op.n_loc**2
+        if n_ent > MASKED_CSR_CAP:
+            nnz[f"masked_quad[{kind}] (not built, entries)"] = n_ent
+            return None
+        nodes = cell_nodes(cells, op.B, op.p, op.N3p, dev)
+        N = v.numel()
+        vals = -(op.geo[cells // op.C][:, None, None] * K[None])
+        M = sparse_csr(
+            torch.cat([ar(N), nodes[:, :, None].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
+            torch.cat([ar(N), N + nodes[:, None, :].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
+            torch.cat([torch.ones(N, dtype=dt, device=dev), vals.reshape(-1)]), (N, 2 * N))
+        nnz[f"masked_quad[{kind}]"] = M._nnz()
+        xin = torch.cat([v.reshape(-1), u.reshape(-1)])
+        return lambda: M @ xin
+
+    lib["masked_quad"] = [masked_csr("rem", inter["v0"], inter["u"]),
+                          masked_csr("absent", inter["v_abs"], inter["x"])]
+    if op.planes:
+        N = inter["x"].numel()
+        cov = op.plane_cov.long()
+        keep = torch.ones(N, dtype=torch.bool, device=dev)
+        keep[cov] = False
+        kept = torch.nonzero(keep)[:, 0]
+        seg = lambda ptr: torch.repeat_interleave(ar(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
+        ones = torch.ones(len(kept), dtype=dt, device=dev)
+        fill = sparse_csr(torch.cat([kept, cov[seg(op.plane_fill_ptr)]]),
+                          torch.cat([kept, op.plane_fill_src.long()]),
+                          torch.cat([ones, op.plane_fill_w]), (N, N))
+        fold = sparse_csr(torch.cat([kept, op.plane_fold_tgt.long()[seg(op.plane_fold_ptr)]]),
+                          torch.cat([kept, op.plane_fold_src.long()]),
+                          torch.cat([ones, op.plane_fold_w]), (N, N))
+        nnz.update(plane_fill=fill._nnz(), plane_fold=fold._nnz())
+        x_u, x_v = inter["x"].reshape(-1), inter["v_fold"].reshape(-1)
+        lib["plane_fill"] = [lambda: fill @ x_u]
+        lib["plane_fold"] = [lambda: fold @ x_v]
+    return lib, hn_steps, nnz
+
+
+def degree_phase(mt, tria, nref, p, dev, wrappers, smi):
+    """One degree of the degree <= 3 schedule at quadrant nref, float32
+    through the kernels: the setup and its sizes; every kernel against its
+    plain version, timed with its bound and library call; vmult,
+    vmult_plain and refill against the plain float64 path (1e-5), with
+    their launches counted and checked, their times, the HN overhead
+    (vmult over vmult_plain) and their profiles. Returns (numbers, {kernel:
+    [part]})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
+
+    tol = 1e-5
+    t0 = time.perf_counter()
+    mf = mt.MatrixFree(tria, p, dtype=np.float32)
+    op = mt.BrickLaplaceMM(mf, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_sel = {k: (0 if op.masked_tables(k) is None else op.masked_tables(k)[2].numel())
+             for k in ("rem", "absent")}
+    sizes = dict(n_dofs=mf.n_dofs, cells=tria.n_active_cells, bricks=op.n_bricks,
+                 subset_bricks=op.n_sub, chain_bricks=op.n_chainb, constrained_rows=op.n_hn,
+                 subset_cells=op.n_sub * op.C, masked_cells=n_sel,
+                 masked_bricks={k: (0 if op.masked_tables(k) is None
+                                    else op.masked_tables(k)[0].numel()) for k in n_sel},
+                 plane_covered_cells=int(op.bs.plane_covered.sum()),
+                 plane_groups=len(op._meta["plane_meta"]),
+                 plane_levels=len(op._meta["plane_levels"]))
+    if op.planes:
+        sizes.update(covered_nodes=op.plane_cov.numel(), fill_entries=op.plane_fill_src.numel(),
+                     fold_targets=op.plane_fold_tgt.numel())
+    print(f"setup p={p}: {setup_s:.1f} s (quadrant nref={nref} f32, B={op.B}, NB={op.NB}): "
+          f"{json.dumps(sizes)}", flush=True)
+    check(op.assembled and op.planes == (p <= 2), f"p={p} does not run the degree <= 3 schedule")
+    if p <= 2:
+        check(sizes["plane_covered_cells"] > 0, f"p={p}: no plane-covered cell")
+    u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
+    x = op.from_dof_vector(u)
+    y = op.vmult(x)
+    calls, inter = low_kernel_calls(op, x, y)
+    K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
+    lib, hn_steps, nnz = low_yardsticks(op, inter, K)
+    print(f"p={p}: maps composed into one CSR matrix each (the library calls), nonzeros: {nnz}",
+          flush=True)
+    parts = {name: measure_parts(name, cparts, lib.get(name, [None] * len(cparts)), hn_steps,
+                                 x.dtype, tol)
+             for name, cparts in calls.items()}
+    del calls, inter, lib
+    torch.cuda.empty_cache()
+
+    op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
+    x64 = x.double()
+    expect = low_launches(op)
+    res, counts = {}, {}
+    refs = {"vmult": lambda: op64.vmult(x64, plain=True),
+            "vmult_plain": lambda: op64.vmult_plain(x64, plain=True)}
+    outs = {}
+    for call in ("vmult", "vmult_plain", "refill"):
+        fn = {"vmult": lambda: op.vmult(x), "vmult_plain": lambda: op.vmult_plain(x),
+              "refill": lambda: op.refill(outs["vmult"])}[call]
+        ref = refs[call]() if call != "refill" else op64.refill(outs["vmult"].double(), plain=True)
+        out, n = counted(wrappers, fn)
+        outs[call] = out
+        if call == "vmult":  # reduced outputs: compared at the non-hanging DoFs
+            got, ref = op.to_dof_vector(out, zero_hanging=True), op64.to_dof_vector(
+                ref, zero_hanging=True)
+        else:
+            got = out
+        _, err = errors(got, ref)
+        n = {k: c for k, c in n.items() if c}
+        counts[call] = n
+        print(f"{call} p={p} f32 vs plain f64 path: max rel err {err:.3e} (tol {tol:g}), "
+              f"launches {n}", flush=True)
+        check(bool(torch.isfinite(out).all()) and out.shape == x.shape, f"{call} p={p} malformed")
+        check(err <= tol, f"{call} p={p} disagrees with the float64 path: {err:.3e}")
+        check(n == expect[call], f"{call} p={p} launched {n}, not {expect[call]}")
+        ms = time_ms(fn, reps=20, warmup=3)
+        plain_ms = time_ms(lambda: {"vmult": op.vmult, "vmult_plain": op.vmult_plain,
+                                    "refill": op.refill}[call](
+            x if call != "refill" else outs["vmult"], plain=True), reps=5, warmup=1)
+        res[call] = dict(ms=ms, plain_ms=plain_ms, max_rel_err=err, launches=n,
+                         host_ms=host_ms(fn, reps=20),
+                         profile=profile_path(f"{call} p={p}", fn, set(wrappers),
+                                              sum(expect[call].values())))
+    overhead = res["vmult"]["ms"] / res["vmult_plain"]["ms"]
+    print(f"p={p} nref={nref} f32 on {smi}: vmult {res['vmult']['ms']:.4f} ms "
+          f"({mf.n_dofs / res['vmult']['ms'] / 1e6:.4f} GDoF/s), vmult_plain "
+          f"{res['vmult_plain']['ms']:.4f} ms, refill {res['refill']['ms']:.4f} ms; "
+          f"HN overhead (vmult / vmult_plain) {overhead:.4f}", flush=True)
+    for name, plist in parts.items():  # each part's launches in the call that runs it
+        for part in plist:
+            call = ("refill" if name == "refill_update" or part["mode"].endswith("fill")
+                    and name == "hn_cell" else
+                    "vmult_plain" if part["mode"].endswith("absent") else "vmult")
+            part["launches"] = counts[call].get(name, 0)
+            part["call"] = call
+    numbers = dict(p=p, nref=nref, B=op.B, setup_s=setup_s, sizes=sizes, hn_overhead=overhead,
+                   **res, card=smi)
+    del op, op64, x, x64, y, outs
+    torch.cuda.empty_cache()
+    return numbers, parts
+
+
 def check_chain_tables(mf, op, seed):
     """Host only, float64: the composed gather lists that ``kernel_tables``
     hands the chain kernels, run through the plain versions on CPU tensors,
@@ -517,6 +806,75 @@ def counted(wrappers, fn):
     res = fn()
     torch.cuda.synchronize()
     return res, {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+
+def brick_library(op, x):
+    """brick_apply's library call: its map is one dense brick operator A
+    [N3, N3] (Mz (x) (My (x) Kx + Ky (x) Mx) + Kz (x) My (x) Mx), the same for
+    every brick, so one torch.mm over the bricks computes it, with geo
+    applied to the input outside the timed call, TF32 off. Returns (call,
+    the plain version without cell rows, which the call is held against):
+    the cell rows' overlap-add keeps its own index_add_ yardstick."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Kb, Mb = op.Kb.double(), op.Mb.double()
+    A = (torch.kron(Mb, torch.kron(Mb, Kb) + torch.kron(Kb, Mb))
+         + torch.kron(Kb, torch.kron(Mb, Mb))).to(x.dtype)
+    xs = (x * op.geo[:, None])[:, : op.N3].contiguous()
+    return (lambda: torch.mm(xs, A.T),
+            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo, op.p)[:, : op.N3])
+
+
+def kernel_record(mod):
+    return dict(name=mod.NAME, route="cuda",
+                source=f"dealii_matrixfree_hanging_nodes_tpu_torch/csrc/{mod.NAME}.cu",
+                replaces=mod.REPLACES, launches=None, max_abs_err=0.0, max_rel_err=0.0,
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None, parts=[])
+
+
+def measure_parts(name, parts, libs, hn_steps, dtype, tol):
+    """Each part of a kernel: its error against the plain version, the
+    kernel's, the plain version's and the library call's times (device
+    only), its bound; the library call held against the plain version.
+    Returns [part dict], printing a line each."""
+    out = []
+    for (mode, kern, plain, (nbytes, flops), fresh, reset), lib in zip(parts, libs):
+        lib_ref = None
+        if isinstance(lib, tuple):  # a library call held against its own plain reference
+            lib, lib_ref = lib
+        got, ref = fresh() if fresh else (kern(), plain())
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got, ref)
+        check(rel_err <= tol, f"{name}[{mode}] disagrees with its plain version: {rel_err:.3e}")
+        k_ms = time_ms(kern, device_only=True, reset=reset)
+        p_ms = time_ms(plain, device_only=True, reset=reset)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        l_ms = None if lib is None else time_ms(lib, device_only=True)
+        part = dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=l_ms, max_abs_err=abs_err, max_rel_err=rel_err)
+        if lib is not None:  # the library call computes the same function
+            part["library_rel_err"] = errors(
+                lib().reshape(-1), (ref if lib_ref is None else lib_ref()).reshape(-1))[1]
+            check(part["library_rel_err"] <= LIBRARY_TOL,
+                  f"{name}[{mode}]'s library call disagrees with its plain version: "
+                  f"{part['library_rel_err']:.3e}")
+        if name == "hn_cell" and mode in hn_steps:  # beside it: its steps' library calls
+            steps_ms = [time_ms(fn, device_only=True) for fn in hn_steps[mode]]
+            part["library_steps_ms"] = steps_ms
+            print(f"hn_cell[{mode}]'s steps as library calls (fill, Q"
+                  + (", torch.mm for K, Q^T" if "full" in mode else "") + "): "
+                  + " + ".join(f"{t:.4f}" for t in steps_ms)
+                  + f" = {sum(steps_ms):.4f} ms (beside the kernel, not its library_ms)",
+                  flush=True)
+        out.append(part)
+        print(f"{name}[{mode}]: max rel err {rel_err:.3e} (tol {tol:g}), max abs err "
+              f"{abs_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+              f"{(flops or 0) / 1e9:.3f} GFLOP)"
+              + (f", library {l_ms:.4f} ms (rel err {part['library_rel_err']:.3e})"
+                 if l_ms is not None else ""), flush=True)
+    return out
 
 
 def main() -> int:
@@ -611,61 +969,27 @@ def main() -> int:
     K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
     lib_calls, hn_steps, lib_nnz = yardsticks(op, inter, K)
     library.update(lib_calls)
-    # not built: brick_apply's bricks times the cube of a 1-D factor's structural nonzeros, past
-    # int32 indices (4.0 G at nref=7; about 48 GB as CSR with int64 columns)
-    big = {"brick_apply": op.n_bricks * len(brick_apply.factor_structure(op.NB, op.p)[0]) ** 3}
     print(f"maps composed into one CSR matrix each (the library calls), nonzeros: {lib_nnz}; "
-          f"not built: {big}", flush=True)
+          f"brick_apply's library call is one torch.mm by the dense brick operator "
+          f"[{op.N3}, {op.N3}]", flush=True)
+    library["brick_apply"] = [brick_library(op, x)]
     wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
     results = {}
-    for mod in KERNEL_MODULES:
-        name, parts = mod.NAME, calls[mod.NAME]
-        rec = dict(name=name, route="cuda",
-                   source=f"dealii_matrixfree_hanging_nodes_tpu_torch/csrc/{name}.cu",
-                   replaces=mod.REPLACES, launches=None, max_abs_err=0.0, max_rel_err=0.0,
-                   ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=None,
-                   parts=[])
+    for mod in [m for m in KERNEL_MODULES if m.NAME in calls]:
+        name = mod.NAME
+        rec = kernel_record(mod)
         bound_parts = []
-        for (mode, kern, plain, (nbytes, flops), fresh, reset), lib in zip(parts,
-                                                                             library[name]):
-            got, ref = fresh() if fresh else (kern(), plain())
-            torch.cuda.synchronize()
-            abs_err, rel_err = errors(got, ref)
-            k_ms = time_ms(kern, device_only=True, reset=reset)
-            p_ms = time_ms(plain, device_only=True, reset=reset)
-            b_ms, b_by = bound(nbytes, flops, x.dtype)
-            l_ms = None if lib is None else time_ms(lib, device_only=True)
-            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-            rec["max_rel_err"] = max(rec["max_rel_err"], rel_err)
-            part = dict(mode=mode, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=l_ms, max_abs_err=abs_err, max_rel_err=rel_err)
-            if lib is not None:  # the library call computes the same function
-                part["library_rel_err"] = errors(lib().reshape(-1), ref.reshape(-1))[1]
-                check(part["library_rel_err"] <= LIBRARY_TOL,
-                      f"{name}[{mode}]'s library call disagrees with its plain version: "
-                      f"{part['library_rel_err']:.3e}")
-            if name == "hn_cell":  # beside it: its steps' library calls, one each
-                steps_ms = [time_ms(fn, device_only=True) for fn in hn_steps[mode]]
-                part["library_steps_ms"] = steps_ms
-                print(f"hn_cell[{mode}]'s steps as library calls (fill, Q"
-                      + (", torch.mm for K, Q^T" if mode == "full" else "") + "): "
-                      + " + ".join(f"{t:.4f}" for t in steps_ms)
-                      + f" = {sum(steps_ms):.4f} ms (beside the kernel, not its library_ms)",
-                      flush=True)
+        for part in measure_parts(name, calls[name], library[name], hn_steps, x.dtype, tol32):
             rec["parts"].append(part)
-            if (name, mode) not in REFILL_PARTS:
-                rec["ms"] += k_ms
-                rec["plain_ms"] += p_ms
-                rec["bound_ms"] += b_ms
-                if l_ms is not None:
-                    rec["library_ms"] = (rec["library_ms"] or 0.0) + l_ms
-                bound_parts.append((b_ms, b_by))
-            print(f"{name}[{mode}]: max rel err {rel_err:.3e} (tol {tol32:g}), max abs err "
-                  f"{abs_err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-                  f"{(flops or 0) / 1e9:.3f} GFLOP)"
-                  + (f", library {l_ms:.4f} ms (rel err {part['library_rel_err']:.3e})"
-                     if l_ms is not None else ""), flush=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], part["max_abs_err"])
+            rec["max_rel_err"] = max(rec["max_rel_err"], part["max_rel_err"])
+            if (name, part["mode"]) not in REFILL_PARTS:
+                rec["ms"] += part["ms"]
+                rec["plain_ms"] += part["plain_ms"]
+                rec["bound_ms"] += part["bound_ms"]
+                if part["library_ms"] is not None:
+                    rec["library_ms"] = (rec["library_ms"] or 0.0) + part["library_ms"]
+                bound_parts.append((part["bound_ms"], part["bound_by"]))
         rec["bound_by"] = max(bound_parts)[1]
         if name in frames:
             rec["ptxas"] = [f"{k}: {u}" for k, u in frames[name]]
@@ -724,10 +1048,10 @@ def main() -> int:
           f"launches per vmult {counts}", flush=True)
     check(bool(torch.isfinite(y).all()) and got.shape == (mf.n_dofs,), "vmult output malformed")
     check(rel_err <= 1e-5, f"vmult disagrees with the float64 path: {rel_err:.3e}")
-    for name, n in counts.items():
+    for name in results:
         if name != "refill_update":
-            check(n > 0, f"the vmult never launched {name}")
-            results[name]["launches"] = n
+            check(counts[name] > 0, f"the vmult never launched {name}")
+            results[name]["launches"] = counts[name]
     check(sum(counts.values()) == VMULT_LAUNCHES,
           f"{sum(counts.values())} kernel launches per vmult, not {VMULT_LAUNCHES}")
     vm_ms = time_ms(lambda: op.vmult(x), reps=30, warmup=5)
@@ -739,10 +1063,23 @@ def main() -> int:
         x, *op.brick_factors_host, op.geo, op.p, dcols=dcols, brick_size=op.B))
     print(f"host time to issue a vmult ({VMULT_LAUNCHES} launches): {vm_host_ms:.4f} ms; one fused "
           f"brick_apply: {ba_host_ms:.4f} ms", flush=True)
-    vm_prof = profile_path("vmult", lambda: op.vmult(x), set(wrappers))
-    check(vm_prof["port_launches"] == VMULT_LAUNCHES,
-          f"the profile saw {vm_prof['port_launches']} kernel launches per vmult, "
-          f"not {VMULT_LAUNCHES}")
+    vm_prof = profile_path("vmult", lambda: op.vmult(x), set(wrappers), VMULT_LAUNCHES)
+    # the unconstrained operator at p=4 (cell_apply, corr_compact on the absent rows' codes,
+    # brick_apply's epilogue, dss_surface) and the HN overhead vmult / vmult_plain
+    ref = op64.vmult_plain(x64, plain=True)
+    yp, pcounts = counted(wrappers, lambda: op.vmult_plain(x))
+    pl_err = errors(yp, ref)[1]
+    pcounts = {k: n for k, n in pcounts.items() if n}
+    print(f"vmult_plain nref=7 p=4 f32 vs plain f64 path: max rel err {pl_err:.3e} (tol 1e-5), "
+          f"launches {pcounts}", flush=True)
+    check(bool(torch.isfinite(yp).all()) and yp.shape == x.shape, "vmult_plain output malformed")
+    check(pl_err <= 1e-5, f"vmult_plain disagrees with the float64 path: {pl_err:.3e}")
+    check(pcounts == PLAIN_LAUNCHES, f"vmult_plain launched {pcounts}, not {PLAIN_LAUNCHES}")
+    vp_ms = time_ms(lambda: op.vmult_plain(x), reps=30, warmup=5)
+    vp_prof = profile_path("vmult_plain", lambda: op.vmult_plain(x), set(wrappers),
+                           sum(PLAIN_LAUNCHES.values()))
+    print(f"vmult_plain nref=7 p=4 f32 on {smi}: {vp_ms:.4f} ms; HN overhead (vmult / "
+          f"vmult_plain) {vm_ms / vp_ms:.4f}", flush=True)
 
     # ---- 6. refill, nref=7, float32, through the kernels --------------------
     ref = op64.refill(y.double(), plain=True)
@@ -763,13 +1100,47 @@ def main() -> int:
     print(f"refill nref=7 p=4 f32 on {smi}: {rf_ms:.4f} ms; plain path {rf_plain_ms:.4f} ms; "
           f"host time to issue a refill ({REFILL_LAUNCHES} launches) {rf_host_ms:.4f} ms",
           flush=True)
-    rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers))
-    check(rf_prof["port_launches"] == REFILL_LAUNCHES,
-          f"the profile saw {rf_prof['port_launches']} kernel launches per refill, "
-          f"not {REFILL_LAUNCHES}")
-    del op64, x64, ref, got
+    rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers), REFILL_LAUNCHES)
+    n_dofs4 = mf.n_dofs
+    del op64, x64, ref, got, op, x, y, yp
+    torch.cuda.empty_cache()
 
-    # ---- 7. float64 through the kernels --------------------------------------
+    # ---- 7. the degree <= 3 schedule, float32 through the kernels -----------
+    low, low_parts = {}, {}
+    trias = {7: tria}
+    for p, nref in LOW_DEGREES:
+        if nref not in trias:
+            trias[nref] = mt.create_quadrant(3, nref)
+        numbers, parts = degree_phase(mt, trias[nref], nref, p, dev, wrappers, smi)
+        low[f"p={p}"] = numbers
+        for name, plist in parts.items():
+            low_parts.setdefault(name, []).extend(plist)
+    del trias
+    for name, plist in low_parts.items():
+        if name in results:  # an existing kernel at its new instances: parts beside p=4's
+            results[name]["parts"].extend(plist)
+            for part in plist:
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                                   part["max_abs_err"])
+                results[name]["max_rel_err"] = max(results[name]["max_rel_err"],
+                                                   part["max_rel_err"])
+            continue
+        mod = next(m for m in KERNEL_MODULES if m.NAME == name)
+        rec = kernel_record(mod)
+        rec["parts"] = plist
+        main_part = next(part for part in plist
+                         if part["mode"].startswith(f"p={LOW_MAIN_DEGREE}")
+                         and part["call"] == "vmult")
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches"):
+            rec[k] = main_part[k]
+        rec["max_abs_err"] = max(part["max_abs_err"] for part in plist)
+        rec["max_rel_err"] = max(part["max_rel_err"] for part in plist)
+        results[name] = rec
+    print("HN overhead (vmult / vmult_plain, f32) on " + smi + ": "
+          + ", ".join([f"p=4 {vm_ms / vp_ms:.4f}"]
+                      + [f"{k} {v['hn_overhead']:.4f}" for k, v in low.items()]), flush=True)
+
+    # ---- 8. float64 through the kernels --------------------------------------
     tria4 = mt.create_quadrant(3, 4)
     mf4 = mt.MatrixFree(tria4, 4, dtype=np.float64)
     op4 = mt.BrickLaplaceMM(mf4, device=dev)
@@ -795,14 +1166,36 @@ def main() -> int:
     print(f"vmult nref=2 p=6 f64 vs scipy oracle: max rel err {err6:.3e} (tol 1e-12)",
           flush=True)
     check(err6 <= 1e-12, f"float64 p=6 vmult disagrees with the oracle: {err6:.3e}")
+    for p in (3, 2):  # the degree <= 3 schedule in float64 at quadrant nref=4
+        mfp = mt.MatrixFree(tria4, p, dtype=np.float64)
+        opp = mt.BrickLaplaceMM(mfp, device=dev)
+        up = np.random.default_rng(SEED).standard_normal(mfp.n_dofs)
+        xp = opp.from_dof_vector(up)
+        yp = opp.vmult(xp)
+        check_kernels(low_kernel_calls(opp, xp, yp)[0], 1e-12, f"nref=4 p={p} f64")
+        errp = errors(opp.to_dof_vector(yp, zero_hanging=True).cpu(),
+                      torch.from_numpy(vmult_oracle(tria4, p, up)))[1]
+        print(f"vmult nref=4 p={p} f64 vs scipy oracle: max rel err {errp:.3e} (tol 1e-12)",
+              flush=True)
+        check(errp <= 1e-12, f"float64 p={p} vmult disagrees with the oracle: {errp:.3e}")
+        for call in ("vmult_plain", "refill"):
+            fn = getattr(opp, call)
+            e = errors(fn(yp if call == "refill" else xp),
+                       fn(yp if call == "refill" else xp, plain=True))[1]
+            print(f"{call} nref=4 p={p} f64 vs its plain path: max rel err {e:.3e} (tol 1e-12)",
+                  flush=True)
+            check(e <= 1e-12, f"float64 p={p} {call} disagrees with its plain path: {e:.3e}")
 
-    # ---- 8. the numbers ------------------------------------------------------
-    print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": mf.n_dofs,
-                                "gdofs_per_s": mf.n_dofs / vm_ms / 1e6, "launches": counts,
+    # ---- 9. the numbers ------------------------------------------------------
+    print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
+                                "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
                                 "profile": vm_prof, "card": smi},
                       "refill": {"ms": rf_ms, "plain_ms": rf_plain_ms, "launches": rcounts,
-                                 "host_ms": rf_host_ms, "profile": rf_prof, "card": smi}}))
+                                 "host_ms": rf_host_ms, "profile": rf_prof, "card": smi},
+                      "vmult_plain": {"ms": vp_ms, "launches": pcounts, "profile": vp_prof,
+                                      "hn_overhead": vm_ms / vp_ms, "card": smi},
+                      "degrees": low}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Brick engine of the PyTorch port: the constrained Cartesian Laplace vmult
 on per-brick node arrays, held against ``dealii_matrixfree_hanging_nodes_tpu
-.bricks.BrickLaplaceMM`` (degree >= 4 defaults: compact fold chains,
-input-side hanging-node fill, pooled cross-brick summation).
+.bricks.BrickLaplaceMM`` at its defaults (compact fold chains, input-side
+hanging-node fill, pooled cross-brick summation; at degree <= 3 the masked
+removal, at degree <= 2 face planes).
 
 Layout (as in the reference, so vectors compare one to one): cells are
 grouped into Morton-aligned, level-uniform bricks of B^3 cells; a brick
@@ -16,9 +17,21 @@ vmult = on the subset: cell_apply (cells read from the bricks, times K by
       -> brick_apply (separable operator x geo, every brick; its epilogue
         sums the subset's deltas back into their bricks)
       -> dss_surface (in place: sum each shared face/edge/corner over its
-        pool, zero the hole nodes): 5 launches.
-refill = hn_cell in its fill mode (fill and Q), refill_update (the
-        coverage-divided write-back): 2 launches.
+        pool, zero the hole nodes): 5 launches (degree >= 4).
+vmult at degree <= 3 (the reference's assembled schedule) = plane_fill
+        (p <= 2: the face planes' hanging nodes filled into a new vector),
+        hn_cell and corr_compact on the chain bricks (no plain rows),
+        brick_apply with the folded rows in its epilogue, masked_quad (in
+        place: the absent and constrained cells' unconstrained
+        contributions removed), plane_fold (p <= 2, in place, 2 launches),
+        dss_surface: 5 launches at p = 3, 8 at p <= 2.
+vmult_plain (no constraints; the HN overhead's denominator) = brick_apply
+        and the absent cells' removal (masked_quad at p <= 3; cell_apply
+        and corr_compact's absent rows into brick_apply's epilogue at
+        p >= 4), then dss_surface.
+refill = [plane_fill,] hn_cell in its fill mode (fill and Q),
+        refill_update (the coverage-divided write-back): 2 launches (3
+        with face planes).
 
 The reference expresses the data movement with one-hot matmuls because the
 TPU gathers slowly; here every one-hot operator is an index map (``slot_idx``
@@ -39,13 +52,16 @@ from torch import nn
 
 from .constraints import _active_lookup, decompress_mask
 from .dof_handler import local_lattice
-from .elements import shape_info
+from .elements import lagrange_values, shape_info
 from .kernels import (
     brick_apply,
     cell_apply,
     corr_compact,
     dss_surface,
     hn_cell,
+    masked_quad,
+    plane_fill,
+    plane_fold,
     refill_update,
 )
 from .kernels.dss_surface import surface_nodes
@@ -153,7 +169,8 @@ def auto_brick_size(degree: int, dim: int = 3) -> int:
 
 class BrickStructure:
     """Static brick layout + exchange plan derived from a MatrixFree object
-    (the reference's ``BrickStructure`` without face planes)."""
+    (the reference's ``BrickStructure``, with face planes at degree <= 2 as
+    the reference operator's defaults build it)."""
 
     def __init__(self, mf: MatrixFree):
         if mf.dim != 3:
@@ -204,6 +221,15 @@ class BrickStructure:
         self.vertex_contact = (vdiag >= 0) & (masks == 0)
         self.vertex_diag = vdiag
 
+        # face planes, built before the tier sort so that plane-covered
+        # cells leave the chain tier and the per-cell tables; their brick ids
+        # are remapped through the reorder below
+        self.plane_covered = np.zeros(tria.n_active_cells, dtype=bool)
+        self.plane_groups = []
+        self.plane_P1 = None
+        if p <= 2 and B % 2 == 0:
+            self._build_face_planes(masks, brick_of_cell)
+
         # ---- subset-first brick order -------------------------------------
         # Exceptional bricks (holes, constrained cells, or fold/fill coarse
         # targets) are renumbered to the front, so every subset access is a
@@ -212,7 +238,7 @@ class BrickStructure:
         C = B**dim
         ci = mf.constraints
         chain = np.zeros(self.n_bricks, dtype=bool)
-        resid = masks != 0
+        resid = (masks != 0) & ~self.plane_covered
         xsel = resid | self.vertex_contact
         chain[brick_of_cell[xsel]] = True
         mcells = np.nonzero(resid)[0]
@@ -234,6 +260,8 @@ class BrickStructure:
         self.n_exc_bricks = int(exc.sum())
         self.n_chain_bricks = int(chain.sum())
         assert self.exc_brick[: self.n_exc_bricks].all()
+        for g in self.plane_groups:
+            g["fine"], g["coarse"] = rank[g["fine"]], rank[g["coarse"]]
 
         self.brick_of_cell = brick_of_cell
         self.cell_lin = brick_of_cell * (B**dim) + slot  # brick-cell linear id
@@ -243,7 +271,7 @@ class BrickStructure:
         # transfer-active subset: constrained cells + vertex-contact cells,
         # stable-sorted by mask so each distinct mask forms one contiguous
         # range (one composite [n_loc, n_loc] matmul per range)
-        xfer_sel = (masks != 0) | self.vertex_contact
+        xfer_sel = resid | self.vertex_contact
         xfer_cells = np.nonzero(xfer_sel)[0]
         order = np.argsort(masks[xfer_cells], kind="stable")
         self.xfer_cells = xfer_cells[order]
@@ -398,6 +426,97 @@ class BrickStructure:
             self.corner_pool_id, self.n_corner_pools, include_self=True
         )
 
+    # ----------------------------------------------------------- face planes
+    def _build_face_planes(self, masks, brick_of_cell):
+        """The reference's ``_build_face_planes`` (bricks.py:499-659): the
+        aligned cross-level interface pairs (a fine brick's face against a
+        quarter of the one-level-coarser neighbor brick's face) and the
+        cells they resolve. A constrained cell is plane-covered when its
+        mask has face bits only, each constrained face lies on its brick's
+        boundary against an aligned brick one level coarser, and each
+        face's master cell is unconstrained or itself plane-covered (levels
+        ascending, so masters resolve first). Groups are keyed (fine level,
+        axis d, side s, coarse plane c_pl, tangential quarter offsets), in
+        sorted key order; each holds its (fine, coarse) brick pairs and a
+        cover mask [pairs, NB, NB] over the fine face (axes: the higher
+        tangential axis, then the lower), made disjoint across groups per
+        fine brick node. plane_P1 [NB, Nh] interpolates a fine face line
+        from the covering coarse cells' nodes (Nh = (NB-1)/2 + 1)."""
+        mf, tria = self.mf, self.mf.tria
+        dim, p, B, NB = self.dim, self.p, self.B, self.NB
+        ci = mf.constraints
+        lvl, coord = tria.level, tria.coord
+        sub_a, face_a, edge_a = decompress_mask(masks, dim)
+        pure = (masks != 0) & (edge_a == 0)
+        props = {}  # (level, d, s, c_pl, *offs) -> {(fine, coarse): [cells]}
+        for lv in (np.unique(lvl[pure]) if pure.any() else []):
+            cand = np.nonzero(pure & (lvl == lv))[0]
+            accepted = []
+            for c in cand:
+                entry = []
+                for d in range(dim):
+                    if not (int(face_a[c]) >> d) & 1:
+                        continue
+                    s = (int(sub_a[c]) >> d) & 1
+                    if int(coord[c, d]) & (B - 1) != (0 if s == 0 else B - 1):
+                        break
+                    m = int(ci.face_neighbor[c, d])
+                    if m < 0 or lvl[m] != lv - 1 or (masks[m] != 0 and not self.plane_covered[m]):
+                        break
+                    F, Cb = int(brick_of_cell[c]), int(brick_of_cell[m])
+                    if self.brick_level[Cb] != lv - 1:
+                        break
+                    # the masters' face toward the fine side, possibly inside Cb
+                    c_pl = (int(coord[m, d]) & (B - 1)) * p + (0 if s == 1 else p)
+                    offs = [int(self.brick_coord[F][t]) * (B // 2) - int(self.brick_coord[Cb][t]) * B
+                            for t in range(dim) if t != d]
+                    if any(o not in (0, B // 2) for o in offs):
+                        break
+                    entry.append((d, s, F, Cb, c_pl, tuple(int(o != 0) for o in offs)))
+                else:
+                    if entry:
+                        accepted.append((c, entry))
+            # a level's cells are accepted together, after all of them were tested
+            for c, entry in accepted:
+                self.plane_covered[c] = True
+                for d, s, F, Cb, c_pl, offs in entry:
+                    props.setdefault((int(lv), d, s, c_pl) + offs, {}).setdefault(
+                        (F, Cb), []).append(c)
+        for key in sorted(props):
+            lv, d, s, c_pl = key[:4]
+            pairs = props[key]
+            tang = [t for t in range(dim) if t != d]
+            cover = np.zeros((len(pairs), NB, NB))
+            for pi, cells in enumerate(pairs.values()):
+                for c in cells:
+                    hi, lo = (int(coord[c, t]) & (B - 1) for t in reversed(tang))
+                    cover[pi, hi * p: hi * p + p + 1, lo * p: lo * p + p + 1] = 1.0
+            self.plane_groups.append(dict(
+                level=lv, d=d, s=s, c_pl=c_pl, offs=key[4:],
+                fine=np.array([f for f, _ in pairs], dtype=np.int64),
+                coarse=np.array([cb for _, cb in pairs], dtype=np.int64), cover=cover))
+        # each fine brick node is claimed by the first group that covers it
+        claimed = {}
+        for g in self.plane_groups:
+            d, s = g["d"], g["s"]
+            t_hi, t_lo = sorted((t for t in range(dim) if t != d), reverse=True)
+            hi, lo = np.meshgrid(np.arange(NB), np.arange(NB), indexing="ij")
+            plane_idx = ((NB - 1 if s else 0) * NB**d + hi * NB**t_hi + lo * NB**t_lo).ravel()
+            for pi, f in enumerate(g["fine"]):
+                cl = claimed.setdefault(int(f), np.zeros(NB**dim, dtype=bool))
+                eff = (g["cover"][pi].ravel() > 0) & ~cl[plane_idx]
+                cl[plane_idx[eff]] = True
+                g["cover"][pi] = eff.reshape(NB, NB).astype(np.float64)
+        # interpolation from the covering coarse cell's nodal basis
+        nodes1 = shape_info(p).nodes
+        Nh = (NB - 1) // 2 + 1
+        P1 = np.zeros((NB, Nh))
+        for i in range(NB):
+            xf = (i // p + nodes1[i % p]) / B if i < NB - 1 else 1.0
+            k = max(min(int(np.floor(xf * (B // 2) - 1e-12)), B // 2 - 1), 0)
+            P1[i, k * p: k * p + p + 1] = lagrange_values(nodes1, np.array([xf * (B // 2) - k]))[0]
+        self.plane_P1 = P1
+
     # ------------------------------------------------------------- transfers
     def _build_transfers(self):
         """Mask-grouped fold/fill row transfers between fine constrained cells
@@ -408,7 +527,7 @@ class BrickStructure:
         lat = self._lat
         ci = mf.constraints
         masks = mf._np["masks"]
-        hn_cells = np.nonzero(masks != 0)[0]
+        hn_cells = np.nonzero((masks != 0) & ~self.plane_covered)[0]
         groups = []
         for mval in np.unique(masks[hn_cells]):
             cells = hn_cells[masks[hn_cells] == mval]
@@ -557,14 +676,16 @@ def _stage_chain(direction, levels, groups, n_loc):
 
 
 def operator_tables(mf: MatrixFree, bs: BrickStructure):
-    """Host tables of the constrained p >= 4 Cartesian vmult, as index maps.
+    """Host tables of the constrained Cartesian vmult, as index maps.
 
     Returns (arrays, meta): ``arrays`` maps buffer names to float64 / int64 /
     int32 / bool NumPy arrays (``BrickLaplaceMM`` buffer names), ``meta``
     holds the static sizes and schedules. The reference builds the same
-    tables in ``BrickLaplaceMM.__init__`` (bricks.py:1186-1741) with one-hot
+    tables in ``BrickLaplaceMM.__init__`` (bricks.py:1186-1917) with one-hot
     matrices where these hold indices; ``convert.from_reference`` derives
-    this dict from those."""
+    this dict from those. The degree <= 3 schedule's tables (Sqb, Dqb, w1,
+    the cell selectors qmask_*, the face-plane groups) are the reference's
+    as they are; ``kernel_tables`` turns them into lists."""
     p, B, NB, dim = bs.p, bs.B, bs.NB, bs.dim
     n = p + 1
     n_loc = n**dim
@@ -626,8 +747,40 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure):
         corner_contrib=bs.corner_contrib, node_valid=nv_pad,
     )
     meta = dict(B=B, p=p, NB=NB, N3=N3, N3p=N3p, n_sub=n_sub,
+                n_chainb=bs.n_chain_bricks, assembled=p <= 3,
                 hn_bounds=[],
-                fill_segs=[], n_fill_tails=0, corr_segs=[], n_corr_tails=0)
+                fill_segs=[], n_fill_tails=0, corr_segs=[], n_corr_tails=0,
+                plane_meta=[], plane_levels=[])
+
+    # the degree <= 3 schedule (the reference's defaults, bricks.py:1149-
+    # 1182): the absent and constrained cells' unconstrained contributions
+    # come off in one masked quadrature apply (Sqb, Dqb, w1 and the cell
+    # selectors, geo-premultiplied; bricks.py:1846-1864, 1897-1917), and at
+    # degree <= 2 the face planes fill and fold first and last
+    nq1 = si.S.shape[0]
+    Sqb = np.zeros((B * nq1, NB))
+    Dqb = np.zeros((B * nq1, B * nq1))
+    for c in range(B):
+        Sqb[c * nq1: (c + 1) * nq1, c * p: c * p + n] = si.S
+        Dqb[c * nq1: (c + 1) * nq1, c * nq1: (c + 1) * nq1] = si.Dc
+    arrays.update(Sqb=Sqb, Dqb=Dqb, w1=np.asarray(si.quad_w, dtype=np.float64))
+    if n_sub:
+        absent2 = ~bs.present.reshape(bs.n_bricks, C)[:n_sub]
+        hn2 = np.zeros(n_sub * C, dtype=bool)
+        hn2[hn_sub] = True
+        arrays.update(qmask_absent=absent2 * geo_brick[:n_sub, None],
+                      qmask_rem=(absent2 | hn2.reshape(n_sub, C)) * geo_brick[:n_sub, None])
+    if bs.plane_groups:
+        W = np.unique(np.concatenate([g[k] for g in bs.plane_groups for k in ("fine", "coarse")]))
+        w_of = np.full(bs.n_bricks, -1, dtype=np.int64)
+        w_of[W] = np.arange(len(W))
+        arrays.update(plane_W=W, plane_P1=bs.plane_P1)
+        for i, g in enumerate(bs.plane_groups):
+            arrays.update({f"plane{i}_fine": w_of[g["fine"]], f"plane{i}_coarse": w_of[g["coarse"]],
+                           f"plane{i}_cover": g["cover"]})
+        meta["plane_meta"] = [dict(level=g["level"], d=g["d"], s=g["s"], c_pl=g["c_pl"],
+                                   offs=g["offs"], n=len(g["fine"])) for g in bs.plane_groups]
+        meta["plane_levels"] = sorted({g["level"] for g in bs.plane_groups})
     if not len(hn_sub):
         return arrays, meta
 
@@ -1001,6 +1154,104 @@ def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB):
                 dss_hole_bits=_pack_bits(hole[hole_bricks]))
 
 
+def _quadrature_check(arrays, K1, M1, p):
+    """Raise unless the reference's block quadrature operators (Sqb values,
+    Dqb collocation derivatives, w1 weights) integrate the cell's 1-D mass
+    and stiffness to M1 and K1 (1e-13): the masked removal's cell stiffness
+    is the one the reference's quadrature sweeps apply."""
+    nq1 = len(arrays["w1"])
+    S = np.asarray(arrays["Sqb"], dtype=np.float64)[:nq1, : p + 1]
+    G = np.asarray(arrays["Dqb"], dtype=np.float64)[:nq1, :nq1] @ S
+    w = np.asarray(arrays["w1"], dtype=np.float64)
+    for name, got, ref in (("M1", S.T @ (w[:, None] * S), M1), ("K1", G.T @ (w[:, None] * G), K1)):
+        if not np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max():
+            raise ValueError(f"the block quadrature does not integrate {name}")
+
+
+def _masked_lists(qmask, geo, B):
+    """masked_quad's tables from a cell selector qmask [n_sub, B^3] (the
+    brick's geo on the selected cells, 0 elsewhere): the bricks that hold a
+    selected cell, and for each its selected slots in 8 parity classes
+    (class = x%2 + 2 (y%2) + 4 (z%2) of the cell's place in the brick: no
+    two cells of a class share a node), class by class, ascending within;
+    ptr [n_blk, 9] gives each class's range. Raises unless every selected
+    value is its brick's geo."""
+    qm = np.asarray(qmask, dtype=np.float64)
+    b, s = np.nonzero(qm)
+    if not np.array_equal(qm[b, s], np.asarray(geo, dtype=np.float64)[b]):
+        raise ValueError("masked removal: a selected cell's weight is not its brick's geo")
+    color = s % 2 + 2 * ((s // B) % 2) + 4 * ((s // (B * B)) % 2)
+    order = np.lexsort((s, color, b))
+    b, s, color = b[order], s[order], color[order]
+    bricks = np.unique(b)
+    key = np.searchsorted(bricks, b) * 8 + color
+    ptr = np.searchsorted(key, np.arange(len(bricks))[:, None] * 8 + np.arange(9))
+    return dict(brick=bricks.astype(np.int32), ptr=ptr.astype(np.int32),
+                slot=s.astype(np.int32))
+
+
+def _plane_tables(arrays, meta, n_bricks):
+    """plane_fill's and plane_fold's tables: the face-plane fill of every
+    level (fine covered node <- P1 (coarse quarter face) P1^T, bricks.py:
+    3044-3102) composed on the host into one linear map from the nodes no
+    level writes, so that the levels need no order on the card. The fill
+    writes the covered nodes ``plane_cov`` (flat brick*N3p + node,
+    ascending; ``plane_cov_ptr`` [nb+1] by brick), each the sum over its
+    entries (fill_ptr, fill_src flat, fill_w). The fold (bricks.py:3104-
+    3167) is its transpose: each target node (fold_tgt, never covered) adds
+    its entries over the covered nodes (fold_ptr, fold_src flat, fold_w) in
+    ascending order, then the covered nodes are zeroed."""
+    NB, N3p = int(meta["NB"]), int(meta["N3p"])
+    W = np.asarray(arrays["plane_W"], dtype=np.int64)
+    P1 = np.asarray(arrays["plane_P1"], dtype=np.float64)
+    Half = (NB - 1) // 2
+    rows, cols, vals = [], [], []
+    for i, m in enumerate(meta["plane_meta"]):
+        d, s, c_pl, offs = m["d"], m["s"], m["c_pl"], m["offs"]
+        t_hi, t_lo = sorted((t for t in range(3) if t != d), reverse=True)
+        fine = W[np.asarray(arrays[f"plane{i}_fine"], dtype=np.int64)]
+        coarse = W[np.asarray(arrays[f"plane{i}_coarse"], dtype=np.int64)]
+        pi, ii, jj = np.nonzero(np.asarray(arrays[f"plane{i}_cover"]) > 0)
+        wt = P1[ii][:, :, None] * P1[jj][:, None, :]
+        k, I, J = np.nonzero(wt)
+        rows.append(fine[pi[k]] * N3p + (NB - 1 if s else 0) * NB**d + ii[k] * NB**t_hi
+                    + jj[k] * NB**t_lo)
+        cols.append(coarse[pi[k]] * N3p + c_pl * NB**d + (offs[1] * Half + I) * NB**t_hi
+                    + (offs[0] * Half + J) * NB**t_lo)
+        vals.append(wt[k, I, J])
+    rows, cols, vals = (np.concatenate(x) for x in (rows, cols, vals))
+    if n_bricks * N3p > np.iinfo(np.int32).max:
+        raise NotImplementedError("plane tables: brick nodes exceed int32")
+    nodes = np.unique(np.concatenate([rows, cols]))
+    n = len(nodes)
+    A = _sparse(np.searchsorted(nodes, rows), np.searchsorted(nodes, cols), (n, n), vals)
+    if A.nnz != len(vals):
+        raise ValueError("plane tables: a covered node is written by two groups")
+    cov = np.zeros(n, dtype=bool)
+    cov[np.searchsorted(nodes, np.unique(rows))] = True
+    Du, Dc = sp.diags(1.0 * ~cov), sp.diags(1.0 * cov)
+    X = A @ Du
+    for _ in range(len(meta["plane_levels"])):  # a chain of k levels composes in k steps
+        X = (A @ Du + A @ Dc @ X).tocsr()
+    X.eliminate_zeros()
+    if (X @ Dc).nnz:
+        raise ValueError("plane tables: the level chain does not compose")
+    fill = X[cov].tocsr()
+    fill.sort_indices()
+    fold = fill.T.tocsr()
+    fold.sort_indices()
+    tgt = np.nonzero(np.diff(fold.indptr))[0]
+    cov_flat = nodes[cov]
+    i32 = lambda x: np.asarray(x).astype(np.int32)
+    return dict(
+        plane_cov=i32(cov_flat),
+        plane_cov_ptr=i32(np.searchsorted(cov_flat // N3p, np.arange(n_bricks + 1))),
+        plane_fill_ptr=i32(fill.indptr), plane_fill_src=i32(nodes[fill.indices]),
+        plane_fill_w=fill.data,
+        plane_fold_tgt=i32(nodes[tgt]), plane_fold_ptr=i32(np.append(fold.indptr[tgt], fold.nnz)),
+        plane_fold_src=i32(cov_flat[fold.indices]), plane_fold_w=fold.data)
+
+
 def kernel_tables(arrays: dict, meta: dict) -> dict:
     """The tables the six kernels read, derived on the host from the
     reference-layout tables of ``operator_tables`` (or
@@ -1036,6 +1287,13 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       brick_apply (``_brick_factors``).
     - dss: the interface pools as work lists with the surface validity and
       the holes as bit tables (``_dss_work_lists``).
+    - the degree <= 3 schedule (meta["assembled"]): the fold over the
+      chain bricks' cell rows only; masked_quad's cell lists from the
+      selectors qmask_rem and qmask_absent (``_masked_lists``), once the
+      block quadrature is checked to integrate K1 and M1; the face planes'
+      fill and fold composed over their levels (``_plane_tables``).
+    - vmult_plain at degree >= 4: the absent rows' codes and an empty fold
+      schedule for corr_compact.
 
     Returns the tables of ``BrickLaplaceMM`` (its buffers, and the packed
     brick factors it keeps on the host): the brick tables as given (node
@@ -1062,11 +1320,29 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     out.update(cell_code=cell_code, hn_sub=i32(hn_sub), keep_hn=keep)
     if n_sub * N3p > np.iinfo(np.int32).max:
         raise NotImplementedError("subset brick nodes exceed int32")
+    assembled = bool(meta.get("assembled", False))
+    if assembled:
+        # the assembled schedule: the fold covers the chain bricks' cell rows
+        # only, the masked removal every absent and constrained cell
+        _quadrature_check(arrays, out["K1"], out["M1"], int(meta["p"]))
+        n_rows = int(meta["n_chainb"]) * C
+        if n_hn and hn_sub.max() >= n_rows:
+            raise ValueError("a constrained row lies outside the chain bricks")
+        for kind in ("rem", "absent"):
+            if f"qmask_{kind}" in arrays:
+                out.update({f"mq_{kind}_{k}": v for k, v in _masked_lists(
+                    arrays[f"qmask_{kind}"], out["geo"], int(meta["B"])).items()})
+        if meta.get("plane_meta"):
+            out.update(_plane_tables(arrays, meta, len(out["geo"])))
+    elif n_sub:
+        # vmult_plain's removal of the absent cells: corr_compact with no runs
+        out.update(plain_code=np.where(cell_code == -2, -2, -1).astype(np.int32),
+                   plain_blocks=corr_compact.schedule(np.zeros(n_rows, np.int64), n_loc))
     h_all = np.repeat(np.arange(n_hn), n_loc)
     j_all = np.tile(np.arange(n_loc), n_hn)
     nF, nU, nR = n_hn * n_loc, n_sub * N3p, n_rows * n_loc
     out.update({f"corr_{k}": v for k, v in _runs(**_corr_lists(
-        arrays, meta, hn_sub[h_all] * n_loc + j_all, keep, cell_code, nF, nR),
+        arrays, meta, hn_sub[h_all] * n_loc + j_all, keep, cell_code[:n_rows], nF, nR),
         n_loc=n_loc).items()})
     if not n_hn:
         return out
@@ -1193,8 +1469,8 @@ def resolve_device(device=None) -> torch.device:
 
 class BrickLaplaceMM(nn.Module):
     """Constrained Cartesian Laplace vmult on [n_bricks, N3p] brick vectors
-    (degree >= 4, dim = 3), the port of the reference's ``BrickLaplaceMM``
-    at its p >= 4 defaults. Tables are registered buffers on ``device``;
+    (dim = 3, every degree), the port of the reference's ``BrickLaplaceMM``
+    at its defaults. Tables are registered buffers on ``device``;
     floating tables are built in float64 on the host and cast to ``dtype``.
 
     vmult accepts reduced inputs (hanging copies carry no meaning) and
@@ -1209,11 +1485,8 @@ class BrickLaplaceMM(nn.Module):
             return
         if mf.dim != 3:
             raise NotImplementedError("the port's brick engine supports dim=3")
-        if mf.degree < 4:
-            raise NotImplementedError(
-                "degree <= 3 runs the reference's masked-quadrature / face-plane "
-                "schedules, which are not ported yet"
-            )
+        if mf.high_order_mapping:
+            raise NotImplementedError("the deformed mapping's brick apply is not ported yet")
         bs = BrickStructure(mf)
         arrays, meta = operator_tables(mf, bs)
         if dtype is None:
@@ -1253,12 +1526,18 @@ class BrickLaplaceMM(nn.Module):
         floating ones cast to dtype, index ones as built (int32); brick_apply's
         packed factors stay on the host."""
         self._meta = meta
-        for k in ("B", "p", "NB", "N3", "N3p", "n_sub"):
+        for k in ("B", "p", "NB", "N3", "N3p", "n_sub", "n_chainb"):
             setattr(self, k, int(meta[k]))
         self.C = self.B**3
         self.n_loc = (self.p + 1) ** 3
         self.n_bricks = int(arrays["geo"].shape[0])
+        self.assembled = bool(meta["assembled"])
+        self.planes = bool(meta["plane_meta"])
         tables = kernel_tables(arrays, meta)
+        self.n_absent = int((tables["cell_code"] == -2).sum())
+        # the cell rows that corr_compact writes: the chain bricks' under the
+        # assembled schedule, every subset brick's otherwise
+        self.n_corr_rows = (self.n_chainb if self.assembled else self.n_sub) * self.C
         # cell_apply's and brick_apply's kernels take their factors by value,
         # as launch parameters
         self.brick_factors_host = tuple(torch.from_numpy(tables.pop(f"{n}_packed")).to(dtype)
@@ -1352,14 +1631,46 @@ class BrickLaplaceMM(nn.Module):
     def corr_tables(self):
         """corr_compact's tables after plain_rows and sub_raw: the row codes,
         the keep mask, the fold runs and the block schedule."""
-        return (self.cell_code, self.keep_hn, self.corr_seg_ptr, self.corr_seg_dst,
-                self.corr_ent_src, self.corr_blocks)
+        return (self.cell_code[: self.n_corr_rows], self.keep_hn, self.corr_seg_ptr,
+                self.corr_seg_dst, self.corr_ent_src, self.corr_blocks)
 
     def _corr_compact(self, plain_rows, sub_raw, plain: bool = False):
         """Compact correction chain + sparse delta (bricks.py:2775-2849):
         dcols = final - plain, nonzero on hole, constrained and fold-target
-        rows only."""
+        rows only; plain_rows=None (the assembled schedule, bricks.py:
+        2841-2845): the raw folded HN^T rows of the chain bricks."""
         return self._kernel(corr_compact, plain)(plain_rows, sub_raw, *self.corr_tables())
+
+    def masked_tables(self, kind: str):
+        """masked_quad's arguments after v and u: the cells of kind "rem"
+        (absent and constrained) or "absent", K1 and M1, geo and B; None
+        where no cell is selected."""
+        brick = getattr(self, f"mq_{kind}_brick", None)
+        if brick is None or not brick.numel():
+            return None
+        return (brick, getattr(self, f"mq_{kind}_ptr"), getattr(self, f"mq_{kind}_slot"))
+
+    def _masked_quad(self, v, u, kind: str, plain: bool = False):
+        """v[:n_sub] -= the masked cells' geo_c K_cell u_c (the reference's
+        ``-_masked_quad_apply(u_sub, qmask_{kind})``, bricks.py:3169-3244),
+        in place; v unchanged where no cell is selected."""
+        tables = self.masked_tables(kind)
+        if tables is None:
+            return v
+        fac = (self.K1, self.M1) if plain else self.factors_host
+        return self._kernel(masked_quad, plain)(v, u, *tables, *fac, self.geo, self.B)
+
+    def plane_fill_tables(self):
+        """plane_fill's arguments after u: the covered nodes by brick and the
+        composed fill's entries."""
+        return (self.plane_cov, self.plane_cov_ptr, self.plane_fill_ptr, self.plane_fill_src,
+                self.plane_fill_w)
+
+    def plane_fold_tables(self):
+        """plane_fold's arguments after v: the targets' entries, then the
+        covered nodes."""
+        return (self.plane_fold_tgt, self.plane_fold_ptr, self.plane_fold_src, self.plane_fold_w,
+                self.plane_cov)
 
     # ---------------------------------------------------------------- vmult
     def _check(self, bv):
@@ -1378,21 +1689,75 @@ class BrickLaplaceMM(nn.Module):
         plain PyTorch version on the operator's device instead: the
         reference the card's kernels are held against."""
         self._check(bv)
-        ca = self._kernel(cell_apply, plain)
-        fac = (self.K1, self.M1) if plain else self.factors_host
+        if self.assembled:
+            return self._vmult_assembled(bv, plain)
         dcols = None
         if self.n_sub:
             u_sub = bv[: self.n_sub]
-            plain_rows = ca(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
             if self.n_hn:
                 sub_raw = self._hn_cell(u_sub, "full", plain)
             else:
                 sub_raw = bv.new_empty((0, self.n_loc))
-            dcols = self._corr_compact(plain_rows, sub_raw, plain)
-        v = self._kernel(brick_apply, plain)(
-            bv, *((self.Kb, self.Mb) if plain else self.brick_factors_host), self.geo, self.p,
+            dcols = self._corr_compact(self._cell_rows(u_sub, plain), sub_raw, plain)
+        return self._dss(self._brick_apply(bv, dcols, plain), plain)
+
+    def _vmult_assembled(self, bv, plain: bool):
+        """The reference's degree <= 3 schedule (``_vmult_impl``'s assembled
+        branch, bricks.py:2355-2439): the face-plane fill of a new vector u
+        (p <= 2), the constrained rows and their fold on the chain bricks
+        (hn_cell, corr_compact without plain rows), brick_apply on u with
+        the folded rows in its epilogue, the masked removal of the absent
+        and constrained cells' unconstrained contributions, the face-plane
+        fold, the DSS."""
+        u = self._plane_fill(bv, plain) if self.planes else bv
+        dcols = None
+        if self.n_sub and self.n_hn:
+            dcols = self._corr_compact(None, self._hn_cell(u[: self.n_sub], "full", plain), plain)
+        v = self._brick_apply(u, dcols, plain)
+        if self.n_sub:
+            v = self._masked_quad(v, u, "rem" if self.n_hn else "absent", plain)
+        if self.planes:
+            v = self._kernel(plane_fold, plain)(v, *self.plane_fold_tables())
+        return self._dss(v, plain)
+
+    def vmult_plain(self, bv: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """The unconstrained operator (reference ``vmult_plain``,
+        ``_vmult_plain_impl`` bricks.py:2909-2956): the brick operator, the
+        absent cells' contributions removed, the DSS; no hanging-node
+        interpolation, fold or fill. Degree <= 3: the masked removal of the
+        absent cells; degree >= 4: their cell rows (cell_apply) negated by
+        corr_compact with no fold entries, added in brick_apply's epilogue.
+        The HN overhead of the paper is vmult over vmult_plain."""
+        self._check(bv)
+        if self.assembled:
+            v = self._brick_apply(bv, None, plain)
+            if self.n_sub:
+                v = self._masked_quad(v, bv, "absent", plain)
+            return self._dss(v, plain)
+        dcols = None
+        if self.n_sub and self.n_absent:
+            dcols = self._kernel(corr_compact, plain)(
+                self._cell_rows(bv[: self.n_sub], plain), bv.new_empty((0, self.n_loc)),
+                self.plain_code, self.keep_hn[:0], self.corr_seg_ptr[:1], self.corr_seg_dst[:0],
+                self.corr_ent_src[:0], self.plain_blocks)
+        return self._dss(self._brick_apply(bv, dcols, plain), plain)
+
+    def _cell_rows(self, u_sub, plain: bool):
+        """Every subset cell's geo_c K_cell u_c (cell_apply from the bricks)."""
+        fac = (self.K1, self.M1) if plain else self.factors_host
+        return self._kernel(cell_apply, plain)(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
+
+    def _brick_apply(self, u, dcols, plain: bool):
+        return self._kernel(brick_apply, plain)(
+            u, *((self.Kb, self.Mb) if plain else self.brick_factors_host), self.geo, self.p,
             dcols=dcols, brick_size=self.B)
+
+    def _dss(self, v, plain: bool):
         return self._kernel(dss_surface, plain)(v, *self.dss_tables())
+
+    def _plane_fill(self, u, plain: bool):
+        """A new vector: u with the face planes' covered nodes filled."""
+        return self._kernel(plane_fill, plain)(u, *self.plane_fill_tables())
 
     def dss_tables(self):
         """dss_surface's arguments after v: its work lists, bit tables and NB."""
@@ -1401,11 +1766,14 @@ class BrickLaplaceMM(nn.Module):
 
     def refill(self, v: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """Restore the hanging copies of a brick vector whose conforming
-        copies agree (reference ``_refill_impl``, input-fill branch): the
-        filled constrained rows (hn_cell's fill mode), then the coverage-divided
+        copies agree (reference ``_refill_impl``, input-fill branch): under
+        face planes, first their fill into a new vector; then the filled
+        constrained rows (hn_cell's fill mode) and the coverage-divided
         closure-slot updates written back at their brick nodes. plain=True
         runs the kernels' plain versions, as for vmult."""
         self._check(v)
+        if self.planes:
+            v = self._plane_fill(v, plain)
         if not (self.n_sub and self.n_hn):
             return v
         u_hat = self._hn_cell(v[: self.n_sub], "fill", plain)

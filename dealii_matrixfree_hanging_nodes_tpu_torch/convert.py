@@ -3,12 +3,14 @@
 ``from_reference(np_arrays, meta, device, dtype)`` takes
 ``BrickLaplaceMM._np_arrays`` of the JAX package (plain NumPy arrays) and a
 dict of its static metadata (``_hn_bounds``, ``_flat_meta``, ``_n_sub``,
-``_n_chainb``, ``_sub_contig``, ``N3``, ``N3p``, ``slot_idx``; the port's
-non-assembled p >= 4 path does not read ``_n_chainb``), derives the
-index maps that replace the reference's one-hot operators (Es -> surface
-node list, EsI -> interior fill nodes, EFX -> (cols position, exchange
-position) pairs), and returns the port's ``BrickLaplaceMM``. It takes plain
-dicts, so it imports nothing of the JAX package.
+``_n_chainb``, ``_sub_contig``, ``_use_masked_removal``, ``_plane_meta``,
+``_plane_levels``, ``N3``, ``N3p``, ``slot_idx``), derives the index maps
+that replace the reference's one-hot operators (Es -> surface node list,
+EsI -> interior fill nodes, EFX -> (cols position, exchange position)
+pairs), carries the degree <= 3 schedule's tables over as they are (the
+masked removal's quadrature operators and cell selectors, the face-plane
+groups), and returns the port's ``BrickLaplaceMM``. It takes plain dicts,
+so it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -55,11 +57,22 @@ def reference_tables(np_arrays: dict, meta: dict):
     )
     fm = meta["_flat_meta"]
     m = dict(B=B, p=p, NB=NB, N3=meta["N3"], N3p=meta["N3p"], n_sub=meta["_n_sub"],
+             n_chainb=meta["_n_chainb"], assembled=bool(meta["_use_masked_removal"]),
+             plane_meta=[dict(mm, offs=tuple(mm["offs"])) for mm in meta["_plane_meta"]],
+             plane_levels=list(meta.get("_plane_levels", [])),
              hn_bounds=list(meta["_hn_bounds"]),
              fill_segs=[tuple(s) for s in fm.get("fill", {}).get("segs", [])],
              n_fill_tails=fm.get("fill", {}).get("n_tails", 0),
              corr_segs=[tuple(s) for s in fm.get("corr", {}).get("segs", [])],
              n_corr_tails=fm.get("corr", {}).get("n_tails", 0))
+    for k in ("Sqb", "Dqb", "w1", "qmask_absent", "qmask_rem", "plane_P1"):
+        if k in a:
+            out[k] = f64(a[k])
+    if m["plane_meta"]:
+        out["plane_W"] = i64(a["plane_W"])
+        for i in range(len(m["plane_meta"])):
+            out.update({f"plane{i}_{k}": i64(a[f"plane{i}_{k}"]) for k in ("fine", "coarse")})
+            out[f"plane{i}_cover"] = f64(a[f"plane{i}_cover"])
     if not len(out["hn_sub"]):
         return out, m
 

@@ -37,7 +37,9 @@
 //   products added to an accumulator compiles to FMUL, FFMA and FADD.
 //   Loads: the brick and, for the first m bricks, its B^3 contiguous cell rows (32,000 B
 //   in f32 at p=4) come in with 16-byte cp.async copies in two groups; the x round waits
-//   for the brick only, the z round for the cell rows. Three blocks stay resident on an SM
+//   for the brick only, the z round for the cell rows. At p = 1 in f64 a brick's cell rows
+//   (4096 cells of 8 values, 262 KB) do not fit in shared memory: the epilogue reads them
+//   from device memory there (Cfg::STAGE_D). Three blocks stay resident on an SM
 //   in f32 at p=4, so one block's copies run under the others' sweeps.
 //   Epilogue: a node's entries are summed in a fixed order, z cells outer, then y, then x,
 //   each axis listing a node inside a cell once and a node on an interior cell boundary
@@ -97,6 +99,10 @@ struct Cfg {
   static constexpr int DCR = (DC + VW - 1) / VW * VW;
   static constexpr int NNZ = row_offset<NB, P>(NB);
   static constexpr int THREADS = (N2 + 31) / 32 * 32;
+  // a brick's cell rows staged in shared memory beside its two buffers, where they fit (all
+  // but p = 1 in f64, 262 KB of rows); else the epilogue reads them from device memory
+  static constexpr bool STAGE_D = (2 * N3R + DCR) * sizeof(T) <= 200 * 1024;
+  static constexpr int SMEM_D = STAGE_D ? DCR : 0;  // shared values for the cell rows
   static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
 };
 
@@ -167,8 +173,10 @@ brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ>
   const bool rows = k < m;
   stage(s0, u + static_cast<size_t>(k) * N3p, N3, vec_u);
   cp_async_commit();
-  if (rows) stage(sd, dcols + static_cast<size_t>(k) * S::DC, S::DC, vec_d);
+  const T* const dk = dcols + static_cast<size_t>(k) * S::DC;
+  if (rows && S::STAGE_D) stage(sd, dk, S::DC, vec_d);
   cp_async_commit();
+  const T* const dr = S::STAGE_D ? sd : dk;  // where the epilogue reads the cell rows
   T* const vb = v + static_cast<size_t>(k) * N3p;
   for (int i = N3 + threadIdx.x; i < N3p; i += blockDim.x) vb[i] = T(0);
   cp_async_wait<1>();  // the brick; its cell rows may still be in flight
@@ -263,7 +271,7 @@ brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ>
           for (int b = 0; b < 2; ++b)
 #pragma unroll
             for (int c = 0; c < 2; ++c)
-              if (a < nz && b < ny && c < nx) corr += sd[oz[a] + oy[b] + ox[c]];
+              if (a < nz && b < ny && c < nx) corr += dr[oz[a] + oy[b] + ox[c]];
         out += corr;
       }
       vb[l + i * N2] = out;
@@ -284,7 +292,7 @@ cudaError_t allow_smem() {
   if (done & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(brick_apply_kernel<T, NB, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>((2 * S::N3R + S::DCR) * sizeof(T)));
+                             static_cast<int>((2 * S::N3R + S::SMEM_D) * sizeof(T)));
   if (err == cudaSuccess) done |= bit;
   return err;
 }
@@ -293,7 +301,7 @@ template <typename T, int NB, int P>
 int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
            void* v, int nb, int m, int N3p, int* info, cudaStream_t stream) {
   using S = Cfg<T, NB, P>;
-  const int smem = static_cast<int>((2 * S::N3R + (m > 0 ? S::DCR : 0)) * sizeof(T));
+  const int smem = static_cast<int>((2 * S::N3R + (m > 0 ? S::SMEM_D : 0)) * sizeof(T));
   cudaError_t err = allow_smem<T, NB, P>();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (info) {  // a dry run: report shared memory and blocks per SM, launch nothing
@@ -315,13 +323,17 @@ int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// (NB, p) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
+// (NB, p) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at
+// p = 5..8
 template <typename T>
 int dispatch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
              void* v, int nb, int m, int NB, int p, int N3p, int* info, cudaStream_t stream) {
 #define BRICK_CASE(nb_, p_) \
   if (NB == nb_ && p == p_) \
     return launch<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, info, stream);
+  BRICK_CASE(17, 1)
+  BRICK_CASE(17, 2)
+  BRICK_CASE(13, 3)
   BRICK_CASE(17, 4)
   BRICK_CASE(11, 5)
   BRICK_CASE(13, 6)

@@ -6,6 +6,7 @@
 //   cell_code[r] = h >= 0:  keep[h, j] ? (sub_raw[h, j] + acc[r, j]) - plain[r, j] : -plain[r, j]
 //   cell_code[r] == -2:     -plain[r, j]          (absent cells)
 //   otherwise:              acc[r, j]             (fold targets; zero elsewhere)
+// plain may be null, read as zeros (the assembled schedule of degree <= 3).
 // The runs are the whole fold chain (stage 1 and its tails) composed on the host.
 //
 // Replaces: BrickLaplaceMM._corr_compact (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
@@ -136,7 +137,8 @@ corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
 
   // the rows, each value by its row's formula
   T* out = dcols + base;
-  const T* pl = plain + base;
+  const bool has_plain = plain != nullptr;
+  const T* pl = has_plain ? plain + base : nullptr;
   const bool vec = ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(pl)) & 15) == 0;
   const int nv = vec ? count / W : 0;
   for (int q = tid; q < nv; q += THREADS) {
@@ -144,7 +146,7 @@ corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
     const int g0 = i0 / NL, g1 = (i0 + W - 1) / NL;  // W < NL: at most two rows
     const int c0 = s_code[g0], c1 = s_code[g1];
     V pv{};
-    if (c0 != -1 || c1 != -1) pv = reinterpret_cast<const V*>(pl)[q];
+    if (has_plain && (c0 != -1 || c1 != -1)) pv = reinterpret_cast<const V*>(pl)[q];
     V av = reinterpret_cast<const V*>(acc)[q];
     V rv;
 #pragma unroll
@@ -159,7 +161,8 @@ corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
   }
   for (int i = nv * W + tid; i < count; i += THREADS) {
     const int g = i / NL, c = s_code[g];
-    out[i] = row_value<T, NL>(c, i - g * NL, acc[i], c != -1 ? pl[i] : T(0), sub_raw, keep);
+    out[i] = row_value<T, NL>(c, i - g * NL, acc[i], has_plain && c != -1 ? pl[i] : T(0),
+                              sub_raw, keep);
   }
 }
 
@@ -182,6 +185,9 @@ int dispatch(const void* const* a, void* out, int n_blocks, int cap_rows, int n_
 #define CORR_CASE(p_)                                                   \
   if (p == p_ && n_loc == (p_ + 1) * (p_ + 1) * (p_ + 1))               \
     return launch<T, (p_ + 1) * (p_ + 1) * (p_ + 1)>(a, out, n_blocks, cap_rows, stream);
+  CORR_CASE(1)
+  CORR_CASE(2)
+  CORR_CASE(3)
   CORR_CASE(4)
   CORR_CASE(5)
   CORR_CASE(6)

@@ -256,7 +256,7 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
+// (p, B) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
              int B, int N3p, int fill, cudaStream_t stream) {
@@ -264,6 +264,9 @@ int dispatch(const void* const* a, const void* K1, const void* M1, void* out, in
   if (p == p_ && B == b_)                                                           \
     return fill ? launch<T, p_, b_, true>(a, K1, M1, out, n_hn, N3p, stream)        \
                 : launch<T, p_, b_, false>(a, K1, M1, out, n_hn, N3p, stream);
+  HN_CASE(1, 16)
+  HN_CASE(2, 8)
+  HN_CASE(3, 4)
   HN_CASE(4, 4)
   HN_CASE(5, 2)
   HN_CASE(6, 2)

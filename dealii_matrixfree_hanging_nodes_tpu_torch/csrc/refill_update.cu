@@ -50,9 +50,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int UNROLL = 5;   // vectors a thread has in flight: 1,248 f32 vectors a brick at p=4
-constexpr int MAX_C = 64;   // cells a brick (B = 4)
 constexpr int HOLDERS = 8;  // the cells of a brick that share a node: 2 an axis
-static_assert(THREADS >= MAX_C, "a block stages its brick's cell codes one a thread");
 
 template <typename T>
 struct Vec;
@@ -82,7 +80,8 @@ __device__ __forceinline__ double2 masked(double2 x, unsigned m) {
   return x;
 }
 
-template <typename T>
+// CMAX: the most cells a brick of the instance holds (64 at B <= 4; 512 and 4096 at B = 8, 16)
+template <typename T, int CMAX>
 __global__ void __launch_bounds__(THREADS)
 refill_update_kernel(const T* __restrict__ v, const T* __restrict__ u_hat,
                      const unsigned* __restrict__ valid_bits, const int* __restrict__ cell_code,
@@ -91,12 +90,16 @@ refill_update_kernel(const T* __restrict__ v, const T* __restrict__ u_hat,
                      int N3p, int n_loc, int C) {
   using V = typename Vec<T>::type;
   constexpr int W = Vec<T>::W;
-  __shared__ int s_code[MAX_C];
+  __shared__ int s_code[CMAX];
   const int b = blockIdx.x, tid = threadIdx.x;
   const size_t row = static_cast<size_t>(b) * N3p;
   const unsigned* bits = valid_bits + static_cast<size_t>(b) * (N3p / 32);
   const bool sub = b < n_sub;  // the same for the whole block
-  if (sub && tid < C) s_code[tid] = cell_code[b * C + tid];
+  if constexpr (CMAX <= THREADS) {  // one code a thread
+    if (sub && tid < C) s_code[tid] = cell_code[b * C + tid];
+  } else if (sub) {
+    for (int i = tid; i < C; i += THREADS) s_code[i] = cell_code[static_cast<size_t>(b) * C + i];
+  }
 
   // pass 1: the masked copy
   const V* src = reinterpret_cast<const V*>(v + row);
@@ -150,19 +153,35 @@ refill_update_kernel(const T* __restrict__ v, const T* __restrict__ u_hat,
   }
 }
 
-template <typename T>
+template <typename T, int CMAX>
 int launch(const void* v, const void* u_hat, const void* valid_bits, const void* cell_code,
            const void* nodes, const void* holders, const void* invden, void* out, int nb,
            int n_sub, int n_w, int N3p, int n_loc, int C, cudaStream_t stream) {
-  if (C > MAX_C || N3p % 32) return static_cast<int>(cudaErrorInvalidValue);
   if (nb > 0) {
-    refill_update_kernel<T><<<nb, THREADS, 0, stream>>>(
+    refill_update_kernel<T, CMAX><<<nb, THREADS, 0, stream>>>(
         static_cast<const T*>(v), static_cast<const T*>(u_hat),
         static_cast<const unsigned*>(valid_bits), static_cast<const int*>(cell_code),
         static_cast<const int*>(nodes), static_cast<const int4*>(holders),
         static_cast<const T*>(invden), static_cast<T*>(out), n_sub, n_w, N3p, n_loc, C);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance whose cell-code table holds the brick's C cells: B <= 4, 8, 16
+template <typename T>
+int dispatch(const void* v, const void* u_hat, const void* valid_bits, const void* cell_code,
+             const void* nodes, const void* holders, const void* invden, void* out, int nb,
+             int n_sub, int n_w, int N3p, int n_loc, int C, cudaStream_t stream) {
+  if (N3p % 32) return static_cast<int>(cudaErrorInvalidValue);
+#define REFILL_CASE(cmax_)                                                                   \
+  if (C <= cmax_)                                                                            \
+    return launch<T, cmax_>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, \
+                            n_sub, n_w, N3p, n_loc, C, stream);
+  REFILL_CASE(64)
+  REFILL_CASE(512)
+  REFILL_CASE(4096)
+#undef REFILL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -173,7 +192,7 @@ int refill_update_f32(const void* v, const void* u_hat, const void* valid_bits,
                       const void* cell_code, const void* nodes, const void* holders,
                       const void* invden, void* out, int nb, int n_sub, int n_w, int N3p,
                       int n_loc, int C, void* stream) {
-  return launch<float>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
+  return dispatch<float>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
                        n_w, N3p, n_loc, C, static_cast<cudaStream_t>(stream));
 }
 
@@ -181,7 +200,7 @@ int refill_update_f64(const void* v, const void* u_hat, const void* valid_bits,
                       const void* cell_code, const void* nodes, const void* holders,
                       const void* invden, void* out, int nb, int n_sub, int n_w, int N3p,
                       int n_loc, int C, void* stream) {
-  return launch<double>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
+  return dispatch<double>(v, u_hat, valid_bits, cell_code, nodes, holders, invden, out, nb, n_sub,
                         n_w, N3p, n_loc, C, static_cast<cudaStream_t>(stream));
 }
 

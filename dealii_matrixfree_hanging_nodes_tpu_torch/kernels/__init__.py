@@ -9,7 +9,11 @@ from . import (  # noqa: F401
     corr_compact,
     dss_surface,
     hn_cell,
+    masked_quad,
+    plane_fill,
+    plane_fold,
     refill_update,
 )
 
-KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update)
+KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update,
+                  masked_quad, plane_fill, plane_fold)

@@ -28,8 +28,9 @@ from .cell_apply import brick_slot_index
 
 NAME = "brick_apply"
 REPLACES = "experiments/queue/_mb_main.py:63"
-# (NB, p) pairs the CUDA kernel is instantiated for: B=4 at p=4, B=2 at p=5..8
-SUPPORTED = {(17, 4), (11, 5), (13, 6), (15, 7), (17, 8)}
+# (NB, p) pairs the CUDA kernel is instantiated for: B=16, 8, 4 at p=1, 2, 3 and 4,
+# B=2 at p=5..8
+SUPPORTED = {(17, 1), (17, 2), (13, 3), (17, 4), (11, 5), (13, 6), (15, 7), (17, 8)}
 
 
 def factor_structure(NB: int, p: int):

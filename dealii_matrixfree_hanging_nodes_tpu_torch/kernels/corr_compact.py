@@ -8,6 +8,9 @@ entries of the run that lands on (r, j), every row r of dcols
     cell_code[r] = -2 (absent cell):      -plain[r, j]
     otherwise (fold targets, the rest):   acc[r, j]
 
+with plain=None read as zeros (the assembled schedule of degree <= 3, whose
+masked removal takes the cells' plain contributions off instead).
+
 Replaces the reference's ``_corr_compact`` (bricks.py:2775-2849) with the
 ``plain_rows[hn_sub]`` gather before it (bricks.py:2465): stage-1 one-hot
 transfer matmuls, the scatter-adds into the hn and non-hn rows, the tails
@@ -77,8 +80,10 @@ def corr_compact_plain(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_sr
     """Plain PyTorch version on the same runs (``blocks``, the kernel's
     schedule, is not read): the run sums, then the constrained and absent
     rows written over them."""
-    n_rows, n_loc = plain.shape
+    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
     dcols = run_sums(sub_raw, seg_ptr, seg_dst, ent_src, n_rows * n_loc).view(n_rows, n_loc)
+    if plain is None:
+        plain = torch.zeros((), dtype=sub_raw.dtype, device=sub_raw.device).expand(n_rows, n_loc)
     absent = torch.nonzero(cell_code == -2)[:, 0]
     dcols[absent] = -plain[absent]
     hn = torch.nonzero(cell_code >= 0)[:, 0]
@@ -91,30 +96,33 @@ _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def corr_compact(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks):
-    """plain [n_rows, n_loc], sub_raw [n_hn, n_loc]; cell_code [n_rows],
-    seg_ptr [n_seg+1], seg_dst [n_seg], ent_src, blocks [n_blocks+1, 2]
-    int32 (``schedule``); keep [n_hn, n_loc] bool -> new dcols [n_rows,
-    n_loc]."""
+    """plain [n_rows, n_loc] or None (zeros), sub_raw [n_hn, n_loc];
+    cell_code [n_rows], seg_ptr [n_seg+1], seg_dst [n_seg], ent_src, blocks
+    [n_blocks+1, 2] int32 (``schedule``); keep [n_hn, n_loc] bool -> new
+    dcols [n_rows, n_loc]."""
     args = (plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks)
-    if plain.device.type == "cpu":
+    if sub_raw.device.type == "cpu":
         return corr_compact_plain(*args)
-    dev = _build.check_cuda(NAME, plain.dtype, **dict(zip(
+    dev = _build.check_cuda(NAME, sub_raw.dtype, **{k: t for k, t in zip(
         ("plain", "sub_raw", "cell_code", "keep", "seg_ptr", "seg_dst", "ent_src", "blocks"),
-        args)))
-    n_rows, n_loc = plain.shape
+        args) if t is not None})
+    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
     p = round(n_loc ** (1.0 / 3.0)) - 1
     if any(t.dtype != torch.int32 for t in (cell_code, seg_ptr, seg_dst, ent_src, blocks)):
         raise TypeError(f"{NAME}: cell_code, seg_ptr, seg_dst, ent_src and blocks must be int32")
-    if (keep.dtype != torch.bool or keep.shape != sub_raw.shape or sub_raw.shape[1:] != (n_loc,)
-            or (p + 1) ** 3 != n_loc or cell_code.shape != (n_rows,)
+    if (keep.dtype != torch.bool or keep.shape != sub_raw.shape
+            or (plain is not None and plain.shape != (n_rows, n_loc))
+            or (p + 1) ** 3 != n_loc or cell_code.dim() != 1
             or seg_ptr.shape != (seg_dst.numel() + 1,) or ent_src.dim() != 1
             or blocks.dim() != 2 or blocks.shape[1] != 2 or n_rows * n_loc > 2**31 - 1):
-        raise ValueError(f"{NAME}: shapes plain {tuple(plain.shape)}, sub_raw "
+        raise ValueError(f"{NAME}: shapes plain "
+                         f"{None if plain is None else tuple(plain.shape)}, sub_raw "
                          f"{tuple(sub_raw.shape)}, seg_ptr {tuple(seg_ptr.shape)}, blocks "
                          f"{tuple(blocks.shape)}")
-    out = torch.empty_like(plain)
-    fn = _build.function(NAME, f"{NAME}_{_build.suffix(plain.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, *(_build.ptr(t) for t in args), _build.ptr(out),
+    out = torch.empty((n_rows, n_loc), dtype=sub_raw.dtype, device=sub_raw.device)
+    fn = _build.function(NAME, f"{NAME}_{_build.suffix(sub_raw.dtype)}", _ARGS)
+    _build.launch(NAME, fn, dev, *(None if t is None else _build.ptr(t) for t in args),
+                  _build.ptr(out),
                   blocks.shape[0] - 1, block_rows(n_loc), n_loc, p)
     corr_compact.launches += 1
     return out
@@ -125,13 +133,14 @@ corr_compact.launches = 0
 
 def bytes_and_flops(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks):
     """Least traffic (the kernel's arguments): sub_raw read once, plain read
-    at the constrained and absent rows only, dcols written once, cell_code,
-    the keep mask (one bit a slot), the runs and the schedule read once; an
-    add per entry and two operations per constrained slot."""
-    n_rows, n_loc = plain.shape
-    n_read_plain = int((cell_code != -1).sum()) * n_loc
+    at the constrained and absent rows only (not at all where it is None),
+    dcols written once, cell_code, the keep mask (one bit a slot), the runs
+    and the schedule read once; an add per entry and two operations per
+    constrained slot."""
+    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
+    n_read_plain = 0 if plain is None else int((cell_code != -1).sum()) * n_loc
     n_ent = ent_src.numel()
-    nbytes = ((sub_raw.numel() + n_read_plain + n_rows * n_loc) * plain.element_size()
+    nbytes = ((sub_raw.numel() + n_read_plain + n_rows * n_loc) * sub_raw.element_size()
               + (keep.numel() + 7) // 8
               + 4 * (n_rows + seg_ptr.numel() + seg_dst.numel() + n_ent + blocks.numel()))
     return nbytes, n_ent + 2 * sub_raw.numel()

@@ -1,0 +1,103 @@
+"""Kernel 9, ``masked_quad``: the masked removal of the degree <= 3 schedule,
+in place on the first bricks of v [nb, N3p]:
+
+    v[b] -= sum over the selected cells c of brick b of geo[b] E_c^T K E_c u[b]
+
+with E_c the gather of cell c's (p+1)^3 nodes from its brick and K the
+Kronecker sum of the 1-D factors K1, M1 (``cell_apply``'s). The selected
+cells come as lists (``bricks._masked_lists``): the bricks that hold one
+(brick [n_blk]), each brick's selected slots (slot, int32) in 8 parity
+classes, x%2 + 2 (y%2) + 4 (z%2) of the cell's place in the brick, no two
+cells of a class sharing a node, and ptr [n_blk, 9] each class's range.
+
+Replaces the reference's ``_masked_quad_apply`` (bricks.py:3169-3244) with
+its subtraction from the subset bricks (``corr = -masked_quad(u_sub,
+qmask)``, bricks.py:2426-2429, 2934-2938): block-diagonal quadrature
+sweeps (Sqb, Dqb) over whole subset bricks with the geo-premultiplied cell
+mask as the metric. With p+1 Gauss points per axis the quadrature
+integrates the cell stiffness exactly, so the function is a sum of cell
+stiffnesses over the selected cells, which the kernel visits alone.
+CUDA source: ``csrc/masked_quad.cu``."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .cell_apply import cell_apply_plain, cell_degree, cell_nodes
+
+NAME = "masked_quad"
+REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:3169"
+SUPPORTED = {(3, 4), (2, 8), (1, 16)}  # (p, B): the degree <= 3 schedule
+
+
+def selected_cells(brick, ptr, slot, brick_size):
+    """[n_cells] brick-cell id (brick * B^3 + slot) of every list entry, in
+    list order."""
+    n = (ptr[:, -1] - ptr[:, 0]).long()
+    return torch.repeat_interleave(brick.long(), n) * brick_size**3 + slot.long()
+
+
+def masked_quad_plain(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
+    """Plain PyTorch version: the selected cells' rows gathered from u,
+    their stiffness (``cell_apply_plain``) times their brick's geo, then
+    subtracted from v with one ``index_add_``. Updates v in place and
+    returns it."""
+    p = cell_degree(K1)
+    cells = selected_cells(brick, ptr, slot, brick_size)
+    nodes = cell_nodes(cells, brick_size, p, u.shape[1], u.device)
+    rows = cell_apply_plain(u.reshape(-1)[nodes], K1, M1, geo[cells // brick_size**3])
+    v.view(-1).index_add_(0, nodes.reshape(-1), rows.reshape(-1), alpha=-1)
+    return v
+
+
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def masked_quad(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
+    """v [nb, N3p] (updated in place and returned), u [>= n_sub, N3p] of
+    v's dtype, geo [nb]; brick [n_blk], ptr [n_blk, 9], slot int32. The
+    kernel takes K1 and M1 by value, as launch parameters: on the kernel
+    path they must be CPU tensors (``op.factors_host``)."""
+    if v.device.type == "cpu":
+        return masked_quad_plain(v, u, brick, ptr, slot, K1, M1, geo, brick_size)
+    dev = _build.check_cuda(NAME, v.dtype, v=v, u=u, brick=brick, ptr=ptr, slot=slot, geo=geo)
+    p, B = cell_degree(K1), int(brick_size)
+    if (p, B) not in SUPPORTED or M1.shape != K1.shape:
+        raise ValueError(f"{NAME}: unsupported degree {p} with B={B}")
+    if K1.device.type != "cpu" or M1.device.type != "cpu":
+        raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
+                         f"(op.factors_host), got them on {K1.device} and {M1.device}")
+    if any(t.dtype != torch.int32 for t in (brick, ptr, slot)):
+        raise TypeError(f"{NAME}: brick, ptr and slot must be int32")
+    nb, N3p = v.shape
+    if (u.dim() != 2 or u.shape[1] != N3p or N3p < (B * p + 1) ** 3 or geo.shape != (nb,)
+            or ptr.shape != (brick.shape[0], 9) or nb * N3p > 2**31 - 1):
+        raise ValueError(f"{NAME}: shapes v {tuple(v.shape)}, u {tuple(u.shape)}, ptr "
+                         f"{tuple(ptr.shape)}, geo {tuple(geo.shape)}")
+    K1, M1 = (f.detach().to(v.dtype).contiguous() for f in (K1, M1))
+    fn = _build.function(NAME, f"{NAME}_{_build.suffix(v.dtype)}", _ARGS)
+    _build.launch(NAME, fn, dev, _build.ptr(u), _build.ptr(v), _build.ptr(brick), _build.ptr(ptr),
+                  _build.ptr(slot), _build.ptr(geo), _build.ptr(K1), _build.ptr(M1),
+                  brick.shape[0], p, B, N3p)
+    masked_quad.launches += 1
+    return v
+
+
+masked_quad.launches = 0
+
+
+def bytes_and_flops(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
+    """Least traffic: the distinct nodes of the selected cells read once from
+    u, and read and written once in v; the lists, geo and K1, M1.
+    Operations: the 7 sweeps of 2 n^4, the scale and one subtraction per
+    cell node, per selected cell."""
+    n = cell_degree(K1) + 1
+    cells = selected_cells(brick, ptr, slot, brick_size)
+    nodes = cell_nodes(cells, brick_size, n - 1, u.shape[1], u.device)
+    n_nodes = torch.unique(nodes).numel()
+    nbytes = (3 * n_nodes + brick.numel() + 2 * n * n) * v.element_size() + 4 * (
+        brick.numel() + ptr.numel() + slot.numel())
+    return nbytes, cells.numel() * (7 * 2 * n**4 + 2 * n**3)

@@ -81,7 +81,7 @@ def refill_update(v, u_hat, valid_bits, cell_code, nodes, holders, invden, brick
     C = int(brick_size) ** 3
     if not (valid_bits.dtype == cell_code.dtype == nodes.dtype == holders.dtype == torch.int32):
         raise TypeError(f"{NAME}: valid_bits, cell_code, nodes and holders must be int32")
-    if (valid_bits.shape != (nb, N3p // 32) or N3p % 32 or C > 64 or n_sub > nb
+    if (valid_bits.shape != (nb, N3p // 32) or N3p % 32 or C > 4096 or n_sub > nb
             or cell_code.shape != (n_sub * C,) or nodes.shape != (n_w,)
             or holders.shape != (n_w, MAX_HOLDERS) or u_hat.dim() != 2):
         raise ValueError(f"{NAME}: shapes v {tuple(v.shape)}, valid_bits "

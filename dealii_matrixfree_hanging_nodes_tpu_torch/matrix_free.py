@@ -20,11 +20,17 @@ __all__ = ["MatrixFree"]
 
 
 class MatrixFree:
-    def __init__(self, tria: Triangulation, degree: int, dtype=np.float64):
+    """high_order_mapping marks the reference's deformed (MappingQCache)
+    mapping, which the port records and its brick operator refuses: its
+    geometry tables are Cartesian."""
+
+    def __init__(self, tria: Triangulation, degree: int, dtype=np.float64,
+                 high_order_mapping: bool = False):
         self.tria = tria
         self.degree = degree
         self.dim = tria.dim
         self.dtype = np.dtype(dtype)
+        self.high_order_mapping = bool(high_order_mapping)
         self.shape = shape_info(degree)
         self.dof_handler = DoFHandler(tria, degree)
         self.constraints = build_constraints(self.dof_handler)

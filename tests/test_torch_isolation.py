@@ -65,7 +65,8 @@ def test_unported_branches_raise():
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     with pytest.raises(NotImplementedError):
-        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 3), device="cpu")
+        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 3, high_order_mapping=True),
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4), device="cpu")
 
@@ -246,6 +247,96 @@ def test_refill_corr_degrees_on_card(cuda, p, dtype):
         ref = getattr(mod, f"{mod.NAME}_plain")(*args)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max() / ref.abs().max()) < tol
+
+
+def _rel(got, ref):
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("geo,nref,p", [("quadrant", 4, 3), ("quadrant", 4, 2), ("step", 4, 2),
+                                        ("quadrant", 6, 1)],
+                         ids=["quadrant-4-p3", "quadrant-4-p2", "step-4-p2", "quadrant-6-p1"])
+def test_low_degree_kernels_on_card(cuda, geo, nref, p, dtype):
+    """The degree <= 3 schedule on the card: masked_quad, plane_fill and
+    plane_fold, and brick_apply, hn_cell, corr_compact (without plain rows)
+    and refill_update at their instances for B = 4, 8, 16, each against its
+    plain version; vmult, vmult_plain and refill against the plain path."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, corr_compact, hn_cell, masked_quad, plane_fill, plane_fold, refill_update,
+    )
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_geometry(geo, 3, nref), p), device=cuda,
+                           dtype=dtype)
+    assert op.assembled and op.planes == (p <= 2) and op.n_hn > 0
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    v = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    rows = torch.randn(op.n_hn, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    cols = torch.randn(op.n_corr_rows, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    pairs = []
+    for kind in ("rem", "absent"):
+        args = (bv, *op.masked_tables(kind))
+        pairs.append((masked_quad.masked_quad(v.clone(), *args, *op.factors_host, op.geo, op.B),
+                      masked_quad.masked_quad_plain(v.clone(), *args, op.K1, op.M1, op.geo, op.B)))
+    if op.planes:
+        pairs += [(plane_fill.plane_fill(bv, *op.plane_fill_tables()),
+                   plane_fill.plane_fill_plain(bv, *op.plane_fill_tables())),
+                  (plane_fold.plane_fold(v.clone(), *op.plane_fold_tables()),
+                   plane_fold.plane_fold_plain(v.clone(), *op.plane_fold_tables()))]
+    hn_args = (bv[: op.n_sub], *op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    pairs += [(hn_cell.hn_cell(*hn_args, mode=mode),
+               hn_cell.hn_cell_plain(*hn_args[:-4], op.K1, op.M1, *hn_args[-2:], mode=mode))
+              for mode in hn_cell.MODES]
+    for mod, args in ((corr_compact, (None, rows, *op.corr_tables())),
+                      (refill_update, (bv, rows, *op.refill_tables()))):
+        pairs.append((getattr(mod, mod.NAME)(*args), getattr(mod, f"{mod.NAME}_plain")(*args)))
+    for extra in ({}, {"dcols": cols, "brick_size": op.B}):
+        pairs.append((brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p, **extra),
+                      brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p, **extra)))
+    pairs += [(op.vmult(bv), op.vmult(bv, plain=True)),
+              (op.vmult_plain(bv), op.vmult_plain(bv, plain=True)),
+              (op.refill(bv), op.refill(bv, plain=True))]
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        assert _rel(got, ref) < tol, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [4, 5])
+def test_vmult_plain_on_card(cuda, p, dtype):
+    """vmult_plain at p >= 4 (cell_apply, corr_compact with the absent rows'
+    codes and no runs, brick_apply's epilogue, dss_surface) against its
+    plain path."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 3), p), device=cuda, dtype=dtype)
+    assert not op.assembled and op.n_absent > 0
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    got, ref = op.vmult_plain(bv), op.vmult_plain(bv, plain=True)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo,p", [("quadrant", 2), ("quadrant", 3), ("step", 2)])
+def test_low_degree_vmult_on_card_matches_oracle(cuda, geo, p):
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    tria = mt.create_geometry(geo, 3, 4)
+    mf = mt.MatrixFree(tria, p)
+    op = mt.BrickLaplaceMM(mf, device=cuda)
+    u = np.random.default_rng(0).standard_normal(mf.n_dofs)
+    got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+    ref = vmult_oracle(tria, p, u)
+    assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
     kronecker_sum,
 )
 from torch_port_cases import (  # noqa: E402
-    CASES, IDS, RTOL, port, port_tables, reference, rel_err, rng_array,
+    CASES, IDS, LOW_CASES, RTOL, port, port_tables, reference, rel_err, rng_array,
 )
 
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)
@@ -227,8 +227,10 @@ CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + 
 def test_cpu_tensors_take_the_plain_version(mod, variant):
     """On CPU tensors a wrapper computes its plain version and launches
     nothing, so its launch count stays put (brick_apply also with the
-    subset's cell rows, hn_cell also in its fill mode)."""
-    geo, nref, p = CASES[0]
+    subset's cell rows, hn_cell also in its fill mode; the kernels of the
+    degree <= 3 schedule on a p=2 operator with face planes)."""
+    low = mod.NAME in ("masked_quad", "plane_fill", "plane_fold")
+    geo, nref, p = LOW_CASES[1] if low else CASES[0]
     op = port(geo, nref, p)[2]
     wrapper = getattr(mod, mod.NAME)
     plain = getattr(mod, f"{mod.NAME}_plain")
@@ -246,6 +248,10 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
                             {"mode": "fill" if variant else "full"}),
         "corr_compact": lambda: ((cells(18), hn_rows(19), *op.corr_tables()), {}),
         "refill_update": lambda: ((bricks(20), hn_rows(21), *op.refill_tables()), {}),
+        "masked_quad": lambda: ((bricks(22), bricks(23), *op.masked_tables("rem"),
+                                 *op.factors_host, op.geo, op.B), {}),
+        "plane_fill": lambda: ((bricks(24), *op.plane_fill_tables()), {}),
+        "plane_fold": lambda: ((bricks(25), *op.plane_fold_tables()), {}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)

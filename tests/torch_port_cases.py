@@ -15,6 +15,16 @@ CASES = [
     ("quadrant", 2, 6),
 ]
 IDS = [f"{g}-{n}-p{p}" for g, n, p in CASES]
+# the degree <= 3 schedule: masked removal at p <= 3 (B = 4, 8, 16), face
+# planes at p <= 2; quadrant nref=6 is the first p=1 quadrant mesh whose
+# planes chain over two levels
+LOW_CASES = [
+    ("quadrant", 4, 3),
+    ("quadrant", 4, 2),
+    ("step", 4, 2),
+    ("quadrant", 6, 1),
+]
+LOW_IDS = [f"{g}-{n}-p{p}" for g, n, p in LOW_CASES]
 RTOL = 1e-12
 
 
@@ -54,8 +64,10 @@ def reference_meta(bl):
     """The reference's static metadata, as ``convert.from_reference`` takes it."""
     return dict(
         _hn_bounds=bl._hn_bounds, _flat_meta=bl._flat_meta, _n_sub=bl._n_sub,
-        _n_chainb=bl._n_chainb, _sub_contig=bl._sub_contig, N3=bl.N3,
-        N3p=bl.N3p, slot_idx=bl.slot_idx,
+        _n_chainb=bl._n_chainb, _sub_contig=bl._sub_contig,
+        _use_masked_removal=bl._use_masked_removal, _plane_meta=bl._plane_meta,
+        _plane_levels=getattr(bl, "_plane_levels", []), N3=bl.N3, N3p=bl.N3p,
+        slot_idx=bl.slot_idx,
     )
 
 
