@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the nine CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the 13 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none), and
    brick_apply's shared memory and blocks per SM at each degree;
@@ -47,7 +47,23 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels against the plain float64 refill on the card (1e-5), with its
    launch counts (2 per refill), time, the host's time to issue one refill and
    its profile (no launch outside the kernels);
-7. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3 on
+7. the index engine (``MatrixFree``'s cell loop with ``LaplaceOperator``) on
+   phase 3's nref=7 p=4 float32 mesh: its sizes (constrained cells, masks,
+   slaves and constraint entries, the transposed DoF map's entries); each
+   of its four kernels (hn_interp by every runner, cell_laplace as each
+   vmult launches it, dof_scatter on both maps, constraints_slow in both
+   modes) against its plain version (1e-5), timed with its bound and its
+   library call (hn_interp's and constraints_slow's maps as one CSR product,
+   dof_scatter's one ``index_add``; none fits cell_laplace); the vmult
+   (fast, slow, constraints=False) and apply_hanging_node_constraints
+   against the plain float64 path (1e-5), their launches checked (2, 4, 2,
+   1), two calls bit-identical, timed and profiled (no device launch
+   outside the kernels but the one copy that keeps the HN input unwritten);
+   each runner's vmult (the four share one cell_laplace kernel) and
+   apply_hanging_node_constraints (hn_interp by that runner); the HN overhead
+   (vmult over constraints=False, fast and slow); the deformed vmult at
+   quadrant nref=6 against the plain float64 path (1e-5);
+8. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3 on
    the nref=7 mesh, p=2 and p=1 at quadrant nref=8), float32 through the
    kernels: its sizes (masked cells against the subset's, plane-covered
    cells, levels), every kernel against its plain version (1e-5) and timed
@@ -55,16 +71,20 @@ Phases (any failure exits non-zero before the last line is printed):
    the plain float64 path (1e-5) with their launches counted and checked
    (8, 3, 3 at p <= 2; 5, 3, 2 at p=3), timed, profiled, and the HN
    overhead per degree;
-8. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
+9. float64 through the kernels: at quadrant nref=4 p=4 every kernel against
    its plain version, the vmult against the scipy oracle and refill against
-   the plain path; at quadrant nref=2 p=6 the vmult against the oracle; at
-   quadrant nref=4 p=3 and p=2 every kernel against its plain version, the
-   vmult against the oracle, vmult_plain and refill against the plain path
-   (relative tolerance 1e-12 each);
-9. a JSON line with the vmult's, vmult_plain's and refill's numbers and
-   each degree's, one with the kernels' numbers (the new instances as
-   parts named by degree; masked_quad's, plane_fill's and plane_fold's
-   totals from p=2), then the device line.
+   the plain path; the index engine's kernels against their plain versions
+   there, its fast and slow vmult against the oracle and each other, at
+   quadrant nref=2 p=6 against the oracle, the deformed vmult at quadrant
+   nref=3 p=4 against its plain path; at quadrant nref=2 p=6 the brick
+   vmult against the oracle; at quadrant nref=4 p=3 and p=2 every kernel
+   against its plain version, the vmult against the oracle, vmult_plain and
+   refill against the plain path (relative tolerance 1e-12 each);
+10. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+   each degree's, one with the index engine's, one with the kernels'
+   numbers (all 13; the new instances as parts named by degree;
+   masked_quad's, plane_fill's and plane_fold's totals from p=2), then the
+   device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -159,38 +179,51 @@ def bound(nbytes: int, flops: int | None, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_path(what, fn, kernel_names, expect: int, reps: int = 10):
+def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: int = 0):
     """Where one call's time goes: device time by kernel from torch.profiler
     over `reps` calls of fn, the port's kernels against everything else, and
     the device's idle share of the wall time. CUPTI has left out whole calls
     of a session (1-3 of 10 at degree <= 3), so the numbers are per call
     recorded: the port's kernel records over `expect` launches a call (the
-    launches themselves are counted exactly by ``counted``). The first
-    session of three that records every call is kept, else the one that
-    recorded the most. Fails where no session saw device time, or where the
-    kept one saw any device launch outside the port's kernels."""
+    launches themselves are counted exactly by ``counted``). Each session
+    first runs fn in `warm` profiler warm-up steps, whose records are
+    dropped, so the `reps` recorded calls start with the tracer running.
+    The first session of five that records every call is kept, else the one
+    that recorded the most. Fails where no session saw device time, or where the
+    kept one saw any device launch outside the port's kernels other than
+    `copies` device-to-device copies a call (the copy that keeps an input
+    unwritten)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    warm = 2  # profiler steps whose records are dropped: the tracer starts in them
     # a later profiler session in one process has been seen to record no device
     # activity at all while the calls ran (once in a dozen runs on an H100): such
-    # a session is run again, at most twice, as is one that left out calls
+    # a session is run again, at most four times, as is one that left out calls
     ours = lambda key: any(k in key for k in kernel_names)
     best = None
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
+                     acc_events=True, schedule=schedule(wait=0, warmup=warm, active=reps)) as prof:
+            for _ in range(warm):
                 fn()
+                torch.cuda.synchronize()  # recording starts at the last step: nothing running
+                prof.step()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fn()
+                if i < reps - 1:  # the last active step ends with the session
+                    prof.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
         rows = []  # device kernels only: the aten ops that launch them would count twice
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            # the schedule's step annotation spans the step on the device's timeline; it
+            # is no launch
+            if ev.device_type != DeviceType.CUDA or ev.key.startswith("ProfilerStep"):
                 continue
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
@@ -203,7 +236,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10):
         if rows and calls == reps:
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
-              f"of {reps} calls (session {attempt + 1} of 3)", flush=True)
+              f"of {reps} calls (session {attempt + 1} of 5)", flush=True)
     calls, rows, wall_ms = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
@@ -219,8 +252,10 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10):
           f"{res['other_ms']:.4f} ms in {res['other_launches']:g} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
-    check(res["other_launches"] == 0,
-          f"{res['other_launches']} device launches per {what} outside the port's kernels")
+    n_copies = sum(r[1] for r in rows if not ours(r[2]) and "Memcpy DtoD" in r[2])
+    check(res["other_launches"] == n_copies == copies,
+          f"{res['other_launches']} device launches per {what} outside the port's kernels "
+          f"({n_copies} of them device copies, {copies} expected)")
     return res
 
 
@@ -877,6 +912,357 @@ def measure_parts(name, parts, libs, hn_steps, dtype, tol):
     return out
 
 
+INDEX_RUNNERS = ("compact", "all", "sorted", "matrix")
+# launches per call of the index engine on a mesh with constrained cells and slaves
+INDEX_LAUNCHES = {
+    "vmult": {"cell_laplace": 1, "dof_scatter": 1},
+    "vmult constraints=False": {"cell_laplace": 1, "dof_scatter": 1},
+    "vmult slow": {"constraints_slow": 2, "cell_laplace": 1, "dof_scatter": 1},
+    "apply_hanging_node_constraints": {"hn_interp": 1},
+}
+# the parts whose numbers are a new kernel's totals in the kernels line, and the call whose
+# launches it reports: its launches on the path that runs it
+INDEX_MAIN = {"hn_interp": ({"compact"}, "apply_hanging_node_constraints"),
+              "cell_laplace": ({"vmult"}, "vmult"), "dof_scatter": ({"fast map"}, "vmult"),
+              "constraints_slow": ({"distribute", "compress"}, "vmult slow")}
+DEFORMED_NREF = 6  # the deformed mapping's mesh: the metric's host setup (PERF.md section 4)
+
+
+def index_kernel_calls(mfs, x, rows, deformed=None):
+    """Every index-engine kernel's calls on the card at the shapes the index
+    engine's paths give it (x a global vector, rows cell rows; mfs one
+    MatrixFree a runner on one mesh): hn_interp by each runner (compact in
+    both directions), in place on a scratch copy of rows that reset refreshes;
+    cell_laplace as the fast vmult launches it (every runner's: they share
+    it), the slow vmult (plain map, no HN), constraints=False and, with
+    deformed = (mf, x), the deformed vmult; dof_scatter on both maps; constraints_slow
+    in both modes of the slow vmult. Returns (calls, intermediates)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        cell_laplace, constraints_slow, dof_scatter, hn_interp,
+    )
+
+    mf = mfs["compact"]
+    dev, dt = x.device, x.dtype
+    calls = {"hn_interp": [], "cell_laplace": [], "dof_scatter": [], "constraints_slow": []}
+    for mode, m in mfs.items():
+        for tr in ((False, True) if mode == "compact" else (False,)):
+            kw = dict(m.hn_interp_args(dev, dt), transpose=tr)
+            scratch = rows.clone()
+            calls["hn_interp"].append((
+                mode + (" transposed" if tr else ""),
+                lambda kw=kw, s=scratch: hn_interp.hn_interp(s, **kw),
+                lambda kw=kw, s=scratch: hn_interp.hn_interp_plain(s, **kw),
+                hn_interp.bytes_and_flops(rows, **kw),
+                lambda kw=kw: (hn_interp.hn_interp(rows.clone(), **kw),
+                               hn_interp.hn_interp_plain(rows.clone(), **kw)),
+                lambda s=scratch: s.copy_(rows)))
+    x_dist = mf.distribute_slow(x)
+    launches = [("vmult", mf, x, False, True), ("vmult slow", mf, x_dist, True, False),
+                ("vmult constraints=False", mf, x, False, False)]
+    if deformed is not None:
+        launches.append((f"vmult deformed nref={DEFORMED_NREF}", *deformed, False, True))
+    for part, m, src, slow, hn in launches:
+        args = (src, *m.cell_laplace_args(dev, dt, slow=slow, hn=hn))
+        calls["cell_laplace"].append((
+            part, lambda a=args: cell_laplace.cell_laplace(*a),
+            lambda a=args: cell_laplace.cell_laplace_plain(*a),
+            cell_laplace.bytes_and_flops(*args), None, None))
+    rows_fast = cell_laplace.cell_laplace(x, *mf.cell_laplace_args(dev, dt))
+    rows_slow = cell_laplace.cell_laplace(x_dist, *mf.cell_laplace_args(dev, dt, slow=True))
+    for part, r, slow in (("fast map", rows_fast, False), ("plain map", rows_slow, True)):
+        t = mf.scatter_tables(slow, dev)
+        calls["dof_scatter"].append((
+            part, lambda r=r, t=t: dof_scatter.dof_scatter(r, *t),
+            lambda r=r, t=t: dof_scatter.dof_scatter_plain(r, *t),
+            dof_scatter.bytes_and_flops(r, *t), None, None))
+    y_slow = dof_scatter.dof_scatter(rows_slow, *mf.scatter_tables(True, dev))
+    tables = mf.slow_tables(dev, dt)
+    for part, v in (("distribute", x), ("compress", y_slow)):
+        t = tables[part]
+        calls["constraints_slow"].append((
+            part, lambda v=v, t=t: constraints_slow.constraints_slow(v, *t),
+            lambda v=v, t=t: constraints_slow.constraints_slow_plain(v, *t),
+            constraints_slow.bytes_and_flops(v, *t), None, None))
+    torch.cuda.synchronize()
+    return calls, dict(x=x, rows=rows, x_dist=x_dist, rows_fast=rows_fast, rows_slow=rows_slow,
+                       y_slow=y_slow)
+
+
+def index_yardsticks(mfs, inter, n_parts):
+    """The library calls of the index engine's kernels, by name and part
+    (``index_kernel_calls``' order), with their matrices' nonzeros:
+    hn_interp's map composed into one CSR matrix over the rows (the
+    runner's composite Q's, transposed for the transposed part; identity on
+    the other rows), dof_scatter as one ``index_add`` into a zero vector
+    (out of place), constraints_slow as one CSR product per mode; none for
+    cell_laplace, whose composed map (a dense cell matrix a cell) is printed
+    and not built."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.constraints_slow import bit_set
+
+    mf = mfs["compact"]
+    x, rows = inter["x"], inter["rows"]
+    dev, dt = x.device, x.dtype
+    n_loc = rows.shape[1]
+    ar = lambda n: torch.arange(n, device=dev)
+    nnz = {}
+
+    def hn_csr(m, transpose):
+        tab = m._on("matrix", dev, dt)
+        Q, hn_group, hn_idx = tab["Q"], tab["hn_group"], m._on("hn_idx", dev).long()
+        cg = torch.full((m.n_cells,), -1, dtype=torch.long, device=dev)
+        cg[hn_idx] = hn_group.long()  # each cell's group, -1: none
+        Qm = Q if transpose else Q.transpose(1, 2)  # Qm[g][i, j]: out_i takes in_j
+        rr, cc, vv = [], [], []
+        for g in range(Q.shape[0]):
+            cells = torch.nonzero(cg == g)[:, 0]
+            i, j = torch.nonzero(Qm[g], as_tuple=True)
+            rr.append((cells[:, None] * n_loc + i[None]).reshape(-1))
+            cc.append((cells[:, None] * n_loc + j[None]).reshape(-1))
+            vv.append(Qm[g][i, j].repeat(len(cells)))
+        ident = (torch.nonzero(cg < 0)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
+        M = sparse_csr(torch.cat(rr + [ident]), torch.cat(cc + [ident]),
+                       torch.cat(vv + [torch.ones(len(ident), dtype=dt, device=dev)]),
+                       (rows.numel(), rows.numel()))
+        return M
+
+    lib = {"hn_interp": [], "cell_laplace": [None] * n_parts["cell_laplace"]}
+    xr = rows.reshape(-1)
+    for mode, m in mfs.items():
+        for tr in ((False, True) if mode == "compact" else (False,)):
+            M = hn_csr(m, tr)
+            nnz[f"hn_interp[{mode}{' transposed' if tr else ''}]"] = M._nnz()
+            lib["hn_interp"].append(lambda M=M: M @ xr)
+    nnz["cell_laplace (not built)"] = mf.n_cells * n_loc * n_loc
+    lib["dof_scatter"] = []
+    zeros = torch.zeros(mf.n_dofs, dtype=dt, device=dev)
+    for key, slow in (("rows_fast", False), ("rows_slow", True)):
+        idx = mf._np["dofmap_plain" if slow else "dofmap"]
+        idx = torch.from_numpy(np.ascontiguousarray(idx).reshape(-1)).to(dev).long()
+        vals = inter[key].reshape(-1)
+        lib["dof_scatter"].append(lambda idx=idx, vals=vals: zeros.index_add(0, idx, vals))
+    lib["constraints_slow"] = []
+    n = mf.n_dofs
+    for part, v in (("distribute", x), ("compress", inter["y_slow"])):
+        targets, ptr, idx, w, tbits, zbits, acc = mf.slow_tables(dev, dt)[part]
+        k = torch.repeat_interleave(ar(targets.numel()), (ptr[1:] - ptr[:-1]).long())
+        keep = ~bit_set(zbits, n) if zbits is not None else torch.ones(n, dtype=torch.bool,
+                                                                        device=dev)
+        if not acc:
+            keep &= ~bit_set(tbits, n)
+        diag = torch.nonzero(keep)[:, 0]
+        M = sparse_csr(torch.cat([diag, targets.long()[k]]), torch.cat([diag, idx.long()]),
+                       torch.cat([torch.ones(len(diag), dtype=dt, device=dev), w]), (n, n))
+        nnz[f"constraints_slow[{part}]"] = M._nnz()
+        lib["constraints_slow"].append(lambda M=M, v=v: M @ v)
+    return lib, nnz
+
+
+def index_phase(mt, tria, mf, dev, wrappers, smi):
+    """The index engine at quadrant nref=7 p=4 float32 (mf: phase 3's
+    MatrixFree, the compact runner): its sizes; every index kernel against
+    its plain version (1e-5), timed with its bound and library call; the
+    vmult (fast, slow, constraints=False) and apply_hanging_node_constraints
+    against the plain float64 path (1e-5) with their launches counted and
+    checked, two calls bit-identical, timed and profiled; each runner's vmult
+    and apply_hanging_node_constraints; the HN overhead; the deformed vmult
+    at quadrant nref=DEFORMED_NREF. Returns (numbers, {kernel: record})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+
+    tol, f32 = 1e-5, torch.float32
+    t0 = time.perf_counter()
+    mfs = {"compact": mf, **{mode: mt.MatrixFree(tria, 4, dtype=np.float32, hn_mode=mode)
+                             for mode in INDEX_RUNNERS[1:]}}
+    runners_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptr, ent = mf.scatter_tables(False, dev)
+    ent_plain = mf.scatter_tables(True, dev)[1]
+    tables = mf.slow_tables(dev, f32)
+    tables_s = time.perf_counter() - t0
+    slow = mf._np["slow"]
+    sizes = dict(cells=mf.n_cells, n_dofs=mf.n_dofs, constrained_cells=mf.n_hn_cells,
+                 constrained_share=mf.n_hn_cells / mf.n_cells,
+                 distinct_masks=int(np.unique(mf._np["hn_masks"]).size),
+                 slaves=int(len(slow["slave"])), constraint_entries=int(len(slow["col"])),
+                 masters=int(tables["compress"][0].numel()),
+                 dofmap_bytes=int(mf._np["dofmap"].nbytes),
+                 transposed_map_entries=int(ent.numel()),
+                 transposed_plain_map_entries=int(ent_plain.numel()))
+    print(f"index engine setup: runners all/sorted/matrix {runners_s:.1f} s, the transposed maps "
+          f"and the constraint tables {tables_s:.1f} s (quadrant nref=7 p=4 f32): "
+          f"{json.dumps(sizes)}", flush=True)
+    check(mf.n_hn_cells > 0 and sizes["slaves"] > 0, "the index mesh has no constrained cells")
+    x = op_input(mf, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randn(mf.n_cells, (mf.degree + 1) ** 3, generator=g, device=dev, dtype=f32)
+
+    t0 = time.perf_counter()
+    tria_d = mt.create_quadrant(3, DEFORMED_NREF)
+    mf_d = mt.MatrixFree(tria_d, 4, dtype=np.float32, high_order_mapping=True)
+    op_d = mt.LaplaceOperator(mf_d, device=dev)
+    x_d = op_input(mf_d, dev)
+    y_d, nd = counted(wrappers, lambda: op_d.vmult(x_d))  # builds the metric at first use
+    deformed_s = time.perf_counter() - t0
+    print(f"deformed mesh quadrant nref={DEFORMED_NREF} p=4 f32: {mf_d.n_cells} cells, "
+          f"{mf_d.n_dofs} DoFs, metric {tuple(mf_d._np['geo'].shape)}; setup with the metric "
+          f"and the first vmult {deformed_s:.1f} s", flush=True)
+
+    calls, inter = index_kernel_calls(mfs, x, rows, deformed=(mf_d, x_d))
+    lib, nnz = index_yardsticks(mfs, inter, {k: len(v) for k, v in calls.items()})
+    print(f"index engine: maps composed into one CSR matrix each (the library calls), nonzeros: "
+          f"{nnz}; cell_laplace has no library call: its map composed is a dense "
+          f"{(mf.degree + 1) ** 3}^2 cell matrix a cell ({nnz['cell_laplace (not built)']} "
+          f"nonzeros), and no single PyTorch call gathers, interpolates and integrates",
+          flush=True)
+    parts = {name: measure_parts(name, cparts, lib[name], {}, f32, tol)
+             for name, cparts in calls.items()}
+    del calls, inter, lib
+    torch.cuda.empty_cache()
+
+    LaplaceOperator = mt.LaplaceOperator
+    ops = {"vmult": LaplaceOperator(mf, device=dev),
+           "vmult slow": LaplaceOperator(mf, slow=True, device=dev),
+           "vmult constraints=False": LaplaceOperator(mf, constraints=False, device=dev)}
+    x64, rows64 = x.double(), rows.double()
+    fns = {call: (lambda o=o: o.vmult(x)) for call, o in ops.items()}
+    plains = {call: (lambda o=o: o.vmult(x64, plain=True)) for call, o in ops.items()}
+    fns["apply_hanging_node_constraints"] = lambda: mf.apply_hanging_node_constraints(rows, False)
+    plains["apply_hanging_node_constraints"] = lambda: mf.apply_hanging_node_constraints(
+        rows64, False, plain=True)
+    res, counts = {}, {}
+    for call, fn in fns.items():
+        ref = plains[call]()
+        out, n = counted(wrappers, fn)
+        n = {k: c for k, c in n.items() if c}
+        counts[call] = n
+        err = errors(out, ref)[1]
+        same = bool(torch.equal(fn(), fn()))
+        print(f"index {call} nref=7 f32 vs plain f64 path: max rel err {err:.3e} (tol {tol:g}), "
+              f"launches {n}, two calls bit-identical: {same}", flush=True)
+        check(bool(torch.isfinite(out).all()) and out.shape == ref.shape, f"index {call} malformed")
+        check(err <= tol, f"index {call} disagrees with the float64 path: {err:.3e}")
+        check(n == INDEX_LAUNCHES[call], f"index {call} launched {n}, not {INDEX_LAUNCHES[call]}")
+        check(same, f"two calls of index {call} differ")
+        copies = 1 if call == "apply_hanging_node_constraints" else 0
+        res[call] = dict(ms=time_ms(fn, reps=20, warmup=3),
+                         plain_ms=time_ms(plains[call], reps=5, warmup=1), max_rel_err=err,
+                         launches=n, host_ms=host_ms(fn, reps=20),
+                         profile=profile_path(f"index {call}", fn, set(wrappers),
+                                              sum(INDEX_LAUNCHES[call].values()), copies=copies))
+    runners = {}
+    ref = plains["vmult"]()
+    for mode, m in mfs.items():
+        op = LaplaceOperator(m, device=dev)
+        out, n = counted(wrappers, lambda: op.vmult(x))
+        n = {k: c for k, c in n.items() if c}
+        v_err = errors(out, ref)[1]
+        hn_out, nh = counted(wrappers, lambda: m.apply_hanging_node_constraints(rows, False))
+        nh = {k: c for k, c in nh.items() if c}
+        h_err = errors(hn_out, m.apply_hanging_node_constraints(rows64, False, plain=True))[1]
+        check(v_err <= tol and h_err <= tol, f"runner {mode} disagrees: vmult {v_err:.3e}, "
+                                             f"HN {h_err:.3e}")
+        check(n == INDEX_LAUNCHES["vmult"] and nh == INDEX_LAUNCHES[
+            "apply_hanging_node_constraints"], f"runner {mode} launched {n}, {nh}")
+        runners[mode] = dict(
+            vmult_ms=time_ms(lambda: op.vmult(x), reps=20, warmup=3), vmult_err=v_err,
+            hn_ms=time_ms(lambda: m.apply_hanging_node_constraints(rows, False), reps=20,
+                          warmup=3), hn_err=h_err)
+        print(f"runner {mode}: vmult {runners[mode]['vmult_ms']:.4f} ms (rel err {v_err:.3e}), "
+              f"apply_hanging_node_constraints {runners[mode]['hn_ms']:.4f} ms (rel err "
+              f"{h_err:.3e}), launches {n}, {nh}", flush=True)
+        del op
+    base = res["vmult constraints=False"]["ms"]
+    overhead = {"fast": res["vmult"]["ms"] / base, "slow": res["vmult slow"]["ms"] / base}
+
+    ref_d = op_d.vmult(x_d.double(), plain=True)
+    nd = {k: c for k, c in nd.items() if c}
+    d_err = errors(y_d, ref_d)[1]
+    check(bool(torch.isfinite(y_d).all()) and d_err <= tol,
+          f"deformed vmult disagrees with the float64 path: {d_err:.3e}")
+    check(nd == INDEX_LAUNCHES["vmult"], f"deformed vmult launched {nd}")
+    deformed = dict(nref=DEFORMED_NREF, n_dofs=mf_d.n_dofs, cells=mf_d.n_cells,
+                    ms=time_ms(lambda: op_d.vmult(x_d), reps=20, warmup=3),
+                    plain_ms=time_ms(lambda: op_d.vmult(x_d.double(), plain=True), reps=5,
+                                     warmup=1),
+                    max_rel_err=d_err, launches=nd, setup_s=deformed_s)
+    print(f"index engine nref=7 p=4 f32 on {smi}: vmult {res['vmult']['ms']:.4f} ms "
+          f"({mf.n_dofs / res['vmult']['ms'] / 1e6:.4f} GDoF/s), slow "
+          f"{res['vmult slow']['ms']:.4f} ms, constraints=False {base:.4f} ms; HN overhead "
+          f"fast {overhead['fast']:.4f}, slow {overhead['slow']:.4f}; deformed nref="
+          f"{DEFORMED_NREF} vmult {deformed['ms']:.4f} ms (rel err {d_err:.3e}, launches {nd})",
+          flush=True)
+
+    records = {}
+    for mod in [m for m in KERNEL_MODULES if m.NAME in parts]:
+        main_parts, call = INDEX_MAIN[mod.NAME]
+        rec = kernel_record(mod)
+        rec["parts"] = parts[mod.NAME]
+        main = [p for p in rec["parts"] if p["mode"] in main_parts]
+        for k in ("ms", "plain_ms", "bound_ms"):
+            rec[k] = sum(p[k] for p in main)
+        rec["bound_by"] = max((p["bound_ms"], p["bound_by"]) for p in main)[1]
+        libs = [p["library_ms"] for p in main]
+        rec["library_ms"] = None if None in libs else sum(libs)
+        rec["max_abs_err"] = max(p["max_abs_err"] for p in rec["parts"])
+        rec["max_rel_err"] = max(p["max_rel_err"] for p in rec["parts"])
+        rec["launches"] = counts[call].get(mod.NAME, 0)
+        records[mod.NAME] = rec
+    numbers = dict(sizes=sizes, setup_s=dict(runners=runners_s, tables=tables_s), **res,
+                   runners=runners, hn_overhead=overhead, deformed=deformed, card=smi)
+    del mfs, ops, op_d, mf_d
+    torch.cuda.empty_cache()
+    return numbers, records
+
+
+def op_input(mf, dev):
+    """A float32 global vector on the card from the seed (the index engine's input)."""
+    u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
+    return torch.from_numpy(u).to(dev)
+
+
+def index_f64_checks(mt, tria4, mf4, dev):
+    """float64 through the kernels: at quadrant nref=4 p=4 every index kernel
+    against its plain version and the fast and slow vmult against the scipy
+    oracle; at quadrant nref=2 p=6 the vmult against the oracle; the
+    deformed vmult at quadrant nref=3 p=4 against its plain path (1e-12)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    tol, f64 = 1e-12, torch.float64
+    mfs = {"compact": mf4, **{m: mt.MatrixFree(tria4, 4, hn_mode=m) for m in INDEX_RUNNERS[1:]}}
+    u4 = np.random.default_rng(SEED).standard_normal(mf4.n_dofs)
+    x4 = torch.from_numpy(u4).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randn(mf4.n_cells, 125, generator=g, device=dev, dtype=f64)
+    check_kernels(index_kernel_calls(mfs, x4, rows)[0], tol, "index nref=4 f64")
+    out = {}
+    ref4 = vmult_oracle(tria4, 4, u4)
+    for slow in (False, True):
+        got = mt.LaplaceOperator(mf4, slow=slow, device=dev).vmult(x4)
+        out[slow] = got
+        err = float(np.abs(got.cpu().numpy() - ref4).max() / np.abs(ref4).max())
+        print(f"index vmult{' slow' if slow else ''} nref=4 p=4 f64 vs scipy oracle: max rel err "
+              f"{err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"float64 index vmult (slow={slow}) disagrees with the oracle: {err:.3e}")
+    e = errors(out[True], out[False])[1]
+    print(f"index vmult slow vs fast nref=4 p=4 f64: max rel err {e:.3e} (tol {tol:g})", flush=True)
+    check(e <= tol, f"float64 slow and fast index vmult disagree: {e:.3e}")
+    tria6 = mt.create_quadrant(3, 2)
+    mf6 = mt.MatrixFree(tria6, 6)
+    u6 = np.random.default_rng(SEED).standard_normal(mf6.n_dofs)
+    ref6 = vmult_oracle(tria6, 6, u6)
+    got6 = mt.LaplaceOperator(mf6, device=dev).vmult(u6).cpu().numpy()
+    err6 = float(np.abs(got6 - ref6).max() / np.abs(ref6).max())
+    print(f"index vmult nref=2 p=6 f64 vs scipy oracle: max rel err {err6:.3e} (tol {tol:g})",
+          flush=True)
+    check(err6 <= tol, f"float64 p=6 index vmult disagrees with the oracle: {err6:.3e}")
+    mfd = mt.MatrixFree(mt.create_quadrant(3, 3), 4, high_order_mapping=True)
+    opd = mt.LaplaceOperator(mfd, device=dev)
+    xd = torch.from_numpy(np.random.default_rng(SEED).standard_normal(mfd.n_dofs)).to(dev)
+    ed = errors(opd.vmult(xd), opd.vmult(xd, plain=True))[1]
+    print(f"index deformed vmult nref=3 p=4 f64 vs its plain path: max rel err {ed:.3e} "
+          f"(tol {tol:g})", flush=True)
+    check(ed <= tol, f"float64 deformed index vmult disagrees with its plain path: {ed:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1105,7 +1491,14 @@ def main() -> int:
     del op64, x64, ref, got, op, x, y, yp
     torch.cuda.empty_cache()
 
-    # ---- 7. the degree <= 3 schedule, float32 through the kernels -----------
+    # ---- 7. the index engine, nref=7, float32, through the kernels ----------
+    t0 = time.perf_counter()
+    index, index_records = index_phase(mt, tria, mf, dev, wrappers, smi)
+    index["phase_s"] = time.perf_counter() - t0
+    print(f"index engine phase: {index['phase_s']:.1f} s", flush=True)
+    results.update(index_records)
+
+    # ---- 8. the degree <= 3 schedule, float32 through the kernels -----------
     low, low_parts = {}, {}
     trias = {7: tria}
     for p, nref in LOW_DEGREES:
@@ -1140,7 +1533,7 @@ def main() -> int:
           + ", ".join([f"p=4 {vm_ms / vp_ms:.4f}"]
                       + [f"{k} {v['hn_overhead']:.4f}" for k, v in low.items()]), flush=True)
 
-    # ---- 8. float64 through the kernels --------------------------------------
+    # ---- 9. float64 through the kernels --------------------------------------
     tria4 = mt.create_quadrant(3, 4)
     mf4 = mt.MatrixFree(tria4, 4, dtype=np.float64)
     op4 = mt.BrickLaplaceMM(mf4, device=dev)
@@ -1166,6 +1559,9 @@ def main() -> int:
     print(f"vmult nref=2 p=6 f64 vs scipy oracle: max rel err {err6:.3e} (tol 1e-12)",
           flush=True)
     check(err6 <= 1e-12, f"float64 p=6 vmult disagrees with the oracle: {err6:.3e}")
+    t0 = time.perf_counter()
+    index_f64_checks(mt, tria4, mf4, dev)
+    print(f"index engine float64 checks: {time.perf_counter() - t0:.1f} s", flush=True)
     for p in (3, 2):  # the degree <= 3 schedule in float64 at quadrant nref=4
         mfp = mt.MatrixFree(tria4, p, dtype=np.float64)
         opp = mt.BrickLaplaceMM(mfp, device=dev)
@@ -1186,7 +1582,7 @@ def main() -> int:
                   flush=True)
             check(e <= 1e-12, f"float64 p={p} {call} disagrees with its plain path: {e:.3e}")
 
-    # ---- 9. the numbers ------------------------------------------------------
+    # ---- 10. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -1196,6 +1592,7 @@ def main() -> int:
                       "vmult_plain": {"ms": vp_ms, "launches": pcounts, "profile": vp_prof,
                                       "hn_overhead": vm_ms / vp_ms, "card": smi},
                       "degrees": low}))
+    print(json.dumps({"index": index}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

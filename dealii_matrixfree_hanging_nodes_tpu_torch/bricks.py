@@ -65,7 +65,7 @@ from .kernels import (
     refill_update,
 )
 from .kernels.dss_surface import surface_nodes
-from .matrix_free import MatrixFree
+from .matrix_free import MatrixFree, resolve_device
 from .ops.hanging_nodes import hn_composite_matrix
 
 __all__ = ["BrickStructure", "BrickLaplaceMM", "auto_brick_size", "operator_tables"]
@@ -1451,22 +1451,6 @@ def dense_corr(arrays, meta, plain, sub_raw):
 
 
 # ===========================================================================
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller asks for another device:
-    device=None means CUDA and raises where no card is present."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 class BrickLaplaceMM(nn.Module):
     """Constrained Cartesian Laplace vmult on [n_bricks, N3p] brick vectors
     (dim = 3, every degree), the port of the reference's ``BrickLaplaceMM``
@@ -1487,6 +1471,9 @@ class BrickLaplaceMM(nn.Module):
             raise NotImplementedError("the port's brick engine supports dim=3")
         if mf.high_order_mapping:
             raise NotImplementedError("the deformed mapping's brick apply is not ported yet")
+        if mf.categorize:
+            raise NotImplementedError("the brick engine reads the cells in mesh order; build "
+                                      "its MatrixFree without categorize")
         bs = BrickStructure(mf)
         arrays, meta = operator_tables(mf, bs)
         if dtype is None:

@@ -1,4 +1,4 @@
-"""Build the port's operator from the reference engine's host tables.
+"""Build the port's operators from the reference engines' host tables.
 
 ``from_reference(np_arrays, meta, device, dtype)`` takes
 ``BrickLaplaceMM._np_arrays`` of the JAX package (plain NumPy arrays) and a
@@ -11,6 +11,14 @@ pairs), carries the degree <= 3 schedule's tables over as they are (the
 masked removal's quadrature operators and cell selectors, the face-plane
 groups), and returns the port's ``BrickLaplaceMM``. It takes plain dicts,
 so it imports nothing of the JAX package.
+
+``matrix_free_from_reference(np_tables, n_dofs, hn_mode, categorize,
+cell_permutation)`` takes the reference ``MatrixFree._np`` (NumPy: dofmaps,
+masks, hn_idx, hn_masks, geo, S, D, Dc, P, quad_w, slow) with the reference's
+``n_dofs``, ``categorize`` and ``cell_permutation``, checks the tables against
+them, and returns the port's index engine on those tables, in the
+reference's cell order (a categorized reference's permutation included);
+``models.laplace.LaplaceOperator`` runs on it.
 """
 
 from __future__ import annotations
@@ -19,8 +27,9 @@ import numpy as np
 import torch
 
 from .bricks import BrickLaplaceMM
+from .matrix_free import MatrixFree
 
-__all__ = ["from_reference", "reference_tables"]
+__all__ = ["from_reference", "matrix_free_from_reference", "reference_tables"]
 
 
 def _one_hot_rows(M: np.ndarray) -> np.ndarray:
@@ -121,3 +130,15 @@ def from_reference(np_arrays: dict, meta: dict, device=None,
     """The port's operator (vmult, refill) from the reference's tables."""
     arrays, m = reference_tables(np_arrays, meta)
     return BrickLaplaceMM.from_tables(arrays, m, device, dtype)
+
+
+def matrix_free_from_reference(np_tables: dict, n_dofs: int, hn_mode: str = "compact",
+                               categorize: bool = False, cell_permutation=None) -> MatrixFree:
+    """The port's index engine (``MatrixFree`` without a mesh) from the
+    reference's ``MatrixFree._np``, ``n_dofs``, ``categorize`` and
+    ``cell_permutation`` (None: the identity), with the runner hn_mode."""
+    tables = {k: np_tables[k] for k in ("dofmap", "dofmap_plain", "masks", "hn_idx", "hn_masks",
+                                        "geo", "S", "D", "Dc", "P", "quad_w")}
+    tables = {k: np.asarray(v) for k, v in tables.items()}
+    tables["slow"] = {k: np.asarray(v) for k, v in np_tables["slow"].items()}
+    return MatrixFree.from_tables(tables, n_dofs, hn_mode, categorize, cell_permutation)

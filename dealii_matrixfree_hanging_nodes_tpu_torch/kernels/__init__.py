@@ -6,9 +6,13 @@ on the wrapper (``<wrapper>.launches``)."""
 from . import (  # noqa: F401
     brick_apply,
     cell_apply,
+    cell_laplace,
+    constraints_slow,
     corr_compact,
+    dof_scatter,
     dss_surface,
     hn_cell,
+    hn_interp,
     masked_quad,
     plane_fill,
     plane_fold,
@@ -16,4 +20,5 @@ from . import (  # noqa: F401
 )
 
 KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update,
-                  masked_quad, plane_fill, plane_fold)
+                  masked_quad, plane_fill, plane_fold, hn_interp, cell_laplace, dof_scatter,
+                  constraints_slow)

@@ -53,12 +53,13 @@ def test_default_device_is_cuda():
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     mf = mt.MatrixFree(mt.create_quadrant(3, 2), 4)
-    if torch.cuda.is_available():
-        assert mt.BrickLaplaceMM(mf).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA"):
-            mt.BrickLaplaceMM(mf)
-    assert mt.BrickLaplaceMM(mf, device="cpu").device.type == "cpu"
+    for op in (mt.BrickLaplaceMM, mt.LaplaceOperator):
+        if torch.cuda.is_available():
+            assert op(mf).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                op(mf)
+        assert op(mf, device="cpu").device.type == "cpu"
 
 
 def test_unported_branches_raise():
@@ -69,6 +70,26 @@ def test_unported_branches_raise():
                           device="cpu")
     with pytest.raises(NotImplementedError):
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4), device="cpu")
+    with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
+        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 4, categorize=True),
+                          device="cpu")
+
+
+def test_index_engine_raises_for_2d():
+    """The index engine is 3-D only, on every device."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    mf = mt.MatrixFree(mt.create_quadrant(2, 2), 4)
+    with pytest.raises(NotImplementedError):
+        mt.LaplaceOperator(mf, device="cpu")
+    with pytest.raises(NotImplementedError):
+        mf.apply_hanging_node_constraints(torch.zeros(mf.n_cells, 25, dtype=torch.float64), False)
+    with pytest.raises(NotImplementedError):
+        mf.cell_loop(lambda u, a: u, torch.zeros(mf.n_dofs, dtype=torch.float64))
+    with pytest.raises(NotImplementedError):
+        mt.apply_hanging_node_constraints(torch.zeros(3, 25, dtype=torch.float64),
+                                          torch.zeros(3, dtype=torch.int32),
+                                          mf.shape.P, 2)
 
 
 @pytest.mark.parametrize("mod", KERNEL_MODULES, ids=lambda m: m.NAME)
@@ -351,3 +372,80 @@ def test_vmult_on_card_matches_oracle(cuda):
     got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
     ref = vmult_oracle(tria, 4, u)
     assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+# ---- the index engine on the card ---------------------------------------------
+def _index_pairs(mf, dev, dtype, seed):
+    """(kernel output, plain output) pairs of the four index-engine kernels on
+    mf's tables: hn_interp by the runner of mf.hn_mode in both directions,
+    cell_laplace in each of its input, HN and quadrature modes, dof_scatter
+    on both maps, constraints_slow in both modes, and the operator's fast,
+    slow and unconstrained vmult."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        cell_laplace, constraints_slow, dof_scatter,
+    )
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models.laplace import LaplaceOperator
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_loc = (mf.degree + 1) ** 3
+    x = torch.randn(mf.n_dofs, generator=g, device=dev, dtype=dtype)
+    rows = torch.randn(mf.n_cells, n_loc, generator=g, device=dev, dtype=dtype)
+    pairs = [(mf.apply_hanging_node_constraints(rows, tr),
+              mf.apply_hanging_node_constraints(rows, tr, plain=True)) for tr in (False, True)]
+    fast, slow = (mf.cell_laplace_args(dev, dtype, slow=s) for s in (False, True))
+    for src, dmap in ((x, fast[0]), (x, slow[0]), (rows, None)):
+        for hn, flags in ((True, {}), (False, {}), (True, dict(quad=False, hn_out=False)),
+                          (True, dict(hn_in=False, quad=False))):
+            args = (src, dmap, fast[1] if hn else None, *fast[2:])
+            pairs.append((cell_laplace.cell_laplace(*args, **flags),
+                          cell_laplace.cell_laplace_plain(*args, **flags)))
+    for t in (mf.scatter_tables(False, dev), mf.scatter_tables(True, dev)):
+        pairs.append((dof_scatter.dof_scatter(rows, *t), dof_scatter.dof_scatter_plain(rows, *t)))
+    for t in mf.slow_tables(dev, dtype).values():
+        pairs.append((constraints_slow.constraints_slow(x, *t),
+                      constraints_slow.constraints_slow_plain(x, *t)))
+    for kw in ({}, {"slow": True}, {"constraints": False}):
+        op = LaplaceOperator(mf, device=dev, **kw)
+        pairs.append((op.vmult(x), op.vmult(x, plain=True)))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6])
+def test_index_kernels_on_card(cuda, p, dtype):
+    """hn_interp, cell_laplace, dof_scatter and constraints_slow against their
+    plain versions at every degree, under every runner and the deformed
+    mapping; two calls of the vmult bit-identical."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models.laplace import LaplaceOperator
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    tria = mt.create_quadrant(3, 3 if p <= 3 else 2)
+    mfs = [mt.MatrixFree(tria, p, hn_mode=mode) for mode in ("compact", "all", "sorted", "matrix")]
+    mfs.append(mt.MatrixFree(tria, p, high_order_mapping=True))
+    for i, mf in enumerate(mfs):
+        assert mf.n_hn_cells > 0
+        pairs = _index_pairs(mf, cuda, dtype, seed=p + i)
+        torch.cuda.synchronize()
+        for k, (got, ref) in enumerate(pairs):
+            assert got.shape == ref.shape and _rel(got, ref) < tol, (mf.hn_mode, k)
+    op = LaplaceOperator(mfs[0], device=cuda)
+    x = torch.randn(mfs[0].n_dofs, device=cuda, dtype=dtype)
+    assert torch.equal(op.vmult(x), op.vmult(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,nref", [(4, 3), (6, 2)])
+def test_index_vmult_on_card_matches_oracle(cuda, p, nref):
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models.laplace import LaplaceOperator
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    tria = mt.create_quadrant(3, nref)
+    mf = mt.MatrixFree(tria, p)
+    u = np.random.default_rng(0).standard_normal(mf.n_dofs)
+    ref = vmult_oracle(tria, p, u)
+    for slow in (False, True):
+        got = LaplaceOperator(mf, slow=slow, device=cuda).vmult(u).cpu().numpy()
+        assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()

@@ -228,7 +228,8 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     """On CPU tensors a wrapper computes its plain version and launches
     nothing, so its launch count stays put (brick_apply also with the
     subset's cell rows, hn_cell also in its fill mode; the kernels of the
-    degree <= 3 schedule on a p=2 operator with face planes)."""
+    degree <= 3 schedule on a p=2 operator with face planes; the index
+    engine's on the same mesh's MatrixFree)."""
     low = mod.NAME in ("masked_quad", "plane_fill", "plane_fold")
     geo, nref, p = LOW_CASES[1] if low else CASES[0]
     op = port(geo, nref, p)[2]
@@ -239,6 +240,9 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     sub = lambda seed: T(rng_array(seed, op.n_sub, op.N3p))
     cells = lambda seed: T(rng_array(seed, op.n_sub * op.C, op.n_loc))
     hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
+    mf, cpu, f64 = port(geo, nref, p)[1], torch.device("cpu"), torch.float64
+    dofs = lambda seed: T(rng_array(seed, mf.n_dofs))
+    mf_rows = lambda seed: T(rng_array(seed, mf.n_cells, op.n_loc))
     args, kw = {
         "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
                                 {"dcols": cells(13), "brick_size": op.B} if variant else {}),
@@ -252,6 +256,10 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
                                  *op.factors_host, op.geo, op.B), {}),
         "plane_fill": lambda: ((bricks(24), *op.plane_fill_tables()), {}),
         "plane_fold": lambda: ((bricks(25), *op.plane_fold_tables()), {}),
+        "hn_interp": lambda: ((mf_rows(26),), dict(mf.hn_interp_args(cpu, f64), transpose=False)),
+        "cell_laplace": lambda: ((dofs(27), *mf.cell_laplace_args(cpu, f64)), {}),
+        "dof_scatter": lambda: ((mf_rows(28), *mf.scatter_tables(False, cpu)), {}),
+        "constraints_slow": lambda: ((dofs(29), *mf.slow_tables(cpu, f64)["compress"]), {}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)
