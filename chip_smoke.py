@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the 13 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the 16 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none), and
    brick_apply's shared memory and blocks per SM at each degree;
@@ -80,10 +80,30 @@ Phases (any failure exits non-zero before the last line is printed):
    vmult against the oracle; at quadrant nref=4 p=3 and p=2 every kernel
    against its plain version, the vmult against the oracle, vmult_plain and
    refill against the plain path (relative tolerance 1e-12 each);
-10. a JSON line with the vmult's, vmult_plain's and refill's numbers and
-   each degree's, one with the index engine's, one with the kernels'
-   numbers (all 13; the new instances as parts named by degree;
-   masked_quad's, plane_fill's and plane_fold's totals from p=2), then the
+10. the GMG-CG solve (solve_01.run_bricks at its defaults): the brick
+   engine's BrickGMGPreconditioner at quadrant nref=6, p=4, float32 (levels
+   nref 1..6, a dense coarse inverse), its setup seconds and each level's
+   sizes; the device solver at tol 1e-5, max 100 iterations, after one
+   warm-up solve: iterations, the relative residual (checked <= 1e-5),
+   err_max against the manufactured solution (sum of sines, zero on the
+   boundary) on the free DoFs, seconds a solve and an iteration, the two
+   solves bit-identical (checked), the launches of the port's kernels in
+   the solve (brick_transfer and dof_embed checked launched); one
+   V-cycle's launches by kernel, the host's time to issue it and its
+   profile (device busy, idle share; every launch outside the port's
+   kernels a PyTorch elementwise op, reduction or the coarse dense product,
+   each kind counted, anything else fails); the index GMG of solve_01.run
+   (quadrant nref=3, p=2, float64, tol 1e-10) on the card against the plain
+   path on the CPU (the same iteration count, solutions within 1e-9,
+   cell_transfer checked launched); brick_transfer, dof_embed and
+   cell_transfer (the last between the same nref 5 and 6 levels' index
+   engines) in both modes against their plain versions (1e-5), timed with
+   their bounds and library calls (each map composed into one CSR matrix);
+11. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+   each degree's, one with the index engine's, one with the GMG solve's,
+   one with the kernels' numbers (all 16; the new instances as parts named
+   by degree; masked_quad's, plane_fill's and plane_fold's totals from p=2;
+   the GMG kernels' launches from the solve that runs them), then the
    device line.
 
 It imports nothing of JAX or of the JAX package.
@@ -179,20 +199,67 @@ def bound(nbytes: int, flops: int | None, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: int = 0):
+ELEMENTWISE_KERNELS = ("at::native::vectorized_elementwise_kernel",
+                       "at::native::unrolled_elementwise_kernel", "at::native::elementwise_kernel")
+
+
+def kernel_name(key: str) -> str:
+    """A device launch's kernel name without its return type, template
+    arguments and parameters (cuBLAS's gemv returns a SFINAE
+    ``std::enable_if<...>::type``)."""
+    if key.startswith("std::enable_if<"):
+        depth = 0
+        for i, c in enumerate(key):
+            depth += (c == "<") - (c == ">")
+            if c == ">" and depth == 0:
+                break
+        key = key[i + 1:].removeprefix("::type ")
+    key = key.removeprefix("void ").replace("(anonymous namespace)", "anonymous")
+    return key.split("<", 1)[0].split("(", 1)[0]
+
+
+def launch_class(key: str):
+    """The kind of a device launch outside the port's kernels that the GMG
+    solve may make, from the kernel's name (its template arguments left
+    out): a PyTorch elementwise op (the vector updates, masks and fills), an
+    index (the owner-copy gather of ``DofEmbed.extract``), a reduction (the
+    dots and norms), or a dense product (the coarse level's
+    ``torch.matmul``); None for anything else (``index_add_``, a scatter or
+    a batched product of a plain version among them)."""
+    head = kernel_name(key)
+    if head in ELEMENTWISE_KERNELS:
+        return "elementwise"
+    if head == "at::native::index_elementwise_kernel" or "gather" in head:
+        return "index"
+    if head == "at::native::reduce_kernel":
+        return "reduction"
+    if "gemv" in head.lower() or "gemm" in head.lower():
+        return "dense product"
+    return None
+
+
+def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: int = 0,
+                 classes: dict | None = None):
     """Where one call's time goes: device time by kernel from torch.profiler
     over `reps` calls of fn, the port's kernels against everything else, and
     the device's idle share of the wall time. CUPTI has left out whole calls
-    of a session (1-3 of 10 at degree <= 3), so the numbers are per call
-    recorded: the port's kernel records over `expect` launches a call (the
-    launches themselves are counted exactly by ``counted``). Each session
-    first runs fn in `warm` profiler warm-up steps, whose records are
-    dropped, so the `reps` recorded calls start with the tracer running.
-    The first session of five that records every call is kept, else the one
+    of a session (1-3 of 10 at degree <= 3), and single records too (one
+    device copy of ten, with every kernel of the ten calls kept), so the
+    numbers are per call recorded: the port's kernel records over `expect`
+    launches a call (the launches themselves are counted exactly by
+    ``counted``). Each session first runs fn in `warm` profiler warm-up
+    steps, whose records are dropped, so the `reps` recorded calls start
+    with the tracer running. A session is whole where it recorded the
+    port's kernels of every call and, of the launches outside them that are
+    pinned (`copies`, and the kinds that `classes` names), `reps` times the
+    pinned number. The first whole session of five is kept, else the one
     that recorded the most. Fails where no session saw device time, or where the
     kept one saw any device launch outside the port's kernels other than
     `copies` device-to-device copies a call (the copy that keeps an input
-    unwritten)."""
+    unwritten). With classes ({kind: launches a call}), the launches outside
+    the port's kernels may be PyTorch elementwise ops, in any number, and
+    the kinds of ``launch_class`` that `classes` names, each exactly as
+    often as it says; any other launch fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -204,6 +271,20 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     # activity at all while the calls ran (once in a dozen runs on an H100): such
     # a session is run again, at most four times, as is one that left out calls
     ours = lambda key: any(k in key for k in kernel_names)
+
+    def pinned(rows):
+        """The pinned launches outside the port's kernels that a session recorded,
+        against the number that `reps` whole calls make."""
+        if classes is None:
+            got = sum(c for _, c, key in rows if not ours(key) and "Memcpy DtoD" in key)
+            return got == copies * reps
+        kinds = {}
+        for _, c, key in rows:
+            if not ours(key):
+                kinds[launch_class(key)] = kinds.get(launch_class(key), 0) + c
+        return all(kinds.get(k, 0) == n * reps
+                   for k, n in classes.items() if k != "elementwise")
+
     best = None
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -231,13 +312,15 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
             if dev_us > 0:
                 rows.append((dev_us / 1e3, ev.count, ev.key))
         calls = sum(r[1] for r in rows if ours(r[2])) / expect
-        if best is None or calls > best[0]:
-            best = (calls, rows, wall_ms)
-        if rows and calls == reps:
+        whole = bool(rows) and calls == reps and pinned(rows)
+        if best is None or (whole, calls) > best[0]:
+            best = ((whole, calls), rows, wall_ms)
+        if whole:
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
-              f"of {reps} calls (session {attempt + 1} of 5)", flush=True)
-    calls, rows, wall_ms = best
+              f"of {reps} calls{'' if calls != reps else ', not every pinned launch'} "
+              f"(session {attempt + 1} of 5)", flush=True)
+    (_, calls), rows, wall_ms = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
     busy = sum(r[0] for r in rows)
@@ -252,6 +335,25 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
           f"{res['other_ms']:.4f} ms in {res['other_launches']:g} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
+    if classes is not None:
+        kinds, heads = {}, {}
+        for ms, count, key in rows:
+            if not ours(key):
+                kind = launch_class(key)
+                check(kind is not None, f"the {what} launched {key!r}: neither a port kernel nor "
+                                        f"a PyTorch elementwise op, index, reduction or dense "
+                                        f"product")
+                kinds[kind] = kinds.get(kind, 0) + count
+                head = kernel_name(key)
+                heads[head] = heads.get(head, 0) + count
+        res["other_by_kind"] = kinds
+        print(f"  launches outside the port's kernels by kind: {kinds}; by kernel: {heads}",
+              flush=True)
+        for kind in ("index", "reduction", "dense product"):
+            got, want = kinds.get(kind, 0), classes.get(kind, 0)
+            check(abs(got - want) < 1e-9, f"the {what} made {got:g} {kind} launches a call, "
+                                          f"{want} expected")
+        return res
     n_copies = sum(r[1] for r in rows if not ours(r[2]) and "Memcpy DtoD" in r[2])
     check(res["other_launches"] == n_copies == copies,
           f"{res['other_launches']} device launches per {what} outside the port's kernels "
@@ -1213,6 +1315,273 @@ def index_phase(mt, tria, mf, dev, wrappers, smi):
     return numbers, records
 
 
+GMG_NREF, GMG_DEGREE, GMG_TOL, GMG_MAX_ITER = 6, 4, 1e-5, 100  # solve_01.run_bricks' defaults
+INDEX_GMG_NREF, INDEX_GMG_DEGREE, INDEX_GMG_TOL = 3, 2, 1e-10  # solve_01.run, float64
+GMG_KERNELS = ("brick_transfer", "dof_embed", "cell_transfer")
+
+
+def sorted_csr(rows, cols, vals, n_rows, n_cols):
+    """A CSR matrix on the card, int32 indices, from entries whose (row,
+    col) pairs are distinct (the GMG kernels' library yardsticks). Unlike
+    ``sparse_csr`` it sums no duplicates, so it skips coalesce's int64
+    [2, nnz] index copy and sort, several GB at the transfers' ~300 M
+    nonzeros."""
+    order = torch.argsort(rows.long() * n_cols + cols.long())
+    crow = torch.zeros(n_rows + 1, dtype=torch.long, device=rows.device)
+    torch.cumsum(torch.bincount(rows.long(), minlength=n_rows), 0, out=crow[1:])
+    return torch.sparse_csr_tensor(crow.int(), cols[order].int(), vals[order], (n_rows, n_cols))
+
+
+def kron_rows(E):
+    """[m, n^3, n^3]: each row's embedding E[:, 2] (x) E[:, 1] (x) E[:, 0] as
+    one matrix, out node (z, y, x) by in node, x fastest."""
+    m, _, n, _ = E.shape
+    return torch.einsum("mzc,myb,mxa->mzyxcba", E[:, 2], E[:, 1], E[:, 0]).reshape(
+        m, n**3, n**3)
+
+
+def transfer_library(out_idx, in_idx, K, weight, n_out, n_in):
+    """(prolongate, restrict) of a transfer as two CSR matrices: out entry
+    out_idx[i] = K[i] . x[in_idx[i]] (one writer an entry), and the
+    transpose with the restriction's 0/1 weight of each out entry."""
+    NL = K.shape[1]
+    rows = out_idx.repeat_interleave(NL)
+    P = sorted_csr(rows, in_idx.reshape(-1), K.reshape(-1), n_out, n_in)
+    keep = weight.repeat_interleave(NL)
+    R = sorted_csr(in_idx.reshape(-1)[keep], rows[keep], K.reshape(-1)[keep], n_in, n_out)
+    return P, R
+
+
+def gmg_kernel_calls(gmg, dev):
+    """The brick GMG kernels' calls at the shapes the solve gives them, f32:
+    the finest brick transfer (levels GMG_NREF-1 -> GMG_NREF) in both modes
+    and its coarse level's dof_embed in both modes. Each with its library
+    call (the map composed into one CSR matrix) and the matrices'
+    nonzeros."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_transfer, dof_embed
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    mmc, mmf = gmg.mms[-2], gmg.mms[-1]
+    tr = gmg.transfers[-1]
+    de = tr.embed_c
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=mmf.dtype)
+    calls = {name: [] for name in GMG_KERNELS[:2]}
+    lib = {name: [] for name in GMG_KERNELS[:2]}
+    nnz = {}
+
+    def part(name, mode, mod, args, kw):
+        calls[name].append((mode, lambda: getattr(mod, mod.NAME)(*args, **kw),
+                            lambda: getattr(mod, f"{mod.NAME}_plain")(*args, **kw),
+                            mod.bytes_and_flops(*args, **kw), None, None))
+
+    xc, rf = rnd(mmc.n_bricks, mmc.N3p), rnd(mmf.n_bricks, mmf.N3p)
+    for mode, x in (("prolongate", xc), ("restrict", rf)):
+        part("brick_transfer", mode, brick_transfer, (x, *tr.tables()), dict(mode=mode))
+    (src_lin, E, own, p_ptr, p_rows, *_, B) = tr.tables()
+    rows = p_rows.long()
+    sel = (own[rows] & brick_transfer.OWN) != 0
+    r_i, j = torch.nonzero(sel, as_tuple=True)
+    K = kron_rows(E[rows])[r_i, j]
+    P, R = transfer_library(
+        cell_nodes(rows, B, mmf.p, mmf.N3p, dev)[r_i, j],
+        cell_nodes(src_lin[rows], B, mmf.p, mmf.N3p, dev)[r_i], K,
+        (own[rows][r_i, j] & brick_transfer.OWN_WEIGHTED) != 0, rf.numel(), xc.numel())
+    del K
+    nnz["brick_transfer"] = (P._nnz(), R._nnz())
+    lib["brick_transfer"] = [lambda: P @ xc.reshape(-1), lambda: R @ rf.reshape(-1)]
+    xd, bv = rnd(de.n_dofs), rnd(*de.shape)
+    for mode, x, shape in (("embed", xd, de.shape), ("embed_t", bv, (de.n_dofs,))):
+        part("dof_embed", mode, dof_embed, (x, *de.tables(mode), shape), {})
+        ptr, idx, w = de.tables(mode)
+        M = torch.sparse_csr_tensor(ptr, idx, w, (ptr.numel() - 1, x.numel()))
+        nnz[f"dof_embed[{mode}]"] = M._nnz()
+        lib["dof_embed"].append(lambda M=M, x=x: M @ x.reshape(-1))
+    torch.cuda.synchronize()
+    return calls, lib, nnz
+
+
+def cell_transfer_calls(tr_i, dev):
+    """cell_transfer's calls in both modes at an index Transfer's shapes and
+    dtype, on inputs from SEED, with the library call of each (the map as
+    one CSR matrix) and the matrices' nonzeros: (parts, libs, nnz)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_transfer
+
+    E, cdf, own, cover, child_ptr, child, n_fine = tr_i.tables()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=E.dtype)
+    NL = cdf.shape[1]
+    uc, xf = rnd(child_ptr.numel() - 1, NL), rnd(n_fine)
+    parts = []
+    for mode, x in (("prolongate", uc), ("restrict", xf)):
+        args = (x, *tr_i.tables())
+        parts.append((mode, lambda args=args, mode=mode: cell_transfer.cell_transfer(
+            *args, mode=mode), lambda args=args, mode=mode: cell_transfer.cell_transfer_plain(
+            *args, mode=mode), cell_transfer.bytes_and_flops(*args, mode=mode), None, None))
+    f_i, j = torch.nonzero(own, as_tuple=True)
+    K = kron_rows(E)[f_i, j]
+    in_idx = cover.long()[f_i, None] * NL + torch.arange(NL, device=dev)[None, :]
+    Pi, Ri = transfer_library(cdf.long()[f_i, j], in_idx, K,
+                              torch.ones(len(f_i), dtype=torch.bool, device=dev), n_fine, uc.numel())
+    del K, in_idx
+    torch.cuda.synchronize()
+    return parts, [lambda: Pi @ uc.reshape(-1), lambda: Ri @ xf], (Pi._nnz(), Ri._nnz())
+
+
+def gmg_phase(mt, dev, wrappers, smi):
+    """The GMG-CG solve (solve_01.run_bricks at its defaults): the brick
+    GMG at quadrant nref=GMG_NREF, p=GMG_DEGREE, float32, the device solver
+    at tol GMG_TOL: setup and level sizes, one warm-up solve, then the
+    counted solve (iterations, relative residual, err_max against the
+    manufactured solution on the free DoFs, seconds, two solves
+    bit-identical); one V-cycle's launches and profile; each GMG kernel
+    against its plain version at the shapes of the path that launches it
+    (cell_transfer: the index GMG's finest transfer, float64, and beside it
+    the brick GMG's two finest levels, float32), timed with its bound and
+    library call; the
+    index GMG of solve_01.run on the card against the plain path on the CPU
+    (the same iteration count). Returns (numbers, {kernel: record})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+    from dealii_matrixfree_hanging_nodes_tpu_torch.utils.analytic import interpolate
+
+    tol32 = 1e-5
+    t0 = time.perf_counter()
+    gmg = mt.BrickGMGPreconditioner("quadrant", 3, GMG_NREF, GMG_DEGREE, dtype=np.float32,
+                                    device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    levels = [dict(nref=GMG_NREF - len(gmg.levels) + 1 + i, cells=mf.n_cells, n_dofs=mf.n_dofs,
+                   constrained_dofs=int(len(mf.constraints.slave_dofs)), bricks=mm.n_bricks,
+                   subset_bricks=mm.n_sub, constrained_rows=mm.n_hn)
+              for i, (mf, mm) in enumerate(zip(gmg.levels, gmg.mms))]
+    print(f"GMG setup: {setup_s:.1f} s (quadrant nref={GMG_NREF} p={GMG_DEGREE} f32, "
+          f"{len(levels)} levels, coarse direct [{gmg.levels[0].n_dofs}]^2)", flush=True)
+    for lv in levels:
+        print(f"  level {json.dumps(lv)}", flush=True)
+    op, mm, mf = gmg.fine_op, gmg.fine_mm, gmg.fine_mf
+    xs = interpolate(mf.dof_handler).astype(np.float32)
+    xs[op._bdofs] = 0.0
+    b = op.vmult(mm.from_dof_vector(xs))
+    solve = gmg.make_device_solver(tol=GMG_TOL, max_iter=GMG_MAX_ITER)
+    t0 = time.perf_counter()
+    x0, it0, _ = solve(b)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (x, iters, res), counts = counted(wrappers, lambda: solve(b))
+    solve_s = time.perf_counter() - t0
+    counts = {k: n for k, n in counts.items() if n}
+    b_norm = float(torch.sqrt(mm.dot(b, b)))
+    r = b - op.vmult(x)
+    true_res = float(torch.sqrt(mm.dot(r, r))) / b_norm
+    free = ~mf.constraints.constrained_dof_marker()
+    err = float(np.abs((mm.to_dof_vector(x).cpu().numpy() - xs)[free]).max())
+    print(f"GMG-CG quadrant nref={GMG_NREF} p={GMG_DEGREE} f32 on {smi}: {iters} iterations, "
+          f"relative residual {res / b_norm:.3e} (recomputed b - A x: {true_res:.3e}), err_max "
+          f"{err:.3e}; solve {solve_s:.4f} s, {solve_s / max(iters, 1):.4f} s an iteration "
+          f"(warm-up solve {warm_s:.2f} s); launches in the solve {counts}", flush=True)
+    check(bool(torch.isfinite(x).all()) and x.shape == b.shape, "the GMG solution is malformed")
+    check(iters < GMG_MAX_ITER and res / b_norm <= GMG_TOL,
+          f"GMG-CG did not converge: {iters} iterations, relative residual {res / b_norm:.3e}")
+    check(it0 == iters and torch.equal(x0, x), "two GMG solves are not bit-identical")
+    for name in ("brick_transfer", "dof_embed"):
+        check(counts.get(name, 0) > 0, f"the GMG solve never launched {name}")
+    vcycle, vcounts = counted(wrappers, lambda: gmg(b))
+    vcounts = {k: n for k, n in vcounts.items() if n}
+    print(f"one V-cycle's port launches {vcounts} ({sum(vcounts.values())})", flush=True)
+    check(bool(torch.isfinite(vcycle).all()), "the V-cycle gave non-finite values")
+    # a V-cycle reads no dot; its one index and one dense product are the coarse solve's
+    # extract and matmul
+    v_prof = profile_path("V-cycle", lambda: gmg(b), set(wrappers), sum(vcounts.values()), reps=5,
+                          classes={"index": 1, "dense product": 1, "reduction": 0})
+    v_host_ms = host_ms(lambda: gmg(b), reps=5, warmup=1)
+    print(f"host time to issue one V-cycle: {v_host_ms:.4f} ms", flush=True)
+
+    # the index GMG of solve_01.run, float64, on the card and on the CPU
+    t0 = time.perf_counter()
+    its, sols = {}, {}
+    for where in ("cpu", dev):  # gi is the card's at the end
+        gi = mt.GMGPreconditioner("quadrant", 3, INDEX_GMG_NREF, INDEX_GMG_DEGREE, device=where)
+        opi, mfi = gi.fine_op, gi.fine_mf
+        xsi = mfi.constraints.distribute(np.random.default_rng(SEED).standard_normal(mfi.n_dofs))
+        xsi[opi.bdofs] = 0.0
+        bi = opi.vmult(torch.from_numpy(xsi).to(opi.device))
+        (xi, its[str(where)], _), icounts = counted(
+            wrappers, lambda: mt.solve_cg(opi, bi, M=gi, tol=INDEX_GMG_TOL, max_iter=100))
+        sols[str(where)] = xi.cpu().numpy()
+    icounts = {k: n for k, n in icounts.items() if n}
+    free_i = ~mfi.constraints.constrained_dof_marker()
+    dx = float(np.abs(sols[str(dev)] - sols["cpu"])[free_i].max())
+    erri = float(np.abs(sols[str(dev)] - xsi)[free_i].max())
+    print(f"index GMG-CG quadrant nref={INDEX_GMG_NREF} p={INDEX_GMG_DEGREE} f64 (solve_01.run): "
+          f"{its[str(dev)]} iterations on the card, {its['cpu']} on the CPU's plain path; "
+          f"solutions differ by {dx:.3e}, err {erri:.3e}; {time.perf_counter() - t0:.1f} s; "
+          f"launches in the card's solve {icounts}", flush=True)
+    check(its[str(dev)] == its["cpu"] < 30, "the index GMG's iteration count differs from the "
+                                            "CPU's plain path")
+    check(dx <= 1e-9, f"the index GMG's solution differs from the CPU's: {dx:.3e}")
+    check(icounts.get("cell_transfer", 0) > 0, "the index GMG solve never launched cell_transfer")
+
+    # the GMG kernels at the shapes their paths give them: brick_transfer and dof_embed at
+    # the brick GMG's finest transfer (f32); cell_transfer at the index GMG's finest
+    # (nref INDEX_GMG_NREF-1 -> INDEX_GMG_NREF, f64), and beside it, outside the kernels
+    # line, between the brick GMG's two finest levels' index engines (f32)
+    t0 = time.perf_counter()
+    calls, lib, nnz = gmg_kernel_calls(gmg, dev)
+    calls["cell_transfer"], lib["cell_transfer"], nnz["cell_transfer"] = cell_transfer_calls(
+        gi.transfers[-1], dev)
+    tr_i = mt.Transfer(gmg.levels[-2], gmg.levels[-1], device=dev)
+    big_calls, big_lib, nnz["cell_transfer (nref 6, p 4)"] = cell_transfer_calls(tr_i, dev)
+    print(f"GMG kernels' library matrices ({time.perf_counter() - t0:.1f} s), nonzeros: "
+          f"{nnz}", flush=True)
+    results = {}
+    for mod in [m for m in KERNEL_MODULES if m.NAME in GMG_KERNELS]:
+        name = mod.NAME
+        rec = kernel_record(mod)
+        dt, tol = ((torch.float64, 1e-12) if name == "cell_transfer"
+                   else (torch.float32, tol32))
+        rec["parts"] = measure_parts(name, calls[name], lib[name], {}, dt, tol)
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            rec[key] = sum(part[key] for part in rec["parts"])
+        rec["bound_by"] = max((part["bound_ms"], part["bound_by"]) for part in rec["parts"])[1]
+        rec["max_abs_err"] = max(part["max_abs_err"] for part in rec["parts"])
+        rec["max_rel_err"] = max(part["max_rel_err"] for part in rec["parts"])
+        rec["launches"] = (icounts if name == "cell_transfer" else counts).get(name, 0)
+        rec["launches_per_vcycle"] = vcounts.get(name, 0)
+        rec["launches_path"] = ("index GMG-CG solve" if name == "cell_transfer"
+                                else "brick GMG-CG solve")
+        rec["shapes"] = (f"quadrant nref {INDEX_GMG_NREF - 1} -> {INDEX_GMG_NREF}, "
+                         f"p={INDEX_GMG_DEGREE}, float64" if name == "cell_transfer" else
+                         f"quadrant nref {GMG_NREF - 1} -> {GMG_NREF}, p={GMG_DEGREE}, float32")
+        print(f"{name} at {rec['shapes']}: {rec['ms']:.4f} ms against a bound of "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} "
+              f"ms; launches {rec['launches']} in the {rec['launches_path']}, "
+              f"{rec['launches_per_vcycle']} a brick V-cycle", flush=True)
+        results[name] = rec
+    big = measure_parts("cell_transfer", big_calls, big_lib, {}, torch.float32, tol32)
+    big = {key: sum(part[key] for part in big) for key in ("ms", "plain_ms", "bound_ms",
+                                                           "library_ms")}
+    print(f"cell_transfer at quadrant nref {GMG_NREF - 1} -> {GMG_NREF}, p={GMG_DEGREE}, "
+          f"float32 (no solve of this run takes these shapes): {big['ms']:.4f} ms against a "
+          f"bound of {big['bound_ms']:.4f} ms, plain {big['plain_ms']:.4f} ms, library "
+          f"{big['library_ms']:.4f} ms", flush=True)
+    del big_calls, big_lib
+    del calls, lib
+    torch.cuda.empty_cache()
+    numbers = dict(nref=GMG_NREF, degree=GMG_DEGREE, dtype="float32", tol=GMG_TOL,
+                   setup_s=setup_s, levels=levels, iterations=iters, rel_res=res / b_norm,
+                   rel_res_recomputed=true_res, err_max=err, solve_s=solve_s,
+                   s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s, launches=counts,
+                   vcycle=dict(launches=vcounts, host_ms=v_host_ms, profile=v_prof),
+                   index=dict(nref=INDEX_GMG_NREF, degree=INDEX_GMG_DEGREE, dtype="float64",
+                              iterations=its[str(dev)], iterations_cpu=its["cpu"],
+                              solution_diff=dx, err=erri, launches=icounts),
+                   cell_transfer_nref6_p4_f32=big, card=smi)
+    del gmg, gi, tr_i, b, x, x0, r
+    torch.cuda.empty_cache()
+    return numbers, results
+
+
 def op_input(mf, dev):
     """A float32 global vector on the card from the seed (the index engine's input)."""
     u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
@@ -1582,7 +1951,16 @@ def main() -> int:
                   flush=True)
             check(e <= 1e-12, f"float64 p={p} {call} disagrees with its plain path: {e:.3e}")
 
-    # ---- 10. the numbers -----------------------------------------------------
+    # ---- 10. the GMG-CG solve, quadrant nref=6 p=4 float32, and the index GMG --
+    t0 = time.perf_counter()
+    gmg_numbers, gmg_records = gmg_phase(mt, dev, wrappers, smi)
+    gmg_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"GMG phase: {gmg_numbers['phase_s']:.1f} s", flush=True)
+    results.update(gmg_records)
+    check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
+          f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
+
+    # ---- 11. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -1593,6 +1971,7 @@ def main() -> int:
                                       "hn_overhead": vm_ms / vp_ms, "card": smi},
                       "degrees": low}))
     print(json.dumps({"index": index}))
+    print(json.dumps({"gmg": gmg_numbers}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,12 @@ NVIDIA Hopper (H100), in two engines:
 - the index engine (``MatrixFree``'s cell loop with ``LaplaceOperator``): a
   DoF map per cell, the hanging-node runners (compact, all, sorted,
   matrix), the slow constraint path and the deformed mapping, on four
-  (``hn_interp``, ``cell_laplace``, ``dof_scatter``, ``constraints_slow``).
+  (``hn_interp``, ``cell_laplace``, ``dof_scatter``, ``constraints_slow``);
+- the solvers on both engines (``models.multigrid``: CG, Chebyshev, the
+  global-coarsening GMG V-cycle on the index engine; ``models.
+  multigrid_bricks``: the same on brick vectors, with a GMG-preconditioned
+  CG whose vectors stay on the device), on three more for the transfers and
+  the DoF embedding (``cell_transfer``, ``brick_transfer``, ``dof_embed``).
 
 The host setup (mesh, DoFs, constraints, tables) is NumPy; the operators
 are ``torch.nn.Module``s whose device work runs in the kernels
@@ -26,6 +31,8 @@ Quick start::
     v = op.vmult(op.from_dof_vector(u))
     lap = mt.LaplaceOperator(mf)            # the index engine, on the card
     w = lap.vmult(u)                        # a global DoF vector
+    gmg = mt.BrickGMGPreconditioner("quadrant", 3, 6, 4, dtype="float32")
+    x, iters, res = gmg.make_device_solver(tol=1e-5)(b)   # b a brick vector
 """
 
 import torch
@@ -38,6 +45,20 @@ from .bricks import BrickLaplaceMM, BrickStructure  # noqa: E402
 from .elements import ShapeInfo, shape_info  # noqa: E402
 from .matrix_free import MatrixFree  # noqa: E402
 from .models.laplace import LaplaceOperator, laplace_cell_kernel  # noqa: E402
+from .models.multigrid import (  # noqa: E402
+    ChebyshevSmoother,
+    DirichletLaplace,
+    GMGPreconditioner,
+    Transfer,
+    solve_cg,
+)
+from .models.multigrid_bricks import (  # noqa: E402
+    BrickChebyshev,
+    BrickDirichletLaplace,
+    BrickGMGPreconditioner,
+    BrickTransfer,
+    DofEmbed,
+)
 from .ops.hanging_nodes import apply_hanging_node_constraints  # noqa: E402
 from .mesh import (  # noqa: E402
     Triangulation,
@@ -50,9 +71,19 @@ from .mesh import (  # noqa: E402
 )
 
 __all__ = [
+    "BrickChebyshev",
+    "BrickDirichletLaplace",
+    "BrickGMGPreconditioner",
     "BrickLaplaceMM",
     "BrickStructure",
+    "BrickTransfer",
+    "ChebyshevSmoother",
+    "DirichletLaplace",
+    "DofEmbed",
+    "GMGPreconditioner",
     "LaplaceOperator",
+    "Transfer",
+    "solve_cg",
     "MatrixFree",
     "apply_hanging_node_constraints",
     "laplace_cell_kernel",

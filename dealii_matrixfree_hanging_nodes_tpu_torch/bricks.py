@@ -169,10 +169,11 @@ def auto_brick_size(degree: int, dim: int = 3) -> int:
 
 class BrickStructure:
     """Static brick layout + exchange plan derived from a MatrixFree object
-    (the reference's ``BrickStructure``, with face planes at degree <= 2 as
-    the reference operator's defaults build it)."""
+    (the reference's ``BrickStructure``). face_planes=None builds the face
+    planes at degree <= 2, as the reference operator's defaults do
+    (bricks.py:1149-1166); the reference's GMG levels pass False."""
 
-    def __init__(self, mf: MatrixFree):
+    def __init__(self, mf: MatrixFree, face_planes: bool | None = None):
         if mf.dim != 3:
             raise NotImplementedError("the port's brick engine supports dim=3")
         self.mf = mf
@@ -227,7 +228,10 @@ class BrickStructure:
         self.plane_covered = np.zeros(tria.n_active_cells, dtype=bool)
         self.plane_groups = []
         self.plane_P1 = None
-        if p <= 2 and B % 2 == 0:
+        if face_planes is None:
+            face_planes = p <= 2
+        self.face_planes = bool(face_planes)
+        if self.face_planes and B % 2 == 0:
             self._build_face_planes(masks, brick_of_cell)
 
         # ---- subset-first brick order -------------------------------------
@@ -1459,9 +1463,15 @@ class BrickLaplaceMM(nn.Module):
 
     vmult accepts reduced inputs (hanging copies carry no meaning) and
     returns reduced outputs; ``refill`` restores the hanging copies from
-    their masters, ``to_dof_vector`` reads a global DoF vector back."""
+    their masters, ``to_dof_vector`` reads a global DoF vector back.
 
-    def __init__(self, mf: MatrixFree | None, device=None, dtype=None):
+    face_planes: the reference's argument (bricks.py:1106, 1149-1166); None
+    means on at degree <= 2. The reference's GMG levels pass False, and then
+    p <= 2 runs the assembled schedule without planes. The reference's
+    ``BRICK_PLANES`` environment override is not ported."""
+
+    def __init__(self, mf: MatrixFree | None, device=None, dtype=None,
+                 face_planes: bool | None = None):
         super().__init__()
         self.mf = mf
         self.bs = None
@@ -1474,7 +1484,7 @@ class BrickLaplaceMM(nn.Module):
         if mf.categorize:
             raise NotImplementedError("the brick engine reads the cells in mesh order; build "
                                       "its MatrixFree without categorize")
-        bs = BrickStructure(mf)
+        bs = BrickStructure(mf, face_planes)
         arrays, meta = operator_tables(mf, bs)
         if dtype is None:
             dtype = {np.dtype(np.float32): torch.float32,

@@ -19,6 +19,13 @@ masks, hn_idx, hn_masks, geo, S, D, Dc, P, quad_w, slow) with the reference's
 them, and returns the port's index engine on those tables, in the
 reference's cell order (a categorized reference's permutation included);
 ``models.laplace.LaplaceOperator`` runs on it.
+
+``transfer_from_reference(tables, mf_coarse, device, dtype)`` carries a
+reference GMG transfer's host tables across (NumPy): a ``BrickTransfer``'s
+(``src_lin``, ``E_rows``, ``own_w``, the fine dot mask ``wf`` and the coarse
+``DofEmbed`` tables) gives the port's ``BrickTransfer``, a ``Transfer``'s
+(``cover``, ``E``, ``own_mask``, ``cdf``) the port's ``Transfer`` on the
+coarse level's index engine ``mf_coarse``.
 """
 
 from __future__ import annotations
@@ -28,8 +35,11 @@ import torch
 
 from .bricks import BrickLaplaceMM
 from .matrix_free import MatrixFree
+from .models.multigrid import Transfer
+from .models.multigrid_bricks import BrickTransfer, DofEmbed
 
-__all__ = ["from_reference", "matrix_free_from_reference", "reference_tables"]
+__all__ = ["from_reference", "matrix_free_from_reference", "reference_tables",
+           "transfer_from_reference"]
 
 
 def _one_hot_rows(M: np.ndarray) -> np.ndarray:
@@ -142,3 +152,36 @@ def matrix_free_from_reference(np_tables: dict, n_dofs: int, hn_mode: str = "com
     tables = {k: np.asarray(v) for k, v in tables.items()}
     tables["slow"] = {k: np.asarray(v) for k, v in np_tables["slow"].items()}
     return MatrixFree.from_tables(tables, n_dofs, hn_mode, categorize, cell_permutation)
+
+
+def transfer_from_reference(tables: dict, mf_coarse: MatrixFree | None = None, device=None,
+                            dtype=torch.float64):
+    """The port's GMG transfer from a reference transfer's host tables.
+
+    Brick (a ``BrickTransfer``): src_lin, E_rows, own_w (its ``_dev``), wf
+    (``mm_f.dot_mask()``), the coarse DofEmbed's valid_idx, valid_dof, slave,
+    row, col, w, owner (its ``_sc``), and n_dofs_c, n_bricks_c, B, N3, N3p.
+    Index (a ``Transfer``): cover, E, own_mask, cdf and n_fine_dofs, with the
+    port's coarse index engine mf_coarse (e.g. ``matrix_free_from_reference``
+    of the reference's coarse ``MatrixFree._np``)."""
+    t = {k: (v if np.isscalar(v) else np.asarray(v)) for k, v in tables.items()}
+    if "src_lin" not in t:
+        if mf_coarse is None:
+            raise ValueError("an index transfer needs the coarse MatrixFree")
+        return Transfer.from_tables(
+            mf_coarse, dict(cover=t["cover"], E=t["E"], own=t["own_mask"], cdf=t["cdf"]),
+            int(t["n_fine_dofs"]), device, dtype)
+    n_c, N3, N3p = int(t["n_dofs_c"]), int(t["N3"]), int(t["N3p"])
+    nb_c = int(t["n_bricks_c"])
+    node_dof = np.full(nb_c * N3, -1, dtype=np.int64)
+    node_dof[t["valid_idx"].astype(np.int64)] = t["valid_dof"]
+    row = t["row"].astype(np.int64)
+    row_ptr = np.zeros(len(t["slave"]) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=len(t["slave"])), out=row_ptr[1:])
+    embed_c = DofEmbed.from_tables(node_dof, t["slave"], row_ptr, t["col"], t["w"], t["owner"],
+                                   n_c, N3, N3p, device, dtype)
+    wf = np.asarray(t["wf"])
+    return BrickTransfer.from_tables(
+        dict(src_lin=t["src_lin"], E_rows=t["E_rows"], own_w=t["own_w"],
+             wf=wf.reshape(wf.shape[0], -1)[:, :N3]),
+        embed_c, int(t["B"]), nb_c, N3, device, dtype)

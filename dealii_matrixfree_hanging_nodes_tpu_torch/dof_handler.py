@@ -124,3 +124,39 @@ class DoFHandler:
         self.cell_dofs = gids
         self.n_dofs = next_gid
         self._lat = lat
+
+    # ------------------------------------------------------------------
+    def interpolate_values(self, fn) -> np.ndarray:
+        """fn(points [m, dim]) at every DoF support point, cell chunk by
+        cell chunk ([n_dofs] out). A function with an ``axis_fn`` attribute
+        is separable, f(x) = sum_d axis_fn(x_d), and is evaluated at the
+        (p+1) 1-D node coordinates of each axis only."""
+        tria, dim = self.tria, self.dim
+        nodes = self.shape.nodes
+        h, lower = tria.cell_size(), tria.cell_lower()
+        out = np.zeros(self.n_dofs)
+        loc = nodes[self._lat]
+        step = max(1, 50_000_000 // loc.shape[0])
+        axis_fn = getattr(fn, "axis_fn", None)
+        for s in range(0, tria.n_active_cells, step):
+            e = min(s + step, tria.n_active_cells)
+            if axis_fn is not None:
+                ax = axis_fn(lower[s:e, :, None] + h[s:e, None, None] * nodes[None, None, :])
+                vals = ax[:, 0, self._lat[:, 0]]
+                for d in range(1, dim):
+                    vals = vals + ax[:, d, self._lat[:, d]]
+            else:
+                coords = lower[s:e, None, :] + h[s:e, None, None] * loc[None, :, :]
+                vals = fn(coords.reshape(-1, dim)).reshape(e - s, -1)
+            out[self.cell_dofs[s:e].ravel()] = vals.ravel()
+        return out
+
+    def boundary_dofs(self) -> np.ndarray:
+        """Global indices of the DoFs on the domain boundary (Dirichlet rows)."""
+        tol = 1e-12
+        left, right = self.tria.left, self.tria.right
+
+        def on_boundary(pts):
+            return np.any((np.abs(pts - left) < tol) | (np.abs(pts - right) < tol), axis=1)
+
+        return np.nonzero(self.interpolate_values(on_boundary) > 0)[0]

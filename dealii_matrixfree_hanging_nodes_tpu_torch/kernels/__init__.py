@@ -5,10 +5,13 @@ on the wrapper (``<wrapper>.launches``)."""
 
 from . import (  # noqa: F401
     brick_apply,
+    brick_transfer,
     cell_apply,
     cell_laplace,
+    cell_transfer,
     constraints_slow,
     corr_compact,
+    dof_embed,
     dof_scatter,
     dss_surface,
     hn_cell,
@@ -21,4 +24,4 @@ from . import (  # noqa: F401
 
 KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update,
                   masked_quad, plane_fill, plane_fold, hn_interp, cell_laplace, dof_scatter,
-                  constraints_slow)
+                  constraints_slow, brick_transfer, dof_embed, cell_transfer)

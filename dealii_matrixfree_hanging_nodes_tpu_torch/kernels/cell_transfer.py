@@ -1,0 +1,132 @@
+"""Kernel 18, ``cell_transfer``: the index engine's GMG transfer between two
+levels of global coarsening, on cell rows. Each fine cell f has its covering
+coarse cell cover[f] and an embedding E[f] [3, n, n] (one matrix an axis, x
+first; ``models.multigrid.covering_embedding``), and each fine DoF one owner
+(f, slot) (``own``, the first writer in cell order).
+
+* prolongate: x the coarse cell rows [n_c, n^3] (``read_dof_values`` of the
+  coarse vector: HN-resolved), out a fine DoF vector:
+      u_f = (E[f,2] (x) E[f,1] (x) E[f,0]) x[cover[f]]    (sweeps along x, y, z)
+      out[cdf[f, j]] = u_f[j] where own[f, j]
+  Every fine DoF has exactly one owner, so every entry of out is written
+  once: no sum, no memset.
+* restrict (its exact adjoint, before HN^T and the scatter): x a fine DoF
+  vector, out the coarse cell rows [n_c, n^3]:
+      out[c] = sum over the fine cells f of c (ascending) of
+               E^T-sweeps (z, y, x) of (own[f] * x[cdf[f]])
+  from a CSR list of each coarse cell's children (child_ptr, child). The
+  coarse ``distribute_local_to_global`` (cell_laplace's HN^T, dof_scatter)
+  follows.
+
+Replaces the reference's ``Transfer.prolongate`` and ``Transfer.restrict``
+(models/multigrid.py:274-296: the cover gather, ``_embed`` / ``_embed_t``
+einsums, ``.at[cdf].add`` and ``.at[cover].add``).
+CUDA source: ``csrc/cell_transfer.cu`` (the sweeps in ``csrc/transfer.cuh``)."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NAME = "cell_transfer"
+REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/multigrid.py:274"
+MODES = ("prolongate", "restrict")
+DEGREES = (1, 2, 3, 4, 5, 6)  # the index engine's
+
+
+def embed_rows(u, E, transpose):
+    """Rows u [m, n^3] (x fastest) through the per-row embedding E [m, 3, n,
+    n]: E[:, 0] along x, then E[:, 1] along y, E[:, 2] along z; transposed:
+    E[:, 2]^T along z, then y, then x (a new tensor)."""
+    n = E.shape[-1]
+    v = u.reshape(-1, n, n, n)  # [m, z, y, x]
+    if not transpose:
+        v = torch.einsum("mij,mzyj->mzyi", E[:, 0], v)
+        v = torch.einsum("mij,mzjx->mzix", E[:, 1], v)
+        v = torch.einsum("mij,mjyx->miyx", E[:, 2], v)
+    else:
+        v = torch.einsum("mji,mjyx->miyx", E[:, 2], v)
+        v = torch.einsum("mji,mzjx->mzix", E[:, 1], v)
+        v = torch.einsum("mji,mzyj->mzyi", E[:, 0], v)
+    return v.reshape(u.shape)
+
+
+def _mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"{NAME}: unknown mode {mode!r}")
+    return mode
+
+
+def cell_transfer_plain(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs,
+                        mode="prolongate"):
+    """Plain PyTorch version (a new tensor)."""
+    if _mode(mode) == "prolongate":
+        u = embed_rows(x[cover.long()], E, False)
+        out = torch.zeros(n_fine_dofs, dtype=x.dtype, device=x.device)
+        out[cdf.long()[own]] = u[own]
+        return out
+    n_c = child_ptr.numel() - 1
+    rows = child.long()
+    u = torch.where(own[rows], x[cdf.long()[rows]], 0.0)
+    u = embed_rows(u, E[rows], True)
+    parent = torch.repeat_interleave(torch.arange(n_c, device=x.device),
+                                     (child_ptr[1:] - child_ptr[:-1]).long())
+    return torch.zeros((n_c, cdf.shape[1]), dtype=x.dtype, device=x.device).index_add_(
+        0, parent, u)
+
+
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="prolongate"):
+    """prolongate: x [n_c, n^3] -> new [n_fine_dofs]; restrict: x
+    [n_fine_dofs] -> new [n_c, n^3]. E [n_f, 3, n, n] of x's dtype, cdf
+    int32 [n_f, n^3], own bool [n_f, n^3], cover int32 [n_f], child_ptr int32
+    [n_c+1], child int32 [n_f]."""
+    args = (x, E, cdf, own, cover, child_ptr, child, n_fine_dofs)
+    restrict = _mode(mode) == "restrict"
+    if x.device.type == "cpu":
+        return cell_transfer_plain(*args, mode=mode)
+    dev = _build.check_cuda(NAME, x.dtype, x=x, E=E, cdf=cdf, own=own, cover=cover,
+                            child_ptr=child_ptr, child=child)
+    if any(t.dtype != torch.int32 for t in (cdf, cover, child_ptr, child)) or (
+            own.dtype != torch.bool):
+        raise TypeError(f"{NAME}: cdf, cover, child_ptr and child must be int32, own bool")
+    n_f, n_loc = cdf.shape
+    n = E.shape[-1]
+    n_c = child_ptr.numel() - 1
+    if (n - 1 not in DEGREES or n**3 != n_loc or E.shape != (n_f, 3, n, n)
+            or own.shape != cdf.shape or cover.shape != (n_f,) or child.shape != (n_f,)
+            or x.shape != ((n_fine_dofs,) if restrict else (n_c, n_loc))
+            or n_f * n_loc >= 2**31):
+        raise ValueError(f"{NAME}: shapes x {tuple(x.shape)}, E {tuple(E.shape)}, cdf "
+                         f"{tuple(cdf.shape)}, cover {tuple(cover.shape)}, child_ptr "
+                         f"{tuple(child_ptr.shape)}")
+    out = torch.empty((n_c, n_loc) if restrict else (n_fine_dofs,), dtype=x.dtype,
+                      device=x.device)
+    fn = _build.function(NAME, f"{NAME}_{_build.suffix(x.dtype)}", _ARGS)
+    _build.launch(NAME, fn, dev, *(_build.ptr(t) for t in args[:7]), _build.ptr(out), n_f, n_c,
+                  n_fine_dofs, n - 1, int(restrict))
+    cell_transfer.launches += 1
+    return out
+
+
+cell_transfer.launches = 0
+
+
+def bytes_and_flops(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="prolongate"):
+    """Least traffic: x read once, out written once, E and the lists read
+    once (own at one bit a slot; cover in prolongate, child_ptr and child in
+    restrict), cdf only at the owned slots (one a fine DoF). Operations: the
+    three sweeps of 2 n^4 a fine cell (and an add a slot in restrict)."""
+    n_f, n_loc = cdf.shape
+    n = E.shape[-1]
+    isz = x.element_size()
+    n_c = child_ptr.numel() - 1
+    nbytes = (x.numel() + (n_fine_dofs if mode == "prolongate" else n_c * n_loc)
+              + E.numel()) * isz + 4 * int(own.sum()) + (own.numel() + 7) // 8
+    nbytes += 4 * (n_f if mode == "prolongate" else child_ptr.numel() + child.numel())
+    return nbytes, n_f * (3 * 2 * n**4 + (n_loc if mode == "restrict" else 0))

@@ -1,1 +1,3 @@
-"""Operators of the index engine (``matrix_free.MatrixFree``)."""
+"""Operators and solvers of the port: the index engine's Laplace
+(``laplace``), CG, Chebyshev and GMG on the index engine (``multigrid``) and
+on the brick engine (``multigrid_bricks``)."""

@@ -32,6 +32,8 @@ def test_port_imports_no_jax():
         "import dealii_matrixfree_hanging_nodes_tpu_torch as mt\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.convert\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.oracle\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.models.multigrid_bricks\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.utils.analytic\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'dealii_matrixfree_hanging_nodes_tpu']\n"
@@ -53,13 +55,32 @@ def test_default_device_is_cuda():
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     mf = mt.MatrixFree(mt.create_quadrant(3, 2), 4)
-    for op in (mt.BrickLaplaceMM, mt.LaplaceOperator):
+    for op in (mt.BrickLaplaceMM, mt.LaplaceOperator, mt.DirichletLaplace):
         if torch.cuda.is_available():
             assert op(mf).device.type == "cuda"
         else:
             with pytest.raises(RuntimeError, match="CUDA"):
                 op(mf)
         assert op(mf, device="cpu").device.type == "cpu"
+
+
+def test_solver_entry_points_default_to_cuda():
+    """The GMG entry points (the index engine's Transfer and
+    GMGPreconditioner, the brick engine's BrickGMGPreconditioner) run on the
+    card unless the caller passes device="cpu"."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    mfc, mff = (mt.MatrixFree(mt.create_quadrant(3, n), 2) for n in (1, 2))
+    entries = (lambda **kw: mt.Transfer(mfc, mff, **kw).E,
+               lambda **kw: mt.GMGPreconditioner("quadrant", 3, 2, 2, **kw).fine_op.bmask,
+               lambda **kw: mt.BrickGMGPreconditioner("quadrant", 3, 2, 2, **kw).fine_mm.Kb)
+    for entry in entries:
+        if torch.cuda.is_available():
+            assert entry().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                entry()
+        assert entry(device="cpu").device.type == "cpu"
 
 
 def test_unported_branches_raise():
@@ -73,6 +94,15 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 4, categorize=True),
                           device="cpu")
+    # the solvers are 3-D, as both engines are
+    for gmg in (mt.GMGPreconditioner, mt.BrickGMGPreconditioner):
+        with pytest.raises(NotImplementedError):
+            gmg("quadrant", 2, 2, 2, device="cpu")
+    mf2 = mt.MatrixFree(mt.create_quadrant(2, 2), 2)
+    with pytest.raises(NotImplementedError):
+        mt.DirichletLaplace(mf2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        mt.Transfer(mt.MatrixFree(mt.create_quadrant(2, 1), 2), mf2, device="cpu")
 
 
 def test_index_engine_raises_for_2d():
@@ -111,19 +141,30 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     and no other."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
 
-    for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh"):
+    for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh",
+                 "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    names = ("cell_apply", "hn_cell", "brick_apply")
+    names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer")
     before = {n: _build.library_path(n) for n in names}
     assert [p.name for p in _build._sources(tmp_path / "hn_cell.cu", [])] == [
         "hn_cell.cu", "sum_factorization.cuh"]
+    assert [p.name for p in _build._sources(tmp_path / "cell_transfer.cu", [])] == [
+        "cell_transfer.cu", "transfer.cuh", "hanging_nodes.cuh"]
     header = tmp_path / "sum_factorization.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in names}
     assert after["cell_apply"] != before["cell_apply"]
     assert after["hn_cell"] != before["hn_cell"]
     assert after["brick_apply"] == before["brick_apply"]
+    assert after["cell_transfer"] == before["cell_transfer"]
+    # the transfers' shared sweeps: an edit rebuilds both transfer kernels and nothing else
+    header = tmp_path / "transfer.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    final = {n: _build.library_path(n) for n in names}
+    assert final["cell_transfer"] != after["cell_transfer"]
+    assert final["brick_transfer"] != after["brick_transfer"]
+    assert all(final[n] == after[n] for n in ("cell_apply", "hn_cell", "brick_apply"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -449,3 +490,85 @@ def test_index_vmult_on_card_matches_oracle(cuda, p, nref):
     for slow in (False, True):
         got = LaplaceOperator(mf, slow=slow, device=cuda).vmult(u).cpu().numpy()
         assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+# ---- the GMG transfers and solves on the card ------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_transfer_kernels_on_card(cuda, p, dtype):
+    """brick_transfer and dof_embed (each mode, the brick engine's degrees)
+    and cell_transfer (each mode, the index engine's p <= 6) against their
+    plain versions between quadrant nref 2 and 3; two calls bit-identical."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_transfer, cell_transfer, dof_embed,
+    )
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    mfc, mff = (mt.MatrixFree(mt.create_quadrant(3, n), p, dtype=npdt) for n in (2, 3))
+    mmc, mmf = (mt.BrickLaplaceMM(mf, device=cuda, face_planes=False) for mf in (mfc, mff))
+    g = torch.Generator(device=cuda).manual_seed(p)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    bt = mt.BrickTransfer(mmc, mmf)
+    de = bt.embed_c
+    calls = [(brick_transfer, (rnd(mmc.n_bricks, mmc.N3p), *bt.tables()), dict(mode="prolongate")),
+             (brick_transfer, (rnd(mmf.n_bricks, mmf.N3p), *bt.tables()), dict(mode="restrict")),
+             (dof_embed, (rnd(mfc.n_dofs), *de.tables("embed"), de.shape), {}),
+             (dof_embed, (rnd(*de.shape), *de.tables("embed_t"), (de.n_dofs,)), {})]
+    if p <= 6:
+        tr = mt.Transfer(mfc, mff, device=cuda)
+        calls += [(cell_transfer, (rnd(mfc.n_cells, (p + 1) ** 3), *tr.tables()),
+                   dict(mode="prolongate")),
+                  (cell_transfer, (rnd(mff.n_dofs), *tr.tables()), dict(mode="restrict"))]
+    for mod, args, kw in calls:
+        before = getattr(mod, mod.NAME).launches
+        got = getattr(mod, mod.NAME)(*args, **kw)
+        again = getattr(mod, mod.NAME)(*args, **kw)
+        ref = getattr(mod, f"{mod.NAME}_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(mod, mod.NAME).launches == before + 2
+        assert got.shape == ref.shape and _rel(got, ref) < tol, (mod.NAME, kw)
+        assert torch.equal(got, again), (mod.NAME, kw)
+
+
+def _manufactured(mf, seed):
+    x = mf.constraints.distribute(np.random.default_rng(seed).standard_normal(mf.n_dofs))
+    x[mf.dof_handler.boundary_dofs()] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+def test_brick_gmg_solve_on_card(cuda):
+    """The brick GMG-CG at quadrant nref=3, p=4, float64 on the card (the
+    device solver) takes the iteration count of the plain path on the CPU,
+    and reaches the same solution."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    iters, sols = {}, {}
+    for dev in ("cpu", cuda):
+        gmg = mt.BrickGMGPreconditioner("quadrant", 3, 3, 4, device=dev)
+        mm = gmg.fine_mm
+        xs = _manufactured(gmg.fine_mf, 0)
+        b = gmg.fine_op.vmult(mm.from_dof_vector(xs))
+        x, iters[str(dev)], _ = gmg.make_device_solver(tol=1e-10, max_iter=100)(b)
+        sols[str(dev)] = mm.to_dof_vector(x).cpu().numpy()
+    assert iters["cpu"] == iters[str(cuda)] < 30
+    free = ~gmg.fine_mf.constraints.constrained_dof_marker()
+    assert np.abs(sols["cpu"] - sols[str(cuda)])[free].max() < 1e-9
+
+
+@pytest.mark.cuda
+def test_index_gmg_solve_on_card(cuda):
+    """The index-engine GMG-CG of solve_01.run (quadrant nref=3, p=2,
+    float64, tol 1e-10) on the card takes the CPU plain path's count."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    iters = {}
+    for dev in ("cpu", cuda):
+        gmg = mt.GMGPreconditioner("quadrant", 3, 3, 2, device=dev)
+        op = gmg.fine_op
+        b = op.vmult(torch.from_numpy(_manufactured(gmg.fine_mf, 0)).to(op.device))
+        _, iters[str(dev)], _ = mt.solve_cg(op, b, M=gmg, tol=1e-10, max_iter=100)
+    assert iters["cpu"] == iters[str(cuda)] < 30

@@ -3,6 +3,8 @@ chain, against the JAX package's function on the same inputs (float64,
 CPU, relative tolerance 1e-12), and the host tables that brick_apply,
 cell_apply and dss_surface read (``bricks.kernel_tables``)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -13,7 +15,10 @@ import jax.numpy as jnp  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     KERNEL_MODULES,
     brick_apply,
+    brick_transfer,
     cell_apply,
+    cell_transfer,
+    dof_embed,
     dss_surface,
     hn_cell,
 )
@@ -220,7 +225,22 @@ def test_corr_compact(geo, nref, p):
 
 CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + [
     pytest.param(brick_apply, True, id="brick_apply-dcols"),
-    pytest.param(hn_cell, True, id="hn_cell-fill")]
+    pytest.param(hn_cell, True, id="hn_cell-fill"),
+    pytest.param(brick_transfer, True, id="brick_transfer-restrict"),
+    pytest.param(dof_embed, True, id="dof_embed-embed_t"),
+    pytest.param(cell_transfer, True, id="cell_transfer-restrict")]
+
+
+@functools.lru_cache(maxsize=None)
+def gmg_transfers(geo, nref, p):
+    """(BrickTransfer, Transfer) from the mesh with one refinement fewer to
+    the case's mesh, float64 on the CPU."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    _, mf, op = port(geo, nref, p)
+    mfc = mt.MatrixFree(mt.create_geometry(geo, 3, nref - 1), p, dtype=np.float64)
+    return (mt.BrickTransfer(mt.BrickLaplaceMM(mfc, device="cpu"), op),
+            mt.Transfer(mfc, mf, device="cpu"))
 
 
 @pytest.mark.parametrize("mod,variant", CPU_CASES)
@@ -229,7 +249,8 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     nothing, so its launch count stays put (brick_apply also with the
     subset's cell rows, hn_cell also in its fill mode; the kernels of the
     degree <= 3 schedule on a p=2 operator with face planes; the index
-    engine's on the same mesh's MatrixFree)."""
+    engine's on the same mesh's MatrixFree; the GMG kernels in both modes
+    between the mesh with one refinement fewer and this one)."""
     low = mod.NAME in ("masked_quad", "plane_fill", "plane_fold")
     geo, nref, p = LOW_CASES[1] if low else CASES[0]
     op = port(geo, nref, p)[2]
@@ -242,6 +263,7 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     hn_rows = lambda seed: T(rng_array(seed, op.n_hn, op.n_loc))
     mf, cpu, f64 = port(geo, nref, p)[1], torch.device("cpu"), torch.float64
     dofs = lambda seed: T(rng_array(seed, mf.n_dofs))
+    bt, tr = gmg_transfers(geo, nref, p)
     mf_rows = lambda seed: T(rng_array(seed, mf.n_cells, op.n_loc))
     args, kw = {
         "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
@@ -260,6 +282,17 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
         "cell_laplace": lambda: ((dofs(27), *mf.cell_laplace_args(cpu, f64)), {}),
         "dof_scatter": lambda: ((mf_rows(28), *mf.scatter_tables(False, cpu)), {}),
         "constraints_slow": lambda: ((dofs(29), *mf.slow_tables(cpu, f64)["compress"]), {}),
+        "brick_transfer": lambda: (
+            (T(rng_array(30, *((op.n_bricks, op.N3p) if variant else
+                               (bt.embed_c.shape)))), *bt.tables()),
+            {"mode": "restrict" if variant else "prolongate"}),
+        "dof_embed": lambda: (
+            (T(rng_array(31, *(bt.embed_c.shape if variant else (bt.embed_c.n_dofs,)))),
+             *bt.embed_c.tables("embed_t" if variant else "embed"),
+             (bt.embed_c.n_dofs,) if variant else bt.embed_c.shape), {}),
+        "cell_transfer": lambda: (
+            (dofs(32) if variant else T(rng_array(32, tr.child_ptr.numel() - 1, op.n_loc)),
+             *tr.tables()), {"mode": "restrict" if variant else "prolongate"}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)

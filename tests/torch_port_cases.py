@@ -5,6 +5,7 @@ once per test process."""
 import functools
 
 import numpy as np
+import pytest
 
 # (geometry, n_refinements, degree): p=4 with B=4 bricks, p=5,6 with B=2
 CASES = [
@@ -26,6 +27,21 @@ LOW_CASES = [
 ]
 LOW_IDS = [f"{g}-{n}-p{p}" for g, n, p in LOW_CASES]
 RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test of a module that imports this fixture runs with one PyTorch
+    CPU thread: the plain versions are many small ops, which lose more to
+    threads spinning on cores that parallel test workers share than they
+    gain (a Chebyshev setup: 0.4 s on one thread, 17 s on eight with the
+    cores busy)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,3 +94,38 @@ def rng_array(seed, *shape):
 def rel_err(got, ref):
     got, ref = np.asarray(got), np.asarray(ref)
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+# the GMG tests' levels: quadrant nref 2 -> 3 at p=2 and p=4
+GMG_DEGREES = (2, 4)
+GMG_COARSE, GMG_FINE = 2, 3
+
+
+@functools.lru_cache(maxsize=None)
+def gmg_levels(p):
+    """The reference's and the port's coarse and fine MatrixFree at degree
+    p, float64: dict rc, rf (reference), pc, pf (port)."""
+    import dealii_matrixfree_hanging_nodes_tpu as ref
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
+
+    out = {}
+    for key, nref in (("c", GMG_COARSE), ("f", GMG_FINE)):
+        out["r" + key] = MatrixFree(ref.create_quadrant(3, nref), p, dtype=np.float64)
+        out["p" + key] = mt.MatrixFree(mt.create_quadrant(3, nref), p, dtype=np.float64)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def gmg_bricks(p):
+    """Their brick operators with face_planes=False, as the reference's GMG
+    builds them (the port's on the CPU): dict rbc, rbf, pbc, pbf."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
+
+    lv = gmg_levels(p)
+    out = {}
+    for key in ("c", "f"):
+        out["rb" + key] = BrickLaplaceMM(lv["r" + key], face_planes=False)
+        out["pb" + key] = mt.BrickLaplaceMM(lv["p" + key], device="cpu", face_planes=False)
+    return out
