@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the 16 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the 18 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none), and
    brick_apply's shared memory and blocks per SM at each degree;
@@ -99,12 +99,33 @@ Phases (any failure exits non-zero before the last line is printed):
    cell_transfer (the last between the same nref 5 and 6 levels' index
    engines) in both modes against their plain versions (1e-5), timed with
    their bounds and library calls (each map composed into one CSR matrix);
-11. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+11. linear elasticity (elasticity_01.py's operator, mu = lam = 1) on both
+   engines, float32 through the kernels: at quadrant nref=7 p=4 (phase 3's
+   mesh, 3 x 17.55 M component DoFs; the brick operators wrap phase 3's and
+   phase 5's scalar tables) and at elasticity_01's default quadrant nref=5
+   p=2: the brick vmult (5 launches) and vmult_plain (4) and the index vmult
+   with and without constraints (2 and 2) against their plain float64 paths
+   on the card (1e-5), launches checked exactly, two calls bit-identical,
+   timed, GDoF/s as 3 n_dofs / time, the host's issue time, profiled (no
+   device launch outside the port's kernels), the HN overhead of each
+   engine; at nref=7 every elasticity kernel and component-axis call
+   (cell_elasticity in both modes, hn_cell's elastic mode, corr_compact,
+   brick_elasticity, dss_surface, dof_scatter) against its plain version
+   (1e-5), timed with its bound and library call (component-axis kernels:
+   their map as one CSR product or index_add_ over three columns;
+   brick_elasticity: one torch.mm by the dense [3 N3, 3 N3] brick operator;
+   none for cell_elasticity, whose bricks mode composes to a dense coupled
+   Kel a cell, 9.2 G nonzeros, and hn_cell's elastic mode); at nref=5 p=2 the
+   same kernels against their plain versions; float64 on both engines
+   against the dense oracle (1e-12, mu=1.3, lam=0.7) at quadrant nref=2
+   p=2, nref=3 p=3, step nref=2 p=1 and quadrant nref=2 p=4;
+12. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
-   one with the kernels' numbers (all 16; the new instances as parts named
-   by degree; masked_quad's, plane_fill's and plane_fold's totals from p=2;
-   the GMG kernels' launches from the solve that runs them), then the
-   device line.
+   one with elasticity's, one with the kernels' numbers (all 18; the new
+   instances as parts named by degree; masked_quad's, plane_fill's and
+   plane_fold's totals from p=2; the GMG kernels' launches from the solve
+   that runs them; elasticity's calls of the existing kernels as parts),
+   then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -382,7 +403,7 @@ def yardsticks(op, inter, K, cell=True):
     no plain rows there) and cell=False (no cell_apply on that path).
     Returns ({name: [fn per part]}, {hn_cell mode: [fn per step]},
     {matrix: nonzeros})."""
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dss_surface, refill_update
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import refill_update
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
 
     filled, u_hat, own, u_sub, u_sub_r, sub_raw, plain_rows, v1, y, u_hat_r = (inter[k] for k in (
@@ -459,32 +480,6 @@ def yardsticks(op, inter, K, cell=True):
         return sparse_csr(torch.cat([nz, ent_rows]), torch.cat([nz, ent_cols]),
                           torch.cat([diag[nz], ent_vals]), (n_nodes, n_nodes + u_hat_r.numel()))
 
-    def dss_composed():
-        """dss_surface as one matrix on v, from dss_surface's own tables: a
-        valid copy of a pool takes the sum of the pool's copies, a node off
-        the surface keeps its value unless it is padding or a hole, every
-        other node is zero."""
-        tables = op.dss_tables()
-        valid_bits, hole_bricks, hole_bits, NB = tables[3], tables[4].long(), tables[5], tables[-1]
-        rows, cols = [], []
-        for pools, kind in zip(tables[:3], dss_surface.POOL_KINDS):
-            b, s, node, real = dss_surface.pool_positions(pools, kind, NB, op.N3p)
-            ok = real[..., None] & dss_surface.bit_set(valid_bits, b[..., None], s)
-            for c in range(pools.shape[1]):
-                sel = ok & real[:, c, None, None]
-                rows.append(node[sel])
-                cols.append(node[:, c: c + 1].expand_as(node)[sel])
-        N3 = NB**3
-        keeps = torch.zeros(v1.shape, dtype=torch.bool, device=dev)
-        keeps[:, :N3] = True
-        keeps[:, torch.from_numpy(dss_surface.surface_nodes(NB)).to(dev)] = False
-        hole = dss_surface.bit_set(hole_bits, ar(len(hole_bricks))[:, None], ar(N3))
-        keeps[hole_bricks, :N3] = keeps[hole_bricks, :N3] & ~hole
-        own_node = torch.nonzero(keeps.reshape(-1))[:, 0]
-        rows, cols = torch.cat(rows + [own_node]), torch.cat(cols + [own_node])
-        return sparse_csr(rows, cols, torch.ones(len(rows), dtype=dt, device=dev),
-                          (v1.numel(), v1.numel()))
-
     def cell_composed():
         """cell_apply as one matrix over the subset brick nodes: row (cell
         r, slot i) takes scale_r K[i, j] at cell r's node j, for each
@@ -508,26 +503,14 @@ def yardsticks(op, inter, K, cell=True):
     fill_cols = torch.cat([nodes[kept], op.fill_ent_src.long()])
     fill = sparse_csr(fill_rows, fill_cols, torch.ones(len(fill_rows), dtype=dt, device=dev),
                       (nS, u_sub.numel()))
-    code = op.corr_tables()[0].long()
-    n_rows = code.numel()
-    hn_cells = op.hn_sub.long()
-    minus = (torch.nonzero(code != -1)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
-    if plain_rows is None:
-        minus = minus[:0]
-    corr = sparse_csr(
-        torch.cat([rep(op.corr_seg_dst.long(), (op.corr_seg_ptr[1:] - op.corr_seg_ptr[:-1]).long()),
-                   (hn_cells[:, None] * n_loc + ar(n_loc)).reshape(-1)[kept], minus]),
-        torch.cat([op.corr_ent_src.long(), kept, nS + minus]),
-        torch.cat([torch.ones(op.corr_ent_src.numel() + len(kept), dtype=dt, device=dev),
-                   -torch.ones(len(minus), dtype=dt, device=dev)]),
-        (n_rows * n_loc, nS + (0 if plain_rows is None else n_rows * n_loc)))
+    corr = corr_matrix(op, plain_rows is not None, dt)
     fwd, bwd = hn_matrix("fwd"), hn_matrix("bwd")
     x_fwd, x_bwd, x_u = filled.reshape(-1), own.reshape(-1), u_sub.reshape(-1)
     x_corr = sub_raw.reshape(-1) if plain_rows is None else torch.cat(
         [sub_raw.reshape(-1), plain_rows.reshape(-1)])
     fill_steps = [lambda: fill @ x_u, lambda: fwd @ x_fwd]
     one = {f"hn_cell[{mode}]": hn_composed(mode) for mode in ("full", "fill")}
-    one.update(refill_update=refill_composed(), dss_surface=dss_composed())
+    one.update(refill_update=refill_composed(), dss_surface=dss_matrix(op, dt))
     if cell:
         one["cell_apply"] = cell_composed()
     x_u_r = u_sub_r.reshape(-1)
@@ -542,6 +525,63 @@ def yardsticks(op, inter, K, cell=True):
             {"fill": fill_steps,
              "full": fill_steps + [lambda: torch.mm(u_hat, K.T), lambda: bwd @ x_bwd]},
             {name: m._nnz() for name, m in one.items()})
+
+
+def corr_matrix(op, with_plain: bool, dt):
+    """corr_compact's map on a brick operator's tables as one CSR matrix
+    over sub_raw and plain stacked (plain only where with_plain): each run's
+    entries add into their dcols slot, a constrained row keeps sub_raw at
+    its kept slots, and the plain value comes off every constrained and
+    absent row."""
+    n_loc, dev = op.n_loc, op.cell_code.device
+    ar = lambda n: torch.arange(n, device=dev)
+    nS = op.n_hn * n_loc
+    kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
+    code = op.corr_tables()[0].long()
+    n_rows = code.numel()
+    hn_cells = op.hn_sub.long()
+    minus = (torch.nonzero(code != -1)[:, 0][:, None] * n_loc + ar(n_loc)).reshape(-1)
+    if not with_plain:
+        minus = minus[:0]
+    return sparse_csr(
+        torch.cat([torch.repeat_interleave(op.corr_seg_dst.long(),
+                                           (op.corr_seg_ptr[1:] - op.corr_seg_ptr[:-1]).long()),
+                   (hn_cells[:, None] * n_loc + ar(n_loc)).reshape(-1)[kept], minus]),
+        torch.cat([op.corr_ent_src.long(), kept, nS + minus]),
+        torch.cat([torch.ones(op.corr_ent_src.numel() + len(kept), dtype=dt, device=dev),
+                   -torch.ones(len(minus), dtype=dt, device=dev)]),
+        (n_rows * n_loc, nS + (n_rows * n_loc if with_plain else 0)))
+
+
+def dss_matrix(op, dt):
+    """dss_surface as one matrix on a brick vector [n_bricks, N3p], from
+    dss_surface's own tables: a valid copy of a pool takes the sum of the
+    pool's copies, a node off the surface keeps its value unless it is
+    padding or a hole, every other node is zero."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dss_surface
+
+    dev = op.cell_code.device
+    ar = lambda n: torch.arange(n, device=dev)
+    tables = op.dss_tables()
+    valid_bits, hole_bricks, hole_bits, NB = tables[3], tables[4].long(), tables[5], tables[-1]
+    rows, cols = [], []
+    for pools, kind in zip(tables[:3], dss_surface.POOL_KINDS):
+        b, s, node, real = dss_surface.pool_positions(pools, kind, NB, op.N3p)
+        ok = real[..., None] & dss_surface.bit_set(valid_bits, b[..., None], s)
+        for c in range(pools.shape[1]):
+            sel = ok & real[:, c, None, None]
+            rows.append(node[sel])
+            cols.append(node[:, c: c + 1].expand_as(node)[sel])
+    N3 = NB**3
+    n = op.n_bricks * op.N3p
+    keeps = torch.zeros((op.n_bricks, op.N3p), dtype=torch.bool, device=dev)
+    keeps[:, :N3] = True
+    keeps[:, torch.from_numpy(dss_surface.surface_nodes(NB)).to(dev)] = False
+    hole = dss_surface.bit_set(hole_bits, ar(len(hole_bricks))[:, None], ar(N3))
+    keeps[hole_bricks, :N3] = keeps[hole_bricks, :N3] & ~hole
+    own_node = torch.nonzero(keeps.reshape(-1))[:, 0]
+    rows, cols = torch.cat(rows + [own_node]), torch.cat(cols + [own_node])
+    return sparse_csr(rows, cols, torch.ones(len(rows), dtype=dt, device=dev), (n, n))
 
 
 def kernel_calls(op, x, y):
@@ -1632,6 +1672,301 @@ def index_f64_checks(mt, tria4, mf4, dev):
     check(ed <= tol, f"float64 deformed index vmult disagrees with its plain path: {ed:.3e}")
 
 
+# ---- linear elasticity on both engines ------------------------------------------------------
+ELASTIC_MU = ELASTIC_LAM = 1.0  # benchmarks/elasticity_01.py's operator
+# (name, quadrant nref, degree), float32: VERDICT's size (phase 3's mesh) and elasticity_01's
+# own default
+ELASTIC_CONFIGS = (("scale", 7, 4), ("elasticity_01", 5, 2))
+ELASTIC_LAUNCHES = {
+    "vmult": {"cell_elasticity": 1, "hn_cell": 1, "corr_compact": 1, "brick_elasticity": 1,
+              "dss_surface": 1},
+    "vmult_plain": {"cell_elasticity": 1, "corr_compact": 1, "brick_elasticity": 1,
+                    "dss_surface": 1},
+    "index": {"cell_elasticity": 1, "dof_scatter": 1},
+    "index_plain": {"cell_elasticity": 1, "dof_scatter": 1},
+}
+# float64 against the dense oracle, mu=1.3, lam=0.7: the reference's elasticity tests' cases and p=4
+ELASTIC_ORACLE = (("quadrant", 2, 2), ("quadrant", 3, 3), ("step", 2, 1), ("quadrant", 2, 4))
+ELASTIC_NEW = ("cell_elasticity", "brick_elasticity")
+
+
+def brick_elastic_library(opb, x):
+    """brick_elasticity's library call: its map is one dense brick operator
+    [3 N3, 3 N3] (block (c, k) the sum of its Kronecker terms), the same for
+    every brick, so one torch.mm over the bricks (their three components
+    side by side, geo applied outside the timed call, TF32 off) computes
+    it. Returns (call, the plain version without cell rows in the call's
+    layout, which the call is held against)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_elasticity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mm = opb.mm
+    N3 = mm.N3
+    fac = {"K": opb.Kb.double(), "M": opb.Mb.double(), "G": opb.Gb.double()}
+    fac["GT"] = fac["G"].T.contiguous()
+    A = torch.zeros((3 * N3, 3 * N3), dtype=torch.float64, device=x.device)
+    for c in range(3):
+        for k in range(3):
+            for coef, (fx, fy, fz) in brick_elasticity.terms(c, k, opb.mu, opb.lam):
+                A[c * N3:(c + 1) * N3, k * N3:(k + 1) * N3] += coef * torch.kron(
+                    fac[fz], torch.kron(fac[fy], fac[fx]))
+    A = A.to(x.dtype)
+    side = lambda v: v[:, :, :N3].permute(1, 0, 2).reshape(mm.n_bricks, 3 * N3)
+    xs = side(x * mm.geo[None, :, None]).contiguous()
+    return (lambda: torch.mm(xs, A.T), lambda: side(opb.brick_apply(x, None, plain=True)))
+
+
+def elastic_kernel_calls(opb, mf, x, xi, with_libs=True):
+    """Elasticity's kernels at the shapes the two vmults give them (x the
+    brick vector, xi the index engine's displacement): {name: [part]} as
+    kernel_calls gives them, and (with_libs) {name: [library call per
+    part]} (None where no PyTorch call computes the function) with the
+    library matrices' nonzeros."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_elasticity, cell_elasticity, corr_compact, dof_scatter, dss_surface, hn_cell,
+    )
+
+    mm, dev, dt = opb.mm, x.device, x.dtype
+    isz = x.element_size()
+    plain3 = opb.cell_rows(x)
+    sub_raw = opb.hn_rows(x)
+    dcols = corr_compact.corr_compact(plain3, sub_raw, *mm.corr_tables())
+    v1 = opb.brick_apply(x, dcols)
+    ci_args = (xi, *mf.cell_laplace_args(dev, dt), opb.mu, opb.lam)
+    rows3 = cell_elasticity.cell_elasticity(*ci_args)
+    scatter = mf.scatter_tables(False, dev)
+    cb_args = (x, None, None, None, opb.S, opb.Dc, opb.quad_w, mm.geo_cell_sub, opb.mu, opb.lam)
+    calls = {
+        "cell_elasticity": [
+            ("index", lambda: cell_elasticity.cell_elasticity(*ci_args),
+             lambda: cell_elasticity.cell_elasticity_plain(*ci_args),
+             cell_elasticity.bytes_and_flops(*ci_args), None, None),
+            ("bricks", lambda: opb.cell_rows(x), lambda: opb.cell_rows(x, plain=True),
+             cell_elasticity.bytes_and_flops(*cb_args, brick_size=mm.B), None, None)],
+        "hn_cell": [("elastic", lambda: opb.hn_rows(x), lambda: opb.hn_rows(x, plain=True),
+                     hn_cell.bytes_and_flops(x, *mm.hn_tables(), mm.B, mode="elastic"), None,
+                     None)],
+        "corr_compact": [(
+            "components", lambda: corr_compact.corr_compact(plain3, sub_raw, *mm.corr_tables()),
+            lambda: corr_compact.corr_compact_plain(plain3, sub_raw, *mm.corr_tables()),
+            corr_compact.bytes_and_flops(plain3, sub_raw, *mm.corr_tables()), None, None)],
+        "brick_elasticity": [(
+            "fused", lambda: opb.brick_apply(x, dcols), lambda: opb.brick_apply(x, dcols, True),
+            brick_elasticity.bytes_and_flops(mm.n_bricks, mm.NB, mm.p, mm.N3p, isz, mm.n_sub),
+            None, None)],
+        "dss_surface": [in_place("components", dss_surface, v1, mm.dss_tables())],
+        "dof_scatter": [("components", lambda: dof_scatter.dof_scatter(rows3, *scatter),
+                         lambda: dof_scatter.dof_scatter_plain(rows3, *scatter),
+                         dof_scatter.bytes_and_flops(rows3, *scatter), None, None)],
+    }
+    if not with_libs:
+        torch.cuda.synchronize()
+        return calls, None, None
+    # library calls: the component-axis kernels' maps over the three components at once (a
+    # CSR product with three columns, an index_add_ of three columns), the brick operator's
+    # dense product; none computes cell_elasticity or hn_cell's elastic mode in one call
+    cols3 = lambda t: t.reshape(3, -1).T.contiguous()
+    corr = corr_matrix(mm, True, dt)
+    x_corr = torch.cat([cols3(sub_raw), cols3(plain3)])
+    dss = dss_matrix(mm, dt)
+    v3 = cols3(v1)
+    dof = mf._on("dofmap", dev).reshape(-1).long()
+    src3 = cols3(rows3)
+    out3 = torch.zeros((mf.n_dofs, 3), dtype=dt, device=dev)
+    libs = {
+        "cell_elasticity": [None, None],
+        "hn_cell": [None],
+        "corr_compact": [(lambda: corr @ x_corr, lambda: cols3(
+            corr_compact.corr_compact_plain(plain3, sub_raw, *mm.corr_tables())))],
+        "brick_elasticity": [brick_elastic_library(opb, x)],
+        "dss_surface": [(lambda: dss @ v3, lambda: cols3(
+            dss_surface.dss_surface_plain(v1.clone(), *mm.dss_tables())))],
+        "dof_scatter": [lambda: out3.zero_().index_add_(0, dof, src3)],
+    }
+    nnz = {"corr_compact (x3 columns)": corr._nnz(), "dss_surface (x3 columns)": dss._nnz()}
+    torch.cuda.synchronize()
+    return calls, libs, nnz
+
+
+def elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi):
+    """One configuration on both engines, float32 through the kernels: the
+    brick vmult and vmult_plain and the index vmult with and without
+    constraints, each against its plain float64 path on the card (1e-5),
+    its launches checked exactly, two calls bit-identical, timed (median
+    of CUDA-event-timed back-to-back calls after warm-up), GDoF/s as
+    3 n_dofs / time, the host's issue time, a profile (no device launch
+    outside the port's kernels; busy and idle share); the HN overhead of
+    each engine. Returns the numbers."""
+    n3 = 3 * mf.n_dofs
+    u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, 3)).astype(np.float32)
+    x = opb.from_dof_vector(u)
+    x64 = x.double()
+    xi = torch.from_numpy(u).to(dev)
+    xi64 = xi.double()
+    opi = {True: mt.ElasticityOperator(mf, opb.mu, opb.lam, device=dev),
+           False: mt.ElasticityOperator(mf, opb.mu, opb.lam, constraints=False, device=dev)}
+    runs = (
+        ("vmult", lambda: opb.vmult(x),
+         lambda: opb64.to_dof_vector(opb64.vmult(x64, plain=True), zero_hanging=True),
+         lambda y: opb.to_dof_vector(y, zero_hanging=True)),
+        ("vmult_plain", lambda: opb.vmult_plain(x), lambda: opb64.vmult_plain(x64, plain=True),
+         lambda y: y),
+        ("index", lambda: opi[True].vmult(xi), lambda: opi[True].vmult(xi64, plain=True),
+         lambda y: y),
+        ("index_plain", lambda: opi[False].vmult(xi), lambda: opi[False].vmult(xi64, plain=True),
+         lambda y: y),
+    )
+    out = {}
+    for call, fn, ref_fn, read in runs:
+        ref = ref_fn()
+        y, counts = counted(wrappers, fn)
+        counts = {k: n for k, n in counts.items() if n}
+        got = read(y)
+        err = errors(got, ref)[1]
+        del ref
+        what = f"elastic {call} ({name})"
+        print(f"{what} f32 vs plain f64 path: max rel err {err:.3e} (tol 1e-5), launches "
+              f"{counts}", flush=True)
+        check(bool(torch.isfinite(y).all()) and got.shape == (
+            (mf.n_dofs, 3) if call != "vmult_plain" else x.shape), f"{what} output malformed")
+        check(err <= 1e-5, f"{what} disagrees with the float64 path: {err:.3e}")
+        check(counts == ELASTIC_LAUNCHES[call], f"{what} launched {counts}, not "
+                                                f"{ELASTIC_LAUNCHES[call]}")
+        check(torch.equal(y, fn()), f"two calls of the {what} are not bit-identical")
+        ms = time_ms(fn, reps=30, warmup=5)
+        hms = host_ms(fn)
+        prof = profile_path(what, fn, set(wrappers), sum(ELASTIC_LAUNCHES[call].values()))
+        out[call] = dict(ms=ms, gdofs_per_s=n3 / ms / 1e6, launches=counts, host_ms=hms,
+                         max_rel_err=err, profile=prof)
+        print(f"{what} on {smi}: {ms:.4f} ms ({n3 / ms / 1e6:.4f} GDoF/s over {n3} component "
+              f"DoFs); host time to issue {hms:.4f} ms", flush=True)
+    out["hn_overhead_bricks"] = out["vmult"]["ms"] / out["vmult_plain"]["ms"]
+    out["hn_overhead_index"] = out["index"]["ms"] / out["index_plain"]["ms"]
+    print(f"elastic HN overhead ({name}) on {smi}: bricks {out['hn_overhead_bricks']:.4f} "
+          f"(vmult / vmult_plain), index {out['hn_overhead_index']:.4f} (vmult / "
+          f"constraints=False)", flush=True)
+    return out, x, xi
+
+
+def elastic_oracle_checks(mt, dev):
+    """float64 through the kernels on both engines against the dense
+    oracle (1e-12), mu=1.3, lam=0.7, at ELASTIC_ORACLE."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle
+
+    worst = 0.0
+    for geo, nref, p in ELASTIC_ORACLE:
+        tria = mt.create_geometry(geo, 3, nref)
+        mf = mt.MatrixFree(tria, p)
+        u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, 3))
+        for c in range(3):
+            u[:, c] = mf.constraints.distribute(u[:, c])
+        ref = elasticity_oracle(tria, p, 1.3, 0.7, u)
+        scale = np.abs(ref).max()
+        opb = mt.BrickElasticity(mf, 1.3, 0.7, device=dev)
+        got = {"index": mt.ElasticityOperator(mf, 1.3, 0.7, device=dev).vmult(u),
+               "bricks": opb.to_dof_vector(opb.vmult(opb.from_dof_vector(u)),
+                                           zero_hanging=True)}
+        for engine, g in got.items():
+            err = float(np.abs(g.cpu().numpy() - ref).max() / scale)
+            worst = max(worst, err)
+            print(f"elastic {engine} vmult {geo} nref={nref} p={p} f64 vs dense oracle: max rel "
+                  f"err {err:.3e} (tol 1e-12)", flush=True)
+            check(err <= 1e-12, f"float64 elastic {engine} vmult at {geo} nref={nref} p={p} "
+                                f"disagrees with the oracle: {err:.3e}")
+    return worst
+
+
+def elasticity_phase(mt, mf7, op7, op7_64, dev, wrappers, smi):
+    """Linear elasticity (elasticity_01.py's operator, mu = lam = 1) on both
+    engines: at quadrant nref=7 p=4 f32 (phase 3's mesh; the brick
+    operators wrap phase 3's and phase 5's scalar tables) and at
+    elasticity_01's default, quadrant nref=5 p=2 f32 (``elastic_config``
+    each); every elasticity kernel and component-axis call at nref=7
+    against its plain version (1e-5), timed with its bound and library
+    call; at nref=5 p=2 the same kernels against their plain versions; the
+    float64 oracle cases. Returns (numbers, {kernel: record} for the new
+    kernels, {kernel: [part]} for the existing ones)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        KERNEL_MODULES, brick_elasticity, cell_elasticity, hn_cell,
+    )
+
+    for dt in (torch.float32, torch.float64):
+        print(f"elasticity kernels at p=4 {dt} (threads, shared memory bytes, blocks per SM): "
+              f"cell_elasticity {cell_elasticity.plan(dt, 4, dev)}, hn_cell elastic "
+              f"{hn_cell.elastic_plan(dt, 4, 4, dev)}, brick_elasticity "
+              f"{brick_elasticity.plan(dt, 4, dev)}", flush=True)
+    numbers = {}
+    records, parts = {}, {}
+    for i, (name, nref, p) in enumerate(ELASTIC_CONFIGS):
+        scale = i == 0  # the first runs on phase 3's mesh and operators
+        t0 = time.perf_counter()
+        if scale:
+            mf = mf7
+            opb = mt.BrickElasticity.on_operator(op7, ELASTIC_MU, ELASTIC_LAM)
+            opb64 = mt.BrickElasticity.on_operator(op7_64, ELASTIC_MU, ELASTIC_LAM)
+        else:
+            mf = mt.MatrixFree(mt.create_quadrant(3, nref), p, dtype=np.float32)
+            opb = mt.BrickElasticity(mf, ELASTIC_MU, ELASTIC_LAM, device=dev)
+            opb64 = mt.BrickElasticity(mf, ELASTIC_MU, ELASTIC_LAM, device=dev,
+                                       dtype=torch.float64)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        mm = opb.mm
+        print(f"elasticity {name}: quadrant nref={nref} p={p} f32, {mf.n_dofs} DoFs "
+              f"({3 * mf.n_dofs} component DoFs), {mm.n_bricks} bricks, {mm.n_sub} subset "
+              f"bricks, {mm.n_hn} constrained rows; setup {setup_s:.1f} s", flush=True)
+        res, x, xi = elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi)
+        res.update(nref=nref, degree=p, dtype="float32", n_dofs=mf.n_dofs,
+                   component_dofs=3 * mf.n_dofs, setup_s=setup_s, card=smi)
+        numbers[name] = res
+        calls, libs, nnz = elastic_kernel_calls(opb, mf, x, xi, with_libs=scale)
+        if not scale:
+            check_kernels(calls, 1e-5, f"elastic nref={nref} p={p} f32")
+            del calls, opb, opb64, mf
+            continue
+        # cell_elasticity's bricks mode as one map from the bricks to the rows: a dense
+        # [3 n_loc, 3 n_loc] block a subset cell
+        kel_nnz = mm.n_sub * mm.B**3 * (3 * (mm.p + 1) ** 3) ** 2
+        print(f"elastic library matrices, nonzeros: {nnz}; brick_elasticity's library call is "
+              f"one torch.mm by the dense brick operator [{3 * mm.N3}, {3 * mm.N3}]; no "
+              f"PyTorch call computes cell_elasticity's index mode (gather, per-mask "
+              f"interpolation, quadrature), its bricks mode (its map composed is a dense "
+              f"coupled Kel a subset cell: {kel_nnz} nonzeros, {kel_nnz * 8 / 1e9:.1f} GB as "
+              f"CSR with f32 values and int32 indices, beside the card's 80 GB) or hn_cell's "
+              f"elastic mode (its composed map couples the three components: 9x the full "
+              f"mode's nonzeros)", flush=True)
+        for mod_name in calls:
+            measured = measure_parts(mod_name, calls[mod_name], libs[mod_name], {},
+                                     torch.float32, 1e-5)
+            for part in measured:
+                part["call"] = "elastic vmult" if mod_name != "dof_scatter" else "elastic index"
+            if mod_name not in ELASTIC_NEW:
+                parts[mod_name] = measured
+                continue
+            rec = kernel_record(next(m for m in KERNEL_MODULES if m.NAME == mod_name))
+            rec["parts"] = measured
+            for key in ("ms", "plain_ms", "bound_ms"):
+                rec[key] = sum(part[key] for part in measured)
+            libs_ms = [part["library_ms"] for part in measured if part["library_ms"] is not None]
+            rec["library_ms"] = sum(libs_ms) if libs_ms else None
+            rec["bound_by"] = max((part["bound_ms"], part["bound_by"]) for part in measured)[1]
+            rec["max_abs_err"] = max(part["max_abs_err"] for part in measured)
+            rec["max_rel_err"] = max(part["max_rel_err"] for part in measured)
+            launched = {call: res[call]["launches"].get(mod_name, 0)
+                        for call in ("vmult", "index")}
+            rec["launches"] = sum(launched.values())
+            rec["launches_path"] = (f"the elastic brick vmult and index vmult at quadrant "
+                                    f"nref=7 p=4 f32: {launched}")
+            rec["shapes"] = "quadrant nref=7, p=4, float32, 3 components"
+            records[mod_name] = rec
+        del calls, libs
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    numbers["oracle_max_rel_err"] = elastic_oracle_checks(mt, dev)
+    numbers["oracle_s"] = time.perf_counter() - t0
+    return numbers, records, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1857,7 +2192,7 @@ def main() -> int:
           flush=True)
     rf_prof = profile_path("refill", lambda: op.refill(y), set(wrappers), REFILL_LAUNCHES)
     n_dofs4 = mf.n_dofs
-    del op64, x64, ref, got, op, x, y, yp
+    del x64, ref, got, x, y, yp  # op and op64 stay for the elasticity phase
     torch.cuda.empty_cache()
 
     # ---- 7. the index engine, nref=7, float32, through the kernels ----------
@@ -1957,10 +2292,25 @@ def main() -> int:
     gmg_numbers["phase_s"] = time.perf_counter() - t0
     print(f"GMG phase: {gmg_numbers['phase_s']:.1f} s", flush=True)
     results.update(gmg_records)
+
+    # ---- 11. linear elasticity on both engines ---------------------------------
+    t0 = time.perf_counter()
+    elastic, elastic_records, elastic_parts = elasticity_phase(mt, mf, op, op64, dev, wrappers,
+                                                                smi)
+    elastic["phase_s"] = time.perf_counter() - t0
+    print(f"elasticity phase: {elastic['phase_s']:.1f} s", flush=True)
+    del op, op64
+    torch.cuda.empty_cache()
+    results.update(elastic_records)
+    for name, plist in elastic_parts.items():  # existing kernels: their elastic calls as parts
+        results[name]["parts"].extend(plist)
+        for part in plist:
+            for key in ("max_abs_err", "max_rel_err"):
+                results[name][key] = max(results[name][key], part[key])
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 11. the numbers -----------------------------------------------------
+    # ---- 12. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -1972,6 +2322,7 @@ def main() -> int:
                       "degrees": low}))
     print(json.dumps({"index": index}))
     print(json.dumps({"gmg": gmg_numbers}))
+    print(json.dumps({"elasticity": elastic}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -13,7 +13,11 @@ NVIDIA Hopper (H100), in two engines:
   global-coarsening GMG V-cycle on the index engine; ``models.
   multigrid_bricks``: the same on brick vectors, with a GMG-preconditioned
   CG whose vectors stay on the device), on three more for the transfers and
-  the DoF embedding (``cell_transfer``, ``brick_transfer``, ``dof_embed``).
+  the DoF embedding (``cell_transfer``, ``brick_transfer``, ``dof_embed``);
+- linear elasticity on both engines (``ElasticityOperator`` on the index
+  engine, ``BrickElasticity`` on brick vectors [3, n_bricks, N3p]), on two
+  more (``cell_elasticity``, ``brick_elasticity``), hn_cell's elastic mode
+  and a component axis on dof_scatter, corr_compact and dss_surface.
 
 The host setup (mesh, DoFs, constraints, tables) is NumPy; the operators
 are ``torch.nn.Module``s whose device work runs in the kernels
@@ -44,6 +48,8 @@ torch.backends.cudnn.allow_tf32 = False
 from .bricks import BrickLaplaceMM, BrickStructure  # noqa: E402
 from .elements import ShapeInfo, shape_info  # noqa: E402
 from .matrix_free import MatrixFree  # noqa: E402
+from .models.elasticity import ElasticityOperator  # noqa: E402
+from .models.elasticity_bricks import BrickElasticity  # noqa: E402
 from .models.laplace import LaplaceOperator, laplace_cell_kernel  # noqa: E402
 from .models.multigrid import (  # noqa: E402
     ChebyshevSmoother,
@@ -73,6 +79,7 @@ from .mesh import (  # noqa: E402
 __all__ = [
     "BrickChebyshev",
     "BrickDirichletLaplace",
+    "BrickElasticity",
     "BrickGMGPreconditioner",
     "BrickLaplaceMM",
     "BrickStructure",
@@ -80,6 +87,7 @@ __all__ = [
     "ChebyshevSmoother",
     "DirichletLaplace",
     "DofEmbed",
+    "ElasticityOperator",
     "GMGPreconditioner",
     "LaplaceOperator",
     "Transfer",

@@ -679,8 +679,12 @@ def _stage_chain(direction, levels, groups, n_loc):
             cat(mask_all, bool), T_stacks, segs, tails)
 
 
-def operator_tables(mf: MatrixFree, bs: BrickStructure):
+def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None = None):
     """Host tables of the constrained Cartesian vmult, as index maps.
+    assembled: the degree <= 3 schedule's fold over the chain bricks (None:
+    the reference's default, p <= 3); False keeps the per-cell schedule's
+    fold over every subset cell row at any degree, as the elasticity
+    operator runs it.
 
     Returns (arrays, meta): ``arrays`` maps buffer names to float64 / int64 /
     int32 / bool NumPy arrays (``BrickLaplaceMM`` buffer names), ``meta``
@@ -751,7 +755,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure):
         corner_contrib=bs.corner_contrib, node_valid=nv_pad,
     )
     meta = dict(B=B, p=p, NB=NB, N3=N3, N3p=N3p, n_sub=n_sub,
-                n_chainb=bs.n_chain_bricks, assembled=p <= 3,
+                n_chainb=bs.n_chain_bricks, assembled=p <= 3 if assembled is None else assembled,
                 hn_bounds=[],
                 fill_segs=[], n_fill_tails=0, corr_segs=[], n_corr_tails=0,
                 plane_meta=[], plane_levels=[])
@@ -1468,10 +1472,15 @@ class BrickLaplaceMM(nn.Module):
     face_planes: the reference's argument (bricks.py:1106, 1149-1166); None
     means on at degree <= 2. The reference's GMG levels pass False, and then
     p <= 2 runs the assembled schedule without planes. The reference's
-    ``BRICK_PLANES`` environment override is not ported."""
+    ``BRICK_PLANES`` environment override is not ported.
+
+    assembled: the tables of the degree <= 3 schedule (None: at p <= 3, the
+    reference's default); the elasticity operator passes False for the
+    per-cell tables at every degree (its own vmult; this operator's vmult
+    on the card has cell_apply instances only at p >= 4)."""
 
     def __init__(self, mf: MatrixFree | None, device=None, dtype=None,
-                 face_planes: bool | None = None):
+                 face_planes: bool | None = None, assembled: bool | None = None):
         super().__init__()
         self.mf = mf
         self.bs = None
@@ -1485,7 +1494,7 @@ class BrickLaplaceMM(nn.Module):
             raise NotImplementedError("the brick engine reads the cells in mesh order; build "
                                       "its MatrixFree without categorize")
         bs = BrickStructure(mf, face_planes)
-        arrays, meta = operator_tables(mf, bs)
+        arrays, meta = operator_tables(mf, bs, assembled)
         if dtype is None:
             dtype = {np.dtype(np.float32): torch.float32,
                      np.dtype(np.float64): torch.float64}[mf.dtype]

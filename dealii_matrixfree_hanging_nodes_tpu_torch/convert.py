@@ -20,6 +20,14 @@ them, and returns the port's index engine on those tables, in the
 reference's cell order (a categorized reference's permutation included);
 ``models.laplace.LaplaceOperator`` runs on it.
 
+``brick_elasticity_from_reference(np_arrays, meta, mu, lam, device, dtype)``
+takes the reference ``BrickElasticity.mm._np_arrays`` and the same metadata
+as ``from_reference`` (of its scalar engine ``BrickElasticity.mm``) and
+returns the port's ``BrickElasticity`` on those tables, with the per-cell
+schedule at every degree. ``elasticity_from_reference(np_tables, n_dofs, mu,
+lam, constraints, device)`` takes what ``matrix_free_from_reference`` takes
+and returns the port's index-engine ``ElasticityOperator`` on it.
+
 ``transfer_from_reference(tables, mf_coarse, device, dtype)`` carries a
 reference GMG transfer's host tables across (NumPy): a ``BrickTransfer``'s
 (``src_lin``, ``E_rows``, ``own_w``, the fine dot mask ``wf`` and the coarse
@@ -35,11 +43,13 @@ import torch
 
 from .bricks import BrickLaplaceMM
 from .matrix_free import MatrixFree
+from .models.elasticity import ElasticityOperator
+from .models.elasticity_bricks import BrickElasticity
 from .models.multigrid import Transfer
 from .models.multigrid_bricks import BrickTransfer, DofEmbed
 
-__all__ = ["from_reference", "matrix_free_from_reference", "reference_tables",
-           "transfer_from_reference"]
+__all__ = ["brick_elasticity_from_reference", "elasticity_from_reference", "from_reference",
+           "matrix_free_from_reference", "reference_tables", "transfer_from_reference"]
 
 
 def _one_hot_rows(M: np.ndarray) -> np.ndarray:
@@ -152,6 +162,25 @@ def matrix_free_from_reference(np_tables: dict, n_dofs: int, hn_mode: str = "com
     tables = {k: np.asarray(v) for k, v in tables.items()}
     tables["slow"] = {k: np.asarray(v) for k, v in np_tables["slow"].items()}
     return MatrixFree.from_tables(tables, n_dofs, hn_mode, categorize, cell_permutation)
+
+
+def brick_elasticity_from_reference(np_arrays: dict, meta: dict, mu: float = 1.0,
+                                    lam: float = 1.0, device=None,
+                                    dtype=torch.float32) -> BrickElasticity:
+    """The port's brick elasticity (vmult, vmult_plain) from the reference's
+    ``BrickElasticity.mm`` tables and metadata."""
+    arrays, m = reference_tables(np_arrays, meta)
+    return BrickElasticity.from_tables(arrays, m, mu, lam, device, dtype)
+
+
+def elasticity_from_reference(np_tables: dict, n_dofs: int, mu: float = 1.0, lam: float = 1.0,
+                              constraints: bool = True, device=None,
+                              **kw) -> ElasticityOperator:
+    """The port's index-engine elasticity on ``matrix_free_from_reference``
+    of the reference's ``MatrixFree._np`` and ``n_dofs`` (kw: its hn_mode,
+    categorize, cell_permutation)."""
+    mf = matrix_free_from_reference(np_tables, n_dofs, **kw)
+    return ElasticityOperator(mf, mu, lam, constraints, device)
 
 
 def transfer_from_reference(tables: dict, mf_coarse: MatrixFree | None = None, device=None,

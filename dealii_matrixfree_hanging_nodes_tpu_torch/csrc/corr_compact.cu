@@ -8,12 +8,18 @@
 //   otherwise:              acc[r, j]             (fold targets; zero elsewhere)
 // plain may be null, read as zeros (the assembled schedule of degree <= 3).
 // The runs are the whole fold chain (stage 1 and its tails) composed on the host.
+// With a component axis (k = 3, elasticity: plain and dcols [3, n_rows, n_loc], sub_raw
+// [3, n_hn, n_loc], component-major) each component goes through the same tables: grid.y is the
+// component, whose blocks offset plain, sub_raw and dcols by it, so a component is bit-identical
+// to a scalar call on its slices, in one launch.
 //
 // Replaces: BrickLaplaceMM._corr_compact (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
 //   2775-2849) and the plain_rows[hn_sub] gather before it (2465): the stage-1 one-hot
 //   transfer matmuls, the scatter-adds into a zeroed acc and into the non-hn rows, the tail
 //   stages on sub_raw + acc, the keep mask, final - plain and -plain on absent rows. The TPU
-//   side ran these as XLA gathers, MXU matmuls and scatters (no Pallas kernel).
+//   side ran these as XLA gathers, MXU matmuls and scatters (no Pallas kernel). With k = 3, the
+//   same on the trailing component axis of BrickElasticity's rows (models/elasticity_bricks.py:
+//   241-249).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (65,600 rows, 16,744 constrained, 11,609
 //   absent; 426,424 entries in 107,083 runs): memory. sub_raw read once (8.4 MB), plain read at
@@ -102,13 +108,19 @@ __device__ __forceinline__ T row_value(int c, int j, T a, T pl, const T* __restr
   return c == -2 ? -pl : a;
 }
 
-template <typename T, int NL>
+template <typename T, int NL, bool MULTI>
 __global__ void __launch_bounds__(THREADS)
 corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
                     const int* __restrict__ cell_code, const bool* __restrict__ keep,
                     const int* __restrict__ seg_ptr, const int* __restrict__ seg_dst,
                     const int* __restrict__ ent_src, const int2* __restrict__ blocks,
-                    T* __restrict__ dcols, int cap_rows) {
+                    T* __restrict__ dcols, int cap_rows, long long rows_stride,
+                    long long hn_stride) {
+  if constexpr (MULTI) {  // the component of a component axis
+    if (plain != nullptr) plain += blockIdx.y * rows_stride;
+    sub_raw += blockIdx.y * hn_stride;
+    dcols += blockIdx.y * rows_stride;
+  }
   using V = typename Vec<T>::type;
   constexpr int W = Vec<T>::W;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -167,24 +179,28 @@ corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
 }
 
 template <typename T, int NL>
-int launch(const void* const* a, void* out, int n_blocks, int cap_rows, cudaStream_t stream) {
+int launch(const void* const* a, void* out, int n_blocks, int cap_rows, int k,
+           long long rows_stride, long long hn_stride, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(cap_rows) * (NL * sizeof(T) + sizeof(int));
   if (n_blocks > 0) {
-    corr_compact_kernel<T, NL><<<n_blocks, THREADS, smem, stream>>>(
+    // a scalar call runs the instance without the component offsets
+    auto kernel = k > 1 ? corr_compact_kernel<T, NL, true> : corr_compact_kernel<T, NL, false>;
+    kernel<<<dim3(n_blocks, k), THREADS, smem, stream>>>(
         static_cast<const T*>(a[0]), static_cast<const T*>(a[1]), static_cast<const int*>(a[2]),
         static_cast<const bool*>(a[3]), static_cast<const int*>(a[4]),
         static_cast<const int*>(a[5]), static_cast<const int*>(a[6]),
-        static_cast<const int2*>(a[7]), static_cast<T*>(out), cap_rows);
+        static_cast<const int2*>(a[7]), static_cast<T*>(out), cap_rows, rows_stride, hn_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* const* a, void* out, int n_blocks, int cap_rows, int n_loc, int p,
-             cudaStream_t stream) {
-#define CORR_CASE(p_)                                                   \
-  if (p == p_ && n_loc == (p_ + 1) * (p_ + 1) * (p_ + 1))               \
-    return launch<T, (p_ + 1) * (p_ + 1) * (p_ + 1)>(a, out, n_blocks, cap_rows, stream);
+             int k, long long rows_stride, long long hn_stride, cudaStream_t stream) {
+#define CORR_CASE(p_)                                                                \
+  if (p == p_ && n_loc == (p_ + 1) * (p_ + 1) * (p_ + 1))                            \
+    return launch<T, (p_ + 1) * (p_ + 1) * (p_ + 1)>(a, out, n_blocks, cap_rows, k,  \
+                                                     rows_stride, hn_stride, stream);
   CORR_CASE(1)
   CORR_CASE(2)
   CORR_CASE(3)
@@ -202,22 +218,25 @@ int dispatch(const void* const* a, void* out, int n_blocks, int cap_rows, int n_
 extern "C" {
 
 // plain .. blocks: device pointers (plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src,
-// blocks), as the wrapper passes them
+// blocks), as the wrapper passes them; k components (1 or 3), rows_stride and hn_stride values
+// apart in plain and dcols, and in sub_raw
 int corr_compact_f32(const void* plain, const void* sub_raw, const void* cell_code,
                      const void* keep, const void* seg_ptr, const void* seg_dst,
                      const void* ent_src, const void* blocks, void* dcols, int n_blocks,
-                     int cap_rows, int n_loc, int p, void* stream) {
+                     int cap_rows, int n_loc, int p, int k, long long rows_stride,
+                     long long hn_stride, void* stream) {
   const void* a[8] = {plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks};
-  return dispatch<float>(a, dcols, n_blocks, cap_rows, n_loc, p,
+  return dispatch<float>(a, dcols, n_blocks, cap_rows, n_loc, p, k, rows_stride, hn_stride,
                          static_cast<cudaStream_t>(stream));
 }
 
 int corr_compact_f64(const void* plain, const void* sub_raw, const void* cell_code,
                      const void* keep, const void* seg_ptr, const void* seg_dst,
                      const void* ent_src, const void* blocks, void* dcols, int n_blocks,
-                     int cap_rows, int n_loc, int p, void* stream) {
+                     int cap_rows, int n_loc, int p, int k, long long rows_stride,
+                     long long hn_stride, void* stream) {
   const void* a[8] = {plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks};
-  return dispatch<double>(a, dcols, n_blocks, cap_rows, n_loc, p,
+  return dispatch<double>(a, dcols, n_blocks, cap_rows, n_loc, p, k, rows_stride, hn_stride,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -2,10 +2,16 @@
 // With the transposed DoF map (ptr [n_dofs+1] into ent, the flat (cell, slot) positions of each
 // DoF in ascending order), every DoF i gets
 //   dst[i] = sum of rows[ent[e]] over e = ptr[i] .. ptr[i+1]    (0 where the range is empty).
+// With a component axis (K = 3: rows [3, n_cells, n_loc], component-major, as cell_elasticity
+// writes them), dst is [n_dofs, 3], DoF-major, the reference's layout of a displacement:
+//   dst[i, c] = sum of rows[c][ent[e]] over the same entries,
+// so the transpose back from component-major rides the scatter. Each component's sum runs in the
+// scalar kernel's order: a component is bit-identical to a scalar call on rows[c].
 //
 // Replaces: MatrixFree.distribute_local_to_global(_plain) (dealii_matrixfree_hanging_nodes_tpu/
 //   matrix_free.py:281-297): `zeros(n_dofs).at[dofmap.reshape(-1)].add(rows.reshape(-1))`, an
-//   XLA scatter-add with repeated ids on the TPU (no Pallas kernel).
+//   XLA scatter-add with repeated ids on the TPU (no Pallas kernel); with K = 3 the three such
+//   scatters and the stack of ElasticityOperator._vmult (models/elasticity.py:92-98).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (dof_scatter.bytes_and_flops): memory. The
 //   rows (269,991 x 125, 135 MB) read once, one int32 DoF index an entry (33.7 M, 135 MB; the
@@ -24,41 +30,59 @@ namespace {
 
 constexpr int THREADS = 256;
 
-template <typename T>
+template <typename T, int K>
 __global__ void __launch_bounds__(THREADS)
 dof_scatter_kernel(const T* __restrict__ rows, const int* __restrict__ ptr,
-                   const int* __restrict__ ent, T* __restrict__ dst, int n_dofs) {
+                   const int* __restrict__ ent, T* __restrict__ dst, int n_dofs,
+                   long long cstride) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n_dofs) return;
   const int e1 = __ldg(ptr + i + 1);
-  T acc = T(0);
-  for (int e = __ldg(ptr + i); e < e1; ++e) acc += __ldg(rows + __ldg(ent + e));
-  dst[i] = acc;
+  T acc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = T(0);
+  for (int e = __ldg(ptr + i); e < e1; ++e) {
+    const int s = __ldg(ent + e);
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] += __ldg(rows + c * cstride + s);
+  }
+#pragma unroll
+  for (int c = 0; c < K; ++c) dst[static_cast<size_t>(i) * K + c] = acc[c];
+}
+
+template <typename T, int K>
+int launch(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs,
+           long long cstride, cudaStream_t stream) {
+  if (n_dofs > 0) {
+    dof_scatter_kernel<T, K><<<(n_dofs + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+        static_cast<const T*>(rows), static_cast<const int*>(ptr), static_cast<const int*>(ent),
+        static_cast<T*>(dst), n_dofs, cstride);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs,
-           cudaStream_t stream) {
-  if (n_dofs > 0) {
-    dof_scatter_kernel<T><<<(n_dofs + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-        static_cast<const T*>(rows), static_cast<const int*>(ptr), static_cast<const int*>(ent),
-        static_cast<T*>(dst), n_dofs);
-  }
-  return static_cast<int>(cudaGetLastError());
+int dispatch(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs, int k,
+             long long cstride, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k == 1) return launch<T, 1>(rows, ptr, ent, dst, n_dofs, cstride, s);
+  if (k == 3) return launch<T, 3>(rows, ptr, ent, dst, n_dofs, cstride, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
+// k components of rows, cstride values apart (k = 1 or 3); dst [n_dofs, k]
 int dof_scatter_f32(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs,
-                    void* stream) {
-  return launch<float>(rows, ptr, ent, dst, n_dofs, static_cast<cudaStream_t>(stream));
+                    int k, long long cstride, void* stream) {
+  return dispatch<float>(rows, ptr, ent, dst, n_dofs, k, cstride, stream);
 }
 
 int dof_scatter_f64(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs,
-                    void* stream) {
-  return launch<double>(rows, ptr, ent, dst, n_dofs, static_cast<cudaStream_t>(stream));
+                    int k, long long cstride, void* stream) {
+  return dispatch<double>(rows, ptr, ent, dst, n_dofs, k, cstride, stream);
 }
 
 const char* kernel_error_string(int code) {

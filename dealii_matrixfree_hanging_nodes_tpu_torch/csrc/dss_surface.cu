@@ -2,12 +2,17 @@
 // every copy of a shared brick-surface node becomes the sum of all the copies of its
 // interface pool, then every node outside the mesh (node_valid false: holes and padding)
 // becomes 0. Interior nodes and valid unshared copies keep their values.
+// With a component axis (k = 3, elasticity: v [3, nb, N3p]) each component goes through the same
+// tables: grid.y is the component, whose blocks offset v by it, so a component is bit-identical to
+// a scalar call on v[c], in one launch.
 //
 // Replaces: the input-fill branch of BrickLaplaceMM._dss_fill
 //   (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2562-2568, 2608-2612) with
 //   BrickLaplaceMM._dss_surface (bricks.py:2096-2136): the one-hot surface extract, the pooled
 //   face/edge/corner scatter-add and gather-back, the one-hot scatter of the delta, and the
-//   node_valid mask. The TPU side ran it as XLA matmuls and scatters (no Pallas kernel).
+//   node_valid mask. The TPU side ran it as XLA matmuls and scatters (no Pallas kernel). With
+//   k = 3, _dss_surface_multi (bricks.py:3303) and BrickElasticity's node_valid mask
+//   (models/elasticity_bricks.py:258-263).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p=4992): memory. In
 //   words (kernels/dss_surface.py:moved_nodes, bytes_and_flops): every copy of a pool of
@@ -204,8 +209,9 @@ __device__ __forceinline__ void padding(T* __restrict__ v, const Tables& t, int 
   for (int k = NB * NB * NB + (threadIdx.x & 31); k < t.N3p; k += 32) v[b * t.N3p + k] = T(0);
 }
 
-template <typename T, int NB>
+template <typename T, int NB, bool MULTI>
 __global__ void __launch_bounds__(THREADS) dss_surface_kernel(T* __restrict__ v, Tables t) {
+  if constexpr (MULTI) v += static_cast<size_t>(blockIdx.y) * t.nb * t.N3p;  // the component
   int blk = blockIdx.x;
   if (blk < t.hole_blocks) return holes<T, NB>(v, t, blk);
   blk -= t.hole_blocks;
@@ -218,7 +224,7 @@ __global__ void __launch_bounds__(THREADS) dss_surface_kernel(T* __restrict__ v,
 }
 
 template <typename T, int NB>
-int launch(void* v, Tables t, cudaStream_t stream) {
+int launch(void* v, Tables t, int k, cudaStream_t stream) {
   auto blocks = [](int n, int per) { return (n + per - 1) / per; };
   t.hole_blocks = t.n_hole;
   t.corner_blocks = blocks(t.n_corner, THREADS);
@@ -227,7 +233,8 @@ int launch(void* v, Tables t, cudaStream_t stream) {
   const int total = t.hole_blocks + t.corner_blocks + t.face_blocks + t.edge_blocks +
                     blocks(t.nb, PAD_PER_BLOCK);
   if (total > 0)
-    dss_surface_kernel<T, NB><<<total, THREADS, 0, stream>>>(static_cast<T*>(v), t);
+    (k > 1 ? dss_surface_kernel<T, NB, true> : dss_surface_kernel<T, NB, false>)
+        <<<dim3(total, k), THREADS, 0, stream>>>(static_cast<T*>(v), t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,7 +242,7 @@ template <typename T>
 int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, int n_edge,
           int edge_w, const void* corner_pools, int n_corner, int corner_w,
           const void* valid_bits, int valid_words, const void* hole_bricks,
-          const void* hole_bits, int n_hole, int hole_words, int nb, int NB, int N3p,
+          const void* hole_bits, int n_hole, int hole_words, int nb, int NB, int N3p, int k,
           void* stream) {
   if (edge_w > MAXC || corner_w > MAXC) return static_cast<int>(cudaErrorInvalidValue);
   Tables t{};
@@ -257,10 +264,10 @@ int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, i
   t.N3p = N3p;
   auto s = static_cast<cudaStream_t>(stream);
   switch (NB) {  // NB = B*p + 1 of the brick size rule: p=5, 6, 7 at B=2; p=4 at B=4, p=8 at B=2
-    case 11: return launch<T, 11>(v, t, s);
-    case 13: return launch<T, 13>(v, t, s);
-    case 15: return launch<T, 15>(v, t, s);
-    case 17: return launch<T, 17>(v, t, s);
+    case 11: return launch<T, 11>(v, t, k, s);
+    case 13: return launch<T, 13>(v, t, k, s);
+    case 15: return launch<T, 15>(v, t, k, s);
+    case 17: return launch<T, 17>(v, t, k, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -269,24 +276,25 @@ int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, i
 
 extern "C" {
 
+// k components of v (1 or 3), nb * N3p values apart
 int dss_surface_f32(void* v, const void* face_pairs, int n_face, const void* edge_pools,
                     int n_edge, int edge_w, const void* corner_pools, int n_corner,
                     int corner_w, const void* valid_bits, int valid_words,
                     const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
-                    int nb, int NB, int N3p, void* stream) {
+                    int nb, int NB, int N3p, int k, void* stream) {
   return entry<float>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
                       n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
-                      n_hole, hole_words, nb, NB, N3p, stream);
+                      n_hole, hole_words, nb, NB, N3p, k, stream);
 }
 
 int dss_surface_f64(void* v, const void* face_pairs, int n_face, const void* edge_pools,
                     int n_edge, int edge_w, const void* corner_pools, int n_corner,
                     int corner_w, const void* valid_bits, int valid_words,
                     const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
-                    int nb, int NB, int N3p, void* stream) {
+                    int nb, int NB, int N3p, int k, void* stream) {
   return entry<double>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
                        n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
-                       n_hole, hole_words, nb, NB, N3p, stream);
+                       n_hole, hole_words, nb, NB, N3p, k, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -10,13 +10,18 @@
 //   3. K:     own = scale[h] * (K u_hat), K the Kronecker sum of the 1-D factors K1, M1;
 //   4. Q^T:   out = own @ Q_h^T, from the lists of Q^T (bwd_ptr, bwd_col, bwd_w).
 // The fill mode (FILL) stops after step 2 and writes u_hat (refill's input).
+// The elastic mode (hn_cell_elastic_kernel) runs the three components of component brick vectors
+// (u + comp * cstride) through steps 1 and 2, then linear elasticity's coupled operator times
+// scale[h] on every axis (elasticity.cuh) in place of step 3, then step 4 on each component:
+// out [3, n_hn, n_loc], component-major, in one launch.
 //
 // Replaces: BrickLaplaceMM._fill_rows (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687-2694:
 //   _fill_hn_compact, 2728-2773, fed by _extract_cols, 2178-2194, then _hn_apply forward,
 //   2244-2258), the constrained rows' `u_hat @ K.T * geo_cell_sub[hn_sub]` (2469-2471) and the
 //   transposed _hn_apply (2474). The TPU side ran these as XLA gathers, one-hot MXU matmuls,
 //   scatters and one dense [n_loc, n_loc] matmul per mask range and direction (no Pallas
-//   kernel).
+//   kernel). The elastic mode: BrickElasticity's _fill_rows -> el_Kel -> _hn_apply(transpose)
+//   (models/elasticity_bricks.py:241-248).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (16,744 rows, 426,424 fill entries, 25 Q's
 //   of 137-881 nonzeros): memory. The distinct brick nodes the rows read, out written once
@@ -46,6 +51,12 @@
 //   - out: Q^T writes into buffer A and the block stores it with 16-byte stores, coalesced.
 //   8 barriers a block (4 in the fill mode). The shared-memory limit (above 48 KB at p = 8 in
 //   f64) is raised once per device, not on every launch.
+//   The elastic mode runs the same phases on three components a row, G rows a block as
+//   elasticity.cuh's Cfg gives them (8 at p = 4), in its nine regions: the fill into X, Q into
+//   U, the coupled operator on U (X and Y its scratch), Q^T into X, stored; S, Dc and the
+//   weights are staged in shared memory (17 barriers a block and 3 a component for the fill).
+//   At p=4: 224 threads, 32 registers, 36.7 KB of shared memory in f32 (6 blocks an SM), 73.4 KB
+//   in f64 (3); 0.210 ms for 16,744 rows at quadrant nref=7 f32 on an H100 (bound 0.014).
 //   Resources (ptxas, sm_90a, CUDA 12.8; no spills, no stack in any instantiation): f32: 32
 //   registers at every degree; f64: 32 registers at p = 4, 66 at p = 8; p=4 f32: 416
 //   threads, 16.3 KB of shared memory, 4 blocks an SM (the thread limit).
@@ -61,6 +72,7 @@
 #include <cstdint>
 #include <cstring>
 
+#include "elasticity.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -70,13 +82,11 @@ using sf::Factors;
 
 // dst[g, j] = src[g, :] @ Q_g[:, j] for the G rows of the block, Q_g from lists by output slot
 // (q[g] < 0: a copy)
-template <typename T, int P>
+template <typename T, int NL, int G, int THREADS>
 __device__ __forceinline__ void apply_q(const T* src, T* dst, const int* s_q,
                                         const int* __restrict__ ptr, const int* __restrict__ col,
                                         const T* __restrict__ w) {
-  using S = Cfg<P>;
-  constexpr int NL = S::NL, G = S::G;
-  for (int t = threadIdx.x; t < G * NL; t += S::THREADS) {
+  for (int t = threadIdx.x; t < G * NL; t += THREADS) {
     const int j = t / G, g = t % G;
     const int q = s_q[g];
     const T* x = src + g * NL;
@@ -194,7 +204,7 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   __syncthreads();
 
   // 2. Q: u_hat into buffer B
-  apply_q<T, P>(sa, sb, s_q, fwd_ptr, fwd_col, fwd_w);
+  apply_q<T, S::NL, S::G, S::THREADS>(sa, sb, s_q, fwd_ptr, fwd_col, fwd_w);
   __syncthreads();
   T* res = sb;
   if constexpr (!FILL) {
@@ -215,7 +225,7 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
     }
     __syncthreads();
     // 4. Q^T: out into buffer A
-    apply_q<T, P>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
+    apply_q<T, S::NL, S::G, S::THREADS>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
     __syncthreads();
     res = sa;
   }
@@ -223,6 +233,155 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   T* dst = out + static_cast<size_t>(h0) * NL;
   sf::copy_block(dst, res, nrows * NL,
                  nrows == G && reinterpret_cast<uintptr_t>(dst) % 16 == 0);
+}
+
+// The elastic mode: the three components of each constrained row through the fill and Q, the
+// coupled operator times scale[h], Q^T; out [3][n_hn][NL].
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(el::Cfg<P>::THREADS)
+hn_cell_elastic_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
+                       const bool* __restrict__ keep, const int* __restrict__ row_ptr,
+                       const int* __restrict__ ent_slot, const int* __restrict__ ent_src,
+                       const int* __restrict__ q_of_row, const int* __restrict__ fwd_ptr,
+                       const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
+                       const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
+                       const T* __restrict__ bwd_w, const T* __restrict__ scale,
+                       const T* __restrict__ Sg, const T* __restrict__ Dg,
+                       const T* __restrict__ wg, T mu, T lam, T* __restrict__ out, int n_hn,
+                       int N3p, long long cstride) {
+  using E = el::Cfg<P>;
+  constexpr int N = E::N, N2 = E::N2, NL = E::NL, G = E::G, R = E::R, THREADS = E::THREADS;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B * B;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // el's nine regions: U (0..2), X (3..5), Y (6..8)
+  T* sS = buf + E::VALUES;
+  T* sD = sS + N * N;
+  T* sW = sD + N * N;
+  __shared__ T s_scale[G];
+  __shared__ int s_rp[G + 1], s_q[G], s_base[G];
+
+  const int tid = threadIdx.x;
+  const int h0 = blockIdx.x * G;
+  const int nrows = min(G, n_hn - h0);
+  for (int i = tid; i < N * N; i += THREADS) {
+    sS[i] = __ldg(Sg + i);
+    sD[i] = __ldg(Dg + i);
+  }
+  for (int i = tid; i < NL; i += THREADS) sW[i] = __ldg(wg + i);
+  if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
+  if (tid < G) {
+    int q = -1, base = 0;
+    if (tid < nrows) {
+      const int cell = hn_sub[h0 + tid];
+      const int brick = cell / C, slot = cell % C;
+      const int sx = slot % B, sy = (slot / B) % B, sz = slot / (B * B);
+      q = q_of_row[h0 + tid];
+      base = brick * N3p + (sz * P * NB + sy * P) * NB + sx * P;
+    }
+    s_q[tid] = q;
+    s_base[tid] = base;
+    s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
+  }
+  __syncthreads();
+
+  // 1. fill, a component at a time: the masked own nodes into X_c, then each run of entries
+  //    (one row, one slot) summed by the thread holding its first entry and added after the
+  //    barrier that ends the base write
+  T* X = buf + 3 * R;
+  const bool* kb = keep + static_cast<size_t>(h0) * NL;
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    const T* uc = u + c * cstride;
+    T* xc = X + c * R;
+    for (int t = tid; t < G * NL; t += THREADS) {
+      const int g = t / NL, j = t - g * NL;
+      const int ix = j % N, iy = (j / N) % N, iz = j / N2;
+      xc[t] = t < nrows * NL && kb[t] ? uc[s_base[g] + (iz * NB + iy) * NB + ix] : T(0);
+    }
+    __syncthreads();
+    for (int e = s_rp[0] + tid; e < s_rp[G]; e += THREADS) {
+      int dst;
+      const T acc = run_sum<T, G, NL>(e, s_rp, ent_slot, ent_src, uc, dst);
+      if (dst >= 0) xc[dst] += acc;
+    }
+  }
+  __syncthreads();
+
+  // 2. Q: u_hat into U_c
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c)
+    apply_q<T, NL, G, THREADS>(X + c * R, buf + c * R, s_q, fwd_ptr, fwd_col, fwd_w);
+  __syncthreads();
+
+  // 3. the coupled operator times scale on U (X and Y its scratch)
+  const int l = tid, g = l / N2, j = l - g * N2;
+  const bool active = l < G * N2 && g < nrows;
+  const T sc = active ? s_scale[g] : T(0);
+  const T geo[3] = {sc, sc, sc};
+  el::apply<T, P>(buf, sS, sD, sW, mu, lam, geo, g, j, active);
+
+  // 4. Q^T into X_c, then the rows stored, a component at a time
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c)
+    apply_q<T, NL, G, THREADS>(buf + c * R, X + c * R, s_q, bwd_ptr, bwd_col, bwd_w);
+  __syncthreads();
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    T* dst = out + (static_cast<size_t>(c) * n_hn + h0) * NL;
+    sf::copy_block(dst, X + c * R, nrows * NL,
+                   nrows == G && reinterpret_cast<uintptr_t>(dst) % 16 == 0 && (G * NL) % 4 == 0);
+  }
+}
+
+template <typename T, int P, int B>
+int launch_elastic(const void* const* a, double mu, double lam, long long cstride, void* out,
+                   int n_hn, int N3p, int* info, cudaStream_t stream) {
+  using E = el::Cfg<P>;
+  const int smem = static_cast<int>((E::VALUES + 2 * E::N * E::N + E::NL) * sizeof(T));
+  auto kernel = hn_cell_elastic_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
+    info[0] = E::THREADS;
+    info[1] = smem;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, E::THREADS, smem));
+  }
+  const int blocks = (n_hn + E::G - 1) / E::G;
+  if (blocks > 0) {
+    kernel<<<blocks, E::THREADS, smem, stream>>>(
+        static_cast<const T*>(a[0]), static_cast<const int*>(a[1]),
+        static_cast<const bool*>(a[2]), static_cast<const int*>(a[3]),
+        static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
+        static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
+        static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
+        static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
+        static_cast<const T*>(a[12]), static_cast<const T*>(a[13]),
+        static_cast<const T*>(a[14]), static_cast<const T*>(a[15]),
+        static_cast<const T*>(a[16]), static_cast<T>(mu), static_cast<T>(lam),
+        static_cast<T*>(out), n_hn, N3p, cstride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_elastic(const void* const* a, double mu, double lam, long long cstride, void* out,
+                     int n_hn, int p, int B, int N3p, int* info, cudaStream_t stream) {
+#define EL_CASE(p_, b_) \
+  if (p == p_ && B == b_) \
+    return launch_elastic<T, p_, b_>(a, mu, lam, cstride, out, n_hn, N3p, info, stream);
+  EL_CASE(1, 16)
+  EL_CASE(2, 8)
+  EL_CASE(3, 4)
+  EL_CASE(4, 4)
+  EL_CASE(5, 2)
+  EL_CASE(6, 2)
+  EL_CASE(7, 2)
+  EL_CASE(8, 2)
+#undef EL_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int P, int B, bool FILL>
@@ -294,6 +453,22 @@ int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out,
                 int p, int B, int N3p, int fill, void* stream) {
   return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, fill,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The elastic mode. a: device pointers, in order: u (component 0 of component brick vectors
+// cstride values apart), hn_sub, keep, row_ptr, ent_slot, ent_src, q_of_row, fwd_ptr, fwd_col,
+// fwd_w, bwd_ptr, bwd_col, bwd_w, scale, S, Dc, w. info: null to launch; else [threads,
+// shared-memory bytes, blocks per SM], not launched.
+int hn_cell_elastic_f32(const void* const* a, double mu, double lam, long long cstride,
+                        void* out, int n_hn, int p, int B, int N3p, int* info, void* stream) {
+  return dispatch_elastic<float>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int hn_cell_elastic_f64(const void* const* a, double mu, double lam, long long cstride,
+                        void* out, int n_hn, int p, int B, int N3p, int* info, void* stream) {
+  return dispatch_elastic<double>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

@@ -126,6 +126,21 @@ class DoFHandler:
         self._lat = lat
 
     # ------------------------------------------------------------------
+    def support_points(self) -> np.ndarray:
+        """Physical coordinates of each global DoF's support point [n_dofs,
+        dim], cell chunk by cell chunk (a DoF shared by cells is written by
+        each with the same value)."""
+        tria, dim = self.tria, self.dim
+        h, lower = tria.cell_size(), tria.cell_lower()
+        pts = np.zeros((self.n_dofs, dim))
+        loc = self.shape.nodes[self._lat]  # [n_loc, dim] on the unit cell
+        step = max(1, 50_000_000 // loc.shape[0])
+        for s in range(0, tria.n_active_cells, step):
+            e = min(s + step, tria.n_active_cells)
+            coords = lower[s:e, None, :] + h[s:e, None, None] * loc[None, :, :]
+            pts[self.cell_dofs[s:e].ravel()] = coords.reshape(-1, dim)
+        return pts
+
     def interpolate_values(self, fn) -> np.ndarray:
         """fn(points [m, dim]) at every DoF support point, cell chunk by
         cell chunk ([n_dofs] out). A function with an ``axis_fn`` attribute

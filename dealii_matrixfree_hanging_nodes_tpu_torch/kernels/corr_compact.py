@@ -19,7 +19,13 @@ on ``sub_raw + acc``, the keep mask and ``final - plain``. As for the fill,
 entries ent_src (flat indices into sub_raw) sorted by destination, run s
 holding entries seg_ptr[s] .. seg_ptr[s+1] that all land on the flat dcols
 slot seg_dst[s] = row * n_loc + slot (ascending), and a block schedule
-(``schedule``). CUDA source: ``csrc/corr_compact.cu``."""
+(``schedule``). CUDA source: ``csrc/corr_compact.cu``.
+
+With a component axis (elasticity: plain, dcols [3, n_rows, n_loc],
+sub_raw [3, n_hn, n_loc], component-major) each component goes through the
+same tables in one launch, bit-identical to a scalar call on its slices
+(the reference's trailing component axis of the rows,
+models/elasticity_bricks.py:241-249)."""
 
 from __future__ import annotations
 
@@ -79,7 +85,11 @@ def run_sums(sub_raw, seg_ptr, seg_dst, ent_src, n_slots):
 def corr_compact_plain(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks):
     """Plain PyTorch version on the same runs (``blocks``, the kernel's
     schedule, is not read): the run sums, then the constrained and absent
-    rows written over them."""
+    rows written over them (a component axis: each component so)."""
+    if sub_raw.dim() == 3:
+        return torch.stack([corr_compact_plain(None if plain is None else plain[c], sub_raw[c],
+                                               cell_code, keep, seg_ptr, seg_dst, ent_src, blocks)
+                            for c in range(sub_raw.shape[0])])
     n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
     dcols = run_sums(sub_raw, seg_ptr, seg_dst, ent_src, n_rows * n_loc).view(n_rows, n_loc)
     if plain is None:
@@ -92,26 +102,30 @@ def corr_compact_plain(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_sr
     return dcols
 
 
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+         + [ctypes.c_void_p])
 
 
 def corr_compact(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks):
     """plain [n_rows, n_loc] or None (zeros), sub_raw [n_hn, n_loc];
     cell_code [n_rows], seg_ptr [n_seg+1], seg_dst [n_seg], ent_src, blocks
     [n_blocks+1, 2] int32 (``schedule``); keep [n_hn, n_loc] bool -> new
-    dcols [n_rows, n_loc]."""
+    dcols [n_rows, n_loc]. A component axis: plain [3, n_rows, n_loc],
+    sub_raw [3, n_hn, n_loc] -> dcols [3, n_rows, n_loc]."""
     args = (plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks)
     if sub_raw.device.type == "cpu":
         return corr_compact_plain(*args)
     dev = _build.check_cuda(NAME, sub_raw.dtype, **{k: t for k, t in zip(
         ("plain", "sub_raw", "cell_code", "keep", "seg_ptr", "seg_dst", "ent_src", "blocks"),
         args) if t is not None})
-    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
+    k = sub_raw.shape[0] if sub_raw.dim() == 3 else 1
+    lead = (k,) if sub_raw.dim() == 3 else ()
+    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[-1]
     p = round(n_loc ** (1.0 / 3.0)) - 1
     if any(t.dtype != torch.int32 for t in (cell_code, seg_ptr, seg_dst, ent_src, blocks)):
         raise TypeError(f"{NAME}: cell_code, seg_ptr, seg_dst, ent_src and blocks must be int32")
-    if (keep.dtype != torch.bool or keep.shape != sub_raw.shape
-            or (plain is not None and plain.shape != (n_rows, n_loc))
+    if (keep.dtype != torch.bool or lead + tuple(keep.shape) != sub_raw.shape
+            or k not in (1, 3) or (plain is not None and plain.shape != lead + (n_rows, n_loc))
             or (p + 1) ** 3 != n_loc or cell_code.dim() != 1
             or seg_ptr.shape != (seg_dst.numel() + 1,) or ent_src.dim() != 1
             or blocks.dim() != 2 or blocks.shape[1] != 2 or n_rows * n_loc > 2**31 - 1):
@@ -119,11 +133,12 @@ def corr_compact(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blo
                          f"{None if plain is None else tuple(plain.shape)}, sub_raw "
                          f"{tuple(sub_raw.shape)}, seg_ptr {tuple(seg_ptr.shape)}, blocks "
                          f"{tuple(blocks.shape)}")
-    out = torch.empty((n_rows, n_loc), dtype=sub_raw.dtype, device=sub_raw.device)
+    out = torch.empty(lead + (n_rows, n_loc), dtype=sub_raw.dtype, device=sub_raw.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(sub_raw.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, *(None if t is None else _build.ptr(t) for t in args),
                   _build.ptr(out),
-                  blocks.shape[0] - 1, block_rows(n_loc), n_loc, p)
+                  blocks.shape[0] - 1, block_rows(n_loc), n_loc, p, k, n_rows * n_loc,
+                  keep.numel())
     corr_compact.launches += 1
     return out
 
@@ -132,15 +147,17 @@ corr_compact.launches = 0
 
 
 def bytes_and_flops(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks):
-    """Least traffic (the kernel's arguments): sub_raw read once, plain read
+    """Least traffic (the kernel's arguments, each component of a component
+    axis for the rows): sub_raw read once, plain read
     at the constrained and absent rows only (not at all where it is None),
     dcols written once, cell_code, the keep mask (one bit a slot), the runs
     and the schedule read once; an add per entry and two operations per
     constrained slot."""
-    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[1]
-    n_read_plain = 0 if plain is None else int((cell_code != -1).sum()) * n_loc
+    k = sub_raw.shape[0] if sub_raw.dim() == 3 else 1
+    n_rows, n_loc = cell_code.shape[0], sub_raw.shape[-1]
+    n_read_plain = 0 if plain is None else k * int((cell_code != -1).sum()) * n_loc
     n_ent = ent_src.numel()
-    nbytes = ((sub_raw.numel() + n_read_plain + n_rows * n_loc) * sub_raw.element_size()
+    nbytes = ((sub_raw.numel() + n_read_plain + k * n_rows * n_loc) * sub_raw.element_size()
               + (keep.numel() + 7) // 8
               + 4 * (n_rows + seg_ptr.numel() + seg_dst.numel() + n_ent + blocks.numel()))
-    return nbytes, n_ent + 2 * sub_raw.numel()
+    return nbytes, k * n_ent + 2 * sub_raw.numel()

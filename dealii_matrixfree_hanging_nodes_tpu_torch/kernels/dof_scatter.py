@@ -9,9 +9,16 @@ A DoF that no cell row names (a hanging DoF under the fast map, whose slots
 hold coarse masters) gets 0, so the kernel writes every DoF and needs no
 memset; one owner per DoF sums in a fixed order, so there are no atomics.
 
+With a component axis (rows [3, n_cells, n_loc], component-major, as
+``cell_elasticity`` writes them) dst is [n_dofs, 3], DoF-major: each
+component summed as a scalar call on rows[c] would sum it, written beside
+the others, so the transpose back to the reference's displacement layout
+rides the scatter.
+
 Replaces the reference's ``distribute_local_to_global(_plain)``
-(matrix_free.py:281-297: ``zeros.at[dofmap].add(rows)``).
-CUDA source: ``csrc/dof_scatter.cu``."""
+(matrix_free.py:281-297: ``zeros.at[dofmap].add(rows)``), with a component
+axis the three of elasticity's ``_vmult`` and their stack
+(models/elasticity.py:92-98). CUDA source: ``csrc/dof_scatter.cu``."""
 
 from __future__ import annotations
 
@@ -39,31 +46,37 @@ def transpose_map(dofmap: np.ndarray, n_dofs: int):
 
 
 def dof_scatter_plain(rows, ptr, ent):
-    """Plain PyTorch version: each entry's row value added at its DoF."""
+    """Plain PyTorch version: each entry's row value added at its DoF (a
+    component axis: each component so, stacked on the last axis)."""
+    if rows.dim() == 3:
+        return torch.stack([dof_scatter_plain(r, ptr, ent) for r in rows], dim=1)
     n = ptr.numel() - 1
     dof = torch.repeat_interleave(torch.arange(n, device=rows.device), (ptr[1:] - ptr[:-1]).long())
     return torch.zeros(n, dtype=rows.dtype, device=rows.device).index_add_(
         0, dof, rows.reshape(-1)[ent.long()])
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def dof_scatter(rows, ptr, ent):
-    """rows [n_cells, n_loc]; ptr [n_dofs+1], ent int32 -> new [n_dofs]."""
+    """rows [n_cells, n_loc] or [3, n_cells, n_loc]; ptr [n_dofs+1], ent
+    int32 -> new [n_dofs] or [n_dofs, 3]."""
     if rows.device.type == "cpu":
         return dof_scatter_plain(rows, ptr, ent)
     dev = _build.check_cuda(NAME, rows.dtype, rows=rows, ptr=ptr, ent=ent)
     if ptr.dtype != torch.int32 or ent.dtype != torch.int32:
         raise TypeError(f"{NAME}: ptr and ent must be int32")
-    if ptr.dim() != 1 or ent.dim() != 1 or rows.numel() >= 2**31:
+    k = rows.shape[0] if rows.dim() == 3 else 1
+    if (ptr.dim() != 1 or ent.dim() != 1 or rows.numel() // k >= 2**31
+            or rows.dim() not in (2, 3) or k not in (1, 3)):
         raise ValueError(f"{NAME}: shapes rows {tuple(rows.shape)}, ptr {tuple(ptr.shape)}, "
                          f"ent {tuple(ent.shape)}")
     n = ptr.numel() - 1
-    dst = torch.empty(n, dtype=rows.dtype, device=rows.device)
+    dst = torch.empty((n, k) if rows.dim() == 3 else (n,), dtype=rows.dtype, device=rows.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(rows.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(rows), _build.ptr(ptr), _build.ptr(ent),
-                  _build.ptr(dst), n)
+                  _build.ptr(dst), n, k, rows.numel() // k)
     dof_scatter.launches += 1
     return dst
 
@@ -72,11 +85,12 @@ dof_scatter.launches = 0
 
 
 def bytes_and_flops(rows, ptr, ent):
-    """Least traffic of the function (distribute_local_to_global): the rows
-    read once, one int32 DoF index per (cell, slot) entry read once (the DoF
-    map's size, what ``index_add_`` reads), dst written once. ptr is left out:
-    it exists only because of the transposed layout this kernel chose. An add
-    per entry."""
+    """Least traffic of the function (distribute_local_to_global, for each
+    component of a component axis): the rows read once, one int32 DoF index
+    per (cell, slot) entry read once (the DoF map's size, what ``index_add_``
+    reads), dst written once. ptr is left out: it exists only because of the
+    transposed layout this kernel chose. An add per entry and component."""
     n = ptr.numel() - 1
-    nbytes = (rows.numel() + n) * rows.element_size() + 4 * ent.numel()
-    return nbytes, ent.numel()
+    k = rows.shape[0] if rows.dim() == 3 else 1
+    nbytes = (rows.numel() + k * n) * rows.element_size() + 4 * ent.numel()
+    return nbytes, k * ent.numel()

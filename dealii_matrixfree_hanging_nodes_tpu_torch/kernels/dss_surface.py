@@ -15,7 +15,11 @@ set where the corner sits at NB-1 on axis d). The work lists
 those blocks (face b*6+f, edge b*12+e, corner b*8+c) in pool-canonical
 order, padded with -1; the validity of each surface copy is one bit per
 surface position, the invalid nodes off the surface one bit per brick node
-of each hole brick (padding is zeroed without a table)."""
+of each hole brick (padding is zeroed without a table).
+
+With a component axis (elasticity: v [3, nb, N3p]) each component goes
+through the same tables in one launch, bit-identical to a scalar call on
+v[c] (the reference's ``_dss_surface_multi``, bricks.py:3303)."""
 
 from __future__ import annotations
 
@@ -89,7 +93,13 @@ def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_
     """Plain PyTorch version on the same work lists: gather each pool's
     copies, sum them in canonical order, write the sum to the valid copies
     and 0 to the invalid ones, then zero the padding and the holes off the
-    surface. Updates v in place and returns it."""
+    surface. Updates v in place and returns it (a component axis: each
+    component so)."""
+    if v.dim() == 3:
+        for vc in v:
+            dss_surface_plain(vc, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks,
+                              hole_bits, NB)
+        return v
     flat = v.view(-1)
     writes = []
     for pools, kind in zip((face_pairs, edge_pools, corner_pools), POOL_KINDS):
@@ -114,22 +124,25 @@ def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
           ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
          + [ctypes.c_void_p])
 
 
 def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks, hole_bits,
                 NB):
-    """v [nb, N3p], updated in place and returned; face_pairs [*, 2],
-    edge_pools [*, <= 8], corner_pools [*, <= 8], valid_bits [nb, *],
-    hole_bricks [h], hole_bits [h, *], all int32."""
+    """v [nb, N3p] or [3, nb, N3p], updated in place and returned;
+    face_pairs [*, 2], edge_pools [*, <= 8], corner_pools [*, <= 8],
+    valid_bits [nb, *], hole_bricks [h], hole_bits [h, *], all int32."""
     if v.device.type == "cpu":
         return dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits,
                                  hole_bricks, hole_bits, NB)
     tables = dict(face_pairs=face_pairs, edge_pools=edge_pools, corner_pools=corner_pools,
                   valid_bits=valid_bits, hole_bricks=hole_bricks, hole_bits=hole_bits)
     dev = _build.check_cuda(NAME, v.dtype, v=v, **tables)
-    nb, N3p = v.shape
+    k = v.shape[0] if v.dim() == 3 else 1
+    if v.dim() not in (2, 3) or k not in (1, 3):
+        raise ValueError(f"{NAME}: v must be [nb, N3p] or [3, nb, N3p], got {tuple(v.shape)}")
+    nb, N3p = v.shape[-2:]
     M, N3 = NB - 2, NB**3
     for key, t in tables.items():
         dims = 1 if key == "hole_bricks" else 2
@@ -149,7 +162,7 @@ def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks
                   _build.ptr(edge_pools), edge_pools.shape[0], edge_pools.shape[1],
                   _build.ptr(corner_pools), corner_pools.shape[0], corner_pools.shape[1],
                   _build.ptr(valid_bits), valid_bits.shape[1], _build.ptr(hole_bricks),
-                  _build.ptr(hole_bits), hole_bits.shape[0], hole_bits.shape[1], nb, NB, N3p)
+                  _build.ptr(hole_bits), hole_bits.shape[0], hole_bits.shape[1], nb, NB, N3p, k)
     dss_surface.launches += 1
     return v
 
@@ -198,13 +211,15 @@ def bytes_and_flops(v, *tables):
     and the work lists and bit tables at the encoding the kernel reads
     (validity one bit per surface copy, holes one bit per node of a hole
     brick). One add per extra copy of each pool node, counted from the
-    lists. ``tables``: dss_surface's arguments after v."""
-    (read, _), (written, _) = moved_nodes(v, *tables)
+    lists. ``tables``: dss_surface's arguments after v. A component axis
+    moves each component's nodes and reads the tables once."""
+    k = v.shape[0] if v.dim() == 3 else 1
+    (read, _), (written, _) = moved_nodes(v[0] if v.dim() == 3 else v, *tables)
     face_pairs, edge_pools, corner_pools, NB = tables[0], tables[1], tables[2], tables[-1]
-    nbytes = (read.numel() + written.numel()) * v.element_size() + _table_bytes(tables)
+    nbytes = k * (read.numel() + written.numel()) * v.element_size() + _table_bytes(tables)
     extra = lambda t: int(((t >= 0).sum(dim=1) - 1).sum())
     flops = extra(face_pairs) * (NB - 2) ** 2 + extra(edge_pools) * (NB - 2) + extra(corner_pools)
-    return nbytes, flops
+    return nbytes, k * flops
 
 
 def sector_bytes(v, *tables, apart=False):

@@ -10,6 +10,12 @@ from the subset bricks u_sub [n_sub, N3p] to HN^T. Row h is cell hn_sub[h]:
 4. Q^T: out = own @ Q_h^T.
 
 ``mode="fill"`` stops after step 2 and returns u_hat (refill's input).
+``mode="elastic"`` takes component brick vectors u_sub [3, m, N3p] and
+runs each component through steps 1 and 2, then linear elasticity's coupled
+operator times scale[h] (``cell_elasticity``'s, on every axis; ``elastic``
+= (S, Dc, quad_w, mu, lam)) in place of step 3, then step 4: out [3, n_hn,
+n_loc], component-major (the reference's ``_fill_rows`` -> ``el_Kel`` ->
+``_hn_apply(transpose=True)``, models/elasticity_bricks.py:241-248).
 
 Replaces the reference's ``_fill_rows`` (bricks.py:2687-2694: the compact
 fill chain ``_fill_hn_compact``, 2728-2773, fed by ``_extract_cols``, then
@@ -30,10 +36,11 @@ import torch
 
 from . import _build
 from .cell_apply import cell_apply_plain, cell_degree, cell_nodes
+from .cell_elasticity import elastic_rows
 
 NAME = "hn_cell"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687"
-MODES = ("full", "fill")
+MODES = ("full", "fill")  # the Laplace rows' modes; "elastic" takes component bricks
 
 
 def gather_sums(src_flat, row_ptr, ent_slot, ent_src, n_loc):
@@ -78,10 +85,18 @@ def hn_apply_plain(rows, q, ptr, col, w):
 
 
 def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
-                  bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full"):
+                  bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *,
+                  elastic=None):
     """Plain PyTorch version: the four steps one after another, each
     through device memory (K1, M1 and scale are not read in the fill
-    mode)."""
+    mode, K1 and M1 not in the elastic mode)."""
+    if _mode(mode) == "elastic":
+        S, Dc, quad_w, mu, lam = elastic
+        u_hat = torch.stack([hn_apply_plain(fill_hn_plain(
+            u, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size), q, fwd_ptr, fwd_col, fwd_w)
+            for u in u_sub])
+        own = elastic_rows(u_hat, S, Dc, quad_w, scale[:, None].expand(-1, 3), mu, lam)
+        return torch.stack([hn_apply_plain(r, q, bwd_ptr, bwd_col, bwd_w) for r in own])
     filled = fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size)
     u_hat = hn_apply_plain(filled, q, fwd_ptr, fwd_col, fwd_w)
     if _mode(mode) == "fill":
@@ -91,47 +106,47 @@ def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, f
 
 
 def _mode(mode):
-    if mode not in MODES:
-        raise ValueError(f"{NAME}: mode must be one of {MODES}, got {mode!r}")
+    if mode not in MODES + ("elastic",):
+        raise ValueError(f"{NAME}: mode must be one of {MODES + ('elastic',)}, got {mode!r}")
     return mode
 
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ELASTIC_ARGS = ([ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong,
+                  ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
 
 def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
-            bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full"):
-    """u_sub [n_sub, N3p]; hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot,
-    ent_src, the Q lists' ptr [nQ, n_loc+1] and col int32; keep [n_hn,
-    n_loc] bool; w and scale [n_hn] of u_sub's dtype -> new [n_hn, n_loc]
-    tensor. The kernel takes K1 and M1 by value, as launch parameters: on
-    the kernel path they must be CPU tensors (``op.factors_host``). In the
-    fill mode K1, M1 and scale may be None."""
+            bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *, elastic=None):
+    """u_sub [n_sub, N3p] ([3, m, N3p] in the elastic mode, m >= n_sub);
+    hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot, ent_src, the Q lists' ptr
+    [nQ, n_loc+1] and col int32; keep [n_hn, n_loc] bool; w and scale [n_hn]
+    of u_sub's dtype -> new [n_hn, n_loc] tensor ([3, n_hn, n_loc] in the
+    elastic mode). The kernel takes K1 and M1 by value, as launch
+    parameters: on the kernel path they must be CPU tensors
+    (``op.factors_host``). In the fill mode K1, M1 and scale may be None,
+    in the elastic mode K1 and M1; elastic = (S, Dc, quad_w, mu, lam), S,
+    Dc and quad_w on u_sub's device."""
     args = (u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
             bwd_ptr, bwd_col, bwd_w)
     fill = _mode(mode) == "fill"
     if u_sub.device.type == "cpu":
-        return hn_cell_plain(*args, K1, M1, scale, brick_size, mode)
+        return hn_cell_plain(*args, K1, M1, scale, brick_size, mode, elastic=elastic)
     names = ("u_sub", "hn_sub", "keep", "row_ptr", "ent_slot", "ent_src", "q", "fwd_ptr",
              "fwd_col", "fwd_w", "bwd_ptr", "bwd_col", "bwd_w")
     tensors = dict(zip(names, args))
     if not fill:
         tensors["scale"] = scale
+    if mode == "elastic":
+        tensors.update(zip(("S", "Dc", "quad_w"), elastic[:3]))
     dev = _build.check_cuda(NAME, u_sub.dtype, **tensors)
     n_hn, n_loc = keep.shape
     B, p = int(brick_size), round(n_loc ** (1.0 / 3.0)) - 1
-    if any(t.dtype != torch.int32 for t in (hn_sub, row_ptr, ent_slot, ent_src, q, fwd_ptr,
-                                            fwd_col, bwd_ptr, bwd_col)):
-        raise TypeError(f"{NAME}: the index tables must be int32")
-    if (keep.dtype != torch.bool or (p + 1) ** 3 != n_loc or hn_sub.shape != (n_hn,)
-            or q.shape != (n_hn,) or row_ptr.shape != (n_hn + 1,)
-            or ent_slot.shape != ent_src.shape or u_sub.dim() != 2
-            or u_sub.shape[1] < (B * p + 1) ** 3
-            or any(ptr.dim() != 2 or ptr.shape[1] != n_loc + 1 or col.shape != w.shape
-                   for ptr, col, w in ((fwd_ptr, fwd_col, fwd_w), (bwd_ptr, bwd_col, bwd_w)))):
-        raise ValueError(f"{NAME}: shapes u_sub {tuple(u_sub.shape)}, keep "
-                         f"{tuple(keep.shape)}, row_ptr {tuple(row_ptr.shape)}, Q lists "
-                         f"{tuple(fwd_ptr.shape)} / {tuple(bwd_ptr.shape)}")
+    _check_tables(args, n_hn, n_loc, p)
+    if mode == "elastic":
+        return _elastic(args, scale, elastic, n_hn, p, B, dev)
+    if u_sub.dim() != 2 or u_sub.shape[1] < (B * p + 1) ** 3:
+        raise ValueError(f"{NAME}: u_sub must be [n_sub, >= NB^3], got {tuple(u_sub.shape)}")
     if fill:
         factors = (None, None)
     else:
@@ -154,29 +169,84 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
 hn_cell.launches = 0
 
 
+def _check_tables(args, n_hn, n_loc, p):
+    """The types and shapes of the tables after u_sub."""
+    (_, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w, bwd_ptr,
+     bwd_col, bwd_w) = args
+    if any(t.dtype != torch.int32 for t in (hn_sub, row_ptr, ent_slot, ent_src, q, fwd_ptr,
+                                            fwd_col, bwd_ptr, bwd_col)):
+        raise TypeError(f"{NAME}: the index tables must be int32")
+    if (keep.dtype != torch.bool or (p + 1) ** 3 != n_loc or hn_sub.shape != (n_hn,)
+            or q.shape != (n_hn,) or row_ptr.shape != (n_hn + 1,)
+            or ent_slot.shape != ent_src.shape
+            or any(ptr.dim() != 2 or ptr.shape[1] != n_loc + 1 or col.shape != w.shape
+                   for ptr, col, w in ((fwd_ptr, fwd_col, fwd_w), (bwd_ptr, bwd_col, bwd_w)))):
+        raise ValueError(f"{NAME}: shapes keep {tuple(keep.shape)}, row_ptr "
+                         f"{tuple(row_ptr.shape)}, Q lists {tuple(fwd_ptr.shape)} / "
+                         f"{tuple(bwd_ptr.shape)}")
+
+
+def _elastic(args, scale, elastic, n_hn, p, B, dev):
+    """The elastic mode's launch."""
+    u_sub = args[0]
+    S, Dc, quad_w, mu, lam = elastic
+    n, n_loc = p + 1, (p + 1) ** 3
+    if (u_sub.dim() != 3 or u_sub.shape[0] != 3 or u_sub.shape[2] < (B * p + 1) ** 3
+            or scale.shape != (n_hn,) or S.shape != (n, n) or Dc.shape != (n, n)
+            or quad_w.shape != (n_loc,)):
+        raise ValueError(f"{NAME}: elastic mode shapes u_sub {tuple(u_sub.shape)}, scale "
+                         f"{tuple(scale.shape)}, S {tuple(S.shape)}")
+    out = torch.empty((3, n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
+    if n_hn == 0:
+        return out
+    ptrs = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in (*args, scale, S, Dc, quad_w)))
+    fn = _build.function(NAME, f"{NAME}_elastic_{_build.suffix(u_sub.dtype)}", _ELASTIC_ARGS)
+    _build.launch(NAME, fn, dev, ptrs, float(mu), float(lam), u_sub.shape[1] * u_sub.shape[2],
+                  _build.ptr(out), n_hn, p, B, u_sub.shape[2], None)
+    hn_cell.launches += 1
+    return out
+
+
+def elastic_plan(dtype, p, B, device=None):
+    """(threads, shared-memory bytes, blocks per SM) of an elastic-mode
+    launch at degree p, brick size B; launches nothing."""
+    info = (ctypes.c_int * 3)()
+    dev = torch.device("cuda") if device is None else device
+    fn = _build.function(NAME, f"{NAME}_elastic_{_build.suffix(dtype)}", _ELASTIC_ARGS)
+    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 17)(), 1.0, 1.0, 0, None, 1, p, B, 0, info)
+    return tuple(info)
+
+
 def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col,
                     fwd_w, bwd_ptr, bwd_col, bwd_w, brick_size, mode="full"):
     """Least traffic: each distinct brick node the rows read (kept own nodes
     and entry sources) read once, out written once, the keep mask at one
     bit a slot, hn_sub, q, the fill lists and the Q lists read once, and in
-    the full mode scale, K1 and M1. Operations: an add per fill entry, a
-    multiply and an add per nonzero of each row's Q (and of Q^T), and in the
-    full mode the 7 sweeps of 2 n^4 and the scale a row."""
+    the full mode scale, K1 and M1 (the elastic mode: three components of
+    the nodes and of out, scale, S, Dc and the weights). Operations: an add
+    per fill entry, a multiply and an add per nonzero of each row's Q (and
+    of Q^T), and in the full mode the 7 sweeps of 2 n^4 and the scale a row
+    (the elastic mode: each of these a component, and the coupled
+    operator's 36 sweeps of 2 n^4 and ~40 operations a point a row)."""
     n_hn, n_loc = keep.shape
     n = round(n_loc ** (1.0 / 3.0))
+    k = 3 if _mode(mode) == "elastic" else 1
     isz = u_sub.element_size()
-    own = cell_nodes(hn_sub, brick_size, n - 1, u_sub.shape[1], u_sub.device)[keep]
+    own = cell_nodes(hn_sub, brick_size, n - 1, u_sub.shape[-1], u_sub.device)[keep]
     n_read = torch.unique(torch.cat([own, ent_src.long()])).numel()
     n_ent = ent_src.numel()
-    lists = [(fwd_ptr, fwd_col)] + ([(bwd_ptr, bwd_col)] if _mode(mode) == "full" else [])
-    nbytes = ((n_read + n_hn * n_loc) * isz + (keep.numel() + 7) // 8
+    lists = [(fwd_ptr, fwd_col)] + ([(bwd_ptr, bwd_col)] if mode != "fill" else [])
+    nbytes = (k * (n_read + n_hn * n_loc) * isz + (keep.numel() + 7) // 8
               + 4 * (2 * n_hn + row_ptr.numel() + ent_slot.numel() + n_ent)
               + sum(4 * ptr.numel() + (4 + isz) * col.numel() for ptr, col in lists))
-    flops = n_ent
+    flops = k * n_ent
     for ptr, _ in lists if fwd_ptr.shape[0] else []:
         nnz = ptr[:, -1] - ptr[:, 0]
-        flops += 2 * int(torch.where(q >= 0, nnz[q.long().clamp(min=0)], 0).sum())
+        flops += 2 * k * int(torch.where(q >= 0, nnz[q.long().clamp(min=0)], 0).sum())
     if mode == "full":
         nbytes += (n_hn + 2 * n * n) * isz
         flops += n_hn * (7 * 2 * n**4 + n**3)
+    elif mode == "elastic":
+        nbytes += (n_hn + 2 * n * n + n_loc) * isz
+        flops += n_hn * (3 * 12 * 2 * n**4 + 40 * n_loc)
     return nbytes, flops

@@ -33,6 +33,10 @@ def test_port_imports_no_jax():
         "import dealii_matrixfree_hanging_nodes_tpu_torch.convert\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.oracle\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.models.multigrid_bricks\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.models.elasticity\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.models.elasticity_bricks\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_elasticity\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.kernels.brick_elasticity\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.utils.analytic\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -55,7 +59,8 @@ def test_default_device_is_cuda():
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     mf = mt.MatrixFree(mt.create_quadrant(3, 2), 4)
-    for op in (mt.BrickLaplaceMM, mt.LaplaceOperator, mt.DirichletLaplace):
+    for op in (mt.BrickLaplaceMM, mt.LaplaceOperator, mt.DirichletLaplace,
+               mt.ElasticityOperator, mt.BrickElasticity):
         if torch.cuda.is_available():
             assert op(mf).device.type == "cuda"
         else:
@@ -101,6 +106,17 @@ def test_unported_branches_raise():
     mf2 = mt.MatrixFree(mt.create_quadrant(2, 2), 2)
     with pytest.raises(NotImplementedError):
         mt.DirichletLaplace(mf2, device="cpu")
+    # elasticity on both engines: the deformed mapping, non-cube cells and dim=2 raise
+    for elastic in (mt.ElasticityOperator, mt.BrickElasticity):
+        with pytest.raises(NotImplementedError):
+            elastic(mt.MatrixFree(mt.create_quadrant(3, 2), 2, high_order_mapping=True),
+                    device="cpu")
+        with pytest.raises(NotImplementedError):
+            elastic(mf2, device="cpu")
+        stretched = mt.MatrixFree(mt.create_quadrant(3, 1), 2)
+        stretched._np["geo"][:, 0] *= 2.0  # cells twice as long along one axis
+        with pytest.raises(NotImplementedError):
+            elastic(stretched, device="cpu")
     with pytest.raises(NotImplementedError):
         mt.Transfer(mt.MatrixFree(mt.create_quadrant(2, 1), 2), mf2, device="cpu")
 
@@ -142,13 +158,17 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
 
     for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh",
-                 "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh"):
+                 "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh",
+                 "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer")
+    names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer",
+             "cell_elasticity", "brick_elasticity")
     before = {n: _build.library_path(n) for n in names}
     assert [p.name for p in _build._sources(tmp_path / "hn_cell.cu", [])] == [
-        "hn_cell.cu", "sum_factorization.cuh"]
+        "hn_cell.cu", "elasticity.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
+    assert [p.name for p in _build._sources(tmp_path / "cell_elasticity.cu", [])] == [
+        "cell_elasticity.cu", "elasticity.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
     assert [p.name for p in _build._sources(tmp_path / "cell_transfer.cu", [])] == [
         "cell_transfer.cu", "transfer.cuh", "hanging_nodes.cuh"]
     header = tmp_path / "sum_factorization.cuh"
@@ -165,6 +185,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert final["cell_transfer"] != after["cell_transfer"]
     assert final["brick_transfer"] != after["brick_transfer"]
     assert all(final[n] == after[n] for n in ("cell_apply", "hn_cell", "brick_apply"))
+    # elasticity's cell operator: an edit rebuilds the two kernels that include it, and
+    # neither the brick operator nor the Laplace kernels
+    header = tmp_path / "elasticity.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    last = {n: _build.library_path(n) for n in names}
+    assert last["cell_elasticity"] != final["cell_elasticity"]
+    assert last["hn_cell"] != final["hn_cell"]
+    assert all(last[n] == final[n] for n in ("cell_apply", "brick_apply", "cell_transfer",
+                                             "brick_transfer", "brick_elasticity"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -490,6 +519,115 @@ def test_index_vmult_on_card_matches_oracle(cuda, p, nref):
     for slow in (False, True):
         got = LaplaceOperator(mf, slow=slow, device=cuda).vmult(u).cpu().numpy()
         assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+# ---- elasticity on the card ----------------------------------------------------
+ELASTIC_NREF = {1: 4, 2: 3, 3: 3, 4: 2, 5: 2, 6: 2}  # quadrant meshes with constrained rows
+
+
+def _elastic_pairs(mf, dev, dtype, seed):
+    """(kernel output, plain output) pairs of elasticity on both engines:
+    cell_elasticity in both modes, hn_cell's elastic mode, corr_compact and
+    dss_surface on their component axis, brick_elasticity with and without
+    cell rows, dof_scatter on its component axis, and each operator's
+    vmult (and vmult_plain, vmult without constraints)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_elasticity, cell_elasticity, corr_compact, dof_scatter, dss_surface,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    op = mt.BrickElasticity(mf, 1.3, 0.7, device=dev, dtype=dtype)
+    mm = op.mm
+    bv = torch.randn(3, mm.n_bricks, mm.N3p, generator=g, device=dev, dtype=dtype)
+    rows = torch.randn(3, mm.n_sub * mm.C, mm.n_loc, generator=g, device=dev, dtype=dtype)
+    hn = torch.randn(3, mm.n_hn, mm.n_loc, generator=g, device=dev, dtype=dtype)
+    pairs = [(op.cell_rows(bv), op.cell_rows(bv, plain=True)),
+             (op.hn_rows(bv), op.hn_rows(bv, plain=True)),
+             (corr_compact.corr_compact(rows, hn, *mm.corr_tables()),
+              corr_compact.corr_compact_plain(rows, hn, *mm.corr_tables())),
+             (dss_surface.dss_surface(bv.clone(), *mm.dss_tables()),
+              dss_surface.dss_surface_plain(bv.clone(), *mm.dss_tables())),
+             (op.vmult(bv), op.vmult(bv, plain=True)),
+             (op.vmult_plain(bv), op.vmult_plain(bv, plain=True))]
+    dense = dict(K=op.Kb, M=op.Mb, G=op.Gb)
+    m = (mm.n_bricks + 1) // 2
+    cols = torch.randn(3, m * mm.C, mm.n_loc, generator=g, device=dev, dtype=dtype)
+    for extra in ({}, {"dcols": cols, "brick_size": mm.B}):
+        pairs.append((brick_elasticity.brick_elasticity(bv, op.packed_host, mm.geo, mm.p, 1.3,
+                                                        0.7, **extra),
+                      brick_elasticity.brick_elasticity_plain(bv, dense, mm.geo, mm.p, 1.3,
+                                                              0.7, **extra)))
+    x = torch.randn(mf.n_dofs, 3, generator=g, device=dev, dtype=dtype)
+    for cons in (True, False):
+        opi = mt.ElasticityOperator(mf, 1.3, 0.7, constraints=cons, device=dev)
+        pairs.append((opi.vmult(x.to(opi.dtype)), opi.vmult(x.to(opi.dtype), plain=True)))
+    args = mf.cell_laplace_args(dev, dtype)
+    pairs.append((cell_elasticity.cell_elasticity(x, *args, 1.3, 0.7),
+                  cell_elasticity.cell_elasticity_plain(x, *args, 1.3, 0.7)))
+    cells = torch.randn(3, mf.n_cells, mm.n_loc, generator=g, device=dev, dtype=dtype)
+    t = mf.scatter_tables(False, dev)
+    pairs.append((dof_scatter.dof_scatter(cells, *t), dof_scatter.dof_scatter_plain(cells, *t)))
+    return op, bv, cells, rows, hn, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6])
+def test_elasticity_kernels_on_card(cuda, p, dtype):
+    """Elasticity's kernels and the component axis against their plain
+    versions at degrees 1..6 (f32 1e-5, f64 1e-12); each component of a
+    component-axis call bit-identical to a scalar call on it; two vmults
+    of each engine bit-identical."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        corr_compact, dof_scatter, dss_surface,
+    )
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    mf = mt.MatrixFree(mt.create_quadrant(3, ELASTIC_NREF[p]), p,
+                       dtype=np.float32 if dtype == torch.float32 else np.float64)
+    op, bv, cells, rows, hn, pairs = _elastic_pairs(mf, cuda, dtype, seed=p)
+    mm = op.mm
+    assert mm.n_hn > 0 and mm.n_sub > 0
+    torch.cuda.synchronize()
+    for k, (got, ref) in enumerate(pairs):
+        assert got.shape == ref.shape and _rel(got, ref) < tol, k
+    t = mf.scatter_tables(False, cuda)
+    three = dof_scatter.dof_scatter(cells, *t)
+    dcols = corr_compact.corr_compact(rows, hn, *mm.corr_tables())
+    v = dss_surface.dss_surface(bv.clone(), *mm.dss_tables())
+    for c in range(3):
+        assert torch.equal(three[:, c], dof_scatter.dof_scatter(cells[c].contiguous(), *t))
+        assert torch.equal(dcols[c], corr_compact.corr_compact(
+            rows[c].contiguous(), hn[c].contiguous(), *mm.corr_tables()))
+        assert torch.equal(v[c], dss_surface.dss_surface(bv[c].clone(), *mm.dss_tables()))
+    assert torch.equal(op.vmult(bv), op.vmult(bv))
+    opi = mt.ElasticityOperator(mf, 1.3, 0.7, device=cuda)
+    x = torch.randn(mf.n_dofs, 3, device=cuda, dtype=dtype)
+    assert torch.equal(opi.vmult(x), opi.vmult(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo,nref,p", [("quadrant", 2, 2), ("quadrant", 3, 3), ("step", 2, 1),
+                                        ("quadrant", 2, 4)])
+def test_elasticity_on_card_matches_oracle(cuda, geo, nref, p):
+    """float64 through the kernels on both engines against the dense
+    assembled oracle (1e-12), mu=1.3, lam=0.7."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle
+
+    tria = mt.create_geometry(geo, 3, nref)
+    mf = mt.MatrixFree(tria, p)
+    u = np.random.default_rng(0).standard_normal((mf.n_dofs, 3))
+    for c in range(3):
+        u[:, c] = mf.constraints.distribute(u[:, c])
+    ref = elasticity_oracle(tria, p, 1.3, 0.7, u)
+    got = mt.ElasticityOperator(mf, 1.3, 0.7, device=cuda).vmult(u).cpu().numpy()
+    assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+    op = mt.BrickElasticity(mf, 1.3, 0.7, device=cuda)
+    got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+    assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
 
 
 # ---- the GMG transfers and solves on the card ------------------------------------

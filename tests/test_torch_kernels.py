@@ -15,10 +15,14 @@ import jax.numpy as jnp  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     KERNEL_MODULES,
     brick_apply,
+    brick_elasticity,
     brick_transfer,
     cell_apply,
+    cell_elasticity,
     cell_transfer,
+    corr_compact,
     dof_embed,
+    dof_scatter,
     dss_surface,
     hn_cell,
 )
@@ -228,7 +232,21 @@ CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + 
     pytest.param(hn_cell, True, id="hn_cell-fill"),
     pytest.param(brick_transfer, True, id="brick_transfer-restrict"),
     pytest.param(dof_embed, True, id="dof_embed-embed_t"),
-    pytest.param(cell_transfer, True, id="cell_transfer-restrict")]
+    pytest.param(cell_transfer, True, id="cell_transfer-restrict"),
+    pytest.param(hn_cell, "elastic", id="hn_cell-elastic"),
+    pytest.param(cell_elasticity, True, id="cell_elasticity-bricks"),
+    pytest.param(brick_elasticity, True, id="brick_elasticity-dcols"),
+    pytest.param(dof_scatter, "components", id="dof_scatter-components"),
+    pytest.param(corr_compact, "components", id="corr_compact-components"),
+    pytest.param(dss_surface, "components", id="dss_surface-components")]
+
+
+@functools.lru_cache(maxsize=None)
+def elastic_op(geo, nref, p):
+    """The port's BrickElasticity on the case's mesh, float64 on the CPU."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    return mt.BrickElasticity(port(geo, nref, p)[1], 1.3, 0.7, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,7 +268,10 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     subset's cell rows, hn_cell also in its fill mode; the kernels of the
     degree <= 3 schedule on a p=2 operator with face planes; the index
     engine's on the same mesh's MatrixFree; the GMG kernels in both modes
-    between the mesh with one refinement fewer and this one)."""
+    between the mesh with one refinement fewer and this one; hn_cell's
+    elastic mode, cell_elasticity in both modes, brick_elasticity with and
+    without cell rows, and dof_scatter, corr_compact and dss_surface on
+    their component axis, at the case's elasticity operator)."""
     low = mod.NAME in ("masked_quad", "plane_fill", "plane_fold")
     geo, nref, p = LOW_CASES[1] if low else CASES[0]
     op = port(geo, nref, p)[2]
@@ -265,14 +286,24 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     dofs = lambda seed: T(rng_array(seed, mf.n_dofs))
     bt, tr = gmg_transfers(geo, nref, p)
     mf_rows = lambda seed: T(rng_array(seed, mf.n_cells, op.n_loc))
+    el = elastic_op(geo, nref, p)
+    comp = variant == "components"
+    lead = (3,) if comp else ()
     args, kw = {
         "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
                                 {"dcols": cells(13), "brick_size": op.B} if variant else {}),
         "cell_apply": lambda: ((sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
-        "dss_surface": lambda: ((bricks(15), *op.dss_tables()), {}),
-        "hn_cell": lambda: ((sub(17), *op.hn_tables(), *op.factors_host, op.geo_hn, op.B),
-                            {"mode": "fill" if variant else "full"}),
-        "corr_compact": lambda: ((cells(18), hn_rows(19), *op.corr_tables()), {}),
+        "dss_surface": lambda: ((T(rng_array(15, *lead, op.n_bricks, op.N3p)),
+                                 *op.dss_tables()), {}),
+        "hn_cell": lambda: (
+            (T(rng_array(17, 3, op.n_bricks, op.N3p)), *el.mm.hn_tables(), None, None,
+             el.mm.geo_hn, op.B), {"mode": "elastic", "elastic": el.elastic_tables()})
+        if variant == "elastic" else (
+            (sub(17), *op.hn_tables(), *op.factors_host, op.geo_hn, op.B),
+            {"mode": "fill" if variant else "full"}),
+        "corr_compact": lambda: ((T(rng_array(18, *lead, op.n_sub * op.C, op.n_loc)),
+                                  T(rng_array(19, *lead, op.n_hn, op.n_loc)),
+                                  *op.corr_tables()), {}),
         "refill_update": lambda: ((bricks(20), hn_rows(21), *op.refill_tables()), {}),
         "masked_quad": lambda: ((bricks(22), bricks(23), *op.masked_tables("rem"),
                                  *op.factors_host, op.geo, op.B), {}),
@@ -280,7 +311,8 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
         "plane_fold": lambda: ((bricks(25), *op.plane_fold_tables()), {}),
         "hn_interp": lambda: ((mf_rows(26),), dict(mf.hn_interp_args(cpu, f64), transpose=False)),
         "cell_laplace": lambda: ((dofs(27), *mf.cell_laplace_args(cpu, f64)), {}),
-        "dof_scatter": lambda: ((mf_rows(28), *mf.scatter_tables(False, cpu)), {}),
+        "dof_scatter": lambda: ((T(rng_array(28, *lead, mf.n_cells, op.n_loc)),
+                                 *mf.scatter_tables(False, cpu)), {}),
         "constraints_slow": lambda: ((dofs(29), *mf.slow_tables(cpu, f64)["compress"]), {}),
         "brick_transfer": lambda: (
             (T(rng_array(30, *((op.n_bricks, op.N3p) if variant else
@@ -293,6 +325,14 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
         "cell_transfer": lambda: (
             (dofs(32) if variant else T(rng_array(32, tr.child_ptr.numel() - 1, op.n_loc)),
              *tr.tables()), {"mode": "restrict" if variant else "prolongate"}),
+        "cell_elasticity": lambda: (
+            (T(rng_array(33, 3, op.n_bricks, op.N3p)), None, None, None, el.S, el.Dc,
+             el.quad_w, el.mm.geo_cell_sub, 1.3, 0.7), {"brick_size": op.B}) if variant else (
+            (T(rng_array(33, mf.n_dofs, 3)), *mf.cell_laplace_args(cpu, f64), 1.3, 0.7), {}),
+        "brick_elasticity": lambda: (
+            (T(rng_array(34, 3, op.n_bricks, op.N3p)), el.packed_host, op.geo, op.p, 1.3, 0.7),
+            {"dcols": T(rng_array(35, 3, op.n_sub * op.C, op.n_loc)), "brick_size": op.B}
+            if variant else {}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)
