@@ -119,13 +119,29 @@ Phases (any failure exits non-zero before the last line is printed):
    same kernels against their plain versions; float64 on both engines
    against the dense oracle (1e-12, mu=1.3, lam=0.7) at quadrant nref=2
    p=2, nref=3 p=3, step nref=2 p=1 and quadrant nref=2 p=4;
-12. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+12. the multi-RHS vmult (``BrickLaplaceMM.vmult_multi``) at quadrant nref=7
+   p=4 f32 (phase 3's mesh, phase 5's operators) for k = 1, 3, 8 against k
+   back-to-back vmults: launches checked (5 a call at every k), every RHS
+   bit-identical to vmult of it, CUDA-event medians of both, ms per vector
+   and their ratio, the host's time to issue one call, the profile (device
+   busy and idle share, no launch outside the port's kernels); at k=8 the
+   f32 result against the plain f64 path (1e-5) and each kernel's RHS-axis
+   instance against its plain version, timed with its bound and library
+   call (the kernel's single-RHS matrix applied to k columns at once, one
+   CSR product with a dense [n, k] block; brick_apply's dense operator by
+   torch.mm over k x n_bricks rows); float64 bit-identical to stacked
+   vmults at nref=7, and against the scipy oracle at quadrant nref=4 p=4
+   k=3 (1e-12); the degree <= 3 schedule without face planes at k=8 (p=3
+   on phase 8's nref=7 operator, p=2 and p=1 at nref=7): launches,
+   bit-identity, time per vector; masked_quad's RHS-axis instance at p=3;
+13. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
-   one with elasticity's, one with the kernels' numbers (all 18; the new
-   instances as parts named by degree; masked_quad's, plane_fill's and
-   plane_fold's totals from p=2; the GMG kernels' launches from the solve
-   that runs them; elasticity's calls of the existing kernels as parts),
-   then the device line.
+   one with elasticity's, one with the multi-RHS vmult's, one with the
+   kernels' numbers (all 18; the new instances as parts named by degree;
+   masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
+   kernels' launches from the solve that runs them; elasticity's calls of
+   the existing kernels and the RHS-axis instances, "multi k=8 <kernel>",
+   as parts), then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -388,7 +404,7 @@ def sparse_csr(rows, cols, vals, shape):
         .to_sparse_csr()
 
 
-def yardsticks(op, inter, K, cell=True):
+def yardsticks(op, inter, K, cell=True, keep=None):
     """Library calls on the same data (``kernel_calls``' intermediates
     `inter`), each map written as one CSR matrix (built here, outside the
     timing): corr_compact as one cuSPARSE product over sub_raw and plain
@@ -401,8 +417,9 @@ def yardsticks(op, inter, K, cell=True):
     over the constrained rows, ``torch.mm(u_hat, K.T)`` for K (no scale).
     Under the degree <= 3 schedule plain_rows is None (corr_compact reads
     no plain rows there) and cell=False (no cell_apply on that path).
-    Returns ({name: [fn per part]}, {hn_cell mode: [fn per step]},
-    {matrix: nonzeros})."""
+    keep: a dict that receives the composed matrices by kernel (phase 12
+    applies them to k columns). Returns ({name: [fn per part]}, {hn_cell
+    mode: [fn per step]}, {matrix: nonzeros})."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import refill_update
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
 
@@ -513,6 +530,9 @@ def yardsticks(op, inter, K, cell=True):
     one.update(refill_update=refill_composed(), dss_surface=dss_matrix(op, dt))
     if cell:
         one["cell_apply"] = cell_composed()
+    if keep is not None:
+        keep.update(corr_compact=corr, hn_cell=one["hn_cell[full]"],
+                    dss_surface=one["dss_surface"], cell_apply=one.get("cell_apply"))
     x_u_r = u_sub_r.reshape(-1)
     x_refill = torch.cat([y.reshape(-1), u_hat_r.reshape(-1)])
     x_v1 = v1.reshape(-1)
@@ -764,9 +784,6 @@ def low_yardsticks(op, inter, K):
     kernels, their maps composed: masked_quad over [v; u] (its cells'
     stiffness entries, built only below MASKED_CSR_CAP entries before
     summation), plane_fill over u, plane_fold over v."""
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import masked_quad
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
-
     lib, hn_steps, nnz = yardsticks(op, inter, K, cell=False)
     hn_steps = {f"p={op.p} {mode}": fns for mode, fns in hn_steps.items()}
     lib["brick_apply"] = [brick_library(op, inter["u"])]
@@ -774,19 +791,9 @@ def low_yardsticks(op, inter, K):
     ar = lambda n: torch.arange(n, device=dev)
 
     def masked_csr(kind, v, u):
-        cells = masked_quad.selected_cells(*op.masked_tables(kind), op.B)
-        n_ent = cells.numel() * op.n_loc**2
-        if n_ent > MASKED_CSR_CAP:
-            nnz[f"masked_quad[{kind}] (not built, entries)"] = n_ent
+        M = masked_matrix(op, kind, K, nnz)
+        if M is None:
             return None
-        nodes = cell_nodes(cells, op.B, op.p, op.N3p, dev)
-        N = v.numel()
-        vals = -(op.geo[cells // op.C][:, None, None] * K[None])
-        M = sparse_csr(
-            torch.cat([ar(N), nodes[:, :, None].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
-            torch.cat([ar(N), N + nodes[:, None, :].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
-            torch.cat([torch.ones(N, dtype=dt, device=dev), vals.reshape(-1)]), (N, 2 * N))
-        nnz[f"masked_quad[{kind}]"] = M._nnz()
         xin = torch.cat([v.reshape(-1), u.reshape(-1)])
         return lambda: M @ xin
 
@@ -813,14 +820,41 @@ def low_yardsticks(op, inter, K):
     return lib, hn_steps, nnz
 
 
-def degree_phase(mt, tria, nref, p, dev, wrappers, smi):
+def masked_matrix(op, kind, K, nnz):
+    """masked_quad[kind]'s map as one CSR matrix over [v; u] (v [nb, N3p]
+    and u of its shape): v kept, each selected cell's geo K_cell taken off
+    at its nodes; None where its entries before summation pass
+    MASKED_CSR_CAP. Its nonzeros (or the entries not built) go into nnz."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import masked_quad
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    dev, dt = K.device, K.dtype
+    ar = lambda n: torch.arange(n, device=dev)
+    cells = masked_quad.selected_cells(*op.masked_tables(kind), op.B)
+    n_ent = cells.numel() * op.n_loc**2
+    if n_ent > MASKED_CSR_CAP:
+        nnz[f"masked_quad[{kind}] (not built, entries)"] = n_ent
+        return None
+    nodes = cell_nodes(cells, op.B, op.p, op.N3p, dev)
+    N = op.n_bricks * op.N3p
+    vals = -(op.geo[cells // op.C][:, None, None] * K[None])
+    M = sparse_csr(
+        torch.cat([ar(N), nodes[:, :, None].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
+        torch.cat([ar(N), N + nodes[:, None, :].expand(-1, op.n_loc, op.n_loc).reshape(-1)]),
+        torch.cat([torch.ones(N, dtype=dt, device=dev), vals.reshape(-1)]), (N, 2 * N))
+    nnz[f"masked_quad[{kind}]"] = M._nnz()
+    return M
+
+
+def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
     """One degree of the degree <= 3 schedule at quadrant nref, float32
     through the kernels: the setup and its sizes; every kernel against its
     plain version, timed with its bound and library call; vmult,
     vmult_plain and refill against the plain float64 path (1e-5), with
     their launches counted and checked, their times, the HN overhead
-    (vmult over vmult_plain) and their profiles. Returns (numbers, {kernel:
-    [part]})."""
+    (vmult over vmult_plain) and their profiles. keep: a dict that receives
+    the float32 operator under its degree (phase 12 reuses it). Returns
+    (numbers, {kernel: [part]})."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
 
     tol = 1e-5
@@ -909,6 +943,8 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi):
             part["call"] = call
     numbers = dict(p=p, nref=nref, B=op.B, setup_s=setup_s, sizes=sizes, hn_overhead=overhead,
                    **res, card=smi)
+    if keep is not None:
+        keep[p] = op
     del op, op64, x, x64, y, outs
     torch.cuda.empty_cache()
     return numbers, parts
@@ -989,7 +1025,8 @@ def brick_library(op, x):
     """brick_apply's library call: its map is one dense brick operator A
     [N3, N3] (Mz (x) (My (x) Kx + Ky (x) Mx) + Kz (x) My (x) Mx), the same for
     every brick, so one torch.mm over the bricks computes it, with geo
-    applied to the input outside the timed call, TF32 off. Returns (call,
+    applied to the input outside the timed call, TF32 off; k right-hand
+    sides x [k, n_bricks, N3p] go in as k x n_bricks rows. Returns (call,
     the plain version without cell rows, which the call is held against):
     the cell rows' overlap-add keeps its own index_add_ yardstick."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_apply
@@ -998,9 +1035,9 @@ def brick_library(op, x):
     Kb, Mb = op.Kb.double(), op.Mb.double()
     A = (torch.kron(Mb, torch.kron(Mb, Kb) + torch.kron(Kb, Mb))
          + torch.kron(Kb, torch.kron(Mb, Mb))).to(x.dtype)
-    xs = (x * op.geo[:, None])[:, : op.N3].contiguous()
-    return (lambda: torch.mm(xs, A.T),
-            lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo, op.p)[:, : op.N3])
+    xs = (x * op.geo[:, None])[..., : op.N3].reshape(-1, op.N3).contiguous()
+    return (lambda: torch.mm(xs, A.T), lambda: brick_apply.brick_apply_plain(
+        x, op.Kb, op.Mb, op.geo, op.p)[..., : op.N3].reshape(-1, op.N3))
 
 
 def kernel_record(mod):
@@ -1967,6 +2004,221 @@ def elasticity_phase(mt, mf7, op7, op7_64, dev, wrappers, smi):
     return numbers, records, parts
 
 
+# ---- the multi-RHS vmult ---------------------------------------------------------------------
+MULTI_KS = (1, 3, 8)  # right-hand sides a call, timed at quadrant nref=7 p=4 f32
+MULTI_K = 8  # the kernels line's instances and the degree <= 3 runs
+MULTI_LAUNCHES = 5  # a vmult_multi at every k, both schedules
+# the degree <= 3 schedule without face planes, beside phase 8's p=3 operator: (degree, nref)
+MULTI_LOW = ((2, 7), (1, 7))
+MULTI_ORACLE = (4, 4, 3)  # float64 against the oracle: quadrant nref, degree, k
+
+
+def multi_inputs(op, k, seed):
+    """[k, n_bricks, N3p]: k seeded DoF vectors through from_dof_vector."""
+    rng = np.random.default_rng(seed)
+    return torch.stack([op.from_dof_vector(rng.standard_normal(op.mf.n_dofs)) for _ in range(k)])
+
+
+def multi_run(op, bvk, wrappers, smi, what):
+    """vmult_multi on bvk against k back-to-back vmults: its launches
+    (checked: MULTI_LAUNCHES, one of each kernel of the schedule), each RHS
+    bit-identical to vmult of it, the medians of CUDA-event-timed calls, ms
+    per vector and their ratio, the host's time to issue one call and its
+    profile (no device launch outside the port's kernels). Returns (numbers,
+    output)."""
+    k = bvk.shape[0]
+    out, counts = counted(wrappers, lambda: op.vmult_multi(bvk))
+    counts = {name: n for name, n in counts.items() if n}
+    expect = {name: 1 for name in ("hn_cell", "corr_compact", "brick_apply", "dss_surface",
+                                   "masked_quad" if op.assembled else "cell_apply")}
+    check(counts == expect, f"vmult_multi {what} launched {counts}, not {expect}")
+    check(bool(torch.isfinite(out).all()) and out.shape == bvk.shape,
+          f"vmult_multi {what} output malformed")
+    for j in range(k):
+        check(torch.equal(out[j], op.vmult(bvk[j])),
+              f"vmult_multi {what}: RHS {j} differs from vmult of it")
+    ms = time_ms(lambda: op.vmult_multi(bvk), reps=20, warmup=3)
+    stacked = time_ms(lambda: [op.vmult(bvk[j]) for j in range(k)], reps=20, warmup=3)
+    res = dict(k=k, ms=ms, ms_per_vector=ms / k, stacked_ms=stacked,
+               stacked_ms_per_vector=stacked / k, stacked_over_multi=stacked / ms,
+               launches=counts, host_ms=host_ms(lambda: op.vmult_multi(bvk), reps=20),
+               profile=profile_path(f"vmult_multi {what}", lambda: op.vmult_multi(bvk),
+                                    set(wrappers), MULTI_LAUNCHES), card=smi)
+    res["busy_ms_per_vector"] = res["profile"]["busy_ms"] / k
+    print(f"vmult_multi {what} on {smi}: {ms:.4f} ms a call, {ms / k:.4f} ms a vector "
+          f"(busy {res['busy_ms_per_vector']:.4f}); {k} vmults back to back {stacked:.4f} ms, "
+          f"{stacked / k:.4f} a vector; stacked / multi {stacked / ms:.4f}; host issues a call "
+          f"in {res['host_ms']:.4f} ms; every RHS bit-identical to its vmult; launches {counts}",
+          flush=True)
+    return res, out
+
+
+def multi_kernel_calls(op, bvk, mats, K):
+    """Each kernel of vmult_multi at bvk's shapes (k right-hand sides,
+    the subset a strided view), in kernel_calls' form, parts named "multi
+    k=<k> <kernel>", with their library calls: the kernel's single-RHS
+    matrix (``yardsticks``' matrices `mats`; masked_quad's built here)
+    applied to the k columns at once (a CSR product with a dense [n, k]
+    block, the columns laid out outside the timed call), brick_apply's
+    dense brick operator by torch.mm over k x n_bricks rows; each held
+    against the plain version in its layout. Returns ({name: [part]},
+    {name: [(library, reference)]})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, cell_apply, corr_compact, dss_surface, hn_cell, masked_quad,
+    )
+
+    k, isz = bvk.shape[0], bvk.element_size()
+    tag = f"multi k={k}"
+    sub = bvk[:, : op.n_sub]
+    cols = lambda x: x.reshape(k, -1).T.contiguous()  # [n, k]: one RHS a column
+    hn_args = (*op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    hn_plain_args = (*op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B)
+    plain_rows = None if op.assembled else cell_apply.cell_apply(
+        sub, *op.factors_host, op.geo_cell_sub, op.B)
+    sub_raw = hn_cell.hn_cell(sub, *hn_args, mode="full")
+    dcols = corr_compact.corr_compact(plain_rows, sub_raw, *op.corr_tables())
+    fused = dict(dcols=dcols, brick_size=op.B)
+    v0 = brick_apply.brick_apply(bvk, *op.brick_factors_host, op.geo, op.p, **fused)
+    calls = {
+        "brick_apply": [(
+            f"{tag} brick_apply",
+            lambda: brick_apply.brick_apply(bvk, *op.brick_factors_host, op.geo, op.p, **fused),
+            lambda: brick_apply.brick_apply_plain(bvk, op.Kb, op.Mb, op.geo, op.p, **fused),
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz,
+                                        op.n_corr_rows // op.C, k), None, None)],
+        "hn_cell": [(
+            f"{tag} hn_cell", lambda: hn_cell.hn_cell(sub, *hn_args, mode="full"),
+            lambda: hn_cell.hn_cell_plain(sub, *hn_plain_args, mode="full"),
+            hn_cell.bytes_and_flops(sub, *op.hn_tables(), op.B, mode="full"), None, None)],
+        "corr_compact": [(
+            f"{tag} corr_compact",
+            lambda: corr_compact.corr_compact(plain_rows, sub_raw, *op.corr_tables()),
+            lambda: corr_compact.corr_compact_plain(plain_rows, sub_raw, *op.corr_tables()),
+            corr_compact.bytes_and_flops(plain_rows, sub_raw, *op.corr_tables()), None, None)],
+    }
+    x_sub = cols(sub)
+    x_corr = cols(sub_raw) if plain_rows is None else torch.cat([cols(sub_raw),
+                                                                 cols(plain_rows)])
+    libs = {
+        "brick_apply": [brick_library(op, bvk)],
+        "hn_cell": [(lambda: mats["hn_cell"] @ x_sub, lambda: cols(calls["hn_cell"][0][2]()))],
+        "corr_compact": [(lambda: mats["corr_compact"] @ x_corr,
+                          lambda: cols(calls["corr_compact"][0][2]()))],
+    }
+    if op.assembled:
+        v_in = v0
+        mq = op.masked_tables("rem" if op.n_hn else "absent")
+        calls["masked_quad"] = [in_place(f"{tag} masked_quad", masked_quad, v0,
+                                         (bvk, *mq, *op.factors_host, op.geo, op.B),
+                                         (bvk, *mq, op.K1, op.M1, op.geo, op.B))]
+        v_dss = masked_quad.masked_quad(v0.clone(), bvk, *mq, *op.factors_host, op.geo, op.B)
+        M = masked_matrix(op, "rem" if op.n_hn else "absent", K, {})
+        x_mq = torch.cat([cols(v_in), cols(bvk)])
+        libs["masked_quad"] = [None if M is None else (
+            lambda: M @ x_mq, lambda: cols(masked_quad.masked_quad_plain(
+                v_in.clone(), bvk, *mq, op.K1, op.M1, op.geo, op.B)))]
+    else:
+        calls["cell_apply"] = [(
+            f"{tag} cell_apply",
+            lambda: cell_apply.cell_apply(sub, *op.factors_host, op.geo_cell_sub, op.B),
+            lambda: cell_apply.cell_apply_plain(sub, op.K1, op.M1, op.geo_cell_sub, op.B),
+            cell_apply.bytes_and_flops(sub[0].numel(), op.n_sub * op.C, op.n_loc, isz, k),
+            None, None)]
+        libs["cell_apply"] = [(lambda: mats["cell_apply"] @ x_sub,
+                               lambda: cols(calls["cell_apply"][0][2]()))]
+        v_dss = v0
+    calls["dss_surface"] = [in_place(f"{tag} dss_surface", dss_surface, v_dss, op.dss_tables())]
+    x_dss = cols(v_dss)
+    libs["dss_surface"] = [(lambda: mats["dss_surface"] @ x_dss, lambda: cols(
+        dss_surface.dss_surface_plain(v_dss.clone(), *op.dss_tables())))]
+    torch.cuda.synchronize()
+    return calls, libs
+
+
+def multi_phase(mt, op, op64, op3, mats, dev, wrappers, smi):
+    """vmult_multi: at quadrant nref=7 p=4 f32 (phase 3's mesh, phase 5's
+    operators) for each k of MULTI_KS against k back-to-back vmults
+    (``multi_run``); at k=MULTI_K the f32 result against the plain float64
+    path (1e-5), every kernel's RHS-axis instance against its plain
+    version, timed with its bound and library call; float64 on the card
+    bit-identical to stacked vmults, and against the scipy oracle at
+    MULTI_ORACLE (1e-12); the degree <= 3 schedule without face planes at
+    k=MULTI_K (phase 8's p=3 operator, MULTI_LOW), masked_quad's instance
+    from p=3. Returns (numbers, {kernel: [part]})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    numbers, parts = {}, {}
+    bvk = multi_inputs(op, MULTI_K, SEED + 12)
+    for k in MULTI_KS:
+        numbers[f"p=4 k={k}"], out = multi_run(op, bvk[:k], wrappers, smi, f"p=4 nref=7 k={k}")
+    ref = op64.vmult_multi(bvk.double(), plain=True)
+    err = max(errors(op.to_dof_vector(out[j], zero_hanging=True),
+                     op64.to_dof_vector(ref[j], zero_hanging=True))[1] for j in range(MULTI_K))
+    print(f"vmult_multi p=4 nref=7 k={MULTI_K} f32 vs the plain f64 path: max rel err "
+          f"{err:.3e} (tol 1e-5)", flush=True)
+    check(err <= 1e-5, f"vmult_multi disagrees with the float64 path: {err:.3e}")
+    numbers["f32_vs_plain_f64_max_rel_err"] = err
+    del ref, out
+    bvk64 = bvk[:3].double()
+    out64 = op64.vmult_multi(bvk64)
+    check(all(torch.equal(out64[j], op64.vmult(bvk64[j])) for j in range(3)),
+          "float64 vmult_multi differs from its stacked vmults")
+    print("vmult_multi p=4 nref=7 k=3 f64: every RHS bit-identical to its vmult", flush=True)
+    del bvk64, out64
+    K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev,
+                                                                                     op.dtype)
+    calls, libs = multi_kernel_calls(op, bvk, mats, K)
+    for name in calls:
+        parts[name] = measure_parts(name, calls[name], libs[name], {}, op.dtype, 1e-5)
+    del calls, libs, bvk
+    torch.cuda.empty_cache()
+
+    nref, p, k = MULTI_ORACLE
+    tria = mt.create_quadrant(3, nref)
+    op_o = mt.BrickLaplaceMM(mt.MatrixFree(tria, p, dtype=np.float64), device=dev)
+    rng = np.random.default_rng(SEED + 13)
+    us = [rng.standard_normal(op_o.mf.n_dofs) for _ in range(k)]
+    out = op_o.vmult_multi(torch.stack([op_o.from_dof_vector(u) for u in us]))
+    err = max(errors(op_o.to_dof_vector(out[j], zero_hanging=True).cpu(),
+                     torch.from_numpy(vmult_oracle(tria, p, u)))[1] for j, u in enumerate(us))
+    print(f"vmult_multi quadrant nref={nref} p={p} k={k} f64 vs scipy oracle: max rel err "
+          f"{err:.3e} (tol 1e-12)", flush=True)
+    check(err <= 1e-12, f"float64 vmult_multi disagrees with the oracle: {err:.3e}")
+    numbers["oracle_max_rel_err"] = err
+
+    lows = [(3, 7, op3)] + [(q, n, None) for q, n in MULTI_LOW]
+    for q, n, opq in lows:
+        t0 = time.perf_counter()
+        if opq is None:
+            opq = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, n), q,
+                                                  dtype=np.float32), device=dev,
+                                    face_planes=False)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(opq.assembled and not opq.planes, f"p={q} runs no degree <= 3 schedule without "
+                                                f"face planes")
+        bvk = multi_inputs(opq, MULTI_K, SEED + 14)
+        res, _ = multi_run(opq, bvk, wrappers, smi, f"p={q} nref={n} k={MULTI_K}")
+        res.update(nref=n, setup_s=setup_s, n_dofs=opq.mf.n_dofs)
+        numbers[f"p={q} k={MULTI_K}"] = res
+        if q == 3:
+            Kq = torch.from_numpy(kronecker_sum(opq.K1.cpu().numpy(), opq.M1.cpu().numpy())).to(
+                dev, opq.dtype)
+            calls, libs = multi_kernel_calls(opq, bvk, {}, Kq)
+            parts["masked_quad"] = measure_parts("masked_quad", calls["masked_quad"],
+                                                 libs["masked_quad"], {}, opq.dtype, 1e-5)
+            del calls, libs
+        del opq, bvk
+        torch.cuda.empty_cache()
+    for name, plist in parts.items():
+        for part in plist:
+            key = f"p={3 if name == 'masked_quad' else 4} k={MULTI_K}"
+            part["launches"] = numbers[key]["launches"][name]
+            part["call"] = f"vmult_multi {key}"
+    return numbers, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -2057,7 +2309,8 @@ def main() -> int:
     # here only; the port never calls them)
     library = {name: [None] * len(parts) for name, parts in calls.items()}
     K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
-    lib_calls, hn_steps, lib_nnz = yardsticks(op, inter, K)
+    multi_mats = {}  # the composed matrices, applied to k columns in phase 12
+    lib_calls, hn_steps, lib_nnz = yardsticks(op, inter, K, keep=multi_mats)
     library.update(lib_calls)
     print(f"maps composed into one CSR matrix each (the library calls), nonzeros: {lib_nnz}; "
           f"brick_apply's library call is one torch.mm by the dense brick operator "
@@ -2203,12 +2456,13 @@ def main() -> int:
     results.update(index_records)
 
     # ---- 8. the degree <= 3 schedule, float32 through the kernels -----------
-    low, low_parts = {}, {}
+    low, low_parts, low_ops = {}, {}, {}
     trias = {7: tria}
     for p, nref in LOW_DEGREES:
         if nref not in trias:
             trias[nref] = mt.create_quadrant(3, nref)
-        numbers, parts = degree_phase(mt, trias[nref], nref, p, dev, wrappers, smi)
+        numbers, parts = degree_phase(mt, trias[nref], nref, p, dev, wrappers, smi,
+                                      keep=low_ops if (p, nref) == (3, 7) else None)
         low[f"p={p}"] = numbers
         for name, plist in parts.items():
             low_parts.setdefault(name, []).extend(plist)
@@ -2299,10 +2553,19 @@ def main() -> int:
                                                                 smi)
     elastic["phase_s"] = time.perf_counter() - t0
     print(f"elasticity phase: {elastic['phase_s']:.1f} s", flush=True)
-    del op, op64
-    torch.cuda.empty_cache()
     results.update(elastic_records)
-    for name, plist in elastic_parts.items():  # existing kernels: their elastic calls as parts
+
+    # ---- 12. the multi-RHS vmult ------------------------------------------------
+    t0 = time.perf_counter()
+    multi, multi_parts = multi_phase(mt, op, op64, low_ops.pop(3), multi_mats, dev, wrappers,
+                                     smi)
+    multi["phase_s"] = time.perf_counter() - t0
+    multi["single_vmult_busy_ms"] = vm_prof["busy_ms"]
+    print(f"multi-RHS phase: {multi['phase_s']:.1f} s", flush=True)
+    del op, op64, multi_mats
+    torch.cuda.empty_cache()
+    # existing kernels: their elastic calls and their RHS-axis instances as parts
+    for name, plist in list(elastic_parts.items()) + list(multi_parts.items()):
         results[name]["parts"].extend(plist)
         for part in plist:
             for key in ("max_abs_err", "max_rel_err"):
@@ -2310,7 +2573,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 12. the numbers -----------------------------------------------------
+    # ---- 13. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -2323,6 +2586,7 @@ def main() -> int:
     print(json.dumps({"index": index}))
     print(json.dumps({"gmg": gmg_numbers}))
     print(json.dumps({"elasticity": elastic}))
+    print(json.dumps({"multi": multi}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

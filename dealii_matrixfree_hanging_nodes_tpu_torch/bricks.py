@@ -1679,8 +1679,12 @@ class BrickLaplaceMM(nn.Module):
                 self.plane_cov)
 
     # ---------------------------------------------------------------- vmult
-    def _check(self, bv):
-        if bv.shape != (self.n_bricks, self.N3p):
+    def _check(self, bv, multi: bool = False):
+        if multi and (bv.dim() != 3 or bv.shape[0] < 1 or bv.shape[1:] != (self.n_bricks, self.N3p)
+                      or not bv.is_contiguous()):
+            raise ValueError(f"expected contiguous [k >= 1, {self.n_bricks}, {self.N3p}] brick "
+                             f"vectors, got {tuple(bv.shape)}")
+        if not multi and bv.shape != (self.n_bricks, self.N3p):
             raise ValueError(f"expected a [{self.n_bricks}, {self.N3p}] brick "
                              f"vector, got {tuple(bv.shape)}")
         if bv.dtype != self.dtype or bv.device != self.device:
@@ -1695,15 +1699,42 @@ class BrickLaplaceMM(nn.Module):
         plain PyTorch version on the operator's device instead: the
         reference the card's kernels are held against."""
         self._check(bv)
+        return self._vmult(bv, plain)
+
+    def vmult_multi(self, bvk: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """v_j = A bvk[j] for k right-hand sides at once (reference
+        ``vmult_multi``, bricks.py:3581-3606, ``_vmult_multi_impl``
+        3446-3579): bvk [k, n_bricks, N3p], contiguous, on the operator's
+        device and in its dtype, any k >= 1 -> a new tensor of that shape,
+        reduced as vmult's outputs are. The operator's own schedule with a
+        right-hand-side axis on each kernel (grid.y), so every table and
+        factor is read by all k in one launch: p >= 4 cell_apply, hn_cell,
+        corr_compact, brick_apply, dss_surface; p <= 3 (face_planes=False)
+        hn_cell, corr_compact, brick_apply, masked_quad, dss_surface; 5
+        launches at every k. Each RHS is bit-identical to vmult of it on
+        the card. The subset bricks are the strided view bvk[:, :n_sub]
+        (no copy). The reference raises under face planes (on by default at
+        p <= 2: build the operator with face_planes=False) and under a
+        deformed mapping (which this operator refuses at construction).
+        plain=True runs the kernels' plain versions, as for vmult."""
+        if self.planes:
+            raise NotImplementedError("vmult_multi does not support face_planes=True; construct "
+                                      "the operator with face_planes=False for multi-RHS use")
+        self._check(bvk, multi=True)
+        return self._vmult(bvk, plain)
+
+    def _vmult(self, bv, plain: bool):
+        """The vmult of [n_bricks, N3p] or, with a RHS axis, [k, n_bricks,
+        N3p]; the subset bricks are bv[..., :n_sub, :]."""
         if self.assembled:
             return self._vmult_assembled(bv, plain)
         dcols = None
         if self.n_sub:
-            u_sub = bv[: self.n_sub]
+            u_sub = bv[..., : self.n_sub, :]
             if self.n_hn:
                 sub_raw = self._hn_cell(u_sub, "full", plain)
             else:
-                sub_raw = bv.new_empty((0, self.n_loc))
+                sub_raw = bv.new_empty((*bv.shape[:-2], 0, self.n_loc))
             dcols = self._corr_compact(self._cell_rows(u_sub, plain), sub_raw, plain)
         return self._dss(self._brick_apply(bv, dcols, plain), plain)
 
@@ -1718,7 +1749,8 @@ class BrickLaplaceMM(nn.Module):
         u = self._plane_fill(bv, plain) if self.planes else bv
         dcols = None
         if self.n_sub and self.n_hn:
-            dcols = self._corr_compact(None, self._hn_cell(u[: self.n_sub], "full", plain), plain)
+            dcols = self._corr_compact(None, self._hn_cell(u[..., : self.n_sub, :], "full", plain),
+                                       plain)
         v = self._brick_apply(u, dcols, plain)
         if self.n_sub:
             v = self._masked_quad(v, u, "rem" if self.n_hn else "absent", plain)

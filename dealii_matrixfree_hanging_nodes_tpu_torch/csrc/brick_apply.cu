@@ -4,12 +4,17 @@
 // overlap-add of their cell rows: v_b[node] += the 1-8 entries dcols[b*B^3 + slot, j] of
 // the (cell slot, local node) pairs that sit on that node (dcols [m*B^3, n_loc],
 // n_loc = (p+1)^3, NB = B*p + 1, cell slots and local nodes x fastest).
+// With a right-hand-side axis (BrickLaplaceMM.vmult_multi: u [k, n_bricks, N3p], its RHS
+// u_stride values apart; v [k, n_bricks, N3p] and dcols [k, m*B^3, n_loc] contiguous) grid.y is
+// the RHS, whose blocks offset u, v and dcols by it: each RHS is bit-identical to a launch on it
+// alone, and the factors, launch parameters, are shared by all k.
 //
 // Replaces: experiments/queue/_mb_main.py:63 pallas_fused, the unadopted Pallas form
 //   of BrickLaplaceMM._main_apply (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2321-2348)
 //   times the per-brick geo scale (bricks.py:2367); and, in the epilogue, _scatter_cols /
 //   _col2im_sep (bricks.py:2196-2241) with the merge v.at[:n_sub].add(corr)
-//   (bricks.py:2553-2559), which the TPU side ran as a one-hot matmul.
+//   (bricks.py:2553-2559), which the TPU side ran as a one-hot matmul. With a RHS axis, the
+//   same on the k-major layout of _vmult_multi_impl (bricks.py:3459-3461, 3513-3515).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4400 bricks, NB=17, N3p=4992, 1025
 //   bricks with cell rows): memory. u's N3 nodes are read once (86.5 MB), v is written once
@@ -161,23 +166,24 @@ template <typename T, int NB, int P>
 __global__ void __launch_bounds__(Cfg<T, NB, P>::THREADS, sizeof(T) == 4 ? 2 : 1)
 brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ> f,
                    const T* __restrict__ geo, const T* __restrict__ dcols, T* __restrict__ v,
-                   int m, int N3p, int vec_u, int vec_d) {
+                   int m, int N3p, long long u_stride, int vec_u, int vec_d) {
   using S = Cfg<T, NB, P>;
   constexpr int N2 = S::N2, N3 = S::N3, N = P + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const s0 = reinterpret_cast<T*>(smem_raw);  // the brick, then a, then c1
   T* const s1 = s0 + S::N3R;                     // b, then c2
-  T* const sd = s1 + S::N3R;                     // the brick's cell rows (k < m)
+  T* const sd = s1 + S::N3R;                     // the brick's cell rows (brick < m)
 
-  const int k = blockIdx.x;
-  const bool rows = k < m;
-  stage(s0, u + static_cast<size_t>(k) * N3p, N3, vec_u);
+  const int brick = blockIdx.x;
+  const size_t rhs = blockIdx.y;
+  const bool rows = brick < m;
+  stage(s0, u + rhs * u_stride + static_cast<size_t>(brick) * N3p, N3, vec_u);
   cp_async_commit();
-  const T* const dk = dcols + static_cast<size_t>(k) * S::DC;
-  if (rows && S::STAGE_D) stage(sd, dk, S::DC, vec_d);
+  const T* const db = dcols + (rhs * m + brick) * S::DC;
+  if (rows && S::STAGE_D) stage(sd, db, S::DC, vec_d);
   cp_async_commit();
-  const T* const dr = S::STAGE_D ? sd : dk;  // where the epilogue reads the cell rows
-  T* const vb = v + static_cast<size_t>(k) * N3p;
+  const T* const dr = S::STAGE_D ? sd : db;  // where the epilogue reads the cell rows
+  T* const vb = v + (rhs * gridDim.x + brick) * N3p;
   for (int i = N3 + threadIdx.x; i < N3p; i += blockDim.x) vb[i] = T(0);
   cp_async_wait<1>();  // the brick; its cell rows may still be in flight
   __syncthreads();
@@ -242,7 +248,7 @@ brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ>
     int oy[2] = {0, 0}, ox[2] = {0, 0};  // the cell-row offsets of (y, x)
     const int ny = axis_terms<NB, P>(l / NB, S::B * S::NL, N, oy);
     const int nx = axis_terms<NB, P>(l % NB, S::NL, 1, ox);
-    const T g = geo[k];
+    const T g = geo[brick];
     T c1[NB], c2[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
@@ -299,7 +305,8 @@ cudaError_t allow_smem() {
 
 template <typename T, int NB, int P>
 int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
-           void* v, int nb, int m, int N3p, int* info, cudaStream_t stream) {
+           void* v, int nb, int m, int N3p, int k, long long u_stride, int* info,
+           cudaStream_t stream) {
   using S = Cfg<T, NB, P>;
   const int smem = static_cast<int>((2 * S::N3R + (m > 0 ? S::SMEM_D : 0)) * sizeof(T));
   cudaError_t err = allow_smem<T, NB, P>();
@@ -313,12 +320,13 @@ int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const
   std::memcpy(f.K, Kp, sizeof(f.K));
   std::memcpy(f.M, Mp, sizeof(f.M));
   // 16-byte copies need 16-byte rows: N3p and the cell rows of a brick in whole words
-  const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0;
+  const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0 &&
+                    (u_stride * sizeof(T)) % 16 == 0;
   const int vec_d = reinterpret_cast<uintptr_t>(dcols) % 16 == 0 && S::DC % S::VW == 0;
-  if (nb > 0) {
-    brick_apply_kernel<T, NB, P><<<nb, S::THREADS, smem, stream>>>(
+  if (nb > 0 && k > 0) {
+    brick_apply_kernel<T, NB, P><<<dim3(nb, k), S::THREADS, smem, stream>>>(
         static_cast<const T*>(u), f, static_cast<const T*>(geo), static_cast<const T*>(dcols),
-        static_cast<T*>(v), m, N3p, vec_u, vec_d);
+        static_cast<T*>(v), m, N3p, u_stride, vec_u, vec_d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -327,10 +335,11 @@ int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const
 // p = 5..8
 template <typename T>
 int dispatch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
-             void* v, int nb, int m, int NB, int p, int N3p, int* info, cudaStream_t stream) {
+             void* v, int nb, int m, int NB, int p, int N3p, int k, long long u_stride, int* info,
+             cudaStream_t stream) {
 #define BRICK_CASE(nb_, p_) \
   if (NB == nb_ && p == p_) \
-    return launch<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, info, stream);
+    return launch<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, k, u_stride, info, stream);
   BRICK_CASE(17, 1)
   BRICK_CASE(17, 2)
   BRICK_CASE(13, 3)
@@ -348,18 +357,20 @@ int dispatch(const void* u, const void* Kp, const void* Mp, const void* geo, con
 extern "C" {
 
 // Kp, Mp: host pointers to the packed factors (copied into the launch's parameters).
+// k right-hand sides, u_stride values apart in u (n_bricks * N3p apart in v, m * B^3 cell rows
+// apart in dcols).
 // info: null to launch; else [shared-memory bytes, blocks per SM] of the launch, not launched.
 int brick_apply_f32(const void* u, const void* Kp, const void* Mp, const void* geo,
-                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p,
-                    int* info, void* stream) {
-  return dispatch<float>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, info,
+                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p, int k,
+                    long long u_stride, int* info, void* stream) {
+  return dispatch<float>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info,
                          static_cast<cudaStream_t>(stream));
 }
 
 int brick_apply_f64(const void* u, const void* Kp, const void* Mp, const void* geo,
-                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p,
-                    int* info, void* stream) {
-  return dispatch<double>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, info,
+                    const void* dcols, void* v, int nb, int m, int NB, int p, int N3p, int k,
+                    long long u_stride, int* info, void* stream) {
+  return dispatch<double>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info,
                           static_cast<cudaStream_t>(stream));
 }
 

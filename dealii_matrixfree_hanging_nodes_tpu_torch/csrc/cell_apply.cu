@@ -5,11 +5,16 @@
 // r / B^3 of src [m, N3p], its node (ix, iy, iz) sits at brick node
 // ((sz*p + iz)*NB + sy*p + iy)*NB + sx*p + ix, NB = B*p + 1. (The constrained rows' product,
 // once this kernel's row mode, runs inside hn_cell.cu.)
+// With a right-hand-side axis (BrickLaplaceMM.vmult_multi: src [k, m, N3p], its RHS src_stride
+// values apart, e.g. the subset view bvk[:, :n_sub] of the k-major brick vectors; out
+// [k, m*B^3, n_loc] contiguous) grid.y is the RHS, whose blocks offset src and out by it: each RHS
+// is bit-identical to a launch on it alone.
 //
 // Replaces: BrickLaplaceMM._extract_cols (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
 //   2178-2194) fused with the local stiffness apply `cols @ K.T * geo_cell_sub`
 //   (bricks.py:2449-2453). The TPU side ran these as XLA conv-patch extraction and a dense MXU
-//   matmul with the 125 x 125 K (no Pallas kernel).
+//   matmul with the 125 x 125 K (no Pallas kernel). With a RHS axis: _extract_cols and
+//   `cols_u @ K.T * geo` on the k-major layout of _vmult_multi_impl (bricks.py:3470-3477).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32: memory. Sum factorization needs 7 sweeps
 //   of 2 n^4 operations plus the scale, 8,875 a row against the dense product's 31,250. 1,025
@@ -53,7 +58,7 @@ template <typename T, int P, int B>
 __global__ void __launch_bounds__(Cfg<P>::THREADS)
 cell_apply_kernel(const T* __restrict__ src, const Factors<T, P + 1> f,
                   const T* __restrict__ scale, T* __restrict__ out, int rows, int N3p,
-                  int vec_ok) {
+                  long long src_stride, int vec_ok) {
   using S = Cfg<P>;
   constexpr int N = S::N, N2 = S::N2, NL = S::NL, G = S::G;
   constexpr int NB = B * P + 1;
@@ -63,8 +68,10 @@ cell_apply_kernel(const T* __restrict__ src, const Factors<T, P + 1> f,
   T* sb = sa + S::SCR;
   T* sbrick = sb + S::SCR;
 
-  // one brick, C rows
-  const T* ub = src + static_cast<size_t>(blockIdx.x) * N3p;
+  // one brick of one RHS, C rows
+  const size_t rhs = blockIdx.y;
+  out += rhs * rows * NL;
+  const T* ub = src + rhs * src_stride + static_cast<size_t>(blockIdx.x) * N3p;
   sf::copy_block(sbrick, ub, NB * NB * NB,
                  vec_ok && (reinterpret_cast<uintptr_t>(ub) % 16 == 0));
   const int row_base = blockIdx.x * C;
@@ -99,7 +106,7 @@ cell_apply_kernel(const T* __restrict__ src, const Factors<T, P + 1> f,
 
 template <typename T, int P, int B>
 int launch(const void* src, const void* K1, const void* M1, const void* scale, void* out,
-           int rows, int N3p, cudaStream_t stream) {
+           int rows, int N3p, int k, long long src_stride, cudaStream_t stream) {
   using S = Cfg<P>;
   constexpr int NB = B * P + 1;
   const int smem = static_cast<int>((2 * S::SCR + sf::round4(NB * NB * NB)) * sizeof(T));
@@ -113,10 +120,11 @@ int launch(const void* src, const void* K1, const void* M1, const void* scale, v
   // 16-byte loads of the bricks need 16-byte rows
   const int vec_ok = (N3p * sizeof(T)) % 16 == 0;
   const int blocks = rows / (B * B * B);
-  if (blocks > 0) {
-    kernel<<<blocks, S::THREADS, smem, stream>>>(static_cast<const T*>(src), f,
-                                                 static_cast<const T*>(scale),
-                                                 static_cast<T*>(out), rows, N3p, vec_ok);
+  if (blocks > 0 && k > 0) {
+    kernel<<<dim3(blocks, k), S::THREADS, smem, stream>>>(static_cast<const T*>(src), f,
+                                                          static_cast<const T*>(scale),
+                                                          static_cast<T*>(out), rows, N3p,
+                                                          src_stride, vec_ok);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -124,9 +132,10 @@ int launch(const void* src, const void* K1, const void* M1, const void* scale, v
 // (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* src, const void* K1, const void* M1, const void* scale, void* out,
-             int rows, int p, int B, int N3p, cudaStream_t stream) {
+             int rows, int p, int B, int N3p, int k, long long src_stride, cudaStream_t stream) {
 #define CELL_CASE(p_, b_) \
-  if (p == p_ && B == b_) return launch<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, stream);
+  if (p == p_ && B == b_) \
+    return launch<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, k, src_stride, stream);
   CELL_CASE(4, 4)
   CELL_CASE(5, 2)
   CELL_CASE(6, 2)
@@ -140,15 +149,19 @@ int dispatch(const void* src, const void* K1, const void* M1, const void* scale,
 
 extern "C" {
 
+// rows: the cell rows of one RHS; k right-hand sides, src_stride values apart in src (rows * n_loc
+// apart in out)
 int cell_apply_f32(const void* src, const void* K1, const void* M1, const void* scale,
-                   void* out, int rows, int p, int B, int N3p, void* stream) {
-  return dispatch<float>(src, K1, M1, scale, out, rows, p, B, N3p,
+                   void* out, int rows, int p, int B, int N3p, int k, long long src_stride,
+                   void* stream) {
+  return dispatch<float>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride,
                          static_cast<cudaStream_t>(stream));
 }
 
 int cell_apply_f64(const void* src, const void* K1, const void* M1, const void* scale,
-                   void* out, int rows, int p, int B, int N3p, void* stream) {
-  return dispatch<double>(src, K1, M1, scale, out, rows, p, B, N3p,
+                   void* out, int rows, int p, int B, int N3p, int k, long long src_stride,
+                   void* stream) {
+  return dispatch<double>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride,
                           static_cast<cudaStream_t>(stream));
 }
 

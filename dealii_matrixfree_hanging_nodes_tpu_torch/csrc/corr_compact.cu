@@ -8,10 +8,11 @@
 //   otherwise:              acc[r, j]             (fold targets; zero elsewhere)
 // plain may be null, read as zeros (the assembled schedule of degree <= 3).
 // The runs are the whole fold chain (stage 1 and its tails) composed on the host.
-// With a component axis (k = 3, elasticity: plain and dcols [3, n_rows, n_loc], sub_raw
-// [3, n_hn, n_loc], component-major) each component goes through the same tables: grid.y is the
-// component, whose blocks offset plain, sub_raw and dcols by it, so a component is bit-identical
-// to a scalar call on its slices, in one launch.
+// With a leading axis of k components or right-hand sides (elasticity's k = 3: plain and dcols
+// [3, n_rows, n_loc], sub_raw [3, n_hn, n_loc], component-major; BrickLaplaceMM.vmult_multi's k
+// right-hand sides, k-major) each goes through the same tables: grid.y is the component or RHS,
+// whose blocks offset plain, sub_raw and dcols by it (64-bit offsets), so each is bit-identical to
+// a scalar call on its slices, in one launch.
 //
 // Replaces: BrickLaplaceMM._corr_compact (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
 //   2775-2849) and the plain_rows[hn_sub] gather before it (2465): the stage-1 one-hot
@@ -19,7 +20,8 @@
 //   stages on sub_raw + acc, the keep mask, final - plain and -plain on absent rows. The TPU
 //   side ran these as XLA gathers, MXU matmuls and scatters (no Pallas kernel). With k = 3, the
 //   same on the trailing component axis of BrickElasticity's rows (models/elasticity_bricks.py:
-//   241-249).
+//   241-249); with k right-hand sides, _corr_compact on plain3 [nsC, k, n_loc] of
+//   _vmult_multi_impl (bricks.py:3484-3485).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (65,600 rows, 16,744 constrained, 11,609
 //   absent; 426,424 entries in 107,083 runs): memory. sub_raw read once (8.4 MB), plain read at
@@ -116,7 +118,7 @@ corr_compact_kernel(const T* __restrict__ plain, const T* __restrict__ sub_raw,
                     const int* __restrict__ ent_src, const int2* __restrict__ blocks,
                     T* __restrict__ dcols, int cap_rows, long long rows_stride,
                     long long hn_stride) {
-  if constexpr (MULTI) {  // the component of a component axis
+  if constexpr (MULTI) {  // the component or right-hand side of a leading axis
     if (plain != nullptr) plain += blockIdx.y * rows_stride;
     sub_raw += blockIdx.y * hn_stride;
     dcols += blockIdx.y * rows_stride;
@@ -218,8 +220,8 @@ int dispatch(const void* const* a, void* out, int n_blocks, int cap_rows, int n_
 extern "C" {
 
 // plain .. blocks: device pointers (plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src,
-// blocks), as the wrapper passes them; k components (1 or 3), rows_stride and hn_stride values
-// apart in plain and dcols, and in sub_raw
+// blocks), as the wrapper passes them; k components or right-hand sides, rows_stride and
+// hn_stride values apart in plain and dcols, and in sub_raw
 int corr_compact_f32(const void* plain, const void* sub_raw, const void* cell_code,
                      const void* keep, const void* seg_ptr, const void* seg_dst,
                      const void* ent_src, const void* blocks, void* dcols, int n_blocks,

@@ -2,17 +2,18 @@
 // every copy of a shared brick-surface node becomes the sum of all the copies of its
 // interface pool, then every node outside the mesh (node_valid false: holes and padding)
 // becomes 0. Interior nodes and valid unshared copies keep their values.
-// With a component axis (k = 3, elasticity: v [3, nb, N3p]) each component goes through the same
-// tables: grid.y is the component, whose blocks offset v by it, so a component is bit-identical to
-// a scalar call on v[c], in one launch.
+// With a leading axis of k components or right-hand sides (elasticity's k = 3: v [3, nb, N3p];
+// BrickLaplaceMM.vmult_multi's k right-hand sides) each goes through the same tables: grid.y is
+// the component or RHS, whose blocks offset v by it, so each is bit-identical to a scalar call on
+// v[c], in one launch.
 //
 // Replaces: the input-fill branch of BrickLaplaceMM._dss_fill
 //   (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2562-2568, 2608-2612) with
 //   BrickLaplaceMM._dss_surface (bricks.py:2096-2136): the one-hot surface extract, the pooled
 //   face/edge/corner scatter-add and gather-back, the one-hot scatter of the delta, and the
 //   node_valid mask. The TPU side ran it as XLA matmuls and scatters (no Pallas kernel). With
-//   k = 3, _dss_surface_multi (bricks.py:3303) and BrickElasticity's node_valid mask
-//   (models/elasticity_bricks.py:258-263).
+//   a leading axis, _dss_surface_multi (bricks.py:3303) with the node_valid mask of
+//   _vmult_multi_impl (3563-3579) and of BrickElasticity (models/elasticity_bricks.py:258-263).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (4,400 bricks, N3p=4992): memory. In
 //   words (kernels/dss_surface.py:moved_nodes, bytes_and_flops): every copy of a pool of

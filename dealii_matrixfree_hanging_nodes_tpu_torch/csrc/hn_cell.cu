@@ -10,6 +10,10 @@
 //   3. K:     own = scale[h] * (K u_hat), K the Kronecker sum of the 1-D factors K1, M1;
 //   4. Q^T:   out = own @ Q_h^T, from the lists of Q^T (bwd_ptr, bwd_col, bwd_w).
 // The fill mode (FILL) stops after step 2 and writes u_hat (refill's input).
+// With a right-hand-side axis (both modes; BrickLaplaceMM.vmult_multi: u [k, n_sub, N3p], its RHS
+// u_stride values apart, the subset view bvk[:, :n_sub]; out [k, n_hn, n_loc]) grid.y is the RHS,
+// whose blocks offset u and out by it (ent_src indexes one RHS's subset bricks, contiguous): each
+// RHS is bit-identical to a launch on it alone, and the lists and Q's are read by all k.
 // The elastic mode (hn_cell_elastic_kernel) runs the three components of component brick vectors
 // (u + comp * cstride) through steps 1 and 2, then linear elasticity's coupled operator times
 // scale[h] on every axis (elasticity.cuh) in place of step 3, then step 4 on each component:
@@ -21,7 +25,8 @@
 //   transposed _hn_apply (2474). The TPU side ran these as XLA gathers, one-hot MXU matmuls,
 //   scatters and one dense [n_loc, n_loc] matmul per mask range and direction (no Pallas
 //   kernel). The elastic mode: BrickElasticity's _fill_rows -> el_Kel -> _hn_apply(transpose)
-//   (models/elasticity_bricks.py:241-248).
+//   (models/elasticity_bricks.py:241-248). With a RHS axis: _fill_rows -> K -> _hn_apply^T on
+//   the [n_hn, k, n_loc] rows of _vmult_multi_impl (bricks.py:3478-3482) and _hn_ids2 (3386).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (16,744 rows, 426,424 fill entries, 25 Q's
 //   of 137-881 nonzeros): memory. The distinct brick nodes the rows read, out written once
@@ -137,7 +142,8 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
                const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
                const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
                const T* __restrict__ bwd_w, const Factors<T, P + 1> f,
-               const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p) {
+               const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p,
+               long long u_stride) {
   using S = Cfg<P>;
   constexpr int N = S::N, N2 = S::N2, NL = S::NL, G = S::G;
   constexpr int NB = B * P + 1;
@@ -150,6 +156,9 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   int* s_q = s_rp + G + 1;                          // [G] each row's Q
   int* s_base = s_q + G;                            // [G] each row's cell origin in u
 
+  const size_t rhs = blockIdx.y;  // its subset bricks and rows
+  u += rhs * u_stride;
+  out += rhs * n_hn * NL;
   const int tid = threadIdx.x;
   const int h0 = blockIdx.x * G;
   const int nrows = min(G, n_hn - h0);
@@ -386,7 +395,7 @@ int dispatch_elastic(const void* const* a, double mu, double lam, long long cstr
 
 template <typename T, int P, int B, bool FILL>
 int launch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int N3p,
-           cudaStream_t stream) {
+           int k, long long u_stride, cudaStream_t stream) {
   using S = Cfg<P>;
   // the rows' two buffers and their scales, then row_ptr, q and the cell origins
   const int smem =
@@ -401,8 +410,8 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
     std::memcpy(f.M, M1, sizeof(f.M));
   }
   const int blocks = (n_hn + S::G - 1) / S::G;
-  if (blocks > 0) {
-    kernel<<<blocks, S::THREADS, smem, stream>>>(
+  if (blocks > 0 && k > 0) {
+    kernel<<<dim3(blocks, k), S::THREADS, smem, stream>>>(
         static_cast<const T*>(a[0]), static_cast<const int*>(a[1]),
         static_cast<const bool*>(a[2]), static_cast<const int*>(a[3]),
         static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
@@ -410,7 +419,7 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
         static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
         static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
         static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]), static_cast<T*>(out),
-        n_hn, N3p);
+        n_hn, N3p, u_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -418,11 +427,11 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
 // (p, B) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
-             int B, int N3p, int fill, cudaStream_t stream) {
-#define HN_CASE(p_, b_)                                                             \
-  if (p == p_ && B == b_)                                                           \
-    return fill ? launch<T, p_, b_, true>(a, K1, M1, out, n_hn, N3p, stream)        \
-                : launch<T, p_, b_, false>(a, K1, M1, out, n_hn, N3p, stream);
+             int B, int N3p, int fill, int k, long long u_stride, cudaStream_t stream) {
+#define HN_CASE(p_, b_)                                                                      \
+  if (p == p_ && B == b_)                                                                    \
+    return fill ? launch<T, p_, b_, true>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
+                : launch<T, p_, b_, false>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream);
   HN_CASE(1, 16)
   HN_CASE(2, 8)
   HN_CASE(3, 4)
@@ -442,16 +451,16 @@ extern "C" {
 // a: device pointers, in order: u, hn_sub, keep, row_ptr, ent_slot, ent_src, q_of_row, fwd_ptr,
 // fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, scale (the last four unread in the fill mode).
 // K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; unread in the
-// fill mode).
+// fill mode). k right-hand sides, u_stride values apart in u (n_hn * n_loc apart in out).
 int hn_cell_f32(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int fill, void* stream) {
-  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, fill,
+                int p, int B, int N3p, int fill, int k, long long u_stride, void* stream) {
+  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, fill, k, u_stride,
                          static_cast<cudaStream_t>(stream));
 }
 
 int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int fill, void* stream) {
-  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, fill,
+                int p, int B, int N3p, int fill, int k, long long u_stride, void* stream) {
+  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, fill, k, u_stride,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -5,6 +5,10 @@
 // the 1-D factors K1 and M1. The cells of list entry k are its slots slot[ptr[k,0] .. ptr[k,8]],
 // in 8 parity classes (class c: ptr[k,c] .. ptr[k,c+1]; x%2 + 2 (y%2) + 4 (z%2) of the cell's
 // place in the brick), so no two cells of a class share a node.
+// With a right-hand-side axis (BrickLaplaceMM.vmult_multi with face_planes=False: v [k, nb, N3p],
+// its RHS v_stride values apart; u [k, >= n_sub, N3p], its RHS u_stride values apart) grid.y is
+// the RHS, whose blocks offset u and v by it: each RHS is bit-identical to a launch on it alone,
+// and the lists are read by all k.
 //
 // Replaces: BrickLaplaceMM._masked_quad_apply (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
 //   3169-3244) and its subtraction from the subset bricks (corr = -masked_quad(u_sub, qmask),
@@ -12,7 +16,9 @@
 //   Q = B (p+1)) over every subset brick with the geo-premultiplied cell mask as the metric. The
 //   TPU side ran them as XLA einsums (no Pallas kernel). p+1 Gauss points a cell axis integrate
 //   the cell stiffness exactly, so the function is the sum of the selected cells' stiffnesses,
-//   and this kernel visits those cells alone.
+//   and this kernel visits those cells alone. With a RHS axis it stands in for the reference's
+//   multi-RHS subset-row K at degree <= 3 (bricks.py:3470-3477, 3513-3515): the same operator
+//   on the masked-removal schedule of the single vmult, launched on k vectors.
 //
 // Bound on an H100 SXM (chip_smoke.py prints it at each degree, masked_quad.bytes_and_flops):
 //   memory. The distinct nodes of the selected cells read once from u and read and written
@@ -54,7 +60,8 @@ template <typename T, int P, int B>
 __global__ void __launch_bounds__(Cfg<P>::THREADS)
 masked_quad_kernel(const T* __restrict__ u, T* __restrict__ v, const int* __restrict__ brick,
                    const int* __restrict__ ptr, const int* __restrict__ slot,
-                   const T* __restrict__ geo, const Factors<T, P + 1> f, int N3p) {
+                   const T* __restrict__ geo, const Factors<T, P + 1> f, int N3p,
+                   long long u_stride, long long v_stride) {
   using S = Cfg<P>;
   constexpr int N = S::N, N2 = S::N2, NL = S::NL, G = S::G;
   constexpr int NB = B * P + 1, N3 = NB * NB * NB;
@@ -64,6 +71,9 @@ masked_quad_kernel(const T* __restrict__ u, T* __restrict__ v, const int* __rest
   T* sb = sa + S::SCR;                      // [G * NL] the cells' rows, then their products
   __shared__ int s_ptr[9];
 
+  const size_t rhs = blockIdx.y;
+  u += rhs * u_stride;
+  v += rhs * v_stride;
   const int tid = threadIdx.x;
   const int b = brick[blockIdx.x];
   if (tid < 9) s_ptr[tid] = ptr[blockIdx.x * 9 + tid];
@@ -114,8 +124,8 @@ masked_quad_kernel(const T* __restrict__ u, T* __restrict__ v, const int* __rest
 
 template <typename T, int P, int B>
 int launch(const void* u, void* v, const void* brick, const void* ptr, const void* slot,
-           const void* geo, const void* K1, const void* M1, int n_blk, int N3p,
-           cudaStream_t stream) {
+           const void* geo, const void* K1, const void* M1, int n_blk, int N3p, int k,
+           long long u_stride, long long v_stride, cudaStream_t stream) {
   using S = Cfg<P>;
   constexpr int NB = B * P + 1;
   const int smem = static_cast<int>((NB * NB * NB + 2 * S::SCR) * sizeof(T));
@@ -126,11 +136,11 @@ int launch(const void* u, void* v, const void* brick, const void* ptr, const voi
   Factors<T, P + 1> f;
   std::memcpy(f.K, K1, sizeof(f.K));
   std::memcpy(f.M, M1, sizeof(f.M));
-  if (n_blk > 0) {
-    kernel<<<n_blk, S::THREADS, smem, stream>>>(
+  if (n_blk > 0 && k > 0) {
+    kernel<<<dim3(n_blk, k), S::THREADS, smem, stream>>>(
         static_cast<const T*>(u), static_cast<T*>(v), static_cast<const int*>(brick),
         static_cast<const int*>(ptr), static_cast<const int*>(slot), static_cast<const T*>(geo),
-        f, N3p);
+        f, N3p, u_stride, v_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -139,9 +149,11 @@ int launch(const void* u, void* v, const void* brick, const void* ptr, const voi
 template <typename T>
 int dispatch(const void* u, void* v, const void* brick, const void* ptr, const void* slot,
              const void* geo, const void* K1, const void* M1, int n_blk, int p, int B, int N3p,
-             cudaStream_t stream) {
-#define MQ_CASE(p_, b_) \
-  if (p == p_ && B == b_) return launch<T, p_, b_>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, N3p, stream);
+             int k, long long u_stride, long long v_stride, cudaStream_t stream) {
+#define MQ_CASE(p_, b_)                                                                   \
+  if (p == p_ && B == b_)                                                                 \
+    return launch<T, p_, b_>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, N3p, k, u_stride, \
+                             v_stride, stream);
   MQ_CASE(3, 4)
   MQ_CASE(2, 8)
   MQ_CASE(1, 16)
@@ -154,19 +166,19 @@ int dispatch(const void* u, void* v, const void* brick, const void* ptr, const v
 extern "C" {
 
 // u .. geo: device pointers; K1, M1: host pointers to the 1-D factors (copied into the launch's
-// parameters)
+// parameters); k right-hand sides, u_stride values apart in u and v_stride in v
 int masked_quad_f32(const void* u, void* v, const void* brick, const void* ptr, const void* slot,
                     const void* geo, const void* K1, const void* M1, int n_blk, int p, int B,
-                    int N3p, void* stream) {
-  return dispatch<float>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, p, B, N3p,
-                         static_cast<cudaStream_t>(stream));
+                    int N3p, int k, long long u_stride, long long v_stride, void* stream) {
+  return dispatch<float>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, p, B, N3p, k, u_stride,
+                         v_stride, static_cast<cudaStream_t>(stream));
 }
 
 int masked_quad_f64(const void* u, void* v, const void* brick, const void* ptr, const void* slot,
                     const void* geo, const void* K1, const void* M1, int n_blk, int p, int B,
-                    int N3p, void* stream) {
-  return dispatch<double>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, p, B, N3p,
-                          static_cast<cudaStream_t>(stream));
+                    int N3p, int k, long long u_stride, long long v_stride, void* stream) {
+  return dispatch<double>(u, v, brick, ptr, slot, geo, K1, M1, n_blk, p, B, N3p, k, u_stride,
+                          v_stride, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

@@ -161,5 +161,27 @@ def check_cuda(name: str, float_dtype, **tensors) -> torch.device:
     return device
 
 
+MAX_RHS = 65535  # grid.y's cap: the most right-hand sides one launch takes
+
+
+def rhs_axis(name: str, t: torch.Tensor, dims: int):
+    """(k, stride, one) of `t`, a tensor of `dims` dimensions, or of those
+    after a leading right-hand-side axis: k right-hand sides `stride`
+    elements apart (0 without the axis) and the first of them, which stands
+    for all in ``check_cuda``'s contiguity check (the leading axis may have
+    any stride: the subset view ``bvk[:, :n_sub]`` has that of bvk). Raises
+    for another rank and for k outside 1..MAX_RHS."""
+    if t.dim() == dims:
+        return 1, 0, t
+    if t.dim() != dims + 1:
+        raise ValueError(f"{name}: expected {dims} dimensions, or a right-hand-side axis "
+                         f"before them, got {tuple(t.shape)}")
+    k = t.shape[0]
+    if not 1 <= k <= MAX_RHS:
+        raise ValueError(f"{name}: {k} right-hand sides; a launch takes 1 to {MAX_RHS} "
+                         f"(grid.y)")
+    return k, t.stride(0), t[0]
+
+
 def suffix(dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"

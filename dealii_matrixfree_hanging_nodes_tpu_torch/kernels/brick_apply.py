@@ -11,6 +11,12 @@ form of ``BrickLaplaceMM._main_apply`` (bricks.py:2321-2348) times ``geo``
 2196-2241) with the merge ``v.at[:n_sub].add(corr)`` (bricks.py:2553-2559).
 CUDA source: ``csrc/brick_apply.cu``.
 
+With a right-hand-side axis (``BrickLaplaceMM.vmult_multi``: bv [k, nb,
+N3p] with any stride between its RHS, dcols [k, m*B^3, n_loc]) each RHS
+goes through the same factors in one launch (grid.y), bit-identical to a
+call on it alone (the reference's k-major ``_main_apply`` and
+``_subset_scatter_add_multi``, bricks.py:3459-3461, 3513-3515).
+
 The kernel takes the structural nonzeros of Kb and Mb, packed row by row
 (``factor_structure``), as launch parameters: on the kernel path they are
 host tensors (``BrickLaplaceMM.brick_factors_host``)."""
@@ -86,7 +92,11 @@ def brick_apply_plain(bv, Kb, Mb, geo, p=None, dcols=None, brick_size=None):
     """Plain PyTorch version, the reference's algebra: the 289x289 xy
     factors Fxy = Mb⊗Kb + Kb⊗Mb and Mxy = Mb⊗Mb, then the z contractions;
     then one ``index_add_`` of dcols into the first m bricks. Kb, Mb dense
-    [NB, NB] or packed (then p is needed)."""
+    [NB, NB] or packed (then p is needed). A RHS axis: each RHS so."""
+    if bv.dim() == 3:
+        return torch.stack([brick_apply_plain(bv[j], Kb, Mb, geo, p,
+                                              None if dcols is None else dcols[j], brick_size)
+                            for j in range(bv.shape[0])])
     if Kb.dim() == 1:
         Kb, Mb = unpack_factor(Kb, p), unpack_factor(Mb, p)
     nb, N3p = bv.shape
@@ -105,7 +115,8 @@ def brick_apply_plain(bv, Kb, Mb, geo, p=None, dcols=None, brick_size=None):
     return v
 
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+         + [ctypes.c_void_p] * 2)
 
 
 def _packed_host(Fp, p, dtype):
@@ -120,16 +131,23 @@ def _packed_host(Fp, p, dtype):
 
 
 def brick_apply(bv, Kb, Mb, geo, p, dcols=None, brick_size=None):
-    """bv [nb, N3p], geo [nb], dcols [m*B^3, n_loc] or None -> v [nb, N3p].
-    On the kernel path Kb and Mb are the packed host factors
-    (``op.brick_factors_host``); on CPU tensors the plain version takes them
-    dense or packed."""
+    """bv [nb, N3p], geo [nb], dcols [m*B^3, n_loc] or None -> new v [nb,
+    N3p]; a RHS axis: bv [k, nb, N3p] (any stride between RHS), dcols [k,
+    m*B^3, n_loc] -> v [k, nb, N3p]. On the kernel path Kb and Mb are the
+    packed host factors (``op.brick_factors_host``); on CPU tensors the
+    plain version takes them dense or packed."""
     if bv.device.type == "cpu":
         return brick_apply_plain(bv, Kb, Mb, geo, p, dcols, brick_size)
-    extra = {} if dcols is None else {"dcols": dcols}
-    dev = _build.check_cuda(NAME, bv.dtype, bv=bv, geo=geo, **extra)
+    k, stride, bv1 = _build.rhs_axis(NAME, bv, 2)
+    lead = bv.shape[:-2]
+    extra = {}
+    if dcols is not None:
+        if dcols.shape[:-2] != lead:
+            raise ValueError(f"{NAME}: dcols {tuple(dcols.shape)} for bv {tuple(bv.shape)}")
+        extra["dcols"] = dcols
+    dev = _build.check_cuda(NAME, bv.dtype, bv=bv1, geo=geo, **extra)
     Kp, Mp = (_packed_host(Fp, p, bv.dtype) for Fp in (Kb, Mb))
-    nb, N3p = bv.shape
+    nb, N3p = bv1.shape
     NB = factor_width(Kp.shape[0], p)
     if (NB, p) not in SUPPORTED or Mp.shape != Kp.shape:
         raise ValueError(f"{NAME}: unsupported brick width NB={NB} at p={p}")
@@ -137,14 +155,14 @@ def brick_apply(bv, Kb, Mb, geo, p, dcols=None, brick_size=None):
         raise ValueError(f"{NAME}: shapes bv {tuple(bv.shape)}, geo {tuple(geo.shape)}")
     m = 0
     if dcols is not None:
-        m, pc = _rows_of(dcols, brick_size, nb, N3p)
+        m, pc = _rows_of(dcols[0] if lead else dcols, brick_size, nb, N3p)
         if pc != p or int(brick_size) * p + 1 != NB:
             raise ValueError(f"{NAME}: dcols of p={pc}, B={brick_size} for NB={NB}, p={p}")
-    out = torch.empty_like(bv)
+    out = torch.empty(bv.shape, dtype=bv.dtype, device=bv.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(bv.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(bv), _build.ptr(Kp), _build.ptr(Mp),
                   _build.ptr(geo), None if dcols is None else _build.ptr(dcols),
-                  _build.ptr(out), nb, m, NB, p, N3p, None)
+                  _build.ptr(out), nb, m, NB, p, N3p, k, stride, None)
     brick_apply.launches += 1
     return out
 
@@ -159,17 +177,19 @@ def plan(dtype, p, m=0, device=None):
     info = (ctypes.c_int * 2)()
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(dtype)}", _ARGS)
     _build.launch(NAME, fn, torch.device("cuda") if device is None else device, None, None,
-                  None, None, None, None, 1, m, NB, p, NB**3, info)
+                  None, None, None, None, 1, m, NB, p, NB**3, 1, 0, info)
     return tuple(info)
 
 
-def bytes_and_flops(nb, NB, p, N3p, itemsize, m=0):
+def bytes_and_flops(nb, NB, p, N3p, itemsize, m=0, k=1):
     """Least traffic (read u's NB^3 nodes once, write v with its padding
     once, the packed factors, geo, and the m bricks' cell rows) and the
     operation count: seven sweeps, each summing the structural nonzeros of
-    one factor per node, the geo scale and one add per cell-row entry."""
+    one factor per node, the geo scale and one add per cell-row entry.
+    k right-hand sides: the vectors and cell rows k times, the factors and
+    geo once."""
     nnz = len(factor_structure(NB, p)[0])
     n_rows = m * ((NB - 1) // p) ** 3 * (p + 1) ** 3
-    nbytes = (nb * NB**3 + nb * N3p + 2 * nnz + nb + n_rows) * itemsize
-    flops = (7 * 2 * nnz * NB * NB + NB**3) * nb + n_rows
+    nbytes = (k * (nb * NB**3 + nb * N3p + n_rows) + 2 * nnz + nb) * itemsize
+    flops = k * ((7 * 2 * nnz * NB * NB + NB**3) * nb + n_rows)
     return nbytes, flops

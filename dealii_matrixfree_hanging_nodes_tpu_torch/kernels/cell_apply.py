@@ -9,6 +9,13 @@ reference's ``_extract_cols`` (bricks.py:2178-2194) fused with ``cols @ K.T
 ``u_hat @ K.T * geo_cell_sub[hn_sub]`` (bricks.py:2469-2471), which on the
 card runs inside ``hn_cell``.
 
+With a right-hand-side axis (``BrickLaplaceMM.vmult_multi``: src [k, m,
+N3p] with any stride between its RHS, the subset view ``bvk[:, :n_sub]``)
+each RHS goes through the same factors in one launch (grid.y): out [k,
+m*B^3, n_loc], each RHS bit-identical to a call on it alone (the
+reference's ``_extract_cols`` and ``cols_u @ K.T * geo`` on the k-major
+layout, bricks.py:3470-3477).
+
 CUDA source: ``csrc/cell_apply.cu`` (the sweeps in
 ``csrc/sum_factorization.cuh``, shared with ``hn_cell``)."""
 
@@ -53,7 +60,10 @@ def cell_nodes(cells, brick_size, p, N3p, device):
 def cell_apply_plain(src, K1, M1, scale, brick_size=None):
     """Plain PyTorch version: gather the cell rows, then the sweeps of the
     1-D factors on the [rows, z, y, x] view (x: M1, K1; y: M1 on both, K1
-    on the M1 branch; z: on the two sums), then the scale."""
+    on the M1 branch; z: on the two sums), then the scale. A RHS axis:
+    each RHS so."""
+    if src.dim() == 3:
+        return torch.stack([cell_apply_plain(s, K1, M1, scale, brick_size) for s in src])
     n = cell_degree(K1) + 1
     if brick_size is not None:
         idx = brick_slot_index(brick_size, n - 1, src.device)
@@ -68,17 +78,20 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None):
     return out.reshape(-1, n**3) * scale[:, None]
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def cell_apply(src, K1, M1, scale, brick_size):
     """Launch the kernel on CUDA tensors; the plain version on CPU ones.
     The kernel takes K1 and M1 by value, as launch parameters: on the
     kernel path they must be CPU tensors (``BrickLaplaceMM.factors_host``);
-    factors on the card raise rather than cost a synchronising copy."""
+    factors on the card raise rather than cost a synchronising copy.
+    src [m, N3p] -> out [m*B^3, n_loc]; a RHS axis: src [k, m, N3p] (any
+    stride between RHS) -> out [k, m*B^3, n_loc]."""
     if src.device.type == "cpu":
         return cell_apply_plain(src, K1, M1, scale, brick_size)
-    dev = _build.check_cuda(NAME, src.dtype, src=src, scale=scale)
+    k, stride, src1 = _build.rhs_axis(NAME, src, 2)
+    dev = _build.check_cuda(NAME, src.dtype, src=src1, scale=scale)
     p = cell_degree(K1)
     n_loc = (p + 1) ** 3
     if M1.shape != K1.shape:
@@ -88,15 +101,15 @@ def cell_apply(src, K1, M1, scale, brick_size):
                          f"(op.factors_host), got them on {K1.device} and {M1.device}")
     K1, M1 = (f.detach().to(src.dtype).contiguous() for f in (K1, M1))
     B = int(brick_size)
-    if src.dim() != 2 or src.shape[1] < (B * p + 1) ** 3:
+    if src1.shape[1] < (B * p + 1) ** 3:
         raise ValueError(f"{NAME}: bricks must be [m, >= NB^3], got {tuple(src.shape)}")
-    rows, N3p = src.shape[0] * B**3, src.shape[1]
+    rows, N3p = src1.shape[0] * B**3, src1.shape[1]
     if scale.shape != (rows,):
         raise ValueError(f"{NAME}: scale must be [{rows}], got {tuple(scale.shape)}")
-    out = torch.empty((rows, n_loc), dtype=src.dtype, device=src.device)
+    out = torch.empty((*src.shape[:-2], rows, n_loc), dtype=src.dtype, device=src.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(K1), _build.ptr(M1),
-                  _build.ptr(scale), _build.ptr(out), rows, p, B, N3p)
+                  _build.ptr(scale), _build.ptr(out), rows, p, B, N3p, k, stride)
     cell_apply.launches += 1
     return out
 
@@ -104,10 +117,11 @@ def cell_apply(src, K1, M1, scale, brick_size):
 cell_apply.launches = 0
 
 
-def bytes_and_flops(src_elems, rows, n_loc, itemsize):
+def bytes_and_flops(src_elems, rows, n_loc, itemsize, k=1):
     """Least traffic (src read once, out written once, K1, M1 and scale) and
     the sum-factorized operation count: 7 sweeps of 2 n^4 and the scale,
-    per row."""
+    per row. k right-hand sides (src_elems and rows those of one): the
+    bricks and rows k times, the factors and scale once."""
     n = round(n_loc ** (1.0 / 3.0))
-    nbytes = (src_elems + rows * n_loc + 2 * n * n + rows) * itemsize
-    return nbytes, rows * (7 * 2 * n**4 + n**3)
+    nbytes = (k * (src_elems + rows * n_loc) + 2 * n * n + rows) * itemsize
+    return nbytes, k * rows * (7 * 2 * n**4 + n**3)

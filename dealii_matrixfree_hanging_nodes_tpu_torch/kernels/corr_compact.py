@@ -21,11 +21,13 @@ holding entries seg_ptr[s] .. seg_ptr[s+1] that all land on the flat dcols
 slot seg_dst[s] = row * n_loc + slot (ascending), and a block schedule
 (``schedule``). CUDA source: ``csrc/corr_compact.cu``.
 
-With a component axis (elasticity: plain, dcols [3, n_rows, n_loc],
-sub_raw [3, n_hn, n_loc], component-major) each component goes through the
-same tables in one launch, bit-identical to a scalar call on its slices
-(the reference's trailing component axis of the rows,
-models/elasticity_bricks.py:241-249)."""
+With a leading axis of k components or right-hand sides (elasticity's 3:
+plain, dcols [3, n_rows, n_loc], sub_raw [3, n_hn, n_loc], component-major;
+``BrickLaplaceMM.vmult_multi``'s k right-hand sides, k-major) each goes
+through the same tables in one launch (grid.y), bit-identical to a scalar
+call on its slices (the reference's trailing component axis of the rows,
+models/elasticity_bricks.py:241-249, and its ``_corr_compact`` on
+``plain3 [nsC, k, n_loc]``, bricks.py:3484-3485)."""
 
 from __future__ import annotations
 
@@ -110,22 +112,23 @@ def corr_compact(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blo
     """plain [n_rows, n_loc] or None (zeros), sub_raw [n_hn, n_loc];
     cell_code [n_rows], seg_ptr [n_seg+1], seg_dst [n_seg], ent_src, blocks
     [n_blocks+1, 2] int32 (``schedule``); keep [n_hn, n_loc] bool -> new
-    dcols [n_rows, n_loc]. A component axis: plain [3, n_rows, n_loc],
-    sub_raw [3, n_hn, n_loc] -> dcols [3, n_rows, n_loc]."""
+    dcols [n_rows, n_loc]. A leading axis of k components or right-hand
+    sides: plain [k, n_rows, n_loc], sub_raw [k, n_hn, n_loc] -> dcols [k,
+    n_rows, n_loc]."""
     args = (plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blocks)
     if sub_raw.device.type == "cpu":
         return corr_compact_plain(*args)
     dev = _build.check_cuda(NAME, sub_raw.dtype, **{k: t for k, t in zip(
         ("plain", "sub_raw", "cell_code", "keep", "seg_ptr", "seg_dst", "ent_src", "blocks"),
         args) if t is not None})
-    k = sub_raw.shape[0] if sub_raw.dim() == 3 else 1
-    lead = (k,) if sub_raw.dim() == 3 else ()
+    k = _build.rhs_axis(NAME, sub_raw, 2)[0]
+    lead = sub_raw.shape[:-2]
     n_rows, n_loc = cell_code.shape[0], sub_raw.shape[-1]
     p = round(n_loc ** (1.0 / 3.0)) - 1
     if any(t.dtype != torch.int32 for t in (cell_code, seg_ptr, seg_dst, ent_src, blocks)):
         raise TypeError(f"{NAME}: cell_code, seg_ptr, seg_dst, ent_src and blocks must be int32")
     if (keep.dtype != torch.bool or lead + tuple(keep.shape) != sub_raw.shape
-            or k not in (1, 3) or (plain is not None and plain.shape != lead + (n_rows, n_loc))
+            or (plain is not None and plain.shape != lead + (n_rows, n_loc))
             or (p + 1) ** 3 != n_loc or cell_code.dim() != 1
             or seg_ptr.shape != (seg_dst.numel() + 1,) or ent_src.dim() != 1
             or blocks.dim() != 2 or blocks.shape[1] != 2 or n_rows * n_loc > 2**31 - 1):

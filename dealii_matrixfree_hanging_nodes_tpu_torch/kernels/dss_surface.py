@@ -17,9 +17,10 @@ order, padded with -1; the validity of each surface copy is one bit per
 surface position, the invalid nodes off the surface one bit per brick node
 of each hole brick (padding is zeroed without a table).
 
-With a component axis (elasticity: v [3, nb, N3p]) each component goes
-through the same tables in one launch, bit-identical to a scalar call on
-v[c] (the reference's ``_dss_surface_multi``, bricks.py:3303)."""
+With a leading axis of k components or right-hand sides (elasticity's
+v [3, nb, N3p]; ``BrickLaplaceMM.vmult_multi``'s [k, nb, N3p]) each goes
+through the same tables in one launch (grid.y), bit-identical to a scalar
+call on v[c] (the reference's ``_dss_surface_multi``, bricks.py:3303)."""
 
 from __future__ import annotations
 
@@ -130,7 +131,7 @@ _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctype
 
 def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks, hole_bits,
                 NB):
-    """v [nb, N3p] or [3, nb, N3p], updated in place and returned;
+    """v [nb, N3p] or [k, nb, N3p], updated in place and returned;
     face_pairs [*, 2], edge_pools [*, <= 8], corner_pools [*, <= 8],
     valid_bits [nb, *], hole_bricks [h], hole_bits [h, *], all int32."""
     if v.device.type == "cpu":
@@ -139,9 +140,7 @@ def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks
     tables = dict(face_pairs=face_pairs, edge_pools=edge_pools, corner_pools=corner_pools,
                   valid_bits=valid_bits, hole_bricks=hole_bricks, hole_bits=hole_bits)
     dev = _build.check_cuda(NAME, v.dtype, v=v, **tables)
-    k = v.shape[0] if v.dim() == 3 else 1
-    if v.dim() not in (2, 3) or k not in (1, 3):
-        raise ValueError(f"{NAME}: v must be [nb, N3p] or [3, nb, N3p], got {tuple(v.shape)}")
+    k = _build.rhs_axis(NAME, v, 2)[0]
     nb, N3p = v.shape[-2:]
     M, N3 = NB - 2, NB**3
     for key, t in tables.items():

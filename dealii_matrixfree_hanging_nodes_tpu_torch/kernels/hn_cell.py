@@ -17,6 +17,13 @@ operator times scale[h] (``cell_elasticity``'s, on every axis; ``elastic``
 n_loc], component-major (the reference's ``_fill_rows`` -> ``el_Kel`` ->
 ``_hn_apply(transpose=True)``, models/elasticity_bricks.py:241-248).
 
+With a right-hand-side axis (the "full" and "fill" modes;
+``BrickLaplaceMM.vmult_multi``: u_sub [k, n_sub, N3p] with any stride
+between its RHS, the subset view ``bvk[:, :n_sub]``) each RHS goes through
+the same lists and Q's in one launch (grid.y): out [k, n_hn, n_loc], each
+RHS bit-identical to a call on it alone (the reference's rows [n_hn, k,
+n_loc] with ``_hn_ids2``, bricks.py:3386, 3478-3482).
+
 Replaces the reference's ``_fill_rows`` (bricks.py:2687-2694: the compact
 fill chain ``_fill_hn_compact``, 2728-2773, fed by ``_extract_cols``, then
 ``_hn_apply`` forward, 2244-2258), the constrained rows' ``u_hat @ K.T *
@@ -89,7 +96,11 @@ def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, f
                   elastic=None):
     """Plain PyTorch version: the four steps one after another, each
     through device memory (K1, M1 and scale are not read in the fill
-    mode, K1 and M1 not in the elastic mode)."""
+    mode, K1 and M1 not in the elastic mode). A RHS axis: each RHS so."""
+    if _mode(mode) != "elastic" and u_sub.dim() == 3:
+        return torch.stack([hn_cell_plain(u, hn_sub, keep, row_ptr, ent_slot, ent_src, q,
+                                          fwd_ptr, fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, K1,
+                                          M1, scale, brick_size, mode) for u in u_sub])
     if _mode(mode) == "elastic":
         S, Dc, quad_w, mu, lam = elastic
         u_hat = torch.stack([hn_apply_plain(fill_hn_plain(
@@ -111,18 +122,19 @@ def _mode(mode):
     return mode
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
 _ELASTIC_ARGS = ([ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong,
                   ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
 
 def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
             bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *, elastic=None):
-    """u_sub [n_sub, N3p] ([3, m, N3p] in the elastic mode, m >= n_sub);
+    """u_sub [n_sub, N3p] ([3, m, N3p] in the elastic mode, m >= n_sub; a
+    RHS axis in the other modes: [k, n_sub, N3p], any stride between RHS);
     hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot, ent_src, the Q lists' ptr
     [nQ, n_loc+1] and col int32; keep [n_hn, n_loc] bool; w and scale [n_hn]
     of u_sub's dtype -> new [n_hn, n_loc] tensor ([3, n_hn, n_loc] in the
-    elastic mode). The kernel takes K1 and M1 by value, as launch
+    elastic mode, [k, n_hn, n_loc] with a RHS axis). The kernel takes K1 and M1 by value, as launch
     parameters: on the kernel path they must be CPU tensors
     (``op.factors_host``). In the fill mode K1, M1 and scale may be None,
     in the elastic mode K1 and M1; elastic = (S, Dc, quad_w, mu, lam), S,
@@ -134,7 +146,10 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
         return hn_cell_plain(*args, K1, M1, scale, brick_size, mode, elastic=elastic)
     names = ("u_sub", "hn_sub", "keep", "row_ptr", "ent_slot", "ent_src", "q", "fwd_ptr",
              "fwd_col", "fwd_w", "bwd_ptr", "bwd_col", "bwd_w")
+    k, stride = 1, 0
     tensors = dict(zip(names, args))
+    if mode != "elastic":
+        k, stride, tensors["u_sub"] = _build.rhs_axis(NAME, u_sub, 2)
     if not fill:
         tensors["scale"] = scale
     if mode == "elastic":
@@ -145,7 +160,7 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
     _check_tables(args, n_hn, n_loc, p)
     if mode == "elastic":
         return _elastic(args, scale, elastic, n_hn, p, B, dev)
-    if u_sub.dim() != 2 or u_sub.shape[1] < (B * p + 1) ** 3:
+    if u_sub.shape[-1] < (B * p + 1) ** 3:
         raise ValueError(f"{NAME}: u_sub must be [n_sub, >= NB^3], got {tuple(u_sub.shape)}")
     if fill:
         factors = (None, None)
@@ -156,12 +171,12 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
             raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
                              f"(op.factors_host), got them on {K1.device} and {M1.device}")
         factors = tuple(f.detach().to(u_sub.dtype).contiguous() for f in (K1, M1))
-    out = torch.empty((n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
+    out = torch.empty((*u_sub.shape[:-2], n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
     ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in args),
                                   None if fill else scale.data_ptr())
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(u_sub.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, ptrs, *(None if f is None else _build.ptr(f) for f in factors),
-                  _build.ptr(out), n_hn, p, B, u_sub.shape[1], int(fill))
+                  _build.ptr(out), n_hn, p, B, u_sub.shape[-1], int(fill), k, stride)
     hn_cell.launches += 1
     return out
 
@@ -227,10 +242,12 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
     per fill entry, a multiply and an add per nonzero of each row's Q (and
     of Q^T), and in the full mode the 7 sweeps of 2 n^4 and the scale a row
     (the elastic mode: each of these a component, and the coupled
-    operator's 36 sweeps of 2 n^4 and ~40 operations a point a row)."""
+    operator's 36 sweeps of 2 n^4 and ~40 operations a point a row). A RHS
+    axis: the nodes, the rows and the operations k times, the tables
+    once."""
     n_hn, n_loc = keep.shape
     n = round(n_loc ** (1.0 / 3.0))
-    k = 3 if _mode(mode) == "elastic" else 1
+    k = 3 if _mode(mode) == "elastic" else (u_sub.shape[0] if u_sub.dim() == 3 else 1)
     isz = u_sub.element_size()
     own = cell_nodes(hn_sub, brick_size, n - 1, u_sub.shape[-1], u_sub.device)[keep]
     n_read = torch.unique(torch.cat([own, ent_src.long()])).numel()
@@ -245,7 +262,7 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
         flops += 2 * k * int(torch.where(q >= 0, nnz[q.long().clamp(min=0)], 0).sum())
     if mode == "full":
         nbytes += (n_hn + 2 * n * n) * isz
-        flops += n_hn * (7 * 2 * n**4 + n**3)
+        flops += k * n_hn * (7 * 2 * n**4 + n**3)
     elif mode == "elastic":
         nbytes += (n_hn + 2 * n * n + n_loc) * isz
         flops += n_hn * (3 * 12 * 2 * n**4 + 40 * n_loc)

@@ -17,7 +17,12 @@ sweeps (Sqb, Dqb) over whole subset bricks with the geo-premultiplied cell
 mask as the metric. With p+1 Gauss points per axis the quadrature
 integrates the cell stiffness exactly, so the function is a sum of cell
 stiffnesses over the selected cells, which the kernel visits alone.
-CUDA source: ``csrc/masked_quad.cu``."""
+CUDA source: ``csrc/masked_quad.cu``.
+
+With a right-hand-side axis (``BrickLaplaceMM.vmult_multi`` with
+face_planes=False: v [k, nb, N3p], u [k, >= n_sub, N3p] with any stride
+between its RHS) each RHS goes through the same lists in one launch
+(grid.y), bit-identical to a call on it alone."""
 
 from __future__ import annotations
 
@@ -44,7 +49,11 @@ def masked_quad_plain(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
     """Plain PyTorch version: the selected cells' rows gathered from u,
     their stiffness (``cell_apply_plain``) times their brick's geo, then
     subtracted from v with one ``index_add_``. Updates v in place and
-    returns it."""
+    returns it. A RHS axis: each RHS so."""
+    if v.dim() == 3:
+        for vj, uj in zip(v, u):
+            masked_quad_plain(vj, uj, brick, ptr, slot, K1, M1, geo, brick_size)
+        return v
     p = cell_degree(K1)
     cells = selected_cells(brick, ptr, slot, brick_size)
     nodes = cell_nodes(cells, brick_size, p, u.shape[1], u.device)
@@ -53,17 +62,23 @@ def masked_quad_plain(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
     return v
 
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
 
 def masked_quad(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
     """v [nb, N3p] (updated in place and returned), u [>= n_sub, N3p] of
-    v's dtype, geo [nb]; brick [n_blk], ptr [n_blk, 9], slot int32. The
-    kernel takes K1 and M1 by value, as launch parameters: on the kernel
-    path they must be CPU tensors (``op.factors_host``)."""
+    v's dtype, geo [nb]; brick [n_blk], ptr [n_blk, 9], slot int32. A RHS
+    axis: v [k, nb, N3p] contiguous, u [k, >= n_sub, N3p] with any stride
+    between RHS. The kernel takes K1 and M1 by value, as launch parameters:
+    on the kernel path they must be CPU tensors (``op.factors_host``)."""
     if v.device.type == "cpu":
         return masked_quad_plain(v, u, brick, ptr, slot, K1, M1, geo, brick_size)
-    dev = _build.check_cuda(NAME, v.dtype, v=v, u=u, brick=brick, ptr=ptr, slot=slot, geo=geo)
+    k, v_stride, v1 = _build.rhs_axis(NAME, v, 2)
+    ku, u_stride, u1 = _build.rhs_axis(NAME, u, 2)
+    if ku != k or u.dim() != v.dim() or not v.is_contiguous():
+        raise ValueError(f"{NAME}: v {tuple(v.shape)} (contiguous) and u {tuple(u.shape)} must "
+                         f"have one RHS axis")
+    dev = _build.check_cuda(NAME, v.dtype, v=v1, u=u1, brick=brick, ptr=ptr, slot=slot, geo=geo)
     p, B = cell_degree(K1), int(brick_size)
     if (p, B) not in SUPPORTED or M1.shape != K1.shape:
         raise ValueError(f"{NAME}: unsupported degree {p} with B={B}")
@@ -72,8 +87,8 @@ def masked_quad(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
                          f"(op.factors_host), got them on {K1.device} and {M1.device}")
     if any(t.dtype != torch.int32 for t in (brick, ptr, slot)):
         raise TypeError(f"{NAME}: brick, ptr and slot must be int32")
-    nb, N3p = v.shape
-    if (u.dim() != 2 or u.shape[1] != N3p or N3p < (B * p + 1) ** 3 or geo.shape != (nb,)
+    nb, N3p = v1.shape
+    if (u1.shape[1] != N3p or N3p < (B * p + 1) ** 3 or geo.shape != (nb,)
             or ptr.shape != (brick.shape[0], 9) or nb * N3p > 2**31 - 1):
         raise ValueError(f"{NAME}: shapes v {tuple(v.shape)}, u {tuple(u.shape)}, ptr "
                          f"{tuple(ptr.shape)}, geo {tuple(geo.shape)}")
@@ -81,7 +96,7 @@ def masked_quad(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(v.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(u), _build.ptr(v), _build.ptr(brick), _build.ptr(ptr),
                   _build.ptr(slot), _build.ptr(geo), _build.ptr(K1), _build.ptr(M1),
-                  brick.shape[0], p, B, N3p)
+                  brick.shape[0], p, B, N3p, k, u_stride, v_stride)
     masked_quad.launches += 1
     return v
 
@@ -93,11 +108,13 @@ def bytes_and_flops(v, u, brick, ptr, slot, K1, M1, geo, brick_size):
     """Least traffic: the distinct nodes of the selected cells read once from
     u, and read and written once in v; the lists, geo and K1, M1.
     Operations: the 7 sweeps of 2 n^4, the scale and one subtraction per
-    cell node, per selected cell."""
+    cell node, per selected cell. A RHS axis: the nodes and the operations
+    k times, the lists, geo and factors once."""
+    k = v.shape[0] if v.dim() == 3 else 1
     n = cell_degree(K1) + 1
     cells = selected_cells(brick, ptr, slot, brick_size)
-    nodes = cell_nodes(cells, brick_size, n - 1, u.shape[1], u.device)
+    nodes = cell_nodes(cells, brick_size, n - 1, u.shape[-1], u.device)
     n_nodes = torch.unique(nodes).numel()
-    nbytes = (3 * n_nodes + brick.numel() + 2 * n * n) * v.element_size() + 4 * (
+    nbytes = (3 * k * n_nodes + brick.numel() + 2 * n * n) * v.element_size() + 4 * (
         brick.numel() + ptr.numel() + slot.numel())
-    return nbytes, cells.numel() * (7 * 2 * n**4 + 2 * n**3)
+    return nbytes, k * cells.numel() * (7 * 2 * n**4 + 2 * n**3)

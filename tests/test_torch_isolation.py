@@ -99,6 +99,11 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 4, categorize=True),
                           device="cpu")
+    # vmult_multi under face planes (on by default at p <= 2), as the reference raises
+    planes = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 4), 2), device="cpu")
+    assert planes.planes
+    with pytest.raises(NotImplementedError, match="face_planes"):
+        planes.vmult_multi(torch.zeros(2, planes.n_bricks, planes.N3p, dtype=planes.dtype))
     # the solvers are 3-D, as both engines are
     for gmg in (mt.GMGPreconditioner, mt.BrickGMGPreconditioner):
         with pytest.raises(NotImplementedError):
@@ -442,6 +447,111 @@ def test_vmult_on_card_matches_oracle(cuda):
     got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
     ref = vmult_oracle(tria, 4, u)
     assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+# ---- the multi-RHS vmult on the card ------------------------------------------
+def _multi_pairs(op, k, dev, dtype, seed):
+    """(kernel output, plain output) pairs of the six kernels of vmult_multi
+    on the card with a RHS axis of k: brick_apply with k cell-row blocks,
+    cell_apply (p >= 4), hn_cell in both Laplace modes and masked_quad (p <=
+    3) on a strided subset view (the first n_sub of n_sub + 1 bricks a RHS,
+    as bvk[:, :n_sub] is where the mesh has bricks outside the subset),
+    corr_compact on k blocks of rows, dss_surface in place on k brick
+    vectors."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, cell_apply, corr_compact, dss_surface, hn_cell, masked_quad,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    bvk, v = rnd(k, op.n_bricks, op.N3p), rnd(k, op.n_bricks, op.N3p)
+    sub = rnd(k, op.n_sub + 1, op.N3p)[:, : op.n_sub]
+    assert not sub.is_contiguous() or k == 1
+    rows, hn = rnd(k, op.n_corr_rows, op.n_loc), rnd(k, op.n_hn, op.n_loc)
+    plain_rows = None if op.assembled else rows
+    fused = dict(dcols=rows, brick_size=op.B)
+    hn_tail = (*op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    hn_plain_tail = (*op.hn_tables(), op.K1, op.M1, op.geo_hn, op.B)
+    pairs = [
+        (brick_apply.brick_apply(bvk, *op.brick_factors_host, op.geo, op.p, **fused),
+         brick_apply.brick_apply_plain(bvk, op.Kb, op.Mb, op.geo, op.p, **fused)),
+        (corr_compact.corr_compact(plain_rows, hn, *op.corr_tables()),
+         corr_compact.corr_compact_plain(plain_rows, hn, *op.corr_tables())),
+        (dss_surface.dss_surface(v.clone(), *op.dss_tables()),
+         dss_surface.dss_surface_plain(v.clone(), *op.dss_tables())),
+    ]
+    pairs += [(hn_cell.hn_cell(sub, *hn_tail, mode=mode),
+               hn_cell.hn_cell_plain(sub, *hn_plain_tail, mode=mode)) for mode in hn_cell.MODES]
+    if op.assembled:
+        kind = "rem" if op.n_hn else "absent"
+        mq = op.masked_tables(kind)
+        pairs.append((masked_quad.masked_quad(v.clone(), sub, *mq, *op.factors_host, op.geo, op.B),
+                      masked_quad.masked_quad_plain(v.clone(), sub, *mq, op.K1, op.M1, op.geo,
+                                                    op.B)))
+    else:
+        pairs.append((cell_apply.cell_apply(sub, *op.factors_host, op.geo_cell_sub, op.B),
+                      cell_apply.cell_apply_plain(sub, op.K1, op.M1, op.geo_cell_sub, op.B)))
+    return pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", [(4, 3), (5, 2), (3, 4), (2, 4), (1, 5)],
+                         ids=["p4", "p5", "p3", "p2", "p1"])
+def test_multi_rhs_on_card(cuda, p, nref, dtype):
+    """The RHS axis of the six kernels at k = 1, 2, 8 against their plain
+    versions on the card (f32 1e-5, f64 1e-12), the subset inputs strided;
+    vmult_multi (5 launches) with each RHS bit-identical to vmult of it,
+    and against its plain path."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    op = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, nref), p), device=cuda,
+                           dtype=dtype, face_planes=False)
+    assert not op.planes and op.n_hn > 0 and op.n_sub > 0
+    wrappers = [getattr(m, m.NAME) for m in KERNEL_MODULES]
+    for k in (1, 2, 8):
+        for i, (got, ref) in enumerate(_multi_pairs(op, k, cuda, dtype, seed=10 * p + k)):
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and got.shape[0] == k, (k, i)
+            assert _rel(got, ref) < tol, (k, i)
+        g = torch.Generator(device=cuda).manual_seed(k)
+        bvk = torch.randn(k, op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+        for w in wrappers:
+            w.launches = 0
+        got = op.vmult_multi(bvk)
+        torch.cuda.synchronize()
+        assert sum(w.launches for w in wrappers) == 5, k
+        for j in range(k):
+            assert torch.equal(got[j], op.vmult(bvk[j].clone())), (k, j)
+        assert _rel(got, op.vmult_multi(bvk, plain=True)) < tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_component_axis_calls_unchanged_on_card(cuda, dtype):
+    """Elasticity's k = 3 calls of corr_compact and dss_surface: each
+    component bit-identical to a scalar call on it and to the same slices
+    of a call on more right-hand sides (k = 5, the same instance)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import corr_compact, dss_surface
+
+    mm = mt.BrickElasticity(mt.MatrixFree(mt.create_quadrant(3, 3), 4), 1.3, 0.7, device=cuda,
+                            dtype=dtype).mm
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    rows, hn, bv = rnd(5, mm.n_corr_rows, mm.n_loc), rnd(5, mm.n_hn, mm.n_loc), \
+        rnd(5, mm.n_bricks, mm.N3p)
+    three = corr_compact.corr_compact(rows[:3], hn[:3], *mm.corr_tables())
+    five = corr_compact.corr_compact(rows, hn, *mm.corr_tables())
+    v3 = dss_surface.dss_surface(bv[:3].clone(), *mm.dss_tables())
+    v5 = dss_surface.dss_surface(bv.clone(), *mm.dss_tables())
+    assert torch.equal(three, five[:3]) and torch.equal(v3, v5[:3])
+    for c in range(3):
+        assert torch.equal(three[c], corr_compact.corr_compact(rows[c], hn[c],
+                                                               *mm.corr_tables()))
+        assert torch.equal(v3[c], dss_surface.dss_surface(bv[c].clone(), *mm.dss_tables()))
 
 
 # ---- the index engine on the card ---------------------------------------------

@@ -45,26 +45,42 @@ def one_torch_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def reference(geo, nref, p):
-    """(tria, mf, BrickLaplaceMM, staged device arrays) of the JAX package."""
+def _reference_mesh(geo, nref, p):
     import dealii_matrixfree_hanging_nodes_tpu as ref
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
     from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
 
     tria = ref.create_geometry(geo, 3, nref)
-    mf = MatrixFree(tria, p, dtype=np.float64)
-    bl = BrickLaplaceMM(mf)
+    return tria, MatrixFree(tria, p, dtype=np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(geo, nref, p, face_planes=None):
+    """(tria, mf, BrickLaplaceMM, staged device arrays) of the JAX package;
+    face_planes as BrickLaplaceMM takes it (None: on at p <= 2). The
+    operators of one mesh share its tria and mf."""
+    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
+
+    tria, mf = _reference_mesh(geo, nref, p)
+    bl = BrickLaplaceMM(mf, face_planes=face_planes)
     return tria, mf, bl, bl._stage()
 
 
 @functools.lru_cache(maxsize=None)
-def port(geo, nref, p):
-    """(tria, mf, BrickLaplaceMM on the CPU in float64) of the port."""
+def _port_mesh(geo, nref, p):
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     tria = mt.create_geometry(geo, 3, nref)
-    mf = mt.MatrixFree(tria, p, dtype=np.float64)
-    return tria, mf, mt.BrickLaplaceMM(mf, device="cpu")
+    return tria, mt.MatrixFree(tria, p, dtype=np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def port(geo, nref, p, face_planes=None):
+    """(tria, mf, BrickLaplaceMM on the CPU in float64) of the port;
+    face_planes as for ``reference``."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    tria, mf = _port_mesh(geo, nref, p)
+    return tria, mf, mt.BrickLaplaceMM(mf, device="cpu", face_planes=face_planes)
 
 
 @functools.lru_cache(maxsize=None)
