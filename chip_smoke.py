@@ -4,10 +4,11 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the 18 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the 19 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
-   refill_update's and corr_compact's stack frames (refill_update must have none), and
-   brick_apply's shared memory and blocks per SM at each degree;
+   refill_update's and corr_compact's stack frames (refill_update must have none),
+   brick_apply's shared memory and blocks per SM at each degree, and
+   brick_deformed's threads, shared memory and blocks per SM at each (p, B);
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists and the subset cell rows by kind,
    and on the host hold the kernels'
@@ -134,14 +135,36 @@ Phases (any failure exits non-zero before the last line is printed):
    k=3 (1e-12); the degree <= 3 schedule without face planes at k=8 (p=3
    on phase 8's nref=7 operator, p=2 and p=1 at nref=7): launches,
    bit-identity, time per vector; masked_quad's RHS-axis instance at p=3;
-13. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+13. the deformed brick engine (``BrickLaplaceMM`` under high_order_mapping)
+   at quadrant nref=7 p=4 f32 on phase 3's mesh: the setup by step (the
+   host metric's seconds and traced peak bytes, the operator's structure,
+   tables and transfer) and the metric's device bytes; brick_deformed (with
+   and without cell rows) and the deformed modes of cell_apply and hn_cell
+   against their plain versions (1e-5), timed with their bounds and library
+   calls (cell_apply's and hn_cell's maps as one CSR product each, none for
+   brick_deformed, its composed nonzeros printed); vmult (5 launches),
+   vmult_plain (2) and refill (2) against the plain float64 path (1e-5),
+   launches checked, two calls bit-identical, timed, the host's issue time,
+   profiled (no device launch outside the port's kernels); the HN overhead;
+   the deformed over the Cartesian vmult of phase 3's operator; the f32
+   vmult against the deformed index vmult (1e-5); float64 at the reference's
+   two cases and one case a (p, B) class (every kernel instance against its
+   plain version, the vmult against the plain path and the deformed index
+   engine, vmult_plain and refill against the plain path; 1e-12); p=2 at
+   nref=7 (vmult, vmult_plain and refill, launches checked, timed).
+   ``python3 chip_smoke.py --metric-host`` instead times the deformed metric
+   on the host at once and in chunks (seconds, traced peak bytes, checked
+   bit-identical) and prints one JSON line;
+14. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
-   kernels' numbers (all 18; the new instances as parts named by degree;
+   deformed brick engine's, one with the kernels' numbers (all 19; the new
+   instances as parts named by degree;
    masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
    kernels' launches from the solve that runs them; elasticity's calls of
-   the existing kernels and the RHS-axis instances, "multi k=8 <kernel>",
-   as parts), then the device line.
+   the existing kernels, the RHS-axis instances, "multi k=8 <kernel>", and
+   the deformed modes, "deformed p=4", as parts; brick_deformed's totals
+   from its vmult launch), then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -449,31 +472,14 @@ def yardsticks(op, inter, K, cell=True, keep=None):
         vals = torch.cat([w[e], torch.ones(len(ident), dtype=dt, device=dev)])
         return sparse_csr(rows, cols, vals, (nS, nS))
 
-    def hn_dense(d):  # [nQ + 1, n_loc, n_loc]: out_row = Q @ in_row, the last one I
-        ptr, col = getattr(op, f"hn_{d}_ptr").long(), getattr(op, f"hn_{d}_col").long()
-        nq, n_ent = ptr.shape[0], int(ptr[-1, -1]) if ptr.numel() else 0
-        Q = torch.eye(n_loc, dtype=dt, device=dev).repeat(nq + 1, 1, 1)
-        Q[:nq] = 0
-        Q.index_put_((rep(ar(nq), ptr[:, -1] - ptr[:, 0]), slots_of(ptr), col[:n_ent]),
-                     getattr(op, f"hn_{d}_w")[:n_ent], accumulate=True)
-        return Q
-
     def hn_composed(mode):
-        """hn_cell[mode] as one matrix from u_sub to the rows: fill entry
-        (row r, slot j, source s) contributes column j of row r's dense map
-        to column s (the map is Q_f, or scale_r Q_b K Q_f in the full mode)."""
-        Qf = hn_dense("fwd")
-        maps = Qf if mode == "fill" else hn_dense("bwd") @ K @ Qf
+        """hn_cell[mode] as one matrix from u_sub to the rows (``hn_map``)."""
+        Qf = hn_dense(op, "fwd", dt)
+        maps = Qf if mode == "fill" else hn_dense(op, "bwd", dt) @ K @ Qf
         q = op.hn_q.long()
         qq = torch.where(q >= 0, q, maps.shape[0] - 1)
-        r, j = fill_rows // n_loc, fill_rows % n_loc
-        vals = maps[qq[r], :, j]
-        if mode == "full":
-            vals = vals * op.geo_hn[r][:, None]
-        rows = r[:, None] * n_loc + ar(n_loc)
-        nz = vals != 0
-        return sparse_csr(rows[nz], fill_cols[:, None].expand(-1, n_loc)[nz], vals[nz],
-                          (nS, u_sub.numel()))
+        return hn_map(op, maps, qq, fill_rows, fill_cols, u_sub.numel(),
+                      op.geo_hn if mode == "full" else None)
 
     def refill_composed():
         """refill_update as one matrix over [v; u_hat]: a valid node keeps
@@ -513,11 +519,7 @@ def yardsticks(op, inter, K, cell=True, keep=None):
                                        (op.geo_cell_sub[:, None] * K[kr, kc]).reshape(-1),
                                        (R * n_loc, u_sub.numel()))
 
-    ent_row = lambda ptr: rep(ar(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
-    kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
-    nodes = cell_nodes(op.hn_sub, op.B, op.p, op.N3p, dev).reshape(-1)
-    fill_rows = torch.cat([kept, ent_row(op.fill_row_ptr) * n_loc + op.fill_ent_slot.long()])
-    fill_cols = torch.cat([nodes[kept], op.fill_ent_src.long()])
+    fill_rows, fill_cols = fill_entries(op)
     fill = sparse_csr(fill_rows, fill_cols, torch.ones(len(fill_rows), dtype=dt, device=dev),
                       (nS, u_sub.numel()))
     corr = corr_matrix(op, plain_rows is not None, dt)
@@ -545,6 +547,52 @@ def yardsticks(op, inter, K, cell=True, keep=None):
             {"fill": fill_steps,
              "full": fill_steps + [lambda: torch.mm(u_hat, K.T), lambda: bwd @ x_bwd]},
             {name: m._nnz() for name, m in one.items()})
+
+
+def fill_entries(op):
+    """hn_cell's fill as (row, source) pairs over the constrained rows' slots
+    (row h slot j at h n_loc + j) and the flat subset brick nodes: the kept
+    own nodes, then the fill lists' entries."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    dev, n_loc = op.hn_sub.device, op.n_loc
+    ptr = op.fill_row_ptr
+    ent_row = torch.repeat_interleave(torch.arange(ptr.numel() - 1, device=dev),
+                                      (ptr[1:] - ptr[:-1]).long())
+    kept = torch.nonzero(op.keep_hn.reshape(-1))[:, 0]
+    nodes = cell_nodes(op.hn_sub, op.B, op.p, op.N3p, dev).reshape(-1)
+    return (torch.cat([kept, ent_row * n_loc + op.fill_ent_slot.long()]),
+            torch.cat([nodes[kept], op.fill_ent_src.long()]))
+
+
+def hn_dense(op, d, dt):
+    """[nQ + 1, n_loc, n_loc]: hn_cell's Q lists in direction d ("fwd",
+    "bwd") as dense maps, out_row = Q @ in_row, the last one the identity."""
+    dev, n_loc = op.hn_q.device, op.n_loc
+    ptr, col = getattr(op, f"hn_{d}_ptr").long(), getattr(op, f"hn_{d}_col").long()
+    nq, n_ent = ptr.shape[0], int(ptr[-1, -1]) if ptr.numel() else 0
+    slots = torch.repeat_interleave(torch.arange(n_loc, device=dev).repeat(nq),
+                                    (ptr[:, 1:] - ptr[:, :-1]).reshape(-1))
+    Q = torch.eye(n_loc, dtype=dt, device=dev).repeat(nq + 1, 1, 1)
+    Q[:nq] = 0
+    Q.index_put_((torch.repeat_interleave(torch.arange(nq, device=dev), ptr[:, -1] - ptr[:, 0]),
+                  slots, col[:n_ent]), getattr(op, f"hn_{d}_w")[:n_ent], accumulate=True)
+    return Q
+
+
+def hn_map(op, maps, which, fill_rows, fill_cols, n_cols, scale=None):
+    """hn_cell as one CSR matrix from the subset brick nodes to the rows:
+    fill entry (row r, slot j, source s) contributes column j of row r's
+    dense map maps[which[r]] (times scale[r]) to column s."""
+    n_loc = op.n_loc
+    r, j = fill_rows // n_loc, fill_rows % n_loc
+    vals = maps[which[r], :, j]
+    if scale is not None:
+        vals = vals * scale[r][:, None]
+    rows = r[:, None] * n_loc + torch.arange(n_loc, device=vals.device)
+    nz = vals != 0
+    return sparse_csr(rows[nz], fill_cols[:, None].expand(-1, n_loc)[nz], vals[nz],
+                      (op.n_hn * n_loc, n_cols))
 
 
 def corr_matrix(op, with_plain: bool, dt):
@@ -2219,6 +2267,341 @@ def multi_phase(mt, op, op64, op3, mats, dev, wrappers, smi):
     return numbers, parts
 
 
+# ---- the deformed brick engine ------------------------------------------------------------
+DEFORMED_NREF_BRICK, DEFORMED_DEGREE = 7, 4  # the bench mesh, float32 (PERF.md section 4)
+DEFORMED_LAUNCHES = {
+    "vmult": {"cell_apply": 1, "hn_cell": 1, "corr_compact": 1, "brick_deformed": 1,
+              "dss_surface": 1},
+    "vmult_plain": {"brick_deformed": 1, "dss_surface": 1},
+    "refill": {"hn_cell": 1, "refill_update": 1},
+}
+# float64 (1e-12): the reference's deformed brick cases, then one a (p, B) class
+DEFORMED_F64 = (("quadrant", 3, 2), ("annulus", 4, 2), ("quadrant", 4, 1), ("quadrant", 3, 3),
+                ("quadrant", 3, 4), ("quadrant", 2, 6))
+DEFORMED_LOW = (2, 7)  # degree, quadrant nref: the per-cell schedule at B=8, float32
+
+
+def metric_host(mf):
+    """Build mf's deformed metric on the host (float64,
+    ``mapping.deformed_laplace_factors`` in chunks of cells) at its first
+    use: (seconds, peak bytes of the allocations made meanwhile, traced by
+    tracemalloc, which sees NumPy's, and the metric's bytes)."""
+    import tracemalloc
+
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    geo = mf._sources["geo"]
+    seconds = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    return seconds, peak, geo.nbytes
+
+
+def metric_host_comparison(mt):
+    """``python3 chip_smoke.py --metric-host``: the deformed metric of the
+    deformed phase's mesh built on the host at once and in chunks of cells
+    (``mapping.METRIC_CHUNK``): seconds and traced peak bytes of each, and
+    the two bit-identical (checked). Host work only; prints one JSON line."""
+    import tracemalloc
+
+    from dealii_matrixfree_hanging_nodes_tpu_torch.elements import shape_info
+    from dealii_matrixfree_hanging_nodes_tpu_torch.mapping import (
+        METRIC_CHUNK, deformed_laplace_factors,
+    )
+
+    tria = mt.create_quadrant(3, DEFORMED_NREF_BRICK)
+    sh = shape_info(DEFORMED_DEGREE)
+    res, geo = {"cells": tria.n_active_cells, "chunk": METRIC_CHUNK}, {}
+    for name, chunk in (("chunks", METRIC_CHUNK), ("at_once", None)):
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        geo[name] = deformed_laplace_factors(tria, sh, chunk=chunk)
+        res[name] = dict(seconds=time.perf_counter() - t0,
+                         peak_bytes=tracemalloc.get_traced_memory()[1])
+        tracemalloc.stop()
+        print(f"metric at quadrant nref={DEFORMED_NREF_BRICK} p={DEFORMED_DEGREE}, {name}: "
+              f"{res[name]['seconds']:.2f} s, peak {res[name]['peak_bytes'] / 1e9:.3f} GB",
+              flush=True)
+    res["bit_identical"] = bool(np.array_equal(geo["chunks"], geo["at_once"]))
+    res["metric_bytes"] = geo["chunks"].nbytes
+    check(res["bit_identical"], "the metric in chunks differs from the metric at once")
+    print(json.dumps({"metric_host": res}))
+
+
+def deformed_cell_matrices(op, cells, chunk=2048):
+    """[len(cells), n_loc, n_loc]: each brick cell's deformed stiffness K_c
+    (row i, column j), by the plain quadrature (``laplace_rows``) of the
+    unit vectors with the cell's metric, in chunks of cells."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_laplace import laplace_rows
+
+    n = op.n_loc
+    eye = torch.eye(n, dtype=op.dtype, device=op.device)
+    out = torch.empty((len(cells), n, n), dtype=op.dtype, device=op.device)
+    for s in range(0, len(cells), chunk):
+        c = cells[s:s + chunk]
+        cols = laplace_rows(eye.repeat(len(c), 1), op.S, op.Dc, None,
+                            op.metric[c].repeat_interleave(n, dim=0))  # row (c, j): K_c e_j
+        out[s:s + len(c)] = cols.view(len(c), n, n).transpose(1, 2)
+    return out
+
+
+def deformed_kernel_calls(op, x, with_libs=True):
+    """The deformed path's kernels at the shapes its vmult gives them (input
+    x), in kernel_calls' form: brick_deformed with the subset's cell rows
+    in its epilogue (the vmult's launch) and without (vmult_plain's),
+    cell_apply's and hn_cell's deformed modes; with with_libs their library
+    calls: cell_apply's map as one CSR product (each subset cell's dense
+    K_c at its nodes, int32 indices), hn_cell's (the fill composed with
+    each row's Q_b K_c Q_f) likewise, none for brick_deformed (its composed
+    map, a dense K_c a present cell, is counted and not built). Returns
+    (calls, libraries or None, {matrix: nonzeros})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_deformed, cell_apply, corr_compact, hn_cell,
+    )
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    isz, dev = x.element_size(), x.device
+    u_sub = x[: op.n_sub]
+    tab = op.deformed_tables(op.n_sub * op.C)
+    plain_rows = cell_apply.cell_apply(u_sub, None, None, None, op.B, deformed=tab)
+    sub_raw = x.new_empty((0, op.n_loc))
+    if op.n_hn:
+        hn_args = (u_sub, *op.hn_tables(), None, None, None, op.B)
+        sub_raw = hn_cell.hn_cell(*hn_args, mode="deformed", deformed=op.deformed_tables())
+    dcols = corr_compact.corr_compact(plain_rows, sub_raw, *op.corr_tables())
+    bd = (x, op.metric, op.present_bits, op.S, op.Dc)
+    calls = {
+        "brick_deformed": [(
+            f"{tag} p={op.p}", lambda d=d: brick_deformed.brick_deformed(*bd, dcols=d,
+                                                                        brick_size=op.B),
+            lambda d=d: brick_deformed.brick_deformed_plain(*bd, dcols=d, brick_size=op.B),
+            brick_deformed.bytes_and_flops(*bd, dcols=d, brick_size=op.B), None, None)
+            for tag, d in (("vmult (cell rows)", dcols), ("vmult_plain", None))],
+        "cell_apply": [(
+            f"deformed p={op.p}",
+            lambda: cell_apply.cell_apply(u_sub, None, None, None, op.B, deformed=tab),
+            lambda: cell_apply.cell_apply_plain(u_sub, None, None, None, op.B, deformed=tab),
+            cell_apply.bytes_and_flops(u_sub.numel(), plain_rows.shape[0], op.n_loc, isz,
+                                       deformed=True), None, None)],
+    }
+    if op.n_hn:
+        calls["hn_cell"] = [(
+            f"deformed p={op.p}",
+            lambda: hn_cell.hn_cell(*hn_args, mode="deformed", deformed=op.deformed_tables()),
+            lambda: hn_cell.hn_cell_plain(*hn_args, mode="deformed",
+                                          deformed=op.deformed_tables()),
+            hn_cell.bytes_and_flops(u_sub, *op.hn_tables(), op.B, mode="deformed"), None, None)]
+    n_present = int(brick_deformed.present_cells(op.present_bits, op.B).numel())
+    nnz = {"brick_deformed (not built)": n_present * op.n_loc**2}
+    if not with_libs:
+        torch.cuda.synchronize()
+        return calls, None, nnz
+    ar = lambda n: torch.arange(n, device=dev)
+    R, n = op.n_sub * op.C, op.n_loc
+    Kc = deformed_cell_matrices(op, ar(R))  # [R, n, n]
+    nodes = cell_nodes(ar(R), op.B, op.p, op.N3p, dev).to(torch.int32)
+    ca_lib = torch.sparse_csr_tensor((ar(R * n + 1) * n).to(torch.int32),
+                                     nodes[:, None, :].expand(R, n, n).reshape(-1),
+                                     Kc.reshape(-1), (R * n, u_sub.numel()))
+    del Kc, nodes
+    fill_rows, fill_cols = fill_entries(op)
+    Qf, Qb = hn_dense(op, "fwd", x.dtype), hn_dense(op, "bwd", x.dtype)
+    q = op.hn_q.long()
+    qq = torch.where(q >= 0, q, Qf.shape[0] - 1)
+    maps = Qb[qq] @ deformed_cell_matrices(op, op.hn_sub.long()) @ Qf[qq]  # [n_hn, n, n]
+    hn_lib = hn_map(op, maps, ar(op.n_hn), fill_rows, fill_cols, u_sub.numel())
+    del maps, Qf, Qb
+    nnz.update({"cell_apply[deformed]": ca_lib._nnz(), "hn_cell[deformed]": hn_lib._nnz()})
+    x_u = u_sub.reshape(-1)
+    libs = {"brick_deformed": [None, None], "cell_apply": [lambda: ca_lib @ x_u],
+            "hn_cell": [lambda: hn_lib @ x_u]}
+    torch.cuda.synchronize()
+    return calls, libs, nnz
+
+
+def deformed_f64_checks(mt, dev, wrappers):
+    """float64 through the kernels at DEFORMED_F64 (1e-12 each): every
+    deformed kernel instance against its plain version, the vmult against
+    the plain path and the deformed index engine's, vmult_plain and refill
+    against the plain path; the vmult's launches checked."""
+    tol, out = 1e-12, {}
+    for geo, nref, p in DEFORMED_F64:
+        mf = mt.MatrixFree(mt.create_geometry(geo, 3, nref), p, dtype=np.float64,
+                           high_order_mapping=True)
+        op = mt.BrickLaplaceMM(mf, device=dev)
+        u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
+        x = op.from_dof_vector(u)
+        calls, _, _ = deformed_kernel_calls(op, x, with_libs=False)
+        what = f"deformed {geo} nref={nref} p={p} f64"
+        kernel_err = max(r for v in check_kernels(calls, tol, what).values() for _, r in v)
+        y, n = counted(wrappers, lambda: op.vmult(x))
+        n = {k: c for k, c in n.items() if c}
+        want = {k: c for k, c in DEFORMED_LAUNCHES["vmult"].items() if op.n_hn or k != "hn_cell"}
+        check(n == want, f"{what}: vmult launched {n}, not {want}")
+        ref = mt.LaplaceOperator(mf, device=dev).vmult(torch.from_numpy(u).to(dev))
+        ref[torch.from_numpy(mf.constraints.constrained_dof_marker()).to(dev)] = 0.0
+        errs = dict(kernels=kernel_err,
+                    vmult_vs_index=errors(op.to_dof_vector(y, zero_hanging=True), ref)[1],
+                    vmult=errors(y, op.vmult(x, plain=True))[1],
+                    vmult_plain=errors(op.vmult_plain(x), op.vmult_plain(x, plain=True))[1],
+                    refill=errors(op.refill(y), op.refill(y, plain=True))[1])
+        print(f"{what}: max rel errs {json.dumps(errs)} (tol {tol:g}), vmult launches {n}",
+              flush=True)
+        check(max(errs.values()) <= tol, f"{what} disagrees: {errs}")
+        out[f"{geo} nref={nref} p={p}"] = errs
+    return out
+
+
+def deformed_run(op, op64, x, wrappers, smi, what, profile=True):
+    """vmult, vmult_plain and refill of the deformed operator op (float32,
+    input x) against the float64 operator op64's plain path (after zeroing
+    the hanging entries; 1e-5), their launches counted and checked
+    (DEFORMED_LAUNCHES), two calls bit-identical, timed as phase 5 times the
+    vmult, the host's issue time and, with profile, the profiles (no device
+    launch outside the port's kernels). Returns (numbers, vmult launches)."""
+    res = {}
+    x64 = x.double()
+    y = None
+    for call in ("vmult", "vmult_plain", "refill"):
+        arg = y if call == "refill" else x
+        fn = (lambda f=getattr(op, call), a=arg: f(a))
+        got, n = counted(wrappers, fn)
+        n = {k: c for k, c in n.items() if c}
+        ref = getattr(op64, call)(arg.double() if call == "refill" else x64, plain=True)
+        if call == "vmult":
+            y = got
+            err = errors(op.to_dof_vector(got, zero_hanging=True),
+                         op64.to_dof_vector(ref, zero_hanging=True))[1]
+        else:
+            err = errors(got, ref)[1]
+        same = bool(torch.equal(fn(), fn()))
+        check(bool(torch.isfinite(got).all()) and got.shape == x.shape, f"{what} {call} malformed")
+        check(err <= 1e-5, f"{what} {call} disagrees with the float64 path: {err:.3e}")
+        check(n == DEFORMED_LAUNCHES[call], f"{what} {call} launched {n}, not "
+                                            f"{DEFORMED_LAUNCHES[call]}")
+        check(same, f"two calls of {what} {call} differ")
+        r = dict(ms=time_ms(fn, reps=30, warmup=5), max_rel_err=err, launches=n,
+                 host_ms=host_ms(fn), card=smi)
+        if call == "vmult":
+            r["plain_ms"] = time_ms(lambda: op.vmult(x, plain=True), reps=5, warmup=1)
+        if profile:
+            r["profile"] = profile_path(f"{what} {call}", fn, set(wrappers),
+                                        sum(DEFORMED_LAUNCHES[call].values()))
+        res[call] = r
+        print(f"{what} {call} on {smi}: {r['ms']:.4f} ms, host issues it in {r['host_ms']:.4f} "
+              f"ms; vs the plain f64 path max rel err {err:.3e} (tol 1e-5); launches {n}; two "
+              f"calls bit-identical", flush=True)
+    res["hn_overhead"] = res["vmult"]["ms"] / res["vmult_plain"]["ms"]
+    return res, res["vmult"]["launches"]
+
+
+def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
+    """The deformed brick engine (BrickLaplaceMM under high_order_mapping)
+    at quadrant nref=DEFORMED_NREF_BRICK p=DEFORMED_DEGREE f32 on phase 3's
+    mesh: the setup's seconds by step (the metric's host seconds and peak
+    bytes; the operator's structure, tables and transfer) and the metric's
+    device bytes; each deformed kernel instance against its plain version
+    (1e-5), timed with its bound and library call; vmult, vmult_plain and
+    refill against the plain float64 path (``deformed_run``); the HN
+    overhead; the vmult over the Cartesian vmult of phase 3's operator op_c
+    on the same mesh; the f32 vmult against the deformed index engine's
+    (1e-5); float64 at DEFORMED_F64 (``deformed_f64_checks``); the per-cell
+    schedule at p=2 (DEFORMED_LOW), vmult and vmult_plain timed and
+    counted. Returns (numbers, brick_deformed's record, {kernel: [part]})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+
+    t0 = time.perf_counter()
+    mf = mt.MatrixFree(tria, DEFORMED_DEGREE, dtype=np.float32, high_order_mapping=True)
+    mf_s = time.perf_counter() - t0
+    metric_s, metric_peak, metric_bytes = metric_host(mf)
+    op = mt.BrickLaplaceMM(mf, device=dev)
+    torch.cuda.synchronize()
+    op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    setup = dict(matrix_free=mf_s, metric_host=metric_s, metric_host_peak_bytes=metric_peak,
+                 metric_host_bytes=metric_bytes, operator=op.setup_s,
+                 metric_device_bytes=op.metric.numel() * op.metric.element_size(),
+                 total=time.perf_counter() - t0)
+    print(f"deformed setup (quadrant nref={DEFORMED_NREF_BRICK} p={DEFORMED_DEGREE} f32, "
+          f"{mf.n_dofs} DoFs, {op.n_bricks} bricks, {op.n_sub} subset bricks, {op.n_hn} "
+          f"constrained rows): {json.dumps(setup)}", flush=True)
+    u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
+    x = op.from_dof_vector(u)
+
+    calls, libs, nnz = deformed_kernel_calls(op, x)
+    print(f"deformed maps composed into one CSR matrix each (the library calls), nonzeros: "
+          f"{nnz}; brick_deformed has no library call: its map composed is a dense "
+          f"{op.n_loc}^2 matrix a present cell, and no one call applies them and sums them "
+          f"into the bricks", flush=True)
+    parts = {name: measure_parts(name, cparts, libs[name], {}, x.dtype, 1e-5)
+             for name, cparts in calls.items()}
+    del calls, libs
+    torch.cuda.empty_cache()
+
+    numbers, launches = deformed_run(op, op64, x, wrappers, smi,
+                                     f"deformed p={DEFORMED_DEGREE} nref={DEFORMED_NREF_BRICK}")
+    xc = op_c.from_dof_vector(u)
+    cart_ms = time_ms(lambda: op_c.vmult(xc), reps=30, warmup=5)
+    numbers["cartesian_vmult_ms"] = cart_ms
+    numbers["deformed_over_cartesian"] = numbers["vmult"]["ms"] / cart_ms
+    idx = mt.LaplaceOperator(mf, device=dev)
+    ref = idx.vmult(torch.from_numpy(u).to(dev))
+    ref[torch.from_numpy(mf.constraints.constrained_dof_marker()).to(dev)] = 0.0
+    cross = errors(op.to_dof_vector(op.vmult(x), zero_hanging=True), ref)[1]
+    check(cross <= 1e-5, f"the deformed brick vmult disagrees with the index engine's: "
+                         f"{cross:.3e}")
+    numbers["vs_index_max_rel_err"] = cross
+    print(f"deformed nref={DEFORMED_NREF_BRICK} p={DEFORMED_DEGREE} f32 on {smi}: vmult "
+          f"{numbers['vmult']['ms']:.4f} ms ({mf.n_dofs / numbers['vmult']['ms'] / 1e6:.4f} "
+          f"GDoF/s), vmult_plain {numbers['vmult_plain']['ms']:.4f}, refill "
+          f"{numbers['refill']['ms']:.4f}; HN overhead {numbers['hn_overhead']:.4f}; the "
+          f"Cartesian vmult on the same mesh {cart_ms:.4f} ms, deformed / Cartesian "
+          f"{numbers['deformed_over_cartesian']:.4f}; against the deformed index vmult (f32, "
+          f"through its kernels) max rel err {cross:.3e} (tol 1e-5)", flush=True)
+    numbers.update(setup=setup, n_dofs=mf.n_dofs, nref=DEFORMED_NREF_BRICK,
+                   degree=DEFORMED_DEGREE, library_nnz=nnz, card=smi)
+    del op, op64, idx, ref, x, mf
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    numbers["f64"] = deformed_f64_checks(mt, dev, wrappers)
+    numbers["f64_s"] = time.perf_counter() - t0
+
+    p, nref = DEFORMED_LOW
+    t0 = time.perf_counter()
+    mf_l = mt.MatrixFree(mt.create_quadrant(3, nref), p, dtype=np.float32,
+                         high_order_mapping=True)
+    op_l = mt.BrickLaplaceMM(mf_l, device=dev)
+    op_l64 = mt.BrickLaplaceMM(mf_l, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    low_setup = time.perf_counter() - t0
+    x_l = op_l.from_dof_vector(np.random.default_rng(SEED).standard_normal(mf_l.n_dofs))
+    low, _ = deformed_run(op_l, op_l64, x_l, wrappers, smi, f"deformed p={p} nref={nref}",
+                          profile=False)
+    low.update(setup_s=low_setup, n_dofs=mf_l.n_dofs)
+    numbers[f"p={p} nref={nref}"] = low
+    del op_l, op_l64, mf_l, x_l
+    torch.cuda.empty_cache()
+
+    mod = next(m for m in KERNEL_MODULES if m.NAME == "brick_deformed")
+    rec = kernel_record(mod)
+    rec["parts"] = parts.pop("brick_deformed")
+    main = rec["parts"][0]  # the vmult's launch
+    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        rec[k] = main[k]
+    rec["library_nnz_not_built"] = nnz["brick_deformed (not built)"]
+    rec["max_abs_err"] = max(q["max_abs_err"] for q in rec["parts"])
+    rec["max_rel_err"] = max(q["max_rel_err"] for q in rec["parts"])
+    rec["launches"] = launches["brick_deformed"]
+    rec["parts"][1]["launches"] = numbers["vmult_plain"]["launches"]["brick_deformed"]
+    main["launches"] = rec["launches"]
+    for name, plist in parts.items():
+        for part in plist:
+            part["launches"] = launches[name]
+            part["call"] = "deformed vmult"
+    return numbers, rec, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -2226,9 +2609,13 @@ def main() -> int:
         return 2
 
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    if sys.argv[1:] == ["--metric-host"]:
+        metric_host_comparison(mt)
+        return 0
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, brick_apply, corr_compact, dss_surface, refill_update,
+        KERNEL_MODULES, _build, brick_apply, brick_deformed, corr_compact, dss_surface,
+        refill_update,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -2263,6 +2650,9 @@ def main() -> int:
             plans = [brick_apply.plan(dt, p, m, device=dev) for m in (0, 1)]
             print(f"  brick_apply_kernel {dt} p={p}: shared memory bytes, blocks per SM "
                   f"{plans[0]} without cell rows, {plans[1]} with")
+        for p, B in sorted(brick_deformed.SUPPORTED):
+            print(f"  brick_deformed_kernel {dt} p={p} B={B}: threads, shared memory bytes, "
+                  f"blocks per SM {brick_deformed.plan(dt, p, B, device=dev)}")
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
     t0 = time.perf_counter()
@@ -2562,10 +2952,21 @@ def main() -> int:
     multi["phase_s"] = time.perf_counter() - t0
     multi["single_vmult_busy_ms"] = vm_prof["busy_ms"]
     print(f"multi-RHS phase: {multi['phase_s']:.1f} s", flush=True)
-    del op, op64, multi_mats
+    del op64, multi_mats
     torch.cuda.empty_cache()
-    # existing kernels: their elastic calls and their RHS-axis instances as parts
-    for name, plist in list(elastic_parts.items()) + list(multi_parts.items()):
+
+    # ---- 13. the deformed brick engine ------------------------------------------
+    t0 = time.perf_counter()
+    deformed, results["brick_deformed"], deformed_parts = deformed_phase(mt, tria, op, dev,
+                                                                         wrappers, smi)
+    deformed["phase_s"] = time.perf_counter() - t0
+    print(f"deformed brick engine phase: {deformed['phase_s']:.1f} s", flush=True)
+    del op
+    torch.cuda.empty_cache()
+    # existing kernels: their elastic calls, their RHS-axis instances and their deformed
+    # modes as parts
+    for name, plist in (list(elastic_parts.items()) + list(multi_parts.items())
+                        + list(deformed_parts.items())):
         results[name]["parts"].extend(plist)
         for part in plist:
             for key in ("max_abs_err", "max_rel_err"):
@@ -2573,7 +2974,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 13. the numbers -----------------------------------------------------
+    # ---- 14. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -2587,6 +2988,7 @@ def main() -> int:
     print(json.dumps({"gmg": gmg_numbers}))
     print(json.dumps({"elasticity": elastic}))
     print(json.dumps({"multi": multi}))
+    print(json.dumps({"deformed": deformed}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -32,6 +32,13 @@ vmult_plain (no constraints; the HN overhead's denominator) = brick_apply
 refill = [plane_fill,] hn_cell in its fill mode (fill and Q),
         refill_update (the coverage-divided write-back): 2 launches (3
         with face planes).
+Under a deformed mapping (``MatrixFree(..., high_order_mapping=True)``,
+every degree; no face planes, no masked removal) each cell has its packed
+metric at its Gauss points (``metric``, brick-cell rows, zero at absent
+slots) in place of K x geo: vmult = cell_apply's and hn_cell's deformed
+modes, corr_compact, brick_deformed (every present cell's quadrature summed
+into its brick, the subset's deltas in its epilogue), dss_surface: 5
+launches; vmult_plain = brick_deformed, dss_surface: 2; refill as above.
 
 The reference expresses the data movement with one-hot matmuls because the
 TPU gathers slowly; here every one-hot operator is an index map (``slot_idx``
@@ -43,6 +50,7 @@ gather lists), and every device step is a hand-written CUDA kernel
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,6 +63,7 @@ from .dof_handler import local_lattice
 from .elements import lagrange_values, shape_info
 from .kernels import (
     brick_apply,
+    brick_deformed,
     cell_apply,
     corr_compact,
     dss_surface,
@@ -684,7 +693,12 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     assembled: the degree <= 3 schedule's fold over the chain bricks (None:
     the reference's default, p <= 3); False keeps the per-cell schedule's
     fold over every subset cell row at any degree, as the elasticity
-    operator runs it.
+    operator runs it. Under a deformed mapping (``mf.high_order_mapping``)
+    the per-cell schedule at every degree, as the reference forces it
+    (bricks.py:1149-1182), and the metric of every brick cell: ``metric``
+    [n_bricks*B^3, n_q, 6], the reference's ``Gfull`` (bricks.py:1931-1943:
+    mf's packed metric at the cells' brick-cell rows, zero at absent slots),
+    with S and Dc; the assembled schedule's tables are not built.
 
     Returns (arrays, meta): ``arrays`` maps buffer names to float64 / int64 /
     int32 / bool NumPy arrays (``BrickLaplaceMM`` buffer names), ``meta``
@@ -754,25 +768,36 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
         face_other=bs.face_other, edge_contrib=bs.edge_contrib,
         corner_contrib=bs.corner_contrib, node_valid=nv_pad,
     )
+    deformed = bool(mf.high_order_mapping)
+    if deformed and (assembled or bs.plane_groups):
+        raise NotImplementedError("the deformed mapping runs the per-cell schedule: no "
+                                  "assembled removal, no face planes (as the reference)")
     meta = dict(B=B, p=p, NB=NB, N3=N3, N3p=N3p, n_sub=n_sub,
-                n_chainb=bs.n_chain_bricks, assembled=p <= 3 if assembled is None else assembled,
+                n_chainb=bs.n_chain_bricks, deformed=deformed,
+                assembled=(p <= 3 and not deformed) if assembled is None else assembled,
                 hn_bounds=[],
                 fill_segs=[], n_fill_tails=0, corr_segs=[], n_corr_tails=0,
                 plane_meta=[], plane_levels=[])
+    nq1 = si.S.shape[0]
+    if deformed:
+        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, 6]
+        metric = np.zeros((bs.n_bricks * C,) + geo_cells.shape[1:])
+        metric[bs.cell_lin] = geo_cells
+        arrays.update(metric=metric, S=si.S, Dc=si.Dc)
 
     # the degree <= 3 schedule (the reference's defaults, bricks.py:1149-
     # 1182): the absent and constrained cells' unconstrained contributions
     # come off in one masked quadrature apply (Sqb, Dqb, w1 and the cell
     # selectors, geo-premultiplied; bricks.py:1846-1864, 1897-1917), and at
     # degree <= 2 the face planes fill and fold first and last
-    nq1 = si.S.shape[0]
-    Sqb = np.zeros((B * nq1, NB))
-    Dqb = np.zeros((B * nq1, B * nq1))
-    for c in range(B):
-        Sqb[c * nq1: (c + 1) * nq1, c * p: c * p + n] = si.S
-        Dqb[c * nq1: (c + 1) * nq1, c * nq1: (c + 1) * nq1] = si.Dc
-    arrays.update(Sqb=Sqb, Dqb=Dqb, w1=np.asarray(si.quad_w, dtype=np.float64))
-    if n_sub:
+    if not deformed:
+        Sqb = np.zeros((B * nq1, NB))
+        Dqb = np.zeros((B * nq1, B * nq1))
+        for c in range(B):
+            Sqb[c * nq1: (c + 1) * nq1, c * p: c * p + n] = si.S
+            Dqb[c * nq1: (c + 1) * nq1, c * nq1: (c + 1) * nq1] = si.Dc
+        arrays.update(Sqb=Sqb, Dqb=Dqb, w1=np.asarray(si.quad_w, dtype=np.float64))
+    if n_sub and not deformed:
         absent2 = ~bs.present.reshape(bs.n_bricks, C)[:n_sub]
         hn2 = np.zeros(n_sub * C, dtype=bool)
         hn2[hn_sub] = True
@@ -1302,6 +1327,9 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
       fill and fold composed over their levels (``_plane_tables``).
     - vmult_plain at degree >= 4: the absent rows' codes and an empty fold
       schedule for corr_compact.
+    - the deformed mapping (meta["deformed"]): the metric as given (checked
+      zero at the absent slots), S, Dc and the present cells as bits
+      (``_deformed_tables``), brick_deformed's and the deformed modes'.
 
     Returns the tables of ``BrickLaplaceMM`` (its buffers, and the packed
     brick factors it keeps on the host): the brick tables as given (node
@@ -1326,6 +1354,8 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     cell_code[hn_sub] = np.arange(n_hn)
     keep = (np.asarray(arrays["keep_hn"]) != 0) if n_hn else np.zeros((0, n_loc), bool)
     out.update(cell_code=cell_code, hn_sub=i32(hn_sub), keep_hn=keep)
+    if meta.get("deformed"):
+        out.update(_deformed_tables(arrays, absent, int(meta["B"]), len(out["geo"])))
     if n_sub * N3p > np.iinfo(np.int32).max:
         raise NotImplementedError("subset brick nodes exceed int32")
     assembled = bool(meta.get("assembled", False))
@@ -1342,7 +1372,7 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
                     arrays[f"qmask_{kind}"], out["geo"], int(meta["B"])).items()})
         if meta.get("plane_meta"):
             out.update(_plane_tables(arrays, meta, len(out["geo"])))
-    elif n_sub:
+    elif n_sub and not meta.get("deformed"):
         # vmult_plain's removal of the absent cells: corr_compact with no runs
         out.update(plain_code=np.where(cell_code == -2, -2, -1).astype(np.int32),
                    plain_blocks=corr_compact.schedule(np.zeros(n_rows, np.int64), n_loc))
@@ -1405,6 +1435,25 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     refill_pos[node_of_pos[efx_pos]] = efx_pos
     out.update(_refill_tables(refill_pos, slot_idx, arrays["fill_invden_X"], node_valid))
     return out
+
+
+def _deformed_tables(arrays, absent, B, n_bricks):
+    """The deformed mapping's tables: the metric [n_bricks*B^3, n_q, 6] with
+    S and Dc as given, and the present cells (all but the absent slots of
+    the subset) as brick_deformed's bit words; raises where the metric is
+    not zero at an absent slot (the reference's rows there are zero, and
+    brick_deformed skips them)."""
+    metric = np.asarray(arrays["metric"], dtype=np.float64)
+    C = B**3
+    if metric.shape[0] != n_bricks * C or metric.shape[2] != 6:
+        raise ValueError(f"the metric {metric.shape} is not [{n_bricks * C}, n_q, 6]")
+    if np.any(metric[absent] != 0.0):
+        raise ValueError("the metric is not zero at an absent slot")
+    present = np.ones(n_bricks * C, dtype=bool)
+    present[absent] = False
+    return dict(metric=metric, S=np.asarray(arrays["S"], dtype=np.float64),
+                Dc=np.asarray(arrays["Dc"], dtype=np.float64),
+                present_bits=_pack_bits(present.reshape(n_bricks, C)))
 
 
 # ---------------------------------------------------------------------------
@@ -1477,7 +1526,13 @@ class BrickLaplaceMM(nn.Module):
     assembled: the tables of the degree <= 3 schedule (None: at p <= 3, the
     reference's default); the elasticity operator passes False for the
     per-cell tables at every degree (its own vmult; this operator's vmult
-    on the card has cell_apply instances only at p >= 4)."""
+    on the card has cell_apply instances only at p >= 4).
+
+    Under a deformed mapping (``mf.high_order_mapping``) the reference turns
+    both schedules off (bricks.py:1149-1182): the per-cell schedule at every
+    degree with each cell's metric in place of K x geo (face_planes and
+    assembled must be None or False); vmult_multi raises, as the
+    reference's does."""
 
     def __init__(self, mf: MatrixFree | None, device=None, dtype=None,
                  face_planes: bool | None = None, assembled: bool | None = None):
@@ -1489,16 +1544,24 @@ class BrickLaplaceMM(nn.Module):
         if mf.dim != 3:
             raise NotImplementedError("the port's brick engine supports dim=3")
         if mf.high_order_mapping:
-            raise NotImplementedError("the deformed mapping's brick apply is not ported yet")
+            if face_planes or assembled:
+                raise NotImplementedError("a deformed mapping runs the per-cell schedule: no "
+                                          "face planes, no assembled removal")
+            face_planes = assembled = False
         if mf.categorize:
             raise NotImplementedError("the brick engine reads the cells in mesh order; build "
                                       "its MatrixFree without categorize")
+        t0 = time.perf_counter()
         bs = BrickStructure(mf, face_planes)
+        t1 = time.perf_counter()
         arrays, meta = operator_tables(mf, bs, assembled)
+        t2 = time.perf_counter()
         if dtype is None:
             dtype = {np.dtype(np.float32): torch.float32,
                      np.dtype(np.float64): torch.float64}[mf.dtype]
         self._load(arrays, meta, resolve_device(device), dtype)
+        # host seconds of the setup's steps (the kernel tables and their transfer: _load's)
+        self.setup_s = dict(structure=t1 - t0, operator_tables=t2 - t1, **self.setup_s)
         self.bs = bs
         nb = bs.n_bricks
         dm = np.zeros((nb, self.N3p), dtype=bool)
@@ -1539,7 +1602,10 @@ class BrickLaplaceMM(nn.Module):
         self.n_bricks = int(arrays["geo"].shape[0])
         self.assembled = bool(meta["assembled"])
         self.planes = bool(meta["plane_meta"])
+        self.deformed = bool(meta.get("deformed", False))
+        t0 = time.perf_counter()
         tables = kernel_tables(arrays, meta)
+        t1 = time.perf_counter()
         self.n_absent = int((tables["cell_code"] == -2).sum())
         # the cell rows that corr_compact writes: the chain bricks' under the
         # assembled schedule, every subset brick's otherwise
@@ -1550,12 +1616,13 @@ class BrickLaplaceMM(nn.Module):
                                         for n in ("Kb", "Mb"))
         for name, a in tables.items():
             a = np.ascontiguousarray(a)
-            t = torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a)
+            t = torch.from_numpy(np.asarray(a, np.float64) if a.dtype.kind == "f" else a)
             self.register_buffer(name, t.to(device, dtype) if a.dtype.kind == "f"
                                  else t.to(device))
         self.n_hn = int(self.hn_sub.shape[0])
         self.register_buffer("geo_hn", self.geo_cell_sub[self.hn_sub.long()])
         self.factors_host = (self.K1.cpu(), self.M1.cpu())
+        self.setup_s = dict(kernel_tables=t1 - t0, transfer=time.perf_counter() - t1)
 
     # ------------------------------------------------------------ conversions
     def from_dof_vector(self, u) -> torch.Tensor:
@@ -1613,7 +1680,12 @@ class BrickLaplaceMM(nn.Module):
 
     def _hn_cell(self, u_sub, mode: str, plain: bool = False):
         """The constrained rows from the subset bricks: sub_raw (mode "full",
-        bricks.py:2465-2474) or the filled rows u_hat (mode "fill")."""
+        bricks.py:2465-2474; "deformed", the rows' metric in place of K x
+        geo, 2466-2467) or the filled rows u_hat (mode "fill")."""
+        if mode == "deformed":
+            return self._kernel(hn_cell, plain)(u_sub, *self.hn_tables(), None, None, None,
+                                                self.B, mode=mode,
+                                                deformed=self.deformed_tables())
         fac = (self.K1, self.M1) if plain else self.factors_host
         return self._kernel(hn_cell, plain)(u_sub, *self.hn_tables(), *fac, self.geo_hn,
                                             self.B, mode=mode)
@@ -1715,8 +1787,11 @@ class BrickLaplaceMM(nn.Module):
         the card. The subset bricks are the strided view bvk[:, :n_sub]
         (no copy). The reference raises under face planes (on by default at
         p <= 2: build the operator with face_planes=False) and under a
-        deformed mapping (which this operator refuses at construction).
+        deformed mapping (bricks.py:3590-3594), and so does this one.
         plain=True runs the kernels' plain versions, as for vmult."""
+        if self.deformed:
+            raise NotImplementedError("vmult_multi does not support high_order_mapping; apply "
+                                      "vmult per right-hand side")
         if self.planes:
             raise NotImplementedError("vmult_multi does not support face_planes=True; construct "
                                       "the operator with face_planes=False for multi-RHS use")
@@ -1732,7 +1807,7 @@ class BrickLaplaceMM(nn.Module):
         if self.n_sub:
             u_sub = bv[..., : self.n_sub, :]
             if self.n_hn:
-                sub_raw = self._hn_cell(u_sub, "full", plain)
+                sub_raw = self._hn_cell(u_sub, "deformed" if self.deformed else "full", plain)
             else:
                 sub_raw = bv.new_empty((*bv.shape[:-2], 0, self.n_loc))
             dcols = self._corr_compact(self._cell_rows(u_sub, plain), sub_raw, plain)
@@ -1765,8 +1840,13 @@ class BrickLaplaceMM(nn.Module):
         interpolation, fold or fill. Degree <= 3: the masked removal of the
         absent cells; degree >= 4: their cell rows (cell_apply) negated by
         corr_compact with no fold entries, added in brick_apply's epilogue.
-        The HN overhead of the paper is vmult over vmult_plain."""
+        The HN overhead of the paper is vmult over vmult_plain. Under a
+        deformed mapping brick_deformed, then dss_surface (bricks.py:
+        2914-2924: the absent slots carry no metric, so nothing is
+        removed)."""
         self._check(bv)
+        if self.deformed:
+            return self._dss(self._brick_apply(bv, None, plain), plain)
         if self.assembled:
             v = self._brick_apply(bv, None, plain)
             if self.n_sub:
@@ -1780,12 +1860,29 @@ class BrickLaplaceMM(nn.Module):
                 self.corr_ent_src[:0], self.plain_blocks)
         return self._dss(self._brick_apply(bv, dcols, plain), plain)
 
+    def deformed_tables(self, rows=None):
+        """The deformed modes' (S, Dc, metric), the metric's leading rows
+        (the subset's cell rows: rows = n_sub * B^3) or all."""
+        return self.S, self.Dc, self.metric if rows is None else self.metric[:rows]
+
     def _cell_rows(self, u_sub, plain: bool):
-        """Every subset cell's geo_c K_cell u_c (cell_apply from the bricks)."""
+        """Every subset cell's geo_c K_cell u_c (cell_apply from the bricks),
+        or under a deformed mapping its K_c u_c by its metric (bricks.py:
+        2444-2447)."""
+        if self.deformed:
+            return self._kernel(cell_apply, plain)(
+                u_sub, None, None, None, brick_size=self.B,
+                deformed=self.deformed_tables(self.n_sub * self.C))
         fac = (self.K1, self.M1) if plain else self.factors_host
         return self._kernel(cell_apply, plain)(u_sub, *fac, self.geo_cell_sub, brick_size=self.B)
 
     def _brick_apply(self, u, dcols, plain: bool):
+        """The brick operator with the cell rows dcols in its epilogue:
+        brick_apply, or brick_deformed under a deformed mapping."""
+        if self.deformed:
+            return self._kernel(brick_deformed, plain)(
+                u, self.metric, self.present_bits, self.S, self.Dc, dcols=dcols,
+                brick_size=self.B)
         return self._kernel(brick_apply, plain)(
             u, *((self.Kb, self.Mb) if plain else self.brick_factors_host), self.geo, self.p,
             dcols=dcols, brick_size=self.B)

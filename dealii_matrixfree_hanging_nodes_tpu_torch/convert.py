@@ -4,12 +4,15 @@
 ``BrickLaplaceMM._np_arrays`` of the JAX package (plain NumPy arrays) and a
 dict of its static metadata (``_hn_bounds``, ``_flat_meta``, ``_n_sub``,
 ``_n_chainb``, ``_sub_contig``, ``_use_masked_removal``, ``_plane_meta``,
-``_plane_levels``, ``N3``, ``N3p``, ``slot_idx``), derives the index maps
-that replace the reference's one-hot operators (Es -> surface node list,
-EsI -> interior fill nodes, EFX -> (cols position, exchange position)
-pairs), carries the degree <= 3 schedule's tables over as they are (the
-masked removal's quadrature operators and cell selectors, the face-plane
-groups), and returns the port's ``BrickLaplaceMM``. It takes plain dicts,
+``_plane_levels``, ``N3``, ``N3p``, ``slot_idx``, and ``_deformed`` under a
+deformed mapping), derives the index maps that replace the reference's
+one-hot operators (Es -> surface node list, EsI -> interior fill nodes, EFX
+-> (cols position, exchange position) pairs), carries the degree <= 3
+schedule's tables over as they are (the masked removal's quadrature
+operators and cell selectors, the face-plane groups), reads a deformed
+mapping's metric back from the brick-quad lattice ``Gqb`` into brick-cell
+rows (checked against ``Gq_sub`` and ``Gq_hn``), and returns the port's
+``BrickLaplaceMM``. It takes plain dicts,
 so it imports nothing of the JAX package.
 
 ``matrix_free_from_reference(np_tables, n_dofs, hn_mode, categorize,
@@ -94,9 +97,13 @@ def reference_tables(np_arrays: dict, meta: dict):
              n_fill_tails=fm.get("fill", {}).get("n_tails", 0),
              corr_segs=[tuple(s) for s in fm.get("corr", {}).get("segs", [])],
              n_corr_tails=fm.get("corr", {}).get("n_tails", 0))
-    for k in ("Sqb", "Dqb", "w1", "qmask_absent", "qmask_rem", "plane_P1"):
-        if k in a:
-            out[k] = f64(a[k])
+    m["deformed"] = bool(meta.get("_deformed", False))
+    if m["deformed"]:
+        out.update(metric=_cell_metric(a, B, p, m["n_sub"]), S=f64(a["S"]), Dc=f64(a["Dc"]))
+    else:
+        for k in ("Sqb", "Dqb", "w1", "qmask_absent", "qmask_rem", "plane_P1"):
+            if k in a:
+                out[k] = f64(a[k])
     if m["plane_meta"]:
         out["plane_W"] = i64(a["plane_W"])
         for i in range(len(m["plane_meta"])):
@@ -143,6 +150,24 @@ def reference_tables(np_arrays: dict, meta: dict):
         fill_invden_X=f64(a["fill_invden_X"]),
     )
     return out, m
+
+
+def _cell_metric(a, B, p, n_sub):
+    """The metric in brick-cell rows [n_bricks*B^3, n_q, 6] (the reference's
+    ``Gfull``) from its brick-quad lattice ``Gqb`` [nb, 6, Q, Q, Q] (Q = B
+    (p+1), the axis index along d is c_d (p+1) + q_d, bricks.py:1944-1950),
+    checked against the subset's rows ``Gq_sub`` and the constrained rows
+    ``Gq_hn`` (at ``hn_sub``)."""
+    G = np.asarray(a["Gqb"], dtype=np.float64)
+    nb, n = G.shape[0], p + 1
+    metric = np.ascontiguousarray(
+        G.reshape(nb, 6, B, n, B, n, B, n).transpose(0, 2, 4, 6, 3, 5, 7, 1)
+        .reshape(nb * B**3, n**3, 6))
+    hn_sub = np.asarray(a["hn_sub"], dtype=np.int64)
+    if not (np.array_equal(metric[: n_sub * B**3], np.asarray(a["Gq_sub"], dtype=np.float64))
+            and np.array_equal(metric[hn_sub], np.asarray(a["Gq_hn"], dtype=np.float64))):
+        raise ValueError("the brick-quad metric Gqb disagrees with Gq_sub or Gq_hn")
+    return metric
 
 
 def from_reference(np_arrays: dict, meta: dict, device=None,

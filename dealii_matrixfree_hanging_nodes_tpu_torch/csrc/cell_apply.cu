@@ -9,12 +9,18 @@
 // values apart, e.g. the subset view bvk[:, :n_sub] of the k-major brick vectors; out
 // [k, m*B^3, n_loc] contiguous) grid.y is the RHS, whose blocks offset src and out by it: each RHS
 // is bit-identical to a launch on it alone.
+// The deformed mode (cell_apply_deformed_kernel, a deformed mapping) replaces K by each row's own
+// stiffness at its Gauss points: the sweeps of S and Dc and the packed metric geo[r] [n_loc][6]
+// (w detJ J^-1 J^-T, zero at absent slots, so their rows are exact zeros), laplace_quad.cuh's
+// quadrature, with no scale: out[r] = K_r x_r.
 //
 // Replaces: BrickLaplaceMM._extract_cols (dealii_matrixfree_hanging_nodes_tpu/bricks.py:
 //   2178-2194) fused with the local stiffness apply `cols @ K.T * geo_cell_sub`
 //   (bricks.py:2449-2453). The TPU side ran these as XLA conv-patch extraction and a dense MXU
 //   matmul with the 125 x 125 K (no Pallas kernel). With a RHS axis: _extract_cols and
 //   `cols_u @ K.T * geo` on the k-major layout of _vmult_multi_impl (bricks.py:3470-3477).
+//   The deformed mode: `_deformed_cell_apply(cols_u, Gq_sub)` (bricks.py:2444-2447, 2959-2976),
+//   XLA einsums on the TPU.
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32: memory. Sum factorization needs 7 sweeps
 //   of 2 n^4 operations plus the scale, 8,875 a row against the dense product's 31,250. 1,025
@@ -41,12 +47,18 @@
 //   launch at 4 instructions a clock an SM, about the time of its bytes, and the 3
 //   barriers a group keep the rate well below that; the brick's load and the sweeps of
 //   one block do not overlap (a block has one brick).
+//   The deformed mode: one block per brick as above, its cells G at a time (hn_interp's Cfg: 32,
+//   16, 16, 16, 8, 8 at p = 1..6) gathered from the staged brick into shared memory, then
+//   laplace_quad.cuh's 12 sweeps with the rows' metric read at the points, the rows stored. Bound
+//   at quadrant nref=7, p=4, f32: memory, the subset bricks (20.1 MB), the rows' metric (196.8
+//   MB) and the rows (32.8 MB), 250 MB, 0.075 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
 
+#include "laplace_quad.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -129,6 +141,88 @@ int launch(const void* src, const void* K1, const void* M1, const void* scale, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// The deformed mode: every cell row of the bricks through the quadrature with its own metric
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(hn::Cfg<P>::THREADS)
+cell_apply_deformed_kernel(const T* __restrict__ src, const T* __restrict__ geo,
+                           const T* __restrict__ S, const T* __restrict__ Dc, T* __restrict__ out,
+                           int N3p, int vec_ok) {
+  using H = hn::Cfg<P>;
+  constexpr int N = H::N, N2 = H::N2, NL = H::NL, G = H::G;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B * B;
+  static_assert(C % G == 0, "a brick is whole groups of cells");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sbrick = reinterpret_cast<T*>(smem_raw);  // [NB^3, whole 16-byte words] the brick
+  T* V = sbrick + (NB * NB * NB + 3) / 4 * 4;    // [G NL] the group's rows
+  T* G0 = V + G * NL;                            // [3][G NL] their gradients
+  T* G1 = G0 + G * NL;
+  T* G2 = G1 + G * NL;
+  T* sS = G2 + G * NL;  // [N N]
+  T* sD = sS + N * N;   // [N N]
+
+  const T* ub = src + static_cast<size_t>(blockIdx.x) * N3p;
+  sf::copy_block(sbrick, ub, NB * NB * NB,
+                 vec_ok && (reinterpret_cast<uintptr_t>(ub) % 16 == 0));
+  lq::stage_factors<T, N>(sS, sD, S, Dc);
+  const size_t row_base = static_cast<size_t>(blockIdx.x) * C;
+  const int l = threadIdx.x, g = l / N2, j = l - g * N2;
+  const bool active = l < G * N2;
+  for (int s0 = 0; s0 < C; s0 += G) {
+    __syncthreads();  // the brick staged; the previous group's rows stored
+    for (int t = threadIdx.x; t < G * NL; t += H::THREADS) {
+      const int k = t / NL, jj = t - k * NL, s = s0 + k;
+      const int sx = s % B, sy = (s / B) % B, sz = s / (B * B);
+      const int ix = jj % N, iy = (jj / N) % N, iz = jj / N2;
+      V[t] = sbrick[((sz * P + iz) * NB + sy * P + iy) * NB + sx * P + ix];
+    }
+    __syncthreads();
+    const T* mg = geo + (row_base + s0 + g) * NL * 6;
+    lq::laplace_cells<T, N>(V + g * NL, G0 + g * NL, G1 + g * NL, G2 + g * NL, sS, sD, j, active,
+                            [=](T* x, T* y, T* z) { lq::metric_line<T, N>(mg, x, y, z, j); });
+    T* dst = out + (row_base + s0) * NL;  // the group's rows are contiguous
+    for (int t = threadIdx.x; t < G * NL; t += H::THREADS) dst[t] = V[t];
+  }
+}
+
+template <typename T, int P, int B>
+int launch_deformed(const void* src, const void* geo, const void* S, const void* Dc, void* out,
+                    int rows, int N3p, cudaStream_t stream) {
+  using H = hn::Cfg<P>;
+  constexpr int NB = B * P + 1;
+  const int smem = static_cast<int>(
+      (4 * H::G * H::NL + 2 * H::N * H::N + sf::round4(NB * NB * NB)) * sizeof(T));
+  auto kernel = cell_apply_deformed_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte loads of the bricks need 16-byte rows
+  const int vec_ok = (N3p * sizeof(T)) % 16 == 0;
+  const int blocks = rows / (B * B * B);
+  if (blocks > 0) {
+    kernel<<<blocks, H::THREADS, smem, stream>>>(
+        static_cast<const T*>(src), static_cast<const T*>(geo), static_cast<const T*>(S),
+        static_cast<const T*>(Dc), static_cast<T*>(out), N3p, vec_ok);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_deformed(const void* src, const void* geo, const void* S, const void* Dc, void* out,
+                      int rows, int p, int B, int N3p, cudaStream_t stream) {
+#define DEF_CASE(p_, b_) \
+  if (p == p_ && B == b_) \
+    return launch_deformed<T, p_, b_>(src, geo, S, Dc, out, rows, N3p, stream);
+  DEF_CASE(1, 16)
+  DEF_CASE(2, 8)
+  DEF_CASE(3, 4)
+  DEF_CASE(4, 4)
+  DEF_CASE(5, 2)
+  DEF_CASE(6, 2)
+#undef DEF_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* src, const void* K1, const void* M1, const void* scale, void* out,
@@ -163,6 +257,20 @@ int cell_apply_f64(const void* src, const void* K1, const void* M1, const void* 
                    void* stream) {
   return dispatch<double>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The deformed mode: src [rows / B^3][N3p], geo [rows][(p+1)^3][6], S, Dc [(p+1)^2] -> out
+// [rows][(p+1)^3], one RHS
+int cell_apply_deformed_f32(const void* src, const void* geo, const void* S, const void* Dc,
+                            void* out, int rows, int p, int B, int N3p, void* stream) {
+  return dispatch_deformed<float>(src, geo, S, Dc, out, rows, p, B, N3p,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int cell_apply_deformed_f64(const void* src, const void* geo, const void* S, const void* Dc,
+                            void* out, int rows, int p, int B, int N3p, void* stream) {
+  return dispatch_deformed<double>(src, geo, S, Dc, out, rows, p, B, N3p,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

@@ -29,7 +29,8 @@
 // Design: one thread a line of a cell, G cells a block (16 at p <= 4, 8 at p = 5, 6, 32 at p = 1;
 //   G N^2 threads). The block's G cells are gathered into shared memory (the dofmap read
 //   coalesced, src gathered), then every step is a sweep over the cells' lines in place in
-//   shared memory, one barrier a sweep: values in V, the three gradient components in G0..G2.
+//   shared memory, one barrier a sweep: values in V, the three gradient components in G0..G2
+//   (the quadrature in laplace_quad.cuh, shared with the brick engine's deformed kernels).
 //   S, Dc, P and w are staged in shared memory once a block;
 //   every thread of a warp reads one factor entry at a time (a broadcast). A block with no
 //   constrained cell skips the interpolation (one __syncthreads_or). Each row is written by its
@@ -40,7 +41,7 @@
 
 #include <cstddef>
 
-#include "hanging_nodes.cuh"
+#include "laplace_quad.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -59,28 +60,6 @@ struct Args {
   const T* geo;       // [n_cells][3] or [n_cells][N^3][6]
   T* out;
 };
-
-// transposed z sweep of the sum of the three gradient components (line j along z), into out
-template <typename T, int N>
-__device__ __forceinline__ void sum_sweep_z(const T* g0, const T* g1, const T* g2, T* out,
-                                            const T* M, int j) {
-  int ca, cb;
-  const int base = hn::line_base<N, 2>(j, ca, cb);
-  constexpr int S = N * N;
-  T r[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int o = base + k * S;
-    r[k] = g0[o] + g1[o] + g2[o];
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) acc += M[k * N + i] * r[k];
-    out[base + i * S] = acc;
-  }
-}
 
 template <typename T, int P>
 constexpr int smem_values() {
@@ -134,59 +113,24 @@ cell_laplace_kernel(const Args<T> a, int n_cells, int flags) {
     T* g0 = G0 + g * NL;
     T* g1 = G1 + g * NL;
     T* g2 = G2 + g * NL;
-    // values at the Gauss points
-    if (active) hn::sweep_line<T, N, 0, false>(cell, cell, sS, j);
-    __syncthreads();
-    if (active) hn::sweep_line<T, N, 1, false>(cell, cell, sS, j);
-    __syncthreads();
-    if (active) hn::sweep_line<T, N, 2, false>(cell, cell, sS, j);
-    __syncthreads();
-    // the reference gradient, component t along t
-    if (active) {
-      hn::sweep_line<T, N, 0, false>(cell, g0, sD, j);
-      hn::sweep_line<T, N, 1, false>(cell, g1, sD, j);
-      hn::sweep_line<T, N, 2, false>(cell, g2, sD, j);
-    }
-    __syncthreads();
-    // the geometry at each point: points j, j + N^2, ...
-    if (active) {
-      if (deformed) {
-        const T* m = a.geo + static_cast<size_t>(c) * NL * 6;
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const int q = j + k * N2;
-          const T* mq = m + q * 6;
-          const T x = g0[q], y = g1[q], z = g2[q];
-          g0[q] = __ldg(mq + 0) * x + __ldg(mq + 1) * y + __ldg(mq + 2) * z;
-          g1[q] = __ldg(mq + 1) * x + __ldg(mq + 3) * y + __ldg(mq + 4) * z;
-          g2[q] = __ldg(mq + 2) * x + __ldg(mq + 4) * y + __ldg(mq + 5) * z;
-        }
-      } else {
+    if (deformed) {  // the packed metric of cell c at each point
+      const T* m = a.geo + static_cast<size_t>(c) * NL * 6;
+      lq::laplace_cells<T, N>(cell, g0, g1, g2, sS, sD, j, active, [=](T* x, T* y, T* z) {
+        lq::metric_line<T, N>(m, x, y, z, j);
+      });
+    } else {  // the Cartesian factors of cell c times the weights: points j, j + N^2, ...
+      lq::laplace_cells<T, N>(cell, g0, g1, g2, sS, sD, j, active, [=](T* x, T* y, T* z) {
         const T gx = __ldg(a.geo + 3 * c), gy = __ldg(a.geo + 3 * c + 1),
                 gz = __ldg(a.geo + 3 * c + 2);
 #pragma unroll
         for (int k = 0; k < N; ++k) {
           const int q = j + k * N2;
-          g0[q] = g0[q] * gx * sW[q];
-          g1[q] = g1[q] * gy * sW[q];
-          g2[q] = g2[q] * gz * sW[q];
+          x[q] = x[q] * gx * sW[q];
+          y[q] = y[q] * gy * sW[q];
+          z[q] = z[q] * gz * sW[q];
         }
-      }
+      });
     }
-    __syncthreads();
-    // the transposes: Dc^T on each component along its axis, the sum, S^T along z, y, x
-    if (active) {
-      hn::sweep_line<T, N, 0, true>(g0, g0, sD, j);
-      hn::sweep_line<T, N, 1, true>(g1, g1, sD, j);
-      hn::sweep_line<T, N, 2, true>(g2, g2, sD, j);
-    }
-    __syncthreads();
-    if (active) sum_sweep_z<T, N>(g0, g1, g2, cell, sS, j);
-    __syncthreads();
-    if (active) hn::sweep_line<T, N, 1, true>(cell, cell, sS, j);
-    __syncthreads();
-    if (active) hn::sweep_line<T, N, 0, true>(cell, cell, sS, j);
-    __syncthreads();
   }
 
   if ((flags & HN_OUT) && any_hn) hn::interp_cells<T, N, true>(cell, sP, code, j, hn_work);

@@ -18,6 +18,9 @@
 // (u + comp * cstride) through steps 1 and 2, then linear elasticity's coupled operator times
 // scale[h] on every axis (elasticity.cuh) in place of step 3, then step 4 on each component:
 // out [3, n_hn, n_loc], component-major, in one launch.
+// The deformed mode (a deformed mapping) replaces step 3 by the row's own stiffness at its Gauss
+// points: laplace_quad.cuh's sweeps of S and Dc with the packed metric geo[hn_sub[h]] [n_loc][6]
+// (w detJ J^-1 J^-T; the subset bricks' cell rows lead geo's brick-cell rows), no scale.
 //
 // Replaces: BrickLaplaceMM._fill_rows (dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687-2694:
 //   _fill_hn_compact, 2728-2773, fed by _extract_cols, 2178-2194, then _hn_apply forward,
@@ -25,7 +28,9 @@
 //   transposed _hn_apply (2474). The TPU side ran these as XLA gathers, one-hot MXU matmuls,
 //   scatters and one dense [n_loc, n_loc] matmul per mask range and direction (no Pallas
 //   kernel). The elastic mode: BrickElasticity's _fill_rows -> el_Kel -> _hn_apply(transpose)
-//   (models/elasticity_bricks.py:241-248). With a RHS axis: _fill_rows -> K -> _hn_apply^T on
+//   (models/elasticity_bricks.py:241-248). The deformed mode: _fill_rows ->
+//   _deformed_cell_apply(u_hat, Gq_hn) -> _hn_apply(transpose) (bricks.py:2466-2474,
+//   2959-2976). With a RHS axis: _fill_rows -> K -> _hn_apply^T on
 //   the [n_hn, k, n_loc] rows of _vmult_multi_impl (bricks.py:3478-3482) and _hn_ids2 (3386).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (16,744 rows, 426,424 fill entries, 25 Q's
@@ -71,6 +76,10 @@
 //   the block's Q lists in shared memory, 8 rows a block at p = 4 (9 blocks an SM), the Q
 //   loops unrolled, each thread's Q ranges loaded ahead, the last product stored straight to
 //   device memory, the fill started without the setup barrier.
+//   The deformed mode runs the same phases with two more row buffers (the gradients' scratch)
+//   and S, Dc staged in shared memory; in place of K's 7 sweeps, laplace_quad.cuh's 12 with the
+//   metric read at the points (12 barriers a block). Bound at quadrant nref=7, p=4, f32: memory,
+//   the full mode's 17.5 MB less scale plus the rows' metric (50.2 MB), ~68 MB, 0.020 ms.
 
 #include <cuda_runtime.h>
 
@@ -78,6 +87,7 @@
 #include <cstring>
 
 #include "elasticity.cuh"
+#include "laplace_quad.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -133,7 +143,20 @@ __device__ __forceinline__ T run_sum(int e, const int* s_rp, const int* __restri
   return acc;
 }
 
-template <typename T, int P, int B, bool FILL>
+// where the deformed mode's scratch starts in shared memory, in values of T: after the two row
+// buffers, the scales and the G-row int tables, rounded up to 16 bytes
+template <typename T, int P>
+__host__ __device__ constexpr int deformed_offset() {
+  using S = Cfg<P>;
+  constexpr int bytes = (2 * S::SCR + S::G) * sizeof(T) + (4 * S::G + 1) * sizeof(int);
+  return (bytes + 15) / 16 * 16 / sizeof(T);
+}
+
+// the modes of hn_cell_kernel: the stiffness by K1, M1 times scale; the fill alone; the
+// stiffness by the rows' metric
+constexpr int FULL = 0, FILL = 1, DEFORMED = 2;
+
+template <typename T, int P, int B, int MODE>
 __global__ void __launch_bounds__(Cfg<P>::THREADS)
 hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
                const bool* __restrict__ keep, const int* __restrict__ row_ptr,
@@ -142,8 +165,9 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
                const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
                const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
                const T* __restrict__ bwd_w, const Factors<T, P + 1> f,
-               const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p,
-               long long u_stride) {
+               const T* __restrict__ scale, const T* __restrict__ geo,
+               const T* __restrict__ Sg, const T* __restrict__ Dg, T* __restrict__ out,
+               int n_hn, int N3p, long long u_stride) {
   using S = Cfg<P>;
   constexpr int N = S::N, N2 = S::N2, NL = S::NL, G = S::G;
   constexpr int NB = B * P + 1;
@@ -155,6 +179,12 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   int* s_rp = reinterpret_cast<int*>(s_scale + G);  // [G + 1] the block's row_ptr
   int* s_q = s_rp + G + 1;                          // [G] each row's Q
   int* s_base = s_q + G;                            // [G] each row's cell origin in u
+  int* s_cell = s_base + G;                         // [G] each row's cell (deformed mode)
+  // the deformed mode's gradient scratch and factors, after the tables (16-byte aligned)
+  T* sc = reinterpret_cast<T*>(smem_raw) + deformed_offset<T, P>();
+  T* sd = sc + S::SCR;
+  T* sS = sd + S::SCR;
+  T* sD = sS + S::N * S::N;
 
   const size_t rhs = blockIdx.y;  // its subset bricks and rows
   u += rhs * u_stride;
@@ -164,9 +194,9 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   const int nrows = min(G, n_hn - h0);
   if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
   if (tid < G) {
-    int q = -1, base = 0;
+    int q = -1, base = 0, cell = 0;
     if (tid < nrows) {
-      const int cell = hn_sub[h0 + tid];
+      cell = hn_sub[h0 + tid];
       const int brick = cell / C, slot = cell % C;
       const int sx = slot % B, sy = (slot / B) % B, sz = slot / (B * B);
       q = q_of_row[h0 + tid];
@@ -174,8 +204,10 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
     }
     s_q[tid] = q;
     s_base[tid] = base;
-    if constexpr (!FILL) s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
+    s_cell[tid] = cell;
+    if constexpr (MODE == FULL) s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
   }
+  if constexpr (MODE == DEFORMED) lq::stage_factors<T, S::N>(sS, sD, Sg, Dg);
   __syncthreads();
 
   // 1. fill: the masked own nodes into buffer A; each run of entries (one row, one slot) summed
@@ -216,7 +248,20 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   apply_q<T, S::NL, S::G, S::THREADS>(sa, sb, s_q, fwd_ptr, fwd_col, fwd_w);
   __syncthreads();
   T* res = sb;
-  if constexpr (!FILL) {
+  if constexpr (MODE == DEFORMED) {
+    // 3. the row's stiffness by its metric on buffer B, A, C and D the gradients; own in B
+    const int l = tid, g = l / N2, j = l - g * N2;
+    const bool active = l < G * N2 && g < nrows;
+    const T* mg = geo + static_cast<size_t>(s_cell[g < G ? g : 0]) * NL * 6;
+    lq::laplace_cells<T, N>(sb + g * NL, sa + g * NL, sc + g * NL, sd + g * NL, sS, sD, j,
+                            active,
+                            [=](T* x, T* y, T* z) { lq::metric_line<T, N>(mg, x, y, z, j); });
+    // 4. Q^T: out into buffer A
+    apply_q<T, S::NL, S::G, S::THREADS>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
+    __syncthreads();
+    res = sa;
+  }
+  if constexpr (MODE == FULL) {
     // 3. K: the sweeps on buffer B with A as scratch; own lands in B
     const int l = tid;
     const bool active = l < G * N2;
@@ -393,19 +438,22 @@ int dispatch_elastic(const void* const* a, double mu, double lam, long long cstr
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, int P, int B, bool FILL>
+template <typename T, int P, int B, int MODE>
 int launch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int N3p,
            int k, long long u_stride, cudaStream_t stream) {
   using S = Cfg<P>;
-  // the rows' two buffers and their scales, then row_ptr, q and the cell origins
-  const int smem =
-      static_cast<int>((2 * S::SCR + S::G) * sizeof(T) + (3 * S::G + 1) * sizeof(int));
-  auto kernel = hn_cell_kernel<T, P, B, FILL>;
+  // the rows' two buffers and their scales, then row_ptr, q, the cell origins and the cells;
+  // in the deformed mode two more buffers and S, Dc after them
+  const int smem = MODE == DEFORMED
+                       ? static_cast<int>((deformed_offset<T, P>() + 2 * S::SCR +
+                                           2 * S::N * S::N) * sizeof(T))
+                       : static_cast<int>(deformed_offset<T, P>() * sizeof(T));
+  auto kernel = hn_cell_kernel<T, P, B, MODE>;
   static unsigned long long smem_set = 0;
   cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   Factors<T, P + 1> f{};
-  if (!FILL) {
+  if (MODE == FULL) {
     std::memcpy(f.K, K1, sizeof(f.K));
     std::memcpy(f.M, M1, sizeof(f.M));
   }
@@ -418,8 +466,9 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
         static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
         static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
         static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
-        static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]), static_cast<T*>(out),
-        n_hn, N3p, u_stride);
+        static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]),
+        static_cast<const T*>(a[14]), static_cast<const T*>(a[15]),
+        static_cast<const T*>(a[16]), static_cast<T*>(out), n_hn, N3p, u_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -427,11 +476,14 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
 // (p, B) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
-             int B, int N3p, int fill, int k, long long u_stride, cudaStream_t stream) {
-#define HN_CASE(p_, b_)                                                                      \
-  if (p == p_ && B == b_)                                                                    \
-    return fill ? launch<T, p_, b_, true>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
-                : launch<T, p_, b_, false>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream);
+             int B, int N3p, int mode, int k, long long u_stride, cudaStream_t stream) {
+#define HN_CASE(p_, b_)                                                                     \
+  if (p == p_ && B == b_)                                                                   \
+    return mode == FILL                                                                     \
+               ? launch<T, p_, b_, FILL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)    \
+           : mode == DEFORMED                                                               \
+               ? launch<T, p_, b_, DEFORMED>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream) \
+               : launch<T, p_, b_, FULL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream);
   HN_CASE(1, 16)
   HN_CASE(2, 8)
   HN_CASE(3, 4)
@@ -449,18 +501,20 @@ int dispatch(const void* const* a, const void* K1, const void* M1, void* out, in
 extern "C" {
 
 // a: device pointers, in order: u, hn_sub, keep, row_ptr, ent_slot, ent_src, q_of_row, fwd_ptr,
-// fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, scale (the last four unread in the fill mode).
-// K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; unread in the
-// fill mode). k right-hand sides, u_stride values apart in u (n_hn * n_loc apart in out).
+// fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, scale, geo, S, Dc (bwd_* unread in the fill mode,
+// scale read in the full mode only, geo, S and Dc in the deformed mode only).
+// K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; read in the
+// full mode only). mode: 0 full, 1 fill, 2 deformed. k right-hand sides, u_stride values apart
+// in u (n_hn * n_loc apart in out).
 int hn_cell_f32(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int fill, int k, long long u_stride, void* stream) {
-  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, fill, k, u_stride,
+                int p, int B, int N3p, int mode, int k, long long u_stride, void* stream) {
+  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride,
                          static_cast<cudaStream_t>(stream));
 }
 
 int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int fill, int k, long long u_stride, void* stream) {
-  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, fill, k, u_stride,
+                int p, int B, int N3p, int mode, int k, long long u_stride, void* stream) {
+  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride,
                           static_cast<cudaStream_t>(stream));
 }
 

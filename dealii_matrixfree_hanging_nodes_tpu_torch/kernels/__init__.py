@@ -5,6 +5,7 @@ on the wrapper (``<wrapper>.launches``)."""
 
 from . import (  # noqa: F401
     brick_apply,
+    brick_deformed,
     brick_elasticity,
     brick_transfer,
     cell_apply,
@@ -27,4 +28,4 @@ from . import (  # noqa: F401
 KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update,
                   masked_quad, plane_fill, plane_fold, hn_interp, cell_laplace, dof_scatter,
                   constraints_slow, brick_transfer, dof_embed, cell_transfer, cell_elasticity,
-                  brick_elasticity)
+                  brick_elasticity, brick_deformed)

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("brick_apply", "cell_apply", "dss_surface", "hn_cell", "corr_compact", "refill_update",
            "masked_quad", "plane_fill", "plane_fold", "hn_interp", "cell_laplace", "dof_scatter",
            "constraints_slow", "brick_transfer", "dof_embed", "cell_transfer", "cell_elasticity",
-           "brick_elasticity")
+           "brick_elasticity", "brick_deformed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -16,8 +16,17 @@ m*B^3, n_loc], each RHS bit-identical to a call on it alone (the
 reference's ``_extract_cols`` and ``cols_u @ K.T * geo`` on the k-major
 layout, bricks.py:3470-3477).
 
+The deformed mode (``deformed=(S, Dc, geo)``, a deformed mapping; K1, M1
+and scale unread) replaces K by each row's own stiffness at its Gauss
+points: the sweeps of S and Dc with the packed metric geo [m*B^3, n_q, 6]
+of the rows (zero at absent slots, whose rows come out exact zeros), no
+scale (``cell_laplace``'s ``laplace_rows``): the reference's
+``_deformed_cell_apply(cols_u, Gq_sub)`` (bricks.py:2444-2447, 2959-2976).
+One RHS only.
+
 CUDA source: ``csrc/cell_apply.cu`` (the sweeps in
-``csrc/sum_factorization.cuh``, shared with ``hn_cell``)."""
+``csrc/sum_factorization.cuh``, shared with ``hn_cell``; the deformed
+mode's in ``csrc/laplace_quad.cuh``)."""
 
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import ctypes
 import torch
 
 from . import _build
+from .cell_laplace import laplace_rows
 
 NAME = "cell_apply"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2178"
@@ -57,13 +67,18 @@ def cell_nodes(cells, brick_size, p, N3p, device):
     return (cells // C)[:, None] * N3p + brick_slot_index(brick_size, p, device)[cells % C]
 
 
-def cell_apply_plain(src, K1, M1, scale, brick_size=None):
+def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
     """Plain PyTorch version: gather the cell rows, then the sweeps of the
     1-D factors on the [rows, z, y, x] view (x: M1, K1; y: M1 on both, K1
-    on the M1 branch; z: on the two sums), then the scale. A RHS axis:
-    each RHS so."""
+    on the M1 branch; z: on the two sums), then the scale; deformed: the
+    rows' quadrature with their metric. A RHS axis: each RHS so."""
     if src.dim() == 3:
-        return torch.stack([cell_apply_plain(s, K1, M1, scale, brick_size) for s in src])
+        return torch.stack([cell_apply_plain(s, K1, M1, scale, brick_size, deformed=deformed)
+                            for s in src])
+    if deformed is not None:
+        S, Dc, geo = deformed
+        rows = src[:, brick_slot_index(brick_size, S.shape[1] - 1, src.device).reshape(-1)]
+        return laplace_rows(rows.reshape(geo.shape[0], -1), S, Dc, None, geo)
     n = cell_degree(K1) + 1
     if brick_size is not None:
         idx = brick_slot_index(brick_size, n - 1, src.device)
@@ -81,15 +96,23 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None):
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
-def cell_apply(src, K1, M1, scale, brick_size):
+_DEFORMED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+DEFORMED_SUPPORTED = {(1, 16), (2, 8), (3, 4), (4, 4), (5, 2), (6, 2)}  # (p, B)
+
+
+def cell_apply(src, K1, M1, scale, brick_size, *, deformed=None):
     """Launch the kernel on CUDA tensors; the plain version on CPU ones.
     The kernel takes K1 and M1 by value, as launch parameters: on the
     kernel path they must be CPU tensors (``BrickLaplaceMM.factors_host``);
     factors on the card raise rather than cost a synchronising copy.
     src [m, N3p] -> out [m*B^3, n_loc]; a RHS axis: src [k, m, N3p] (any
-    stride between RHS) -> out [k, m*B^3, n_loc]."""
+    stride between RHS) -> out [k, m*B^3, n_loc]. deformed = (S, Dc, geo):
+    the deformed mode, src [m, N3p] -> out [m*B^3, n_loc]; K1, M1, scale
+    may be None."""
     if src.device.type == "cpu":
-        return cell_apply_plain(src, K1, M1, scale, brick_size)
+        return cell_apply_plain(src, K1, M1, scale, brick_size, deformed=deformed)
+    if deformed is not None:
+        return _deformed(src, *deformed, int(brick_size))
     k, stride, src1 = _build.rhs_axis(NAME, src, 2)
     dev = _build.check_cuda(NAME, src.dtype, src=src1, scale=scale)
     p = cell_degree(K1)
@@ -117,11 +140,34 @@ def cell_apply(src, K1, M1, scale, brick_size):
 cell_apply.launches = 0
 
 
-def bytes_and_flops(src_elems, rows, n_loc, itemsize, k=1):
+def _deformed(src, S, Dc, geo, B):
+    """The deformed mode's launch."""
+    dev = _build.check_cuda(NAME, src.dtype, src=src, S=S, Dc=Dc, geo=geo)
+    p = S.shape[1] - 1
+    n_loc = (p + 1) ** 3
+    rows = src.shape[0] * B**3 if src.dim() == 2 else -1
+    if ((p, B) not in DEFORMED_SUPPORTED or S.shape != (p + 1, p + 1) or Dc.shape != S.shape
+            or geo.shape != (rows, n_loc, 6) or src.shape[1] < (B * p + 1) ** 3):
+        raise ValueError(f"{NAME}: deformed mode shapes src {tuple(src.shape)}, S "
+                         f"{tuple(S.shape)}, geo {tuple(geo.shape)} at B={B}")
+    out = torch.empty((rows, n_loc), dtype=src.dtype, device=src.device)
+    fn = _build.function(NAME, f"{NAME}_deformed_{_build.suffix(src.dtype)}", _DEFORMED_ARGS)
+    _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(geo), _build.ptr(S), _build.ptr(Dc),
+                  _build.ptr(out), rows, p, B, src.shape[1])
+    cell_apply.launches += 1
+    return out
+
+
+def bytes_and_flops(src_elems, rows, n_loc, itemsize, k=1, deformed=False):
     """Least traffic (src read once, out written once, K1, M1 and scale) and
     the sum-factorized operation count: 7 sweeps of 2 n^4 and the scale,
     per row. k right-hand sides (src_elems and rows those of one): the
-    bricks and rows k times, the factors and scale once."""
+    bricks and rows k times, the factors and scale once. deformed: src,
+    the rows' metric, S, Dc and out; 12 sweeps of 2 n^4 and 15 operations
+    a point a row."""
     n = round(n_loc ** (1.0 / 3.0))
+    if deformed:
+        return ((src_elems + rows * n_loc * 7 + 2 * n * n) * itemsize,
+                rows * (12 * 2 * n**4 + 15 * n_loc))
     nbytes = (k * (src_elems + rows * n_loc) + 2 * n * n + rows) * itemsize
     return nbytes, k * rows * (7 * 2 * n**4 + n**3)

@@ -16,6 +16,14 @@ operator times scale[h] (``cell_elasticity``'s, on every axis; ``elastic``
 = (S, Dc, quad_w, mu, lam)) in place of step 3, then step 4: out [3, n_hn,
 n_loc], component-major (the reference's ``_fill_rows`` -> ``el_Kel`` ->
 ``_hn_apply(transpose=True)``, models/elasticity_bricks.py:241-248).
+``mode="deformed"`` (a deformed mapping) replaces step 3 by each row's own
+stiffness at its Gauss points, ``deformed`` = (S, Dc, geo): the sweeps of S
+and Dc with the packed metric geo[hn_sub[h]] (geo [n_rows, n_q, 6], the
+operator's brick-cell rows, whose subset rows lead; ``cell_laplace``'s
+``laplace_rows``), no scale (the reference's ``_fill_rows`` ->
+``_deformed_cell_apply(u_hat, Gq_hn)`` -> ``_hn_apply(transpose=True)``,
+bricks.py:2466-2474, 2959-2976). Neither mode is in ``MODES``: the card
+tests loop over ``MODES`` with the Laplace rows' arguments.
 
 With a right-hand-side axis (the "full" and "fill" modes;
 ``BrickLaplaceMM.vmult_multi``: u_sub [k, n_sub, N3p] with any stride
@@ -44,10 +52,12 @@ import torch
 from . import _build
 from .cell_apply import cell_apply_plain, cell_degree, cell_nodes
 from .cell_elasticity import elastic_rows
+from .cell_laplace import laplace_rows
 
 NAME = "hn_cell"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2687"
-MODES = ("full", "fill")  # the Laplace rows' modes; "elastic" takes component bricks
+MODES = ("full", "fill")  # the Laplace rows' modes; "elastic" and "deformed" take more
+OTHER_MODES = ("elastic", "deformed")
 
 
 def gather_sums(src_flat, row_ptr, ent_slot, ent_src, n_loc):
@@ -93,11 +103,11 @@ def hn_apply_plain(rows, q, ptr, col, w):
 
 def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
                   bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *,
-                  elastic=None):
+                  elastic=None, deformed=None):
     """Plain PyTorch version: the four steps one after another, each
-    through device memory (K1, M1 and scale are not read in the fill
-    mode, K1 and M1 not in the elastic mode). A RHS axis: each RHS so."""
-    if _mode(mode) != "elastic" and u_sub.dim() == 3:
+    through device memory (K1, M1 and scale are read in the full mode
+    only, but scale in the elastic mode too). A RHS axis: each RHS so."""
+    if _mode(mode) in MODES and u_sub.dim() == 3:
         return torch.stack([hn_cell_plain(u, hn_sub, keep, row_ptr, ent_slot, ent_src, q,
                                           fwd_ptr, fwd_col, fwd_w, bwd_ptr, bwd_col, bwd_w, K1,
                                           M1, scale, brick_size, mode) for u in u_sub])
@@ -112,13 +122,17 @@ def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, f
     u_hat = hn_apply_plain(filled, q, fwd_ptr, fwd_col, fwd_w)
     if _mode(mode) == "fill":
         return u_hat
-    own = cell_apply_plain(u_hat, K1, M1, scale)
+    if mode == "deformed":
+        S, Dc, geo = deformed
+        own = laplace_rows(u_hat, S, Dc, None, geo[hn_sub.long()])
+    else:
+        own = cell_apply_plain(u_hat, K1, M1, scale)
     return hn_apply_plain(own, q, bwd_ptr, bwd_col, bwd_w)
 
 
 def _mode(mode):
-    if mode not in MODES + ("elastic",):
-        raise ValueError(f"{NAME}: mode must be one of {MODES + ('elastic',)}, got {mode!r}")
+    if mode not in MODES + OTHER_MODES:
+        raise ValueError(f"{NAME}: mode must be one of {MODES + OTHER_MODES}, got {mode!r}")
     return mode
 
 
@@ -128,7 +142,8 @@ _ELASTIC_ARGS = ([ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_lo
 
 
 def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
-            bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *, elastic=None):
+            bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *, elastic=None,
+            deformed=None):
     """u_sub [n_sub, N3p] ([3, m, N3p] in the elastic mode, m >= n_sub; a
     RHS axis in the other modes: [k, n_sub, N3p], any stride between RHS);
     hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot, ent_src, the Q lists' ptr
@@ -136,24 +151,29 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
     of u_sub's dtype -> new [n_hn, n_loc] tensor ([3, n_hn, n_loc] in the
     elastic mode, [k, n_hn, n_loc] with a RHS axis). The kernel takes K1 and M1 by value, as launch
     parameters: on the kernel path they must be CPU tensors
-    (``op.factors_host``). In the fill mode K1, M1 and scale may be None,
-    in the elastic mode K1 and M1; elastic = (S, Dc, quad_w, mu, lam), S,
-    Dc and quad_w on u_sub's device."""
+    (``op.factors_host``). In the fill and deformed modes K1, M1 and scale
+    may be None, in the elastic mode K1 and M1; elastic = (S, Dc, quad_w,
+    mu, lam), S, Dc and quad_w on u_sub's device; deformed = (S, Dc, geo),
+    geo [n_rows, n_loc, 6] over at least the subset bricks' cell rows, on
+    u_sub's device (the deformed mode takes no RHS axis)."""
     args = (u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
             bwd_ptr, bwd_col, bwd_w)
-    fill = _mode(mode) == "fill"
+    _mode(mode)
     if u_sub.device.type == "cpu":
-        return hn_cell_plain(*args, K1, M1, scale, brick_size, mode, elastic=elastic)
+        return hn_cell_plain(*args, K1, M1, scale, brick_size, mode, elastic=elastic,
+                             deformed=deformed)
     names = ("u_sub", "hn_sub", "keep", "row_ptr", "ent_slot", "ent_src", "q", "fwd_ptr",
              "fwd_col", "fwd_w", "bwd_ptr", "bwd_col", "bwd_w")
     k, stride = 1, 0
     tensors = dict(zip(names, args))
-    if mode != "elastic":
+    if mode in MODES:
         k, stride, tensors["u_sub"] = _build.rhs_axis(NAME, u_sub, 2)
-    if not fill:
+    if mode in ("full", "elastic"):
         tensors["scale"] = scale
     if mode == "elastic":
         tensors.update(zip(("S", "Dc", "quad_w"), elastic[:3]))
+    if mode == "deformed":
+        tensors.update(zip(("S", "Dc", "geo"), deformed))
     dev = _build.check_cuda(NAME, u_sub.dtype, **tensors)
     n_hn, n_loc = keep.shape
     B, p = int(brick_size), round(n_loc ** (1.0 / 3.0)) - 1
@@ -162,7 +182,16 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
         return _elastic(args, scale, elastic, n_hn, p, B, dev)
     if u_sub.shape[-1] < (B * p + 1) ** 3:
         raise ValueError(f"{NAME}: u_sub must be [n_sub, >= NB^3], got {tuple(u_sub.shape)}")
-    if fill:
+    extra = (None, None, None)  # geo, S, Dc
+    if mode == "deformed":
+        S, Dc, geo = deformed
+        n = p + 1
+        if (u_sub.dim() != 2 or S.shape != (n, n) or Dc.shape != (n, n) or geo.dim() != 3
+                or geo.shape[1:] != (n_loc, 6) or u_sub.shape[0] * B**3 > geo.shape[0]):
+            raise ValueError(f"{NAME}: deformed mode shapes u_sub {tuple(u_sub.shape)}, S "
+                             f"{tuple(S.shape)}, geo {tuple(geo.shape)}")
+        extra = (geo, S, Dc)
+    if mode != "full":
         factors = (None, None)
     else:
         if cell_degree(K1) != p or M1.shape != K1.shape or scale.shape != (n_hn,):
@@ -172,11 +201,13 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
                              f"(op.factors_host), got them on {K1.device} and {M1.device}")
         factors = tuple(f.detach().to(u_sub.dtype).contiguous() for f in (K1, M1))
     out = torch.empty((*u_sub.shape[:-2], n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
-    ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in args),
-                                  None if fill else scale.data_ptr())
+    ptrs = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in args),
+                                  scale.data_ptr() if mode == "full" else None,
+                                  *(None if t is None else t.data_ptr() for t in extra))
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(u_sub.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, ptrs, *(None if f is None else _build.ptr(f) for f in factors),
-                  _build.ptr(out), n_hn, p, B, u_sub.shape[-1], int(fill), k, stride)
+                  _build.ptr(out), n_hn, p, B, u_sub.shape[-1],
+                  {"full": 0, "fill": 1, "deformed": 2}[mode], k, stride)
     hn_cell.launches += 1
     return out
 
@@ -242,7 +273,9 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
     per fill entry, a multiply and an add per nonzero of each row's Q (and
     of Q^T), and in the full mode the 7 sweeps of 2 n^4 and the scale a row
     (the elastic mode: each of these a component, and the coupled
-    operator's 36 sweeps of 2 n^4 and ~40 operations a point a row). A RHS
+    operator's 36 sweeps of 2 n^4 and ~40 operations a point a row; the
+    deformed mode: the rows' metric read, 12 sweeps of 2 n^4 and 15
+    operations a point a row). A RHS
     axis: the nodes, the rows and the operations k times, the tables
     once."""
     n_hn, n_loc = keep.shape
@@ -266,4 +299,7 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
     elif mode == "elastic":
         nbytes += (n_hn + 2 * n * n + n_loc) * isz
         flops += n_hn * (3 * 12 * 2 * n**4 + 40 * n_loc)
+    elif mode == "deformed":
+        nbytes += (n_hn * n_loc * 6 + 2 * n * n) * isz
+        flops += n_hn * (12 * 2 * n**4 + 15 * n_loc)
     return nbytes, flops

@@ -4,8 +4,8 @@ axis-aligned refinements of a hyper_cube, so the default MappingQ1 analog
 reduces to per-cell Cartesian factors. The MappingQCache analog (high-order
 deformed mapping built from a point transform, benchmark_01.h:227-242)
 produces per-quadrature-point symmetric metric tensors instead; the index
-engine (``matrix_free.MatrixFree``, ``models.laplace``) reads them, the brick
-engine does not.
+engine (``matrix_free.MatrixFree``, ``models.laplace``) and the brick engine
+(``bricks.BrickLaplaceMM``, at the cells' brick-cell rows) read them.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from .elements import ShapeInfo
 from .mesh import Triangulation
 
 __all__ = ["cartesian_laplace_factors", "deformed_laplace_factors", "default_deformation"]
+
+METRIC_CHUNK = 16384  # cells a chunk of the deformed metric
 
 
 def cartesian_laplace_factors(tria: Triangulation) -> np.ndarray:
@@ -38,7 +40,8 @@ def default_deformation(points: np.ndarray, amplitude: float = 0.02) -> np.ndarr
 
 
 def deformed_laplace_factors(
-    tria: Triangulation, shape: ShapeInfo, transform=default_deformation
+    tria: Triangulation, shape: ShapeInfo, transform=default_deformation,
+    chunk: int | None = METRIC_CHUNK,
 ) -> np.ndarray:
     """Per-cell, per-quad-point symmetric metric for a deformed mapping.
 
@@ -49,13 +52,30 @@ def deformed_laplace_factors(
     analog). J is computed by sum-factorized differentiation of the mapped
     lattice points, i.e. the mapping is the degree-p interpolant of the
     transform.
+
+    The cells are independent, so they go through in chunks of ``chunk``
+    cells (None: all at once) into the one output array: every value is
+    the same bit for bit, and the host holds the Jacobians of one chunk at
+    a time instead of all of them (2.4 GB for each such array at quadrant
+    nref=7, p=4).
     """
-    dim = tria.dim
+    n_cells = tria.n_active_cells
+    iu = np.triu_indices(tria.dim)
+    out = np.empty((n_cells, shape.n_1d**tria.dim, len(iu[0])))
+    step = n_cells if chunk is None else max(1, int(chunk))
+    lower, h = tria.cell_lower(), tria.cell_size()
+    for s in range(0, n_cells, step):
+        e = min(s + step, n_cells)
+        out[s:e] = _metric_cells(lower[s:e], h[s:e], tria.dim, shape, transform)
+    return out
+
+
+def _metric_cells(lower, h, dim, shape, transform):
+    """``deformed_laplace_factors`` of the cells with these lower corners and
+    sizes."""
     n = shape.n_1d
     lat_1d = shape.nodes
     lat = local_lattice(shape.degree, dim)  # [n_loc, dim]
-    lower = tria.cell_lower()
-    h = tria.cell_size()
     pts = lower[:, None, :] + h[:, None, None] * lat_1d[lat][None, :, :]
     pts = transform(pts)  # [n_cells, n_loc, dim]
 

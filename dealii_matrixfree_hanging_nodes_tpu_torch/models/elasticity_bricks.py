@@ -89,6 +89,8 @@ class BrickElasticity(nn.Module):
         return op
 
     def _setup(self, mm: BrickLaplaceMM):
+        if mm.deformed:  # the reference's refusal (models/elasticity_bricks.py:72)
+            raise NotImplementedError("BrickElasticity uses the Cartesian brick factorization")
         self.mm = mm
         p, dev, dt = mm.p, mm.device, mm.dtype
         si = shape_info(p)

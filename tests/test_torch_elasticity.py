@@ -40,6 +40,11 @@ CASES = [("quadrant", 2, 2), ("quadrant", 3, 3), ("step", 2, 1), ("quadrant", 2,
 IDS = [f"{g}-{n}-p{p}" for g, n, p in CASES]
 MU, LAM = 1.3, 0.7  # mu != lam: a swapped G / G^T pair shows
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)
+# the vmults against the reference also at B=2 (p=5, 6), at p=1 on a deeper quadrant and on
+# the step mesh at p=3
+REF_CASES = CASES + [("quadrant", 2, 5), ("quadrant", 2, 6), ("quadrant", 4, 1), ("step", 3, 3)]
+ref_case = pytest.mark.parametrize("geo,nref,p", REF_CASES,
+                                   ids=[f"{g}-{n}-p{p}" for g, n, p in REF_CASES])
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +76,7 @@ def t64(a):
 
 
 # ---- the index engine ------------------------------------------------------------
-@case
+@ref_case
 @pytest.mark.parametrize("constraints", [True, False], ids=["constrained", "plain"])
 def test_index_vmult_matches_reference(geo, nref, p, constraints):
     rmf, pmf = meshes(geo, nref, p)
@@ -84,7 +89,7 @@ def test_index_vmult_matches_reference(geo, nref, p, constraints):
 
 
 # ---- the brick engine ------------------------------------------------------------
-@case
+@ref_case
 @pytest.mark.parametrize("call", ["vmult", "vmult_plain"])
 def test_brick_vmult_matches_reference(geo, nref, p, call):
     rb, pb = brick_ops(geo, nref, p)

@@ -90,10 +90,19 @@ def test_solver_entry_points_default_to_cuda():
 
 def test_unported_branches_raise():
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models.multigrid import laplace_diagonal_host
 
+    # vmult_multi under a deformed mapping, as the reference raises (bricks.py:3590-3594);
+    # the GMG's host diagonal refuses the deformed mesh, as the reference's does
+    mf_d = mt.MatrixFree(mt.create_quadrant(3, 2), 3, high_order_mapping=True)
+    deformed = mt.BrickLaplaceMM(mf_d, device="cpu")
+    with pytest.raises(NotImplementedError, match="high_order_mapping"):
+        deformed.vmult_multi(torch.zeros(2, deformed.n_bricks, deformed.N3p,
+                                         dtype=deformed.dtype))
     with pytest.raises(NotImplementedError):
-        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 3, high_order_mapping=True),
-                          device="cpu")
+        laplace_diagonal_host(mf_d)
+    with pytest.raises(NotImplementedError):  # elasticity on the deformed scalar tables
+        mt.BrickElasticity.on_operator(deformed)
     with pytest.raises(NotImplementedError):
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4), device="cpu")
     with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
@@ -164,14 +173,16 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
     for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh",
                  "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh",
-                 "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu"):
+                 "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu",
+                 "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer",
-             "cell_elasticity", "brick_elasticity")
+             "cell_elasticity", "brick_elasticity", "cell_laplace", "brick_deformed")
     before = {n: _build.library_path(n) for n in names}
     assert [p.name for p in _build._sources(tmp_path / "hn_cell.cu", [])] == [
-        "hn_cell.cu", "elasticity.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
+        "hn_cell.cu", "elasticity.cuh", "hanging_nodes.cuh", "laplace_quad.cuh",
+        "sum_factorization.cuh"]
     assert [p.name for p in _build._sources(tmp_path / "cell_elasticity.cu", [])] == [
         "cell_elasticity.cu", "elasticity.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
     assert [p.name for p in _build._sources(tmp_path / "cell_transfer.cu", [])] == [
@@ -199,6 +210,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert last["hn_cell"] != final["hn_cell"]
     assert all(last[n] == final[n] for n in ("cell_apply", "brick_apply", "cell_transfer",
                                              "brick_transfer", "brick_elasticity"))
+    # the Laplace quadrature at the Gauss points: an edit rebuilds the four kernels that run
+    # it (cell_laplace, brick_deformed, and cell_apply's and hn_cell's deformed modes)
+    header = tmp_path / "laplace_quad.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    quad = {n: _build.library_path(n) for n in names}
+    assert all(quad[n] != last[n] for n in ("cell_laplace", "brick_deformed", "cell_apply",
+                                            "hn_cell"))
+    assert all(quad[n] == last[n] for n in ("brick_apply", "cell_transfer", "brick_transfer",
+                                            "cell_elasticity", "brick_elasticity"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -820,3 +840,58 @@ def test_index_gmg_solve_on_card(cuda):
         b = op.vmult(torch.from_numpy(_manufactured(gmg.fine_mf, 0)).to(op.device))
         _, iters[str(dev)], _ = mt.solve_cg(op, b, M=gmg, tol=1e-10, max_iter=100)
     assert iters["cpu"] == iters[str(cuda)] < 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", [(1, 4), (2, 3), (3, 3), (4, 3), (5, 2), (6, 2)],
+                         ids=["p1", "p2", "p3", "p4", "p5", "p6"])
+def test_deformed_kernels_on_card(cuda, p, nref, dtype):
+    """The deformed brick engine at every (p, B): brick_deformed (with and
+    without cell rows), cell_apply's and hn_cell's deformed modes against
+    their plain versions; vmult (5 launches), vmult_plain (2) and refill
+    against the plain path; two vmults bit-identical; the f64 vmult
+    against the deformed index engine's."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        KERNEL_MODULES, brick_deformed, cell_apply, hn_cell,
+    )
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    mf = mt.MatrixFree(mt.create_quadrant(3, nref), p, high_order_mapping=True)
+    op = mt.BrickLaplaceMM(mf, device=cuda, dtype=dtype)
+    assert op.deformed and op.n_hn
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    bd = (bv, op.metric, op.present_bits, op.S, op.Dc)
+    hn_args = (bv[: op.n_sub], *op.hn_tables(), None, None, None, op.B)
+    ca_args = (bv[: op.n_sub], None, None, None, op.B)
+    tab = op.deformed_tables(op.n_sub * op.C)
+    pairs = [
+        (brick_deformed.brick_deformed(*bd, brick_size=op.B),
+         brick_deformed.brick_deformed_plain(*bd, brick_size=op.B)),
+        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B),
+         brick_deformed.brick_deformed_plain(*bd, dcols=cols, brick_size=op.B)),
+        (cell_apply.cell_apply(*ca_args, deformed=tab),
+         cell_apply.cell_apply_plain(*ca_args, deformed=tab)),
+        (hn_cell.hn_cell(*hn_args, mode="deformed", deformed=op.deformed_tables()),
+         hn_cell.hn_cell_plain(*hn_args, mode="deformed", deformed=op.deformed_tables())),
+        (op.vmult_plain(bv), op.vmult_plain(bv, plain=True)),
+        (op.refill(bv), op.refill(bv, plain=True)),
+    ]
+    wrappers = [getattr(m, m.NAME) for m in KERNEL_MODULES]
+    before = sum(w.launches for w in wrappers)
+    y = op.vmult(bv)
+    assert sum(w.launches for w in wrappers) - before == 5
+    pairs.append((y, op.vmult(bv, plain=True)))
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        assert float((got - ref).abs().max() / ref.abs().max()) < tol
+    assert torch.equal(y, op.vmult(bv))
+    if dtype == torch.float64:
+        u = np.random.default_rng(p).standard_normal(mf.n_dofs)
+        got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+        want = mt.LaplaceOperator(mf, device=cuda).vmult(u).cpu().numpy()
+        want[mf.constraints.constrained_dof_marker()] = 0.0
+        assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()

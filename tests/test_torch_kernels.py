@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     KERNEL_MODULES,
     brick_apply,
+    brick_deformed,
     brick_elasticity,
     brick_transfer,
     cell_apply,
@@ -238,7 +239,21 @@ CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + 
     pytest.param(brick_elasticity, True, id="brick_elasticity-dcols"),
     pytest.param(dof_scatter, "components", id="dof_scatter-components"),
     pytest.param(corr_compact, "components", id="corr_compact-components"),
-    pytest.param(dss_surface, "components", id="dss_surface-components")]
+    pytest.param(dss_surface, "components", id="dss_surface-components"),
+    pytest.param(brick_deformed, True, id="brick_deformed-dcols"),
+    pytest.param(cell_apply, "deformed", id="cell_apply-deformed"),
+    pytest.param(hn_cell, "deformed", id="hn_cell-deformed")]
+
+
+@functools.lru_cache(maxsize=None)
+def deformed_op(geo, nref, p):
+    """The port's BrickLaplaceMM under the deformed mapping on the case's
+    mesh, float64 on the CPU."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    mf = mt.MatrixFree(mt.create_geometry(geo, 3, nref), p, dtype=np.float64,
+                       high_order_mapping=True)
+    return mt.BrickLaplaceMM(mf, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,7 +286,9 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     between the mesh with one refinement fewer and this one; hn_cell's
     elastic mode, cell_elasticity in both modes, brick_elasticity with and
     without cell rows, and dof_scatter, corr_compact and dss_surface on
-    their component axis, at the case's elasticity operator)."""
+    their component axis, at the case's elasticity operator; brick_deformed
+    with and without cell rows and the deformed modes of cell_apply and
+    hn_cell at the case's deformed operator)."""
     low = mod.NAME in ("masked_quad", "plane_fill", "plane_fold")
     geo, nref, p = LOW_CASES[1] if low else CASES[0]
     op = port(geo, nref, p)[2]
@@ -287,18 +304,26 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     bt, tr = gmg_transfers(geo, nref, p)
     mf_rows = lambda seed: T(rng_array(seed, mf.n_cells, op.n_loc))
     el = elastic_op(geo, nref, p)
+    dop = lambda: deformed_op(geo, nref, p)
     comp = variant == "components"
     lead = (3,) if comp else ()
     args, kw = {
         "brick_apply": lambda: ((bricks(11), *op.brick_factors_host, op.geo, op.p),
                                 {"dcols": cells(13), "brick_size": op.B} if variant else {}),
-        "cell_apply": lambda: ((sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
+        "cell_apply": lambda: (
+            (T(rng_array(12, dop().n_sub, dop().N3p)), None, None, None),
+            {"brick_size": dop().B, "deformed": dop().deformed_tables(dop().n_sub * dop().C)})
+        if variant == "deformed" else (
+            (sub(12), op.K1, op.M1, op.geo_cell_sub), {"brick_size": op.B}),
         "dss_surface": lambda: ((T(rng_array(15, *lead, op.n_bricks, op.N3p)),
                                  *op.dss_tables()), {}),
         "hn_cell": lambda: (
             (T(rng_array(17, 3, op.n_bricks, op.N3p)), *el.mm.hn_tables(), None, None,
              el.mm.geo_hn, op.B), {"mode": "elastic", "elastic": el.elastic_tables()})
         if variant == "elastic" else (
+            (T(rng_array(17, dop().n_sub, dop().N3p)), *dop().hn_tables(), None, None, None,
+             dop().B), {"mode": "deformed", "deformed": dop().deformed_tables()})
+        if variant == "deformed" else (
             (sub(17), *op.hn_tables(), *op.factors_host, op.geo_hn, op.B),
             {"mode": "fill" if variant else "full"}),
         "corr_compact": lambda: ((T(rng_array(18, *lead, op.n_sub * op.C, op.n_loc)),
@@ -333,6 +358,12 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
             (T(rng_array(34, 3, op.n_bricks, op.N3p)), el.packed_host, op.geo, op.p, 1.3, 0.7),
             {"dcols": T(rng_array(35, 3, op.n_sub * op.C, op.n_loc)), "brick_size": op.B}
             if variant else {}),
+        "brick_deformed": lambda: (
+            (T(rng_array(36, dop().n_bricks, dop().N3p)), dop().metric, dop().present_bits,
+             dop().S, dop().Dc),
+            {"brick_size": dop().B,
+             **({"dcols": T(rng_array(37, dop().n_sub * dop().C, dop().n_loc))} if variant
+                else {})}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)

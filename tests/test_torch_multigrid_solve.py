@@ -3,7 +3,8 @@ package, in float64 on the CPU, at quadrant nref=2, p=2 (the reference's
 solve_01.run configuration cut to two levels): one V-cycle of each
 preconditioner to 1e-12 relative, then the solve of a manufactured problem
 at tol 1e-10: the reference's iteration count exactly, the solution to
-1e-9; the brick engine's device solver takes solve_cg's count."""
+1e-9; the brick engine's device solver takes solve_cg's count. The brick
+V-cycle also at quadrant nref=3, p=4 (three levels of B=4 bricks)."""
 
 import functools
 
@@ -29,16 +30,17 @@ def setup(engine):
     operator applied to a random consistent x* with zero Dirichlet rows),
     x*, and the converters from a DoF vector to each side's vector.
     "brick-cg": the brick GMG with the CG coarse solve, on one level (its
-    V-cycle is that solve)."""
+    V-cycle is that solve); "brick-p4": the brick GMG at quadrant nref=3,
+    p=4."""
     if engine == "index":
         rg = rmg.GMGPreconditioner("quadrant", 3, NREF, P, n_smooth=3)
         pg = pmg.GMGPreconditioner("quadrant", 3, NREF, P, n_smooth=3, device="cpu")
         conv_r, conv_p = jnp.asarray, lambda x: torch.from_numpy(np.array(x, dtype=np.float64))
     else:
         kw = dict(coarse="cg") if engine == "brick-cg" else {}
-        nref = 1 if kw else NREF
-        rg = rmb.BrickGMGPreconditioner("quadrant", 3, nref, P, n_smooth=3, **kw)
-        pg = pmb.BrickGMGPreconditioner("quadrant", 3, nref, P, n_smooth=3, device="cpu", **kw)
+        nref, p = {"brick-cg": (1, P), "brick-p4": (3, 4)}.get(engine, (NREF, P))
+        rg = rmb.BrickGMGPreconditioner("quadrant", 3, nref, p, n_smooth=3, **kw)
+        pg = pmb.BrickGMGPreconditioner("quadrant", 3, nref, p, n_smooth=3, device="cpu", **kw)
         conv_r, conv_p = rg.fine_mm.from_dof_vector, pg.fine_mm.from_dof_vector
     mf = pg.fine_mf
     xstar = mf.constraints.distribute(rng_array(4, mf.n_dofs))
@@ -46,7 +48,7 @@ def setup(engine):
     return rg, pg, xstar, conv_r, conv_p
 
 
-@pytest.mark.parametrize("engine", ENGINES + ("brick-cg",))
+@pytest.mark.parametrize("engine", ENGINES + ("brick-cg", "brick-p4"))
 def test_vcycle_matches_reference(engine):
     rg, pg, _, conv_r, conv_p = setup(engine)
     b = rng_array(5, pg.fine_mf.n_dofs)

@@ -99,7 +99,7 @@ def reference_meta(bl):
         _n_chainb=bl._n_chainb, _sub_contig=bl._sub_contig,
         _use_masked_removal=bl._use_masked_removal, _plane_meta=bl._plane_meta,
         _plane_levels=getattr(bl, "_plane_levels", []), N3=bl.N3, N3p=bl.N3p,
-        slot_idx=bl.slot_idx,
+        slot_idx=bl.slot_idx, _deformed=bl._deformed,
     )
 
 
