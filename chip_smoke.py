@@ -155,16 +155,42 @@ Phases (any failure exits non-zero before the last line is printed):
    ``python3 chip_smoke.py --metric-host`` instead times the deformed metric
    on the host at once and in chunks (seconds, traced peak bytes, checked
    bit-identical) and prints one JSON line;
-14. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+14. 2-D on the index engine (``index2d_phase``) at quadrant nref=11 p=4 f32
+   (16,841,157 DoFs, uncut): the setup by step (the mesh, MatrixFree, the
+   sorted runner's own setup, the all and matrix runners on the compact
+   engine's tables, the device tables, the deformed engine and its host
+   metric) and the sizes (cells, DoFs, constrained cells, codes, dofmap and
+   row bytes); every 2-D instance against its plain version (1e-5), timed
+   with its bound and library call: hn_interp by the four runners,
+   cell_laplace fast / slow / constraints=False / deformed (each one's map
+   composed into one CSR matrix, 657 M nonzeros: the Cartesian ones' blocks
+   one a mask, the deformed one's a cell), dof_scatter on both maps and its
+   component axis of 2 (``index_add_``), constraints_slow, cell_elasticity
+   (no library call: its coupled map's 2.63 G nonzeros need int64 indices,
+   on which cuSPARSE's SpMV failed; the count printed), cell_transfer at
+   the 2-D GMG's finest transfer;
+   the vmult (fast, slow, constraints=False), the deformed vmult, the
+   elasticity vmult and apply_hanging_node_constraints against the plain
+   float64 path (1e-5), launches checked exactly (2, 4, 2, 2, 2, 1 and the
+   copy), two calls bit-identical, timed (GDoF/s, host_ms, busy and idle
+   share); each runner's vmult; the HN overhead fast and slow; float64
+   against the scipy oracle at the reference's 2-D cases and elasticity
+   against the dense oracle (1e-12); the GMG-CG solve at quadrant nref=10
+   p=4 f32 (tol 1e-5: iterations, residual, seconds, a V-cycle's launches,
+   host time and idle share) and at nref=4 p=2 f64 (tol 1e-10, the CPU
+   plain path's iteration count, checked exactly);
+15. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
-   deformed brick engine's, one with the kernels' numbers (all 19; the new
+   deformed brick engine's, one with the 2-D index engine's, one with the
+   kernels' numbers (all 19; the new
    instances as parts named by degree;
    masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
    kernels' launches from the solve that runs them; elasticity's calls of
    the existing kernels, the RHS-axis instances, "multi k=8 <kernel>", and
    the deformed modes, "deformed p=4", as parts; brick_deformed's totals
-   from its vmult launch), then the device line.
+   from its vmult launch; the 2-D instances as parts named "2-D ..."), then
+   the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -283,15 +309,19 @@ def launch_class(key: str):
     solve may make, from the kernel's name (its template arguments left
     out): a PyTorch elementwise op (the vector updates, masks and fills), an
     index (the owner-copy gather of ``DofEmbed.extract``), a reduction (the
-    dots and norms), or a dense product (the coarse level's
-    ``torch.matmul``); None for anything else (``index_add_``, a scatter or
-    a batched product of a plain version among them)."""
+    dots and norms: PyTorch's, or cuBLAS's dot and its final block sum), a
+    copy to the host (a CG residual test's read), or a dense product (the
+    coarse level's ``torch.matmul``); None for anything else
+    (``index_add_``, a scatter or a batched product of a plain version among
+    them)."""
+    if key.startswith("Memcpy DtoH"):
+        return "copy"
     head = kernel_name(key)
     if head in ELEMENTWISE_KERNELS:
         return "elementwise"
     if head == "at::native::index_elementwise_kernel" or "gather" in head:
         return "index"
-    if head == "at::native::reduce_kernel":
+    if head in ("at::native::reduce_kernel", "dot_kernel", "reduce_1Block_kernel"):
         return "reduction"
     if "gemv" in head.lower() or "gemm" in head.lower():
         return "dense product"
@@ -313,13 +343,17 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     port's kernels of every call and, of the launches outside them that are
     pinned (`copies`, and the kinds that `classes` names), `reps` times the
     pinned number. The first whole session of five is kept, else the one
-    that recorded the most. Fails where no session saw device time, or where the
-    kept one saw any device launch outside the port's kernels other than
+    that recorded the most. Fails where no session saw device time, or where
+    the kept one saw any device launch outside the port's kernels other than
     `copies` device-to-device copies a call (the copy that keeps an input
-    unwritten). With classes ({kind: launches a call}), the launches outside
+    unwritten). Only where all five sessions recorded every kernel but lost
+    a device copy's record (seen once on an H100, in one whole run) do the
+    copies count from the host's runtime calls (``cudaMemcpyAsync``, `reps`
+    times `copies`); the device's busy and idle time, short of the lost
+    copy, are then not measured (None). With classes ({kind: launches a call}), the launches outside
     the port's kernels may be PyTorch elementwise ops, in any number, and
     the kinds of ``launch_class`` that `classes` names, each exactly as
-    often as it says; any other launch fails."""
+    often as it says (None: in any number); any other launch fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -343,7 +377,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
             if not ours(key):
                 kinds[launch_class(key)] = kinds.get(launch_class(key), 0) + c
         return all(kinds.get(k, 0) == n * reps
-                   for k, n in classes.items() if k != "elementwise")
+                   for k, n in classes.items() if k != "elementwise" and n is not None)
 
     best = None
     for attempt in range(5):
@@ -371,28 +405,39 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
                 dev_us = ev.self_cuda_time_total
             if dev_us > 0:
                 rows.append((dev_us / 1e3, ev.count, ev.key))
+        host_copies = sum(ev.count for ev in prof.key_averages()
+                          if ev.device_type == DeviceType.CPU and ev.key == "cudaMemcpyAsync")
         calls = sum(r[1] for r in rows if ours(r[2])) / expect
         whole = bool(rows) and calls == reps and pinned(rows)
         if best is None or (whole, calls) > best[0]:
-            best = ((whole, calls), rows, wall_ms)
+            best = ((whole, calls), rows, wall_ms, host_copies)
         if whole:
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
               f"of {reps} calls{'' if calls != reps else ', not every pinned launch'} "
               f"(session {attempt + 1} of 5)", flush=True)
-    (_, calls), rows, wall_ms = best
+    (whole, calls), rows, wall_ms, host_copies = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
     busy = sum(r[0] for r in rows)
     own_ms = sum(r[0] for r in rows if ours(r[2]))
-    res = dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
-               port_kernels_ms=own_ms, other_ms=busy - own_ms, calls_recorded=calls,
-               port_launches=sum(r[1] for r in rows if ours(r[2])),
+    n_copies = sum(r[1] for r in rows if not ours(r[2]) and "Memcpy DtoD" in r[2])
+    # every session kept each call's kernels and lost a device copy's record, while the host
+    # issued every copy: the copies count from the host, and busy and idle are not measured
+    lost_copy = (classes is None and not whole and calls == reps
+                 and n_copies < copies == host_copies / reps)
+    res = dict(wall_ms=wall_ms, busy_ms=None if lost_copy else busy,
+               idle_share=None if lost_copy else 1 - busy / wall_ms,
+               port_kernels_ms=own_ms, other_ms=None if lost_copy else busy - own_ms,
+               calls_recorded=calls, port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
     print(f"profile (per {what}, {calls:g} of {reps} calls recorded): wall {wall_ms:.4f} ms, "
-          f"device busy {busy:.4f} ms (idle {100 * res['idle_share']:.1f} %), port kernels "
-          f"{own_ms:.4f} ms in {res['port_launches']:g} launches, other device work "
-          f"{res['other_ms']:.4f} ms in {res['other_launches']:g} launches")
+          + (f"device busy and idle not measured (CUPTI kept {n_copies:g} of the {copies} "
+             f"device copies a call that the host issued, in all five sessions)"
+             if lost_copy else f"device busy {busy:.4f} ms (idle "
+             f"{100 * res['idle_share']:.1f} %)")
+          + f", port kernels {own_ms:.4f} ms in {res['port_launches']:g} launches, other "
+          f"device work {busy - own_ms:.4f} ms in {res['other_launches']:g} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
     if classes is not None:
@@ -401,23 +446,24 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
             if not ours(key):
                 kind = launch_class(key)
                 check(kind is not None, f"the {what} launched {key!r}: neither a port kernel nor "
-                                        f"a PyTorch elementwise op, index, reduction or dense "
-                                        f"product")
+                                        f"a PyTorch elementwise op, index, reduction, copy to "
+                                        f"the host or dense product")
                 kinds[kind] = kinds.get(kind, 0) + count
                 head = kernel_name(key)
                 heads[head] = heads.get(head, 0) + count
         res["other_by_kind"] = kinds
         print(f"  launches outside the port's kernels by kind: {kinds}; by kernel: {heads}",
               flush=True)
-        for kind in ("index", "reduction", "dense product"):
+        for kind in ("index", "reduction", "dense product", "copy"):
             got, want = kinds.get(kind, 0), classes.get(kind, 0)
-            check(abs(got - want) < 1e-9, f"the {what} made {got:g} {kind} launches a call, "
-                                          f"{want} expected")
+            check(want is None or abs(got - want) < 1e-9,
+                  f"the {what} made {got:g} {kind} launches a call, {want} expected")
         return res
-    n_copies = sum(r[1] for r in rows if not ours(r[2]) and "Memcpy DtoD" in r[2])
-    check(res["other_launches"] == n_copies == copies,
+    res["host_copies"] = host_copies / reps
+    check(res["other_launches"] == n_copies and (n_copies == copies or lost_copy),
           f"{res['other_launches']} device launches per {what} outside the port's kernels "
-          f"({n_copies} of them device copies, {copies} expected)")
+          f"({n_copies} of them device copies, the host issued {res['host_copies']:g}; "
+          f"{copies} expected)")
     return res
 
 
@@ -1155,7 +1201,7 @@ INDEX_MAIN = {"hn_interp": ({"compact"}, "apply_hanging_node_constraints"),
 DEFORMED_NREF = 6  # the deformed mapping's mesh: the metric's host setup (PERF.md section 4)
 
 
-def index_kernel_calls(mfs, x, rows, deformed=None):
+def index_kernel_calls(mfs, x, rows, deformed=None, deformed_nref=DEFORMED_NREF):
     """Every index-engine kernel's calls on the card at the shapes the index
     engine's paths give it (x a global vector, rows cell rows; mfs one
     MatrixFree a runner on one mesh): hn_interp by each runner (compact in
@@ -1187,7 +1233,7 @@ def index_kernel_calls(mfs, x, rows, deformed=None):
     launches = [("vmult", mf, x, False, True), ("vmult slow", mf, x_dist, True, False),
                 ("vmult constraints=False", mf, x, False, False)]
     if deformed is not None:
-        launches.append((f"vmult deformed nref={DEFORMED_NREF}", *deformed, False, True))
+        launches.append((f"vmult deformed nref={deformed_nref}", *deformed, False, True))
     for part, m, src, slow, hn in launches:
         args = (src, *m.cell_laplace_args(dev, dt, slow=slow, hn=hn))
         calls["cell_laplace"].append((
@@ -1458,9 +1504,12 @@ def sorted_csr(rows, cols, vals, n_rows, n_cols):
 
 
 def kron_rows(E):
-    """[m, n^3, n^3]: each row's embedding E[:, 2] (x) E[:, 1] (x) E[:, 0] as
-    one matrix, out node (z, y, x) by in node, x fastest."""
-    m, _, n, _ = E.shape
+    """[m, n^dim, n^dim]: each row's embedding E[:, 2] (x) E[:, 1] (x) E[:, 0]
+    (2-D: E[:, 1] (x) E[:, 0]) as one matrix, out node (z, y, x) by in node,
+    x fastest."""
+    m, dim, n, _ = E.shape
+    if dim == 2:
+        return torch.einsum("myb,mxa->myxba", E[:, 1], E[:, 0]).reshape(m, n**2, n**2)
     return torch.einsum("mzc,myb,mxa->mzyxcba", E[:, 2], E[:, 1], E[:, 0]).reshape(
         m, n**3, n**3)
 
@@ -1553,6 +1602,40 @@ def cell_transfer_calls(tr_i, dev):
     return parts, [lambda: Pi @ uc.reshape(-1), lambda: Ri @ xf], (Pi._nnz(), Ri._nnz())
 
 
+def index_gmg_solves(mt, dim, nref, p, tol, dev, wrappers):
+    """The index GMG-CG of solve_01.run at quadrant nref, degree p, float64,
+    tol, on a manufactured x* (zero on the boundary): on the CPU's plain
+    path and on the card. Checks the same iteration count (< 30), the
+    solutions within 1e-9 on the free DoFs and cell_transfer launched.
+    Returns ({device: iterations}, the solutions' difference, the card's
+    error against x*, the card's solve's launches, the card's
+    preconditioner)."""
+    t0 = time.perf_counter()
+    its, sols = {}, {}
+    for where in ("cpu", dev):  # gi is the card's at the end
+        gi = mt.GMGPreconditioner("quadrant", dim, nref, p, device=where)
+        opi, mfi = gi.fine_op, gi.fine_mf
+        xsi = mfi.constraints.distribute(np.random.default_rng(SEED).standard_normal(mfi.n_dofs))
+        xsi[opi.bdofs] = 0.0
+        bi = opi.vmult(torch.from_numpy(xsi).to(opi.device))
+        (xi, its[str(where)], _), icounts = counted(
+            wrappers, lambda: mt.solve_cg(opi, bi, M=gi, tol=tol, max_iter=100))
+        sols[str(where)] = xi.cpu().numpy()
+    icounts = {k: n for k, n in icounts.items() if n}
+    free_i = ~mfi.constraints.constrained_dof_marker()
+    dx = float(np.abs(sols[str(dev)] - sols["cpu"])[free_i].max())
+    erri = float(np.abs(sols[str(dev)] - xsi)[free_i].max())
+    what = f"{dim}-D index GMG-CG quadrant nref={nref} p={p} f64 tol {tol:g}"
+    print(f"{what}: {its[str(dev)]} iterations on the card, {its['cpu']} on the CPU's plain "
+          f"path; solutions differ by {dx:.3e}, err {erri:.3e}; {time.perf_counter() - t0:.1f} "
+          f"s; launches in the card's solve {icounts}", flush=True)
+    check(its[str(dev)] == its["cpu"] < 30, f"the {what}'s iteration count differs from the "
+                                            f"CPU's plain path")
+    check(dx <= 1e-9, f"the {what}'s solution differs from the CPU's: {dx:.3e}")
+    check(icounts.get("cell_transfer", 0) > 0, f"the {what} never launched cell_transfer")
+    return its, dx, erri, icounts, gi
+
+
 def gmg_phase(mt, dev, wrappers, smi):
     """The GMG-CG solve (solve_01.run_bricks at its defaults): the brick
     GMG at quadrant nref=GMG_NREF, p=GMG_DEGREE, float32, the device solver
@@ -1623,29 +1706,8 @@ def gmg_phase(mt, dev, wrappers, smi):
     print(f"host time to issue one V-cycle: {v_host_ms:.4f} ms", flush=True)
 
     # the index GMG of solve_01.run, float64, on the card and on the CPU
-    t0 = time.perf_counter()
-    its, sols = {}, {}
-    for where in ("cpu", dev):  # gi is the card's at the end
-        gi = mt.GMGPreconditioner("quadrant", 3, INDEX_GMG_NREF, INDEX_GMG_DEGREE, device=where)
-        opi, mfi = gi.fine_op, gi.fine_mf
-        xsi = mfi.constraints.distribute(np.random.default_rng(SEED).standard_normal(mfi.n_dofs))
-        xsi[opi.bdofs] = 0.0
-        bi = opi.vmult(torch.from_numpy(xsi).to(opi.device))
-        (xi, its[str(where)], _), icounts = counted(
-            wrappers, lambda: mt.solve_cg(opi, bi, M=gi, tol=INDEX_GMG_TOL, max_iter=100))
-        sols[str(where)] = xi.cpu().numpy()
-    icounts = {k: n for k, n in icounts.items() if n}
-    free_i = ~mfi.constraints.constrained_dof_marker()
-    dx = float(np.abs(sols[str(dev)] - sols["cpu"])[free_i].max())
-    erri = float(np.abs(sols[str(dev)] - xsi)[free_i].max())
-    print(f"index GMG-CG quadrant nref={INDEX_GMG_NREF} p={INDEX_GMG_DEGREE} f64 (solve_01.run): "
-          f"{its[str(dev)]} iterations on the card, {its['cpu']} on the CPU's plain path; "
-          f"solutions differ by {dx:.3e}, err {erri:.3e}; {time.perf_counter() - t0:.1f} s; "
-          f"launches in the card's solve {icounts}", flush=True)
-    check(its[str(dev)] == its["cpu"] < 30, "the index GMG's iteration count differs from the "
-                                            "CPU's plain path")
-    check(dx <= 1e-9, f"the index GMG's solution differs from the CPU's: {dx:.3e}")
-    check(icounts.get("cell_transfer", 0) > 0, "the index GMG solve never launched cell_transfer")
+    its, dx, erri, icounts, gi = index_gmg_solves(mt, 3, INDEX_GMG_NREF, INDEX_GMG_DEGREE,
+                                                  INDEX_GMG_TOL, dev, wrappers)
 
     # the GMG kernels at the shapes their paths give them: brick_transfer and dof_embed at
     # the brick GMG's finest transfer (f32); cell_transfer at the index GMG's finest
@@ -2602,6 +2664,415 @@ def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
     return numbers, rec, parts
 
 
+# ---- 2-D on the index engine -------------------------------------------------------------
+INDEX2D_NREF, INDEX2D_DEGREE = 11, 4  # quadrant nref=11 p=4 f32: 16,841,157 DoFs, uncut
+INDEX2D_DEFORMED_NREF = 11  # the deformed vmult's mesh (PERF.md section 4: its host metric)
+INDEX2D_GMG_NREF = 10  # the GMG-CG solve at quadrant nref=10 p=4 f32 (PERF.md section 4)
+INDEX2D_GMG_CHECK = (4, 2)  # quadrant nref, degree of the float64 solve held to the CPU's count
+INDEX2D_ORACLE = (("quadrant", 3, 2), ("step", 3, 3), ("quadrant", 3, 5), ("quadrant", 3, 6))
+INDEX2D_ELASTIC_ORACLE = ("quadrant", 3, 2)
+INDEX2D_LAUNCHES = {
+    **INDEX_LAUNCHES,
+    "vmult deformed": {"cell_laplace": 1, "dof_scatter": 1},
+    "elasticity": {"cell_elasticity": 1, "dof_scatter": 1},
+}
+
+
+def probe_maps(fn, n_in, codes, dt, dev):
+    """[len(codes), n_out, n_in]: the dense map of a linear cell function for
+    each code, from unit inputs: fn(unit inputs [n_in, n_in], code) gives the
+    outputs [n_in, n_out], one a unit input; the map is their transpose."""
+    eye = torch.eye(n_in, dtype=torch.float64, device=dev)
+    return torch.stack([fn(eye, int(c)).T for c in codes]).to(dt)
+
+
+def cell_csr(block, cols, n_cols, chunk=16384):
+    """One CSR matrix of a cell-wise map, rows cell by cell: cell c's n_loc
+    rows take its dense block [n_loc, n_loc] (out by in) at its input
+    columns cols [n_cells, n_loc] (unsorted, as cuSPARSE's product takes
+    them); block(s, e) gives cells s .. e-1's blocks. int32 indices (the
+    entries must fit). Filled cell chunk by cell chunk into the
+    preallocated entries."""
+    n_cells, n_loc = cols.shape
+    nnz = n_cells * n_loc * n_loc
+    check(nnz < 2**31 and n_cols < 2**31, f"a cell CSR of {nnz} nonzeros needs int64 indices")
+    dev = cols.device
+    crow = torch.arange(n_cells * n_loc + 1, device=dev, dtype=torch.int32).mul_(n_loc)
+    col = torch.empty(nnz, dtype=torch.int32, device=dev)
+    val = None
+    for s in range(0, n_cells, chunk):
+        e = min(s + chunk, n_cells)
+        v = block(s, e)
+        if val is None:
+            val = torch.empty(nnz, dtype=v.dtype, device=dev)
+        col[s * n_loc * n_loc:e * n_loc * n_loc] = cols[s:e, None, :].expand(
+            e - s, n_loc, n_loc).reshape(-1)
+        val[s * n_loc * n_loc:e * n_loc * n_loc] = v.reshape(-1)
+    return torch.sparse_csr_tensor(crow, col, val, (n_cells * n_loc, n_cols))
+
+
+def mask_groups(mf, dev):
+    """(the distinct masks, each cell's index among them)."""
+    masks = mf._on("masks", dev).long()
+    codes = torch.unique(masks)
+    return codes.tolist(), torch.searchsorted(codes, masks)
+
+
+def laplace_library(mf, dev, dt, slow, hn):
+    """cell_laplace's map as one CSR matrix from the global vector to the
+    cell rows: each cell's dense n_loc^2 block (its interpolation, the
+    Laplace and the transposed interpolation composed; none on the slow
+    path and without constraints) at the DoFs its map names (a 2-D cell's
+    25^2 entries fit: 657 M at quadrant nref=11 p=4, 5.3 GB in f32 with
+    int32 indices). Cartesian: the blocks come from unit inputs through the
+    plain version at geo 1, one a mask, scaled by each cell's factor (equal
+    on both axes, checked: cube cells). Deformed (high_order_mapping): each
+    cell's block from unit inputs through the plain version with the cell's
+    own metric and mask, in chunks of cells. Returns (matrix, nonzeros)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_laplace
+
+    n_loc = (mf.degree + 1) ** mf.dim
+    on = lambda k: mf._on(k, dev, torch.float64)
+    factors = (on("P"), on("S"), on("Dc"), on("quad_w"))
+    geo = mf._on("geo", dev, torch.float64)
+    if mf.high_order_mapping:
+        masks = mf._on("masks", dev)
+        eye = torch.eye(n_loc, dtype=torch.float64, device=dev)
+
+        def block(s, e):  # row (c, j) of the probe: cell c's map of unit input j
+            out = cell_laplace.cell_laplace_plain(
+                eye.repeat(e - s, 1), None, masks[s:e].repeat_interleave(n_loc), *factors,
+                geo[s:e].repeat_interleave(n_loc, dim=0))
+            return out.view(e - s, n_loc, n_loc).transpose(1, 2).to(dt)
+    else:
+        if hn and not slow:
+            codes, group = mask_groups(mf, dev)
+        else:
+            codes, group = [0], torch.zeros(mf.n_cells, dtype=torch.long, device=dev)
+        check(bool((geo == geo[:, :1]).all()), "the 2-D library call needs cube cells")
+        ones = torch.ones((n_loc, mf.dim), dtype=torch.float64, device=dev)
+        maps = probe_maps(lambda e, c: cell_laplace.cell_laplace_plain(
+            e, None, torch.full((n_loc,), c, dtype=torch.int32, device=dev), *factors, ones),
+            n_loc, codes, dt, dev)
+        scale = geo[:, 0].to(dt)
+        block = lambda s, e: maps[group[s:e]] * scale[s:e, None, None]
+    M = cell_csr(block, mf._on("dofmap_plain" if slow else "dofmap", dev), mf.n_dofs)
+    return M, M._nnz()
+
+
+def index2d_run(what, fn, plain, wrappers, expect, tol=1e-5, copies=0, n_dofs=None):
+    """One 2-D index-engine call, float32 through the kernels: against the
+    plain float64 path on the card, its launches checked exactly, two calls
+    bit-identical, timed (median of CUDA-event-timed back-to-back calls),
+    GDoF/s where n_dofs is given, the host's issue time and a profile (no
+    device launch outside the port's kernels but `copies` device copies).
+    Returns its numbers."""
+    ref = plain()
+    out, n = counted(wrappers, fn)
+    n = {k: c for k, c in n.items() if c}
+    err = errors(out, ref)[1]
+    del ref
+    same = bool(torch.equal(fn(), fn()))
+    print(f"2-D {what} f32 vs plain f64 path: max rel err {err:.3e} (tol {tol:g}), launches {n}, "
+          f"two calls bit-identical: {same}", flush=True)
+    check(bool(torch.isfinite(out).all()), f"2-D {what} gave non-finite values")
+    check(err <= tol, f"2-D {what} disagrees with the float64 path: {err:.3e}")
+    check(n == expect, f"2-D {what} launched {n}, not {expect}")
+    check(same, f"two calls of the 2-D {what} differ")
+    res = dict(ms=time_ms(fn, reps=20, warmup=3), plain_ms=time_ms(plain, reps=3, warmup=1),
+               max_rel_err=err, launches=n, host_ms=host_ms(fn, reps=20),
+               profile=profile_path(f"2-D {what}", fn, set(wrappers), sum(expect.values()),
+                                    copies=copies))
+    if n_dofs is not None:
+        res["gdofs_per_s"] = n_dofs / res["ms"] / 1e6
+    return res
+
+
+def index2d_gmg(mt, dev, wrappers, smi):
+    """The index GMG-CG in 2-D: at quadrant nref=INDEX2D_GMG_NREF p=4 f32,
+    tol 1e-5 (setup by step and levels, a warm-up solve, then the counted
+    solve: iterations, relative residual, seconds; one V-cycle's launches,
+    the host's time to issue it and its profile: busy and idle share); at
+    INDEX2D_GMG_CHECK in float64, tol 1e-10, the iteration count on the card
+    against the CPU's plain path (as phase 10 holds the 3-D one). Returns
+    (numbers, the finest Transfer of the f32 solve)."""
+    t0 = time.perf_counter()
+    gmg = mt.GMGPreconditioner("quadrant", 2, INDEX2D_GMG_NREF, INDEX2D_DEGREE,
+                               dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    levels = [dict(cells=mf.n_cells, n_dofs=mf.n_dofs) for mf in gmg.levels]
+    op, mf = gmg.fine_op, gmg.fine_mf
+    print(f"2-D GMG setup: {setup_s:.1f} s (quadrant nref={INDEX2D_GMG_NREF} p={INDEX2D_DEGREE} "
+          f"f32, {len(levels)} levels: {levels})", flush=True)
+    xs = mf.constraints.distribute(np.random.default_rng(SEED).standard_normal(mf.n_dofs))
+    xs[op.bdofs] = 0.0
+    b = op.vmult(torch.from_numpy(xs.astype(np.float32)).to(dev))
+    solve = lambda: mt.solve_cg(op, b, M=gmg, tol=1e-5, max_iter=100)
+    t0 = time.perf_counter()
+    x0, it0, _ = solve()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (x, iters, res), counts = counted(wrappers, solve)
+    solve_s = time.perf_counter() - t0
+    counts = {k: c for k, c in counts.items() if c}
+    rel = res / float(torch.linalg.vector_norm(b))
+    print(f"2-D GMG-CG quadrant nref={INDEX2D_GMG_NREF} p={INDEX2D_DEGREE} f32 on {smi}: {iters} "
+          f"iterations, relative residual {rel:.3e}; solve {solve_s:.4f} s, "
+          f"{solve_s / max(iters, 1):.4f} s an iteration (warm-up {warm_s:.2f} s); launches "
+          f"{counts}", flush=True)
+    check(bool(torch.isfinite(x).all()) and iters < 100 and rel <= 1e-5,
+          f"the 2-D GMG-CG did not converge: {iters} iterations, {rel:.3e}")
+    check(it0 == iters and torch.equal(x0, x), "two 2-D GMG solves are not bit-identical")
+    check(counts.get("cell_transfer", 0) > 0, "the 2-D GMG solve never launched cell_transfer")
+    vc, vcounts = counted(wrappers, lambda: gmg(b))
+    vcounts = {k: c for k, c in vcounts.items() if c}
+    check(bool(torch.isfinite(vc).all()), "the 2-D V-cycle gave non-finite values")
+    # the coarse level's CG reads a residual to the host an iteration and takes dots
+    v_prof = profile_path("2-D V-cycle", lambda: gmg(b), set(wrappers), sum(vcounts.values()),
+                          reps=5, classes={"reduction": None, "copy": None})
+    v_host = host_ms(lambda: gmg(b), reps=5, warmup=1)
+    print(f"2-D V-cycle: port launches {vcounts}, host time to issue {v_host:.4f} ms", flush=True)
+    tr = gmg.transfers[-1]
+    numbers = dict(nref=INDEX2D_GMG_NREF, degree=INDEX2D_DEGREE, dtype="float32", tol=1e-5,
+                   setup_s=setup_s, levels=levels, iterations=iters, rel_res=rel,
+                   solve_s=solve_s, s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s,
+                   launches=counts, vcycle=dict(launches=vcounts, host_ms=v_host,
+                                                profile=v_prof))
+    del gmg, op, b, x, x0, vc
+
+    nref, p = INDEX2D_GMG_CHECK
+    its, dx, err, _, _ = index_gmg_solves(mt, 2, nref, p, 1e-10, dev, wrappers)
+    numbers["f64_check"] = dict(nref=nref, degree=p, iterations=its[str(dev)],
+                                iterations_cpu=its["cpu"], solution_diff=dx, err=err)
+    return numbers, tr
+
+
+def index2d_oracle_checks(mt, dev):
+    """float64 through the kernels at the reference's 2-D cases: the vmult
+    (fast and slow) against the scipy oracle at INDEX2D_ORACLE and the
+    elasticity vmult (mu=1.3, lam=0.7) against the dense oracle at
+    INDEX2D_ELASTIC_ORACLE (1e-12)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle, vmult_oracle
+
+    out = {}
+    for geo, nref, p in INDEX2D_ORACLE:
+        tria = mt.create_geometry(geo, 2, nref)
+        mf = mt.MatrixFree(tria, p)
+        u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
+        ref = vmult_oracle(tria, p, u)
+        for slow in (False, True):
+            got = mt.LaplaceOperator(mf, slow=slow, device=dev).vmult(u).cpu().numpy()
+            err = float(np.abs(got - ref).max() / np.abs(ref).max())
+            key = f"{geo} nref={nref} p={p}{' slow' if slow else ''}"
+            out[key] = err
+            print(f"2-D index vmult {key} f64 vs scipy oracle: max rel err {err:.3e} (tol 1e-12)",
+                  flush=True)
+            check(err <= 1e-12, f"2-D float64 vmult {key} disagrees with the oracle: {err:.3e}")
+    geo, nref, p = INDEX2D_ELASTIC_ORACLE
+    tria = mt.create_geometry(geo, 2, nref)
+    mf = mt.MatrixFree(tria, p)
+    u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, 2))
+    ref = elasticity_oracle(tria, p, 1.3, 0.7, u)
+    got = mt.ElasticityOperator(mf, 1.3, 0.7, device=dev).vmult(u).cpu().numpy()
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    out[f"elasticity {geo} nref={nref} p={p}"] = err
+    print(f"2-D elasticity vmult {geo} nref={nref} p={p} f64 vs dense oracle: max rel err "
+          f"{err:.3e} (tol 1e-12)", flush=True)
+    check(err <= 1e-12, f"2-D float64 elasticity disagrees with the oracle: {err:.3e}")
+    return out
+
+
+def index2d_phase(mt, dev, wrappers, smi):
+    """2-D on the index engine at quadrant nref=INDEX2D_NREF p=4 float32:
+    the setup by step and the sizes; every 2-D kernel instance against its
+    plain version (1e-5), timed with its bound and library call (each map
+    composed into one CSR matrix: hn_interp's, cell_laplace's four launches,
+    cell_transfer's; none for cell_elasticity, its count printed;
+    dof_scatter's index_add_); the vmult (fast, slow,
+    constraints=False), the deformed vmult, the elasticity vmult and
+    apply_hanging_node_constraints against the plain float64 path (1e-5),
+    launches checked, bit-identical, timed, profiled; the HN overhead;
+    float64 against the oracles; the GMG-CG solve. Returns (numbers,
+    {kernel: [part]})."""
+    tol, f32 = 1e-5, torch.float32
+    p = INDEX2D_DEGREE
+    setup = {}
+    t0 = time.perf_counter()
+    tria = mt.create_quadrant(2, INDEX2D_NREF)
+    setup["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mf = mt.MatrixFree(tria, p, dtype=np.float32)
+    setup["matrix_free"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mfs = {"compact": mf, "sorted": mt.MatrixFree(tria, p, dtype=np.float32, hn_mode="sorted")}
+    setup["runner sorted"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mode in ("all", "matrix"):  # the compact engine's host tables under another runner
+        mfs[mode] = mt.MatrixFree.from_tables(mf._np, mf.n_dofs, hn_mode=mode)
+    setup["runners all, matrix (from the tables)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mf.scatter_tables(False, dev), mf.scatter_tables(True, dev), mf.slow_tables(dev, f32)
+    mf._on("dofmap", dev), mf._on("masks", dev), mf._on("hn_idx", dev)
+    torch.cuda.synchronize()
+    setup["device tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tria_d = tria if INDEX2D_DEFORMED_NREF == INDEX2D_NREF else mt.create_quadrant(
+        2, INDEX2D_DEFORMED_NREF)
+    mf_d = mt.MatrixFree(tria_d, p, dtype=np.float32, high_order_mapping=True)
+    setup["deformed matrix_free"] = time.perf_counter() - t0
+    setup["deformed metric host"], peak, metric_bytes = metric_host(mf_d)
+    setup["deformed metric host peak bytes"] = peak
+    masks = np.asarray(mf._np["masks"])
+    sizes = dict(cells=mf.n_cells, n_dofs=mf.n_dofs, constrained_cells=mf.n_hn_cells,
+                 codes=int(np.unique(masks).size), codes_list=np.unique(masks).tolist(),
+                 slaves=int(len(mf._np["slow"]["slave"])),
+                 dofmap_bytes=int(mf._np["dofmap"].nbytes),
+                 row_bytes=mf.n_cells * (p + 1) ** 2 * 4, metric_bytes=metric_bytes,
+                 deformed_nref=INDEX2D_DEFORMED_NREF, deformed_cells=mf_d.n_cells)
+    print(f"2-D index setup (quadrant nref={INDEX2D_NREF} p={p} f32), seconds by step: "
+          f"{json.dumps(setup)}; sizes: {json.dumps(sizes)}", flush=True)
+    check(mf.n_hn_cells > 0 and sizes["codes"] > 2, "the 2-D mesh has too few constrained cells")
+
+    x = op_input(mf, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randn(mf.n_cells, (p + 1) ** 2, generator=g, device=dev, dtype=f32)
+    x_d = op_input(mf_d, dev)
+    xe = torch.randn(mf.n_dofs, 2, generator=g, device=dev, dtype=f32)
+
+    # ---- each kernel instance against its plain version, timed with its bound and library
+    t0 = time.perf_counter()
+    calls, inter = index_kernel_calls(mfs, x, rows, deformed=(mf_d, x_d),
+                                      deformed_nref=INDEX2D_DEFORMED_NREF)
+    lib, nnz = index_yardsticks(mfs, inter, {k: len(v) for k, v in calls.items()})
+    mats = {}
+    launched = ((mf, x, False, True), (mf, inter["x_dist"], True, False), (mf, x, False, False),
+                (mf_d, x_d, False, True))  # index_kernel_calls' order: fast, slow, cf, deformed
+    for i, (m, src, slow, hn) in enumerate(launched):
+        mats[i], nnz[f"cell_laplace[{calls['cell_laplace'][i][0]}]"] = laplace_library(
+            m, dev, f32, slow, hn)
+        lib["cell_laplace"][i] = lambda M=mats[i], v=src: M @ v
+    torch.cuda.synchronize()
+    nnz.pop("cell_laplace (not built)")
+    print(f"2-D index maps composed into one CSR matrix each (the library calls; "
+          f"{time.perf_counter() - t0:.1f} s), nonzeros: {nnz}", flush=True)
+    parts = {name: measure_parts(name, cparts, lib[name], {}, f32, tol)
+             for name, cparts in calls.items()}
+    del calls, inter, lib, mats
+    torch.cuda.empty_cache()
+
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_elasticity, dof_scatter
+
+    el_args = (xe, *mf.cell_laplace_args(dev, f32), 1.0, 1.0)
+    rows2 = cell_elasticity.cell_elasticity(*el_args)
+    scatter = mf.scatter_tables(False, dev)
+    # the coupled map composed: a dense (2 n_loc)^2 block a cell
+    nnz["cell_elasticity (not built)"] = mf.n_cells * (2 * (p + 1) ** 2) ** 2
+    print(f"2-D elasticity's coupled map, not built: {nnz['cell_elasticity (not built)']} "
+          f"nonzeros (int64 indices from 2^31 on; cuSPARSE's SpMV raised an internal error on "
+          f"this matrix, 2,629,172,500 nonzeros at quadrant nref=11 p=4, on an H100)",
+          flush=True)
+    dof = mf._on("dofmap", dev).reshape(-1).long()
+    src2 = rows2.reshape(2, -1).T.contiguous()
+    out2 = torch.zeros((mf.n_dofs, 2), dtype=f32, device=dev)
+    el_parts = [("2-D index", lambda: cell_elasticity.cell_elasticity(*el_args),
+                 lambda: cell_elasticity.cell_elasticity_plain(*el_args),
+                 cell_elasticity.bytes_and_flops(*el_args), None, None)]
+    sc_parts = [("2-D components k=2", lambda: dof_scatter.dof_scatter(rows2, *scatter),
+                 lambda: dof_scatter.dof_scatter_plain(rows2, *scatter),
+                 dof_scatter.bytes_and_flops(rows2, *scatter), None, None)]
+    parts["cell_elasticity"] = measure_parts("cell_elasticity", el_parts, [None], {}, f32, tol)
+    parts["dof_scatter"] += measure_parts(
+        "dof_scatter", sc_parts, [lambda: out2.zero_().index_add_(0, dof, src2)], {}, f32, tol)
+    del rows2, src2, out2
+    torch.cuda.empty_cache()
+
+    # ---- the end-to-end calls
+    LO = mt.LaplaceOperator
+    ops = {"vmult": LO(mf, device=dev), "vmult slow": LO(mf, slow=True, device=dev),
+           "vmult constraints=False": LO(mf, constraints=False, device=dev)}
+    op_d = LO(mf_d, device=dev)
+    op_e = mt.ElasticityOperator(mf, device=dev)
+    x64, rows64 = x.double(), rows.double()
+    runs = {call: (lambda o=o: o.vmult(x), lambda o=o: o.vmult(x64, plain=True), mf.n_dofs, 0)
+            for call, o in ops.items()}
+    runs["vmult deformed"] = (lambda: op_d.vmult(x_d),
+                              lambda: op_d.vmult(x_d.double(), plain=True), mf_d.n_dofs, 0)
+    runs["elasticity"] = (lambda: op_e.vmult(xe), lambda: op_e.vmult(xe.double(), plain=True),
+                          2 * mf.n_dofs, 0)
+    runs["apply_hanging_node_constraints"] = (
+        lambda: mf.apply_hanging_node_constraints(rows, False),
+        lambda: mf.apply_hanging_node_constraints(rows64, False, plain=True), None, 1)
+    res = {call: index2d_run(call, fn, plain, wrappers, INDEX2D_LAUNCHES[call], tol,
+                             copies=copies, n_dofs=n)
+           for call, (fn, plain, n, copies) in runs.items()}
+    runners = {}
+    for mode, m in mfs.items():
+        op = LO(m, device=dev)
+        out, n = counted(wrappers, lambda: op.vmult(x))
+        n = {k: c for k, c in n.items() if c}
+        check(n == INDEX2D_LAUNCHES["vmult"], f"2-D runner {mode} launched {n}")
+        v_err = errors(out, ops["vmult"].vmult(x64, plain=True))[1]
+        check(v_err <= tol, f"2-D runner {mode}'s vmult disagrees: {v_err:.3e}")
+        runners[mode] = dict(vmult_ms=time_ms(lambda: op.vmult(x), reps=20, warmup=3),
+                             vmult_err=v_err,
+                             hn_ms=time_ms(lambda: m.apply_hanging_node_constraints(rows, False),
+                                           reps=20, warmup=3))
+        del op
+    base = res["vmult constraints=False"]["ms"]
+    overhead = {"fast": res["vmult"]["ms"] / base, "slow": res["vmult slow"]["ms"] / base}
+    print(f"2-D index engine nref={INDEX2D_NREF} p={p} f32 on {smi}: vmult "
+          f"{res['vmult']['ms']:.4f} ms ({res['vmult']['gdofs_per_s']:.4f} GDoF/s), slow "
+          f"{res['vmult slow']['ms']:.4f}, constraints=False {base:.4f}; HN overhead fast "
+          f"{overhead['fast']:.4f}, slow {overhead['slow']:.4f}; deformed "
+          f"{res['vmult deformed']['ms']:.4f} ms; elasticity {res['elasticity']['ms']:.4f} ms "
+          f"({res['elasticity']['gdofs_per_s']:.4f} GDoF/s over 2 n_dofs); runners "
+          f"{json.dumps(runners)}", flush=True)
+    del ops, op_d, op_e, mfs, mf_d, x64, rows64
+    torch.cuda.empty_cache()
+
+    # ---- float64 against the oracles, and the GMG-CG solve
+    t0 = time.perf_counter()
+    oracle = index2d_oracle_checks(mt, dev)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gmg, tr = index2d_gmg(mt, dev, wrappers, smi)
+    gmg["phase_s"] = time.perf_counter() - t0
+    tr_calls, tr_lib, nnz["cell_transfer"] = cell_transfer_calls(tr, dev)
+    parts["cell_transfer"] = measure_parts("cell_transfer", [
+        (f"2-D {mode} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}", *rest)
+        for mode, *rest in tr_calls], tr_lib, {}, f32, tol)
+    del tr, tr_calls, tr_lib
+    torch.cuda.empty_cache()
+
+    # each part named 2-D, with the launches of the call that runs it
+    def call_of(name, mode):
+        if name == "hn_interp":
+            return "apply_hanging_node_constraints"
+        if name == "cell_laplace":
+            return "vmult deformed" if "deformed" in mode else mode
+        if name == "dof_scatter":
+            return {"fast map": "vmult", "plain map": "vmult slow"}.get(mode, "elasticity")
+        return {"constraints_slow": "vmult slow", "cell_elasticity": "elasticity"}[name]
+
+    for name, plist in parts.items():
+        for part in plist:
+            if name == "cell_transfer":
+                part["launches"] = gmg["launches"].get(name, 0)
+                part["call"] = "2-D GMG-CG solve"
+            else:
+                call = call_of(name, part["mode"])
+                part["launches"] = res[call]["launches"].get(name, 0)
+                part["call"] = f"2-D {call}"
+            if not part["mode"].startswith("2-D"):
+                part["mode"] = f"2-D {part['mode']}"
+    numbers = dict(nref=INDEX2D_NREF, degree=p, dtype="float32", setup_s=setup, sizes=sizes,
+                   **res, runners=runners, hn_overhead=overhead, f64_oracle=oracle,
+                   f64_oracle_s=oracle_s, gmg=gmg, library_nnz=nnz, card=smi)
+    return numbers, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -2963,10 +3434,17 @@ def main() -> int:
     print(f"deformed brick engine phase: {deformed['phase_s']:.1f} s", flush=True)
     del op
     torch.cuda.empty_cache()
-    # existing kernels: their elastic calls, their RHS-axis instances and their deformed
-    # modes as parts
+
+    # ---- 14. 2-D on the index engine ----------------------------------------------
+    t0 = time.perf_counter()
+    index2d, index2d_parts = index2d_phase(mt, dev, wrappers, smi)
+    index2d["phase_s"] = time.perf_counter() - t0
+    print(f"2-D index engine phase: {index2d['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    # existing kernels: their elastic calls, their RHS-axis instances, their deformed
+    # modes and their 2-D instances as parts
     for name, plist in (list(elastic_parts.items()) + list(multi_parts.items())
-                        + list(deformed_parts.items())):
+                        + list(deformed_parts.items()) + list(index2d_parts.items())):
         results[name]["parts"].extend(plist)
         for part in plist:
             for key in ("max_abs_err", "max_rel_err"):
@@ -2974,7 +3452,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 14. the numbers -----------------------------------------------------
+    # ---- 15. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -2989,6 +3467,7 @@ def main() -> int:
     print(json.dumps({"elasticity": elastic}))
     print(json.dumps({"multi": multi}))
     print(json.dumps({"deformed": deformed}))
+    print(json.dumps({"index_2d": index2d}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

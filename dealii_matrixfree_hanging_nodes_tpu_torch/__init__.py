@@ -5,19 +5,22 @@ NVIDIA Hopper (H100), in two engines:
 - the brick engine (``BrickLaplaceMM``): the constrained Cartesian 3-D vmult,
   vmult_plain and refill on the brick layout at every degree, on nine
   hand-written CUDA kernels;
-- the index engine (``MatrixFree``'s cell loop with ``LaplaceOperator``): a
-  DoF map per cell, the hanging-node runners (compact, all, sorted,
-  matrix), the slow constraint path and the deformed mapping, on four
-  (``hn_interp``, ``cell_laplace``, ``dof_scatter``, ``constraints_slow``);
+- the index engine (``MatrixFree``'s cell loop with ``LaplaceOperator``), in
+  3-D and 2-D: a DoF map per cell, the hanging-node runners (compact, all,
+  sorted, matrix), the slow constraint path and the deformed mapping, on
+  four (``hn_interp``, ``cell_laplace``, ``dof_scatter``,
+  ``constraints_slow``; 2-D instances of the first three);
 - the solvers on both engines (``models.multigrid``: CG, Chebyshev, the
-  global-coarsening GMG V-cycle on the index engine; ``models.
+  global-coarsening GMG V-cycle on the index engine, 3-D and 2-D; ``models.
   multigrid_bricks``: the same on brick vectors, with a GMG-preconditioned
   CG whose vectors stay on the device), on three more for the transfers and
   the DoF embedding (``cell_transfer``, ``brick_transfer``, ``dof_embed``);
 - linear elasticity on both engines (``ElasticityOperator`` on the index
-  engine, ``BrickElasticity`` on brick vectors [3, n_bricks, N3p]), on two
+  engine, 3-D and 2-D, ``BrickElasticity`` on brick vectors [3, n_bricks,
+  N3p]), on two
   more (``cell_elasticity``, ``brick_elasticity``), hn_cell's elastic mode
-  and a component axis on dof_scatter, corr_compact and dss_surface.
+  and a component axis on dof_scatter (2 or 3 components), corr_compact and
+  dss_surface. The brick engine, its GMG and its elasticity are 3-D only.
 
 The host setup (mesh, DoFs, constraints, tables) is NumPy; the operators
 are ``torch.nn.Module``s whose device work runs in the kernels

@@ -2,21 +2,25 @@
 // With the transposed DoF map (ptr [n_dofs+1] into ent, the flat (cell, slot) positions of each
 // DoF in ascending order), every DoF i gets
 //   dst[i] = sum of rows[ent[e]] over e = ptr[i] .. ptr[i+1]    (0 where the range is empty).
-// With a component axis (K = 3: rows [3, n_cells, n_loc], component-major, as cell_elasticity
-// writes them), dst is [n_dofs, 3], DoF-major, the reference's layout of a displacement:
+// With a component axis (K = 2 or 3: rows [K, n_cells, n_loc], component-major, as
+// cell_elasticity writes them in 2-D and 3-D), dst is [n_dofs, K], DoF-major, the reference's
+// layout of a displacement:
 //   dst[i, c] = sum of rows[c][ent[e]] over the same entries,
 // so the transpose back from component-major rides the scatter. Each component's sum runs in the
 // scalar kernel's order: a component is bit-identical to a scalar call on rows[c].
 //
 // Replaces: MatrixFree.distribute_local_to_global(_plain) (dealii_matrixfree_hanging_nodes_tpu/
 //   matrix_free.py:281-297): `zeros(n_dofs).at[dofmap.reshape(-1)].add(rows.reshape(-1))`, an
-//   XLA scatter-add with repeated ids on the TPU (no Pallas kernel); with K = 3 the three such
+//   XLA scatter-add with repeated ids on the TPU (no Pallas kernel); with K = 2, 3 the K such
 //   scatters and the stack of ElasticityOperator._vmult (models/elasticity.py:92-98).
 //
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (dof_scatter.bytes_and_flops): memory. The
 //   rows (269,991 x 125, 135 MB) read once, one int32 DoF index an entry (33.7 M, 135 MB; the
 //   DoF map's size) read once, dst (17.55 M DoFs, 70 MB) written once: 340 MB, 0.10 ms at
-//   3.35 TB/s; one add an entry. ptr (70 MB) is left out: only this layout needs it.
+//   3.35 TB/s; one add an entry. ptr (70 MB) is left out: only this layout needs it. At 2-D
+//   quadrant nref=11 p=4 f32 (1,051,669 cells of 25 values, 16.84 M DoFs), the same count:
+//   105 MB of rows, 105 MB of indices, 67 MB of dst, 0.083 ms; with K = 2 (2-D elasticity)
+//   the rows and dst twice: 0.13 ms.
 //
 // Design: one owner thread a DoF sums its entries in the fixed ascending order and writes once:
 //   no atomics, no memset (a DoF with no entry, a hanging DoF under the fast map, writes 0), and
@@ -66,6 +70,7 @@ int dispatch(const void* rows, const void* ptr, const void* ent, void* dst, int 
              long long cstride, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (k == 1) return launch<T, 1>(rows, ptr, ent, dst, n_dofs, cstride, s);
+  if (k == 2) return launch<T, 2>(rows, ptr, ent, dst, n_dofs, cstride, s);
   if (k == 3) return launch<T, 3>(rows, ptr, ent, dst, n_dofs, cstride, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -74,7 +79,7 @@ int dispatch(const void* rows, const void* ptr, const void* ent, void* dst, int 
 
 extern "C" {
 
-// k components of rows, cstride values apart (k = 1 or 3); dst [n_dofs, k]
+// k components of rows, cstride values apart (k = 1, 2 or 3); dst [n_dofs, k]
 int dof_scatter_f32(const void* rows, const void* ptr, const void* ent, void* dst, int n_dofs,
                     int k, long long cstride, void* stream) {
   return dispatch<float>(rows, ptr, ent, dst, n_dofs, k, cstride, stream);

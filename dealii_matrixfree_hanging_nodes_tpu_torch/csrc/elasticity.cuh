@@ -15,7 +15,9 @@
 // 2: Y; c the component), so the G rows of a component are contiguous in U (coalesced copies in
 // and out). U_c holds the nodal values, then the values at the points and d_z u_c (swept in
 // place), X_c and Y_c hold d_x u_c and d_y u_c; after the point operator they hold out[c][.],
-// and the integration leaves row c of the result in U_c. 10 barriers a cell group.
+// and the integration leaves row c of the result in U_c. 10 barriers a cell group. The 2-D
+// forms (Cfg2, interp2, apply2: two components of N^2 values, cell_elasticity's dim=2 index
+// mode) follow the 3-D ones.
 
 #pragma once
 
@@ -38,22 +40,24 @@ struct Cfg {
   static constexpr int VALUES = 9 * R;
 };
 
-// The coupled operator at one point: g[c][a] = d_a u_c in, out[c][a] (what multiplies d_a v_c)
-// out, in place; gw[a] = geo_a w at the point.
-template <typename T>
-__device__ __forceinline__ void point(T (&g)[3][3], T mu, T lam, const T (&gw)[3]) {
-  const T div = g[0][0] + g[1][1] + g[2][2];
-  T o[3][3];
+// The coupled operator at one point in D dimensions (3, or 2 for the 2-D index mode): g[c][a] =
+// d_a u_c in, out[c][a] (what multiplies d_a v_c) out, in place; gw[a] = geo_a w at the point.
+template <typename T, int D>
+__device__ __forceinline__ void point(T (&g)[D][D], T mu, T lam, const T (&gw)[D]) {
+  T div = g[0][0];
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int c = 1; c < D; ++c) div += g[c][c];
+  T o[D][D];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) o[c][a] = mu * (g[c][a] + g[a][c]) * gw[a];
+  for (int c = 0; c < D; ++c)
 #pragma unroll
-  for (int c = 0; c < 3; ++c) o[c][c] += lam * div * gw[c];
+    for (int a = 0; a < D; ++a) o[c][a] = mu * (g[c][a] + g[a][c]) * gw[a];
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
+  for (int c = 0; c < D; ++c) o[c][c] += lam * div * gw[c];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) g[c][a] = o[c][a];
+  for (int c = 0; c < D; ++c)
+#pragma unroll
+    for (int a = 0; a < D; ++a) g[c][a] = o[c][a];
 }
 
 // transposed z sweep of the sum of three lines (line j along z), into out (may be one of them)
@@ -196,6 +200,122 @@ __device__ __forceinline__ void apply(T* buf, const T* S, const T* D, const T* w
   if (active) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) hn::sweep_line<T, N, 0, true>(U + c * R, U + c * R, S, j);
+  }
+  __syncthreads();
+}
+
+// ---- 2-D (cell_elasticity's index mode at dim=2) -----------------------------------------
+// Two components a cell, N^2 values each; one thread a line of a cell (N lines),
+// hanging_nodes.cuh's 2-D convention. The buffer holds four regions of G N^2 values, region kind*2 + c (kind 0: U,
+// 1: X): U_c the nodal values, then the values at the points and d_y u_c (swept in place), X_c
+// d_x u_c; after the point operator they hold out[c][.], and the integration leaves row c of
+// the result in U_c. In 2-D geo_a = h^(dim-2) = 1 on every cell (models/elasticity.py:57), but
+// the kernel reads it as in 3-D. 8 barriers a cell group.
+template <int P>
+struct Cfg2 {
+  static constexpr int N = P + 1;
+  static constexpr int NL = N * N;
+  static constexpr int G = 256 / N;  // cells a block, >= 128 threads
+  static constexpr int THREADS = (G * N + 31) / 32 * 32;
+  static constexpr int R = G * NL;  // one region
+  static constexpr int VALUES = 4 * R;
+};
+
+// the 2-D interpolation of the two components of cell g, forward (x, y) or transposed (y, x)
+template <typename T, int P, bool TR>
+__device__ __forceinline__ void interp2(T* buf, const T* P2, int mask, int g, int j, bool work) {
+  using C = Cfg2<P>;
+  constexpr int N = C::N;
+  T* u = buf + g * C::NL;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (work) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        T* uc = u + c * C::R;
+        if (TR) {
+          if (s == 0) hn::interp_line2<T, N, 1, true>(uc, P2, mask, j);
+          if (s == 1) hn::interp_line2<T, N, 0, true>(uc, P2, mask, j);
+        } else {
+          if (s == 0) hn::interp_line2<T, N, 0, false>(uc, P2, mask, j);
+          if (s == 1) hn::interp_line2<T, N, 1, false>(uc, P2, mask, j);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The 2-D operator on the G cells of the block, as apply: U (regions 0, 1) holds each cell's
+// nodal values in, its result out; w [N^2]; geo the cell's geo_a (a = 0, 1).
+template <typename T, int P>
+__device__ __forceinline__ void apply2(T* buf, const T* S, const T* D, const T* w, T mu, T lam,
+                                       const T (&geo)[2], int g, int j, bool active) {
+  using C = Cfg2<P>;
+  constexpr int N = C::N, R = C::R;
+  T* U = buf + g * C::NL;
+  T* X = U + 2 * R;
+  // values at the Gauss points
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sweep_line2<T, N, 0, false>(U + c * R, U + c * R, S, j);
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sweep_line2<T, N, 1, false>(U + c * R, U + c * R, S, j);
+  }
+  __syncthreads();
+  // the reference gradients: d_x into X, then d_y over U in place
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sweep_line2<T, N, 0, false>(U + c * R, X + c * R, D, j);
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sweep_line2<T, N, 1, false>(U + c * R, U + c * R, D, j);
+  }
+  __syncthreads();
+  // the coupled operator at the points j, j + N, ... (line j along y)
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int q = j + k * N;
+      const T wq = w[q];
+      const T gw[2] = {geo[0] * wq, geo[1] * wq};
+      T gr[2][2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        gr[c][0] = X[c * R + q];
+        gr[c][1] = U[c * R + q];
+      }
+      point(gr, mu, lam, gw);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        X[c * R + q] = gr[c][0];
+        U[c * R + q] = gr[c][1];
+      }
+    }
+  }
+  __syncthreads();
+  // the transposes: Dc^T on each along its axis, the sum with S^T along y, then S^T along x
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      hn::sweep_line2<T, N, 0, true>(X + c * R, X + c * R, D, j);
+      hn::sweep_line2<T, N, 1, true>(U + c * R, U + c * R, D, j);
+    }
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sum_sweep_y2<T, N>(X + c * R, U + c * R, U + c * R, S, j);
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) hn::sweep_line2<T, N, 0, true>(U + c * R, U + c * R, S, j);
   }
   __syncthreads();
 }

@@ -10,6 +10,7 @@
 //     factors times the weights, or the packed symmetric metric (metric_line);
 //   the transposes: Dc^T on component t along t, their sum, S^T along z, y, x, into `cell`.
 // S and Dc are [N][N] in shared memory, read by every thread of a warp at once (broadcasts).
+// The 2-D forms (laplace_cells2, cell_laplace's dim=2 instances) follow the 3-D ones.
 
 #pragma once
 
@@ -100,6 +101,60 @@ __device__ __forceinline__ void laplace_cells(T* cell, T* g0, T* g1, T* g2, cons
   if (active) hn::sweep_line<T, N, 1, true>(cell, cell, sS, j);
   __syncthreads();
   if (active) hn::sweep_line<T, N, 0, true>(cell, cell, sS, j);
+  __syncthreads();
+}
+
+// ---- 2-D (cell_laplace's dim=2 instances; the 3-D forms above are unchanged) ---------------
+// A cell's N^2 values (x fastest) in `cell`, its two gradient components in g0, g1; thread j of
+// the cell handles line j (0 .. N-1) of each sweep (hanging_nodes.cuh's 2-D convention) and, at
+// the point step, the points j + k N (k = 0 .. N-1): line j along y.
+
+// g <- G_q g at point q: the packed upper triangle (xx, xy, yy) of w detJ J^-1 J^-T
+// (mapping.py: np.triu_indices(2)), its three values m in device memory
+template <typename T>
+__device__ __forceinline__ void metric_point2(const T* __restrict__ m, T* g0, T* g1, int q) {
+  const T x = g0[q], y = g1[q];
+  const T m0 = __ldg(m + 0), m1 = __ldg(m + 1), m2 = __ldg(m + 2);
+  g0[q] = m0 * x + m1 * y;
+  g1[q] = m1 * x + m2 * y;
+}
+
+// the metric on the N points of line j (j + k N) of a cell whose metric is geo [N^2][3]
+template <typename T, int N>
+__device__ __forceinline__ void metric_line2(const T* __restrict__ geo, T* g0, T* g1, int j) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int q = j + k * N;
+    metric_point2(geo + q * 3, g0, g1, q);
+  }
+}
+
+// The 2-D Laplace of the cells of a block, as laplace_cells: S along x, y; Dc along x into g0,
+// along y into g1; `point(g0, g1)` on the line's points; Dc^T on each along its axis, their sum
+// with S^T along y, S^T along x, into `cell`. 7 barriers, the last after the results are in
+// place; the values must be in place before the call.
+template <typename T, int N, typename Point>
+__device__ __forceinline__ void laplace_cells2(T* cell, T* g0, T* g1, const T* sS, const T* sD,
+                                               int j, bool active, Point point) {
+  if (active) hn::sweep_line2<T, N, 0, false>(cell, cell, sS, j);
+  __syncthreads();
+  if (active) hn::sweep_line2<T, N, 1, false>(cell, cell, sS, j);
+  __syncthreads();
+  if (active) {
+    hn::sweep_line2<T, N, 0, false>(cell, g0, sD, j);
+    hn::sweep_line2<T, N, 1, false>(cell, g1, sD, j);
+  }
+  __syncthreads();
+  if (active) point(g0, g1);
+  __syncthreads();
+  if (active) {
+    hn::sweep_line2<T, N, 0, true>(g0, g0, sD, j);
+    hn::sweep_line2<T, N, 1, true>(g1, g1, sD, j);
+  }
+  __syncthreads();
+  if (active) hn::sum_sweep_y2<T, N>(g0, g1, cell, sS, j);
+  __syncthreads();
+  if (active) hn::sweep_line2<T, N, 0, true>(cell, cell, sS, j);
   __syncthreads();
 }
 

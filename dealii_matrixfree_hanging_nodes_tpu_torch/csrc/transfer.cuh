@@ -5,7 +5,8 @@
 //   transposed (restriction): E[2]^T along z, then E[1]^T along y, then E[0]^T along x,
 // the reference's Transfer._embed / _embed_t (models/multigrid.py:253-271). Thread j of a cell
 // handles line j (0 .. N^2-1) of each sweep in place, as hanging_nodes.cuh's sweep_line does for
-// the hanging-node interpolation (one barrier a sweep).
+// the hanging-node interpolation (one barrier a sweep). embed_sweeps2 is the 2-D form
+// (cell_transfer's dim=2 instances).
 
 #pragma once
 
@@ -37,11 +38,32 @@ __device__ __forceinline__ void embed_sweeps(T* cell, const T* E, int j, bool ac
   }
 }
 
-// the cells a block handles together: about 256 lines a sweep
-template <int N>
+// The two sweeps in 2-D (N^2 values a cell, E [2][N][N], thread j on line j of N:
+// hanging_nodes.cuh's 2-D convention): E[0] along x then E[1] along y; transposed E[1]^T along
+// y then E[0]^T along x.
+template <typename T, int N, bool TR>
+__device__ __forceinline__ void embed_sweeps2(T* cell, const T* E, int j, bool active) {
+  constexpr int NN = N * N;
+  if (!TR) {
+    if (active) hn::sweep_line2<T, N, 0, false>(cell, cell, E, j);
+    __syncthreads();
+    if (active) hn::sweep_line2<T, N, 1, false>(cell, cell, E + NN, j);
+    __syncthreads();
+  } else {
+    if (active) hn::sweep_line2<T, N, 1, true>(cell, cell, E + NN, j);
+    __syncthreads();
+    if (active) hn::sweep_line2<T, N, 0, true>(cell, cell, E, j);
+    __syncthreads();
+  }
+}
+
+// the cells a block handles together: about 256 lines a sweep (N^2 lines a cell in 3-D, N in
+// 2-D)
+template <int N, int DIM = 3>
 struct Group {
-  static constexpr int G = (256 / (N * N)) > 0 ? 256 / (N * N) : 1;
-  static constexpr int THREADS = (G * N * N + 31) / 32 * 32;
+  static constexpr int LINES = DIM == 3 ? N * N : N;
+  static constexpr int G = (256 / LINES) > 0 ? 256 / LINES : 1;
+  static constexpr int THREADS = (G * LINES + 31) / 32 * 32;
 };
 
 }  // namespace xfer

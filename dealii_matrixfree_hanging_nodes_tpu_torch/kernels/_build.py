@@ -99,7 +99,7 @@ def ptxas_usage(log: str):
     ``cell_apply_kernel<IfLi4ELi4E>`` for <float, 4, 4>."""
     out, kernel, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"([a-z][a-z_]*_kernel)(I\w*?E)?E*v", line)
+        m = re.search(r"([a-z][a-z0-9_]*_kernel)(I\w*?E)?E*v", line)
         if "Compiling entry function" in line and m:
             kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         elif "spill" in line:
@@ -185,3 +185,16 @@ def rhs_axis(name: str, t: torch.Tensor, dims: int):
 
 def suffix(dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"
+
+
+DIMS = (2, 3)  # the index engine's kernels: 2-D and 3-D instances
+
+
+def lattice_dim(name: str, n: int, n_loc: int) -> int:
+    """The dimension of cells of n_loc values, n = p+1 nodes a side: the d
+    in DIMS with n^d == n_loc (one at most: n^2 != n^3 for n >= 2); raises
+    where there is none."""
+    for d in DIMS:
+        if n**d == n_loc:
+            return d
+    raise ValueError(f"{name}: {n_loc} values a cell are no {n}^d lattice for d in {DIMS}")

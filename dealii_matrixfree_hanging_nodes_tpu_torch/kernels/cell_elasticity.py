@@ -1,14 +1,15 @@
 """Kernel 17, ``cell_elasticity``: linear elasticity's cell operator,
 a(u, v) = int 2 mu eps(u):eps(v) + lam div u div v on cube cells, one launch
-to component-major cell rows [3, n_cells, n_loc], in one of two modes:
+to component-major cell rows [dim, n_cells, n_loc], in one of two modes:
 
-- index (``dofmap`` given, ``brick_size=None``): each cell's three
-  components read through the DoF map from a global vector [n_dofs, 3]
-  (DoF-major, the reference's layout), the hanging-node interpolation of
+- index (``dofmap`` given, ``brick_size=None``), 3-D or 2-D: each cell's dim
+  components read through the DoF map from a global vector [n_dofs, dim]
+  (DoF-major, the reference's layout; its component count is the dimension,
+  checked against n_loc = (p+1)^dim), the hanging-node interpolation of
   each by the cell's mask (codes None: none), the coupled operator with the
-  cell's geo [n_cells, 3], the transposed interpolation. The scatter-add is
-  ``dof_scatter``'s (its component axis writes [n_dofs, 3] back);
-- bricks (``dofmap=None``, ``brick_size=B``): cell r of the first m bricks
+  cell's geo [n_cells, dim], the transposed interpolation. The scatter-add
+  is ``dof_scatter``'s (its component axis writes [n_dofs, dim] back);
+- bricks (``dofmap=None``, ``brick_size=B``), 3-D: cell r of the first m bricks
   of component brick vectors src [3, nb, N3p] (slot r % B^3 of brick r //
   B^3), scaled by geo [m*B^3] on every axis: every subset cell's
   geo_c Kel u_c (the reference's ``plain3``).
@@ -38,21 +39,23 @@ from .hn_interp import masked_lines
 NAME = "cell_elasticity"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/elasticity.py:44"
 DEGREES = (1, 2, 3, 4, 5, 6, 7, 8)
+DEGREES_2D = (1, 2, 3, 4, 5, 6)  # the index mode's dim=2 instances
 
 
 def elastic_rows(u, S, Dc, quad_w, geo, mu, lam):
-    """The coupled operator on component-major rows u [3, cells, n_loc]
-    (the reference's ``kernel``): geo [cells, 3] per axis. A new [3, cells,
-    n_loc] tensor."""
-    g = [evaluate_gradients(u[c], S, Dc, 3) for c in range(3)]  # [cells, 3, nq] each
+    """The coupled operator on component-major rows u [dim, cells, n_loc]
+    (the reference's ``kernel``; dim components in dim dimensions): geo
+    [cells, dim] per axis. A new [dim, cells, n_loc] tensor."""
+    dim = u.shape[0]
+    g = [evaluate_gradients(u[c], S, Dc, dim) for c in range(dim)]  # [cells, dim, nq] each
     w = quad_w[None, :]
-    out = [[mu * (g[c][:, a] + g[a][:, c]) * geo[:, a, None] * w for a in range(3)]
-           for c in range(3)]
-    div = g[0][:, 0] + g[1][:, 1] + g[2][:, 2]
-    for c in range(3):
+    out = [[mu * (g[c][:, a] + g[a][:, c]) * geo[:, a, None] * w for a in range(dim)]
+           for c in range(dim)]
+    div = sum(g[c][:, c] for c in range(dim))
+    for c in range(dim):
         out[c][c] = out[c][c] + lam * div * geo[:, c, None] * w
-    return torch.stack([integrate_gradients(torch.stack(out[c], dim=1), S, Dc, 3)
-                        for c in range(3)])
+    return torch.stack([integrate_gradients(torch.stack(out[c], dim=1), S, Dc, dim)
+                        for c in range(dim)])
 
 
 def brick_rows(src, brick_size, m, p):
@@ -73,24 +76,25 @@ def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
         geo = geo[:, None].expand(-1, 3)
     else:
         u = src.T[:, dofmap.long()]
+    dim = u.shape[0]
     if codes is not None:
-        u = torch.stack([hn_rows(u[c], codes, P, False) for c in range(3)])
+        u = torch.stack([hn_rows(u[c], codes, P, False, dim) for c in range(dim)])
     u = elastic_rows(u, S, Dc, quad_w, geo, mu, lam)
     if codes is not None:
-        u = torch.stack([hn_rows(u[c], codes, P, True) for c in range(3)])
+        u = torch.stack([hn_rows(u[c], codes, P, True, dim) for c in range(dim)])
     return u
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong] \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
 def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None):
-    """Index mode: src [n_dofs, 3], dofmap int32 [n_cells, n_loc], codes
-    int32 [n_cells] or None, P [2, n, n], geo [n_cells, 3]. Bricks mode:
-    src [3, nb, N3p], dofmap and codes None (P may be None), geo [m*B^3]
-    with m <= nb. S, Dc [n, n], quad_w [n^3] of src's dtype on its device
-    -> new [3, n_cells, n_loc]."""
+    """Index mode: src [n_dofs, dim] (dim 2 or 3), dofmap int32 [n_cells,
+    n^dim], codes int32 [n_cells] or None, P [2, n, n], geo [n_cells, dim].
+    Bricks mode (3-D): src [3, nb, N3p], dofmap and codes None (P may be
+    None), geo [m*B^3] with m <= nb. S, Dc [n, n], quad_w [n^dim] of src's
+    dtype on its device -> new [dim, n_cells, n^dim]."""
     args = (src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam)
     if src.device.type == "cpu":
         return cell_elasticity_plain(*args, brick_size=brick_size)
@@ -100,7 +104,10 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
     if any(t is not None and t.dtype != torch.int32 for t in (dofmap, codes)):
         raise TypeError(f"{NAME}: dofmap and codes must be int32")
     n = S.shape[-1]
-    n_loc = n**3
+    dim = 3 if dofmap is None else src.shape[-1]  # the index mode: a component an axis
+    n_loc = n**dim
+    if dim not in _build.DIMS:
+        raise ValueError(f"{NAME}: src {tuple(src.shape)} has {dim} components, not 2 or 3")
     if dofmap is None:
         B = int(brick_size)
         n_cells = geo.shape[0]
@@ -109,16 +116,17 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
                or src.shape[2] < (B * (n - 1) + 1) ** 3)
     else:
         n_cells = dofmap.shape[0]
-        bad = (brick_size is not None or src.dim() != 2 or src.shape[1] != 3
-               or dofmap.shape != (n_cells, n_loc) or geo.shape != (n_cells, 3)
+        bad = (brick_size is not None or src.dim() != 2
+               or dofmap.shape != (n_cells, n_loc) or geo.shape != (n_cells, dim)
                or (codes is not None and (codes.shape != (n_cells,) or P is None
                                           or P.shape != (2, n, n))))
-    if (bad or n - 1 not in DEGREES or Dc.shape != (n, n) or quad_w.shape != (n_loc,)
-            or 3 * n_cells * n_loc >= 2**31):
+    if (bad or n - 1 not in (DEGREES if dim == 3 else DEGREES_2D) or Dc.shape != (n, n)
+            or quad_w.shape != (n_loc,)
+            or dim * n_cells * n_loc >= 2**31):
         raise ValueError(f"{NAME}: shapes src {tuple(src.shape)}, dofmap "
                          f"{None if dofmap is None else tuple(dofmap.shape)}, geo "
                          f"{tuple(geo.shape)}, S {tuple(S.shape)}, brick_size {brick_size}")
-    out = torch.empty((3, n_cells, n_loc), dtype=src.dtype, device=src.device)
+    out = torch.empty((dim, n_cells, n_loc), dtype=src.dtype, device=src.device)
     if n_cells == 0:
         return out
     # bricks mode: the component bricks' row length and the values between components
@@ -127,7 +135,7 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
                                    for t in (*args[:8], out)))
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, ptrs, float(mu), float(lam), cstride, int(brick_size or 0), N3p,
-                  n_cells, n - 1, None)
+                  n_cells, n - 1, dim, None)
     cell_elasticity.launches += 1
     return out
 
@@ -135,13 +143,13 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
 cell_elasticity.launches = 0
 
 
-def plan(dtype, p, device=None):
+def plan(dtype, p, device=None, dim=3):
     """(threads, shared-memory bytes, blocks per SM) of a launch at degree
-    p; launches nothing."""
+    p in dim dimensions; launches nothing."""
     info = (ctypes.c_int * 3)()
     dev = torch.device("cuda") if device is None else device
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 9)(), 1.0, 1.0, 0, 0, 0, 1, p, info)
+    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 9)(), 1.0, 1.0, 0, 0, 0, 1, p, dim, info)
     return tuple(info)
 
 
@@ -149,12 +157,13 @@ def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
     """Least traffic: the distinct source values read once (the DoFs that
     dofmap names, three components each, or the subset cells' brick nodes),
     dofmap, codes and geo read once, the rows written once, the factors read
-    once. Operations: per cell and component the 12 sweeps of 2 n^4 (three
-    S and three Dc forward, their transposes), the coupled operator's ~40 a
-    point, and the interpolation's 2 n^2 a masked line, component and
-    direction."""
+    once. Operations: per cell and component the 4 dim sweeps of 2 n^(dim+1)
+    (dim of S and dim of Dc forward, their transposes), the coupled
+    operator's ~40 a point in 3-D (~16 in 2-D), and the interpolation's 2
+    n^2 a masked line, component and direction."""
     n = S.shape[-1]
-    n_loc, isz = n**3, src.element_size()
+    dim = 3 if dofmap is None else src.shape[-1]
+    n_loc, isz = n**dim, src.element_size()
     if dofmap is None:
         n_cells = geo.shape[0]
         nodes = cell_nodes(torch.arange(n_cells, device=src.device), brick_size, n - 1,
@@ -162,12 +171,12 @@ def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
         n_src = 3 * int(torch.unique(nodes).numel())
     else:
         n_cells = dofmap.shape[0]
-        n_src = 3 * int(torch.unique(dofmap).numel())
-    nbytes = (n_src + 3 * n_cells * n_loc + 4 * n * n + n_loc + geo.numel()) * isz
+        n_src = dim * int(torch.unique(dofmap).numel())
+    nbytes = (n_src + dim * n_cells * n_loc + 4 * n * n + n_loc + geo.numel()) * isz
     nbytes += 4 * (0 if dofmap is None else dofmap.numel())
-    flops = n_cells * (3 * 12 * 2 * n**4 + 40 * n_loc)
+    flops = n_cells * (dim * 4 * dim * 2 * n ** (dim + 1) + (40 if dim == 3 else 16) * n_loc)
     if codes is not None:
         nbytes += 4 * n_cells
-        per_dir = 3 * 2 * n * n * int(masked_lines(codes.cpu().numpy(), n - 1).sum())
+        per_dir = dim * 2 * n * n * int(masked_lines(codes.cpu().numpy(), n - 1, dim).sum())
         flops += 2 * per_dir
     return nbytes, flops

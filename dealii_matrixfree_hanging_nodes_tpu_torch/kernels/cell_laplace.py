@@ -1,6 +1,6 @@
 """Kernel 13, ``cell_laplace``: the index engine's cell kernel, one launch
-from a global vector (or cell rows) to cell rows [n_cells, n_loc]. For each
-cell c, in this order:
+from a global vector (or cell rows) to cell rows [n_cells, n_loc], n_loc =
+(p+1)^dim in 2-D or 3-D. For each cell c, in this order:
 
 1. read: src[dofmap[c]] (a global vector through the fast or plain DoF map)
    or the row src[c] (the DG path, dofmap None);
@@ -9,8 +9,10 @@ cell c, in this order:
    runners of ``MatrixFree`` compute this one function, so their vmults share
    this kernel;
 3. Laplace (``quad``): gradients by S and Dc, times geo[c, d] * quad_w at
-   each point (Cartesian geo [n_cells, 3]) or the packed symmetric metric
-   (deformed geo [n_cells, n_q, 6], which holds w * detJ), integrated back;
+   each point (Cartesian geo [n_cells, dim]) or the packed symmetric metric
+   (deformed geo [n_cells, n_q, dim (dim+1) / 2], the upper triangle row by
+   row: xx, xy, xz, yy, yz, zz in 3-D, xx, xy, yy in 2-D; it holds w *
+   detJ), integrated back;
 4. HN^T (``hn_out``);
 5. write the row.
 
@@ -35,78 +37,104 @@ from .hn_interp import DEGREES, masked_lines
 
 NAME = "cell_laplace"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/laplace.py:20"
-PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))  # the packed metric's order
 
 
-def laplace_rows(u, S, Dc, quad_w, geo):
+def metric_pairs(dim):
+    """The packed metric's order: the upper triangle row by row."""
+    return [(x, y) for x in range(dim) for y in range(x, dim)]
+
+
+def cell_dim(src, dofmap, P):
+    """The dimension of a cell_laplace call: the d in (2, 3) with (p+1)^d
+    == n_loc, the rows' width."""
+    n_loc = dofmap.shape[-1] if dofmap is not None else src.shape[-1]
+    return _build.lattice_dim(NAME, P.shape[-1], n_loc)
+
+
+def is_deformed(geo, n_cells, n, dim):
+    """Which geometry geo is, from its shape checked in full against dim:
+    Cartesian [n_cells, dim] (False) or the packed metric [n_cells, n^dim,
+    dim (dim+1) / 2] (True); raises for anything else."""
+    if tuple(geo.shape) == (n_cells, dim):
+        return False
+    if tuple(geo.shape) == (n_cells, n**dim, dim * (dim + 1) // 2):
+        return True
+    raise ValueError(f"{NAME}: geo {tuple(geo.shape)} is neither the Cartesian factors "
+                     f"({n_cells}, {dim}) nor the packed metric ({n_cells}, {n**dim}, "
+                     f"{dim * (dim + 1) // 2}) of dim={dim}")
+
+
+def laplace_rows(u, S, Dc, quad_w, geo, dim=3):
     """The Laplace cell kernel on rows u [cells, n_loc] (the reference's
-    ``laplace_cell_kernel``): Cartesian geo [cells, 3] with quad_w, or the
-    deformed metric [cells, n_q, 6]."""
-    g = evaluate_gradients(u, S, Dc, 3)  # [c, 3, nq]
-    if geo.dim() == 2:
+    ``laplace_cell_kernel``): Cartesian geo [cells, dim] with quad_w, or the
+    deformed metric [cells, n_q, dim (dim+1) / 2]."""
+    g = evaluate_gradients(u, S, Dc, dim)  # [c, dim, nq]
+    if not is_deformed(geo, u.shape[0], S.shape[-1], dim):
         g = g * geo[:, :, None] * quad_w[None, None, :]
     else:
-        out = [torch.zeros_like(g[:, 0]) for _ in range(3)]
-        for k, (x, y) in enumerate(PAIRS):
+        out = [torch.zeros_like(g[:, 0]) for _ in range(dim)]
+        for k, (x, y) in enumerate(metric_pairs(dim)):
             out[x] = out[x] + geo[:, :, k] * g[:, y]
             if x != y:
                 out[y] = out[y] + geo[:, :, k] * g[:, x]
         g = torch.stack(out, dim=1)
-    return integrate_gradients(g, S, Dc, 3)
+    return integrate_gradients(g, S, Dc, dim)
 
 
-def hn_rows(u, codes, P, transpose):
+def hn_rows(u, codes, P, transpose, dim=3):
     """The rows' interpolation by their masks (a new tensor)."""
     out = u.clone()
     sel = torch.nonzero(codes != 0)[:, 0]
-    out[sel] = masked_sweeps(u[sel], codes[sel], P, transpose)
+    out[sel] = masked_sweeps(u[sel], codes[sel], P, transpose, dim)
     return out
 
 
 def cell_laplace_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=True,
                        hn_out=True):
     """Plain PyTorch version: the steps one after another (a new tensor)."""
+    dim = cell_dim(src, dofmap, P)
     u = src[dofmap.long()] if dofmap is not None else src.clone()
     if codes is not None and hn_in:
-        u = hn_rows(u, codes, P, False)
+        u = hn_rows(u, codes, P, False, dim)
     if quad:
-        u = laplace_rows(u, S, Dc, quad_w, geo)
+        u = laplace_rows(u, S, Dc, quad_w, geo, dim)
     if codes is not None and hn_out:
-        u = hn_rows(u, codes, P, True)
+        u = hn_rows(u, codes, P, True, dim)
     return u
 
 
-_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 HN_IN, QUAD, HN_OUT, DEFORMED = 1, 2, 4, 8
 
 
 def cell_laplace(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=True,
                  hn_out=True):
     """src [n_dofs] with dofmap int32 [n_cells, n_loc], or rows [n_cells,
-    n_loc] with dofmap None; codes int32 [n_cells] (masks) or None; P [2,
-    n, n], S, Dc [n, n], quad_w [n^3], geo [n_cells, 3] or [n_cells, n^3,
-    6], all of src's dtype on its device
-    (geo, S, Dc, quad_w are not read without quad) -> new [n_cells, n_loc]."""
+    n_loc] with dofmap None (n_loc = n^dim, dim 2 or 3, read from n_loc);
+    codes int32 [n_cells] (masks) or None; P [2, n, n], S, Dc [n, n],
+    quad_w [n^dim], geo [n_cells, dim] or [n_cells, n^dim, dim (dim+1) / 2],
+    all of src's dtype on its device (geo, S, Dc, quad_w are not read
+    without quad) -> new [n_cells, n_loc]."""
     args = (src, dofmap, codes, P, S, Dc, quad_w, geo)
     flags = dict(hn_in=hn_in, quad=quad, hn_out=hn_out)
     if src.device.type == "cpu":
         return cell_laplace_plain(*args, **flags)
     n = P.shape[-1]
-    n_loc = n**3
+    dim = cell_dim(src, dofmap, P)
+    n_loc = n**dim
     n_cells = dofmap.shape[0] if dofmap is not None else src.shape[0]
     names = ("src", "dofmap", "codes", "P", "S", "Dc", "quad_w", "geo")
     dev = _build.check_cuda(NAME, src.dtype, **{k: t for k, t in zip(names, args)
                                                 if t is not None})
     if any(t is not None and t.dtype != torch.int32 for t in (dofmap, codes)):
         raise TypeError(f"{NAME}: dofmap and codes must be int32")
-    deformed = quad and geo.dim() == 3
+    deformed = quad and is_deformed(geo, n_cells, n, dim)
     bad = (n - 1 not in DEGREES or P.shape != (2, n, n)
            or (dofmap is not None and (dofmap.shape != (n_cells, n_loc) or src.dim() != 1))
            or (dofmap is None and src.shape != (n_cells, n_loc))
            or n_cells * n_loc >= 2**31
            or (codes is not None and codes.shape != (n_cells,))
-           or (quad and (S.shape != (n, n) or Dc.shape != (n, n) or quad_w.shape != (n_loc,)
-                         or geo.shape != ((n_cells, n_loc, 6) if deformed else (n_cells, 3)))))
+           or (quad and (S.shape != (n, n) or Dc.shape != (n, n) or quad_w.shape != (n_loc,))))
     if bad:
         raise ValueError(f"{NAME}: shapes src {tuple(src.shape)}, dofmap "
                          f"{None if dofmap is None else tuple(dofmap.shape)}, P {tuple(P.shape)}, "
@@ -119,7 +147,7 @@ def cell_laplace(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=
     bits = ((HN_IN if hn_in else 0) | (QUAD if quad else 0) | (HN_OUT if hn_out else 0)
             | (DEFORMED if deformed else 0))
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, ptrs, n_cells, n - 1, bits)
+    _build.launch(NAME, fn, dev, ptrs, n_cells, n - 1, bits, dim)
     cell_laplace.launches += 1
     return out
 
@@ -132,10 +160,13 @@ def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, qu
     """Least traffic: the distinct source values read once (the DoFs that
     dofmap names, or every row), dofmap, codes and geo read once, the rows
     written once, the factors read once. Operations: the interpolation's
-    (2 n^2 a masked line) in each direction asked for; the Laplace's 12 sweeps of 2 n^4 a cell and
-    its point work (3 multiplies a point Cartesian times 2, 15 deformed)."""
+    (2 n^2 a masked line) in each direction asked for; the Laplace's 4 dim
+    sweeps of 2 n^(dim+1) a cell (dim of S and dim of Dc, and their
+    transposes) and its point work (2 dim multiplies a point Cartesian; 15
+    deformed in 3-D, 6 in 2-D)."""
     n = P.shape[-1]
-    n_loc, isz = n**3, src.element_size()
+    dim = cell_dim(src, dofmap, P)
+    n_loc, isz = n**dim, src.element_size()
     n_cells = dofmap.shape[0] if dofmap is not None else src.shape[0]
     n_src = (int(torch.unique(dofmap).numel()) if dofmap is not None else src.numel())
     nbytes = (n_src + n_cells * n_loc + 2 * n * n + 2 * n * n) * isz
@@ -143,9 +174,11 @@ def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, qu
     flops = 0
     if codes is not None and (hn_in or hn_out):
         nbytes += 4 * n_cells
-        per_dir = 2 * n * n * int(masked_lines(codes.cpu().numpy(), n - 1).sum())
+        per_dir = 2 * n * n * int(masked_lines(codes.cpu().numpy(), n - 1, dim).sum())
         flops += per_dir * (int(hn_in) + int(hn_out))
     if quad:
-        nbytes += (geo.numel() + (0 if geo.dim() == 3 else n_loc)) * isz
-        flops += n_cells * (12 * 2 * n**4 + (15 if geo.dim() == 3 else 6) * n_loc)
+        deformed = is_deformed(geo, n_cells, n, dim)
+        nbytes += (geo.numel() + (0 if deformed else n_loc)) * isz
+        point = (15 if dim == 3 else 6) if deformed else 2 * dim
+        flops += n_cells * (4 * dim * 2 * n ** (dim + 1) + point * n_loc)
     return nbytes, flops

@@ -1,19 +1,21 @@
 """Kernel 18, ``cell_transfer``: the index engine's GMG transfer between two
-levels of global coarsening, on cell rows. Each fine cell f has its covering
-coarse cell cover[f] and an embedding E[f] [3, n, n] (one matrix an axis, x
-first; ``models.multigrid.covering_embedding``), and each fine DoF one owner
-(f, slot) (``own``, the first writer in cell order).
+levels of global coarsening, on cell rows of n^dim values (dim 2 or 3, the
+length of E's axis 1). Each fine cell f has its covering coarse cell
+cover[f] and an embedding E[f] [dim, n, n] (one matrix an axis, x first;
+``models.multigrid.covering_embedding``), and each fine DoF one owner (f,
+slot) (``own``, the first writer in cell order).
 
-* prolongate: x the coarse cell rows [n_c, n^3] (``read_dof_values`` of the
-  coarse vector: HN-resolved), out a fine DoF vector:
-      u_f = (E[f,2] (x) E[f,1] (x) E[f,0]) x[cover[f]]    (sweeps along x, y, z)
+* prolongate: x the coarse cell rows [n_c, n^dim] (``read_dof_values`` of
+  the coarse vector: HN-resolved), out a fine DoF vector:
+      u_f = (E[f,2] (x) E[f,1] (x) E[f,0]) x[cover[f]]    (sweeps along x, y, z;
+                                                           2-D: along x, y)
       out[cdf[f, j]] = u_f[j] where own[f, j]
   Every fine DoF has exactly one owner, so every entry of out is written
   once: no sum, no memset.
 * restrict (its exact adjoint, before HN^T and the scatter): x a fine DoF
-  vector, out the coarse cell rows [n_c, n^3]:
+  vector, out the coarse cell rows [n_c, n^dim]:
       out[c] = sum over the fine cells f of c (ascending) of
-               E^T-sweeps (z, y, x) of (own[f] * x[cdf[f]])
+               E^T-sweeps (z, y, x; 2-D: y, x) of (own[f] * x[cdf[f]])
   from a CSR list of each coarse cell's children (child_ptr, child). The
   coarse ``distribute_local_to_global`` (cell_laplace's HN^T, dof_scatter)
   follows.
@@ -38,19 +40,15 @@ DEGREES = (1, 2, 3, 4, 5, 6)  # the index engine's
 
 
 def embed_rows(u, E, transpose):
-    """Rows u [m, n^3] (x fastest) through the per-row embedding E [m, 3, n,
-    n]: E[:, 0] along x, then E[:, 1] along y, E[:, 2] along z; transposed:
-    E[:, 2]^T along z, then y, then x (a new tensor)."""
-    n = E.shape[-1]
-    v = u.reshape(-1, n, n, n)  # [m, z, y, x]
-    if not transpose:
-        v = torch.einsum("mij,mzyj->mzyi", E[:, 0], v)
-        v = torch.einsum("mij,mzjx->mzix", E[:, 1], v)
-        v = torch.einsum("mij,mjyx->miyx", E[:, 2], v)
-    else:
-        v = torch.einsum("mji,mjyx->miyx", E[:, 2], v)
-        v = torch.einsum("mji,mzjx->mzix", E[:, 1], v)
-        v = torch.einsum("mji,mzyj->mzyi", E[:, 0], v)
+    """Rows u [m, n^dim] (x fastest) through the per-row embedding E [m, dim,
+    n, n]: E[:, 0] along x, then E[:, 1] along y (then E[:, 2] along z);
+    transposed: the transposes in reverse order (a new tensor)."""
+    m, dim, n = E.shape[0], E.shape[1], E.shape[-1]
+    v = u.reshape(m, *([n] * dim))  # spatial axis t at array axis dim - t
+    for t in (reversed(range(dim)) if transpose else range(dim)):
+        v = torch.movedim(v, dim - t, -1)
+        v = torch.einsum("mji,m...j->m...i" if transpose else "mij,m...j->m...i", E[:, t], v)
+        v = torch.movedim(v, -1, dim - t)
     return v.reshape(u.shape)
 
 
@@ -78,14 +76,14 @@ def cell_transfer_plain(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs,
         0, parent, u)
 
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="prolongate"):
-    """prolongate: x [n_c, n^3] -> new [n_fine_dofs]; restrict: x
-    [n_fine_dofs] -> new [n_c, n^3]. E [n_f, 3, n, n] of x's dtype, cdf
-    int32 [n_f, n^3], own bool [n_f, n^3], cover int32 [n_f], child_ptr int32
-    [n_c+1], child int32 [n_f]."""
+    """prolongate: x [n_c, n^dim] -> new [n_fine_dofs]; restrict: x
+    [n_fine_dofs] -> new [n_c, n^dim]. E [n_f, dim, n, n] of x's dtype (dim
+    2 or 3), cdf int32 [n_f, n^dim], own bool [n_f, n^dim], cover int32
+    [n_f], child_ptr int32 [n_c+1], child int32 [n_f]."""
     args = (x, E, cdf, own, cover, child_ptr, child, n_fine_dofs)
     restrict = _mode(mode) == "restrict"
     if x.device.type == "cpu":
@@ -96,9 +94,10 @@ def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="pr
             own.dtype != torch.bool):
         raise TypeError(f"{NAME}: cdf, cover, child_ptr and child must be int32, own bool")
     n_f, n_loc = cdf.shape
-    n = E.shape[-1]
+    n, dim = E.shape[-1], E.shape[1]
     n_c = child_ptr.numel() - 1
-    if (n - 1 not in DEGREES or n**3 != n_loc or E.shape != (n_f, 3, n, n)
+    if (n - 1 not in DEGREES or dim not in _build.DIMS or n**dim != n_loc
+            or E.shape != (n_f, dim, n, n)
             or own.shape != cdf.shape or cover.shape != (n_f,) or child.shape != (n_f,)
             or x.shape != ((n_fine_dofs,) if restrict else (n_c, n_loc))
             or n_f * n_loc >= 2**31):
@@ -109,7 +108,7 @@ def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="pr
                       device=x.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(x.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, *(_build.ptr(t) for t in args[:7]), _build.ptr(out), n_f, n_c,
-                  n_fine_dofs, n - 1, int(restrict))
+                  n_fine_dofs, n - 1, int(restrict), dim)
     cell_transfer.launches += 1
     return out
 
@@ -121,12 +120,12 @@ def bytes_and_flops(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="
     """Least traffic: x read once, out written once, E and the lists read
     once (own at one bit a slot; cover in prolongate, child_ptr and child in
     restrict), cdf only at the owned slots (one a fine DoF). Operations: the
-    three sweeps of 2 n^4 a fine cell (and an add a slot in restrict)."""
+    dim sweeps of 2 n^(dim+1) a fine cell (and an add a slot in restrict)."""
     n_f, n_loc = cdf.shape
-    n = E.shape[-1]
+    n, dim = E.shape[-1], E.shape[1]
     isz = x.element_size()
     n_c = child_ptr.numel() - 1
     nbytes = (x.numel() + (n_fine_dofs if mode == "prolongate" else n_c * n_loc)
               + E.numel()) * isz + 4 * int(own.sum()) + (own.numel() + 7) // 8
     nbytes += 4 * (n_f if mode == "prolongate" else child_ptr.numel() + child.numel())
-    return nbytes, n_f * (3 * 2 * n**4 + (n_loc if mode == "restrict" else 0))
+    return nbytes, n_f * (dim * 2 * n ** (dim + 1) + (n_loc if mode == "restrict" else 0))

@@ -9,15 +9,16 @@ A DoF that no cell row names (a hanging DoF under the fast map, whose slots
 hold coarse masters) gets 0, so the kernel writes every DoF and needs no
 memset; one owner per DoF sums in a fixed order, so there are no atomics.
 
-With a component axis (rows [3, n_cells, n_loc], component-major, as
-``cell_elasticity`` writes them) dst is [n_dofs, 3], DoF-major: each
+With a component axis (rows [k, n_cells, n_loc], k = 2 or 3,
+component-major, as ``cell_elasticity`` writes them in 2-D and 3-D) dst is
+[n_dofs, k], DoF-major: each
 component summed as a scalar call on rows[c] would sum it, written beside
 the others, so the transpose back to the reference's displacement layout
 rides the scatter.
 
 Replaces the reference's ``distribute_local_to_global(_plain)``
 (matrix_free.py:281-297: ``zeros.at[dofmap].add(rows)``), with a component
-axis the three of elasticity's ``_vmult`` and their stack
+axis the k of elasticity's ``_vmult`` and their stack
 (models/elasticity.py:92-98). CUDA source: ``csrc/dof_scatter.cu``."""
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.
 
 
 def dof_scatter(rows, ptr, ent):
-    """rows [n_cells, n_loc] or [3, n_cells, n_loc]; ptr [n_dofs+1], ent
-    int32 -> new [n_dofs] or [n_dofs, 3]."""
+    """rows [n_cells, n_loc] or [k, n_cells, n_loc] (k = 2, 3); ptr
+    [n_dofs+1], ent int32 -> new [n_dofs] or [n_dofs, k]."""
     if rows.device.type == "cpu":
         return dof_scatter_plain(rows, ptr, ent)
     dev = _build.check_cuda(NAME, rows.dtype, rows=rows, ptr=ptr, ent=ent)
@@ -69,7 +70,7 @@ def dof_scatter(rows, ptr, ent):
         raise TypeError(f"{NAME}: ptr and ent must be int32")
     k = rows.shape[0] if rows.dim() == 3 else 1
     if (ptr.dim() != 1 or ent.dim() != 1 or rows.numel() // k >= 2**31
-            or rows.dim() not in (2, 3) or k not in (1, 3)):
+            or rows.dim() not in (2, 3) or k not in (1, 2, 3)):
         raise ValueError(f"{NAME}: shapes rows {tuple(rows.shape)}, ptr {tuple(ptr.shape)}, "
                          f"ent {tuple(ent.shape)}")
     n = ptr.numel() - 1

@@ -1,11 +1,12 @@
 """Kernel 12, ``hn_interp``: the index engine's hanging-node interpolation on
-cell rows values [m, n_loc], in place on rows the caller owns. Item i of
-codes [n_items] works on row ``rows[i]`` (or ``first + i`` without a row
-list):
+cell rows values [m, n_loc] (n_loc = (p+1)^dim, dim 2 or 3), in place on
+rows the caller owns. Item i of codes [n_items] works on row ``rows[i]`` (or
+``first + i`` without a row list):
 
-* sweeps (Q None): codes[i] is the row's 9-bit mask (0: identity); for t =
-  0, 1, 2 (2, 1, 0 transposed) every masked line along t becomes P_s x (P_s^T
-  x), s the mask's subcell bit along t;
+* sweeps (Q None): codes[i] is the row's mask (0: identity; 3-D: sub bits
+  0-2, faces 3-5, edges 6-8; 2-D: sub bits 0-1, faces 2-3, no edges); for t
+  = 0 .. dim-1 (reversed transposed) every masked line along t becomes P_s x
+  (P_s^T x), s the mask's subcell bit along t;
 * matrix (Q [nQ, n_loc, n_loc], ``hn_composite_matrix``'s convention
   forward(u) = u @ Q): codes[i] is the row's group (-1: identity), and the
   row becomes row @ Q[g] (row @ Q[g]^T transposed).
@@ -52,22 +53,24 @@ def hn_interp_plain(values, codes, P, transpose, rows=None, first=0, Q=None):
     """Plain PyTorch version: the chosen rows read, interpolated
     (``masked_sweeps`` or ``matrix_rows``) and written back. Updates values
     in place and returns it."""
+    dim = _build.lattice_dim(NAME, P.shape[-1], values.shape[-1])
     sel = rows.long() if rows is not None else torch.arange(
         first, first + codes.numel(), device=values.device)
     x = values[sel]
-    values[sel] = (masked_sweeps(x, codes, P, transpose) if Q is None
+    values[sel] = (masked_sweeps(x, codes, P, transpose, dim) if Q is None
                    else matrix_rows(x, codes, Q, transpose))
     return values
 
 
-_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def hn_interp(values, codes, P, transpose, rows=None, first=0, Q=None):
-    """values [m, n_loc] (updated in place and returned); codes int32
-    [n_items]; rows int32 [n_items] or None (then rows first .. first +
-    n_items - 1); P [2, p+1, p+1] and Q [nQ, n_loc, n_loc] (or None) of
-    values' dtype, on values' device."""
+    """values [m, n_loc] (updated in place and returned; n_loc = (p+1)^dim,
+    dim 2 or 3, read from n_loc); codes int32 [n_items]; rows int32
+    [n_items] or None (then rows first .. first + n_items - 1); P [2, p+1,
+    p+1] and Q [nQ, n_loc, n_loc] (or None) of values' dtype, on values'
+    device."""
     if values.device.type == "cpu":
         return hn_interp_plain(values, codes, P, transpose, rows, first, Q)
     tensors = dict(values=values, codes=codes, P=P)
@@ -77,7 +80,8 @@ def hn_interp(values, codes, P, transpose, rows=None, first=0, Q=None):
         tensors["Q"] = Q
     dev = _build.check_cuda(NAME, values.dtype, **tensors)
     n = P.shape[-1]
-    n_loc, n_items = n**3, codes.numel()
+    dim = _build.lattice_dim(NAME, P.shape[-1], values.shape[-1])
+    n_loc, n_items = n**dim, codes.numel()
     if codes.dtype != torch.int32 or (rows is not None and rows.dtype != torch.int32):
         raise TypeError(f"{NAME}: codes and rows must be int32")
     if (n - 1 not in DEGREES or P.shape != (2, n, n) or values.dim() != 2
@@ -93,7 +97,7 @@ def hn_interp(values, codes, P, transpose, rows=None, first=0, Q=None):
                                  codes.data_ptr(), P.data_ptr(),
                                  None if Q is None else Q.data_ptr())
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(values.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, ptrs, n_items, int(first), n - 1, int(bool(transpose)))
+    _build.launch(NAME, fn, dev, ptrs, n_items, int(first), n - 1, int(bool(transpose)), dim)
     hn_interp.launches += 1
     return values
 
@@ -101,25 +105,25 @@ def hn_interp(values, codes, P, transpose, rows=None, first=0, Q=None):
 hn_interp.launches = 0
 
 
-def masked_lines(masks: np.ndarray, p: int) -> np.ndarray:
-    """[len(masks)] the number of lines that the three sweeps replace for
+def masked_lines(masks: np.ndarray, p: int, dim: int = 3) -> np.ndarray:
+    """[len(masks)] the number of lines that the dim sweeps replace for
     each mask (a line along t is masked whole or not at all)."""
-    lat = local_lattice(p, 3)
+    lat = local_lattice(p, dim)
     masks = np.asarray(masks, dtype=np.int64)
     out = np.zeros(len(masks), dtype=np.int64)
     for mv in np.unique(masks):
-        sub = [(mv >> d) & 1 for d in range(3)]
-        face = [(mv >> (3 + d)) & 1 for d in range(3)]
-        edge = [(mv >> (6 + d)) & 1 for d in range(3)]
+        sub = [(mv >> d) & 1 for d in range(dim)]
+        face = [(mv >> (dim + d)) & 1 for d in range(dim)]
+        edge = [(mv >> (2 * dim + d)) & 1 for d in range(dim)] if dim == 3 else [0] * dim
         total = 0
-        for t in range(3):
+        for t in range(dim):
             on = lat[:, t] == 0  # one node per line along t
             mm = np.zeros(len(lat), dtype=bool)
-            for d in range(3):
+            for d in range(dim):
                 if d != t and face[d]:
                     mm |= lat[:, d] == sub[d] * p
             if edge[t]:
-                mm |= np.all([lat[:, a] == sub[a] * p for a in range(3) if a != t], axis=0)
+                mm |= np.all([lat[:, a] == sub[a] * p for a in range(dim) if a != t], axis=0)
             total += int((mm & on).sum())
         out[masks == mv] = total
     return out
@@ -130,11 +134,12 @@ def bytes_and_flops(values, codes, P, transpose, rows=None, first=0, Q=None):
     codes and row list read once, P (or the Q table) read once. Operations:
     2 n^2 a masked line in the sweeps, 2 n_loc^2 a row in the matrix mode."""
     n = P.shape[-1]
-    n_loc, isz = n**3, values.element_size()
+    dim = _build.lattice_dim(NAME, P.shape[-1], values.shape[-1])
+    n_loc, isz = n**dim, values.element_size()
     c = codes.cpu().numpy()
     if Q is None:
         active = int((c != 0).sum())
-        flops = 2 * n * n * int(masked_lines(c, n - 1).sum())
+        flops = 2 * n * n * int(masked_lines(c, n - 1, dim).sum())
         table = P.numel()
     else:
         active = int((c >= 0).sum())

@@ -14,6 +14,12 @@ tables and the kernels' own tables (the transposed DoF maps, the constraint
 tables by destination, the ``matrix`` runner's composite Q's), also built at
 first use.
 
+The engine runs 3-D and 2-D meshes (``dim`` from the triangulation): a 2-D
+cell holds (p+1)^2 values, its mask sub bits 0-1 and face bits 2-3 and no
+edge bits, its Cartesian geo [n_cells, 2] and its deformed metric [n_cells,
+n_q, 3] (xx, xy, yy); each kernel reads the dimension from its rows' width
+(n_loc = (p+1)^dim) and checks geo's whole shape against it.
+
 Execution (the index engine) runs on the device of the tensor it is given,
 with the tables staged there once and cached per device and type (``_on``).
 It never writes its input. On the card every step is a hand-written kernel:
@@ -197,6 +203,15 @@ class MatrixFree:
         fast = np.asarray(t["dofmap"])
         if fast.size and (fast.min() < 0 or fast.max() >= self.n_dofs):
             raise ValueError("dofmap names DoFs outside 0 .. n_dofs-1")
+        geo = np.asarray(t["geo"])
+        n, dim = self.degree + 1, self.dim
+        if geo.shape not in ((self.n_cells, dim), (self.n_cells, n**dim, dim * (dim + 1) // 2)):
+            raise ValueError(f"geo {geo.shape} is neither the Cartesian factors nor the packed "
+                             f"metric of {self.n_cells} dim={dim} cells")
+        masks = np.asarray(t["masks"])
+        mask_bits = 9 if dim == 3 else 4  # sub, face (and in 3-D edge) bits
+        if masks.size and (masks.min() < 0 or masks.max() >= 1 << mask_bits):
+            raise ValueError(f"masks hold bits past a dim={dim} mask's {mask_bits}")
         if self.categorize and np.any(np.diff(np.asarray(t["masks"])) < 0):
             raise ValueError("categorize: the tables' masks are not sorted")
         perm = (np.arange(self.n_cells) if cell_permutation is None
@@ -294,10 +309,10 @@ class MatrixFree:
         return self._device[ck]
 
     def check_input(self, x):
-        """(device, dtype) of an index-engine input; raises for dim != 3 and
-        a type other than float32 or float64."""
-        if self.dim != 3:
-            raise NotImplementedError("the port's index engine supports dim=3")
+        """(device, dtype) of an index-engine input; raises for a dim other
+        than 2 or 3 and a type other than float32 or float64."""
+        if self.dim not in (2, 3):
+            raise NotImplementedError("the port's index engine supports dim=2 and dim=3")
         if x.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"the index engine takes float32 or float64, got {x.dtype}")
         return x.device, x.dtype
@@ -320,9 +335,9 @@ class MatrixFree:
                           device=resolve_device(device))
 
     def hn_interp_args(self, device, dtype) -> dict:
-        """hn_interp's keyword arguments (codes, P, rows, first, Q) for the
-        runner of ``hn_mode``: all (every row, its mask), sorted (the tail
-        from the first constrained row), compact (hn_idx and its masks),
+        """hn_interp's keyword arguments (codes, P, rows, first, Q) for
+        the runner of ``hn_mode``: all (every row, its mask), sorted (the
+        tail from the first constrained row), compact (hn_idx and its masks),
         matrix (hn_idx, each one's group and the Q table)."""
         P = self._on("P", device, dtype)
         if self.hn_mode == "all":
@@ -356,9 +371,9 @@ class MatrixFree:
         return self._on("scatter_plain" if slow else "scatter", device)
 
     def cell_laplace_args(self, device, dtype, slow: bool = False, hn: bool = True):
-        """cell_laplace's arguments after src for the cell loop: the DoF map
-        (plain when slow), the masks (hn and not slow), P, S, Dc, quad_w,
-        geo."""
+        """cell_laplace's positional arguments after src for the cell loop:
+        the DoF map (plain when slow), the masks (hn and not slow), P, S, Dc,
+        quad_w, geo."""
         codes = self._masks(device) if hn and not slow else None
         on = lambda key: self._on(key, device, dtype)
         return (self._dofmap(slow, device), codes, on("P"), on("S"), on("Dc"), on("quad_w"),

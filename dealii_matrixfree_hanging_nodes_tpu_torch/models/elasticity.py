@@ -3,16 +3,16 @@
 
     a(u, v) = int 2 mu eps(u):eps(v) + lam (div u)(div v)
 
-on the AMR mesh with the hanging-node constraints applied per component.
-The displacement is a global vector [n_dofs, 3], one component a column,
-as in the reference. A vmult is two launches: ``cell_elasticity`` (the
-three components read through the DoF map, each interpolated by the cell's
-mask, the coupled operator, the transposed interpolation; component-major
-cell rows [3, n_cells, n_loc]) and ``dof_scatter`` on its component axis
-(the rows summed into [n_dofs, 3]). Without constraints the same fast DoF
-map with no interpolation (the reference's ``read_dof_values_plain``),
-also two. The reference's Cartesian-only and
-cube-only refusals are kept; the port is 3-D only."""
+on the AMR mesh with the hanging-node constraints applied per component,
+in 3-D and 2-D. The displacement is a global vector [n_dofs, dim], one
+component a column, as in the reference. A vmult is two launches:
+``cell_elasticity`` (the dim components read through the DoF map, each
+interpolated by the cell's mask, the coupled operator, the transposed
+interpolation; component-major cell rows [dim, n_cells, n_loc]) and
+``dof_scatter`` on its component axis (the rows summed into [n_dofs,
+dim]). Without constraints the same fast DoF map with no interpolation (the
+reference's ``read_dof_values_plain``), also two. The reference's
+Cartesian-only and cube-only refusals are kept."""
 
 from __future__ import annotations
 
@@ -26,10 +26,11 @@ from ..matrix_free import MatrixFree, TORCH_DTYPES, resolve_device
 __all__ = ["ElasticityOperator", "check_elastic_mesh"]
 
 
-def check_elastic_mesh(mf: MatrixFree, what: str) -> None:
-    """The reference's refusals (models/elasticity.py:24-37), and dim=3."""
-    if mf.dim != 3:
-        raise NotImplementedError(f"{what}: the port's elasticity is 3-D only")
+def check_elastic_mesh(mf: MatrixFree, what: str, dims=(2, 3)) -> None:
+    """The reference's refusals (models/elasticity.py:24-37), and a dim
+    outside dims (the brick engine's elasticity: 3 only)."""
+    if mf.dim not in dims:
+        raise NotImplementedError(f"{what}: the port supports dim in {dims} here")
     if mf.high_order_mapping:
         raise NotImplementedError(f"{what} currently uses the Cartesian mapping")
     geo = np.asarray(mf._np["geo"])
@@ -59,14 +60,14 @@ class ElasticityOperator(nn.Module):
         self.dtype = TORCH_DTYPES[mf.dtype]
 
     def vmult(self, src, plain: bool = False) -> torch.Tensor:
-        """src [n_dofs, 3] (a tensor on the operator's device, or NumPy,
-        moved there in the operator's type) -> a new [n_dofs, 3]."""
+        """src [n_dofs, dim] (a tensor on the operator's device, or NumPy,
+        moved there in the operator's type) -> a new [n_dofs, dim]."""
         mf = self.mf
         if not isinstance(src, torch.Tensor):
             src = torch.as_tensor(np.asarray(src)).to(self.device, self.dtype)
-        if src.device != self.device or src.shape != (mf.n_dofs, 3):
-            raise ValueError(f"expected a [{mf.n_dofs}, 3] displacement on {self.device}, got "
-                             f"{tuple(src.shape)} on {src.device}")
+        if src.device != self.device or src.shape != (mf.n_dofs, mf.dim):
+            raise ValueError(f"expected a [{mf.n_dofs}, {mf.dim}] displacement on {self.device}, "
+                             f"got {tuple(src.shape)} on {src.device}")
         dev, dt = mf.check_input(src)
         src = src.contiguous()
         dofmap, codes, P, S, Dc, quad_w, geo = mf.cell_laplace_args(dev, dt,

@@ -52,7 +52,7 @@ class BrickElasticity(nn.Module):
         self.mu, self.lam = float(mu), float(lam)
         if mf is None:  # from_tables fills the operator in
             return
-        check_elastic_mesh(mf, "BrickElasticity")
+        check_elastic_mesh(mf, "BrickElasticity", dims=(3,))
         # the scalar engine's tables: the per-cell schedule at every degree, no face planes
         self._setup(BrickLaplaceMM(mf, device=device, dtype=dtype, face_planes=False,
                                    assembled=False))
@@ -82,7 +82,7 @@ class BrickElasticity(nn.Module):
         if mm.assembled or mm.planes:
             raise ValueError("elasticity needs the per-cell tables without face planes")
         if mm.mf is not None:
-            check_elastic_mesh(mm.mf, "BrickElasticity")
+            check_elastic_mesh(mm.mf, "BrickElasticity", dims=(3,))
         op = cls(None, mu, lam)
         op.mf = mm.mf
         op._setup(mm)

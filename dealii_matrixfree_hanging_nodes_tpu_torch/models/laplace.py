@@ -5,10 +5,10 @@
 ``laplace_cell_kernel(mf)`` is the per-cell quadrature kernel (u_loc, a) ->
 v_loc: evaluate(gradients) -> submit_gradient(geo * get_gradient) ->
 integrate(gradients), sum-factorized, with the Cartesian factors or the
-deformed metric. Its ``fused`` method, which ``MatrixFree.cell_loop``
-calls, runs the whole loop in the kernels (``cell_laplace``, then
-``dof_scatter``); called on cell rows it runs ``cell_laplace`` on them (the
-DG path). The reference's TPU knob
+deformed metric, in 3-D and 2-D. Its ``fused`` method, which
+``MatrixFree.cell_loop`` calls, runs the whole loop in the kernels
+(``cell_laplace``, then ``dof_scatter``); called on cell rows it runs
+``cell_laplace`` on them (the DG path). The reference's TPU knob
 ``matmul_precision`` is not ported: the port computes in exact float32 or
 float64.
 """
@@ -67,8 +67,6 @@ class LaplaceOperator(nn.Module):
     def __init__(self, mf: MatrixFree, constraints: bool = True, slow: bool = False,
                  device=None):
         super().__init__()
-        if mf.dim != 3:
-            raise NotImplementedError("the port's index engine supports dim=3")
         self.mf = mf
         self.constraints = bool(constraints)
         self.slow = bool(slow)

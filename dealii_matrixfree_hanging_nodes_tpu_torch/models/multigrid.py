@@ -9,10 +9,11 @@ the covering coarse cell's values with per-axis chains of the subface
 matrices P0/P1 (``covering_embedding``), restriction is its exact adjoint;
 both run in the ``cell_transfer`` kernel. The diagonal is probed through the
 engine's cell loop (``operator_diagonal``) or computed on the host
-(``laplace_diagonal_host``). The vector updates of CG and Chebyshev are
-PyTorch elementwise ops; every scalar the reference keeps on the host
-(``lmax``, ``lmin``, the residual test) is a host float here too, so both
-packages smooth with the same polynomial and stop at the same iteration.
+(``laplace_diagonal_host``). Every piece runs in 3-D and 2-D, as the index
+engine does. The vector updates of CG and Chebyshev are PyTorch elementwise
+ops; every scalar the reference keeps on the host (``lmax``, ``lmin``, the
+residual test) is a host float here too, so both packages smooth with the
+same polynomial and stop at the same iteration.
 """
 
 from __future__ import annotations
@@ -236,7 +237,7 @@ class Transfer(nn.Module):
     @classmethod
     def from_tables(cls, mf_coarse: MatrixFree, tables: dict, n_fine_dofs: int, device=None,
                     dtype=torch.float64) -> "Transfer":
-        """A transfer from host tables (NumPy: cover [n_f], E [n_f, 3, n, n],
+        """A transfer from host tables (NumPy: cover [n_f], E [n_f, dim, n, n],
         own [n_f, n_loc] bool, cdf [n_f, n_loc], the reference's ``cover``,
         ``E``, ``own_mask`` and ``cdf``) on the coarse level's engine."""
         tr = cls(mf_coarse)
@@ -244,8 +245,6 @@ class Transfer(nn.Module):
         return tr
 
     def _load(self, t, n_fine_dofs, device, dtype):
-        if self.mfc.dim != 3:
-            raise NotImplementedError("the port's index engine supports dim=3")
         cover = np.asarray(t["cover"], dtype=np.int64)
         n_c = self.mfc.n_cells
         own = np.array(t["own"], dtype=bool)
@@ -324,8 +323,6 @@ class DirichletLaplace(nn.Module):
 
     def __init__(self, mf: MatrixFree, device=None):
         super().__init__()
-        if mf.dim != 3:
-            raise NotImplementedError("the port's index engine supports dim=3")
         self.mf = mf
         self.device = resolve_device(device)
         self.dtype = TORCH_DTYPES[mf.dtype]
@@ -353,8 +350,8 @@ class GMGPreconditioner:
 
     def __init__(self, geometry: str, dim: int, n_refinements: int, degree: int,
                  dtype=np.float64, n_smooth: int = 3, min_level: int = 1, device=None):
-        if dim != 3:
-            raise NotImplementedError("the port's index engine supports dim=3")
+        if dim not in (2, 3):
+            raise NotImplementedError("the port's index engine supports dim=2 and dim=3")
         device = resolve_device(device)
         self.levels = [MatrixFree(create_geometry(geometry, dim, r), degree, dtype=dtype)
                        for r in range(min_level, n_refinements + 1)]

@@ -69,13 +69,13 @@ def _bits(masks: torch.Tensor, shift: int) -> torch.Tensor:
 
 
 def masked_sweeps(values: torch.Tensor, masks: torch.Tensor, P: torch.Tensor,
-                  transpose: bool = False) -> torch.Tensor:
-    """The 3-D sweeps on cell rows, plain PyTorch (a new tensor): values [m,
-    (p+1)^3], masks int [m] (0: identity), P [2, p+1, p+1] of values' dtype.
-    As the reference computes it: per sweep, the per-cell node mask and a
-    batched contraction with P[sub_t] (P^T, on the masked input, when
-    transposed)."""
-    dim = 3
+                  transpose: bool = False, dim: int = 3) -> torch.Tensor:
+    """The sweeps on cell rows, plain PyTorch (a new tensor): values [m,
+    (p+1)^dim], masks int [m] (0: identity), P [2, p+1, p+1] of values'
+    dtype. As the reference computes it: per sweep, the per-cell node mask
+    and a batched contraction with P[sub_t] (P^T, on the masked input, when
+    transposed). A 3-D mask holds sub bits 0-2, face bits 3-5 and edge bits
+    6-8; a 2-D one sub bits 0-1 and face bits 2-3, and no edges."""
     n = P.shape[-1]
     p = n - 1
     m = values.shape[0]
@@ -83,26 +83,28 @@ def masked_sweeps(values: torch.Tensor, masks: torch.Tensor, P: torch.Tensor,
     lat = torch.from_numpy(local_lattice(p, dim)).to(values.device)
     sub = [_bits(masks, d) for d in range(dim)]
     face = [_bits(masks, dim + d) for d in range(dim)]
-    edge = [_bits(masks, 2 * dim + d) for d in range(dim)]
+    edge = [_bits(masks, 2 * dim + d) for d in range(dim)] if dim == 3 else None
 
     def node_mask(t: int) -> torch.Tensor:
         mm = torch.zeros((m, n**dim), dtype=torch.bool, device=values.device)
         for d in range(dim):
             if d != t:
                 mm |= (face[d][:, None] == 1) & (lat[None, :, d] == sub[d][:, None] * p)
-        line = edge[t][:, None] == 1
-        for a in range(dim):
-            if a != t:
-                line = line & (lat[None, :, a] == sub[a][:, None] * p)
-        return (mm | line).reshape(m, n, n, n)
+        if edge is not None:
+            line = edge[t][:, None] == 1
+            for a in range(dim):
+                if a != t:
+                    line = line & (lat[None, :, a] == sub[a][:, None] * p)
+            mm |= line
+        return mm.reshape(m, *([n] * dim))
 
     def batched_sweep(v, M, t):
         ax = v.dim() - 1 - t
         v = torch.movedim(v, ax, -1)
-        v = torch.einsum("mji,mabj->mabi" if transpose else "mij,mabj->mabi", M, v)
+        v = torch.einsum("mji,m...j->m...i" if transpose else "mij,m...j->m...i", M, v)
         return torch.movedim(v, -1, ax)
 
-    v = values.reshape(m, n, n, n)
+    v = values.reshape(m, *([n] * dim))
     for t in (reversed(range(dim)) if transpose else range(dim)):
         Mt = P[sub[t]]  # [m, n, n] per-cell subface matrix
         mk = node_mask(t)
@@ -110,7 +112,7 @@ def masked_sweeps(values: torch.Tensor, masks: torch.Tensor, P: torch.Tensor,
             v = batched_sweep(torch.where(mk, v, 0.0), Mt, t) + torch.where(mk, 0.0, v)
         else:
             v = torch.where(mk, batched_sweep(v, Mt, t), v)
-    return v.reshape(m, -1)
+    return v.reshape(m, n**dim)
 
 
 def apply_hanging_node_constraints(values: torch.Tensor, masks: torch.Tensor, P,
@@ -119,17 +121,20 @@ def apply_hanging_node_constraints(values: torch.Tensor, masks: torch.Tensor, P,
     """Apply (or transpose-apply) the hanging-node interpolation to cell
     rows, returning a new tensor.
 
-    values [m, n_components * (p+1)^dim] (component-major blocks), masks [m]
-    (0 = unconstrained), P [2, p+1, p+1] (ShapeInfo.P; a tensor or an
-    array, taken to values' device and dtype). Each component block gets the
-    cell's mask. A copy of values, then ``hn_interp`` in place on it (every
-    row, its own mask): on a CUDA tensor the kernel, on a CPU tensor its
-    plain version."""
+    values [m, n_components * (p+1)^dim] (component-major blocks; dim 2 or
+    3), masks [m] (0 = unconstrained), P [2, p+1, p+1] (ShapeInfo.P; a
+    tensor or an array, taken to values' device and dtype). Each component
+    block gets the cell's mask. A copy of values, then ``hn_interp`` in place
+    on it (every row, its own mask): on a CUDA tensor the kernel, on a CPU
+    tensor its plain version."""
     from ..kernels import hn_interp
 
-    if dim != 3:
-        raise NotImplementedError("the port's index engine supports dim=3")
-    m = values.shape[0]
+    if dim not in (2, 3):
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
+    m, n = values.shape[0], P.shape[-1]
+    if values.shape[-1] != n_components * n**dim:
+        raise ValueError(f"values {tuple(values.shape)} are no {n_components} blocks of "
+                         f"{n}^{dim} values a cell")
     if n_components > 1:
         out = apply_hanging_node_constraints(
             values.reshape(m * n_components, -1),

@@ -113,43 +113,39 @@ def test_unported_branches_raise():
     assert planes.planes
     with pytest.raises(NotImplementedError, match="face_planes"):
         planes.vmult_multi(torch.zeros(2, planes.n_bricks, planes.N3p, dtype=planes.dtype))
-    # the solvers are 3-D, as both engines are
-    for gmg in (mt.GMGPreconditioner, mt.BrickGMGPreconditioner):
-        with pytest.raises(NotImplementedError):
-            gmg("quadrant", 2, 2, 2, device="cpu")
-    mf2 = mt.MatrixFree(mt.create_quadrant(2, 2), 2)
+    # the brick engine's solver is 3-D, as the brick engine is
     with pytest.raises(NotImplementedError):
-        mt.DirichletLaplace(mf2, device="cpu")
-    # elasticity on both engines: the deformed mapping, non-cube cells and dim=2 raise
+        mt.BrickGMGPreconditioner("quadrant", 2, 2, 2, device="cpu")
+    mf2 = mt.MatrixFree(mt.create_quadrant(2, 2), 2)
+    # elasticity on both engines: the deformed mapping and non-cube cells raise; dim=2 on the
+    # brick engine
     for elastic in (mt.ElasticityOperator, mt.BrickElasticity):
         with pytest.raises(NotImplementedError):
             elastic(mt.MatrixFree(mt.create_quadrant(3, 2), 2, high_order_mapping=True),
                     device="cpu")
-        with pytest.raises(NotImplementedError):
-            elastic(mf2, device="cpu")
         stretched = mt.MatrixFree(mt.create_quadrant(3, 1), 2)
         stretched._np["geo"][:, 0] *= 2.0  # cells twice as long along one axis
         with pytest.raises(NotImplementedError):
             elastic(stretched, device="cpu")
     with pytest.raises(NotImplementedError):
-        mt.Transfer(mt.MatrixFree(mt.create_quadrant(2, 1), 2), mf2, device="cpu")
+        mt.BrickElasticity(mf2, device="cpu")
 
 
-def test_index_engine_raises_for_2d():
-    """The index engine is 3-D only, on every device."""
+def test_brick_engine_raises_for_2d():
+    """The brick engine, its GMG and its elasticity are 3-D only, on every
+    device (the index engine runs 2-D: tests/test_torch_index_2d.py)."""
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
     mf = mt.MatrixFree(mt.create_quadrant(2, 2), 4)
-    with pytest.raises(NotImplementedError):
-        mt.LaplaceOperator(mf, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mf.apply_hanging_node_constraints(torch.zeros(mf.n_cells, 25, dtype=torch.float64), False)
-    with pytest.raises(NotImplementedError):
-        mf.cell_loop(lambda u, a: u, torch.zeros(mf.n_dofs, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        mt.apply_hanging_node_constraints(torch.zeros(3, 25, dtype=torch.float64),
-                                          torch.zeros(3, dtype=torch.int32),
-                                          mf.shape.P, 2)
+    with pytest.raises(NotImplementedError, match="dim=3"):
+        mt.BrickLaplaceMM(mf, device="cpu")
+    with pytest.raises(NotImplementedError, match="dim=3"):
+        mt.BrickGMGPreconditioner("quadrant", 2, 2, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="dim in"):
+        mt.BrickElasticity(mf, device="cpu")
+    # the index engine takes the same mesh
+    assert mt.LaplaceOperator(mf, device="cpu").vmult(
+        torch.zeros(mf.n_dofs, dtype=torch.float64)).shape == (mf.n_dofs,)
 
 
 @pytest.mark.parametrize("mod", KERNEL_MODULES, ids=lambda m: m.NAME)

@@ -1,7 +1,10 @@
 """Each kernel's plain PyTorch version, and each step of the plain fold/HN
 chain, against the JAX package's function on the same inputs (float64,
 CPU, relative tolerance 1e-12), and the host tables that brick_apply,
-cell_apply and dss_surface read (``bricks.kernel_tables``)."""
+cell_apply and dss_surface read (``bricks.kernel_tables``). The tests
+marked ``cuda`` hold the index engine's dim=2 instances against their plain
+versions on the card, where no JAX is installed: ``python -m pytest
+--noconftest tests/test_torch_kernels.py -m cuda``."""
 
 import functools
 
@@ -10,7 +13,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
+try:
+    import jax.numpy as jnp  # noqa: E402
+except ImportError:  # the card's machine has no JAX: only the tests marked cuda run there
+    jnp = None
 
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     KERNEL_MODULES,
@@ -370,3 +376,115 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
     want = plain(*clone(args), **kw)
     assert torch.equal(got, want)
     assert wrapper.launches == before
+
+
+# ---- the index engine's dim=2 instances ------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def index_2d(p, hn_mode="compact", high_order_mapping=False, dtype=np.float64):
+    """The port's 2-D MatrixFree at quadrant nref=3 (the reference's 2-D case)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    return mt.MatrixFree(mt.create_quadrant(2, 3), p, dtype=dtype, hn_mode=hn_mode,
+                         high_order_mapping=high_order_mapping)
+
+
+def index_2d_calls(p, dev, dt, seed):
+    """{name: [(part, args, kw)]}: every 2-D instance at quadrant nref=3 on
+    dev in dt, as the 2-D paths call it: hn_interp by each runner in both
+    directions, cell_laplace fast / slow / constraints=False / deformed,
+    cell_transfer in both modes (nref 2 -> 3), cell_elasticity with and
+    without the interpolation, dof_scatter on its component axis of 2."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models import multigrid as pmg
+
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    mf = index_2d(p, dtype=npdt)
+    md = index_2d(p, high_order_mapping=True, dtype=npdt)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dt)
+    n_loc = (p + 1) ** 2
+    x, rows = rnd(mf.n_dofs), rnd(mf.n_cells, n_loc)
+    calls = {"hn_interp": [], "cell_laplace": [], "cell_transfer": [], "cell_elasticity": [],
+             "dof_scatter": []}
+    for mode in ("compact", "all", "sorted", "matrix"):
+        m = index_2d(p, mode, dtype=npdt)
+        for tr in (False, True):
+            calls["hn_interp"].append((f"{mode} {tr}", (rows.clone(),),
+                                       dict(m.hn_interp_args(dev, dt), transpose=tr)))
+    for part, m, slow, hn in (("fast", mf, False, True), ("slow", mf, True, False),
+                              ("constraints=False", mf, False, False),
+                              ("deformed", md, False, True)):
+        calls["cell_laplace"].append((part, (x, *m.cell_laplace_args(dev, dt, slow, hn)), {}))
+    mc = mt.MatrixFree(mt.create_quadrant(2, 2), p, dtype=npdt)
+    tr = pmg.Transfer(mc, mf, device=dev)
+    calls["cell_transfer"] += [("prolongate", (rnd(mc.n_cells, n_loc), *tr.tables()),
+                                {"mode": "prolongate"}),
+                               ("restrict", (x, *tr.tables()), {"mode": "restrict"})]
+    for hn in (True, False):
+        calls["cell_elasticity"].append((f"hn={hn}", (rnd(mf.n_dofs, 2),
+                                                      *mf.cell_laplace_args(dev, dt, hn=hn),
+                                                      1.3, 0.7), {}))
+    calls["dof_scatter"].append(("k=2", (rnd(2, mf.n_cells, n_loc),
+                                         *mf.scatter_tables(False, dev)), {}))
+    return calls
+
+
+@pytest.mark.parametrize("name", ["hn_interp", "cell_laplace", "cell_transfer",
+                                  "cell_elasticity", "dof_scatter"])
+def test_cpu_tensors_take_the_plain_version_2d(name):
+    """On CPU tensors each 2-D instance's wrapper computes its plain version
+    and launches nothing."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch import kernels
+
+    mod = getattr(kernels, name)
+    wrapper, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    before = wrapper.launches
+    for part, args, kw in index_2d_calls(4, torch.device("cpu"), torch.float64, 7)[name]:
+        clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+        assert torch.equal(wrapper(*clone(args), **kw), plain(*clone(args), **kw)), part
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_hn_interp_plain_takes_no_rows(dim):
+    """hn_interp's plain version with no items (a runner's empty row list)
+    leaves the rows as they are, as the kernel does."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import hn_interp
+
+    p = 3
+    P = torch.from_numpy(np.asarray(__import__(
+        "dealii_matrixfree_hanging_nodes_tpu_torch").shape_info(p).P))
+    rows = T(rng_array(40, 5, (p + 1) ** dim))
+    empty = torch.zeros(0, dtype=torch.int32)
+    for kw in ({}, {"rows": empty}):
+        got = hn_interp.hn_interp_plain(rows.clone(), empty, P, True, **kw)
+        assert torch.equal(got, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6])
+def test_2d_instances_on_card(p, dtype):
+    """Each dim=2 instance of hn_interp (four runners, both directions),
+    cell_laplace (fast, slow, constraints=False, deformed), cell_transfer
+    (both modes), cell_elasticity (with and without the interpolation) and
+    dof_scatter's component axis of 2 against its plain version on the card,
+    at 2-D quadrant nref=3: 1e-5 relative in float32 (sums of up to ~50
+    rounded terms), 1e-12 in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dealii_matrixfree_hanging_nodes_tpu_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for name, parts in index_2d_calls(p, dev, dtype, p).items():
+        mod = getattr(kernels, name)
+        for part, args, kw in parts:
+            clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
+            before = getattr(mod, name).launches
+            got = getattr(mod, name)(*clone(args), **kw)
+            ref = getattr(mod, f"{name}_plain")(*clone(args), **kw)
+            torch.cuda.synchronize()
+            assert getattr(mod, name).launches == before + 1, (name, part)
+            err = float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+            assert err < tol, (name, part, err)
