@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build the 19 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none),
-   brick_apply's shared memory and blocks per SM at each degree, and
+   brick_apply's shared memory and blocks per SM at each degree (3-D and 2-D), and
    brick_deformed's threads, shared memory and blocks per SM at each (p, B);
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists and the subset cell rows by kind,
@@ -179,18 +179,32 @@ Phases (any failure exits non-zero before the last line is printed):
    p=4 f32 (tol 1e-5: iterations, residual, seconds, a V-cycle's launches,
    host time and idle share) and at nref=4 p=2 f64 (tol 1e-10, the CPU
    plain path's iteration count, checked exactly);
-15. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+15. 2-D on the brick engine (``brick2d_phase``) on phase 14's mesh
+   (quadrant nref=11, not rebuilt; p=4 on phase 14's own MatrixFree, 16.8 M
+   DoFs, then p=3, 2, 1 on a new MatrixFree each), float32: at each degree
+   ``degree_phase`` as phase 8 runs it (the setup by step and the sizes:
+   bricks, subset bricks, constrained rows, the dss work lists; every 2-D
+   kernel instance against its plain version, 1e-5, timed with its bound
+   and library call, made as in phases 4 and 8; vmult, vmult_plain and
+   refill against the plain float64 path, 1e-5, launches checked exactly:
+   5/4/2 at p=4, 5/3/2 at p=3, 8/3/3 at p <= 2, two calls bit-identical,
+   timed with GDoF/s, host_ms and the busy and idle share); the HN
+   overhead; the brick vmult over phase 14's index vmult on the same mesh;
+   vmult_multi at k=8 and p=4 (5 launches, each RHS bit-identical to vmult
+   of it); float64 against the scipy oracle at the reference's 2-D cases
+   (1e-12);
+16. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
    deformed brick engine's, one with the 2-D index engine's, one with the
-   kernels' numbers (all 19; the new
+   2-D brick engine's, one with the kernels' numbers (all 19; the new
    instances as parts named by degree;
    masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
    kernels' launches from the solve that runs them; elasticity's calls of
    the existing kernels, the RHS-axis instances, "multi k=8 <kernel>", and
    the deformed modes, "deformed p=4", as parts; brick_deformed's totals
-   from its vmult launch; the 2-D instances as parts named "2-D ..."), then
-   the device line.
+   from its vmult launch; the 2-D instances as parts named "2-D ...", the
+   brick engine's "2-D brick p=<d> ..."), then the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -343,7 +357,11 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     port's kernels of every call and, of the launches outside them that are
     pinned (`copies`, and the kinds that `classes` names), `reps` times the
     pinned number. The first whole session of five is kept, else the one
-    that recorded the most. Fails where no session saw device time, or where
+    that recorded the most; from such a partial session the device's busy,
+    other and idle time are not measured (None: its records, averaged over
+    the calls they hold, have read busy above the wall clock, as the 2-D
+    vmult_multi's kept 22 of 50 launches in all five sessions). Fails where
+    no session saw device time, or where
     the kept one saw any device launch outside the port's kernels other than
     `copies` device-to-device copies a call (the copy that keeps an input
     unwritten). Only where all five sessions recorded every kernel but lost
@@ -426,18 +444,20 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     # issued every copy: the copies count from the host, and busy and idle are not measured
     lost_copy = (classes is None and not whole and calls == reps
                  and n_copies < copies == host_copies / reps)
-    res = dict(wall_ms=wall_ms, busy_ms=None if lost_copy else busy,
-               idle_share=None if lost_copy else 1 - busy / wall_ms,
-               port_kernels_ms=own_ms, other_ms=None if lost_copy else busy - own_ms,
+    res = dict(wall_ms=wall_ms, busy_ms=busy if whole else None,
+               idle_share=1 - busy / wall_ms if whole else None,
+               port_kernels_ms=own_ms, other_ms=busy - own_ms if whole else None,
                calls_recorded=calls, port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
     print(f"profile (per {what}, {calls:g} of {reps} calls recorded): wall {wall_ms:.4f} ms, "
           + (f"device busy and idle not measured (CUPTI kept {n_copies:g} of the {copies} "
              f"device copies a call that the host issued, in all five sessions)"
              if lost_copy else f"device busy {busy:.4f} ms (idle "
-             f"{100 * res['idle_share']:.1f} %)")
+             f"{100 * res['idle_share']:.1f} %)" if whole else
+             "device busy and idle not measured (no whole session of five)")
           + f", port kernels {own_ms:.4f} ms in {res['port_launches']:g} launches, other "
-          f"device work {busy - own_ms:.4f} ms in {res['other_launches']:g} launches")
+          f"device work {'' if whole else 'not measured, '}"
+          f"{f'{busy - own_ms:.4f} ms ' if whole else ''}in {res['other_launches']:g} launches")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
     if classes is not None:
@@ -686,11 +706,11 @@ def dss_matrix(op, dt):
             sel = ok & real[:, c, None, None]
             rows.append(node[sel])
             cols.append(node[:, c: c + 1].expand_as(node)[sel])
-    N3 = NB**3
+    N3 = op.N3
     n = op.n_bricks * op.N3p
     keeps = torch.zeros((op.n_bricks, op.N3p), dtype=torch.bool, device=dev)
     keeps[:, :N3] = True
-    keeps[:, torch.from_numpy(dss_surface.surface_nodes(NB)).to(dev)] = False
+    keeps[:, torch.from_numpy(dss_surface.surface_nodes(NB, op.dim)).to(dev)] = False
     hole = dss_surface.bit_set(hole_bits, ar(len(hole_bricks))[:, None], ar(N3))
     keeps[hole_bricks, :N3] = keeps[hole_bricks, :N3] & ~hole
     own_node = torch.nonzero(keeps.reshape(-1))[:, 0]
@@ -733,8 +753,8 @@ def kernel_calls(op, x, y):
             "fused",
             lambda: brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p, **fused),
             lambda: brick_apply.brick_apply_plain(x, op.Kb, op.Mb, op.geo, op.p, **fused),
-            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz, op.n_sub), None,
-            None,
+            brick_apply.bytes_and_flops(op.n_bricks, op.NB, op.p, op.N3p, isz, op.n_sub),
+            None, None,
         )],
         "cell_apply": [(
             "from_bricks",
@@ -940,23 +960,37 @@ def masked_matrix(op, kind, K, nnz):
     return M
 
 
-def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
+# kernel launches per call of the per-cell schedule (p >= 4): phases 5, 6 and 15
+HIGH_LAUNCHES = {"vmult": {"cell_apply": 1, "hn_cell": 1, "corr_compact": 1, "brick_apply": 1,
+                           "dss_surface": 1},
+                 "vmult_plain": PLAIN_LAUNCHES, "refill": {"hn_cell": 1, "refill_update": 1}}
+
+
+def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None, mf=None, tag=""):
     """One degree of the degree <= 3 schedule at quadrant nref, float32
     through the kernels: the setup and its sizes; every kernel against its
     plain version, timed with its bound and library call; vmult,
     vmult_plain and refill against the plain float64 path (1e-5), with
     their launches counted and checked, their times, the HN overhead
     (vmult over vmult_plain) and their profiles. keep: a dict that receives
-    the float32 operator under its degree (phase 12 reuses it). Returns
-    (numbers, {kernel: [part]})."""
+    the float32 operator under its degree (phase 12 reuses it). Every call
+    is also checked bit-identical over two calls and reported in GDoF/s.
+    Phase 15 runs it on 2-D meshes at every degree (tag "2-D brick ", a
+    prefix of the parts' modes and of the printed lines; p >= 4 runs the
+    per-cell schedule's kernels, as phases 4-6 do), on a MatrixFree mf it
+    was given or builds. Returns (numbers, {kernel: [part]})."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
 
     tol = 1e-5
     t0 = time.perf_counter()
-    mf = mt.MatrixFree(tria, p, dtype=np.float32)
+    if mf is None:
+        mf = mt.MatrixFree(tria, p, dtype=np.float32)
+    t1 = time.perf_counter()
     op = mt.BrickLaplaceMM(mf, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_steps = dict(matrix_free=t1 - t0, **op.setup_s,
+                       device=time.perf_counter() - t1 - sum(op.setup_s.values()))
     n_sel = {k: (0 if op.masked_tables(k) is None else op.masked_tables(k)[2].numel())
              for k in ("rem", "absent")}
     sizes = dict(n_dofs=mf.n_dofs, cells=tria.n_active_cells, bricks=op.n_bricks,
@@ -970,19 +1004,34 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
     if op.planes:
         sizes.update(covered_nodes=op.plane_cov.numel(), fill_entries=op.plane_fill_src.numel(),
                      fold_targets=op.plane_fold_tgt.numel())
-    print(f"setup p={p}: {setup_s:.1f} s (quadrant nref={nref} f32, B={op.B}, NB={op.NB}): "
-          f"{json.dumps(sizes)}", flush=True)
-    check(op.assembled and op.planes == (p <= 2), f"p={p} does not run the degree <= 3 schedule")
+    hole_bits = op.dss_hole_bits.cpu().numpy()
+    sizes.update(dim=op.dim, fill_entries_chain=op.fill_ent_src.numel(),
+                 fold_entries=op.corr_ent_src.numel(), fold_runs=op.corr_seg_dst.numel(),
+                 dss_face_entries=op.dss_face_pairs.shape[0],
+                 dss_edge_pools=op.dss_edge_pools.shape[0],
+                 dss_corner_pools=op.dss_corner_pools.shape[0],
+                 dss_hole_bricks=hole_bits.shape[0],
+                 dss_hole_nodes=int(np.unpackbits(hole_bits.view(np.uint8)).sum()))
+    print(f"{tag}setup p={p}: {setup_s:.1f} s (quadrant nref={nref} f32, B={op.B}, NB={op.NB}), "
+          f"seconds by step {json.dumps(setup_steps)}: {json.dumps(sizes)}", flush=True)
+    check(op.assembled == (p <= 3) and op.planes == (p <= 2),
+          f"{tag}p={p} does not run the reference's schedule at its degree")
     if p <= 2:
-        check(sizes["plane_covered_cells"] > 0, f"p={p}: no plane-covered cell")
+        check(sizes["plane_covered_cells"] > 0, f"{tag}p={p}: no plane-covered cell")
     u = np.random.default_rng(SEED).standard_normal(mf.n_dofs).astype(np.float32)
     x = op.from_dof_vector(u)
     y = op.vmult(x)
-    calls, inter = low_kernel_calls(op, x, y)
-    K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy())).to(dev, x.dtype)
-    lib, hn_steps, nnz = low_yardsticks(op, inter, K)
-    print(f"p={p}: maps composed into one CSR matrix each (the library calls), nonzeros: {nnz}",
-          flush=True)
+    K = torch.from_numpy(kronecker_sum(op.K1.cpu().numpy(), op.M1.cpu().numpy(),
+                                       op.dim)).to(dev, x.dtype)
+    if op.assembled:
+        calls, inter = low_kernel_calls(op, x, y)
+        lib, hn_steps, nnz = low_yardsticks(op, inter, K)
+    else:  # the per-cell schedule, as phases 4-6 run it
+        calls, inter = kernel_calls(op, x, y)
+        lib, hn_steps, nnz = yardsticks(op, inter, K)
+        lib["brick_apply"] = [brick_library(op, x)]
+    print(f"{tag}p={p}: maps composed into one CSR matrix each (the library calls), nonzeros: "
+          f"{nnz}", flush=True)
     parts = {name: measure_parts(name, cparts, lib.get(name, [None] * len(cparts)), hn_steps,
                                  x.dtype, tol)
              for name, cparts in calls.items()}
@@ -991,7 +1040,7 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
 
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
     x64 = x.double()
-    expect = low_launches(op)
+    expect = low_launches(op) if op.assembled else HIGH_LAUNCHES
     res, counts = {}, {}
     refs = {"vmult": lambda: op64.vmult(x64, plain=True),
             "vmult_plain": lambda: op64.vmult_plain(x64, plain=True)}
@@ -1010,21 +1059,24 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
         _, err = errors(got, ref)
         n = {k: c for k, c in n.items() if c}
         counts[call] = n
-        print(f"{call} p={p} f32 vs plain f64 path: max rel err {err:.3e} (tol {tol:g}), "
-              f"launches {n}", flush=True)
-        check(bool(torch.isfinite(out).all()) and out.shape == x.shape, f"{call} p={p} malformed")
-        check(err <= tol, f"{call} p={p} disagrees with the float64 path: {err:.3e}")
-        check(n == expect[call], f"{call} p={p} launched {n}, not {expect[call]}")
+        same = bool(torch.equal(fn(), fn()))
+        print(f"{tag}{call} p={p} f32 vs plain f64 path: max rel err {err:.3e} (tol {tol:g}), "
+              f"launches {n}, two calls bit-identical: {same}", flush=True)
+        check(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+              f"{tag}{call} p={p} malformed")
+        check(err <= tol, f"{tag}{call} p={p} disagrees with the float64 path: {err:.3e}")
+        check(n == expect[call], f"{tag}{call} p={p} launched {n}, not {expect[call]}")
+        check(same, f"two {tag}{call} p={p} calls differ")
         ms = time_ms(fn, reps=20, warmup=3)
         plain_ms = time_ms(lambda: {"vmult": op.vmult, "vmult_plain": op.vmult_plain,
                                     "refill": op.refill}[call](
             x if call != "refill" else outs["vmult"], plain=True), reps=5, warmup=1)
         res[call] = dict(ms=ms, plain_ms=plain_ms, max_rel_err=err, launches=n,
-                         host_ms=host_ms(fn, reps=20),
-                         profile=profile_path(f"{call} p={p}", fn, set(wrappers),
+                         host_ms=host_ms(fn, reps=20), gdofs_per_s=mf.n_dofs / ms / 1e6,
+                         profile=profile_path(f"{tag}{call} p={p}", fn, set(wrappers),
                                               sum(expect[call].values())))
     overhead = res["vmult"]["ms"] / res["vmult_plain"]["ms"]
-    print(f"p={p} nref={nref} f32 on {smi}: vmult {res['vmult']['ms']:.4f} ms "
+    print(f"{tag}p={p} nref={nref} f32 on {smi}: vmult {res['vmult']['ms']:.4f} ms "
           f"({mf.n_dofs / res['vmult']['ms'] / 1e6:.4f} GDoF/s), vmult_plain "
           f"{res['vmult_plain']['ms']:.4f} ms, refill {res['refill']['ms']:.4f} ms; "
           f"HN overhead (vmult / vmult_plain) {overhead:.4f}", flush=True)
@@ -1034,9 +1086,11 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None):
                     and name == "hn_cell" else
                     "vmult_plain" if part["mode"].endswith("absent") else "vmult")
             part["launches"] = counts[call].get(name, 0)
-            part["call"] = call
-    numbers = dict(p=p, nref=nref, B=op.B, setup_s=setup_s, sizes=sizes, hn_overhead=overhead,
-                   **res, card=smi)
+            part["call"] = f"{tag}{call}"
+            mode = part["mode"]
+            part["mode"] = f"{tag}{mode if mode.startswith('p=') else f'p={p} {mode}'}"
+    numbers = dict(p=p, nref=nref, B=op.B, setup_s=setup_s, setup_steps_s=setup_steps,
+                   sizes=sizes, hn_overhead=overhead, **res, card=smi)
     if keep is not None:
         keep[p] = op
     del op, op64, x, x64, y, outs
@@ -1117,8 +1171,9 @@ def counted(wrappers, fn):
 
 def brick_library(op, x):
     """brick_apply's library call: its map is one dense brick operator A
-    [N3, N3] (Mz (x) (My (x) Kx + Ky (x) Mx) + Kz (x) My (x) Mx), the same for
-    every brick, so one torch.mm over the bricks computes it, with geo
+    [N3, N3] (Mz (x) (My (x) Kx + Ky (x) Mx) + Kz (x) My (x) Mx; in 2-D My (x)
+    Kx + Ky (x) Mx), the same for every brick, so one torch.mm over the
+    bricks computes it, with geo
     applied to the input outside the timed call, TF32 off; k right-hand
     sides x [k, n_bricks, N3p] go in as k x n_bricks rows. Returns (call,
     the plain version without cell rows, which the call is held against):
@@ -1127,8 +1182,10 @@ def brick_library(op, x):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     Kb, Mb = op.Kb.double(), op.Mb.double()
-    A = (torch.kron(Mb, torch.kron(Mb, Kb) + torch.kron(Kb, Mb))
-         + torch.kron(Kb, torch.kron(Mb, Mb))).to(x.dtype)
+    A = torch.kron(Mb, Kb) + torch.kron(Kb, Mb)
+    if op.dim == 3:
+        A = torch.kron(Mb, A) + torch.kron(Kb, torch.kron(Mb, Mb))
+    A = A.to(x.dtype)
     xs = (x * op.geo[:, None])[..., : op.N3].reshape(-1, op.N3).contiguous()
     return (lambda: torch.mm(xs, A.T), lambda: brick_apply.brick_apply_plain(
         x, op.Kb, op.Mb, op.geo, op.p)[..., : op.N3].reshape(-1, op.N3))
@@ -2154,9 +2211,11 @@ def multi_run(op, bvk, wrappers, smi, what):
                launches=counts, host_ms=host_ms(lambda: op.vmult_multi(bvk), reps=20),
                profile=profile_path(f"vmult_multi {what}", lambda: op.vmult_multi(bvk),
                                     set(wrappers), MULTI_LAUNCHES), card=smi)
-    res["busy_ms_per_vector"] = res["profile"]["busy_ms"] / k
+    busy = res["profile"]["busy_ms"]
+    res["busy_ms_per_vector"] = None if busy is None else busy / k
     print(f"vmult_multi {what} on {smi}: {ms:.4f} ms a call, {ms / k:.4f} ms a vector "
-          f"(busy {res['busy_ms_per_vector']:.4f}); {k} vmults back to back {stacked:.4f} ms, "
+          f"(busy {'not measured' if busy is None else f'{busy / k:.4f}'}); {k} vmults back "
+          f"to back {stacked:.4f} ms, "
           f"{stacked / k:.4f} a vector; stacked / multi {stacked / ms:.4f}; host issues a call "
           f"in {res['host_ms']:.4f} ms; every RHS bit-identical to its vmult; launches {counts}",
           flush=True)
@@ -2895,7 +2954,7 @@ def index2d_phase(mt, dev, wrappers, smi):
     apply_hanging_node_constraints against the plain float64 path (1e-5),
     launches checked, bit-identical, timed, profiled; the HN overhead;
     float64 against the oracles; the GMG-CG solve. Returns (numbers,
-    {kernel: [part]})."""
+    {kernel: [part]}, the compact engine's MatrixFree, which phase 15 reuses)."""
     tol, f32 = 1e-5, torch.float32
     p = INDEX2D_DEGREE
     setup = {}
@@ -3070,6 +3129,89 @@ def index2d_phase(mt, dev, wrappers, smi):
     numbers = dict(nref=INDEX2D_NREF, degree=p, dtype="float32", setup_s=setup, sizes=sizes,
                    **res, runners=runners, hn_overhead=overhead, f64_oracle=oracle,
                    f64_oracle_s=oracle_s, gmg=gmg, library_nnz=nnz, card=smi)
+    return numbers, parts, mf
+
+
+# 2-D on the brick engine (phase 15): every degree on phase 14's mesh (quadrant
+# nref=INDEX2D_NREF; p=4 on phase 14's own MatrixFree, p <= 3 on a new one each), the multi-RHS
+# vmult at p=4, and float64 against the oracle at the reference's 2-D cases (tests/test_bricks.py:
+# test_brick_mm_2d, the face planes at quadrant nref=5 p=3, uniform nref=3 p=4) and at quadrant
+# nref=4 p=3, 4: (geometry, nref, degree, face_planes)
+BRICK2D_DEGREES = (4, 3, 2, 1)
+BRICK2D_MULTI_K = 8
+BRICK2D_ORACLE = (("quadrant", 3, 2, None), ("step", 3, 1, None), ("uniform", 2, 2, None),
+                  ("quadrant", 3, 5, None), ("quadrant", 2, 6, None), ("quadrant", 5, 3, True),
+                  ("uniform", 3, 4, None), ("quadrant", 4, 3, None), ("quadrant", 4, 4, None))
+
+
+def brick2d_oracle_checks(mt, dev):
+    """float64 through the kernels at BRICK2D_ORACLE: the vmult against the
+    scipy oracle (at the non-hanging DoFs; 1e-12), vmult_plain and refill
+    against their plain paths (1e-12). Returns {case: error}."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    out = {}
+    for geo, nref, p, fp in BRICK2D_ORACLE:
+        tria = mt.create_geometry(geo, 2, nref)
+        mf = mt.MatrixFree(tria, p, dtype=np.float64)
+        op = mt.BrickLaplaceMM(mf, device=dev, face_planes=fp)
+        u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
+        x = op.from_dof_vector(u)
+        y = op.vmult(x)
+        ref = vmult_oracle(tria, p, u)
+        err = float(np.abs(op.to_dof_vector(y, zero_hanging=True).cpu().numpy() - ref).max()
+                    / np.abs(ref).max())
+        key = f"{geo} nref={nref} p={p}" + (" face_planes" if fp else "")
+        plain = {call: errors(getattr(op, call)(z), getattr(op, call)(z, plain=True))[1]
+                 for call, z in (("vmult_plain", x), ("refill", y))}
+        out[key] = dict(vmult=err, **plain)
+        print(f"2-D brick vmult {key} f64 vs scipy oracle: max rel err {err:.3e} (tol 1e-12); "
+              f"vmult_plain, refill vs their plain paths {plain}", flush=True)
+        check(err <= 1e-12, f"2-D float64 brick vmult {key} disagrees with the oracle: {err:.3e}")
+        for call, e in plain.items():
+            check(e <= 1e-12, f"2-D float64 brick {call} {key} disagrees with its plain path")
+    return out
+
+
+def brick2d_phase(mt, mf, index_vmult_ms, dev, wrappers, smi):
+    """2-D on the brick engine at quadrant nref=INDEX2D_NREF float32, on
+    phase 14's mesh: at each degree of BRICK2D_DEGREES (p=4 on phase 14's
+    MatrixFree mf, p <= 3 on a new one each) ``degree_phase`` with the tag
+    "2-D brick ": the setup by step and the sizes; every kernel instance
+    against its plain version (1e-5), timed with its bound and library
+    call; vmult, vmult_plain and refill against the plain float64 path
+    (1e-5), launches checked exactly (p >= 4: 5, 4, 2; p = 3: 5, 3, 2;
+    p <= 2: 8, 3, 3), two calls bit-identical, timed (GDoF/s, host_ms,
+    busy and idle share); the HN overhead; the p=4 brick vmult over the
+    2-D index vmult of phase 14 (index_vmult_ms); vmult_multi at k=8 and
+    p=4 (launches, each RHS bit-identical to vmult of it); float64 against
+    the oracle. Returns (numbers, {kernel: [part]})."""
+    numbers, parts, keep = {}, {}, {}
+    for p in BRICK2D_DEGREES:
+        t0 = time.perf_counter()
+        own = mf if p == mf.degree else None
+        numbers[f"p={p}"], pparts = degree_phase(mt, mf.tria, INDEX2D_NREF, p, dev, wrappers, smi,
+                                                 keep=keep if own is not None else None, mf=own,
+                                                 tag="2-D brick ")
+        numbers[f"p={p}"]["phase_s"] = time.perf_counter() - t0
+        for name, plist in pparts.items():
+            parts.setdefault(name, []).extend(plist)
+        torch.cuda.empty_cache()
+    op = keep.pop(mf.degree)
+    bvk = multi_inputs(op, BRICK2D_MULTI_K, SEED)
+    multi, _ = multi_run(op, bvk, wrappers, smi, f"2-D p={op.p} k={BRICK2D_MULTI_K}")
+    del op, bvk
+    torch.cuda.empty_cache()
+    main = numbers[f"p={mf.degree}"]["vmult"]["ms"]
+    ratio = main / index_vmult_ms
+    print(f"2-D brick engine quadrant nref={INDEX2D_NREF} on {smi}: HN overhead (vmult / "
+          f"vmult_plain) " + ", ".join(f"{k} {v['hn_overhead']:.4f}" for k, v in numbers.items())
+          + f"; the p={mf.degree} brick vmult {main:.4f} ms over the 2-D index vmult "
+          f"{index_vmult_ms:.4f} ms: {ratio:.4f}", flush=True)
+    t0 = time.perf_counter()
+    oracle = brick2d_oracle_checks(mt, dev)
+    numbers.update(multi=multi, brick_over_index=ratio, index_vmult_ms=index_vmult_ms,
+                   f64_oracle=oracle, f64_oracle_s=time.perf_counter() - t0, card=smi)
     return numbers, parts
 
 
@@ -3120,6 +3262,10 @@ def main() -> int:
         for p in sorted(q for _, q in brick_apply.SUPPORTED):
             plans = [brick_apply.plan(dt, p, m, device=dev) for m in (0, 1)]
             print(f"  brick_apply_kernel {dt} p={p}: shared memory bytes, blocks per SM "
+                  f"{plans[0]} without cell rows, {plans[1]} with")
+        for NB, p in sorted(brick_apply.SUPPORTED_2D, key=lambda t: t[1]):
+            plans = [brick_apply.plan(dt, p, m, device=dev, dim=2) for m in (0, 1)]
+            print(f"  brick_apply2_kernel {dt} p={p} NB={NB}: shared memory bytes, blocks per SM "
                   f"{plans[0]} without cell rows, {plans[1]} with")
         for p, B in sorted(brick_deformed.SUPPORTED):
             print(f"  brick_deformed_kernel {dt} p={p} B={B}: threads, shared memory bytes, "
@@ -3437,14 +3583,23 @@ def main() -> int:
 
     # ---- 14. 2-D on the index engine ----------------------------------------------
     t0 = time.perf_counter()
-    index2d, index2d_parts = index2d_phase(mt, dev, wrappers, smi)
+    index2d, index2d_parts, mf2 = index2d_phase(mt, dev, wrappers, smi)
     index2d["phase_s"] = time.perf_counter() - t0
     print(f"2-D index engine phase: {index2d['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
+
+    # ---- 15. 2-D on the brick engine, on phase 14's mesh ---------------------------
+    t0 = time.perf_counter()
+    brick2d, brick2d_parts = brick2d_phase(mt, mf2, index2d["vmult"]["ms"], dev, wrappers, smi)
+    brick2d["phase_s"] = time.perf_counter() - t0
+    print(f"2-D brick engine phase: {brick2d['phase_s']:.1f} s", flush=True)
+    del mf2
+    torch.cuda.empty_cache()
     # existing kernels: their elastic calls, their RHS-axis instances, their deformed
-    # modes and their 2-D instances as parts
+    # modes and their 2-D instances (index and brick engines) as parts
     for name, plist in (list(elastic_parts.items()) + list(multi_parts.items())
-                        + list(deformed_parts.items()) + list(index2d_parts.items())):
+                        + list(deformed_parts.items()) + list(index2d_parts.items())
+                        + list(brick2d_parts.items())):
         results[name]["parts"].extend(plist)
         for part in plist:
             for key in ("max_abs_err", "max_rel_err"):
@@ -3452,7 +3607,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 15. the numbers -----------------------------------------------------
+    # ---- 16. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -3468,6 +3623,7 @@ def main() -> int:
     print(json.dumps({"multi": multi}))
     print(json.dumps({"deformed": deformed}))
     print(json.dumps({"index_2d": index2d}))
+    print(json.dumps({"brick_2d": brick2d}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,10 +5,16 @@ hanging-node fill, pooled cross-brick summation; at degree <= 3 the masked
 removal, at degree <= 2 face planes).
 
 Layout (as in the reference, so vectors compare one to one): cells are
-grouped into Morton-aligned, level-uniform bricks of B^3 cells; a brick
-stores the NB^3 (NB = B*p+1) nodes of its cell block, padded to N3p, as one
-row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained cells
-(the "subset") come first, so every subset access is a leading slice.
+grouped into Morton-aligned, level-uniform bricks of B^dim cells; a brick
+stores the NB^dim (NB = B*p+1) nodes of its cell block, padded to N3p, as
+one row of a [n_bricks, N3p] tensor. Bricks holding holes or constrained
+cells (the "subset") come first, so every subset access is a leading
+slice. In 2-D (dim = 2; the reference's dim branches, B from
+``auto_brick_size(p, 2)``) the operator is Mb⊗Kb + Kb⊗Mb, a brick's
+surface is 4 side lines and 4 corners (no edge pools), the masked removal
+has 4 parity classes and the face planes are side lines; the schedules,
+kernels and launch counts are the 3-D ones. The deformed mapping is 3-D
+only here (it raises for dim=2).
 
 vmult = on the subset: cell_apply (cells read from the bricks, times K by
         sum factorization of its 1-D factors K1, M1), hn_cell (the
@@ -183,8 +189,8 @@ class BrickStructure:
     (bricks.py:1149-1166); the reference's GMG levels pass False."""
 
     def __init__(self, mf: MatrixFree, face_planes: bool | None = None):
-        if mf.dim != 3:
-            raise NotImplementedError("the port's brick engine supports dim=3")
+        if mf.dim not in (2, 3):
+            raise NotImplementedError("the port's brick engine supports dim=2 and dim=3")
         self.mf = mf
         self.B = B = auto_brick_size(mf.degree, mf.dim)
         self.p = p = mf.degree
@@ -300,7 +306,7 @@ class BrickStructure:
             has = ((face_b >> d) & 1) == 1
             side = ((sub_b >> d) & 1) * p
             closure |= has[:, None] & (lat[None, :, d] == side[:, None])
-        for e in range(3):
+        for e in range(dim if dim == 3 else 0):  # edges are 3-D only
             a, b = [x for x in range(3) if x != e]
             has = ((edge_b >> e) & 1) == 1
             sa = ((sub_b >> a) & 1) * p
@@ -383,9 +389,9 @@ class BrickStructure:
         lvlb, bcb = self.brick_level, self.brick_coord
         dim = self.dim
 
-        # FACE pools carry the face interiors (1..NB-2)^2, EDGE pools the
-        # edge interiors, CORNER pools the 8 corners: each node in exactly
-        # one pool class
+        # FACE pools carry the face interiors (1..NB-2)^(dim-1), EDGE pools
+        # the edge interiors (3-D), CORNER pools the 2^dim corners: each node
+        # in exactly one pool class
         keys = []
         for d in range(dim):
             for side in (0, 1):
@@ -395,22 +401,27 @@ class BrickStructure:
         self.face_pool_id = inv.reshape(2 * dim, nb).T.copy()  # [nb, 2*dim]
         self.n_face_pools = len(uk)
 
-        edge_keys = []
-        for e in range(3):
-            a, b = [x for x in range(3) if x != e]
-            for sa in (0, 1):
-                for sb in (0, 1):
-                    c = bcb.copy()
-                    c[:, a] += sa
-                    c[:, b] += sb
-                    k = ((lvlb << np.int64(50)) | (np.int64(e) << np.int64(48))
-                         | (c[:, 0] << np.int64(32)) | (c[:, 1] << np.int64(16))
-                         | c[:, 2])
-                    edge_keys.append(k)
-        ek = np.concatenate(edge_keys)
-        uek, einv = np.unique(ek, return_inverse=True)
-        self.edge_pool_id = einv.reshape(12, nb).T.copy()  # [nb, 12]
-        self.n_edge_pools = len(uek)
+        # EDGE pools: brick-edge lines shared by up to 4 bricks, 3-D only
+        if dim == 3:
+            edge_keys = []
+            for e in range(3):
+                a, b = [x for x in range(3) if x != e]
+                for sa in (0, 1):
+                    for sb in (0, 1):
+                        c = bcb.copy()
+                        c[:, a] += sa
+                        c[:, b] += sb
+                        k = ((lvlb << np.int64(50)) | (np.int64(e) << np.int64(48))
+                             | (c[:, 0] << np.int64(32)) | (c[:, 1] << np.int64(16))
+                             | c[:, 2])
+                        edge_keys.append(k)
+            ek = np.concatenate(edge_keys)
+            uek, einv = np.unique(ek, return_inverse=True)
+            self.edge_pool_id = einv.reshape(12, nb).T.copy()  # [nb, 12]
+            self.n_edge_pools = len(uek)
+        else:
+            self.edge_pool_id = np.zeros((nb, 0), dtype=np.int64)
+            self.n_edge_pools = 0
 
         ck = []
         for combo in range(2**dim):
@@ -452,8 +463,8 @@ class BrickStructure:
         axis d, side s, coarse plane c_pl, tangential quarter offsets), in
         sorted key order; each holds its (fine, coarse) brick pairs and a
         cover mask [pairs, NB, NB] over the fine face (axes: the higher
-        tangential axis, then the lower), made disjoint across groups per
-        fine brick node. plane_P1 [NB, Nh] interpolates a fine face line
+        tangential axis, then the lower; [pairs, NB] over a 2-D brick's side
+        line), made disjoint across groups per fine brick node. plane_P1 [NB, Nh] interpolates a fine face line
         from the covering coarse cells' nodes (Nh = (NB-1)/2 + 1)."""
         mf, tria = self.mf, self.mf.tria
         dim, p, B, NB = self.dim, self.p, self.B, self.NB
@@ -499,11 +510,11 @@ class BrickStructure:
             lv, d, s, c_pl = key[:4]
             pairs = props[key]
             tang = [t for t in range(dim) if t != d]
-            cover = np.zeros((len(pairs), NB, NB))
+            cover = np.zeros((len(pairs),) + (NB,) * (dim - 1))
             for pi, cells in enumerate(pairs.values()):
                 for c in cells:
-                    hi, lo = (int(coord[c, t]) & (B - 1) for t in reversed(tang))
-                    cover[pi, hi * p: hi * p + p + 1, lo * p: lo * p + p + 1] = 1.0
+                    lcs = (int(coord[c, t]) & (B - 1) for t in reversed(tang))
+                    cover[(pi,) + tuple(slice(q * p, q * p + p + 1) for q in lcs)] = 1.0
             self.plane_groups.append(dict(
                 level=lv, d=d, s=s, c_pl=c_pl, offs=key[4:],
                 fine=np.array([f for f, _ in pairs], dtype=np.int64),
@@ -512,14 +523,15 @@ class BrickStructure:
         claimed = {}
         for g in self.plane_groups:
             d, s = g["d"], g["s"]
-            t_hi, t_lo = sorted((t for t in range(dim) if t != d), reverse=True)
-            hi, lo = np.meshgrid(np.arange(NB), np.arange(NB), indexing="ij")
-            plane_idx = ((NB - 1 if s else 0) * NB**d + hi * NB**t_hi + lo * NB**t_lo).ravel()
+            tang = sorted((t for t in range(dim) if t != d), reverse=True)
+            grids = np.meshgrid(*[np.arange(NB)] * (dim - 1), indexing="ij")
+            plane_idx = ((NB - 1 if s else 0) * NB**d
+                         + sum(gr * NB**t for gr, t in zip(grids, tang))).ravel()
             for pi, f in enumerate(g["fine"]):
                 cl = claimed.setdefault(int(f), np.zeros(NB**dim, dtype=bool))
                 eff = (g["cover"][pi].ravel() > 0) & ~cl[plane_idx]
                 cl[plane_idx[eff]] = True
-                g["cover"][pi] = eff.reshape(NB, NB).astype(np.float64)
+                g["cover"][pi] = eff.reshape(g["cover"][pi].shape).astype(np.float64)
         # interpolation from the covering coarse cell's nodal basis
         nodes1 = shape_info(p).nodes
         Nh = (NB - 1) // 2 + 1
@@ -719,7 +731,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     w = si.quad_w
     M1 = np.einsum("q,qi,qj->ij", w, si.S, si.S)
     K1 = np.einsum("q,qi,qj->ij", w, si.D, si.D)
-    K = kronecker_sum(K1, M1)
+    K = kronecker_sum(K1, M1, dim)
 
     # per-slot node indices within a brick (the one-hot E as an index map)
     lat = local_lattice(p, dim)
@@ -729,7 +741,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     for sl in range(C):
         slot_idx[sl] = sum(int(slot_lat[sl, d]) * p * NB**d for d in range(dim)) + node_off
 
-    # 1-D assembled brick factors: A_brick = sum_d prod_t (Kb if t==d else Mb)
+    # 1-D assembled brick factors: A_brick = sum_d prod_t (Kb if t==d else Mb), t < dim
     Kb = np.zeros((NB, NB))
     Mb = np.zeros((NB, NB))
     for c in range(B):
@@ -737,7 +749,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
         Kb[csl, csl] += K1
         Mb[csl, csl] += M1
 
-    surf_idx = surface_nodes(NB)  # the one-hot Es as an index map
+    surf_idx = surface_nodes(NB, dim)  # the one-hot Es as an index map
     n_surf = len(surf_idx)
 
     # the subset is the leading slice of bricks (BrickStructure's order), so
@@ -772,7 +784,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     if deformed and (assembled or bs.plane_groups):
         raise NotImplementedError("the deformed mapping runs the per-cell schedule: no "
                                   "assembled removal, no face planes (as the reference)")
-    meta = dict(B=B, p=p, NB=NB, N3=N3, N3p=N3p, n_sub=n_sub,
+    meta = dict(B=B, p=p, dim=dim, NB=NB, N3=N3, N3p=N3p, n_sub=n_sub,
                 n_chainb=bs.n_chain_bricks, deformed=deformed,
                 assembled=(p <= 3 and not deformed) if assembled is None else assembled,
                 hn_bounds=[],
@@ -1007,10 +1019,10 @@ def _runs(row_ptr, ent_slot, ent_src, n_loc):
                 ent_src=np.asarray(ent_src, dtype=np.int32), blocks=blocks)
 
 
-def _refill_tables(refill_pos, slot_idx, invden_X, node_valid):
+def _refill_tables(refill_pos, slot_idx, invden_X, node_valid, dim=3):
     """refill_update's tables: the nodes the fill writes (refill_pos >= 0),
     ascending; for each, the cells of a brick that hold it as slot << 16 | j
-    in ascending slot order, -1 padded to 8; the coverage divisor at each
+    in ascending slot order (at most 2^dim), -1 padded to 8; the coverage divisor at each
     written node, [n_sub, n_w]; node_valid at one bit a node. Checked as
     built: every (slot, j) whose node is written is listed once, under that
     node."""
@@ -1022,8 +1034,8 @@ def _refill_tables(refill_pos, slot_idx, invden_X, node_valid):
     held = np.nonzero(w_of >= 0)[0]
     w = w_of[held]
     counts = np.bincount(w, minlength=len(nodes))
-    if len(nodes) and (counts.min() < 1 or counts.max() > refill_update.MAX_HOLDERS):
-        raise ValueError("refill: a written node is held by no cell or by more than 8")
+    if len(nodes) and (counts.min() < 1 or counts.max() > 2**dim):
+        raise ValueError(f"refill: a written node is held by no cell or by more than {2**dim}")
     order = np.argsort(w, kind="stable")  # by node; slots stay ascending within
     rank = np.arange(len(held)) - np.repeat(np.cumsum(counts) - counts, counts)
     holders = np.full((len(nodes), refill_update.MAX_HOLDERS), -1, dtype=np.int64)
@@ -1073,28 +1085,33 @@ def _corr_lists(arrays, meta, hn_dst, keep, cell_code, nF, nR):
     return _gather_lists(kept @ A + N, nR // n_loc, n_loc, "corr")
 
 
-def kronecker_sum(K1, M1):
+def kronecker_sum(K1, M1, dim=3):
     """K1⊗M1⊗M1 + M1⊗K1⊗M1 + M1⊗M1⊗K1 on x-fastest local nodes (the
-    axis-d term has K1 on axis d, operator_tables' K)."""
+    axis-d term has K1 on axis d, operator_tables' K); in 2-D
+    K1⊗M1 + M1⊗K1."""
     K = 0.0
-    for d in range(3):
-        f = [K1 if t == d else M1 for t in range(3)]
-        K = K + np.kron(np.kron(f[2], f[1]), f[0])
+    for d in range(dim):
+        f = [K1 if t == d else M1 for t in range(dim)]
+        A = f[dim - 1]
+        for t in range(dim - 2, -1, -1):
+            A = np.kron(A, f[t])
+        K = K + A
     return K
 
 
-def _cell_factors(Kb, Mb, K, p):
+def _cell_factors(Kb, Mb, K, p, dim):
     """The cell's 1-D stiffness and mass K1, M1 [p+1, p+1] from the brick
     factors Kb, Mb [NB, NB]: the first cell block, whose [p, p] entry also
     holds the next cell's [0, 0], takes [p, p] from the last cell's corner.
-    Raises unless their Kronecker sum is the dense K to 1e-13."""
+    Raises unless their Kronecker sum in dim dimensions is the dense K
+    [(p+1)^dim, (p+1)^dim] to 1e-13."""
     n, L = p + 1, Kb.shape[0] - 1
     fac = {}
     for name, A in (("K1", Kb), ("M1", Mb)):
         f = np.array(A[:n, :n], dtype=np.float64)
         f[p, p] = A[L, L]
         fac[name] = f
-    err = np.abs(kronecker_sum(fac["K1"], fac["M1"]) - K).max()
+    err = np.abs(kronecker_sum(fac["K1"], fac["M1"], dim) - K).max()
     if not err <= 1e-13 * np.abs(K).max():
         raise ValueError(f"the Kronecker sum of K1 and M1 is not K (max error {err:.3e})")
     return fac
@@ -1143,39 +1160,45 @@ def _pool_lists(contrib, n_copies, what):
     return lists
 
 
-def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB):
+def _dss_work_lists(face_other, edge_contrib, corner_contrib, node_valid, NB, dim=3):
     """The dss_surface kernel's tables: face pairs (a lone face has -1 as
-    its partner), edge pools and corner pools, each a list of flat copies
-    in pool-canonical order; the validity of every surface copy at one bit
-    per surface position (``surface_nodes`` order); and the invalid nodes
-    off the surface, as the bricks that hold any with one bit per brick node
-    (fewer bytes than a list of node indices: holes come a few thousand to
-    a hole brick). The padding N3..N3p is zeroed without a table. Checked
-    as built: every surface copy of every brick lies in exactly one pool
-    entry."""
+    its partner), edge pools (3-D; none in 2-D) and corner pools, each a
+    list of flat copies in pool-canonical order; the validity of every
+    surface copy at one bit per surface position (``surface_nodes`` order);
+    and the invalid nodes off the surface, as the bricks that hold any with
+    one bit per brick node (fewer bytes than a list of node indices: holes
+    come a few thousand to a hole brick). The padding N3..N3p is zeroed
+    without a table. A brick has 2 dim faces, 12 edges in 3-D and 2^dim
+    corners, N3 = NB^dim nodes. Checked as built: every surface copy of
+    every brick lies in exactly one pool entry."""
     nb, N3p = node_valid.shape
-    N3 = NB**3
+    N3 = NB**dim
+    nf, ne, nc = 2 * dim, (12 if dim == 3 else 0), 2**dim
     if nb * N3p > np.iinfo(np.int32).max:
         raise NotImplementedError("brick nodes exceed int32")
     if node_valid[:, N3:].any():
         raise ValueError("dss: a padding node is marked valid")
-    r = np.arange(nb * 6)
+    r = np.arange(nb * nf)
     fo = np.asarray(face_other, dtype=np.int64)
-    other = fo[:, 0].copy() if fo.shape[1] else np.full(nb * 6, nb * 6)
-    other[other >= nb * 6] = -1
+    other = fo[:, 0].copy() if fo.shape[1] else np.full(nb * nf, nb * nf)
+    other[other >= nb * nf] = -1
     paired = other >= 0
     if (other[other[paired]] != r[paired]).any() or (
-            (other[paired] % 6) != ((r[paired] % 6) ^ 1)).any():
+            (other[paired] % nf) != ((r[paired] % nf) ^ 1)).any():
         raise ValueError("dss: face partners must be mutual, on opposite sides of one axis")
     first = ~paired | (r < other)
     face_pairs = np.stack([r[first], other[first]], axis=1)
+    edge_contrib = np.asarray(edge_contrib)
+    if ne == 0 and edge_contrib.shape[0]:
+        raise ValueError("dss: a 2-D brick has no edge pools")
     lists = {"face": face_pairs,
-             "edge": _pool_lists(edge_contrib, nb * 12, "edge"),
-             "corner": _pool_lists(corner_contrib, nb * 8, "corner")}
-    if not np.array_equal(np.bincount(face_pairs[face_pairs >= 0], minlength=nb * 6),
-                          np.ones(nb * 6, dtype=np.int64)):
+             "edge": (_pool_lists(edge_contrib, nb * ne, "edge") if ne
+                      else np.zeros((0, 1), dtype=np.int64)),
+             "corner": _pool_lists(corner_contrib, nb * nc, "corner")}
+    if not np.array_equal(np.bincount(face_pairs[face_pairs >= 0], minlength=nb * nf),
+                          np.ones(nb * nf, dtype=np.int64)):
         raise ValueError("dss: a face copy lies in no pair or in two")
-    surf = surface_nodes(NB)
+    surf = surface_nodes(NB, dim)
     hole = ~node_valid[:, :N3]
     hole[:, surf] = False
     hole_bricks = np.nonzero(hole.any(axis=1))[0]
@@ -1201,24 +1224,27 @@ def _quadrature_check(arrays, K1, M1, p):
             raise ValueError(f"the block quadrature does not integrate {name}")
 
 
-def _masked_lists(qmask, geo, B):
-    """masked_quad's tables from a cell selector qmask [n_sub, B^3] (the
+def _masked_lists(qmask, geo, B, dim=3):
+    """masked_quad's tables from a cell selector qmask [n_sub, B^dim] (the
     brick's geo on the selected cells, 0 elsewhere): the bricks that hold a
-    selected cell, and for each its selected slots in 8 parity classes
-    (class = x%2 + 2 (y%2) + 4 (z%2) of the cell's place in the brick: no
+    selected cell, and for each its selected slots in 2^dim parity classes
+    (class = x%2 + 2 (y%2) [+ 4 (z%2)] of the cell's place in the brick: no
     two cells of a class share a node), class by class, ascending within;
-    ptr [n_blk, 9] gives each class's range. Raises unless every selected
-    value is its brick's geo."""
+    ptr [n_blk, 2^dim + 1] gives each class's range. Raises unless every
+    selected value is its brick's geo."""
     qm = np.asarray(qmask, dtype=np.float64)
+    if qm.shape[1] != B**dim:
+        raise ValueError(f"masked removal: qmask {qm.shape} is not [n_sub, {B}^{dim}]")
     b, s = np.nonzero(qm)
     if not np.array_equal(qm[b, s], np.asarray(geo, dtype=np.float64)[b]):
         raise ValueError("masked removal: a selected cell's weight is not its brick's geo")
-    color = s % 2 + 2 * ((s // B) % 2) + 4 * ((s // (B * B)) % 2)
+    ncls = 2**dim
+    color = sum(((s // B**a) % 2) << a for a in range(dim))
     order = np.lexsort((s, color, b))
     b, s, color = b[order], s[order], color[order]
     bricks = np.unique(b)
-    key = np.searchsorted(bricks, b) * 8 + color
-    ptr = np.searchsorted(key, np.arange(len(bricks))[:, None] * 8 + np.arange(9))
+    key = np.searchsorted(bricks, b) * ncls + color
+    ptr = np.searchsorted(key, np.arange(len(bricks))[:, None] * ncls + np.arange(ncls + 1))
     return dict(brick=bricks.astype(np.int32), ptr=ptr.astype(np.int32),
                 slot=s.astype(np.int32))
 
@@ -1226,7 +1252,7 @@ def _masked_lists(qmask, geo, B):
 def _plane_tables(arrays, meta, n_bricks):
     """plane_fill's and plane_fold's tables: the face-plane fill of every
     level (fine covered node <- P1 (coarse quarter face) P1^T, bricks.py:
-    3044-3102) composed on the host into one linear map from the nodes no
+    3044-3102; in 2-D P1 (coarse half side line)) composed on the host into one linear map from the nodes no
     level writes, so that the levels need no order on the card. The fill
     writes the covered nodes ``plane_cov`` (flat brick*N3p + node,
     ascending; ``plane_cov_ptr`` [nb+1] by brick), each the sum over its
@@ -1234,16 +1260,24 @@ def _plane_tables(arrays, meta, n_bricks):
     3167) is its transpose: each target node (fold_tgt, never covered) adds
     its entries over the covered nodes (fold_ptr, fold_src flat, fold_w) in
     ascending order, then the covered nodes are zeroed."""
-    NB, N3p = int(meta["NB"]), int(meta["N3p"])
+    NB, N3p, dim = int(meta["NB"]), int(meta["N3p"]), int(meta["dim"])
     W = np.asarray(arrays["plane_W"], dtype=np.int64)
     P1 = np.asarray(arrays["plane_P1"], dtype=np.float64)
     Half = (NB - 1) // 2
     rows, cols, vals = [], [], []
     for i, m in enumerate(meta["plane_meta"]):
         d, s, c_pl, offs = m["d"], m["s"], m["c_pl"], m["offs"]
-        t_hi, t_lo = sorted((t for t in range(3) if t != d), reverse=True)
         fine = W[np.asarray(arrays[f"plane{i}_fine"], dtype=np.int64)]
         coarse = W[np.asarray(arrays[f"plane{i}_coarse"], dtype=np.int64)]
+        if dim == 2:  # a side line: fine node i <- P1[i, I] coarse node offs*Half + I
+            (t,) = (t for t in range(2) if t != d)
+            pi, ii = np.nonzero(np.asarray(arrays[f"plane{i}_cover"]) > 0)
+            k, I = np.nonzero(P1[ii])
+            rows.append(fine[pi[k]] * N3p + (NB - 1 if s else 0) * NB**d + ii[k] * NB**t)
+            cols.append(coarse[pi[k]] * N3p + c_pl * NB**d + (offs[0] * Half + I) * NB**t)
+            vals.append(P1[ii[k], I])
+            continue
+        t_hi, t_lo = sorted((t for t in range(3) if t != d), reverse=True)
         pi, ii, jj = np.nonzero(np.asarray(arrays[f"plane{i}_cover"]) > 0)
         wt = P1[ii][:, :, None] * P1[jj][:, None, :]
         k, I, J = np.nonzero(wt)
@@ -1336,16 +1370,19 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     validity only as the dss and refill bit tables), these lists, and no
     dense K, T or Q (``kronecker_sum(K1, M1)`` builds K where a check needs
     it)."""
-    C = int(meta["B"]) ** 3
-    n_loc = (int(meta["p"]) + 1) ** 3
+    dim = int(meta["dim"])
+    if dim == 2 and meta.get("deformed"):
+        raise NotImplementedError("the deformed brick engine in dim=2 is not ported yet")
+    C = int(meta["B"]) ** dim
+    n_loc = (int(meta["p"]) + 1) ** dim
     N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
     i32 = lambda x: np.asarray(x).astype(np.int32)
     out = {k: np.asarray(arrays[k]) for k in ("Kb", "Mb", "geo", "geo_cell_sub")}
     node_valid = np.asarray(arrays["node_valid"])  # on the card only as bit tables
-    out.update(_cell_factors(out["Kb"], out["Mb"], np.asarray(arrays["K"]), int(meta["p"])))
+    out.update(_cell_factors(out["Kb"], out["Mb"], np.asarray(arrays["K"]), int(meta["p"]), dim))
     out.update(_brick_factors(out["Kb"], out["Mb"], int(meta["p"])))
     out.update(_dss_work_lists(arrays["face_other"], arrays["edge_contrib"],
-                               arrays["corner_contrib"], node_valid, int(meta["NB"])))
+                               arrays["corner_contrib"], node_valid, int(meta["NB"]), dim))
     hn_sub = np.asarray(arrays["hn_sub"], dtype=np.int64)
     absent = np.asarray(arrays["absent_sub"], dtype=np.int64)
     n_hn, n_rows = len(hn_sub), n_sub * C
@@ -1369,7 +1406,7 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
         for kind in ("rem", "absent"):
             if f"qmask_{kind}" in arrays:
                 out.update({f"mq_{kind}_{k}": v for k, v in _masked_lists(
-                    arrays[f"qmask_{kind}"], out["geo"], int(meta["B"])).items()})
+                    arrays[f"qmask_{kind}"], out["geo"], int(meta["B"]), dim).items()})
         if meta.get("plane_meta"):
             out.update(_plane_tables(arrays, meta, len(out["geo"])))
     elif n_sub and not meta.get("deformed"):
@@ -1417,14 +1454,7 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
         if qi is not None:
             hn_q[s:e] = qi
     out["hn_q"] = hn_q
-    Qs = np.asarray(arrays["hn_Q"], dtype=np.float64)
-    for name, mats in (("fwd", Qs.transpose(0, 2, 1)), ("bwd", Qs)):
-        # row j of mats[q] lists the weights of output slot j
-        q, j, i = np.nonzero(mats)
-        ptr = np.searchsorted(q * n_loc + j, np.arange(len(Qs) * n_loc + 1))
-        out.update({f"hn_{name}_ptr": i32(ptr[np.arange(len(Qs))[:, None] * n_loc
-                                              + np.arange(n_loc + 1)]),
-                    f"hn_{name}_col": i32(i), f"hn_{name}_w": mats[q, j, i]})
+    out.update(q_lists(arrays["hn_Q"]))
 
     # ---- refill: the fill's written nodes, their holders and divisors
     node_of_pos = np.asarray(arrays["node_of_pos"], dtype=np.int64)
@@ -1433,7 +1463,24 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
         raise ValueError("refill positions do not match their brick nodes")
     refill_pos = np.full(N3p, -1, dtype=np.int64)
     refill_pos[node_of_pos[efx_pos]] = efx_pos
-    out.update(_refill_tables(refill_pos, slot_idx, arrays["fill_invden_X"], node_valid))
+    out.update(_refill_tables(refill_pos, slot_idx, arrays["fill_invden_X"], node_valid, dim))
+    return out
+
+
+def q_lists(Qs) -> dict:
+    """hn_cell's lists of composite Q's [nQ, n_loc, n_loc]: the nonzeros of
+    each by output slot for u @ Q (``hn_fwd_*``) and u @ Q^T (``hn_bwd_*``):
+    ptr [nQ, n_loc+1] into col and w."""
+    Qs = np.asarray(Qs, dtype=np.float64)
+    n_loc = Qs.shape[-1]
+    out = {}
+    for name, mats in (("fwd", Qs.transpose(0, 2, 1)), ("bwd", Qs)):
+        # row j of mats[q] lists the weights of output slot j
+        q, j, i = np.nonzero(mats)
+        ptr = np.searchsorted(q * n_loc + j, np.arange(len(Qs) * n_loc + 1))
+        out.update({f"hn_{name}_ptr": ptr[np.arange(len(Qs))[:, None] * n_loc
+                                          + np.arange(n_loc + 1)].astype(np.int32),
+                    f"hn_{name}_col": i.astype(np.int32), f"hn_{name}_w": mats[q, j, i]})
     return out
 
 
@@ -1510,7 +1557,7 @@ def dense_corr(arrays, meta, plain, sub_raw):
 # ===========================================================================
 class BrickLaplaceMM(nn.Module):
     """Constrained Cartesian Laplace vmult on [n_bricks, N3p] brick vectors
-    (dim = 3, every degree), the port of the reference's ``BrickLaplaceMM``
+    (dim = 2 or 3, every degree), the port of the reference's ``BrickLaplaceMM``
     at its defaults. Tables are registered buffers on ``device``;
     floating tables are built in float64 on the host and cast to ``dtype``.
 
@@ -1541,8 +1588,11 @@ class BrickLaplaceMM(nn.Module):
         self.bs = None
         if mf is None:  # from_tables fills the tables in
             return
-        if mf.dim != 3:
-            raise NotImplementedError("the port's brick engine supports dim=3")
+        if mf.dim not in (2, 3):
+            raise NotImplementedError("the port's brick engine supports dim=2 and dim=3")
+        if mf.dim == 2 and mf.high_order_mapping:
+            raise NotImplementedError("the deformed brick engine (high_order_mapping) in dim=2 "
+                                      "is not ported yet")
         if mf.high_order_mapping:
             if face_planes or assembled:
                 raise NotImplementedError("a deformed mapping runs the per-cell schedule: no "
@@ -1595,10 +1645,10 @@ class BrickLaplaceMM(nn.Module):
         floating ones cast to dtype, index ones as built (int32); brick_apply's
         packed factors stay on the host."""
         self._meta = meta
-        for k in ("B", "p", "NB", "N3", "N3p", "n_sub", "n_chainb"):
+        for k in ("B", "p", "dim", "NB", "N3", "N3p", "n_sub", "n_chainb"):
             setattr(self, k, int(meta[k]))
-        self.C = self.B**3
-        self.n_loc = (self.p + 1) ** 3
+        self.C = self.B**self.dim
+        self.n_loc = (self.p + 1) ** self.dim
         self.n_bricks = int(arrays["geo"].shape[0])
         self.assembled = bool(meta["assembled"])
         self.planes = bool(meta["plane_meta"])

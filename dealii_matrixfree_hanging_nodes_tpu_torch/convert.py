@@ -71,12 +71,10 @@ def reference_tables(np_arrays: dict, meta: dict):
     if not meta["_sub_contig"]:
         raise NotImplementedError("the port needs the subset-first brick order")
     slot_idx = np.asarray(meta["slot_idx"], dtype=np.int64)
-    C, n_loc = slot_idx.shape
-    B = round(C ** (1.0 / 3.0))
-    p = round(n_loc ** (1.0 / 3.0)) - 1
+    B, p, dim = _brick_shape(slot_idx, int(meta["N3"]))
     NB = B * p + 1
-    if B**3 != C or (p + 1) ** 3 != n_loc or NB**3 != meta["N3"]:
-        raise ValueError("slot_idx does not describe a 3-D brick")
+    if dim == 2 and meta.get("_deformed", False):
+        raise NotImplementedError("the deformed brick engine in dim=2 is not ported yet")
     f64 = lambda x: np.asarray(x, dtype=np.float64)
     i64 = lambda x: np.asarray(x, dtype=np.int64)
     surf_idx = _one_hot_rows(a["Es"])
@@ -88,7 +86,7 @@ def reference_tables(np_arrays: dict, meta: dict):
         corner_contrib=a["corner_contrib"], node_valid=np.asarray(a["node_valid"], bool),
     )
     fm = meta["_flat_meta"]
-    m = dict(B=B, p=p, NB=NB, N3=meta["N3"], N3p=meta["N3p"], n_sub=meta["_n_sub"],
+    m = dict(B=B, p=p, dim=dim, NB=NB, N3=meta["N3"], N3p=meta["N3p"], n_sub=meta["_n_sub"],
              n_chainb=meta["_n_chainb"], assembled=bool(meta["_use_masked_removal"]),
              plane_meta=[dict(mm, offs=tuple(mm["offs"])) for mm in meta["_plane_meta"]],
              plane_levels=list(meta.get("_plane_levels", [])),
@@ -150,6 +148,29 @@ def reference_tables(np_arrays: dict, meta: dict):
         fill_invden_X=f64(a["fill_invden_X"]),
     )
     return out, m
+
+
+def _brick_shape(slot_idx, N3):
+    """(B, p, dim) of the bricks whose per-slot node index is slot_idx
+    [B^dim, (p+1)^dim] (cell slots and local nodes x fastest, NB = B p + 1)
+    with N3 = NB^dim nodes a brick: the one dim in (2, 3) whose B and p
+    rebuild slot_idx exactly; raises where none or both do."""
+    C, n_loc = slot_idx.shape
+    found = []
+    for dim in (2, 3):
+        B, n = round(C ** (1.0 / dim)), round(n_loc ** (1.0 / dim))
+        p, NB = n - 1, B * (n - 1) + 1
+        if B**dim != C or n**dim != n_loc or p < 1 or NB**dim != N3:
+            continue
+        cell = lambda i, w: [(i // w**a) % w for a in range(dim)]
+        node = sum((np.asarray(cell(np.arange(C), B))[a][:, None] * p
+                    + np.asarray(cell(np.arange(n_loc), n))[a][None, :]) * NB**a
+                   for a in range(dim))
+        if np.array_equal(node, slot_idx):
+            found.append((B, p, dim))
+    if len(found) != 1:
+        raise ValueError(f"slot_idx {slot_idx.shape} with N3={N3} describes no 2-D or 3-D brick")
+    return found[0]
 
 
 def _cell_metric(a, B, p, n_sub):

@@ -72,6 +72,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <utility>
 
 namespace {
 
@@ -285,6 +286,184 @@ brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ>
   }
 }
 
+// ---- 2-D: v_b = geo_b (My (x) Kx + Ky (x) Mx) u_b on NB^2-node bricks (node (y, x) at y*NB + x),
+// with the overlap-add of the first m bricks' cell rows dcols [m*B^2, (p+1)^2] in the epilogue.
+// A brick has only NB lines an axis (17..49), so a block takes G bricks (about 256 lines, as
+// many as its shared memory holds: G = 15, 7, 6, 5 in f32 at NB = 17, 33, 41, 49), one line a
+// thread:
+//   x round, line (g, y), contiguous: a = Mb u, b = Kb u   (the line in registers, written back)
+//   y round, line (g, x), stride NB:  v = geo (Mb b + Kb a) [+ the cell rows' 1-4 entries]
+// The block's bricks come in with 16-byte cp.async copies, all in flight at once. The y round
+// reads a and b from shared memory as it sums (no line in registers, so f64 at NB=49 does not
+// spill) and stores straight to device memory, a warp's lanes on neighbouring x; the cell rows
+// are read from device memory in the epilogue (1-4 values a node, in the order of the 3-D
+// epilogue: y cells outer, then x). The rows and each row's band are written out at compile time
+// (each_row, band): left to `#pragma unroll`, the 33 x 33 loop with its band conditions stayed
+// rolled (in its SASS at NB=33: 536 LDC factor loads, 443 ISETP, 169 branches, 528 FFMA; 0.5624
+// ms at 2-D quadrant nref=11 p=4 f32, 12x the bound); written out, 772 FFMA, each factor entry
+// an operand (471 ULDC), no LDC.
+// Bound on an H100 SXM at 2-D quadrant nref=11, p=4, f32 (16,646 bricks, NB=33, N3p=1152, 517
+//   bricks with cell rows): memory, u's NB^2 nodes read once, v written with its padding, the
+//   cell rows: 152.6 MB, 0.0455 ms at 3.35 TB/s (0.867 GFLOP, 0.013 ms at 67 TFLOP/s).
+// Compile-time expansion of the 2-D rounds: fn(integral_constant<I>) for each row I < NB, and
+// term(e, j) for each structural nonzero j = lo(I) .. hi(I) of row I, e its place in the packed
+// factor (both as integral constants). Written out by parameter packs, not left to `#pragma unroll` (which leaves a 33 x 33
+// loop with conditions rolled: factor loads by LDC and the band decided at run time).
+template <int... I, typename Fn>
+__device__ __forceinline__ void each_row_seq(Fn&& fn, std::integer_sequence<int, I...>) {
+  (fn(std::integral_constant<int, I>{}), ...);
+}
+template <int NB, typename Fn>
+__device__ __forceinline__ void each_row(Fn&& fn) {
+  each_row_seq(fn, std::make_integer_sequence<int, NB>{});
+}
+template <int NB, int P, int I, int... J, typename Fn>
+__device__ __forceinline__ void band_seq(Fn&& term, std::integer_sequence<int, J...>) {
+  (term(std::integral_constant<int, row_offset<NB, P>(I) + J>{},
+        std::integral_constant<int, lo<NB, P>(I) + J>{}), ...);
+}
+template <int NB, int P, int I, typename Fn>
+__device__ __forceinline__ void band(Fn&& term) {
+  band_seq<NB, P, I>(term, std::make_integer_sequence<int, hi<NB, P>(I) - lo<NB, P>(I) + 1>{});
+}
+
+template <typename T, int NB, int P>
+struct Cfg2 {
+  static constexpr int B = (NB - 1) / P;
+  static constexpr int N2 = NB * NB;
+  static constexpr int N2R = (N2 + 3) / 4 * 4;  // a brick buffer, 16-byte aligned
+  static constexpr int NL = (P + 1) * (P + 1);
+  static constexpr int DC = B * B * NL;           // a brick's cell rows
+  static constexpr int NNZ = row_offset<NB, P>(NB);
+  static constexpr int BYTES = 2 * N2R * static_cast<int>(sizeof(T));  // shared memory a brick
+  static constexpr int G0 = 256 / NB;
+  static constexpr int G = G0 * BYTES <= 96 * 1024 ? G0 : (96 * 1024 / BYTES > 0 ? 96 * 1024 / BYTES : 1);
+  static constexpr int THREADS = (G * NB + 31) / 32 * 32;
+  static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
+};
+
+template <typename T, int NB, int P>
+__global__ void __launch_bounds__(Cfg2<T, NB, P>::THREADS)
+brick_apply2_kernel(const T* __restrict__ u, const Factors<T, Cfg2<T, NB, P>::NNZ> f,
+                    const T* __restrict__ geo, const T* __restrict__ dcols, T* __restrict__ v,
+                    int nb, int m, int N3p, long long u_stride, int vec_u) {
+  using S = Cfg2<T, NB, P>;
+  constexpr int N2 = S::N2, G = S::G, N = P + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s0 = reinterpret_cast<T*>(smem_raw);  // [G][N2R] the bricks, then a
+  T* const s1 = s0 + G * S::N2R;                 // [G][N2R] b
+
+  const size_t rhs = blockIdx.y;
+  const int b0 = blockIdx.x * G;
+  const int nbk = min(G, nb - b0);  // bricks of this block
+  const T* const ub = u + rhs * u_stride;
+  // the block's bricks, all in flight at once (16-byte cp.async copies; a brick's last word
+  // reads up to 3 values of its padding, N2R <= N3p)
+  for (int g = 0; g < nbk; ++g)
+    stage(s0 + g * S::N2R, ub + static_cast<size_t>(b0 + g) * N3p, N2, vec_u);
+  cp_async_commit();
+  T* const vr = v + rhs * static_cast<size_t>(nb) * N3p;
+  for (int g = 0; g < nbk; ++g) {  // the padding
+    T* const vp = vr + static_cast<size_t>(b0 + g) * N3p;
+    for (int i = N2 + threadIdx.x; i < N3p; i += S::THREADS) vp[i] = T(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int l = threadIdx.x, g = l / NB, c = l - g * NB;
+  const bool active = g < nbk;
+  // x round: line (g, y = c), contiguous; the line in registers, a and b written back over it
+  if (active) {
+    T* const row0 = s0 + g * S::N2R + c * NB;
+    T* const row1 = s1 + g * S::N2R + c * NB;
+    T r[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) r[j] = row0[j];
+    each_row<NB>([&](auto ic) {
+      constexpr int i = decltype(ic)::value;
+      T a = T(0), b = T(0);
+      band<NB, P, i>([&](auto e, auto j) {
+        a += f.M[decltype(e)::value] * r[decltype(j)::value];
+        b += f.K[decltype(e)::value] * r[decltype(j)::value];
+      });
+      row0[i] = a;
+      row1[i] = b;
+    });
+  }
+  __syncthreads();
+  // y round: line (g, x = c), stride NB, straight to device memory
+  if (active) {
+    const int brick = b0 + g;
+    const T* const a = s0 + g * S::N2R + c;
+    const T* const b = s1 + g * S::N2R + c;
+    const T gb = geo[brick];
+    const bool rows = brick < m;
+    int ox[2] = {0, 0};
+    const int nx = axis_terms<NB, P>(c, S::NL, 1, ox);
+    const T* const db = dcols + (rhs * m + brick) * S::DC;
+    T* const vb = vr + static_cast<size_t>(brick) * N3p + c;
+    each_row<NB>([&](auto ic) {
+      constexpr int i = decltype(ic)::value;
+      T acc = T(0);
+      band<NB, P, i>([&](auto e, auto j) {
+        constexpr int o = decltype(j)::value * NB;
+        acc += f.M[decltype(e)::value] * b[o];  // one FMA a term
+        acc += f.K[decltype(e)::value] * a[o];
+      });
+      T out = gb * acc;
+      if (rows) {
+        int oy[2] = {0, 0};
+        const int ny = axis_terms<NB, P>(i, S::B * S::NL, N, oy);
+        T corr = T(0);
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (p < ny && q < nx) corr += __ldg(db + oy[p] + ox[q]);
+        out += corr;
+      }
+      vb[i * NB] = out;
+    });
+  }
+}
+
+template <typename T, int NB, int P>
+int launch2(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
+            void* v, int nb, int m, int N3p, int k, long long u_stride, int* info,
+            cudaStream_t stream) {
+  using S = Cfg2<T, NB, P>;
+  const int smem = S::G * S::BYTES;
+  auto kernel = brick_apply2_kernel<T, NB, P>;
+  static unsigned long long smem_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(smem_set & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set |= bit;
+  }
+  if (info) {  // a dry run: report shared memory and blocks per SM, launch nothing
+    info[0] = smem;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel, S::THREADS, smem));
+  }
+  Factors<T, S::NNZ> f;
+  std::memcpy(f.K, Kp, sizeof(f.K));
+  std::memcpy(f.M, Mp, sizeof(f.M));
+  // 16-byte copies need 16-byte rows; a brick's whole words must stay inside its row
+  const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0 &&
+                    (u_stride * sizeof(T)) % 16 == 0 && S::N2R <= N3p;
+  const int blocks = (nb + S::G - 1) / S::G;
+  if (blocks > 0 && k > 0) {
+    kernel<<<dim3(blocks, k), S::THREADS, smem, stream>>>(
+        static_cast<const T*>(u), f, static_cast<const T*>(geo), static_cast<const T*>(dcols),
+        static_cast<T*>(v), nb, m, N3p, u_stride, vec_u);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Raise the kernel's dynamic shared-memory limit to its largest launch (with cell rows),
 // once per device and instantiation: no attribute call on the launches after the first.
 template <typename T, int NB, int P>
@@ -336,7 +515,19 @@ int launch(const void* u, const void* Kp, const void* Mp, const void* geo, const
 template <typename T>
 int dispatch(const void* u, const void* Kp, const void* Mp, const void* geo, const void* dcols,
              void* v, int nb, int m, int NB, int p, int N3p, int k, long long u_stride, int* info,
-             cudaStream_t stream) {
+             int dim, cudaStream_t stream) {
+  // 2-D: B = 16 at p = 1..3, B = 8 at p = 4..6
+#define BRICK_CASE2(nb_, p_) \
+  if (dim == 2 && NB == nb_ && p == p_) \
+    return launch2<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, k, u_stride, info, stream);
+  BRICK_CASE2(17, 1)
+  BRICK_CASE2(33, 2)
+  BRICK_CASE2(49, 3)
+  BRICK_CASE2(33, 4)
+  BRICK_CASE2(41, 5)
+  BRICK_CASE2(49, 6)
+#undef BRICK_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define BRICK_CASE(nb_, p_) \
   if (NB == nb_ && p == p_) \
     return launch<T, nb_, p_>(u, Kp, Mp, geo, dcols, v, nb, m, N3p, k, u_stride, info, stream);
@@ -360,17 +551,18 @@ extern "C" {
 // k right-hand sides, u_stride values apart in u (n_bricks * N3p apart in v, m * B^3 cell rows
 // apart in dcols).
 // info: null to launch; else [shared-memory bytes, blocks per SM] of the launch, not launched.
+// dim: 3 (NB^3-node bricks) or 2 (NB^2-node bricks, cell rows of (p+1)^2 values).
 int brick_apply_f32(const void* u, const void* Kp, const void* Mp, const void* geo,
                     const void* dcols, void* v, int nb, int m, int NB, int p, int N3p, int k,
-                    long long u_stride, int* info, void* stream) {
-  return dispatch<float>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info,
+                    long long u_stride, int* info, int dim, void* stream) {
+  return dispatch<float>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
 int brick_apply_f64(const void* u, const void* Kp, const void* Mp, const void* geo,
                     const void* dcols, void* v, int nb, int m, int NB, int p, int N3p, int k,
-                    long long u_stride, int* info, void* stream) {
-  return dispatch<double>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info,
+                    long long u_stride, int* info, int dim, void* stream) {
+  return dispatch<double>(u, Kp, Mp, geo, dcols, v, nb, m, NB, p, N3p, k, u_stride, info, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

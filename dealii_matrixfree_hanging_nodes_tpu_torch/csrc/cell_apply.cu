@@ -38,6 +38,11 @@
 //   barriers. p and B are template parameters, so every loop unrolls and the index arithmetic
 //   is shifts and multiplies. Absent cells are computed like any other (corr_compact
 //   overwrites them). The shared-memory limit is raised once per device, not on every launch.
+//   2-D (cell_apply2_kernel; p = 4..6 at B = 8, 64 cells a brick): one block per brick, all 64
+//   cells at once (64 n lines a sweep: 320, 384, 448 threads), the brick (NB^2 values) staged,
+//   the x sweep into two scratch buffers, the y sweep (sweep_y2) straight to out: 2 barriers.
+//   Bound at 2-D quadrant nref=11, p=4, f32 (517 subset bricks, 33,088 rows): memory, 5.8 MB,
+//   0.0017 ms; the launch is a few microseconds of fixed cost.
 //   Resources (ptxas, sm_90a, CUDA 12.8; no spills, no stack in any instantiation):
 //   f32 p=4: 32 registers, 416 threads, 35.7 KB of shared memory (4 blocks an SM); f64 p=4:
 //   44 registers, 71.3 KB; f64 p=6: 48 registers, 416 threads, 61.5 KB (above 48 KB as
@@ -141,6 +146,76 @@ int launch(const void* src, const void* K1, const void* M1, const void* scale, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- 2-D: a brick of NB^2 nodes holds C = B^2 cells of n^2 values, K = My (x) K1x + K1y (x) Mx.
+// One block per brick, all its cells in one group: the brick staged in shared memory, the x
+// sweep (line (g, y) read from the staged brick) into two scratch buffers, the y sweep (line
+// (g, x)) straight to out.
+template <int P, int B>
+struct Cfg2 {
+  static constexpr int N = P + 1;
+  static constexpr int NL = N * N;
+  static constexpr int C = B * B;                  // cells a brick, all in one group
+  static constexpr int NB = B * P + 1;
+  static constexpr int THREADS = (C * N + 31) / 32 * 32;  // one line a thread
+  static constexpr int SCR = sf::round4(C * NL);
+};
+
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(Cfg2<P, B>::THREADS)
+cell_apply2_kernel(const T* __restrict__ src, const Factors<T, P + 1> f,
+                   const T* __restrict__ scale, T* __restrict__ out, int rows, int N3p,
+                   long long src_stride, int vec_ok) {
+  using S = Cfg2<P, B>;
+  constexpr int N = S::N, NL = S::NL, C = S::C, NB = S::NB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sa = reinterpret_cast<T*>(smem_raw);
+  T* sb = sa + S::SCR;
+  T* sbrick = sb + S::SCR;
+
+  const size_t rhs = blockIdx.y;
+  out += rhs * rows * NL;
+  const T* ub = src + rhs * src_stride + static_cast<size_t>(blockIdx.x) * N3p;
+  sf::copy_block(sbrick, ub, NB * NB, vec_ok && (reinterpret_cast<uintptr_t>(ub) % 16 == 0));
+  const int row0 = blockIdx.x * C;
+  const int l = threadIdx.x, g = l / N;
+  const bool active = l < C * N;
+  const T s = active ? scale[row0 + g] : T(0);
+  __syncthreads();
+  // x sweep: line (g, y) of cell slot g, read from the staged brick
+  if (active) {
+    const int y = l - g * N, sx = g % B, sy = g / B;
+    T r[N];
+    sf::load_line<T, N, 1>(sbrick + (sy * P + y) * NB + sx * P, r);
+    sf::sweep_x(f, r, sa, sb, l);
+  }
+  __syncthreads();
+  // y sweep: line (g, x), the scaled results straight to out
+  if (active) sf::sweep_y2(f, sa, sb, l, s, out + static_cast<size_t>(row0 + g) * NL + (l - g * N));
+}
+
+template <typename T, int P, int B>
+int launch2(const void* src, const void* K1, const void* M1, const void* scale, void* out,
+            int rows, int N3p, int k, long long src_stride, cudaStream_t stream) {
+  using S = Cfg2<P, B>;
+  const int smem = static_cast<int>((2 * S::SCR + sf::round4(S::NB * S::NB)) * sizeof(T));
+  auto kernel = cell_apply2_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Factors<T, P + 1> f;
+  std::memcpy(f.K, K1, sizeof(f.K));
+  std::memcpy(f.M, M1, sizeof(f.M));
+  const int vec_ok = (N3p * sizeof(T)) % 16 == 0;
+  const int blocks = rows / S::C;
+  if (blocks > 0 && k > 0) {
+    kernel<<<dim3(blocks, k), S::THREADS, smem, stream>>>(static_cast<const T*>(src), f,
+                                                          static_cast<const T*>(scale),
+                                                          static_cast<T*>(out), rows, N3p,
+                                                          src_stride, vec_ok);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The deformed mode: every cell row of the bricks through the quadrature with its own metric
 template <typename T, int P, int B>
 __global__ void __launch_bounds__(hn::Cfg<P>::THREADS)
@@ -223,10 +298,20 @@ int dispatch_deformed(const void* src, const void* geo, const void* S, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8
+// (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8; in 2-D B = 8 at
+// p = 4..6
 template <typename T>
 int dispatch(const void* src, const void* K1, const void* M1, const void* scale, void* out,
-             int rows, int p, int B, int N3p, int k, long long src_stride, cudaStream_t stream) {
+             int rows, int p, int B, int N3p, int k, long long src_stride, int dim,
+             cudaStream_t stream) {
+#define CELL_CASE2(p_, b_) \
+  if (dim == 2 && p == p_ && B == b_) \
+    return launch2<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, k, src_stride, stream);
+  CELL_CASE2(4, 8)
+  CELL_CASE2(5, 8)
+  CELL_CASE2(6, 8)
+#undef CELL_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define CELL_CASE(p_, b_) \
   if (p == p_ && B == b_) \
     return launch<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, k, src_stride, stream);
@@ -244,18 +329,18 @@ int dispatch(const void* src, const void* K1, const void* M1, const void* scale,
 extern "C" {
 
 // rows: the cell rows of one RHS; k right-hand sides, src_stride values apart in src (rows * n_loc
-// apart in out)
+// apart in out); dim: 2 or 3, the bricks' dimension
 int cell_apply_f32(const void* src, const void* K1, const void* M1, const void* scale,
                    void* out, int rows, int p, int B, int N3p, int k, long long src_stride,
-                   void* stream) {
-  return dispatch<float>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride,
+                   int dim, void* stream) {
+  return dispatch<float>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
 int cell_apply_f64(const void* src, const void* K1, const void* M1, const void* scale,
                    void* out, int rows, int p, int B, int N3p, int k, long long src_stride,
-                   void* stream) {
-  return dispatch<double>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride,
+                   int dim, void* stream) {
+  return dispatch<double>(src, K1, M1, scale, out, rows, p, B, N3p, k, src_stride, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

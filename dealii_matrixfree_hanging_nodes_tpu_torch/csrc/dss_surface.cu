@@ -48,6 +48,11 @@
 //     edges:   16 lanes per edge pool, a lane per edge node;
 //     padding: a warp per brick zeroes N3..N3p.
 //   NB is a template parameter (11, 13, 15, 17), so the loops over a face unroll.
+//   2-D (dss_surface2_kernel, NB = 17, 33, 41, 49): side lines of NB-2 nodes, a thread per node
+//   of a side entry, corner pools of up to 4 copies, no edges; the same roles otherwise. Bound
+//   at 2-D quadrant nref=11, p=4, f32 (16,646 bricks, 33,820 side entries, 17,184 corner
+//   pools): memory, 22.7 MB in words, 0.0068 ms; an x-side's nodes lie NB apart, one a 32-byte
+//   sector, as the 3-D x-faces' do.
 //   Positions come from the table entry (brick and face, edge or corner, decoded once per
 //   copy) and the loop counters; interior nodes are never read, node_valid bytes never.
 //   Resources (ptxas, sm_90a, CUDA 12.8): 64 registers in f32 at NB=17 (4 blocks of 256
@@ -203,11 +208,12 @@ __device__ __forceinline__ void edges(T* __restrict__ v, const Tables& t, int bl
   pool_sum(v, t.valid_bits, pos, vb, cnt, j * step, j);
 }
 
-template <typename T, int NB>
+// the padding N3..N3p of each brick, N3 = NB^3 (NB^2 in 2-D)
+template <typename T, int N3>
 __device__ __forceinline__ void padding(T* __restrict__ v, const Tables& t, int blk) {
   const int b = blk * PAD_PER_BLOCK + (threadIdx.x >> 5);
   if (b >= t.nb) return;
-  for (int k = NB * NB * NB + (threadIdx.x & 31); k < t.N3p; k += 32) v[b * t.N3p + k] = T(0);
+  for (int k = N3 + (threadIdx.x & 31); k < t.N3p; k += 32) v[b * t.N3p + k] = T(0);
 }
 
 template <typename T, int NB, bool MULTI>
@@ -221,7 +227,89 @@ __global__ void __launch_bounds__(THREADS) dss_surface_kernel(T* __restrict__ v,
   if (blk < t.face_blocks) return faces<T, NB>(v, t, blk);
   blk -= t.face_blocks;
   if (blk < t.edge_blocks) return edges<T, NB>(v, t, blk);
-  padding<T, NB>(v, t, blk - t.edge_blocks);
+  padding<T, NB * NB * NB>(v, t, blk - t.edge_blocks);
+}
+
+// ---- 2-D: a brick of NB^2 nodes (node (y, x) at y*NB + x) has 4 side lines, f = 2d + side
+// (d = 0: the x-sides, x = side*L, y = i+1; d = 1: the y-sides, y = side*L, x = i+1; surface
+// positions f*M + i) and 4 corners (bit d of c set where the corner sits at L on axis d; position
+// 4M + c), no edges. Roles by block range as in 3-D: holes (a block per hole brick), corners (a
+// thread per corner pool of up to 4 copies), sides (a thread per node of a side entry: a lone
+// side zeroed where invalid, a pair summed), padding (a warp per brick).
+template <typename T, int NB>
+__device__ __forceinline__ void holes2(T* __restrict__ v, const Tables& t, int h) {
+  T* __restrict__ vb = v + t.hole_bricks[h] * t.N3p;
+  const unsigned* __restrict__ w = t.hole_bits + h * t.hole_words;
+  for (int k = threadIdx.x; k < NB * NB; k += THREADS)
+    if (bit(w, k)) vb[k] = T(0);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void corners2(T* __restrict__ v, const Tables& t, int blk) {
+  constexpr int L = NB - 1, M = NB - 2;
+  const int e = blk * THREADS + threadIdx.x;
+  if (e >= t.n_corner) return;
+  const int* list = t.corner_pools + e * t.corner_w;
+  int pos[MAXC], vb[MAXC], cnt = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int r = c < t.corner_w ? list[c] : -1;
+    if (r < 0) continue;
+    const int b = r >> 2, k = r & 3;
+    pos[c] = b * t.N3p + ((k & 1) + ((k >> 1) & 1) * NB) * L;
+    vb[c] = b * 32 * t.valid_words + 4 * M + k;
+    cnt = c + 1;
+  }
+  pool_sum(v, t.valid_bits, pos, vb, cnt, 0, 0);
+}
+
+template <typename T, int NB>
+__device__ __forceinline__ void sides2(T* __restrict__ v, const Tables& t, int blk) {
+  constexpr int L = NB - 1, M = NB - 2;
+  const int q = blk * THREADS + threadIdx.x, e = q / M, i = q - e * M;
+  if (e >= t.n_face) return;
+  const int r0 = t.face_pairs[2 * e], r1 = t.face_pairs[2 * e + 1];
+  const int d = (r0 & 3) >> 1;
+  const int sd = d == 0 ? 1 : NB, st = d == 0 ? NB : 1;  // normal, along the side
+  const int vbits = 32 * t.valid_words;
+  auto node = [&](int r) { return (r >> 2) * t.N3p + (r & 1) * L * sd + (i + 1) * st; };
+  auto vpos = [&](int r) { return (r >> 2) * vbits + (r & 3) * M + i; };
+  const int n0 = node(r0);
+  if (r1 < 0) {
+    if (!bit(t.valid_bits, vpos(r0))) v[n0] = T(0);
+    return;
+  }
+  const int n1 = node(r1);
+  const T s = v[n0] + v[n1];
+  v[n0] = bit(t.valid_bits, vpos(r0)) ? s : T(0);
+  v[n1] = bit(t.valid_bits, vpos(r1)) ? s : T(0);
+}
+
+template <typename T, int NB, bool MULTI>
+__global__ void __launch_bounds__(THREADS) dss_surface2_kernel(T* __restrict__ v, Tables t) {
+  if constexpr (MULTI) v += static_cast<size_t>(blockIdx.y) * t.nb * t.N3p;  // the component
+  int blk = blockIdx.x;
+  if (blk < t.hole_blocks) return holes2<T, NB>(v, t, blk);
+  blk -= t.hole_blocks;
+  if (blk < t.corner_blocks) return corners2<T, NB>(v, t, blk);
+  blk -= t.corner_blocks;
+  if (blk < t.face_blocks) return sides2<T, NB>(v, t, blk);
+  padding<T, NB * NB>(v, t, blk - t.face_blocks);
+}
+
+template <typename T, int NB>
+int launch2(void* v, Tables t, int k, cudaStream_t stream) {
+  auto blocks = [](int n, int per) { return (n + per - 1) / per; };
+  if (t.n_edge || t.corner_w > 4) return static_cast<int>(cudaErrorInvalidValue);
+  t.hole_blocks = t.n_hole;
+  t.corner_blocks = blocks(t.n_corner, THREADS);
+  t.face_blocks = blocks(t.n_face * (NB - 2), THREADS);
+  t.edge_blocks = 0;
+  const int total = t.hole_blocks + t.corner_blocks + t.face_blocks + blocks(t.nb, PAD_PER_BLOCK);
+  if (total > 0)
+    (k > 1 ? dss_surface2_kernel<T, NB, true> : dss_surface2_kernel<T, NB, false>)
+        <<<dim3(total, k), THREADS, 0, stream>>>(static_cast<T*>(v), t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int NB>
@@ -244,7 +332,7 @@ int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, i
           int edge_w, const void* corner_pools, int n_corner, int corner_w,
           const void* valid_bits, int valid_words, const void* hole_bricks,
           const void* hole_bits, int n_hole, int hole_words, int nb, int NB, int N3p, int k,
-          void* stream) {
+          int dim, void* stream) {
   if (edge_w > MAXC || corner_w > MAXC) return static_cast<int>(cudaErrorInvalidValue);
   Tables t{};
   t.face_pairs = static_cast<const int*>(face_pairs);
@@ -264,6 +352,16 @@ int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, i
   t.nb = nb;
   t.N3p = N3p;
   auto s = static_cast<cudaStream_t>(stream);
+  if (dim == 2) {
+    switch (NB) {  // NB = B*p + 1 in 2-D: 17 (p=1), 33 (p=2, 4), 41 (p=5), 49 (p=3, 6)
+      case 17: return launch2<T, 17>(v, t, k, s);
+      case 33: return launch2<T, 33>(v, t, k, s);
+      case 41: return launch2<T, 41>(v, t, k, s);
+      case 49: return launch2<T, 49>(v, t, k, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   switch (NB) {  // NB = B*p + 1 of the brick size rule: p=5, 6, 7 at B=2; p=4 at B=4, p=8 at B=2
     case 11: return launch<T, 11>(v, t, k, s);
     case 13: return launch<T, 13>(v, t, k, s);
@@ -277,25 +375,25 @@ int entry(void* v, const void* face_pairs, int n_face, const void* edge_pools, i
 
 extern "C" {
 
-// k components of v (1 or 3), nb * N3p values apart
+// k components of v (1 or 3), nb * N3p values apart; dim: 3 (NB^3-node bricks) or 2 (NB^2)
 int dss_surface_f32(void* v, const void* face_pairs, int n_face, const void* edge_pools,
                     int n_edge, int edge_w, const void* corner_pools, int n_corner,
                     int corner_w, const void* valid_bits, int valid_words,
                     const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
-                    int nb, int NB, int N3p, int k, void* stream) {
+                    int nb, int NB, int N3p, int k, int dim, void* stream) {
   return entry<float>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
                       n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
-                      n_hole, hole_words, nb, NB, N3p, k, stream);
+                      n_hole, hole_words, nb, NB, N3p, k, dim, stream);
 }
 
 int dss_surface_f64(void* v, const void* face_pairs, int n_face, const void* edge_pools,
                     int n_edge, int edge_w, const void* corner_pools, int n_corner,
                     int corner_w, const void* valid_bits, int valid_words,
                     const void* hole_bricks, const void* hole_bits, int n_hole, int hole_words,
-                    int nb, int NB, int N3p, int k, void* stream) {
+                    int nb, int NB, int N3p, int k, int dim, void* stream) {
   return entry<double>(v, face_pairs, n_face, edge_pools, n_edge, edge_w, corner_pools,
                        n_corner, corner_w, valid_bits, valid_words, hole_bricks, hole_bits,
-                       n_hole, hole_words, nb, NB, N3p, k, stream);
+                       n_hole, hole_words, nb, NB, N3p, k, dim, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -76,6 +76,10 @@
 //   the block's Q lists in shared memory, 8 rows a block at p = 4 (9 blocks an SM), the Q
 //   loops unrolled, each thread's Q ranges loaded ahead, the last product stored straight to
 //   device memory, the fill started without the setup barrier.
+//   2-D (hn_cell2_kernel, the full and fill modes at p = 1..6): G = 32 rows a block, the same
+//   four steps (the fill's base one value a thread in a loop, its runs as above, Q and Q^T
+//   by apply_q), K by the two 2-D sweeps on 32 n lines (at least 128 threads). Bound at 2-D
+//   quadrant nref=11, p=4, f32 (4,110 rows): memory, 0.9 MB, 0.0003 ms: launch-bound.
 //   The deformed mode runs the same phases with two more row buffers (the gradients' scratch)
 //   and S, Dc staged in shared memory; in place of K's 7 sweeps, laplace_quad.cuh's 12 with the
 //   metric read at the points (12 barriers a block). Bound at quadrant nref=7, p=4, f32: memory,
@@ -289,6 +293,133 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
                  nrows == G && reinterpret_cast<uintptr_t>(dst) % 16 == 0);
 }
 
+// ---- 2-D: constrained rows of n^2 values (x fastest) in bricks of NB^2 nodes (cell slot
+// (sx, sy), node (ix, iy) at (sy*p + iy)*NB + sx*p + ix); the full and fill modes. The same four
+// steps with G = 32 rows a block and K's two 2-D sweeps (sweep_x, sweep_y2, 32 n lines).
+template <int P>
+struct Cfg2 {
+  static constexpr int N = P + 1;
+  static constexpr int NL = N * N;
+  static constexpr int G = 32;  // rows a block
+  static constexpr int LINES = G * N;
+  static constexpr int THREADS = LINES < 128 ? 128 : (LINES + 31) / 32 * 32;
+  static constexpr int SCR = sf::round4(G * NL);
+};
+
+template <typename T, int P, int B, int MODE>
+__global__ void __launch_bounds__(Cfg2<P>::THREADS)
+hn_cell2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
+                const bool* __restrict__ keep, const int* __restrict__ row_ptr,
+                const int* __restrict__ ent_slot, const int* __restrict__ ent_src,
+                const int* __restrict__ q_of_row, const int* __restrict__ fwd_ptr,
+                const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
+                const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
+                const T* __restrict__ bwd_w, const Factors<T, P + 1> f,
+                const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p,
+                long long u_stride) {
+  using S = Cfg2<P>;
+  constexpr int N = S::N, NL = S::NL, G = S::G;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sa = reinterpret_cast<T*>(smem_raw);  // buffer A
+  T* sb = sa + S::SCR;                     // buffer B
+  __shared__ T s_scale[G];
+  __shared__ int s_rp[G + 1], s_q[G], s_base[G];
+
+  const size_t rhs = blockIdx.y;
+  u += rhs * u_stride;
+  out += rhs * n_hn * NL;
+  const int tid = threadIdx.x;
+  const int h0 = blockIdx.x * G;
+  const int nrows = min(G, n_hn - h0);
+  if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
+  if (tid < G) {
+    int q = -1, base = 0;
+    if (tid < nrows) {
+      const int cell = hn_sub[h0 + tid];
+      const int brick = cell / C, slot = cell % C;
+      q = q_of_row[h0 + tid];
+      base = brick * N3p + (slot / B) * P * NB + (slot % B) * P;
+    }
+    s_q[tid] = q;
+    s_base[tid] = base;
+    if constexpr (MODE == FULL) s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
+  }
+  __syncthreads();
+
+  // 1. fill: the masked own nodes into buffer A, then each run of entries (one row, one slot)
+  //    summed by the thread holding its first entry and added after the barrier
+  for (int t = tid; t < G * NL; t += S::THREADS) {
+    const int g = t / NL, j = t - g * NL;
+    const bool kept = t < nrows * NL && keep[static_cast<size_t>(h0) * NL + t];
+    sa[t] = kept ? u[s_base[g] + (j / N) * NB + j % N] : T(0);
+  }
+  __syncthreads();
+  for (int e = s_rp[0] + tid; e < s_rp[G]; e += S::THREADS) {
+    int dst;
+    const T acc = run_sum<T, G, NL>(e, s_rp, ent_slot, ent_src, u, dst);
+    if (dst >= 0) sa[dst] += acc;
+  }
+  __syncthreads();
+
+  // 2. Q: u_hat into buffer B
+  apply_q<T, NL, G, S::THREADS>(sa, sb, s_q, fwd_ptr, fwd_col, fwd_w);
+  __syncthreads();
+  T* res = sb;
+  if constexpr (MODE == FULL) {
+    // 3. K: the two sweeps on buffer B with A as scratch; own lands in B
+    const int l = tid;
+    const bool active = l < S::LINES;
+    if (active) {
+      T r[N];
+      sf::load_line<T, N, 1>(sb + l * N, r);
+      sf::sweep_x(f, r, sb, sa, l);
+    }
+    __syncthreads();
+    if (active) {
+      const int g = l / N;
+      sf::sweep_y2(f, sb, sa, l, s_scale[g], sb + g * NL + (l - g * N));
+    }
+    __syncthreads();
+    // 4. Q^T: out into buffer A
+    apply_q<T, NL, G, S::THREADS>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
+    __syncthreads();
+    res = sa;
+  }
+  T* dst = out + static_cast<size_t>(h0) * NL;
+  for (int t = tid; t < nrows * NL; t += S::THREADS) dst[t] = res[t];
+}
+
+template <typename T, int P, int B, int MODE>
+int launch2(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int N3p,
+            int k, long long u_stride, cudaStream_t stream) {
+  using S = Cfg2<P>;
+  const int smem = static_cast<int>(2 * S::SCR * sizeof(T));
+  auto kernel = hn_cell2_kernel<T, P, B, MODE>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Factors<T, P + 1> f{};
+  if (MODE == FULL) {
+    std::memcpy(f.K, K1, sizeof(f.K));
+    std::memcpy(f.M, M1, sizeof(f.M));
+  }
+  const int blocks = (n_hn + S::G - 1) / S::G;
+  if (blocks > 0 && k > 0) {
+    kernel<<<dim3(blocks, k), S::THREADS, smem, stream>>>(
+        static_cast<const T*>(a[0]), static_cast<const int*>(a[1]),
+        static_cast<const bool*>(a[2]), static_cast<const int*>(a[3]),
+        static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
+        static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
+        static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
+        static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
+        static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]),
+        static_cast<T*>(out), n_hn, N3p, u_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The elastic mode: the three components of each constrained row through the fill and Q, the
 // coupled operator times scale[h], Q^T; out [3][n_hn][NL].
 template <typename T, int P, int B>
@@ -476,7 +607,23 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
 // (p, B) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at p = 5..8
 template <typename T>
 int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
-             int B, int N3p, int mode, int k, long long u_stride, cudaStream_t stream) {
+             int B, int N3p, int mode, int k, long long u_stride, int dim, cudaStream_t stream) {
+  // 2-D, the full and fill modes: B = 16 at p = 1..3, B = 8 at p = 4..6
+#define HN_CASE2(p_, b_)                                                                    \
+  if (dim == 2 && p == p_ && B == b_)                                                       \
+    return mode == FILL                                                                     \
+               ? launch2<T, p_, b_, FILL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
+           : mode == FULL                                                                   \
+               ? launch2<T, p_, b_, FULL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
+               : static_cast<int>(cudaErrorInvalidValue);
+  HN_CASE2(1, 16)
+  HN_CASE2(2, 16)
+  HN_CASE2(3, 16)
+  HN_CASE2(4, 8)
+  HN_CASE2(5, 8)
+  HN_CASE2(6, 8)
+#undef HN_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define HN_CASE(p_, b_)                                                                     \
   if (p == p_ && B == b_)                                                                   \
     return mode == FILL                                                                     \
@@ -505,16 +652,19 @@ extern "C" {
 // scale read in the full mode only, geo, S and Dc in the deformed mode only).
 // K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; read in the
 // full mode only). mode: 0 full, 1 fill, 2 deformed. k right-hand sides, u_stride values apart
-// in u (n_hn * n_loc apart in out).
+// in u (n_hn * n_loc apart in out). dim: 3, or 2 (rows of (p+1)^2 values in NB^2-node bricks;
+// the full and fill modes).
 int hn_cell_f32(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int mode, int k, long long u_stride, void* stream) {
-  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride,
+                int p, int B, int N3p, int mode, int k, long long u_stride, int dim,
+                void* stream) {
+  return dispatch<float>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
 int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
-                int p, int B, int N3p, int mode, int k, long long u_stride, void* stream) {
-  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride,
+                int p, int B, int N3p, int mode, int k, long long u_stride, int dim,
+                void* stream) {
+  return dispatch<double>(a, K1, M1, out, n_hn, p, B, N3p, mode, k, u_stride, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -20,6 +20,9 @@
 //   more where the levels chain). Levels need no order on the card: the composition put it in
 //   the entries. No atomics: every value of out is written by its brick's block.
 
+// 2-D bricks run the same kernel: the host composes their side-line fill (1-D P1) into the
+// same lists.
+
 #include <cuda_runtime.h>
 
 namespace {

@@ -22,6 +22,8 @@
 //   the covered nodes that the zeros clear, so the zeros are a second launch, one thread a
 //   covered node; a barrier inside one launch orders only a block.
 
+// 2-D bricks run the same kernel on the transpose of their side-line fill.
+
 #include <cuda_runtime.h>
 
 namespace {

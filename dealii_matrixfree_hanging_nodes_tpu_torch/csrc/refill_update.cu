@@ -42,6 +42,9 @@
 //   slower): the subset bricks spread through the grid, pass 2 unrolled by two, 512 threads
 //   with 3 vectors a thread, 128 with 10, 3 vectors a thread, streaming cache hints on the copy.
 
+// 2-D bricks (B^2 cells, at most 4 holders a node, padded to 8) run the same kernel: C = 64 at
+// p = 4..6 and 256 at p <= 3 take the CMAX 64 and 512 instances.
+
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -9,7 +9,7 @@
 // A thread holds its line in registers and writes its results back over the line it read, so
 // each sweep needs a barrier after it and no third buffer. K1 and M1 travel with the launch as
 // its parameters (the constant bank): with the loops unrolled, every factor entry is an operand
-// of its FMA, with no load.
+// of its FMA, with no load. The 2-D form (two sweeps, sweep_x and sweep_y2) follows the 3-D one.
 
 #pragma once
 
@@ -118,6 +118,32 @@ __device__ __forceinline__ void sweep_z(const Factors<T, N>& f, const T* sa, con
 #pragma unroll
     for (int j = 0; j < N; ++j) acc += f.M[i * N + j] * c1[j] + f.K[i * N + j] * c2[j];
     dst[i * N2] = s * acc;
+  }
+}
+
+// ---- 2-D ---------------------------------------------------------------------------------
+// A 2-D cell holds n^2 values (x fastest) and K = My (x) K1x + K1y (x) Mx takes two sweeps, one
+// line of n values a thread:
+//     x, line (g, y):  a = M1 x,  b = K1 x        (sweep_x: the line sits at l n, as in 3-D)
+//     y, line (g, x):  out = scale (M1 b + K1 a)  (sweep_y2)
+// Line l of the y sweep is (g, x) = (l / n, l % n), its values n apart.
+
+// y sweep of 2-D line l = (g, x): s (M1 b + K1 a) to dst[i * N], i = 0..n-1, b in sb and a in sa
+// at the line's place. dst may be the line's own place in sa or sb: both lines are in registers
+// before any store.
+template <typename T, int N>
+__device__ __forceinline__ void sweep_y2(const Factors<T, N>& f, const T* sa, const T* sb, int l,
+                                         T s, T* dst) {
+  const int g = l / N, x = l - g * N;
+  T a[N], b[N];
+  load_line<T, N, N>(sa + g * N * N + x, a);
+  load_line<T, N, N>(sb + g * N * N + x, b);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc += f.M[i * N + j] * b[j] + f.K[i * N + j] * a[j];
+    dst[i * N] = s * acc;
   }
 }
 

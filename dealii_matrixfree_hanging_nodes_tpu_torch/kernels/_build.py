@@ -198,3 +198,30 @@ def lattice_dim(name: str, n: int, n_loc: int) -> int:
         if n**d == n_loc:
             return d
     raise ValueError(f"{name}: {n_loc} values a cell are no {n}^d lattice for d in {DIMS}")
+
+
+# the brick engine's kernels: degrees 1..8 in 3-D, 1..6 in 2-D (the ported 2-D brick sizes)
+BRICK_DEGREES = {3: range(1, 9), 2: range(1, 7)}
+
+
+def cell_shape(name: str, n_loc: int):
+    """(p, dim) of brick-engine cells of n_loc = (p+1)^dim values: one pair
+    at most among BRICK_DEGREES (64 is 4^3; 8^2 would be p=7 in 2-D, which
+    no 2-D brick holds); raises where there is none."""
+    for dim, degrees in BRICK_DEGREES.items():
+        for p in degrees:
+            if (p + 1) ** dim == n_loc:
+                return p, dim
+    raise ValueError(f"{name}: {n_loc} values a cell are no (p+1)^dim lattice of a brick cell")
+
+
+def brick_dim(name: str, NB: int, N3p: int) -> int:
+    """The dimension of brick rows of N3p values, NB nodes a side: 3 where a
+    row holds NB^3 nodes, 2 where it holds NB^2 and not NB^3 (a 2-D row is
+    padded to a multiple of 128, far below NB^3 for NB >= 11); raises where
+    it holds neither."""
+    if N3p >= NB**3:
+        return 3
+    if N3p >= NB**2:
+        return 2
+    raise ValueError(f"{name}: brick rows of {N3p} values hold no {NB}^2 or {NB}^3 brick")

@@ -56,7 +56,7 @@ def brick_deformed_plain(bv, geo, present, S, Dc, dcols=None, brick_size=None):
     v = torch.zeros_like(bv)
     v.view(-1).index_add_(0, nodes.reshape(-1), rows.reshape(-1))
     if dcols is not None:
-        m, _ = _rows_of(dcols, B, nb, N3p)
+        m, _ = _rows_of(dcols, B, nb, N3p, 3)
         v.view(-1).index_add_(0, overlap_add_index(m, B, p, N3p, v.device), dcols.reshape(-1))
     return v
 
@@ -83,7 +83,7 @@ def brick_deformed(bv, geo, present, S, Dc, dcols=None, brick_size=None):
                          f"{tuple(present.shape)}, S {tuple(S.shape)} at B={B}")
     m = 0
     if dcols is not None:
-        m, pc = _rows_of(dcols, B, nb, N3p)
+        m, pc = _rows_of(dcols, B, nb, N3p, 3)
         if pc != p:
             raise ValueError(f"{NAME}: dcols of p={pc} for p={p}")
     out = torch.empty_like(bv)

@@ -24,6 +24,10 @@ scale (``cell_laplace``'s ``laplace_rows``): the reference's
 ``_deformed_cell_apply(cols_u, Gq_sub)`` (bricks.py:2444-2447, 2959-2976).
 One RHS only.
 
+2-D bricks (rows of NB^2 nodes, B^2 cells of (p+1)^2 values, p = 4..6 at
+B = 8): K = M1⊗K1 + K1⊗M1, two sweeps; the dimension is read from the
+row width (``_build.brick_dim``) or, for rows, their width.
+
 CUDA source: ``csrc/cell_apply.cu`` (the sweeps in
 ``csrc/sum_factorization.cuh``, shared with ``hn_cell``; the deformed
 mode's in ``csrc/laplace_quad.cuh``)."""
@@ -47,31 +51,35 @@ def cell_degree(K1) -> int:
     return K1.shape[0] - 1
 
 
-def brick_slot_index(B: int, p: int, device=None) -> torch.Tensor:
-    """[B^3, (p+1)^3] brick node of (cell slot, local node), both x
+def brick_slot_index(B: int, p: int, device=None, dim: int = 3) -> torch.Tensor:
+    """[B^dim, (p+1)^dim] brick node of (cell slot, local node), both x
     fastest (the reference's ``slot_idx``, the one-hot E as an index map)."""
     n, NB = p + 1, B * p + 1
-    loc = torch.arange(n**3, device=device)
-    slot = torch.arange(B**3, device=device)
+    loc = torch.arange(n**dim, device=device)
+    slot = torch.arange(B**dim, device=device)
     axis = lambda i, w, a: (i // w**a) % w
     return sum(
         ((axis(slot, B, a) * p)[:, None] + axis(loc, n, a)[None, :]) * NB**a
-        for a in range(3)
+        for a in range(dim)
     )
 
 
 def cell_nodes(cells, brick_size, p, N3p, device):
-    """[len(cells), n_loc] flat index into [*, N3p] bricks of each cell's nodes."""
-    C = brick_size**3
+    """[len(cells), n_loc] flat index into [*, N3p] bricks of each cell's
+    nodes; the dimension is read from the row width N3p."""
+    dim = _build.brick_dim(NAME, brick_size * p + 1, N3p)
+    C = brick_size**dim
     cells = cells.long()
-    return (cells // C)[:, None] * N3p + brick_slot_index(brick_size, p, device)[cells % C]
+    return (cells // C)[:, None] * N3p + brick_slot_index(brick_size, p, device, dim)[cells % C]
 
 
 def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
     """Plain PyTorch version: gather the cell rows, then the sweeps of the
     1-D factors on the [rows, z, y, x] view (x: M1, K1; y: M1 on both, K1
-    on the M1 branch; z: on the two sums), then the scale; deformed: the
-    rows' quadrature with their metric. A RHS axis: each RHS so."""
+    on the M1 branch; z: on the two sums; 2-D [rows, y, x]: x then y), then
+    the scale; deformed: the rows' quadrature with their metric. The
+    dimension comes from the shapes: src [m, N3p] rows of NB^2 or NB^3
+    nodes, or rows of (p+1)^2 or (p+1)^3 values. A RHS axis: each RHS so."""
     if src.dim() == 3:
         return torch.stack([cell_apply_plain(s, K1, M1, scale, brick_size, deformed=deformed)
                             for s in src])
@@ -81,8 +89,16 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
         return laplace_rows(rows.reshape(geo.shape[0], -1), S, Dc, None, geo)
     n = cell_degree(K1) + 1
     if brick_size is not None:
-        idx = brick_slot_index(brick_size, n - 1, src.device)
+        dim = _build.brick_dim(NAME, brick_size * (n - 1) + 1, src.shape[1])
+        idx = brick_slot_index(brick_size, n - 1, src.device, dim)
         src = src[:, idx.reshape(-1)]
+    else:
+        dim = _build.lattice_dim(NAME, n, src.shape[1])
+    if dim == 2:  # K = M1y⊗K1x + K1y⊗M1x on the [rows, y, x] view
+        x = src.reshape(-1, n, n)
+        along = lambda A, t, ax: torch.einsum({0: "ij,ryj->ryi", 1: "ij,rjx->rix"}[ax], A, t)
+        out = along(M1, along(K1, x, 0), 1) + along(K1, along(M1, x, 0), 1)
+        return out.reshape(-1, n * n) * scale[:, None]
     x = src.reshape(-1, n, n, n)
     along = lambda A, t, ax: torch.einsum(
         {0: "ij,rzyj->rzyi", 1: "ij,rzjx->rzix", 2: "ij,rjyx->riyx"}[ax], A, t)
@@ -93,7 +109,12 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
     return out.reshape(-1, n**3) * scale[:, None]
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
+         + [ctypes.c_void_p])
+# (p, B, dim) of the kernel's instances: the per-cell schedule's degrees (p >= 4) with the
+# brick size rule's B, 3-D (B = 4 at p = 4, 2 at p = 5..8) and 2-D (B = 8 at p = 4..6)
+SUPPORTED = {(4, 4, 3), (5, 2, 3), (6, 2, 3), (7, 2, 3), (8, 2, 3), (4, 8, 2), (5, 8, 2),
+             (6, 8, 2)}
 
 
 _DEFORMED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -116,23 +137,24 @@ def cell_apply(src, K1, M1, scale, brick_size, *, deformed=None):
     k, stride, src1 = _build.rhs_axis(NAME, src, 2)
     dev = _build.check_cuda(NAME, src.dtype, src=src1, scale=scale)
     p = cell_degree(K1)
-    n_loc = (p + 1) ** 3
+    B = int(brick_size)
+    dim = _build.brick_dim(NAME, B * p + 1, src1.shape[1])
+    n_loc = (p + 1) ** dim
+    if (p, B, dim) not in SUPPORTED:
+        raise ValueError(f"{NAME}: no {dim}-D instance at p={p}, B={B}")
     if M1.shape != K1.shape:
         raise ValueError(f"{NAME}: M1 must be {tuple(K1.shape)}, got {tuple(M1.shape)}")
     if K1.device.type != "cpu" or M1.device.type != "cpu":
         raise ValueError(f"{NAME}: the kernel takes K1 and M1 as host tensors "
                          f"(op.factors_host), got them on {K1.device} and {M1.device}")
     K1, M1 = (f.detach().to(src.dtype).contiguous() for f in (K1, M1))
-    B = int(brick_size)
-    if src1.shape[1] < (B * p + 1) ** 3:
-        raise ValueError(f"{NAME}: bricks must be [m, >= NB^3], got {tuple(src.shape)}")
-    rows, N3p = src1.shape[0] * B**3, src1.shape[1]
+    rows, N3p = src1.shape[0] * B**dim, src1.shape[1]
     if scale.shape != (rows,):
         raise ValueError(f"{NAME}: scale must be [{rows}], got {tuple(scale.shape)}")
     out = torch.empty((*src.shape[:-2], rows, n_loc), dtype=src.dtype, device=src.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(K1), _build.ptr(M1),
-                  _build.ptr(scale), _build.ptr(out), rows, p, B, N3p, k, stride)
+                  _build.ptr(scale), _build.ptr(out), rows, p, B, N3p, k, stride, dim)
     cell_apply.launches += 1
     return out
 
@@ -161,11 +183,15 @@ def _deformed(src, S, Dc, geo, B):
 def bytes_and_flops(src_elems, rows, n_loc, itemsize, k=1, deformed=False):
     """Least traffic (src read once, out written once, K1, M1 and scale) and
     the sum-factorized operation count: 7 sweeps of 2 n^4 and the scale,
-    per row. k right-hand sides (src_elems and rows those of one): the
-    bricks and rows k times, the factors and scale once. deformed: src,
-    the rows' metric, S, Dc and out; 12 sweeps of 2 n^4 and 15 operations
-    a point a row."""
-    n = round(n_loc ** (1.0 / 3.0))
+    per row (2-D, n_loc = n^2: 4 sweeps of 2 n^3). k right-hand sides
+    (src_elems and rows those of one): the bricks and rows k times, the
+    factors and scale once. deformed: src, the rows' metric, S, Dc and out;
+    12 sweeps of 2 n^4 and 15 operations a point a row."""
+    p, dim = _build.cell_shape(NAME, n_loc)
+    n = p + 1
+    if dim == 2:
+        return ((k * (src_elems + rows * n_loc) + 2 * n * n + rows) * itemsize,
+                k * rows * (4 * 2 * n**3 + n**2))
     if deformed:
         return ((src_elems + rows * n_loc * 7 + 2 * n * n) * itemsize,
                 rows * (12 * 2 * n**4 + 15 * n_loc))

@@ -19,7 +19,8 @@ on ``sub_raw + acc``, the keep mask and ``final - plain``. As for the fill,
 entries ent_src (flat indices into sub_raw) sorted by destination, run s
 holding entries seg_ptr[s] .. seg_ptr[s+1] that all land on the flat dcols
 slot seg_dst[s] = row * n_loc + slot (ascending), and a block schedule
-(``schedule``). CUDA source: ``csrc/corr_compact.cu``.
+(``schedule``). 2-D cells ((p+1)^2 values) run the same kernel at their
+sizes. CUDA source: ``csrc/corr_compact.cu``.
 
 With a leading axis of k components or right-hand sides (elasticity's 3:
 plain, dcols [3, n_rows, n_loc], sub_raw [3, n_hn, n_loc], component-major;
@@ -124,12 +125,12 @@ def corr_compact(plain, sub_raw, cell_code, keep, seg_ptr, seg_dst, ent_src, blo
     k = _build.rhs_axis(NAME, sub_raw, 2)[0]
     lead = sub_raw.shape[:-2]
     n_rows, n_loc = cell_code.shape[0], sub_raw.shape[-1]
-    p = round(n_loc ** (1.0 / 3.0)) - 1
+    p, _ = _build.cell_shape(NAME, n_loc)
     if any(t.dtype != torch.int32 for t in (cell_code, seg_ptr, seg_dst, ent_src, blocks)):
         raise TypeError(f"{NAME}: cell_code, seg_ptr, seg_dst, ent_src and blocks must be int32")
     if (keep.dtype != torch.bool or lead + tuple(keep.shape) != sub_raw.shape
             or (plain is not None and plain.shape != lead + (n_rows, n_loc))
-            or (p + 1) ** 3 != n_loc or cell_code.dim() != 1
+            or cell_code.dim() != 1
             or seg_ptr.shape != (seg_dst.numel() + 1,) or ent_src.dim() != 1
             or blocks.dim() != 2 or blocks.shape[1] != 2 or n_rows * n_loc > 2**31 - 1):
         raise ValueError(f"{NAME}: shapes plain "

@@ -17,6 +17,11 @@ order, padded with -1; the validity of each surface copy is one bit per
 surface position, the invalid nodes off the surface one bit per brick node
 of each hole brick (padding is zeroed without a table).
 
+A 2-D brick's surface (rows of NB^2 nodes) is its 4 side-line interiors
+(NB-2 nodes each, sides 2d+side) and its 4 corners: face_pairs pair the
+sides (b*4+f), corner pools hold up to 4 copies (b*4+c), and there are no
+edge pools (the reference's 2-D ordering, bricks.py:1294-1310).
+
 With a leading axis of k components or right-hand sides (elasticity's
 v [3, nb, N3p]; ``BrickLaplaceMM.vmult_multi``'s [k, nb, N3p]) each goes
 through the same tables in one launch (grid.y), bit-identical to a scalar
@@ -35,10 +40,18 @@ NAME = "dss_surface"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2534"
 
 
-def surface_nodes(NB: int) -> np.ndarray:
+def surface_nodes(NB: int, dim: int = 3) -> np.ndarray:
     """Brick node of each surface position (the one-hot Es as an index map,
-    the reference's ordering, bricks.py:1252-1311)."""
+    the reference's ordering, bricks.py:1252-1311): in 3-D the 6 face
+    interiors, 12 edge interiors and 8 corners; in 2-D the 4 side-line
+    interiors (x-sides varying y, then y-sides varying x, side 0 first),
+    then the 4 corners (bit d set at NB-1 on axis d)."""
     inner = np.arange(1, NB - 1)
+    if dim == 2:
+        surf = [inner * NB, inner * NB + NB - 1, inner, (NB - 1) * NB + inner]
+        surf += [np.array([(combo >> 1) * (NB - 1) * NB + (combo & 1) * (NB - 1)])
+                 for combo in range(4)]
+        return np.concatenate(surf).astype(np.int64)
     grid3 = lambda z, y, x: (z * NB + y) * NB + x
     surf = []
     for d in range(3):
@@ -69,14 +82,25 @@ def surface_nodes(NB: int) -> np.ndarray:
 POOL_KINDS = ("face", "edge", "corner")
 
 
+def surface_blocks(NB: int, dim: int):
+    """{kind: (copies a brick, nodes a copy, first surface position)} of the
+    surface's blocks in ``surface_nodes`` order (no edges in 2-D)."""
+    M = NB - 2
+    if dim == 2:
+        return {"face": (4, M, 0), "edge": (0, M, 4 * M), "corner": (4, 1, 4 * M)}
+    return {"face": (6, M * M, 0), "edge": (12, M, 6 * M * M),
+            "corner": (8, 1, 6 * M * M + 12 * M)}
+
+
 def pool_positions(pools, kind, NB, N3p):
     """(brick [e, c], surface position [e, c, m], flat node [e, c, m], real
-    [e, c]) of every copy of every pool in a work list, m nodes per copy;
-    padding copies (-1) are not real and point at brick 0."""
-    M = NB - 2
-    K, width, off = {"face": (6, M * M, 0), "edge": (12, M, 6 * M * M),
-                     "corner": (8, 1, 6 * M * M + 12 * M)}[kind]
-    surf = torch.from_numpy(surface_nodes(NB)).to(pools.device)
+    [e, c]) of every copy of every pool in a work list, m nodes per copy,
+    in bricks of N3p values (which give the dimension); padding copies
+    (-1) are not real and point at brick 0."""
+    dim = _build.brick_dim(NAME, NB, N3p)
+    K, width, off = surface_blocks(NB, dim)[kind]
+    K = max(K, 1)  # 2-D edge lists are empty
+    surf = torch.from_numpy(surface_nodes(NB, dim)).to(pools.device)
     real = pools >= 0
     r = pools.long().clamp(min=0)
     b = r // K
@@ -102,6 +126,7 @@ def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_
                               hole_bits, NB)
         return v
     flat = v.view(-1)
+    dim = _build.brick_dim(NAME, NB, v.shape[1])
     writes = []
     for pools, kind in zip((face_pairs, edge_pools, corner_pools), POOL_KINDS):
         b, s, node, real = pool_positions(pools, kind, NB, v.shape[1])
@@ -113,7 +138,7 @@ def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_
         writes.append((node[real], new[real]))
     for node, new in writes:  # the pools are disjoint: every read came first
         flat[node] = new
-    N3 = NB**3
+    N3 = NB**dim
     v[:, N3:] = 0.0
     if hole_bricks.numel():
         rows = hole_bricks.long()
@@ -125,8 +150,10 @@ def dss_surface_plain(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_
 
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
           ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
+          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
          + [ctypes.c_void_p])
+SUPPORTED_NB = (11, 13, 15, 17)  # NB = B p + 1 of the brick size rule, 3-D
+SUPPORTED_NB_2D = (17, 33, 41, 49)  # and 2-D
 
 
 def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks, hole_bits,
@@ -142,15 +169,21 @@ def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks
     dev = _build.check_cuda(NAME, v.dtype, v=v, **tables)
     k = _build.rhs_axis(NAME, v, 2)[0]
     nb, N3p = v.shape[-2:]
-    M, N3 = NB - 2, NB**3
+    dim = _build.brick_dim(NAME, NB, N3p)
+    M, N3 = NB - 2, NB**dim
+    n_surf = sum(K * width for K, width, _ in surface_blocks(NB, dim).values())
+    if NB not in (SUPPORTED_NB if dim == 3 else SUPPORTED_NB_2D):
+        raise ValueError(f"{NAME}: no {dim}-D instance at NB={NB}")
     for key, t in tables.items():
         dims = 1 if key == "hole_bricks" else 2
         if t.dtype != torch.int32 or t.dim() != dims:
             raise ValueError(f"{NAME}: {key} must be int32 with {dims} dims, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if face_pairs.shape[1] != 2 or edge_pools.shape[1] > 8 or corner_pools.shape[1] > 8:
-        raise ValueError(f"{NAME}: pools hold 2 face, <= 8 edge and <= 8 corner copies")
-    if valid_bits.shape[0] != nb or 32 * valid_bits.shape[1] < 6 * M * M + 12 * M + 8:
+    if face_pairs.shape[1] != 2 or edge_pools.shape[1] > 8 or corner_pools.shape[1] > 2**dim:
+        raise ValueError(f"{NAME}: pools hold 2 face, <= 8 edge and <= {2**dim} corner copies")
+    if dim == 2 and edge_pools.shape[0]:
+        raise ValueError(f"{NAME}: a 2-D brick has no edge pools")
+    if valid_bits.shape[0] != nb or 32 * valid_bits.shape[1] < n_surf:
         raise ValueError(f"{NAME}: valid_bits must hold a bit per surface node of each brick")
     if hole_bits.shape[0] != hole_bricks.shape[0] or 32 * hole_bits.shape[1] < N3:
         raise ValueError(f"{NAME}: hole_bits must hold a bit per node of each hole brick")
@@ -161,7 +194,8 @@ def dss_surface(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks
                   _build.ptr(edge_pools), edge_pools.shape[0], edge_pools.shape[1],
                   _build.ptr(corner_pools), corner_pools.shape[0], corner_pools.shape[1],
                   _build.ptr(valid_bits), valid_bits.shape[1], _build.ptr(hole_bricks),
-                  _build.ptr(hole_bits), hole_bits.shape[0], hole_bits.shape[1], nb, NB, N3p, k)
+                  _build.ptr(hole_bits), hole_bits.shape[0], hole_bits.shape[1], nb, NB, N3p, k,
+                  dim)
     dss_surface.launches += 1
     return v
 
@@ -179,9 +213,11 @@ def moved_nodes(v, face_pairs, edge_pools, corner_pools, valid_bits, hole_bricks
     padding node off the surface; interior nodes and valid unshared copies
     do not move."""
     nb, N3p = v.shape
-    M, N3, dev = NB - 2, NB**3, v.device
-    block = torch.cat([torch.arange(6).repeat_interleave(M * M),
-                       6 + torch.arange(12).repeat_interleave(M), 18 + torch.arange(8)]).to(dev)
+    dim = _build.brick_dim(NAME, NB, N3p)
+    N3, dev = NB**dim, v.device
+    blocks = surface_blocks(NB, dim)
+    block = torch.cat([g0 + torch.arange(blocks[kind][0]).repeat_interleave(blocks[kind][1])
+                       for kind, g0 in zip(POOL_KINDS, (0, 6, 18))]).to(dev)
     read, written = [], []
     for pools, kind in zip((face_pairs, edge_pools, corner_pools), POOL_KINDS):
         b, s, node, real = pool_positions(pools, kind, NB, N3p)
@@ -217,7 +253,9 @@ def bytes_and_flops(v, *tables):
     face_pairs, edge_pools, corner_pools, NB = tables[0], tables[1], tables[2], tables[-1]
     nbytes = k * (read.numel() + written.numel()) * v.element_size() + _table_bytes(tables)
     extra = lambda t: int(((t >= 0).sum(dim=1) - 1).sum())
-    flops = extra(face_pairs) * (NB - 2) ** 2 + extra(edge_pools) * (NB - 2) + extra(corner_pools)
+    dim = _build.brick_dim(NAME, NB, v.shape[-1])
+    flops = (extra(face_pairs) * (NB - 2) ** (dim - 1) + extra(edge_pools) * (NB - 2)
+             + extra(corner_pools))
     return nbytes, k * flops
 
 

@@ -41,7 +41,10 @@ composed on the host into gather lists (row_ptr [n_hn+1] into entries
 sorted by (row, slot); ent_slot, ent_src int32, ent_src a flat index into
 u_sub), and each Q's nonzeros by output slot for u @ Q (fwd) and u @ Q^T
 (bwd): q [n_hn] the row's Q (-1: identity), ptr [nQ, n_loc+1] int32 into
-col int32 and w. CUDA source: ``csrc/hn_cell.cu``."""
+col int32 and w. 2-D rows ((p+1)^2 values, cells in NB^2-node bricks; the
+Q's those of the 2-D masks, ``hn_composite_matrix(mask, P, 2)``) run the
+full and fill modes; the dimension comes from n_loc
+(``_build.cell_shape``). CUDA source: ``csrc/hn_cell.cu``."""
 
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size):
     """Step 1, the compact fill chain on the constrained rows: masked
     gather of each row's own nodes, then the entries' sums added."""
     n_loc = keep.shape[1]
-    p = round(n_loc ** (1.0 / 3.0)) - 1
+    p = _build.cell_shape(NAME, n_loc)[0]
     flat = u_sub.reshape(-1)
     base = torch.where(keep, flat[cell_nodes(hn_sub, brick_size, p, u_sub.shape[1],
                                              u_sub.device)], 0.0)
@@ -136,7 +139,13 @@ def _mode(mode):
     return mode
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int]
+         + [ctypes.c_void_p])
+# (p, B, dim) of the full and fill modes' instances: the brick size rule's, 3-D at p = 1..8 and
+# 2-D at p = 1..6
+SUPPORTED = ({(1, 16, 3), (2, 8, 3), (3, 4, 3), (4, 4, 3), (5, 2, 3), (6, 2, 3), (7, 2, 3),
+              (8, 2, 3)} | {(1, 16, 2), (2, 16, 2), (3, 16, 2), (4, 8, 2), (5, 8, 2),
+                            (6, 8, 2)})
 _ELASTIC_ARGS = ([ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong,
                   ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
@@ -176,12 +185,18 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
         tensors.update(zip(("S", "Dc", "geo"), deformed))
     dev = _build.check_cuda(NAME, u_sub.dtype, **tensors)
     n_hn, n_loc = keep.shape
-    B, p = int(brick_size), round(n_loc ** (1.0 / 3.0)) - 1
-    _check_tables(args, n_hn, n_loc, p)
+    B = int(brick_size)
+    p, dim = _build.cell_shape(NAME, n_loc)
+    _check_tables(args, n_hn, n_loc)
+    if dim == 2 and mode not in MODES:
+        raise NotImplementedError(f"{NAME}: the {mode} mode in dim=2 is not ported yet")
+    if (p, B, dim) not in SUPPORTED:
+        raise ValueError(f"{NAME}: no {dim}-D instance at p={p}, B={B}")
     if mode == "elastic":
         return _elastic(args, scale, elastic, n_hn, p, B, dev)
-    if u_sub.shape[-1] < (B * p + 1) ** 3:
-        raise ValueError(f"{NAME}: u_sub must be [n_sub, >= NB^3], got {tuple(u_sub.shape)}")
+    if _build.brick_dim(NAME, B * p + 1, u_sub.shape[-1]) != dim:
+        raise ValueError(f"{NAME}: u_sub {tuple(u_sub.shape)} holds no {dim}-D bricks of "
+                         f"{B * p + 1} nodes a side")
     extra = (None, None, None)  # geo, S, Dc
     if mode == "deformed":
         S, Dc, geo = deformed
@@ -207,7 +222,7 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(u_sub.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, ptrs, *(None if f is None else _build.ptr(f) for f in factors),
                   _build.ptr(out), n_hn, p, B, u_sub.shape[-1],
-                  {"full": 0, "fill": 1, "deformed": 2}[mode], k, stride)
+                  {"full": 0, "fill": 1, "deformed": 2}[mode], k, stride, dim)
     hn_cell.launches += 1
     return out
 
@@ -215,14 +230,14 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
 hn_cell.launches = 0
 
 
-def _check_tables(args, n_hn, n_loc, p):
+def _check_tables(args, n_hn, n_loc):
     """The types and shapes of the tables after u_sub."""
     (_, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w, bwd_ptr,
      bwd_col, bwd_w) = args
     if any(t.dtype != torch.int32 for t in (hn_sub, row_ptr, ent_slot, ent_src, q, fwd_ptr,
                                             fwd_col, bwd_ptr, bwd_col)):
         raise TypeError(f"{NAME}: the index tables must be int32")
-    if (keep.dtype != torch.bool or (p + 1) ** 3 != n_loc or hn_sub.shape != (n_hn,)
+    if (keep.dtype != torch.bool or hn_sub.shape != (n_hn,)
             or q.shape != (n_hn,) or row_ptr.shape != (n_hn + 1,)
             or ent_slot.shape != ent_src.shape
             or any(ptr.dim() != 2 or ptr.shape[1] != n_loc + 1 or col.shape != w.shape
@@ -279,10 +294,11 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
     axis: the nodes, the rows and the operations k times, the tables
     once."""
     n_hn, n_loc = keep.shape
-    n = round(n_loc ** (1.0 / 3.0))
+    p, dim = _build.cell_shape(NAME, n_loc)
+    n = p + 1
     k = 3 if _mode(mode) == "elastic" else (u_sub.shape[0] if u_sub.dim() == 3 else 1)
     isz = u_sub.element_size()
-    own = cell_nodes(hn_sub, brick_size, n - 1, u_sub.shape[-1], u_sub.device)[keep]
+    own = cell_nodes(hn_sub, brick_size, p, u_sub.shape[-1], u_sub.device)[keep]
     n_read = torch.unique(torch.cat([own, ent_src.long()])).numel()
     n_ent = ent_src.numel()
     lists = [(fwd_ptr, fwd_col)] + ([(bwd_ptr, bwd_col)] if mode != "fill" else [])
@@ -295,7 +311,7 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
         flops += 2 * k * int(torch.where(q >= 0, nnz[q.long().clamp(min=0)], 0).sum())
     if mode == "full":
         nbytes += (n_hn + 2 * n * n) * isz
-        flops += k * n_hn * (7 * 2 * n**4 + n**3)
+        flops += k * n_hn * ((7 * 2 * n**4 + n**3) if dim == 3 else (4 * 2 * n**3 + n**2))
     elif mode == "elastic":
         nbytes += (n_hn + 2 * n * n + n_loc) * isz
         flops += n_hn * (3 * 12 * 2 * n**4 + 40 * n_loc)

@@ -18,8 +18,9 @@ Replaces the write-back of the reference's ``_refill_impl``
 (bricks.py:2884-2899) through ``_fill_chain_efx`` (bricks.py:2851-2865):
 the zeroed [n_sub*B^3, n_loc] delta, the EFX product, the Es / EsI
 scatters and the node_valid mask. The tables are ``bricks.kernel_tables``'
-(``BrickLaplaceMM.refill_tables()``). CUDA source:
-``csrc/refill_update.cu``."""
+(``BrickLaplaceMM.refill_tables()``). 2-D bricks (B^2 cells, at most 4
+holders a node) take the same tables; the cells a brick, C, come from
+u_hat's cell size. CUDA source: ``csrc/refill_update.cu``."""
 
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from . import _build
 
 NAME = "refill_update"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/bricks.py:2884"
-MAX_HOLDERS = 8  # the cells of a brick that share a node: 2 an axis
+MAX_HOLDERS = 8  # the cells of a brick that share a node: 2 an axis (4 in 2-D, padded to 8)
 
 
 def valid_mask(valid_bits, N3p):
@@ -52,7 +53,7 @@ def refill_update_plain(v, u_hat, valid_bits, cell_code, nodes, holders, invden,
         return out
     w_node = nodes.long()
     val = v[:n_sub, w_node]
-    codes = cell_code.view(n_sub, brick_size**3).long()
+    codes = cell_code.view(n_sub, -1).long()
     acc = torch.zeros_like(val)
     for k in range(holders.shape[1]):
         hv = holders[:, k].long()
@@ -78,7 +79,7 @@ def refill_update(v, u_hat, valid_bits, cell_code, nodes, holders, invden, brick
                             cell_code=cell_code, nodes=nodes, holders=holders, invden=invden)
     nb, N3p = v.shape
     n_sub, n_w = invden.shape
-    C = int(brick_size) ** 3
+    C = int(brick_size) ** _build.cell_shape(NAME, u_hat.shape[-1])[1]
     if not (valid_bits.dtype == cell_code.dtype == nodes.dtype == holders.dtype == torch.int32):
         raise TypeError(f"{NAME}: valid_bits, cell_code, nodes and holders must be int32")
     if (valid_bits.shape != (nb, N3p // 32) or N3p % 32 or C > 4096 or n_sub > nb
@@ -113,7 +114,7 @@ def bytes_and_flops(v, u_hat, valid_bits, cell_code, nodes, holders, invden, bri
     w_valid = valid[:n_sub, nodes.long()]  # [n_sub, n_w]
     hv = holders.long()
     real = hv >= 0
-    codes = cell_code.view(n_sub, brick_size**3).long()[:, (hv >> 16).clamp(min=0)]
+    codes = cell_code.view(n_sub, -1).long()[:, (hv >> 16).clamp(min=0)]
     used = real & (codes >= 0) & w_valid[..., None]  # [n_sub, n_w, 8]
     entries = codes[used] * u_hat.shape[1] + (hv & 0xFFFF).expand_as(codes)[used]
     n_read = torch.unique(entries).numel()

@@ -52,6 +52,14 @@ __all__ = [
 
 
 # --------------------------------------------------------------------------
+def _check_3d(mm: BrickLaplaceMM, what: str) -> None:
+    """The brick GMG's pieces take 3-D brick operators only: in dim=2 the
+    brick Laplace runs, its GMG (brick_transfer, dof_embed) not yet."""
+    if mm.dim != 3:
+        raise NotImplementedError(f"{what}: the brick GMG in dim={mm.dim} is not ported yet "
+                                  f"(the 2-D brick Laplace is)")
+
+
 class DofEmbed(nn.Module):
     """DoF vector <-> brick vector [nb, N3p] on the device for one brick
     level (the device counterparts of from_dof_vector / to_dof_vector)."""
@@ -60,6 +68,7 @@ class DofEmbed(nn.Module):
         super().__init__()
         if mm is None:  # from_tables fills the tables in
             return
+        _check_3d(mm, "DofEmbed")
         bs, ci = mm.bs, mm.mf.constraints
         self._load(bs.node_dof, ci.slave_dofs, ci.row_ptr, ci.col, ci.weight,
                    bs.owner_node_of_dof, mm.mf.n_dofs, mm.N3, mm.N3p, mm.device, mm.dtype)
@@ -112,6 +121,7 @@ class BrickDirichletLaplace(nn.Module):
 
     def __init__(self, mm: BrickLaplaceMM):
         super().__init__()
+        _check_3d(mm, "BrickDirichletLaplace")
         self.mm = mm
         mf, bs = mm.mf, mm.bs
         bd = mf.dof_handler.boundary_dofs()
@@ -179,6 +189,7 @@ class BrickTransfer(nn.Module):
         super().__init__()
         if mm_c is None:  # from_tables fills the tables in
             return
+        _check_3d(mm_c, "BrickTransfer")
         self._load(brick_transfer_tables(mm_c, mm_f), DofEmbed(mm_c), mm_c.B, mm_c.n_bricks,
                    mm_c.N3, mm_f.device, mm_f.dtype)
 
@@ -248,7 +259,8 @@ class BrickGMGPreconditioner:
                  dtype=np.float64, n_smooth: int = 3, min_level: int = 1,
                  coarse: str = "direct", device=None):
         if dim != 3:
-            raise NotImplementedError("the port's brick engine supports dim=3")
+            raise NotImplementedError(f"BrickGMGPreconditioner: the brick GMG in dim={dim} is "
+                                      f"not ported yet (the 2-D brick Laplace is)")
         if coarse not in ("direct", "cg"):
             raise ValueError(f"unknown coarse solver {coarse!r}")
         device = resolve_device(device)

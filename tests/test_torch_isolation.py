@@ -103,8 +103,9 @@ def test_unported_branches_raise():
         laplace_diagonal_host(mf_d)
     with pytest.raises(NotImplementedError):  # elasticity on the deformed scalar tables
         mt.BrickElasticity.on_operator(deformed)
-    with pytest.raises(NotImplementedError):
-        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4), device="cpu")
+    with pytest.raises(NotImplementedError, match="dim=2"):  # the deformed 2-D brick engine
+        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4, high_order_mapping=True),
+                          device="cpu")
     with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 4, categorize=True),
                           device="cpu")
@@ -132,17 +133,31 @@ def test_unported_branches_raise():
 
 
 def test_brick_engine_raises_for_2d():
-    """The brick engine, its GMG and its elasticity are 3-D only, on every
-    device (the index engine runs 2-D: tests/test_torch_index_2d.py)."""
+    """The brick Laplace takes a 2-D mesh (tests/test_torch_bricks_2d.py
+    holds it against the reference); the brick GMG, the brick elasticity
+    and the deformed brick engine still raise for dim=2, on every device."""
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.models.multigrid_bricks import (
+        BrickDirichletLaplace, BrickTransfer, DofEmbed,
+    )
 
     mf = mt.MatrixFree(mt.create_quadrant(2, 2), 4)
-    with pytest.raises(NotImplementedError, match="dim=3"):
-        mt.BrickLaplaceMM(mf, device="cpu")
-    with pytest.raises(NotImplementedError, match="dim=3"):
+    op = mt.BrickLaplaceMM(mf, device="cpu")
+    assert op.dim == 2 and op.N3 == op.NB**2 and op.C == op.B**2
+    assert op.vmult(torch.zeros(op.n_bricks, op.N3p, dtype=op.dtype)).shape == (op.n_bricks,
+                                                                                 op.N3p)
+    with pytest.raises(NotImplementedError, match="dim=2"):
         mt.BrickGMGPreconditioner("quadrant", 2, 2, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="dim in"):
+    for piece in (DofEmbed, BrickDirichletLaplace, lambda mm: BrickTransfer(mm, mm)):
+        with pytest.raises(NotImplementedError, match="dim=2"):
+            piece(op)
+    with pytest.raises(NotImplementedError, match="dim=2"):
         mt.BrickElasticity(mf, device="cpu")
+    with pytest.raises(NotImplementedError, match="dim=2"):
+        mt.BrickElasticity.on_operator(mt.BrickLaplaceMM(mf, device="cpu", assembled=False))
+    with pytest.raises(NotImplementedError, match="dim=2"):
+        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4, high_order_mapping=True),
+                          device="cpu")
     # the index engine takes the same mesh
     assert mt.LaplaceOperator(mf, device="cpu").vmult(
         torch.zeros(mf.n_dofs, dtype=torch.float64)).shape == (mf.n_dofs,)
@@ -891,3 +906,91 @@ def test_deformed_kernels_on_card(cuda, p, nref, dtype):
         want = mt.LaplaceOperator(mf, device=cuda).vmult(u).cpu().numpy()
         want[mf.constraints.constrained_dof_marker()] = 0.0
         assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+
+
+# the 2-D brick engine's cases on the card: (p, quadrant nref), each with hanging nodes, holes
+# and (p <= 2) face planes
+BRICK_2D = [(1, 6), (2, 6), (3, 5), (4, 5), (5, 4), (6, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", BRICK_2D, ids=[f"p{p}" for p, _ in BRICK_2D])
+def test_brick_kernels_2d_on_card(cuda, p, nref, dtype):
+    """The dim=2 instances of the brick engine's kernels against their plain
+    versions (f32 1e-5, f64 1e-12): brick_apply with and without cell rows,
+    cell_apply (p >= 4), hn_cell in both modes, corr_compact, refill_update,
+    dss_surface, masked_quad (p <= 3) and the face planes' plane_fill and
+    plane_fold (p <= 2); vmult, vmult_plain and refill against the plain
+    path with their launches (p >= 4: 5, 4, 2; p = 3: 5, 3, 2; p <= 2: 8, 3,
+    3) and two vmults bit-identical; vmult_multi at k = 3 (5 launches) with
+    each RHS bit-identical to vmult of it; the f64 vmult against the oracle."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        KERNEL_MODULES, brick_apply, cell_apply, corr_compact, dss_surface, hn_cell,
+        masked_quad, plane_fill, plane_fold, refill_update,
+    )
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    tria = mt.create_quadrant(2, nref)
+    mf = mt.MatrixFree(tria, p)
+    op = mt.BrickLaplaceMM(mf, device=cuda, dtype=dtype)
+    assert op.dim == 2 and op.n_hn and op.n_absent and op.planes == (p <= 2)
+    g = torch.Generator(device=cuda).manual_seed(p)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    bv, v = rnd(op.n_bricks, op.N3p), rnd(op.n_bricks, op.N3p)
+    cols, rows = rnd(op.n_corr_rows, op.n_loc), rnd(op.n_hn, op.n_loc)
+    hn_args = (bv[: op.n_sub], *op.hn_tables(), *op.factors_host, op.geo_hn, op.B)
+    pairs = [(hn_cell.hn_cell(*hn_args, mode=mode),
+              hn_cell.hn_cell_plain(*hn_args[:-4], op.K1, op.M1, *hn_args[-2:], mode=mode))
+             for mode in hn_cell.MODES]
+    for mod, args in ((corr_compact, (None if op.assembled else cols, rows, *op.corr_tables())),
+                      (refill_update, (bv, rows, *op.refill_tables()))):
+        pairs.append((getattr(mod, mod.NAME)(*args), getattr(mod, f"{mod.NAME}_plain")(*args)))
+    for extra in ({}, {"dcols": cols, "brick_size": op.B}):
+        pairs.append((brick_apply.brick_apply(bv, *op.brick_factors_host, op.geo, op.p, **extra),
+                      brick_apply.brick_apply_plain(bv, op.Kb, op.Mb, op.geo, op.p, **extra)))
+    pairs.append((dss_surface.dss_surface(v.clone(), *op.dss_tables()),
+                  dss_surface.dss_surface_plain(v.clone(), *op.dss_tables())))
+    if op.assembled:
+        for kind in ("rem", "absent"):
+            args = (bv, *op.masked_tables(kind))
+            pairs.append((masked_quad.masked_quad(v.clone(), *args, *op.factors_host, op.geo,
+                                                  op.B),
+                          masked_quad.masked_quad_plain(v.clone(), *args, op.K1, op.M1, op.geo,
+                                                        op.B)))
+    else:
+        pairs.append((cell_apply.cell_apply(bv[: op.n_sub], *op.factors_host, op.geo_cell_sub,
+                                            op.B),
+                      cell_apply.cell_apply_plain(bv[: op.n_sub], op.K1, op.M1, op.geo_cell_sub,
+                                                  op.B)))
+    if op.planes:
+        pairs += [(plane_fill.plane_fill(bv, *op.plane_fill_tables()),
+                   plane_fill.plane_fill_plain(bv, *op.plane_fill_tables())),
+                  (plane_fold.plane_fold(v.clone(), *op.plane_fold_tables()),
+                   plane_fold.plane_fold_plain(v.clone(), *op.plane_fold_tables()))]
+    wrappers = [getattr(m, m.NAME) for m in KERNEL_MODULES]
+    launches = (8, 3, 3) if p <= 2 else (5, 3, 2) if p == 3 else (5, 4, 2)
+    for fn, want in zip(("vmult", "vmult_plain", "refill"), launches):
+        before = sum(w.launches for w in wrappers)
+        got = getattr(op, fn)(bv)
+        assert sum(w.launches for w in wrappers) - before == want, fn
+        pairs.append((got, getattr(op, fn)(bv, plain=True)))
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        assert _rel(got, ref) < tol, i
+    assert torch.equal(op.vmult(bv), op.vmult(bv))
+    mm = op if not op.planes else mt.BrickLaplaceMM(mf, device=cuda, dtype=dtype,
+                                                     face_planes=False)
+    bvk = rnd(3, mm.n_bricks, mm.N3p)
+    before = sum(w.launches for w in wrappers)
+    got = mm.vmult_multi(bvk)
+    assert sum(w.launches for w in wrappers) - before == 5
+    for j in range(3):
+        assert torch.equal(got[j], mm.vmult(bvk[j].clone())), j
+    assert _rel(got, mm.vmult_multi(bvk, plain=True)) < tol
+    if dtype == torch.float64:
+        u = np.random.default_rng(p).standard_normal(mf.n_dofs)
+        out = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+        assert np.abs(out - vmult_oracle(tria, p, u)).max() < 1e-12 * np.abs(out).max()

@@ -45,50 +45,50 @@ def one_torch_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_mesh(geo, nref, p):
+def _reference_mesh(geo, nref, p, dim=3):
     import dealii_matrixfree_hanging_nodes_tpu as ref
     from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
 
-    tria = ref.create_geometry(geo, 3, nref)
+    tria = ref.create_geometry(geo, dim, nref)
     return tria, MatrixFree(tria, p, dtype=np.float64)
 
 
 @functools.lru_cache(maxsize=None)
-def reference(geo, nref, p, face_planes=None):
+def reference(geo, nref, p, face_planes=None, dim=3):
     """(tria, mf, BrickLaplaceMM, staged device arrays) of the JAX package;
     face_planes as BrickLaplaceMM takes it (None: on at p <= 2). The
     operators of one mesh share its tria and mf."""
     from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
 
-    tria, mf = _reference_mesh(geo, nref, p)
+    tria, mf = _reference_mesh(geo, nref, p, dim)
     bl = BrickLaplaceMM(mf, face_planes=face_planes)
     return tria, mf, bl, bl._stage()
 
 
 @functools.lru_cache(maxsize=None)
-def _port_mesh(geo, nref, p):
+def _port_mesh(geo, nref, p, dim=3):
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
-    tria = mt.create_geometry(geo, 3, nref)
+    tria = mt.create_geometry(geo, dim, nref)
     return tria, mt.MatrixFree(tria, p, dtype=np.float64)
 
 
 @functools.lru_cache(maxsize=None)
-def port(geo, nref, p, face_planes=None):
+def port(geo, nref, p, face_planes=None, dim=3):
     """(tria, mf, BrickLaplaceMM on the CPU in float64) of the port;
     face_planes as for ``reference``."""
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
 
-    tria, mf = _port_mesh(geo, nref, p)
+    tria, mf = _port_mesh(geo, nref, p, dim)
     return tria, mf, mt.BrickLaplaceMM(mf, device="cpu", face_planes=face_planes)
 
 
 @functools.lru_cache(maxsize=None)
-def port_tables(geo, nref, p):
+def port_tables(geo, nref, p, face_planes=None, dim=3):
     """(arrays, meta): the port's host operator tables, ``operator_tables``."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import operator_tables
 
-    _, mf, op = port(geo, nref, p)
+    _, mf, op = port(geo, nref, p, face_planes, dim)
     return operator_tables(mf, op.bs)
 
 
