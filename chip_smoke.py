@@ -7,8 +7,9 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build the 19 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none),
-   brick_apply's shared memory and blocks per SM at each degree (3-D and 2-D), and
-   brick_deformed's threads, shared memory and blocks per SM at each (p, B);
+   brick_apply's shared memory and blocks per SM at each degree (3-D and 2-D),
+   brick_deformed's threads, shared memory and blocks per SM at each (p, B, dim),
+   and the 2-D brick_elasticity's and hn_cell elastic mode's at p = 1..6;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists and the subset cell rows by kind,
    and on the host hold the kernels'
@@ -193,18 +194,42 @@ Phases (any failure exits non-zero before the last line is printed):
    vmult_multi at k=8 and p=4 (5 launches, each RHS bit-identical to vmult
    of it); float64 against the scipy oracle at the reference's 2-D cases
    (1e-12);
-16. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+16. the rest of 2-D on the brick engine (``brick2d_paths_phase``), f32:
+   the deformed mapping at quadrant nref=11 p=4 on phase 14's deformed
+   MatrixFree (brick_deformed with and without cell rows, the deformed
+   modes of cell_apply and hn_cell against their plain versions, 1e-5,
+   timed with bounds and library calls, brick_deformed's its map composed
+   over the brick nodes as one CSR matrix; vmult, vmult_plain and refill
+   against the plain float64 path with 5 / 2 / 2 launches, bit-identical,
+   timed, profiled; GDoF/s; over phase 14's deformed index vmult; against
+   the deformed index vmult, 1e-5), p=2 at nref=11, and float64 at the
+   reference's 2-D deformed case and one a (p, B) class (1e-12); the 2-D
+   brick GMG-CG at quadrant nref=10 p=4 (tol 1e-5: iterations, residual,
+   seconds, a V-cycle's launches and profile; brick_transfer and dof_embed
+   at the finest transfer against their plain versions, timed with bounds
+   and library calls) and at nref=4 p=2 in float64 (tol 1e-10, the CPU
+   plain path's count); the 2-D brick elasticity on phase 15's p=4
+   operator (mu = lam = 1: vmult 5 launches, vmult_plain 4, the index
+   vmults beside them, against the plain float64 path, timed, GDoF/s over
+   2 n_dofs, profiled, the HN overhead, over phase 14's index elasticity;
+   cell_elasticity's bricks mode, hn_cell's elastic mode, corr_compact and
+   dss_surface at k = 2 and brick_elasticity against their plain
+   versions, timed with bounds and library calls: the composed maps as
+   CSR, the dense el_A by torch.mm) and float64 against the dense oracle
+   at quadrant nref=3 p=2, 4 (1e-12, mu=1.3, lam=0.7);
+17. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
    deformed brick engine's, one with the 2-D index engine's, one with the
-   2-D brick engine's, one with the kernels' numbers (all 19; the new
-   instances as parts named by degree;
+   2-D brick engine's, one with phase 16's, one with the kernels' numbers
+   (all 19; the new instances as parts named by degree;
    masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
    kernels' launches from the solve that runs them; elasticity's calls of
    the existing kernels, the RHS-axis instances, "multi k=8 <kernel>", and
    the deformed modes, "deformed p=4", as parts; brick_deformed's totals
    from its vmult launch; the 2-D instances as parts named "2-D ...", the
-   brick engine's "2-D brick p=<d> ..."), then the device line.
+   brick engine's "2-D brick p=<d> ...", phase 16's "2-D ..."), then the
+   device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -231,6 +256,8 @@ MASKED_CSR_CAP = 300_000_000  # masked_quad's library matrix: entries before sum
 # the kernel of the degree <= 3 schedule whose parts give a new kernel's totals
 LOW_MAIN_DEGREE = 2
 LIBRARY_TOL = 1e-4  # a library yardstick against the plain version, float32, relative
+# profile_path's sessions at most, to record every call of a profile (see profile_path)
+PROFILE_SESSIONS = 10
 # parts timed in phase 4 that refill launches and the vmult does not: in the
 # kernels line they stand in "parts" only, and a kernel's totals are those
 # of its vmult launches
@@ -353,18 +380,23 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     launches a call (the launches themselves are counted exactly by
     ``counted``). Each session first runs fn in `warm` profiler warm-up
     steps, whose records are dropped, so the `reps` recorded calls start
-    with the tracer running. A session is whole where it recorded the
+    with the tracer running. Sessions that recorded none of the calls have
+    come in streaks, up to five in a row on an H100, and so have sessions that
+    lost the same first calls; neither an idle lead nor a spin kernel across
+    the window's start stopped that (``profiler_probe.py`` counts such
+    sessions by variant), so a profile runs up to ``PROFILE_SESSIONS``
+    sessions. A session is whole where it recorded the
     port's kernels of every call and, of the launches outside them that are
     pinned (`copies`, and the kinds that `classes` names), `reps` times the
-    pinned number. The first whole session of five is kept, else the one
+    pinned number. The first whole session of ``PROFILE_SESSIONS`` is kept, else the one
     that recorded the most; from such a partial session the device's busy,
     other and idle time are not measured (None: its records, averaged over
     the calls they hold, have read busy above the wall clock, as the 2-D
-    vmult_multi's kept 22 of 50 launches in all five sessions). Fails where
+    vmult_multi's kept 22 of 50 launches in all five sessions of a run). Fails where
     no session saw device time, or where
     the kept one saw any device launch outside the port's kernels other than
     `copies` device-to-device copies a call (the copy that keeps an input
-    unwritten). Only where all five sessions recorded every kernel but lost
+    unwritten). Only where all sessions recorded every kernel but lost
     a device copy's record (seen once on an H100, in one whole run) do the
     copies count from the host's runtime calls (``cudaMemcpyAsync``, `reps`
     times `copies`); the device's busy and idle time, short of the lost
@@ -381,7 +413,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     warm = 2  # profiler steps whose records are dropped: the tracer starts in them
     # a later profiler session in one process has been seen to record no device
     # activity at all while the calls ran (once in a dozen runs on an H100): such
-    # a session is run again, at most four times, as is one that left out calls
+    # a session is run again, up to PROFILE_SESSIONS in all, as is one that left out calls
     ours = lambda key: any(k in key for k in kernel_names)
 
     def pinned(rows):
@@ -398,7 +430,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
                    for k, n in classes.items() if k != "elementwise" and n is not None)
 
     best = None
-    for attempt in range(5):
+    for attempt in range(PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True, schedule=schedule(wait=0, warmup=warm, active=reps)) as prof:
             for _ in range(warm):
@@ -433,7 +465,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
               f"of {reps} calls{'' if calls != reps else ', not every pinned launch'} "
-              f"(session {attempt + 1} of 5)", flush=True)
+              f"(session {attempt + 1} of {PROFILE_SESSIONS})", flush=True)
     (whole, calls), rows, wall_ms, host_copies = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
@@ -451,10 +483,10 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
     print(f"profile (per {what}, {calls:g} of {reps} calls recorded): wall {wall_ms:.4f} ms, "
           + (f"device busy and idle not measured (CUPTI kept {n_copies:g} of the {copies} "
-             f"device copies a call that the host issued, in all five sessions)"
+             f"device copies a call that the host issued, in all {PROFILE_SESSIONS} sessions)"
              if lost_copy else f"device busy {busy:.4f} ms (idle "
              f"{100 * res['idle_share']:.1f} %)" if whole else
-             "device busy and idle not measured (no whole session of five)")
+             f"device busy and idle not measured (no whole session of {PROFILE_SESSIONS})")
           + f", port kernels {own_ms:.4f} ms in {res['port_launches']:g} launches, other "
           f"device work {'' if whole else 'not measured, '}"
           f"{f'{busy - own_ms:.4f} ms ' if whole else ''}in {res['other_launches']:g} launches")
@@ -1896,26 +1928,29 @@ ELASTIC_NEW = ("cell_elasticity", "brick_elasticity")
 
 def brick_elastic_library(opb, x):
     """brick_elasticity's library call: its map is one dense brick operator
-    [3 N3, 3 N3] (block (c, k) the sum of its Kronecker terms), the same for
-    every brick, so one torch.mm over the bricks (their three components
-    side by side, geo applied outside the timed call, TF32 off) computes
-    it. Returns (call, the plain version without cell rows in the call's
-    layout, which the call is held against)."""
+    [dim N3, dim N3] (block (c, k) the sum of its Kronecker terms; in 2-D
+    the reference's el_A{c}{k}), the same for every brick, so one torch.mm
+    over the bricks (their components side by side, geo applied outside the
+    timed call, TF32 off) computes it. Returns (call, the plain version
+    without cell rows in the call's layout, which the call is held
+    against)."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_elasticity
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    mm = opb.mm
+    mm, d = opb.mm, opb.dim
     N3 = mm.N3
     fac = {"K": opb.Kb.double(), "M": opb.Mb.double(), "G": opb.Gb.double()}
     fac["GT"] = fac["G"].T.contiguous()
-    A = torch.zeros((3 * N3, 3 * N3), dtype=torch.float64, device=x.device)
-    for c in range(3):
-        for k in range(3):
-            for coef, (fx, fy, fz) in brick_elasticity.terms(c, k, opb.mu, opb.lam):
-                A[c * N3:(c + 1) * N3, k * N3:(k + 1) * N3] += coef * torch.kron(
-                    fac[fz], torch.kron(fac[fy], fac[fx]))
+    A = torch.zeros((d * N3, d * N3), dtype=torch.float64, device=x.device)
+    for c in range(d):
+        for k in range(d):
+            for coef, f in brick_elasticity.terms(c, k, opb.mu, opb.lam, d):
+                term = fac[f[0]]
+                for name in f[1:]:
+                    term = torch.kron(fac[name], term)
+                A[c * N3:(c + 1) * N3, k * N3:(k + 1) * N3] += coef * term
     A = A.to(x.dtype)
-    side = lambda v: v[:, :, :N3].permute(1, 0, 2).reshape(mm.n_bricks, 3 * N3)
+    side = lambda v: v[:, :, :N3].permute(1, 0, 2).reshape(mm.n_bricks, d * N3)
     xs = side(x * mm.geo[None, :, None]).contiguous()
     return (lambda: torch.mm(xs, A.T), lambda: side(opb.brick_apply(x, None, plain=True)))
 
@@ -1966,17 +2001,18 @@ def elastic_kernel_calls(opb, mf, x, xi, with_libs=True):
     if not with_libs:
         torch.cuda.synchronize()
         return calls, None, None
-    # library calls: the component-axis kernels' maps over the three components at once (a
-    # CSR product with three columns, an index_add_ of three columns), the brick operator's
+    # library calls: the component-axis kernels' maps over the dim components at once (a
+    # CSR product with dim columns, an index_add_ of dim columns), the brick operator's
     # dense product; none computes cell_elasticity or hn_cell's elastic mode in one call
-    cols3 = lambda t: t.reshape(3, -1).T.contiguous()
+    d = opb.dim
+    cols3 = lambda t: t.reshape(d, -1).T.contiguous()
     corr = corr_matrix(mm, True, dt)
     x_corr = torch.cat([cols3(sub_raw), cols3(plain3)])
     dss = dss_matrix(mm, dt)
     v3 = cols3(v1)
     dof = mf._on("dofmap", dev).reshape(-1).long()
     src3 = cols3(rows3)
-    out3 = torch.zeros((mf.n_dofs, 3), dtype=dt, device=dev)
+    out3 = torch.zeros((mf.n_dofs, d), dtype=dt, device=dev)
     libs = {
         "cell_elasticity": [None, None],
         "hn_cell": [None],
@@ -1987,39 +2023,41 @@ def elastic_kernel_calls(opb, mf, x, xi, with_libs=True):
             dss_surface.dss_surface_plain(v1.clone(), *mm.dss_tables())))],
         "dof_scatter": [lambda: out3.zero_().index_add_(0, dof, src3)],
     }
-    nnz = {"corr_compact (x3 columns)": corr._nnz(), "dss_surface (x3 columns)": dss._nnz()}
+    nnz = {f"corr_compact (x{d} columns)": corr._nnz(), f"dss_surface (x{d} columns)": dss._nnz()}
     torch.cuda.synchronize()
     return calls, libs, nnz
 
 
-def elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi):
-    """One configuration on both engines, float32 through the kernels: the
-    brick vmult and vmult_plain and the index vmult with and without
+def elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi, index=True):
+    """One configuration, float32 through the kernels: the brick vmult and
+    vmult_plain and (with index) the index vmult with and without
     constraints, each against its plain float64 path on the card (1e-5),
     its launches checked exactly, two calls bit-identical, timed (median
     of CUDA-event-timed back-to-back calls after warm-up), GDoF/s as
-    3 n_dofs / time, the host's issue time, a profile (no device launch
+    dim n_dofs / time, the host's issue time, a profile (no device launch
     outside the port's kernels; busy and idle share); the HN overhead of
-    each engine. Returns the numbers."""
-    n3 = 3 * mf.n_dofs
-    u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, 3)).astype(np.float32)
+    each engine run. Returns (the numbers, the brick input, the index
+    input)."""
+    n3 = opb.dim * mf.n_dofs
+    u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, opb.dim)).astype(np.float32)
     x = opb.from_dof_vector(u)
     x64 = x.double()
     xi = torch.from_numpy(u).to(dev)
     xi64 = xi.double()
-    opi = {True: mt.ElasticityOperator(mf, opb.mu, opb.lam, device=dev),
-           False: mt.ElasticityOperator(mf, opb.mu, opb.lam, constraints=False, device=dev)}
-    runs = (
+    runs = [
         ("vmult", lambda: opb.vmult(x),
          lambda: opb64.to_dof_vector(opb64.vmult(x64, plain=True), zero_hanging=True),
          lambda y: opb.to_dof_vector(y, zero_hanging=True)),
         ("vmult_plain", lambda: opb.vmult_plain(x), lambda: opb64.vmult_plain(x64, plain=True),
          lambda y: y),
-        ("index", lambda: opi[True].vmult(xi), lambda: opi[True].vmult(xi64, plain=True),
-         lambda y: y),
-        ("index_plain", lambda: opi[False].vmult(xi), lambda: opi[False].vmult(xi64, plain=True),
-         lambda y: y),
-    )
+    ]
+    if index:
+        opi = {True: mt.ElasticityOperator(mf, opb.mu, opb.lam, device=dev),
+               False: mt.ElasticityOperator(mf, opb.mu, opb.lam, constraints=False, device=dev)}
+        runs += [("index", lambda: opi[True].vmult(xi), lambda: opi[True].vmult(xi64, plain=True),
+                  lambda y: y),
+                 ("index_plain", lambda: opi[False].vmult(xi),
+                  lambda: opi[False].vmult(xi64, plain=True), lambda y: y)]
     out = {}
     for call, fn, ref_fn, read in runs:
         ref = ref_fn()
@@ -2032,7 +2070,8 @@ def elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi):
         print(f"{what} f32 vs plain f64 path: max rel err {err:.3e} (tol 1e-5), launches "
               f"{counts}", flush=True)
         check(bool(torch.isfinite(y).all()) and got.shape == (
-            (mf.n_dofs, 3) if call != "vmult_plain" else x.shape), f"{what} output malformed")
+            (mf.n_dofs, opb.dim) if call != "vmult_plain" else x.shape),
+              f"{what} output malformed")
         check(err <= 1e-5, f"{what} disagrees with the float64 path: {err:.3e}")
         check(counts == ELASTIC_LAUNCHES[call], f"{what} launched {counts}, not "
                                                 f"{ELASTIC_LAUNCHES[call]}")
@@ -2045,24 +2084,25 @@ def elastic_config(mt, name, mf, opb, opb64, dev, wrappers, smi):
         print(f"{what} on {smi}: {ms:.4f} ms ({n3 / ms / 1e6:.4f} GDoF/s over {n3} component "
               f"DoFs); host time to issue {hms:.4f} ms", flush=True)
     out["hn_overhead_bricks"] = out["vmult"]["ms"] / out["vmult_plain"]["ms"]
-    out["hn_overhead_index"] = out["index"]["ms"] / out["index_plain"]["ms"]
-    print(f"elastic HN overhead ({name}) on {smi}: bricks {out['hn_overhead_bricks']:.4f} "
-          f"(vmult / vmult_plain), index {out['hn_overhead_index']:.4f} (vmult / "
-          f"constraints=False)", flush=True)
+    line = f"bricks {out['hn_overhead_bricks']:.4f} (vmult / vmult_plain)"
+    if index:
+        out["hn_overhead_index"] = out["index"]["ms"] / out["index_plain"]["ms"]
+        line += f", index {out['hn_overhead_index']:.4f} (vmult / constraints=False)"
+    print(f"elastic HN overhead ({name}) on {smi}: {line}", flush=True)
     return out, x, xi
 
 
-def elastic_oracle_checks(mt, dev):
+def elastic_oracle_checks(mt, dev, dim=3, cases=ELASTIC_ORACLE):
     """float64 through the kernels on both engines against the dense
-    oracle (1e-12), mu=1.3, lam=0.7, at ELASTIC_ORACLE."""
+    oracle (1e-12), mu=1.3, lam=0.7, at cases (dim-D meshes)."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle
 
     worst = 0.0
-    for geo, nref, p in ELASTIC_ORACLE:
-        tria = mt.create_geometry(geo, 3, nref)
+    for geo, nref, p in cases:
+        tria = mt.create_geometry(geo, dim, nref)
         mf = mt.MatrixFree(tria, p)
-        u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, 3))
-        for c in range(3):
+        u = np.random.default_rng(SEED).standard_normal((mf.n_dofs, dim))
+        for c in range(dim):
             u[:, c] = mf.constraints.distribute(u[:, c])
         ref = elasticity_oracle(tria, p, 1.3, 0.7, u)
         scale = np.abs(ref).max()
@@ -2073,8 +2113,8 @@ def elastic_oracle_checks(mt, dev):
         for engine, g in got.items():
             err = float(np.abs(g.cpu().numpy() - ref).max() / scale)
             worst = max(worst, err)
-            print(f"elastic {engine} vmult {geo} nref={nref} p={p} f64 vs dense oracle: max rel "
-                  f"err {err:.3e} (tol 1e-12)", flush=True)
+            print(f"elastic {engine} vmult {dim}-D {geo} nref={nref} p={p} f64 vs dense oracle: "
+                  f"max rel err {err:.3e} (tol 1e-12)", flush=True)
             check(err <= 1e-12, f"float64 elastic {engine} vmult at {geo} nref={nref} p={p} "
                                 f"disagrees with the oracle: {err:.3e}")
     return worst
@@ -2097,8 +2137,8 @@ def elasticity_phase(mt, mf7, op7, op7_64, dev, wrappers, smi):
     for dt in (torch.float32, torch.float64):
         print(f"elasticity kernels at p=4 {dt} (threads, shared memory bytes, blocks per SM): "
               f"cell_elasticity {cell_elasticity.plan(dt, 4, dev)}, hn_cell elastic "
-              f"{hn_cell.elastic_plan(dt, 4, 4, dev)}, brick_elasticity "
-              f"{brick_elasticity.plan(dt, 4, dev)}", flush=True)
+              f"{hn_cell.elastic_plan(dt, 4, 4, 3, dev)}, brick_elasticity "
+              f"{brick_elasticity.plan(dt, 4, 3, dev)}", flush=True)
     numbers = {}
     records, parts = {}, {}
     for i, (name, nref, p) in enumerate(ELASTIC_CONFIGS):
@@ -2461,9 +2501,41 @@ def deformed_cell_matrices(op, cells, chunk=2048):
     for s in range(0, len(cells), chunk):
         c = cells[s:s + chunk]
         cols = laplace_rows(eye.repeat(len(c), 1), op.S, op.Dc, None,
-                            op.metric[c].repeat_interleave(n, dim=0))  # row (c, j): K_c e_j
+                            op.metric[c].repeat_interleave(n, dim=0), op.dim)  # K_c e_j
         out[s:s + len(c)] = cols.view(len(c), n, n).transpose(1, 2)
     return out
+
+
+def deformed_brick_csr(op, chunk=1024):
+    """brick_deformed's map composed, for 2-D bricks: one CSR matrix over
+    the brick nodes [nb*N3p, nb*N3p], block diagonal by brick, each block
+    its present cells' K_c (``deformed_cell_matrices``) scattered to their
+    nodes and summed where cells share a node, int32 indices; built in
+    chunks of bricks. The padded tail rows are empty."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_deformed
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+
+    nb, N, dev = op.n_bricks, op.N3p, op.device
+    cells = brick_deformed.present_cells(op.present_bits, op.C)
+    starts = list(range(0, nb, chunk))
+    cuts = torch.searchsorted(cells, torch.tensor(starts + [nb], device=dev) * op.C).tolist()
+    counts, cols, vals = [], [], []
+    for i, b0 in enumerate(starts):
+        c = cells[cuts[i]:cuts[i + 1]]
+        nodes = cell_nodes(c, op.B, op.p, N, dev)  # [m, n_loc] flat brick-node ids
+        key = (nodes[:, :, None] * N + nodes[:, None, :] % N).reshape(-1)  # row, column in brick
+        key, inv = torch.unique(key, return_inverse=True)  # sorted by row, then column
+        vals.append(torch.zeros(len(key), dtype=op.dtype, device=dev).index_add_(
+            0, inv, deformed_cell_matrices(op, c).reshape(-1)))
+        row = key // N
+        counts.append(torch.bincount(row - b0 * N, minlength=(min(b0 + chunk, nb) - b0) * N))
+        cols.append((row // N * N + key % N).to(torch.int32))
+        del nodes, key, inv, row
+    crow = torch.zeros(nb * N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.cat(counts), 0)
+    check(int(crow[-1]) < 2**31, "brick_deformed's composed map needs int64 indices")
+    return torch.sparse_csr_tensor(crow.to(torch.int32), torch.cat(cols), torch.cat(vals),
+                                   (nb * N, nb * N))
 
 
 def deformed_kernel_calls(op, x, with_libs=True):
@@ -2473,9 +2545,12 @@ def deformed_kernel_calls(op, x, with_libs=True):
     cell_apply's and hn_cell's deformed modes; with with_libs their library
     calls: cell_apply's map as one CSR product (each subset cell's dense
     K_c at its nodes, int32 indices), hn_cell's (the fill composed with
-    each row's Q_b K_c Q_f) likewise, none for brick_deformed (its composed
-    map, a dense K_c a present cell, is counted and not built). Returns
-    (calls, libraries or None, {matrix: nonzeros})."""
+    each row's Q_b K_c Q_f) likewise; brick_deformed's in 2-D as one CSR
+    product over the brick nodes (``deformed_brick_csr``), held against the
+    plain version without cell rows (their overlap-add has brick_apply's
+    index_add_ yardstick); none in 3-D (its composed map, a dense K_c a
+    present cell, is counted and not built). Returns (calls, libraries or
+    None, {matrix: nonzeros})."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         brick_deformed, cell_apply, corr_compact, hn_cell,
     )
@@ -2512,8 +2587,9 @@ def deformed_kernel_calls(op, x, with_libs=True):
             lambda: hn_cell.hn_cell_plain(*hn_args, mode="deformed",
                                           deformed=op.deformed_tables()),
             hn_cell.bytes_and_flops(u_sub, *op.hn_tables(), op.B, mode="deformed"), None, None)]
-    n_present = int(brick_deformed.present_cells(op.present_bits, op.B).numel())
-    nnz = {"brick_deformed (not built)": n_present * op.n_loc**2}
+    n_present = int(brick_deformed.present_cells(op.present_bits, op.C).numel())
+    nnz = {"brick_deformed (not built)" if op.dim == 3 else "brick_deformed (cell blocks)":
+           n_present * op.n_loc**2}
     if not with_libs:
         torch.cuda.synchronize()
         return calls, None, nnz
@@ -2536,24 +2612,29 @@ def deformed_kernel_calls(op, x, with_libs=True):
     x_u = u_sub.reshape(-1)
     libs = {"brick_deformed": [None, None], "cell_apply": [lambda: ca_lib @ x_u],
             "hn_cell": [lambda: hn_lib @ x_u]}
+    if op.dim == 2:
+        bd_lib, x_b = deformed_brick_csr(op), x.reshape(-1)
+        nnz["brick_deformed"] = bd_lib._nnz()
+        bare = lambda: brick_deformed.brick_deformed_plain(*bd, brick_size=op.B)
+        libs["brick_deformed"] = [(lambda: bd_lib @ x_b, bare)] * 2
     torch.cuda.synchronize()
     return calls, libs, nnz
 
 
-def deformed_f64_checks(mt, dev, wrappers):
-    """float64 through the kernels at DEFORMED_F64 (1e-12 each): every
-    deformed kernel instance against its plain version, the vmult against
-    the plain path and the deformed index engine's, vmult_plain and refill
-    against the plain path; the vmult's launches checked."""
+def deformed_f64_checks(mt, dev, wrappers, dim=3, cases=DEFORMED_F64):
+    """float64 through the kernels at cases (dim-D meshes; 1e-12 each):
+    every deformed kernel instance against its plain version, the vmult
+    against the plain path and the deformed index engine's, vmult_plain
+    and refill against the plain path; the vmult's launches checked."""
     tol, out = 1e-12, {}
-    for geo, nref, p in DEFORMED_F64:
-        mf = mt.MatrixFree(mt.create_geometry(geo, 3, nref), p, dtype=np.float64,
+    for geo, nref, p in cases:
+        mf = mt.MatrixFree(mt.create_geometry(geo, dim, nref), p, dtype=np.float64,
                            high_order_mapping=True)
         op = mt.BrickLaplaceMM(mf, device=dev)
         u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
         x = op.from_dof_vector(u)
         calls, _, _ = deformed_kernel_calls(op, x, with_libs=False)
-        what = f"deformed {geo} nref={nref} p={p} f64"
+        what = f"deformed {dim}-D {geo} nref={nref} p={p} f64"
         kernel_err = max(r for v in check_kernels(calls, tol, what).values() for _, r in v)
         y, n = counted(wrappers, lambda: op.vmult(x))
         n = {k: c for k, c in n.items() if c}
@@ -2954,7 +3035,8 @@ def index2d_phase(mt, dev, wrappers, smi):
     apply_hanging_node_constraints against the plain float64 path (1e-5),
     launches checked, bit-identical, timed, profiled; the HN overhead;
     float64 against the oracles; the GMG-CG solve. Returns (numbers,
-    {kernel: [part]}, the compact engine's MatrixFree, which phase 15 reuses)."""
+    {kernel: [part]}, the compact engine's MatrixFree, which phase 15 reuses,
+    and the deformed MatrixFree, which phase 16 reuses)."""
     tol, f32 = 1e-5, torch.float32
     p = INDEX2D_DEGREE
     setup = {}
@@ -3088,7 +3170,7 @@ def index2d_phase(mt, dev, wrappers, smi):
           f"{res['vmult deformed']['ms']:.4f} ms; elasticity {res['elasticity']['ms']:.4f} ms "
           f"({res['elasticity']['gdofs_per_s']:.4f} GDoF/s over 2 n_dofs); runners "
           f"{json.dumps(runners)}", flush=True)
-    del ops, op_d, op_e, mfs, mf_d, x64, rows64
+    del ops, op_d, op_e, mfs, x64, rows64
     torch.cuda.empty_cache()
 
     # ---- float64 against the oracles, and the GMG-CG solve
@@ -3129,7 +3211,7 @@ def index2d_phase(mt, dev, wrappers, smi):
     numbers = dict(nref=INDEX2D_NREF, degree=p, dtype="float32", setup_s=setup, sizes=sizes,
                    **res, runners=runners, hn_overhead=overhead, f64_oracle=oracle,
                    f64_oracle_s=oracle_s, gmg=gmg, library_nnz=nnz, card=smi)
-    return numbers, parts, mf
+    return numbers, parts, mf, mf_d
 
 
 # 2-D on the brick engine (phase 15): every degree on phase 14's mesh (quadrant
@@ -3185,7 +3267,8 @@ def brick2d_phase(mt, mf, index_vmult_ms, dev, wrappers, smi):
     busy and idle share); the HN overhead; the p=4 brick vmult over the
     2-D index vmult of phase 14 (index_vmult_ms); vmult_multi at k=8 and
     p=4 (launches, each RHS bit-identical to vmult of it); float64 against
-    the oracle. Returns (numbers, {kernel: [part]})."""
+    the oracle. Returns (numbers, {kernel: [part]}, the p=4 float32
+    operator, which phase 16's elasticity wraps)."""
     numbers, parts, keep = {}, {}, {}
     for p in BRICK2D_DEGREES:
         t0 = time.perf_counter()
@@ -3200,7 +3283,7 @@ def brick2d_phase(mt, mf, index_vmult_ms, dev, wrappers, smi):
     op = keep.pop(mf.degree)
     bvk = multi_inputs(op, BRICK2D_MULTI_K, SEED)
     multi, _ = multi_run(op, bvk, wrappers, smi, f"2-D p={op.p} k={BRICK2D_MULTI_K}")
-    del op, bvk
+    del bvk
     torch.cuda.empty_cache()
     main = numbers[f"p={mf.degree}"]["vmult"]["ms"]
     ratio = main / index_vmult_ms
@@ -3212,6 +3295,331 @@ def brick2d_phase(mt, mf, index_vmult_ms, dev, wrappers, smi):
     oracle = brick2d_oracle_checks(mt, dev)
     numbers.update(multi=multi, brick_over_index=ratio, index_vmult_ms=index_vmult_ms,
                    f64_oracle=oracle, f64_oracle_s=time.perf_counter() - t0, card=smi)
+    return numbers, parts, op
+
+
+# ---- the rest of 2-D on the brick engine (phase 16) -------------------------------------
+# the deformed 2-D brick engine on phase 14's deformed MatrixFree (quadrant nref=
+# INDEX2D_DEFORMED_NREF, p=4) and at BRICK2D_DEFORMED_LOW (the B=16 class); float64 at the
+# reference's 2-D deformed case (tests/test_bricks.py: quadrant nref=4 p=3) and one case a
+# (p, B) class; the 2-D brick GMG-CG at quadrant nref=INDEX2D_GMG_NREF p=4 f32 (phase 14's index
+# GMG mesh) and at BRICK2D_GMG_CHECK in float64; the 2-D brick elasticity on phase 15's p=4
+# operator (quadrant nref=INDEX2D_NREF) and against the dense oracle at BRICK2D_ELASTIC_ORACLE
+BRICK2D_DEFORMED_LOW = (2, 11)  # degree, quadrant nref
+BRICK2D_DEFORMED_F64 = (("quadrant", 4, 3), ("quadrant", 6, 1), ("quadrant", 4, 2),
+                        ("quadrant", 4, 4), ("quadrant", 3, 5), ("quadrant", 3, 6))
+BRICK2D_GMG_CHECK = (4, 2)  # quadrant nref, degree of the float64 solve held to the CPU's count
+BRICK2D_ELASTIC_ORACLE = (("quadrant", 3, 2), ("quadrant", 3, 4))
+
+
+def brick2d_deformed(mt, mf_d, index_ms, dev, wrappers, smi):
+    """The deformed 2-D brick engine at quadrant nref=INDEX2D_DEFORMED_NREF
+    p=4 f32 on phase 14's deformed MatrixFree mf_d (its host metric built
+    there): the operator's setup; brick_deformed (with and without cell
+    rows), cell_apply's and hn_cell's deformed modes against their plain
+    versions (1e-5), timed with their bounds and library calls; vmult,
+    vmult_plain and refill (``deformed_run``: 5 / 2 / 2 launches, two calls
+    bit-identical, the plain float64 path, times, profiles); GDoF/s and the
+    ratio to phase 14's deformed index vmult (index_ms); the f32 vmult
+    against the deformed index engine's (1e-5); BRICK2D_DEFORMED_LOW the
+    same without profiles; float64 at BRICK2D_DEFORMED_F64. Returns
+    (numbers, {kernel: [part]})."""
+    t0 = time.perf_counter()
+    op = mt.BrickLaplaceMM(mf_d, device=dev)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    op64 = mt.BrickLaplaceMM(mf_d, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_deformed
+
+    n_present = int(brick_deformed.present_cells(op.present_bits, op.C).numel())
+    setup = dict(operator=op_s, operator_steps=op.setup_s,
+                 operator_f64=time.perf_counter() - t0 - op_s,
+                 metric_device_bytes=op.metric.numel() * op.metric.element_size())
+    sizes = dict(n_dofs=mf_d.n_dofs, bricks=op.n_bricks, B=op.B, NB=op.NB,
+                 subset_bricks=op.n_sub, constrained_rows=op.n_hn, present_cells=n_present)
+    print(f"2-D deformed brick setup (quadrant nref={INDEX2D_DEFORMED_NREF} p={op.p} f32): "
+          f"{json.dumps(setup)}; sizes {json.dumps(sizes)}", flush=True)
+    check(op.dim == 2 and op.deformed and op.n_hn > 0, "the 2-D deformed operator is malformed")
+    u = np.random.default_rng(SEED).standard_normal(mf_d.n_dofs).astype(np.float32)
+    x = op.from_dof_vector(u)
+    calls, libs, nnz = deformed_kernel_calls(op, x)
+    print(f"2-D deformed maps composed into one CSR matrix each (the library calls), nonzeros: "
+          f"{nnz}; brick_deformed's over the brick nodes, the cells' {op.n_loc}^2 blocks summed "
+          f"where they share a node", flush=True)
+    parts = {name: measure_parts(name, cparts, libs[name], {}, x.dtype, 1e-5)
+             for name, cparts in calls.items()}
+    del calls, libs
+    torch.cuda.empty_cache()
+    what = f"2-D deformed p={op.p} nref={INDEX2D_DEFORMED_NREF}"
+    numbers, launches = deformed_run(op, op64, x, wrappers, smi, what)
+    ms = numbers["vmult"]["ms"]
+    idx = mt.LaplaceOperator(mf_d, device=dev)
+    ref = idx.vmult(torch.from_numpy(u).to(dev))
+    ref[torch.from_numpy(mf_d.constraints.constrained_dof_marker()).to(dev)] = 0.0
+    cross = errors(op.to_dof_vector(op.vmult(x), zero_hanging=True), ref)[1]
+    check(cross <= 1e-5, f"the 2-D deformed brick vmult disagrees with the index engine's: "
+                         f"{cross:.3e}")
+    numbers.update(setup=setup, sizes=sizes, gdofs_per_s=mf_d.n_dofs / ms / 1e6,
+                   index_vmult_ms=index_ms, brick_over_index=ms / index_ms,
+                   vs_index_max_rel_err=cross, library_nnz=nnz, card=smi)
+    print(f"{what} f32 on {smi}: vmult {ms:.4f} ms ({numbers['gdofs_per_s']:.4f} GDoF/s), "
+          f"vmult_plain {numbers['vmult_plain']['ms']:.4f}, refill "
+          f"{numbers['refill']['ms']:.4f}; HN overhead {numbers['hn_overhead']:.4f}; over the "
+          f"2-D deformed index vmult {index_ms:.4f} ms: {ms / index_ms:.4f}; against the "
+          f"deformed index vmult (f32, through its kernels) max rel err {cross:.3e} (tol 1e-5)",
+          flush=True)
+    del op, op64, idx, ref, x
+    torch.cuda.empty_cache()
+
+    p, nref = BRICK2D_DEFORMED_LOW
+    t0 = time.perf_counter()
+    tria = mf_d.tria if nref == INDEX2D_DEFORMED_NREF else mt.create_quadrant(2, nref)
+    mf_l = mt.MatrixFree(tria, p, dtype=np.float32, high_order_mapping=True)
+    op_l = mt.BrickLaplaceMM(mf_l, device=dev)
+    op_l64 = mt.BrickLaplaceMM(mf_l, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    low_setup = time.perf_counter() - t0
+    x_l = op_l.from_dof_vector(np.random.default_rng(SEED).standard_normal(mf_l.n_dofs))
+    low, _ = deformed_run(op_l, op_l64, x_l, wrappers, smi, f"2-D deformed p={p} nref={nref}",
+                          profile=False)
+    low.update(setup_s=low_setup, n_dofs=mf_l.n_dofs, B=op_l.B,
+               gdofs_per_s=mf_l.n_dofs / low["vmult"]["ms"] / 1e6)
+    numbers[f"p={p} nref={nref}"] = low
+    del op_l, op_l64, mf_l, x_l
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    numbers["f64"] = deformed_f64_checks(mt, dev, wrappers, dim=2, cases=BRICK2D_DEFORMED_F64)
+    numbers["f64_s"] = time.perf_counter() - t0
+    for name, plist in parts.items():
+        for i, part in enumerate(plist):
+            call = "vmult_plain" if name == "brick_deformed" and i == 1 else "vmult"
+            part["launches"] = numbers[call]["launches"].get(name, 0)
+            part["call"] = f"2-D deformed {call}"
+            part["mode"] = f"2-D {part['mode']}"
+    return numbers, parts
+
+
+def brick2d_gmg(mt, dev, wrappers, smi):
+    """The 2-D brick GMG-CG (BrickGMGPreconditioner in 2-D, its device
+    solver) at quadrant nref=INDEX2D_GMG_NREF p=4 f32, tol 1e-5: the setup
+    and levels, a warm-up solve, then the counted solve (iterations,
+    relative residual, seconds a solve and an iteration, two solves
+    bit-identical, brick_transfer and dof_embed launched); one V-cycle's
+    launches by kernel, the host's time to issue it and its profile;
+    brick_transfer's and dof_embed's dim=2 instances at the finest transfer
+    against their plain versions (1e-5), timed with bounds and library
+    calls (each map one CSR matrix); at BRICK2D_GMG_CHECK in float64 (tol
+    1e-10) the iteration count on the card against the CPU's plain path.
+    Returns (numbers, {kernel: [part]})."""
+    p = INDEX2D_DEGREE
+    t0 = time.perf_counter()
+    gmg = mt.BrickGMGPreconditioner("quadrant", 2, INDEX2D_GMG_NREF, p, dtype=np.float32,
+                                    device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    levels = [dict(cells=mf.n_cells, n_dofs=mf.n_dofs, bricks=mm.n_bricks,
+                   subset_bricks=mm.n_sub, constrained_rows=mm.n_hn)
+              for mf, mm in zip(gmg.levels, gmg.mms)]
+    op, mm, mf = gmg.fine_op, gmg.fine_mm, gmg.fine_mf
+    print(f"2-D brick GMG setup: {setup_s:.1f} s (quadrant nref={INDEX2D_GMG_NREF} p={p} f32, "
+          f"B={mm.B}, {len(levels)} levels: {levels})", flush=True)
+    xs = mf.constraints.distribute(np.random.default_rng(SEED).standard_normal(mf.n_dofs))
+    xs[mf.dof_handler.boundary_dofs()] = 0.0
+    b = op.vmult(mm.from_dof_vector(xs.astype(np.float32)))
+    solve = gmg.make_device_solver(tol=1e-5, max_iter=100)
+    t0 = time.perf_counter()
+    x0, it0, _ = solve(b)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (x, iters, res), counts = counted(wrappers, lambda: solve(b))
+    solve_s = time.perf_counter() - t0
+    counts = {k: c for k, c in counts.items() if c}
+    b_norm = float(torch.sqrt(mm.dot(b, b)))
+    r = b - op.vmult(x)
+    true_res = float(torch.sqrt(mm.dot(r, r))) / b_norm
+    print(f"2-D brick GMG-CG quadrant nref={INDEX2D_GMG_NREF} p={p} f32 on {smi}: {iters} "
+          f"iterations, relative residual {res / b_norm:.3e} (recomputed b - A x: "
+          f"{true_res:.3e}); solve {solve_s:.4f} s, {solve_s / max(iters, 1):.4f} s an "
+          f"iteration (warm-up {warm_s:.2f} s); launches {counts}", flush=True)
+    check(bool(torch.isfinite(x).all()) and iters < 100 and res / b_norm <= 1e-5,
+          f"the 2-D brick GMG-CG did not converge: {iters} iterations, {res / b_norm:.3e}")
+    check(it0 == iters and torch.equal(x0, x), "two 2-D brick GMG solves are not bit-identical")
+    for name in ("brick_transfer", "dof_embed"):
+        check(counts.get(name, 0) > 0, f"the 2-D brick GMG solve never launched {name}")
+    vc, vcounts = counted(wrappers, lambda: gmg(b))
+    vcounts = {k: c for k, c in vcounts.items() if c}
+    check(bool(torch.isfinite(vc).all()), "the 2-D brick V-cycle gave non-finite values")
+    v_prof = profile_path("2-D brick V-cycle", lambda: gmg(b), set(wrappers),
+                          sum(vcounts.values()), reps=5,
+                          classes={"index": 1, "dense product": 1, "reduction": 0})
+    v_host = host_ms(lambda: gmg(b), reps=5, warmup=1)
+    print(f"2-D brick V-cycle: port launches {vcounts}, host time to issue {v_host:.4f} ms",
+          flush=True)
+    calls, lib, nnz = gmg_kernel_calls(gmg, dev)
+    print(f"2-D brick GMG kernels' library matrices, nonzeros: {nnz}", flush=True)
+    parts = {}
+    for name in ("brick_transfer", "dof_embed"):
+        parts[name] = measure_parts(name, calls[name], lib[name], {}, torch.float32, 1e-5)
+        for part in parts[name]:
+            part["mode"] = f"2-D {part['mode']} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}"
+            part["launches"] = counts.get(name, 0)
+            part["call"] = "2-D brick GMG-CG solve"
+    numbers = dict(nref=INDEX2D_GMG_NREF, degree=p, dtype="float32", tol=1e-5, setup_s=setup_s,
+                   levels=levels, iterations=iters, rel_res=res / b_norm,
+                   rel_res_recomputed=true_res, solve_s=solve_s,
+                   s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s, launches=counts,
+                   vcycle=dict(launches=vcounts, host_ms=v_host, profile=v_prof),
+                   library_nnz=nnz, card=smi)
+    del gmg, op, mm, b, x, x0, vc, r, calls, lib
+    torch.cuda.empty_cache()
+
+    nref, p = BRICK2D_GMG_CHECK
+    t0 = time.perf_counter()
+    its = {}
+    for where in ("cpu", dev):
+        g = mt.BrickGMGPreconditioner("quadrant", 2, nref, p, device=where)
+        m, f = g.fine_mm, g.fine_mf
+        xs = f.constraints.distribute(np.random.default_rng(SEED).standard_normal(f.n_dofs))
+        xs[f.dof_handler.boundary_dofs()] = 0.0
+        bb = g.fine_op.vmult(m.from_dof_vector(xs))
+        _, its[str(where)], _ = g.make_device_solver(tol=1e-10, max_iter=100)(bb)
+    print(f"2-D brick GMG-CG quadrant nref={nref} p={p} f64 tol 1e-10: {its[str(dev)]} iterations "
+          f"on the card, {its['cpu']} on the CPU's plain path ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(its[str(dev)] == its["cpu"] < 30, "the 2-D brick GMG-CG's float64 iteration count "
+                                            "differs from the CPU's plain path")
+    numbers["f64_check"] = dict(nref=nref, degree=p, iterations=its[str(dev)],
+                                iterations_cpu=its["cpu"])
+    return numbers, parts
+
+
+def elastic2d_libraries(opb, x):
+    """The composed maps of the 2-D brick elasticity's cell kernels as CSR
+    matrices (int32 indices) from the component bricks x [2, nb, N3p]:
+    cell_elasticity's bricks mode (a dense coupled [2 n_loc, 2 n_loc] block
+    a subset cell, times its geo) and hn_cell's elastic mode (the fill
+    composed with each row's Q_b Kel Q_f a component pair). Returns
+    ({kernel: call}, {kernel: nonzeros})."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_elasticity import elastic_rows
+
+    mm, dev, dt = opb.mm, x.device, x.dtype
+    d, n = opb.dim, mm.n_loc
+    ar = lambda k: torch.arange(k, device=dev)
+    # Kel[c, i, k, j]: component c node i of the coupled operator on unit input (k, j), geo 1
+    eye = torch.eye(d * n, dtype=torch.float64, device=dev).reshape(d * n, d, n).transpose(0, 1)
+    Kel = elastic_rows(eye.contiguous(), opb.S.double(), opb.Dc.double(), opb.quad_w.double(),
+                       torch.ones((d * n, d), dtype=torch.float64, device=dev), opb.mu,
+                       opb.lam)  # [c, (k j), i]
+    Kel = Kel.permute(0, 2, 1).reshape(d, n, d, n)
+    R, cs = mm.n_sub * mm.C, x.shape[1] * x.shape[2]
+    nodes = cell_nodes(ar(R), mm.B, mm.p, mm.N3p, dev)  # [R, n]
+    rows = (ar(d)[:, None, None] * R * n + ar(R)[None, :, None] * n + ar(n)).reshape(-1)
+    cols = (ar(d)[:, None, None] * cs + nodes[None]).permute(1, 0, 2).reshape(R, d * n)
+    vals = Kel.reshape(d, n, d * n)[:, None] * mm.geo_cell_sub.double()[None, :, None, None]
+    ce = torch.sparse_csr_tensor((ar(d * R * n + 1) * (d * n)).to(torch.int32),
+                                 cols[None, :, None, :].expand(d, R, n, d * n).reshape(-1)
+                                 .to(torch.int32), vals.reshape(-1).to(dt), (d * R * n, d * cs))
+    # hn_cell's elastic mode: block (c, k) maps component k's subset nodes to component c's rows
+    fill_rows, fill_cols = fill_entries(mm)
+    Qf, Qb = (hn_dense(mm, d_, dt).double() for d_ in ("fwd", "bwd"))
+    q = mm.hn_q.long()
+    qq = torch.where(q >= 0, q, Qf.shape[0] - 1)
+    n_sub_vals = mm.n_sub * mm.N3p
+    blocks_r, blocks_c, blocks_v = [], [], []
+    for c in range(d):
+        for k in range(d):
+            maps = (Qb[qq] @ Kel[c, :, k, :] @ Qf[qq]).to(dt)
+            M = hn_map(mm, maps, ar(mm.n_hn), fill_rows, fill_cols, n_sub_vals,
+                       scale=mm.geo_hn.to(dt)).to_sparse_coo().coalesce()
+            r_, c_ = M.indices()
+            blocks_r.append(r_ + c * mm.n_hn * n)
+            blocks_c.append(c_ + k * cs)
+            blocks_v.append(M.values())
+    hn = sparse_csr(torch.cat(blocks_r), torch.cat(blocks_c), torch.cat(blocks_v),
+                    (d * mm.n_hn * n, d * cs))
+    xf = x.reshape(-1)
+    torch.cuda.synchronize()
+    return ({"cell_elasticity": lambda: ce @ xf, "hn_cell": lambda: hn @ xf},
+            {"cell_elasticity[bricks]": ce._nnz(), "hn_cell[elastic]": hn._nnz()})
+
+
+def brick2d_elasticity(mt, mf, op2, index_ms, dev, wrappers, smi):
+    """The 2-D brick elasticity (mu = lam = 1) at quadrant nref=INDEX2D_NREF
+    p=4 f32 on phase 15's p=4 operator op2 (and a float64 one on the same
+    MatrixFree mf): ``elastic_config`` without the index engine, which
+    phase 14 measured (the brick vmult, 5 launches, and vmult_plain, 4;
+    against the plain float64 path, 1e-5, bit-identical, timed, GDoF/s
+    over 2 n_dofs, profiles, the HN overhead); the brick vmult over phase
+    14's index elasticity (index_ms); every 2-D instance on the brick path
+    (cell_elasticity's bricks mode, hn_cell's elastic mode, corr_compact and
+    dss_surface on their component axis at k = 2, brick_elasticity) against
+    its plain version (1e-5), timed with its bound and library call (the
+    composed maps as CSR, the component-axis maps over two columns, the
+    dense el_A by torch.mm); float64 against the dense oracle at
+    BRICK2D_ELASTIC_ORACLE (1e-12, mu=1.3, lam=0.7). Returns (numbers,
+    {kernel: [part]})."""
+    t0 = time.perf_counter()
+    opb = mt.BrickElasticity.on_operator(op2, ELASTIC_MU, ELASTIC_LAM)
+    op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
+    opb64 = mt.BrickElasticity.on_operator(op64, ELASTIC_MU, ELASTIC_LAM)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(opb.dim == 2, "the 2-D brick elasticity is not 2-D")
+    res, x, xi = elastic_config(mt, "2-D", mf, opb, opb64, dev, wrappers, smi, index=False)
+    ratio = res["vmult"]["ms"] / index_ms
+    print(f"2-D brick elasticity on {smi}: vmult {res['vmult']['ms']:.4f} ms over phase 14's "
+          f"index elasticity {index_ms:.4f} ms: {ratio:.4f}", flush=True)
+    calls, libs, nnz = elastic_kernel_calls(opb, mf, x, xi)
+    libs_el, nnz_el = elastic2d_libraries(opb, x)
+    nnz.update(nnz_el)
+    print(f"2-D elastic library matrices, nonzeros: {nnz}; brick_elasticity's library call is one "
+          f"torch.mm by the dense el_A [{2 * opb.mm.N3}, {2 * opb.mm.N3}]", flush=True)
+    keep = {"cell_elasticity": "bricks", "hn_cell": "elastic", "corr_compact": "components",
+            "brick_elasticity": "fused", "dss_surface": "components"}
+    parts = {}
+    for name, mode in keep.items():
+        i = next(k for k, c in enumerate(calls[name]) if c[0] == mode)
+        lib = libs_el.get(name, libs[name][i])
+        parts[name] = measure_parts(name, [calls[name][i]], [lib], {}, torch.float32, 1e-5)
+        for part in parts[name]:
+            part["mode"] = f"2-D {part['mode']}"
+            part["launches"] = res["vmult"]["launches"].get(name, 0)
+            part["call"] = "2-D elastic vmult"
+    del calls, libs, libs_el
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    oracle = elastic_oracle_checks(mt, dev, dim=2, cases=BRICK2D_ELASTIC_ORACLE)
+    numbers = dict(res, nref=INDEX2D_NREF, degree=op2.p, dtype="float32", n_dofs=mf.n_dofs,
+                   component_dofs=2 * mf.n_dofs, setup_s=setup_s, index_elasticity_ms=index_ms,
+                   brick_over_index=ratio, library_nnz=nnz, oracle_max_rel_err=oracle,
+                   oracle_s=time.perf_counter() - t0, card=smi)
+    del opb, opb64, op64, x, xi
+    torch.cuda.empty_cache()
+    return numbers, parts
+
+
+def brick2d_paths_phase(mt, mf2, mf2_d, op2, index2d, dev, wrappers, smi):
+    """Phase 16, the rest of 2-D on the brick engine: the deformed mapping
+    (``brick2d_deformed``), the brick GMG-CG (``brick2d_gmg``) and brick
+    elasticity (``brick2d_elasticity``), each timed. Returns (numbers,
+    {kernel: [part]})."""
+    numbers, parts = {}, {}
+    for key, run in (
+            ("deformed", lambda: brick2d_deformed(mt, mf2_d, index2d["vmult deformed"]["ms"], dev,
+                                                  wrappers, smi)),
+            ("gmg", lambda: brick2d_gmg(mt, dev, wrappers, smi)),
+            ("elasticity", lambda: brick2d_elasticity(mt, mf2, op2, index2d["elasticity"]["ms"],
+                                                      dev, wrappers, smi))):
+        t0 = time.perf_counter()
+        numbers[key], pparts = run()
+        numbers[key]["phase_s"] = time.perf_counter() - t0
+        print(f"2-D brick {key}: {numbers[key]['phase_s']:.1f} s", flush=True)
+        for name, plist in pparts.items():
+            parts.setdefault(name, []).extend(plist)
+        torch.cuda.empty_cache()
     return numbers, parts
 
 
@@ -3227,8 +3635,8 @@ def main() -> int:
         return 0
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, brick_apply, brick_deformed, corr_compact, dss_surface,
-        refill_update,
+        KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, corr_compact,
+        dss_surface, hn_cell, refill_update,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -3267,9 +3675,14 @@ def main() -> int:
             plans = [brick_apply.plan(dt, p, m, device=dev, dim=2) for m in (0, 1)]
             print(f"  brick_apply2_kernel {dt} p={p} NB={NB}: shared memory bytes, blocks per SM "
                   f"{plans[0]} without cell rows, {plans[1]} with")
-        for p, B in sorted(brick_deformed.SUPPORTED):
-            print(f"  brick_deformed_kernel {dt} p={p} B={B}: threads, shared memory bytes, "
-                  f"blocks per SM {brick_deformed.plan(dt, p, B, device=dev)}")
+        for p, B, d in sorted(brick_deformed.SUPPORTED, key=lambda t: (-t[2], t[0])):
+            print(f"  brick_deformed{'2' if d == 2 else ''}_kernel {dt} p={p} B={B}: threads, "
+                  f"shared memory bytes, blocks per SM "
+                  f"{brick_deformed.plan(dt, p, B, d, device=dev)}")
+        for p in range(1, 7):  # the 2-D brick elasticity's instances (B = 16, 16, 16, 8, 8, 8)
+            print(f"  brick_elasticity2_kernel {dt} p={p}: threads, shared memory bytes, blocks "
+                  f"per SM {brick_elasticity.plan(dt, p, 2, dev)}; hn_cell_elastic2_kernel "
+                  f"{hn_cell.elastic_plan(dt, p, 16 if p <= 3 else 8, 2, dev)}")
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
     t0 = time.perf_counter()
@@ -3583,23 +3996,32 @@ def main() -> int:
 
     # ---- 14. 2-D on the index engine ----------------------------------------------
     t0 = time.perf_counter()
-    index2d, index2d_parts, mf2 = index2d_phase(mt, dev, wrappers, smi)
+    index2d, index2d_parts, mf2, mf2_d = index2d_phase(mt, dev, wrappers, smi)
     index2d["phase_s"] = time.perf_counter() - t0
     print(f"2-D index engine phase: {index2d['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
     # ---- 15. 2-D on the brick engine, on phase 14's mesh ---------------------------
     t0 = time.perf_counter()
-    brick2d, brick2d_parts = brick2d_phase(mt, mf2, index2d["vmult"]["ms"], dev, wrappers, smi)
+    brick2d, brick2d_parts, op2 = brick2d_phase(mt, mf2, index2d["vmult"]["ms"], dev, wrappers,
+                                                smi)
     brick2d["phase_s"] = time.perf_counter() - t0
     print(f"2-D brick engine phase: {brick2d['phase_s']:.1f} s", flush=True)
-    del mf2
+    torch.cuda.empty_cache()
+
+    # ---- 16. the rest of 2-D on the brick engine, on phase 14's and 15's meshes ---------
+    t0 = time.perf_counter()
+    paths2d, paths2d_parts = brick2d_paths_phase(mt, mf2, mf2_d, op2, index2d, dev, wrappers,
+                                                 smi)
+    paths2d["phase_s"] = time.perf_counter() - t0
+    print(f"2-D brick paths phase: {paths2d['phase_s']:.1f} s", flush=True)
+    del mf2, mf2_d, op2
     torch.cuda.empty_cache()
     # existing kernels: their elastic calls, their RHS-axis instances, their deformed
     # modes and their 2-D instances (index and brick engines) as parts
     for name, plist in (list(elastic_parts.items()) + list(multi_parts.items())
                         + list(deformed_parts.items()) + list(index2d_parts.items())
-                        + list(brick2d_parts.items())):
+                        + list(brick2d_parts.items()) + list(paths2d_parts.items())):
         results[name]["parts"].extend(plist)
         for part in plist:
             for key in ("max_abs_err", "max_rel_err"):
@@ -3607,7 +4029,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 16. the numbers -----------------------------------------------------
+    # ---- 17. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -3624,6 +4046,7 @@ def main() -> int:
     print(json.dumps({"deformed": deformed}))
     print(json.dumps({"index_2d": index2d}))
     print(json.dumps({"brick_2d": brick2d}))
+    print(json.dumps({"brick_2d_paths": paths2d}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

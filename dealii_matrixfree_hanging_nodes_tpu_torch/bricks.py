@@ -12,9 +12,9 @@ cells (the "subset") come first, so every subset access is a leading
 slice. In 2-D (dim = 2; the reference's dim branches, B from
 ``auto_brick_size(p, 2)``) the operator is Mb⊗Kb + Kb⊗Mb, a brick's
 surface is 4 side lines and 4 corners (no edge pools), the masked removal
-has 4 parity classes and the face planes are side lines; the schedules,
-kernels and launch counts are the 3-D ones. The deformed mapping is 3-D
-only here (it raises for dim=2).
+has 4 parity classes, the face planes are side lines and a deformed
+cell's metric packs 3 values a point (xx, xy, yy); the schedules, kernels
+and launch counts are the 3-D ones.
 
 vmult = on the subset: cell_apply (cells read from the bricks, times K by
         sum factorization of its 1-D factors K1, M1), hn_cell (the
@@ -708,9 +708,10 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     operator runs it. Under a deformed mapping (``mf.high_order_mapping``)
     the per-cell schedule at every degree, as the reference forces it
     (bricks.py:1149-1182), and the metric of every brick cell: ``metric``
-    [n_bricks*B^3, n_q, 6], the reference's ``Gfull`` (bricks.py:1931-1943:
-    mf's packed metric at the cells' brick-cell rows, zero at absent slots),
-    with S and Dc; the assembled schedule's tables are not built.
+    [n_bricks*B^dim, n_q, dim (dim+1) / 2], the reference's ``Gfull``
+    (bricks.py:1931-1943: mf's packed metric at the cells' brick-cell rows,
+    zero at absent slots), with S and Dc; the assembled schedule's tables
+    are not built.
 
     Returns (arrays, meta): ``arrays`` maps buffer names to float64 / int64 /
     int32 / bool NumPy arrays (``BrickLaplaceMM`` buffer names), ``meta``
@@ -792,7 +793,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
                 plane_meta=[], plane_levels=[])
     nq1 = si.S.shape[0]
     if deformed:
-        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, 6]
+        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, n_pairs]
         metric = np.zeros((bs.n_bricks * C,) + geo_cells.shape[1:])
         metric[bs.cell_lin] = geo_cells
         arrays.update(metric=metric, S=si.S, Dc=si.Dc)
@@ -1371,8 +1372,6 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     dense K, T or Q (``kronecker_sum(K1, M1)`` builds K where a check needs
     it)."""
     dim = int(meta["dim"])
-    if dim == 2 and meta.get("deformed"):
-        raise NotImplementedError("the deformed brick engine in dim=2 is not ported yet")
     C = int(meta["B"]) ** dim
     n_loc = (int(meta["p"]) + 1) ** dim
     N3p, n_sub = int(meta["N3p"]), int(meta["n_sub"])
@@ -1392,7 +1391,7 @@ def kernel_tables(arrays: dict, meta: dict) -> dict:
     keep = (np.asarray(arrays["keep_hn"]) != 0) if n_hn else np.zeros((0, n_loc), bool)
     out.update(cell_code=cell_code, hn_sub=i32(hn_sub), keep_hn=keep)
     if meta.get("deformed"):
-        out.update(_deformed_tables(arrays, absent, int(meta["B"]), len(out["geo"])))
+        out.update(_deformed_tables(arrays, absent, int(meta["B"]), len(out["geo"]), dim))
     if n_sub * N3p > np.iinfo(np.int32).max:
         raise NotImplementedError("subset brick nodes exceed int32")
     assembled = bool(meta.get("assembled", False))
@@ -1484,16 +1483,17 @@ def q_lists(Qs) -> dict:
     return out
 
 
-def _deformed_tables(arrays, absent, B, n_bricks):
-    """The deformed mapping's tables: the metric [n_bricks*B^3, n_q, 6] with
-    S and Dc as given, and the present cells (all but the absent slots of
-    the subset) as brick_deformed's bit words; raises where the metric is
-    not zero at an absent slot (the reference's rows there are zero, and
-    brick_deformed skips them)."""
+def _deformed_tables(arrays, absent, B, n_bricks, dim):
+    """The deformed mapping's tables: the metric [n_bricks*B^dim, n_q,
+    dim (dim+1) / 2] (6 values a point in 3-D, 3 in 2-D) with S and Dc as
+    given, and the present cells (all but the absent slots of the subset)
+    as brick_deformed's bit words; raises where the metric is not zero at
+    an absent slot (the reference's rows there are zero, and brick_deformed
+    skips them)."""
     metric = np.asarray(arrays["metric"], dtype=np.float64)
-    C = B**3
-    if metric.shape[0] != n_bricks * C or metric.shape[2] != 6:
-        raise ValueError(f"the metric {metric.shape} is not [{n_bricks * C}, n_q, 6]")
+    C, n_pairs = B**dim, dim * (dim + 1) // 2
+    if metric.shape[0] != n_bricks * C or metric.shape[2] != n_pairs:
+        raise ValueError(f"the metric {metric.shape} is not [{n_bricks * C}, n_q, {n_pairs}]")
     if np.any(metric[absent] != 0.0):
         raise ValueError("the metric is not zero at an absent slot")
     present = np.ones(n_bricks * C, dtype=bool)
@@ -1590,9 +1590,6 @@ class BrickLaplaceMM(nn.Module):
             return
         if mf.dim not in (2, 3):
             raise NotImplementedError("the port's brick engine supports dim=2 and dim=3")
-        if mf.dim == 2 and mf.high_order_mapping:
-            raise NotImplementedError("the deformed brick engine (high_order_mapping) in dim=2 "
-                                      "is not ported yet")
         if mf.high_order_mapping:
             if face_planes or assembled:
                 raise NotImplementedError("a deformed mapping runs the per-cell schedule: no "

@@ -73,8 +73,6 @@ def reference_tables(np_arrays: dict, meta: dict):
     slot_idx = np.asarray(meta["slot_idx"], dtype=np.int64)
     B, p, dim = _brick_shape(slot_idx, int(meta["N3"]))
     NB = B * p + 1
-    if dim == 2 and meta.get("_deformed", False):
-        raise NotImplementedError("the deformed brick engine in dim=2 is not ported yet")
     f64 = lambda x: np.asarray(x, dtype=np.float64)
     i64 = lambda x: np.asarray(x, dtype=np.int64)
     surf_idx = _one_hot_rows(a["Es"])
@@ -97,7 +95,8 @@ def reference_tables(np_arrays: dict, meta: dict):
              n_corr_tails=fm.get("corr", {}).get("n_tails", 0))
     m["deformed"] = bool(meta.get("_deformed", False))
     if m["deformed"]:
-        out.update(metric=_cell_metric(a, B, p, m["n_sub"]), S=f64(a["S"]), Dc=f64(a["Dc"]))
+        out.update(metric=_cell_metric(a, B, p, m["n_sub"], dim), S=f64(a["S"]),
+                   Dc=f64(a["Dc"]))
     else:
         for k in ("Sqb", "Dqb", "w1", "qmask_absent", "qmask_rem", "plane_P1"):
             if k in a:
@@ -173,19 +172,22 @@ def _brick_shape(slot_idx, N3):
     return found[0]
 
 
-def _cell_metric(a, B, p, n_sub):
-    """The metric in brick-cell rows [n_bricks*B^3, n_q, 6] (the reference's
-    ``Gfull``) from its brick-quad lattice ``Gqb`` [nb, 6, Q, Q, Q] (Q = B
-    (p+1), the axis index along d is c_d (p+1) + q_d, bricks.py:1944-1950),
+def _cell_metric(a, B, p, n_sub, dim):
+    """The metric in brick-cell rows [n_bricks*B^dim, n_q, n_pairs] (the
+    reference's ``Gfull``; n_pairs 6 in 3-D, 3 in 2-D) from its brick-quad
+    lattice ``Gqb`` [nb, n_pairs, Q, Q, Q] (2-D: [nb, 3, Q, Q]; Q = B (p+1),
+    the axis index along d is c_d (p+1) + q_d, bricks.py:1944-1956),
     checked against the subset's rows ``Gq_sub`` and the constrained rows
     ``Gq_hn`` (at ``hn_sub``)."""
     G = np.asarray(a["Gqb"], dtype=np.float64)
-    nb, n = G.shape[0], p + 1
-    metric = np.ascontiguousarray(
-        G.reshape(nb, 6, B, n, B, n, B, n).transpose(0, 2, 4, 6, 3, 5, 7, 1)
-        .reshape(nb * B**3, n**3, 6))
+    nb, n, n_pairs = G.shape[0], p + 1, G.shape[1]
+    if dim == 3:
+        G = G.reshape(nb, n_pairs, B, n, B, n, B, n).transpose(0, 2, 4, 6, 3, 5, 7, 1)
+    else:
+        G = G.reshape(nb, n_pairs, B, n, B, n).transpose(0, 2, 4, 3, 5, 1)
+    metric = np.ascontiguousarray(G.reshape(nb * B**dim, n**dim, n_pairs))
     hn_sub = np.asarray(a["hn_sub"], dtype=np.int64)
-    if not (np.array_equal(metric[: n_sub * B**3], np.asarray(a["Gq_sub"], dtype=np.float64))
+    if not (np.array_equal(metric[: n_sub * B**dim], np.asarray(a["Gq_sub"], dtype=np.float64))
             and np.array_equal(metric[hn_sub], np.asarray(a["Gq_hn"], dtype=np.float64))):
         raise ValueError("the brick-quad metric Gqb disagrees with Gq_sub or Gq_hn")
     return metric

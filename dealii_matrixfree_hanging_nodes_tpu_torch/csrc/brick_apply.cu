@@ -72,26 +72,10 @@
 
 #include <cstdint>
 #include <cstring>
-#include <utility>
+
+#include "brick_band.cuh"
 
 namespace {
-
-// Structural nonzeros of row i of a brick factor: columns lo(i)..hi(i).
-template <int NB, int P>
-__host__ __device__ constexpr int lo(int i) {
-  return i == 0 ? 0 : (i - 1) / P * P;
-}
-template <int NB, int P>
-__host__ __device__ constexpr int hi(int i) {
-  return (i / P + 1) * P < NB - 1 ? (i / P + 1) * P : NB - 1;
-}
-// Offset of row i in the packed factor: p+1 entries a row, p more on each interior cell
-// boundary before row i.
-template <int NB, int P>
-__host__ __device__ constexpr int row_offset(int i) {
-  const int b = i == 0 ? 0 : (i - 1) / P;
-  return i * (P + 1) + P * (b < (NB - 1) / P - 1 ? b : (NB - 1) / P - 1);
-}
 
 template <typename T, int NB, int P>
 struct Cfg {
@@ -298,35 +282,13 @@ brick_apply_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ>
 // spill) and stores straight to device memory, a warp's lanes on neighbouring x; the cell rows
 // are read from device memory in the epilogue (1-4 values a node, in the order of the 3-D
 // epilogue: y cells outer, then x). The rows and each row's band are written out at compile time
-// (each_row, band): left to `#pragma unroll`, the 33 x 33 loop with its band conditions stayed
-// rolled (in its SASS at NB=33: 536 LDC factor loads, 443 ISETP, 169 branches, 528 FFMA; 0.5624
-// ms at 2-D quadrant nref=11 p=4 f32, 12x the bound); written out, 772 FFMA, each factor entry
-// an operand (471 ULDC), no LDC.
+// (brick_band.cuh's each_row, band): left to `#pragma unroll`, the 33 x 33 loop with its band
+// conditions stayed rolled (in its SASS at NB=33: 536 LDC factor loads, 443 ISETP, 169 branches,
+// 528 FFMA; 0.5624 ms at 2-D quadrant nref=11 p=4 f32, 12x the bound); written out, 772 FFMA,
+// each factor entry an operand (471 ULDC), no LDC.
 // Bound on an H100 SXM at 2-D quadrant nref=11, p=4, f32 (16,646 bricks, NB=33, N3p=1152, 517
 //   bricks with cell rows): memory, u's NB^2 nodes read once, v written with its padding, the
 //   cell rows: 152.6 MB, 0.0455 ms at 3.35 TB/s (0.867 GFLOP, 0.013 ms at 67 TFLOP/s).
-// Compile-time expansion of the 2-D rounds: fn(integral_constant<I>) for each row I < NB, and
-// term(e, j) for each structural nonzero j = lo(I) .. hi(I) of row I, e its place in the packed
-// factor (both as integral constants). Written out by parameter packs, not left to `#pragma unroll` (which leaves a 33 x 33
-// loop with conditions rolled: factor loads by LDC and the band decided at run time).
-template <int... I, typename Fn>
-__device__ __forceinline__ void each_row_seq(Fn&& fn, std::integer_sequence<int, I...>) {
-  (fn(std::integral_constant<int, I>{}), ...);
-}
-template <int NB, typename Fn>
-__device__ __forceinline__ void each_row(Fn&& fn) {
-  each_row_seq(fn, std::make_integer_sequence<int, NB>{});
-}
-template <int NB, int P, int I, int... J, typename Fn>
-__device__ __forceinline__ void band_seq(Fn&& term, std::integer_sequence<int, J...>) {
-  (term(std::integral_constant<int, row_offset<NB, P>(I) + J>{},
-        std::integral_constant<int, lo<NB, P>(I) + J>{}), ...);
-}
-template <int NB, int P, int I, typename Fn>
-__device__ __forceinline__ void band(Fn&& term) {
-  band_seq<NB, P, I>(term, std::make_integer_sequence<int, hi<NB, P>(I) - lo<NB, P>(I) + 1>{});
-}
-
 template <typename T, int NB, int P>
 struct Cfg2 {
   static constexpr int B = (NB - 1) / P;

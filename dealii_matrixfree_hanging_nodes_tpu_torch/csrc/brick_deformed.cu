@@ -36,6 +36,18 @@
 //     1-8 cells add in a fixed order: deterministic, bit-identical calls;
 //   - at the end each node is stored once: acc plus, on the first m bricks, its 1-8 cell-row
 //     entries summed z cells outer, then y, then x (brick_apply's epilogue order).
+//
+// 2-D (brick_deformed2_kernel; the reference's 2-D branch, bricks.py:3009-3020): bricks of NB^2
+// nodes (node (y, x) at y*NB + x), B^2 cells of N^2 nodes, the metric [N^2][3] a cell (xx, xy,
+// yy); B = 16 at p = 1..3, 8 at p = 4..6. The same design: one block a brick, its u and sum in
+// shared memory (2 x 2,401 values at NB = 49), groups of G2 cells (128 at p = 1, 64 at p = 2, 3,
+// 32 at p = 4..6; one line of a cell a thread, N lines a cell) through laplace_quad.cuh's 2-D
+// sweeps (laplace_cells2, metric_line2), 4 parity classes of cells (x%2, y%2) into the sum, one
+// barrier a class, then the store with the 1-4 cell-row entries (y cells outer, then x).
+// Bound at 2-D quadrant nref=11 p=4 f32 (16,646 bricks, 1,051,669 present cells, 517 bricks with
+//   cell rows; brick_deformed.bytes_and_flops): memory, the present cells' metric (315.5 MB),
+//   u's NB^2 nodes (72.5 MB), v with its padding (76.7 MB) and the cell rows (3.3 MB): ~468 MB,
+//   0.14 ms at 3.35 TB/s; 8 sweeps of 2 n^3 and 8 operations a point a cell, 2.3 GFLOP, 0.03 ms.
 
 #include <cuda_runtime.h>
 
@@ -189,6 +201,131 @@ brick_deformed_kernel(const T* __restrict__ u, const T* __restrict__ geo,
   }
 }
 
+// ---- 2-D --------------------------------------------------------------------------------------
+// A group of G consecutive slots, GX x GY cells (x fastest), its first slot at even x and y;
+// parity class (px, py) holds CX x CY of its cells, the cells 2 k + (px, py).
+template <int B, int G>
+struct Group2 {
+  static constexpr int GX = B < G ? B : G;
+  static constexpr int GY = G / GX;
+  static constexpr int CX = GX / 2, CY = GY / 2;
+  static_assert(GX * GY == G && GX % 2 == 0 && GY % 2 == 0 && (B * B) % G == 0,
+                "a group is whole pairs of cells along x and y");
+};
+
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(lq::Cells2<P>::THREADS)
+brick_deformed2_kernel(const T* __restrict__ u, const T* __restrict__ geo,
+                       const int* __restrict__ present, const T* __restrict__ S,
+                       const T* __restrict__ Dc, const T* __restrict__ dcols, T* __restrict__ v,
+                       int m, int N3p, int vec_u) {
+  using F = lq::Cells2<P>;
+  using Gr = Group2<B, F::G>;
+  constexpr int N = F::N, NL = F::NL, G = F::G, SCR = G * NL;
+  constexpr int NB = B * P + 1, N2 = NB * NB, N2R = (N2 + 3) / 4 * 4;
+  constexpr int C = B * B, W = (C + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* su = reinterpret_cast<T*>(smem_raw);  // [N2R] the brick's u
+  T* acc = su + N2R;                       // [N2R] its sum
+  T* V = acc + N2R;                        // [G NL] the group's rows
+  T* G0 = V + SCR;                         // [2][G NL] their gradients
+  T* G1 = G0 + SCR;
+  T* sS = G1 + SCR;  // [N N]
+  T* sD = sS + N * N;   // [N N]
+  __shared__ unsigned s_bits[W];
+
+  const int tid = threadIdx.x;
+  const size_t brick = blockIdx.x;
+  const T* ub = u + brick * N3p;
+  sf::copy_block(su, ub, N2, vec_u && (reinterpret_cast<uintptr_t>(ub) % 16 == 0));
+  for (int i = tid; i < N2; i += F::THREADS) acc[i] = T(0);
+  lq::stage_factors<T, N>(sS, sD, S, Dc);
+  for (int i = tid; i < W; i += F::THREADS) s_bits[i] = __ldg(present + brick * W + i);
+  __syncthreads();
+
+  auto is_present = [&](int s) { return (s_bits[s >> 5] >> (s & 31)) & 1u; };
+  // the brick node of local index jj in the cell at slot s
+  auto node = [](int s, int jj) {
+    return ((s / B) * P + jj / N) * NB + (s % B) * P + jj % N;
+  };
+  const int l = tid, g = l / N, j = l - g * N;
+  T* cell = V + g * NL;
+
+  for (int s0 = 0; s0 < C; s0 += G) {
+    for (int t = tid; t < G * NL; t += F::THREADS) {
+      const int k = t / NL, s = s0 + k;
+      V[t] = is_present(s) ? su[node(s, t - k * NL)] : T(0);
+    }
+    const bool active = l < G * N && is_present(s0 + g);
+    if (!__syncthreads_or(active)) continue;  // also the barrier after the gather
+    const T* mg = geo + (brick * C + s0 + (g < G ? g : 0)) * NL * 3;
+    lq::laplace_cells2<T, N>(cell, G0 + g * NL, G1 + g * NL, sS, sD, j, active,
+                             [=](T* x, T* y) { lq::metric_line2<T, N>(mg, x, y, j); });
+#pragma unroll 1
+    for (int cls = 0; cls < 4; ++cls) {
+      const int px = cls & 1, py = cls >> 1;
+      constexpr int NC = Gr::CX * Gr::CY * NL;
+      for (int t = tid; t < NC; t += F::THREADS) {
+        const int k = t / NL, jj = t - k * NL;
+        const int gk = 2 * (k % Gr::CX) + px + Gr::GX * (2 * (k / Gr::CX) + py);
+        const int s = s0 + gk;
+        if (is_present(s)) acc[node(s, jj)] += V[gk * NL + jj];
+      }
+      __syncthreads();
+    }
+  }
+
+  // store: acc, plus each node's cell-row entries on the first m bricks
+  T* vb = v + brick * N3p;
+  const T* db = dcols + brick * C * NL;
+  const bool rows = static_cast<int>(brick) < m;
+  for (int i = tid; i < N3p; i += F::THREADS) {
+    if (i >= N2) {
+      vb[i] = T(0);
+      continue;
+    }
+    T out = acc[i];
+    if (rows) {
+      int cx[2], lx[2], cy[2], ly[2];
+      const int nx = axis_cells<P, B>(i % NB, cx, lx);
+      const int ny = axis_cells<P, B>(i / NB, cy, ly);
+      T corr = T(0);
+      for (int b = 0; b < ny; ++b)
+        for (int c = 0; c < nx; ++c)
+          corr += __ldg(db + static_cast<size_t>(cy[b] * B + cx[c]) * NL + ly[b] * N + lx[c]);
+      out += corr;
+    }
+    vb[i] = out;
+  }
+}
+
+template <typename T, int P, int B>
+int launch2(const void* u, const void* geo, const void* present, const void* S, const void* Dc,
+            const void* dcols, void* v, int nb, int m, int N3p, int* info, cudaStream_t stream) {
+  using F = lq::Cells2<P>;
+  constexpr int NB = B * P + 1;
+  const int smem = static_cast<int>(
+      (2 * sf::round4(NB * NB) + 3 * F::G * F::NL + 2 * F::N * F::N) * sizeof(T));
+  auto kernel = brick_deformed2_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
+    info[0] = F::THREADS;
+    info[1] = smem;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, F::THREADS, smem));
+  }
+  const int vec_u = (N3p * sizeof(T)) % 16 == 0;
+  if (nb > 0) {
+    kernel<<<nb, F::THREADS, smem, stream>>>(
+        static_cast<const T*>(u), static_cast<const T*>(geo), static_cast<const int*>(present),
+        static_cast<const T*>(S), static_cast<const T*>(Dc), static_cast<const T*>(dcols),
+        static_cast<T*>(v), m, N3p, vec_u);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int P, int B>
 int launch(const void* u, const void* geo, const void* present, const void* S, const void* Dc,
            const void* dcols, void* v, int nb, int m, int N3p, int* info, cudaStream_t stream) {
@@ -217,10 +354,22 @@ int launch(const void* u, const void* geo, const void* present, const void* S, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// (p, B) as the brick size rule gives them: B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at p = 5, 6
+// (p, B) as the brick size rule gives them: 3-D B = 16, 8, 4 at p = 1, 2, 3 and 4; B = 2 at
+// p = 5, 6; 2-D B = 16 at p = 1..3, 8 at p = 4..6
 template <typename T>
 int dispatch(const void* const* a, void* v, int nb, int m, int p, int B, int N3p, int* info,
-             cudaStream_t stream) {
+             int dim, cudaStream_t stream) {
+#define BD_CASE2(p_, b_) \
+  if (dim == 2 && p == p_ && B == b_) \
+    return launch2<T, p_, b_>(a[0], a[1], a[2], a[3], a[4], a[5], v, nb, m, N3p, info, stream);
+  BD_CASE2(1, 16)
+  BD_CASE2(2, 16)
+  BD_CASE2(3, 16)
+  BD_CASE2(4, 8)
+  BD_CASE2(5, 8)
+  BD_CASE2(6, 8)
+#undef BD_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define BD_CASE(p_, b_) \
   if (p == p_ && B == b_) \
     return launch<T, p_, b_>(a[0], a[1], a[2], a[3], a[4], a[5], v, nb, m, N3p, info, stream);
@@ -239,16 +388,17 @@ int dispatch(const void* const* a, void* v, int nb, int m, int p, int B, int N3p
 extern "C" {
 
 // a: device pointers, in order: u [nb][N3p], geo [nb*B^3][(p+1)^3][6], present [nb][ceil(B^3/32)]
-// int32, S, Dc [(p+1)^2], dcols [m*B^3][(p+1)^3] (unread when m = 0). info: null to launch;
+// int32, S, Dc [(p+1)^2], dcols [m*B^3][(p+1)^3] (unread when m = 0); dim = 2: geo
+// [nb*B^2][(p+1)^2][3], present [nb][ceil(B^2/32)], dcols [m*B^2][(p+1)^2]. info: null to launch;
 // else [threads, shared-memory bytes, blocks per SM], not launched.
 int brick_deformed_f32(const void* const* a, void* v, int nb, int m, int p, int B, int N3p,
-                       int* info, void* stream) {
-  return dispatch<float>(a, v, nb, m, p, B, N3p, info, static_cast<cudaStream_t>(stream));
+                       int* info, int dim, void* stream) {
+  return dispatch<float>(a, v, nb, m, p, B, N3p, info, dim, static_cast<cudaStream_t>(stream));
 }
 
 int brick_deformed_f64(const void* const* a, void* v, int nb, int m, int p, int B, int N3p,
-                       int* info, void* stream) {
-  return dispatch<double>(a, v, nb, m, p, B, N3p, info, static_cast<cudaStream_t>(stream));
+                       int* info, int dim, void* stream) {
+  return dispatch<double>(a, v, nb, m, p, B, N3p, info, dim, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

@@ -52,28 +52,37 @@
 //   What holds it back: each of a brick's three blocks stages the brick's three components and
 //   sweeps them (a block for all three outputs would share the x and y rounds of an input);
 //   the cell rows are read from device memory, not staged.
+//
+// 2-D (brick_elasticity2_kernel; the reference's 2-D branch, models/elasticity_bricks.py:205-213,
+// one dense [NB^2, NB^2] el_A{c}{k} a block on the MXU): two components on bricks of NB^2 nodes
+// (node (y, x) at y*NB + x), B = 16 at p = 1..3, 8 at p = 4..6,
+//   A_cc = (mu + [c == 0](mu + lam)) My (x) Kx + (mu + [c == 1](mu + lam)) Ky (x) Mx,
+//   A_ck = mu F1y (x) F1x + lam F2y (x) F2x   (k != c; F1: G on k, GT on c; F2: G on c, GT on k),
+// computed as brick_apply2_kernel computes the Laplace, not as the dense product: a block takes
+// G bricks (about 256 lines, its shared memory at most 96 KB) and one output component c
+// (blockIdx = 2 group + c), stages both input components of its bricks (cp.async), and runs
+//   x round, line (g, y), for each input k: a_k = XA_k u_k, b_k = XB_k u_k (XA, XB the x factors
+//     of block (c, k): K, M on the diagonal; F1x, F2x off it), the line in registers, a_k
+//     written back over u_k, b_k into a second buffer;
+//   y round, line (g, x): v_c = geo (sum over k of cA_k YA_k a_k + cB_k YB_k b_k) plus the cell
+//     rows' 1-4 entries (y cells outer, then x), straight to device memory;
+// 16 factor applications a brick and output pair, the least schedule's (least_schedule(2)). The
+// rows and each row's band are written out at compile time (brick_band.cuh's each_row, band, as
+// brick_apply.cu's 2-D rounds: left to #pragma unroll the NB = 33..49 band loops stay rolled),
+// four sums a row in the y round, combined with the coefficients at the row's end.
+// Bound at 2-D quadrant nref=11 p=4 f32 (16,646 bricks, NB=33, N3p=1152, 517 bricks with cell
+//   rows; brick_elasticity.bytes_and_flops): bytes. u's 2 NB^2 nodes read once, v written with
+//   its padding, the cell rows: 305.1 MB, 0.091 ms at 3.35 TB/s; the least schedule's 3.72 GFLOP,
+//   0.056 ms at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
 
-namespace {
+#include "brick_band.cuh"
 
-// Structural nonzeros of row i of a brick factor: columns lo(i)..hi(i) (as brick_apply.cu).
-template <int NB, int P>
-__host__ __device__ constexpr int lo(int i) {
-  return i == 0 ? 0 : (i - 1) / P * P;
-}
-template <int NB, int P>
-__host__ __device__ constexpr int hi(int i) {
-  return (i / P + 1) * P < NB - 1 ? (i / P + 1) * P : NB - 1;
-}
-template <int NB, int P>
-__host__ __device__ constexpr int row_offset(int i) {
-  const int b = i == 0 ? 0 : (i - 1) / P;
-  return i * (P + 1) + P * (b < (NB - 1) / P - 1 ? b : (NB - 1) / P - 1);
-}
+namespace {
 
 constexpr int FK = 0, FM = 1, FG = 2, FGT = 3, NONE = -1;
 
@@ -332,10 +341,193 @@ int launch(const void* u, const void* packed, const void* geo, const void* dcols
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- 2-D --------------------------------------------------------------------------------------
+template <typename T, int NB, int P>
+struct Cfg2 {
+  static constexpr int B = (NB - 1) / P;
+  static constexpr int N2 = NB * NB;
+  static constexpr int N2R = (N2 + 3) / 4 * 4;  // a brick buffer, 16-byte aligned
+  static constexpr int NL = (P + 1) * (P + 1);
+  static constexpr int DC = B * B * NL;  // a brick's cell rows of one component
+  static constexpr int NNZ = row_offset<NB, P>(NB);
+  static constexpr int BYTES = 4 * N2R * static_cast<int>(sizeof(T));  // u_k, b_k (k = 0, 1)
+  static constexpr int G0 = 256 / NB;
+  static constexpr int G_SMEM = 96 * 1024 / BYTES > 0 ? 96 * 1024 / BYTES : 1;
+  static constexpr int G = G0 * BYTES <= 96 * 1024 ? G0 : G_SMEM;  // bricks a block
+  static constexpr int THREADS = (G * NB + 31) / 32 * 32;
+  static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
+};
+
+// The x factors (XA, XB) and y factors (YA, YB) of block (C, K) in 2-D
+template <int C, int K>
+struct Pair2 {
+  static constexpr bool DIAG = C == K;
+  static constexpr int XA = DIAG ? FK : f1(0, C, K), XB = DIAG ? FM : f2(0, C, K);
+  static constexpr int YA = DIAG ? FM : f1(1, C, K), YB = DIAG ? FK : f2(1, C, K);
+};
+
+// x round of input K for output C: line (g, y) of the staged u_K (su) -> a over it, b into sb
+template <typename T, int NB, int P, int C, int K>
+__device__ __forceinline__ void x_round2(const Factors<T, Cfg2<T, NB, P>::NNZ>& f, T* su, T* sb) {
+  using Pr = Pair2<C, K>;
+  T r[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) r[j] = su[j];
+  each_row<NB>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    T a = T(0), b = T(0);
+    band<NB, P, i>([&](auto e, auto j) {
+      a += f.F[Pr::XA][decltype(e)::value] * r[decltype(j)::value];
+      b += f.F[Pr::XB][decltype(e)::value] * r[decltype(j)::value];
+    });
+    su[i] = a;
+    sb[i] = b;
+  });
+}
+
+// The two rounds of output C on the G bricks staged in s0 (u_0, u_1 by brick) and s1 (b_0, b_1),
+// line (g, c) of thread l; the y round stores v_C straight to device memory.
+template <typename T, int NB, int P, int C>
+__device__ __forceinline__ void output2(const Factors<T, Cfg2<T, NB, P>::NNZ>& f, T* s0, T* s1,
+                                        const T* __restrict__ geo, const T* __restrict__ dcols,
+                                        T* __restrict__ vc, T mu, T lam, int b0, int nbk, int m,
+                                        int N3p) {
+  using S = Cfg2<T, NB, P>;
+  using P0 = Pair2<C, 0>;
+  using P1 = Pair2<C, 1>;
+  constexpr int N = P + 1;
+  const int l = threadIdx.x, g = l / NB, c = l - g * NB;
+  const bool active = g < nbk;
+  T* const u0 = s0 + (2 * g) * S::N2R;  // u_0 then a_0
+  T* const u1 = u0 + S::N2R;            // u_1 then a_1
+  T* const w0 = s1 + (2 * g) * S::N2R;  // b_0
+  T* const w1 = w0 + S::N2R;            // b_1
+  if (active) {
+    x_round2<T, NB, P, C, 0>(f, u0 + c * NB, w0 + c * NB);
+    x_round2<T, NB, P, C, 1>(f, u1 + c * NB, w1 + c * NB);
+  }
+  __syncthreads();
+  if (!active) return;
+  // the coefficients of the four sums: a diagonal block's alpha (mu, plus mu + lam on axis C)
+  const T al_x = C == 0 ? 2 * mu + lam : mu, al_y = C == 1 ? 2 * mu + lam : mu;
+  const T cA0 = P0::DIAG ? al_x : mu, cB0 = P0::DIAG ? al_y : lam;
+  const T cA1 = P1::DIAG ? al_x : mu, cB1 = P1::DIAG ? al_y : lam;
+  const int brick = b0 + g;
+  const T gb = geo[brick];
+  const bool rows = brick < m;
+  int ox[2] = {0, 0};
+  const int nx = axis_terms<NB, P>(c, S::NL, 1, ox);
+  const T* const db = dcols + (static_cast<size_t>(C) * m + brick) * S::DC;
+  T* const vb = vc + static_cast<size_t>(brick) * N3p + c;
+  each_row<NB>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    T sA0 = T(0), sB0 = T(0), sA1 = T(0), sB1 = T(0);
+    band<NB, P, i>([&](auto e, auto j) {
+      constexpr int o = decltype(j)::value * NB;
+      sA0 += f.F[P0::YA][decltype(e)::value] * u0[o + c];
+      sB0 += f.F[P0::YB][decltype(e)::value] * w0[o + c];
+      sA1 += f.F[P1::YA][decltype(e)::value] * u1[o + c];
+      sB1 += f.F[P1::YB][decltype(e)::value] * w1[o + c];
+    });
+    T out = gb * (cA0 * sA0 + cB0 * sB0 + cA1 * sA1 + cB1 * sB1);
+    if (rows) {
+      int oy[2] = {0, 0};
+      const int ny = axis_terms<NB, P>(i, S::B * S::NL, N, oy);
+      T corr = T(0);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (a < ny && q < nx) corr += __ldg(db + oy[a] + ox[q]);
+      out += corr;
+    }
+    vb[i * NB] = out;
+  });
+}
+
+template <typename T, int NB, int P>
+__global__ void __launch_bounds__(Cfg2<T, NB, P>::THREADS)
+brick_elasticity2_kernel(const T* __restrict__ u, const Factors<T, Cfg2<T, NB, P>::NNZ> f,
+                         const T* __restrict__ geo, const T* __restrict__ dcols,
+                         T* __restrict__ v, T mu, T lam, int nb, int m, int N3p, int vec_u) {
+  using S = Cfg2<T, NB, P>;
+  constexpr int N2 = S::N2, G = S::G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s0 = reinterpret_cast<T*>(smem_raw);  // [G][2][N2R] u_0, u_1 of each brick
+  T* const s1 = s0 + 2 * G * S::N2R;             // [G][2][N2R] b_0, b_1
+
+  const int grp = blockIdx.x / 2, c = blockIdx.x - 2 * grp;
+  const int b0 = grp * G;
+  const int nbk = min(G, nb - b0);
+  const long long cstride = static_cast<long long>(nb) * N3p;
+  for (int g = 0; g < nbk; ++g)
+    for (int k = 0; k < 2; ++k)
+      stage(s0 + (2 * g + k) * S::N2R, u + k * cstride + static_cast<size_t>(b0 + g) * N3p, N2,
+            vec_u);
+  cp_async_commit();
+  T* const vc = v + c * cstride;
+  for (int g = 0; g < nbk; ++g) {  // the padding
+    T* const vp = vc + static_cast<size_t>(b0 + g) * N3p;
+    for (int i = N2 + threadIdx.x; i < N3p; i += S::THREADS) vp[i] = T(0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (c == 0) output2<T, NB, P, 0>(f, s0, s1, geo, dcols, vc, mu, lam, b0, nbk, m, N3p);
+  if (c == 1) output2<T, NB, P, 1>(f, s0, s1, geo, dcols, vc, mu, lam, b0, nbk, m, N3p);
+}
+
+template <typename T, int NB, int P>
+int launch2(const void* u, const void* packed, const void* geo, const void* dcols, void* v,
+            double mu, double lam, int nb, int m, int N3p, int* info, cudaStream_t stream) {
+  using S = Cfg2<T, NB, P>;
+  const int smem = S::G * S::BYTES;
+  auto kernel = brick_elasticity2_kernel<T, NB, P>;
+  static unsigned long long done = 0;  // bit d: the shared-memory limit raised on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(done & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done |= bit;
+  }
+  if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
+    info[0] = S::THREADS;
+    info[1] = smem;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, S::THREADS, smem));
+  }
+  Factors<T, S::NNZ> f;
+  std::memcpy(f.F, packed, sizeof(f.F));
+  // 16-byte copies need 16-byte rows; a brick's whole words stay inside its row
+  const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0 &&
+                    S::N2R <= N3p;
+  const int groups = (nb + S::G - 1) / S::G;
+  if (groups > 0) {
+    kernel<<<2 * groups, S::THREADS, smem, stream>>>(
+        static_cast<const T*>(u), f, static_cast<const T*>(geo), static_cast<const T*>(dcols),
+        static_cast<T*>(v), static_cast<T>(mu), static_cast<T>(lam), nb, m, N3p, vec_u);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const void* u, const void* packed, const void* geo, const void* dcols, void* v,
-             double mu, double lam, int nb, int m, int NB, int p, int N3p, int* info,
+             double mu, double lam, int nb, int m, int NB, int p, int N3p, int* info, int dim,
              cudaStream_t stream) {
+  // 2-D: B = 16 at p = 1..3, 8 at p = 4..6
+#define EL_CASE2(nb_, p_) \
+  if (dim == 2 && NB == nb_ && p == p_) \
+    return launch2<T, nb_, p_>(u, packed, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
+  EL_CASE2(17, 1)
+  EL_CASE2(33, 2)
+  EL_CASE2(49, 3)
+  EL_CASE2(33, 4)
+  EL_CASE2(41, 5)
+  EL_CASE2(49, 6)
+#undef EL_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define EL_CASE(nb_, p_) \
   if (NB == nb_ && p == p_) \
     return launch<T, nb_, p_>(u, packed, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
@@ -357,18 +549,19 @@ extern "C" {
 
 // packed: host pointer to [4][NNZ] (Kb, Mb, Gb, Gb^T packed row by row), copied into the launch's
 // parameters. info: null to launch; else [threads, shared-memory bytes, blocks per SM], not
-// launched.
+// launched. dim: 3 (u, v [3][nb][N3p], dcols [3][m*B^3][(p+1)^3]) or 2 ([2][nb][N3p],
+// [2][m*B^2][(p+1)^2]).
 int brick_elasticity_f32(const void* u, const void* packed, const void* geo, const void* dcols,
                          void* v, double mu, double lam, int nb, int m, int NB, int p, int N3p,
-                         int* info, void* stream) {
-  return dispatch<float>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info,
+                         int* info, int dim, void* stream) {
+  return dispatch<float>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
 int brick_elasticity_f64(const void* u, const void* packed, const void* geo, const void* dcols,
                          void* v, double mu, double lam, int nb, int m, int NB, int p, int N3p,
-                         int* info, void* stream) {
-  return dispatch<double>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info,
+                         int* info, int dim, void* stream) {
+  return dispatch<double>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

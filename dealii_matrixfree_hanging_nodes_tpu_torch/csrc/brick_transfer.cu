@@ -52,28 +52,40 @@ struct Lists {
   const int* c_rows;
 };
 
-// the brick node of local node j of the cell at slot s
-template <int P>
+// the brick node of local node j of the cell at slot s (DIM = 3 or 2)
+template <int DIM, int P>
 __device__ __forceinline__ int node(int s, int j, int B, int NB) {
   constexpr int N = P + 1;
-  const int sx = s % B, sy = (s / B) % B, sz = s / (B * B);
-  const int ix = j % N, iy = (j / N) % N, iz = j / (N * N);
+  const int sx = s % B, sy = (s / B) % B, ix = j % N, iy = (j / N) % N;
+  if constexpr (DIM == 2) return (sy * P + iy) * NB + sx * P + ix;
+  const int sz = s / (B * B), iz = j / (N * N);
   return ((sz * P + iz) * NB + sy * P + iy) * NB + sx * P + ix;
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(xfer::Group<P + 1>::THREADS)
+// the embedding sweeps in DIM dimensions
+template <typename T, int DIM, int N, bool TR>
+__device__ __forceinline__ void sweeps(T* cell, const T* E, int j, bool active) {
+  if constexpr (DIM == 3) {
+    xfer::embed_sweeps<T, N, TR>(cell, E, j, active);
+  } else {
+    xfer::embed_sweeps2<T, N, TR>(cell, E, j, active);
+  }
+}
+
+template <typename T, int DIM, int P>
+__global__ void __launch_bounds__(xfer::Group<P + 1, DIM>::THREADS)
 brick_transfer_prolongate_kernel(const T* __restrict__ x, const T* __restrict__ E, Lists l,
                                  T* __restrict__ out, int B, int N3p) {
-  constexpr int N = P + 1, NN = N * N, NL = NN * N, EL = 3 * NN;
-  constexpr int G = xfer::Group<N>::G, THREADS = xfer::Group<N>::THREADS;
+  using Gr = xfer::Group<P + 1, DIM>;
+  constexpr int N = P + 1, NN = Gr::LINES, NL = NN * N, EL = DIM * N * N;
+  constexpr int G = Gr::G, THREADS = Gr::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* acc = reinterpret_cast<T*>(smem_raw);  // [N3p] the brick
   T* buf = acc + N3p;                       // [G NL] the rows
   T* e = buf + G * NL;                      // [G EL] their E
   const int tid = threadIdx.x;
   const int k = min(tid / NN, G - 1), j = tid - (tid / NN) * NN;
-  const int NB = B * P + 1, C = B * B * B;
+  const int NB = B * P + 1, C = DIM == 3 ? B * B * B : B * B;
   const int b = blockIdx.x;
   for (int i = tid; i < N3p; i += THREADS) acc[i] = T(0);
   const int r0 = l.p_ptr[b], r1 = l.p_ptr[b + 1];
@@ -84,7 +96,7 @@ brick_transfer_prolongate_kernel(const T* __restrict__ x, const T* __restrict__ 
       T v = T(0);
       if (c < ng) {
         const int lc = l.src_lin[l.p_rows[g0 + c]];
-        v = x[static_cast<size_t>(lc / C) * N3p + node<P>(lc % C, t - c * NL, B, NB)];
+        v = x[static_cast<size_t>(lc / C) * N3p + node<DIM, P>(lc % C, t - c * NL, B, NB)];
       }
       buf[t] = v;
     }
@@ -93,11 +105,11 @@ brick_transfer_prolongate_kernel(const T* __restrict__ x, const T* __restrict__ 
       e[t] = c < ng ? E[static_cast<size_t>(l.p_rows[g0 + c]) * EL + (t - c * EL)] : T(0);
     }
     __syncthreads();
-    xfer::embed_sweeps<T, N, false>(buf + k * NL, e + k * EL, j, tid < ng * NN);
+    sweeps<T, DIM, N, false>(buf + k * NL, e + k * EL, j, tid < ng * NN);
     for (int t = tid; t < ng * NL; t += THREADS) {
       const int c = t / NL, jj = t - c * NL;
       const int r = l.p_rows[g0 + c];
-      if (l.own[static_cast<size_t>(r) * NL + jj] & 1) acc[node<P>(r % C, jj, B, NB)] = buf[t];
+      if (l.own[static_cast<size_t>(r) * NL + jj] & 1) acc[node<DIM, P>(r % C, jj, B, NB)] = buf[t];
     }
     __syncthreads();
   }
@@ -105,29 +117,33 @@ brick_transfer_prolongate_kernel(const T* __restrict__ x, const T* __restrict__ 
   for (int i = tid; i < N3p; i += THREADS) ob[i] = acc[i];
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(xfer::Group<P + 1>::THREADS)
+template <typename T, int DIM, int P>
+__global__ void __launch_bounds__(xfer::Group<P + 1, DIM>::THREADS)
 brick_transfer_restrict_kernel(const T* __restrict__ x, const T* __restrict__ E, Lists l,
                                T* __restrict__ out, int B, int N3p) {
-  constexpr int N = P + 1, NN = N * N, NL = NN * N, EL = 3 * NN;
-  constexpr int G = xfer::Group<N>::G, THREADS = xfer::Group<N>::THREADS;
+  using Gr = xfer::Group<P + 1, DIM>;
+  constexpr int N = P + 1, NN = Gr::LINES, NL = NN * N, EL = DIM * N * N;
+  constexpr int G = Gr::G, THREADS = Gr::THREADS, NCLS = 1 << DIM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* acc = reinterpret_cast<T*>(smem_raw);
   T* buf = acc + N3p;
   T* e = buf + G * NL;
-  __shared__ int s_cls[9];
+  __shared__ int s_cls[NCLS + 1];
   __shared__ int s_ptr[G + 1];
   __shared__ int s_max;
   const int tid = threadIdx.x;
   const int k = min(tid / NN, G - 1), j = tid - (tid / NN) * NN;
-  const int NB = B * P + 1, C = B * B * B;
+  const int NB = B * P + 1, C = DIM == 3 ? B * B * B : B * B;
   const int b = blockIdx.x;
   for (int i = tid; i < N3p; i += THREADS) acc[i] = T(0);
-  if (tid < 9) s_cls[tid] = l.r_ptr[b * 9 + tid];
-  int ca, cb;
-  const int base = hn::line_base<N, 0>(j, ca, cb);  // this thread's x-line after the sweeps
+  if (tid <= NCLS) s_cls[tid] = l.r_ptr[b * (NCLS + 1) + tid];
+  int base = j * N;  // this thread's x-line after the sweeps (2-D: line j along x)
+  if constexpr (DIM == 3) {
+    int ca, cb;
+    base = hn::line_base<N, 0>(j, ca, cb);
+  }
   __syncthreads();
-  for (int cls = 0; cls < 8; ++cls) {
+  for (int cls = 0; cls < NCLS; ++cls) {
     for (int e0 = s_cls[cls]; e0 < s_cls[cls + 1]; e0 += G) {
       const int ng = min(G, s_cls[cls + 1] - e0);
       if (tid <= ng) s_ptr[tid] = l.c_ptr[e0 + tid];
@@ -150,7 +166,7 @@ brick_transfer_restrict_kernel(const T* __restrict__ x, const T* __restrict__ E,
           if (c < ng && i < s_ptr[c + 1] - s_ptr[c]) {
             const int r = l.c_rows[s_ptr[c] + i], jj = t - c * NL;
             if (l.own[static_cast<size_t>(r) * NL + jj] & 2) {
-              v = x[static_cast<size_t>(r / C) * N3p + node<P>(r % C, jj, B, NB)];
+              v = x[static_cast<size_t>(r / C) * N3p + node<DIM, P>(r % C, jj, B, NB)];
             }
           }
           buf[t] = v;
@@ -163,7 +179,7 @@ brick_transfer_restrict_kernel(const T* __restrict__ x, const T* __restrict__ E,
         }
         __syncthreads();
         const bool active = line && i < cnt;
-        xfer::embed_sweeps<T, N, true>(buf + k * NL, e + k * EL, j, active);
+        sweeps<T, DIM, N, true>(buf + k * NL, e + k * EL, j, active);
         if (active) {
 #pragma unroll
           for (int q = 0; q < N; ++q) sum[q] += buf[k * NL + base + q];
@@ -173,7 +189,7 @@ brick_transfer_restrict_kernel(const T* __restrict__ x, const T* __restrict__ E,
       if (line) {  // the class's cells share no node: no two threads add into one
         const int s = l.r_slot[e0 + k];
 #pragma unroll
-        for (int q = 0; q < N; ++q) acc[node<P>(s, base + q, B, NB)] += sum[q];
+        for (int q = 0; q < N; ++q) acc[node<DIM, P>(s, base + q, B, NB)] += sum[q];
       }
       __syncthreads();
     }
@@ -182,29 +198,32 @@ brick_transfer_restrict_kernel(const T* __restrict__ x, const T* __restrict__ E,
   for (int i = tid; i < N3p; i += THREADS) ob[i] = acc[i];
 }
 
-template <typename T, int P>
+template <typename T, int DIM, int P>
 int launch(const T* x, const T* E, const Lists& l, T* out, int nb_f, int nb_c, int B, int N3p,
            int restrict_, cudaStream_t stream) {
-  using Gr = xfer::Group<P + 1>;
+  using Gr = xfer::Group<P + 1, DIM>;
   constexpr int N = P + 1;
-  const int smem = static_cast<int>((N3p + Gr::G * (N * N * N + 3 * N * N)) * sizeof(T));
+  const int smem =
+      static_cast<int>((N3p + Gr::G * (Gr::LINES * N + DIM * N * N)) * sizeof(T));
   const int blocks = restrict_ ? nb_c : nb_f;
   cudaError_t err;
   if (restrict_) {
     static unsigned long long smem_set = 0;
-    err = sf::allow_smem_once(brick_transfer_restrict_kernel<T, P>, 232448 - 1024, smem_set);
+    err = sf::allow_smem_once(brick_transfer_restrict_kernel<T, DIM, P>, 232448 - 1024,
+                              smem_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks > 0) {
-      brick_transfer_restrict_kernel<T, P><<<blocks, Gr::THREADS, smem, stream>>>(x, E, l, out,
-                                                                                  B, N3p);
+      brick_transfer_restrict_kernel<T, DIM, P><<<blocks, Gr::THREADS, smem, stream>>>(
+          x, E, l, out, B, N3p);
     }
   } else {
     static unsigned long long smem_set = 0;
-    err = sf::allow_smem_once(brick_transfer_prolongate_kernel<T, P>, 232448 - 1024, smem_set);
+    err = sf::allow_smem_once(brick_transfer_prolongate_kernel<T, DIM, P>, 232448 - 1024,
+                              smem_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks > 0) {
-      brick_transfer_prolongate_kernel<T, P><<<blocks, Gr::THREADS, smem, stream>>>(x, E, l, out,
-                                                                                    B, N3p);
+      brick_transfer_prolongate_kernel<T, DIM, P><<<blocks, Gr::THREADS, smem, stream>>>(
+          x, E, l, out, B, N3p);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -212,7 +231,7 @@ int launch(const T* x, const T* E, const Lists& l, T* out, int nb_f, int nb_c, i
 
 template <typename T>
 int dispatch(const void* const* a, void* out, int nb_f, int nb_c, int p, int B, int N3p,
-             int restrict_, cudaStream_t stream) {
+             int restrict_, int dim, cudaStream_t stream) {
   const T* x = static_cast<const T*>(a[0]);
   const T* E = static_cast<const T*>(a[2]);
   Lists l{static_cast<const int*>(a[1]), static_cast<const unsigned char*>(a[3]),
@@ -220,8 +239,23 @@ int dispatch(const void* const* a, void* out, int nb_f, int nb_c, int p, int B, 
           static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
           static_cast<const int*>(a[8]), static_cast<const int*>(a[9])};
   T* o = static_cast<T*>(out);
+  if (dim == 2) {
+#define BT_CASE2(p_) \
+  case p_: return launch<T, 2, p_>(x, E, l, o, nb_f, nb_c, B, N3p, restrict_, stream);
+    switch (p) {
+      BT_CASE2(1)
+      BT_CASE2(2)
+      BT_CASE2(3)
+      BT_CASE2(4)
+      BT_CASE2(5)
+      BT_CASE2(6)
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef BT_CASE2
+  }
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define BT_CASE(p_) \
-  case p_: return launch<T, p_>(x, E, l, o, nb_f, nb_c, B, N3p, restrict_, stream);
+  case p_: return launch<T, 3, p_>(x, E, l, o, nb_f, nb_c, B, N3p, restrict_, stream);
   switch (p) {
     BT_CASE(1)
     BT_CASE(2)
@@ -240,22 +274,25 @@ int dispatch(const void* const* a, void* out, int nb_f, int nb_c, int p, int B, 
 
 extern "C" {
 
-// x, src_lin, E, own, p_ptr, p_rows, r_ptr, r_slot, c_ptr, c_rows, out: device pointers
+// x, src_lin, E, own, p_ptr, p_rows, r_ptr, r_slot, c_ptr, c_rows, out: device pointers;
+// dim: 3, or 2 (NB^2-node bricks, E [nlin_f][2][N][N], r_ptr [nb_c][5])
 int brick_transfer_f32(const void* x, const void* src_lin, const void* E, const void* own,
                        const void* p_ptr, const void* p_rows, const void* r_ptr,
                        const void* r_slot, const void* c_ptr, const void* c_rows, void* out,
-                       int nb_f, int nb_c, int p, int B, int N3p, int restrict_, void* stream) {
+                       int nb_f, int nb_c, int p, int B, int N3p, int restrict_, int dim,
+                       void* stream) {
   const void* a[10] = {x, src_lin, E, own, p_ptr, p_rows, r_ptr, r_slot, c_ptr, c_rows};
-  return dispatch<float>(a, out, nb_f, nb_c, p, B, N3p, restrict_,
+  return dispatch<float>(a, out, nb_f, nb_c, p, B, N3p, restrict_, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
 int brick_transfer_f64(const void* x, const void* src_lin, const void* E, const void* own,
                        const void* p_ptr, const void* p_rows, const void* r_ptr,
                        const void* r_slot, const void* c_ptr, const void* c_rows, void* out,
-                       int nb_f, int nb_c, int p, int B, int N3p, int restrict_, void* stream) {
+                       int nb_f, int nb_c, int p, int B, int N3p, int restrict_, int dim,
+                       void* stream) {
   const void* a[10] = {x, src_lin, E, own, p_ptr, p_rows, r_ptr, r_slot, c_ptr, c_rows};
-  return dispatch<double>(a, out, nb_f, nb_c, p, B, N3p, restrict_,
+  return dispatch<double>(a, out, nb_f, nb_c, p, B, N3p, restrict_, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

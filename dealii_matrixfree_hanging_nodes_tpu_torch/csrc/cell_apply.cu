@@ -57,6 +57,12 @@
 //   laplace_quad.cuh's 12 sweeps with the rows' metric read at the points, the rows stored. Bound
 //   at quadrant nref=7, p=4, f32: memory, the subset bricks (20.1 MB), the rows' metric (196.8
 //   MB) and the rows (32.8 MB), 250 MB, 0.075 ms at 3.35 TB/s.
+//   The deformed mode in 2-D (cell_apply_deformed2_kernel; B = 16 at p = 1..3, 8 at p = 4..6):
+//   the same, a brick of NB^2 nodes staged, its B^2 cells in groups of laplace_quad.cuh's
+//   Cells2 (128, 64, 64, 32, 32, 32), one line of a cell a thread, the 2-D quadrature
+//   (laplace_cells2 with the metric's 3 values a point). Bound at 2-D quadrant nref=11, p=4,
+//   f32 (517 subset bricks, 33,088 rows): the bricks (2.4 MB), the rows' metric (9.9 MB) and
+//   the rows (3.3 MB), 15.6 MB, 0.0047 ms.
 
 #include <cuda_runtime.h>
 
@@ -282,9 +288,81 @@ int launch_deformed(const void* src, const void* geo, const void* S, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// The deformed mode in 2-D: every cell row of the NB^2-node bricks through the 2-D quadrature
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(lq::Cells2<P>::THREADS)
+cell_apply_deformed2_kernel(const T* __restrict__ src, const T* __restrict__ geo,
+                            const T* __restrict__ S, const T* __restrict__ Dc,
+                            T* __restrict__ out, int N3p, int vec_ok) {
+  using H = lq::Cells2<P>;
+  constexpr int N = H::N, NL = H::NL, G = H::G;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B;
+  static_assert(C % G == 0, "a brick is whole groups of cells");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sbrick = reinterpret_cast<T*>(smem_raw);  // [NB^2, whole 16-byte words] the brick
+  T* V = sbrick + (NB * NB + 3) / 4 * 4;       // [G NL] the group's rows
+  T* G0 = V + G * NL;                          // [2][G NL] their gradients
+  T* G1 = G0 + G * NL;
+  T* sS = G1 + G * NL;  // [N N]
+  T* sD = sS + N * N;   // [N N]
+
+  const T* ub = src + static_cast<size_t>(blockIdx.x) * N3p;
+  sf::copy_block(sbrick, ub, NB * NB, vec_ok && (reinterpret_cast<uintptr_t>(ub) % 16 == 0));
+  lq::stage_factors<T, N>(sS, sD, S, Dc);
+  const size_t row_base = static_cast<size_t>(blockIdx.x) * C;
+  const int l = threadIdx.x, g = l / N, j = l - g * N;
+  const bool active = l < G * N;
+  for (int s0 = 0; s0 < C; s0 += G) {
+    __syncthreads();  // the brick staged; the previous group's rows stored
+    for (int t = threadIdx.x; t < G * NL; t += H::THREADS) {
+      const int k = t / NL, jj = t - k * NL, s = s0 + k;
+      V[t] = sbrick[((s / B) * P + jj / N) * NB + (s % B) * P + jj % N];
+    }
+    __syncthreads();
+    const T* mg = geo + (row_base + s0 + (active ? g : 0)) * NL * 3;
+    lq::laplace_cells2<T, N>(V + g * NL, G0 + g * NL, G1 + g * NL, sS, sD, j, active,
+                             [=](T* x, T* y) { lq::metric_line2<T, N>(mg, x, y, j); });
+    T* dst = out + (row_base + s0) * NL;  // the group's rows are contiguous
+    for (int t = threadIdx.x; t < G * NL; t += H::THREADS) dst[t] = V[t];
+  }
+}
+
+template <typename T, int P, int B>
+int launch_deformed2(const void* src, const void* geo, const void* S, const void* Dc, void* out,
+                     int rows, int N3p, cudaStream_t stream) {
+  using H = lq::Cells2<P>;
+  constexpr int NB = B * P + 1;
+  const int smem = static_cast<int>(
+      (3 * H::G * H::NL + 2 * H::N * H::N + sf::round4(NB * NB)) * sizeof(T));
+  auto kernel = cell_apply_deformed2_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_ok = (N3p * sizeof(T)) % 16 == 0;
+  const int blocks = rows / (B * B);
+  if (blocks > 0) {
+    kernel<<<blocks, H::THREADS, smem, stream>>>(
+        static_cast<const T*>(src), static_cast<const T*>(geo), static_cast<const T*>(S),
+        static_cast<const T*>(Dc), static_cast<T*>(out), N3p, vec_ok);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_deformed(const void* src, const void* geo, const void* S, const void* Dc, void* out,
-                      int rows, int p, int B, int N3p, cudaStream_t stream) {
+                      int rows, int p, int B, int N3p, int dim, cudaStream_t stream) {
+#define DEF_CASE2(p_, b_) \
+  if (dim == 2 && p == p_ && B == b_) \
+    return launch_deformed2<T, p_, b_>(src, geo, S, Dc, out, rows, N3p, stream);
+  DEF_CASE2(1, 16)
+  DEF_CASE2(2, 16)
+  DEF_CASE2(3, 16)
+  DEF_CASE2(4, 8)
+  DEF_CASE2(5, 8)
+  DEF_CASE2(6, 8)
+#undef DEF_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define DEF_CASE(p_, b_) \
   if (p == p_ && B == b_) \
     return launch_deformed<T, p_, b_>(src, geo, S, Dc, out, rows, N3p, stream);
@@ -345,16 +423,17 @@ int cell_apply_f64(const void* src, const void* K1, const void* M1, const void* 
 }
 
 // The deformed mode: src [rows / B^3][N3p], geo [rows][(p+1)^3][6], S, Dc [(p+1)^2] -> out
-// [rows][(p+1)^3], one RHS
+// [rows][(p+1)^3], one RHS; dim = 2: src [rows / B^2][N3p], geo [rows][(p+1)^2][3], out
+// [rows][(p+1)^2]
 int cell_apply_deformed_f32(const void* src, const void* geo, const void* S, const void* Dc,
-                            void* out, int rows, int p, int B, int N3p, void* stream) {
-  return dispatch_deformed<float>(src, geo, S, Dc, out, rows, p, B, N3p,
+                            void* out, int rows, int p, int B, int N3p, int dim, void* stream) {
+  return dispatch_deformed<float>(src, geo, S, Dc, out, rows, p, B, N3p, dim,
                                   static_cast<cudaStream_t>(stream));
 }
 
 int cell_apply_deformed_f64(const void* src, const void* geo, const void* S, const void* Dc,
-                            void* out, int rows, int p, int B, int N3p, void* stream) {
-  return dispatch_deformed<double>(src, geo, S, Dc, out, rows, p, B, N3p,
+                            void* out, int rows, int p, int B, int N3p, int dim, void* stream) {
+  return dispatch_deformed<double>(src, geo, S, Dc, out, rows, p, B, N3p, dim,
                                    static_cast<cudaStream_t>(stream));
 }
 

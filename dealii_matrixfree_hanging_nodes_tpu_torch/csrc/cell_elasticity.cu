@@ -10,8 +10,10 @@
 //     brick vectors src + comp * cstride ([*, N3p] each; node (ix, iy, iz) of the cell at brick
 //     node ((sz p + iz) NB + sy p + iy) NB + sx p + ix, NB = B p + 1), scaled by geo[r] on every
 //     axis: every subset cell's geo_c Kel u_c, the reference's plain3.
-// Then write the rows. The index mode's dim=2 instances (p = 1..6) read the two components of a
-// global vector [n_dofs, 2] and write out [2, n_cells, N^2], the same steps on 2-D cells.
+// Then write the rows. The dim=2 instances (p = 1..6) write out [2, n_cells, N^2], the same steps
+// on 2-D cells: the index mode reads the two components of a global vector [n_dofs, 2], the
+// bricks mode the two component brick vectors of NB^2-node bricks (cell r slot r % B^2 of brick
+// r / B^2, node (ix, iy) at brick node (sy p + iy) NB + sx p + ix), scaled by geo[r].
 //
 // Replaces: models/elasticity.py:kernel (dealii_matrixfree_hanging_nodes_tpu/models/
 //   elasticity.py:44-79) with the component-wise read_dof_values(_plain) and the transposed
@@ -52,7 +54,11 @@
 //   short chain of shared-memory loads and FMAs, and 8 cells a block do not hide them.
 //   2-D (elasticity.cuh's Cfg2): 256 / N cells a block, one thread a line (N lines a cell),
 //   four regions of G N^2 values (58 KB in f64 at p = 6), 8 barriers, 2 a direction of the
-//   interpolation.
+//   interpolation. The bricks mode in 2-D (the reference's 2-D el_Kel einsum on the subset's
+//   cell rows, models/elasticity_bricks.py:229-240) at 2-D quadrant nref=11 p=4 f32 (517 subset
+//   bricks, 33,088 rows): the bricks' nodes twice (4.5 MB), the rows twice (6.6 MB) and geo,
+//   ~11 MB, 0.0034 ms; its map composed is a dense coupled [50, 50] block a row, 82.7 M
+//   nonzeros.
 
 #include <cuda_runtime.h>
 
@@ -169,7 +175,8 @@ constexpr int smem_values2() {
   return C::VALUES + 2 * C::N * C::N + 2 * C::N * C::N + C::NL;
 }
 
-// the index mode in 2-D: two components of N^2 values a cell, geo [n_cells][2]
+// 2-D: two components of N^2 values a cell; the index mode's geo [n_cells][2], the bricks
+// mode's [n_cells]
 template <typename T, int P>
 __global__ void __launch_bounds__(el::Cfg2<P>::THREADS)
 cell_elasticity2_kernel(const Args<T> a, int n_cells) {
@@ -191,12 +198,32 @@ cell_elasticity2_kernel(const Args<T> a, int n_cells) {
   }
   for (int i = threadIdx.x; i < NL; i += blockDim.x) sW[i] = __ldg(a.w + i);
   const int c0 = blockIdx.x * G;
+  const int nrows = min(G, n_cells - c0);
   const size_t row0 = static_cast<size_t>(c0) * NL;
-  const int n_vals = min(G, n_cells - c0) * NL;
-  for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) {
-    const T* s = a.src + 2 * static_cast<size_t>(__ldg(a.dofmap + row0 + idx));
-    buf[idx] = __ldg(s);
-    buf[R + idx] = __ldg(s + 1);
+  const int n_vals = nrows * NL;
+  __shared__ long long s_base[G];  // bricks mode: each cell's first node in a component
+  const bool bricks = a.dofmap == nullptr;
+  if (bricks) {
+    if (threadIdx.x < nrows) {
+      const int cell = c0 + threadIdx.x, CB = a.B * a.B, NB = a.B * P + 1;
+      const int brick = cell / CB, slot = cell - brick * CB;
+      s_base[threadIdx.x] = static_cast<long long>(brick) * a.N3p +
+                            (slot / a.B) * P * NB + (slot % a.B) * P;
+    }
+    __syncthreads();
+    const int NB = a.B * P + 1;
+    for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) {
+      const int g = idx / NL, j = idx - g * NL;
+      const T* s = a.src + s_base[g] + (j / N) * NB + j % N;
+      buf[idx] = __ldg(s);
+      buf[R + idx] = __ldg(s + a.cstride);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) {
+      const T* s = a.src + 2 * static_cast<size_t>(__ldg(a.dofmap + row0 + idx));
+      buf[idx] = __ldg(s);
+      buf[R + idx] = __ldg(s + 1);
+    }
   }
 
   const int l = threadIdx.x, g = l / N, j = l - g * N, c = c0 + g;
@@ -208,8 +235,8 @@ cell_elasticity2_kernel(const Args<T> a, int n_cells) {
   if (any_hn) el::interp2<T, P, false>(buf, sP, code, g, j, hn_work);
   T geo[2] = {T(0), T(0)};
   if (active) {
-    geo[0] = __ldg(a.geo + 2 * c);
-    geo[1] = __ldg(a.geo + 2 * c + 1);
+    geo[0] = __ldg(a.geo + (bricks ? c : 2 * c));
+    geo[1] = __ldg(a.geo + (bricks ? c : 2 * c + 1));
   }
   el::apply2<T, P>(buf, sS, sD, sW, a.mu, a.lam, geo, g, j, active);
   if (any_hn) el::interp2<T, P, true>(buf, sP, code, g, j, hn_work);
@@ -268,8 +295,7 @@ int dispatch(const void* const* p, double mu, double lam, long long cstride, int
                   static_cast<const T*>(p[6]), static_cast<const T*>(p[7]),
                   static_cast<T*>(const_cast<void*>(p[8])), static_cast<T>(mu),
                   static_cast<T>(lam), cstride, B, N3p};
-  if (dim == 2) {  // the index mode only
-    if (a.dofmap == nullptr && info == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim == 2) {
     switch (degree) {
       case 1: return launch2<T, 1>(a, n_cells, info, stream);
       case 2: return launch2<T, 2>(a, n_cells, info, stream);
@@ -299,7 +325,7 @@ int dispatch(const void* const* p, double mu, double lam, long long cstride, int
 extern "C" {
 
 // ptrs: src, dofmap, codes, P, S, Dc, w, geo, out (device pointers; dofmap null: the bricks
-// mode, 3-D only). dim: 3 or 2. info: null to launch; else [threads, shared-memory bytes, blocks
+// mode). dim: 3 or 2. info: null to launch; else [threads, shared-memory bytes, blocks
 // per SM], not launched.
 int cell_elasticity_f32(const void* const* ptrs, double mu, double lam, long long cstride, int B,
                         int N3p, int n_cells, int degree, int dim, int* info, void* stream) {

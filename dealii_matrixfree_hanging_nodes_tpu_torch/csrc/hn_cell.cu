@@ -80,6 +80,13 @@
 //   four steps (the fill's base one value a thread in a loop, its runs as above, Q and Q^T
 //   by apply_q), K by the two 2-D sweeps on 32 n lines (at least 128 threads). Bound at 2-D
 //   quadrant nref=11, p=4, f32 (4,110 rows): memory, 0.9 MB, 0.0003 ms: launch-bound.
+//   2-D, the deformed mode: the same kernel with a third row buffer (the second gradient) and S,
+//   Dc staged; in place of K's two sweeps, laplace_quad.cuh's 2-D quadrature (laplace_cells2,
+//   the metric's 3 values a point read at the points). 2-D, the elastic mode
+//   (hn_cell_elastic2_kernel): two components a row, elasticity.cuh's Cfg2 rows a block (256 / n:
+//   51 at p = 4), its four regions: the fill into X, Q into U, apply2 on U (X its scratch), Q^T
+//   into X, stored. Bound at 2-D quadrant nref=11, p=4, f32 (4,110 rows): memory, ~1-2 MB, a
+//   few microseconds: launch-bound.
 //   The deformed mode runs the same phases with two more row buffers (the gradients' scratch)
 //   and S, Dc staged in shared memory; in place of K's 7 sweeps, laplace_quad.cuh's 12 with the
 //   metric read at the points (12 barriers a block). Bound at quadrant nref=7, p=4, f32: memory,
@@ -294,8 +301,9 @@ hn_cell_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
 }
 
 // ---- 2-D: constrained rows of n^2 values (x fastest) in bricks of NB^2 nodes (cell slot
-// (sx, sy), node (ix, iy) at (sy*p + iy)*NB + sx*p + ix); the full and fill modes. The same four
-// steps with G = 32 rows a block and K's two 2-D sweeps (sweep_x, sweep_y2, 32 n lines).
+// (sx, sy), node (ix, iy) at (sy*p + iy)*NB + sx*p + ix); the full, fill and deformed modes. The
+// same four steps with G = 32 rows a block and K's two 2-D sweeps (sweep_x, sweep_y2, 32 n lines)
+// or, in the deformed mode, the 2-D quadrature with each row's metric.
 template <int P>
 struct Cfg2 {
   static constexpr int N = P + 1;
@@ -315,8 +323,9 @@ hn_cell2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
                 const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
                 const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
                 const T* __restrict__ bwd_w, const Factors<T, P + 1> f,
-                const T* __restrict__ scale, T* __restrict__ out, int n_hn, int N3p,
-                long long u_stride) {
+                const T* __restrict__ scale, const T* __restrict__ geo,
+                const T* __restrict__ Sg, const T* __restrict__ Dg, T* __restrict__ out, int n_hn,
+                int N3p, long long u_stride) {
   using S = Cfg2<P>;
   constexpr int N = S::N, NL = S::NL, G = S::G;
   constexpr int NB = B * P + 1;
@@ -324,8 +333,11 @@ hn_cell2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sa = reinterpret_cast<T*>(smem_raw);  // buffer A
   T* sb = sa + S::SCR;                     // buffer B
+  T* sc = sb + S::SCR;                     // buffer C (deformed mode)
+  T* sS = sc + S::SCR;                     // [N N] (deformed mode)
+  T* sD = sS + N * N;                      // [N N]
   __shared__ T s_scale[G];
-  __shared__ int s_rp[G + 1], s_q[G], s_base[G];
+  __shared__ int s_rp[G + 1], s_q[G], s_base[G], s_cell[G];
 
   const size_t rhs = blockIdx.y;
   u += rhs * u_stride;
@@ -335,17 +347,19 @@ hn_cell2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
   const int nrows = min(G, n_hn - h0);
   if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
   if (tid < G) {
-    int q = -1, base = 0;
+    int q = -1, base = 0, cell = 0;
     if (tid < nrows) {
-      const int cell = hn_sub[h0 + tid];
+      cell = hn_sub[h0 + tid];
       const int brick = cell / C, slot = cell % C;
       q = q_of_row[h0 + tid];
       base = brick * N3p + (slot / B) * P * NB + (slot % B) * P;
     }
     s_q[tid] = q;
     s_base[tid] = base;
+    s_cell[tid] = cell;
     if constexpr (MODE == FULL) s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
   }
+  if constexpr (MODE == DEFORMED) lq::stage_factors<T, N>(sS, sD, Sg, Dg);
   __syncthreads();
 
   // 1. fill: the masked own nodes into buffer A, then each run of entries (one row, one slot)
@@ -387,6 +401,18 @@ hn_cell2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
     __syncthreads();
     res = sa;
   }
+  if constexpr (MODE == DEFORMED) {
+    // 3. the row's stiffness by its metric on buffer B, A and C the gradients; own in B
+    const int l = tid, g = l / N, j = l - g * N;
+    const bool active = l < S::LINES && g < nrows;
+    const T* mg = geo + static_cast<size_t>(s_cell[g < G ? g : 0]) * NL * 3;
+    lq::laplace_cells2<T, N>(sb + g * NL, sa + g * NL, sc + g * NL, sS, sD, j, active,
+                             [=](T* x, T* y) { lq::metric_line2<T, N>(mg, x, y, j); });
+    // 4. Q^T: out into buffer A
+    apply_q<T, NL, G, S::THREADS>(sb, sa, s_q, bwd_ptr, bwd_col, bwd_w);
+    __syncthreads();
+    res = sa;
+  }
   T* dst = out + static_cast<size_t>(h0) * NL;
   for (int t = tid; t < nrows * NL; t += S::THREADS) dst[t] = res[t];
 }
@@ -395,7 +421,8 @@ template <typename T, int P, int B, int MODE>
 int launch2(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int N3p,
             int k, long long u_stride, cudaStream_t stream) {
   using S = Cfg2<P>;
-  const int smem = static_cast<int>(2 * S::SCR * sizeof(T));
+  const int smem = static_cast<int>(
+      (MODE == DEFORMED ? 3 * S::SCR + 2 * S::N * S::N : 2 * S::SCR) * sizeof(T));
   auto kernel = hn_cell2_kernel<T, P, B, MODE>;
   static unsigned long long smem_set = 0;
   cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
@@ -415,7 +442,8 @@ int launch2(const void* const* a, const void* K1, const void* M1, void* out, int
         static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
         static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
         static_cast<const T*>(a[12]), f, static_cast<const T*>(a[13]),
-        static_cast<T*>(out), n_hn, N3p, u_stride);
+        static_cast<const T*>(a[14]), static_cast<const T*>(a[15]),
+        static_cast<const T*>(a[16]), static_cast<T*>(out), n_hn, N3p, u_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -551,9 +579,147 @@ int launch_elastic(const void* const* a, double mu, double lam, long long cstrid
   return static_cast<int>(cudaGetLastError());
 }
 
+// The elastic mode in 2-D: the two components of each constrained row through the fill and Q,
+// the 2-D coupled operator times scale[h], Q^T; out [2][n_hn][NL]. elasticity.cuh's Cfg2 rows a
+// block in its four regions: U (0, 1), X (2, 3).
+template <typename T, int P, int B>
+__global__ void __launch_bounds__(el::Cfg2<P>::THREADS)
+hn_cell_elastic2_kernel(const T* __restrict__ u, const int* __restrict__ hn_sub,
+                        const bool* __restrict__ keep, const int* __restrict__ row_ptr,
+                        const int* __restrict__ ent_slot, const int* __restrict__ ent_src,
+                        const int* __restrict__ q_of_row, const int* __restrict__ fwd_ptr,
+                        const int* __restrict__ fwd_col, const T* __restrict__ fwd_w,
+                        const int* __restrict__ bwd_ptr, const int* __restrict__ bwd_col,
+                        const T* __restrict__ bwd_w, const T* __restrict__ scale,
+                        const T* __restrict__ Sg, const T* __restrict__ Dg,
+                        const T* __restrict__ wg, T mu, T lam, T* __restrict__ out, int n_hn,
+                        int N3p, long long cstride) {
+  using E = el::Cfg2<P>;
+  constexpr int N = E::N, NL = E::NL, G = E::G, R = E::R, THREADS = E::THREADS;
+  constexpr int NB = B * P + 1;
+  constexpr int C = B * B;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);  // el's four regions: U (0, 1), X (2, 3)
+  T* sS = buf + E::VALUES;
+  T* sD = sS + N * N;
+  T* sW = sD + N * N;
+  __shared__ T s_scale[G];
+  __shared__ int s_rp[G + 1], s_q[G], s_base[G];
+
+  const int tid = threadIdx.x;
+  const int h0 = blockIdx.x * G;
+  const int nrows = min(G, n_hn - h0);
+  for (int i = tid; i < N * N; i += THREADS) {
+    sS[i] = __ldg(Sg + i);
+    sD[i] = __ldg(Dg + i);
+  }
+  for (int i = tid; i < NL; i += THREADS) sW[i] = __ldg(wg + i);
+  if (tid <= G) s_rp[tid] = row_ptr[min(h0 + tid, n_hn)];
+  if (tid < G) {
+    int q = -1, base = 0;
+    if (tid < nrows) {
+      const int cell = hn_sub[h0 + tid];
+      const int brick = cell / C, slot = cell % C;
+      q = q_of_row[h0 + tid];
+      base = brick * N3p + (slot / B) * P * NB + (slot % B) * P;
+    }
+    s_q[tid] = q;
+    s_base[tid] = base;
+    s_scale[tid] = tid < nrows ? scale[h0 + tid] : T(0);
+  }
+  __syncthreads();
+
+  // 1. fill, a component at a time, into X_c (as hn_cell_elastic_kernel)
+  T* X = buf + 2 * R;
+  const bool* kb = keep + static_cast<size_t>(h0) * NL;
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    const T* uc = u + c * cstride;
+    T* xc = X + c * R;
+    for (int t = tid; t < G * NL; t += THREADS) {
+      const int g = t / NL, j = t - g * NL;
+      xc[t] = t < nrows * NL && kb[t] ? uc[s_base[g] + (j / N) * NB + j % N] : T(0);
+    }
+    __syncthreads();
+    for (int e = s_rp[0] + tid; e < s_rp[G]; e += THREADS) {
+      int dst;
+      const T acc = run_sum<T, G, NL>(e, s_rp, ent_slot, ent_src, uc, dst);
+      if (dst >= 0) xc[dst] += acc;
+    }
+  }
+  __syncthreads();
+
+  // 2. Q: u_hat into U_c
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c)
+    apply_q<T, NL, G, THREADS>(X + c * R, buf + c * R, s_q, fwd_ptr, fwd_col, fwd_w);
+  __syncthreads();
+
+  // 3. the 2-D coupled operator times scale on U (X its scratch)
+  const int l = tid, g = l / N, j = l - g * N;
+  const bool active = l < G * N && g < nrows;
+  const T sc = active ? s_scale[g] : T(0);
+  const T geo[2] = {sc, sc};
+  el::apply2<T, P>(buf, sS, sD, sW, mu, lam, geo, g, j, active);
+
+  // 4. Q^T into X_c, then the rows stored, a component at a time
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c)
+    apply_q<T, NL, G, THREADS>(buf + c * R, X + c * R, s_q, bwd_ptr, bwd_col, bwd_w);
+  __syncthreads();
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    T* dst = out + (static_cast<size_t>(c) * n_hn + h0) * NL;
+    for (int t = tid; t < nrows * NL; t += THREADS) dst[t] = X[c * R + t];
+  }
+}
+
+template <typename T, int P, int B>
+int launch_elastic2(const void* const* a, double mu, double lam, long long cstride, void* out,
+                    int n_hn, int N3p, int* info, cudaStream_t stream) {
+  using E = el::Cfg2<P>;
+  const int smem = static_cast<int>((E::VALUES + 2 * E::N * E::N + E::NL) * sizeof(T));
+  auto kernel = hn_cell_elastic2_kernel<T, P, B>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
+    info[0] = E::THREADS;
+    info[1] = smem;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, E::THREADS, smem));
+  }
+  const int blocks = (n_hn + E::G - 1) / E::G;
+  if (blocks > 0) {
+    kernel<<<blocks, E::THREADS, smem, stream>>>(
+        static_cast<const T*>(a[0]), static_cast<const int*>(a[1]),
+        static_cast<const bool*>(a[2]), static_cast<const int*>(a[3]),
+        static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
+        static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
+        static_cast<const int*>(a[8]), static_cast<const T*>(a[9]),
+        static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
+        static_cast<const T*>(a[12]), static_cast<const T*>(a[13]),
+        static_cast<const T*>(a[14]), static_cast<const T*>(a[15]),
+        static_cast<const T*>(a[16]), static_cast<T>(mu), static_cast<T>(lam),
+        static_cast<T*>(out), n_hn, N3p, cstride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch_elastic(const void* const* a, double mu, double lam, long long cstride, void* out,
-                     int n_hn, int p, int B, int N3p, int* info, cudaStream_t stream) {
+                     int n_hn, int p, int B, int N3p, int* info, int dim, cudaStream_t stream) {
+#define EL_CASE2(p_, b_) \
+  if (dim == 2 && p == p_ && B == b_) \
+    return launch_elastic2<T, p_, b_>(a, mu, lam, cstride, out, n_hn, N3p, info, stream);
+  EL_CASE2(1, 16)
+  EL_CASE2(2, 16)
+  EL_CASE2(3, 16)
+  EL_CASE2(4, 8)
+  EL_CASE2(5, 8)
+  EL_CASE2(6, 8)
+#undef EL_CASE2
+  if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define EL_CASE(p_, b_) \
   if (p == p_ && B == b_) \
     return launch_elastic<T, p_, b_>(a, mu, lam, cstride, out, n_hn, N3p, info, stream);
@@ -608,14 +774,14 @@ int launch(const void* const* a, const void* K1, const void* M1, void* out, int 
 template <typename T>
 int dispatch(const void* const* a, const void* K1, const void* M1, void* out, int n_hn, int p,
              int B, int N3p, int mode, int k, long long u_stride, int dim, cudaStream_t stream) {
-  // 2-D, the full and fill modes: B = 16 at p = 1..3, B = 8 at p = 4..6
-#define HN_CASE2(p_, b_)                                                                    \
-  if (dim == 2 && p == p_ && B == b_)                                                       \
-    return mode == FILL                                                                     \
-               ? launch2<T, p_, b_, FILL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
-           : mode == FULL                                                                   \
-               ? launch2<T, p_, b_, FULL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)   \
-               : static_cast<int>(cudaErrorInvalidValue);
+  // 2-D, the full, fill and deformed modes: B = 16 at p = 1..3, B = 8 at p = 4..6
+#define HN_CASE2(p_, b_)                                                                      \
+  if (dim == 2 && p == p_ && B == b_)                                                         \
+    return mode == FILL                                                                       \
+               ? launch2<T, p_, b_, FILL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream)     \
+           : mode == DEFORMED                                                                 \
+               ? launch2<T, p_, b_, DEFORMED>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream) \
+               : launch2<T, p_, b_, FULL>(a, K1, M1, out, n_hn, N3p, k, u_stride, stream);
   HN_CASE2(1, 16)
   HN_CASE2(2, 16)
   HN_CASE2(3, 16)
@@ -653,7 +819,7 @@ extern "C" {
 // K1, M1: host pointers to the 1-D factors (copied into the launch's parameters; read in the
 // full mode only). mode: 0 full, 1 fill, 2 deformed. k right-hand sides, u_stride values apart
 // in u (n_hn * n_loc apart in out). dim: 3, or 2 (rows of (p+1)^2 values in NB^2-node bricks;
-// the full and fill modes).
+// geo [n_rows][(p+1)^2][3] in the deformed mode).
 int hn_cell_f32(const void* const* a, const void* K1, const void* M1, void* out, int n_hn,
                 int p, int B, int N3p, int mode, int k, long long u_stride, int dim,
                 void* stream) {
@@ -671,16 +837,19 @@ int hn_cell_f64(const void* const* a, const void* K1, const void* M1, void* out,
 // The elastic mode. a: device pointers, in order: u (component 0 of component brick vectors
 // cstride values apart), hn_sub, keep, row_ptr, ent_slot, ent_src, q_of_row, fwd_ptr, fwd_col,
 // fwd_w, bwd_ptr, bwd_col, bwd_w, scale, S, Dc, w. info: null to launch; else [threads,
-// shared-memory bytes, blocks per SM], not launched.
+// shared-memory bytes, blocks per SM], not launched. dim: 3 (three components of (p+1)^3
+// values) or 2 (two of (p+1)^2).
 int hn_cell_elastic_f32(const void* const* a, double mu, double lam, long long cstride,
-                        void* out, int n_hn, int p, int B, int N3p, int* info, void* stream) {
-  return dispatch_elastic<float>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info,
+                        void* out, int n_hn, int p, int B, int N3p, int* info, int dim,
+                        void* stream) {
+  return dispatch_elastic<float>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info, dim,
                                  static_cast<cudaStream_t>(stream));
 }
 
 int hn_cell_elastic_f64(const void* const* a, double mu, double lam, long long cstride,
-                        void* out, int n_hn, int p, int B, int N3p, int* info, void* stream) {
-  return dispatch_elastic<double>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info,
+                        void* out, int n_hn, int p, int B, int N3p, int* info, int dim,
+                        void* stream) {
+  return dispatch_elastic<double>(a, mu, lam, cstride, out, n_hn, p, B, N3p, info, dim,
                                   static_cast<cudaStream_t>(stream));
 }
 

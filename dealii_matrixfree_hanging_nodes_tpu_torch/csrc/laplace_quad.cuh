@@ -158,6 +158,17 @@ __device__ __forceinline__ void laplace_cells2(T* cell, T* g0, T* g1, const T* s
   __syncthreads();
 }
 
+// The 2-D deformed brick kernels' cell groups (brick_deformed's and cell_apply's, hn_cell's
+// rows): G cells a group, a divisor of a brick's B^2 cells (B = 16 at p <= 3, 8 at p = 4..6),
+// one line of a cell a thread, 128-256 lines.
+template <int P>
+struct Cells2 {
+  static constexpr int N = P + 1;
+  static constexpr int NL = N * N;
+  static constexpr int G = P == 1 ? 128 : P <= 3 ? 64 : 32;
+  static constexpr int THREADS = (G * N + 31) / 32 * 32;
+};
+
 // S and Dc ([N][N] each, device memory) into shared memory; the caller's barrier follows
 template <typename T, int N>
 __device__ __forceinline__ void stage_factors(T* sS, T* sD, const T* __restrict__ S,

@@ -27,9 +27,12 @@ KERNELS = ("brick_apply", "cell_apply", "dss_surface", "hn_cell", "corr_compact"
            "masked_quad", "plane_fill", "plane_fold", "hn_interp", "cell_laplace", "dof_scatter",
            "constraints_slow", "brick_transfer", "dof_embed", "cell_transfer", "cell_elasticity",
            "brick_elasticity", "brick_deformed")
+# -split-compile=0: each source's kernels are optimized in parallel on every core; the largest
+# source (brick_elasticity.cu, its 2-D and 3-D instances) set chip_smoke.py's build at 201.9 s
+# without it and 104.6 s with it (all sources at once on the 8-core host of an H100)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}

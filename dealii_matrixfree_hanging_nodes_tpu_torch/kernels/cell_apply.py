@@ -22,7 +22,7 @@ points: the sweeps of S and Dc with the packed metric geo [m*B^3, n_q, 6]
 of the rows (zero at absent slots, whose rows come out exact zeros), no
 scale (``cell_laplace``'s ``laplace_rows``): the reference's
 ``_deformed_cell_apply(cols_u, Gq_sub)`` (bricks.py:2444-2447, 2959-2976).
-One RHS only.
+One RHS only; in 2-D the metric [m*B^2, n_q, 3] (xx, xy, yy).
 
 2-D bricks (rows of NB^2 nodes, B^2 cells of (p+1)^2 values, p = 4..6 at
 B = 8): K = M1⊗K1 + K1⊗M1, two sweeps; the dimension is read from the
@@ -85,8 +85,10 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
                             for s in src])
     if deformed is not None:
         S, Dc, geo = deformed
-        rows = src[:, brick_slot_index(brick_size, S.shape[1] - 1, src.device).reshape(-1)]
-        return laplace_rows(rows.reshape(geo.shape[0], -1), S, Dc, None, geo)
+        p = S.shape[1] - 1
+        dim = _build.brick_dim(NAME, brick_size * p + 1, src.shape[1])
+        rows = src[:, brick_slot_index(brick_size, p, src.device, dim).reshape(-1)]
+        return laplace_rows(rows.reshape(geo.shape[0], -1), S, Dc, None, geo, dim)
     n = cell_degree(K1) + 1
     if brick_size is not None:
         dim = _build.brick_dim(NAME, brick_size * (n - 1) + 1, src.shape[1])
@@ -117,8 +119,10 @@ SUPPORTED = {(4, 4, 3), (5, 2, 3), (6, 2, 3), (7, 2, 3), (8, 2, 3), (4, 8, 2), (
              (6, 8, 2)}
 
 
-_DEFORMED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-DEFORMED_SUPPORTED = {(1, 16), (2, 8), (3, 4), (4, 4), (5, 2), (6, 2)}  # (p, B)
+_DEFORMED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# (p, B, dim) of the deformed mode's instances: the brick size rule's at p = 1..6, 3-D and 2-D
+DEFORMED_SUPPORTED = ({(1, 16, 3), (2, 8, 3), (3, 4, 3), (4, 4, 3), (5, 2, 3), (6, 2, 3)}
+                      | {(1, 16, 2), (2, 16, 2), (3, 16, 2), (4, 8, 2), (5, 8, 2), (6, 8, 2)})
 
 
 def cell_apply(src, K1, M1, scale, brick_size, *, deformed=None):
@@ -165,17 +169,20 @@ cell_apply.launches = 0
 def _deformed(src, S, Dc, geo, B):
     """The deformed mode's launch."""
     dev = _build.check_cuda(NAME, src.dtype, src=src, S=S, Dc=Dc, geo=geo)
+    if src.dim() != 2:
+        raise ValueError(f"{NAME}: the deformed mode takes src [m, N3p], got {tuple(src.shape)}")
     p = S.shape[1] - 1
-    n_loc = (p + 1) ** 3
-    rows = src.shape[0] * B**3 if src.dim() == 2 else -1
-    if ((p, B) not in DEFORMED_SUPPORTED or S.shape != (p + 1, p + 1) or Dc.shape != S.shape
-            or geo.shape != (rows, n_loc, 6) or src.shape[1] < (B * p + 1) ** 3):
+    dim = _build.brick_dim(NAME, B * p + 1, src.shape[1])
+    n_loc = (p + 1) ** dim
+    rows = src.shape[0] * B**dim
+    if ((p, B, dim) not in DEFORMED_SUPPORTED or S.shape != (p + 1, p + 1)
+            or Dc.shape != S.shape or geo.shape != (rows, n_loc, dim * (dim + 1) // 2)):
         raise ValueError(f"{NAME}: deformed mode shapes src {tuple(src.shape)}, S "
-                         f"{tuple(S.shape)}, geo {tuple(geo.shape)} at B={B}")
+                         f"{tuple(S.shape)}, geo {tuple(geo.shape)} at B={B}, {dim}-D")
     out = torch.empty((rows, n_loc), dtype=src.dtype, device=src.device)
     fn = _build.function(NAME, f"{NAME}_deformed_{_build.suffix(src.dtype)}", _DEFORMED_ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(src), _build.ptr(geo), _build.ptr(S), _build.ptr(Dc),
-                  _build.ptr(out), rows, p, B, src.shape[1])
+                  _build.ptr(out), rows, p, B, src.shape[1], dim)
     cell_apply.launches += 1
     return out
 
@@ -186,14 +193,17 @@ def bytes_and_flops(src_elems, rows, n_loc, itemsize, k=1, deformed=False):
     per row (2-D, n_loc = n^2: 4 sweeps of 2 n^3). k right-hand sides
     (src_elems and rows those of one): the bricks and rows k times, the
     factors and scale once. deformed: src, the rows' metric, S, Dc and out;
-    12 sweeps of 2 n^4 and 15 operations a point a row."""
+    12 sweeps of 2 n^4 and 15 operations a point a row (2-D: the metric's 3
+    values a point, 8 sweeps of 2 n^3 and 7 operations a point)."""
     p, dim = _build.cell_shape(NAME, n_loc)
     n = p + 1
+    if deformed:
+        n_pairs = dim * (dim + 1) // 2
+        per_row = 12 * 2 * n**4 + 15 * n_loc if dim == 3 else 8 * 2 * n**3 + 7 * n_loc
+        return ((src_elems + rows * n_loc * (1 + n_pairs) + 2 * n * n) * itemsize,
+                rows * per_row)
     if dim == 2:
         return ((k * (src_elems + rows * n_loc) + 2 * n * n + rows) * itemsize,
                 k * rows * (4 * 2 * n**3 + n**2))
-    if deformed:
-        return ((src_elems + rows * n_loc * 7 + 2 * n * n) * itemsize,
-                rows * (12 * 2 * n**4 + 15 * n_loc))
     nbytes = (k * (src_elems + rows * n_loc) + 2 * n * n + rows) * itemsize
     return nbytes, k * rows * (7 * 2 * n**4 + n**3)

@@ -9,10 +9,12 @@ to component-major cell rows [dim, n_cells, n_loc], in one of two modes:
   each by the cell's mask (codes None: none), the coupled operator with the
   cell's geo [n_cells, dim], the transposed interpolation. The scatter-add
   is ``dof_scatter``'s (its component axis writes [n_dofs, dim] back);
-- bricks (``dofmap=None``, ``brick_size=B``), 3-D: cell r of the first m bricks
-  of component brick vectors src [3, nb, N3p] (slot r % B^3 of brick r //
-  B^3), scaled by geo [m*B^3] on every axis: every subset cell's
-  geo_c Kel u_c (the reference's ``plain3``).
+- bricks (``dofmap=None``, ``brick_size=B``), 3-D or 2-D: cell r of the
+  first m bricks of component brick vectors src [dim, nb, N3p] (slot r %
+  B^dim of brick r // B^dim), scaled by geo [m*B^dim] on every axis: every
+  subset cell's geo_c Kel u_c (the reference's ``plain3``); the dimension
+  is read from the row width (``_build.brick_dim``) and must equal the
+  component count.
 
 The operator runs in the collocation form of the Laplace kernel (values by
 S, gradients by Dc, the coupled operator at each Gauss point, the
@@ -21,7 +23,8 @@ cell matrix ``el_Kel`` times geo up to rounding.
 
 Replaces the reference's elasticity ``kernel`` and ``_vmult``'s reads and
 HN^T (models/elasticity.py:44-98) and BrickElasticity's subset gather with
-the ``el_Kel`` einsum (models/elasticity_bricks.py:229-240). CUDA source:
+the ``el_Kel`` einsum (models/elasticity_bricks.py:229-240, in 2-D on its
+[2, 2, n^2, n^2] blocks). CUDA source:
 ``csrc/cell_elasticity.cu`` (the operator in ``csrc/elasticity.cuh``)."""
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from .hn_interp import masked_lines
 NAME = "cell_elasticity"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/elasticity.py:44"
 DEGREES = (1, 2, 3, 4, 5, 6, 7, 8)
-DEGREES_2D = (1, 2, 3, 4, 5, 6)  # the index mode's dim=2 instances
+DEGREES_2D = (1, 2, 3, 4, 5, 6)  # the dim=2 instances (both modes)
 
 
 def elastic_rows(u, S, Dc, quad_w, geo, mu, lam):
@@ -59,11 +62,12 @@ def elastic_rows(u, S, Dc, quad_w, geo, mu, lam):
 
 
 def brick_rows(src, brick_size, m, p):
-    """[3, m*B^3, n_loc]: the cell rows of the first m bricks of each
-    component of src [3, nb, N3p]."""
-    idx = cell_nodes(torch.arange(m * brick_size**3, device=src.device), brick_size, p,
+    """[k, m*B^dim, n_loc]: the cell rows of the first m bricks of each of
+    the k components of src [k, nb, N3p] (dim read from the row width)."""
+    dim = _build.brick_dim(NAME, brick_size * p + 1, src.shape[2])
+    idx = cell_nodes(torch.arange(m * brick_size**dim, device=src.device), brick_size, p,
                      src.shape[2], src.device)
-    return src[:, :m].reshape(3, -1)[:, idx]
+    return src[:, :m].reshape(src.shape[0], -1)[:, idx]
 
 
 def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
@@ -71,9 +75,10 @@ def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
     """Plain PyTorch version: the steps one after another (a new tensor)."""
     n = S.shape[-1]
     if dofmap is None:
-        m = geo.shape[0] // brick_size**3
+        dim = src.shape[0]
+        m = geo.shape[0] // brick_size**dim
         u = brick_rows(src, brick_size, m, n - 1)
-        geo = geo[:, None].expand(-1, 3)
+        geo = geo[:, None].expand(-1, dim)
     else:
         u = src.T[:, dofmap.long()]
     dim = u.shape[0]
@@ -92,9 +97,10 @@ _ARGS = [ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong] \
 def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None):
     """Index mode: src [n_dofs, dim] (dim 2 or 3), dofmap int32 [n_cells,
     n^dim], codes int32 [n_cells] or None, P [2, n, n], geo [n_cells, dim].
-    Bricks mode (3-D): src [3, nb, N3p], dofmap and codes None (P may be
-    None), geo [m*B^3] with m <= nb. S, Dc [n, n], quad_w [n^dim] of src's
-    dtype on its device -> new [dim, n_cells, n^dim]."""
+    Bricks mode: src [dim, nb, N3p] (dim 3 or 2, the rows' dimension),
+    dofmap and codes None (P may be None), geo [m*B^dim] with m <= nb. S, Dc
+    [n, n], quad_w [n^dim] of src's dtype on its device -> new [dim,
+    n_cells, n^dim]."""
     args = (src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam)
     if src.device.type == "cpu":
         return cell_elasticity_plain(*args, brick_size=brick_size)
@@ -104,16 +110,16 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
     if any(t is not None and t.dtype != torch.int32 for t in (dofmap, codes)):
         raise TypeError(f"{NAME}: dofmap and codes must be int32")
     n = S.shape[-1]
-    dim = 3 if dofmap is None else src.shape[-1]  # the index mode: a component an axis
+    dim = src.shape[0] if dofmap is None else src.shape[-1]  # a component an axis
     n_loc = n**dim
     if dim not in _build.DIMS:
         raise ValueError(f"{NAME}: src {tuple(src.shape)} has {dim} components, not 2 or 3")
     if dofmap is None:
         B = int(brick_size)
         n_cells = geo.shape[0]
-        bad = (codes is not None or src.dim() != 3 or src.shape[0] != 3 or geo.dim() != 1
-               or n_cells % B**3 or n_cells // B**3 > src.shape[1]
-               or src.shape[2] < (B * (n - 1) + 1) ** 3)
+        bad = (codes is not None or src.dim() != 3 or geo.dim() != 1
+               or _build.brick_dim(NAME, B * (n - 1) + 1, src.shape[2]) != dim
+               or n_cells % B**dim or n_cells // B**dim > src.shape[1])
     else:
         n_cells = dofmap.shape[0]
         bad = (brick_size is not None or src.dim() != 2
@@ -155,20 +161,20 @@ def plan(dtype, p, device=None, dim=3):
 
 def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None):
     """Least traffic: the distinct source values read once (the DoFs that
-    dofmap names, three components each, or the subset cells' brick nodes),
+    dofmap names, dim components each, or the subset cells' brick nodes),
     dofmap, codes and geo read once, the rows written once, the factors read
     once. Operations: per cell and component the 4 dim sweeps of 2 n^(dim+1)
     (dim of S and dim of Dc forward, their transposes), the coupled
     operator's ~40 a point in 3-D (~16 in 2-D), and the interpolation's 2
     n^2 a masked line, component and direction."""
     n = S.shape[-1]
-    dim = 3 if dofmap is None else src.shape[-1]
+    dim = src.shape[0] if dofmap is None else src.shape[-1]
     n_loc, isz = n**dim, src.element_size()
     if dofmap is None:
         n_cells = geo.shape[0]
         nodes = cell_nodes(torch.arange(n_cells, device=src.device), brick_size, n - 1,
                            src.shape[2], src.device)
-        n_src = 3 * int(torch.unique(nodes).numel())
+        n_src = dim * int(torch.unique(nodes).numel())
     else:
         n_cells = dofmap.shape[0]
         n_src = dim * int(torch.unique(dofmap).numel())

@@ -42,9 +42,11 @@ sorted by (row, slot); ent_slot, ent_src int32, ent_src a flat index into
 u_sub), and each Q's nonzeros by output slot for u @ Q (fwd) and u @ Q^T
 (bwd): q [n_hn] the row's Q (-1: identity), ptr [nQ, n_loc+1] int32 into
 col int32 and w. 2-D rows ((p+1)^2 values, cells in NB^2-node bricks; the
-Q's those of the 2-D masks, ``hn_composite_matrix(mask, P, 2)``) run the
-full and fill modes; the dimension comes from n_loc
-(``_build.cell_shape``). CUDA source: ``csrc/hn_cell.cu``."""
+Q's those of the 2-D masks, ``hn_composite_matrix(mask, P, 2)``) run every
+mode: the elastic mode on two components (u_sub [2, m, N3p], out [2, n_hn,
+n_loc]), the deformed mode with the 2-D metric (3 values a point); the
+dimension comes from n_loc (``_build.cell_shape``). CUDA source:
+``csrc/hn_cell.cu``."""
 
 from __future__ import annotations
 
@@ -119,7 +121,8 @@ def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, f
         u_hat = torch.stack([hn_apply_plain(fill_hn_plain(
             u, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size), q, fwd_ptr, fwd_col, fwd_w)
             for u in u_sub])
-        own = elastic_rows(u_hat, S, Dc, quad_w, scale[:, None].expand(-1, 3), mu, lam)
+        own = elastic_rows(u_hat, S, Dc, quad_w, scale[:, None].expand(-1, u_sub.shape[0]), mu,
+                           lam)
         return torch.stack([hn_apply_plain(r, q, bwd_ptr, bwd_col, bwd_w) for r in own])
     filled = fill_hn_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, brick_size)
     u_hat = hn_apply_plain(filled, q, fwd_ptr, fwd_col, fwd_w)
@@ -127,7 +130,8 @@ def hn_cell_plain(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, f
         return u_hat
     if mode == "deformed":
         S, Dc, geo = deformed
-        own = laplace_rows(u_hat, S, Dc, None, geo[hn_sub.long()])
+        own = laplace_rows(u_hat, S, Dc, None, geo[hn_sub.long()],
+                           _build.cell_shape(NAME, keep.shape[1])[1])
     else:
         own = cell_apply_plain(u_hat, K1, M1, scale)
     return hn_apply_plain(own, q, bwd_ptr, bwd_col, bwd_w)
@@ -147,24 +151,26 @@ SUPPORTED = ({(1, 16, 3), (2, 8, 3), (3, 4, 3), (4, 4, 3), (5, 2, 3), (6, 2, 3),
               (8, 2, 3)} | {(1, 16, 2), (2, 16, 2), (3, 16, 2), (4, 8, 2), (5, 8, 2),
                             (6, 8, 2)})
 _ELASTIC_ARGS = ([ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong,
-                  ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                  ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                                           ctypes.c_void_p])
 
 
 def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
             bwd_ptr, bwd_col, bwd_w, K1, M1, scale, brick_size, mode="full", *, elastic=None,
             deformed=None):
-    """u_sub [n_sub, N3p] ([3, m, N3p] in the elastic mode, m >= n_sub; a
-    RHS axis in the other modes: [k, n_sub, N3p], any stride between RHS);
+    """u_sub [n_sub, N3p] ([dim, m, N3p] in the elastic mode, m >= n_sub; a
+    RHS axis in the full and fill modes: [k, n_sub, N3p], any stride
+    between RHS);
     hn_sub, q [n_hn], row_ptr [n_hn+1], ent_slot, ent_src, the Q lists' ptr
     [nQ, n_loc+1] and col int32; keep [n_hn, n_loc] bool; w and scale [n_hn]
-    of u_sub's dtype -> new [n_hn, n_loc] tensor ([3, n_hn, n_loc] in the
+    of u_sub's dtype -> new [n_hn, n_loc] tensor ([dim, n_hn, n_loc] in the
     elastic mode, [k, n_hn, n_loc] with a RHS axis). The kernel takes K1 and M1 by value, as launch
     parameters: on the kernel path they must be CPU tensors
     (``op.factors_host``). In the fill and deformed modes K1, M1 and scale
     may be None, in the elastic mode K1 and M1; elastic = (S, Dc, quad_w,
     mu, lam), S, Dc and quad_w on u_sub's device; deformed = (S, Dc, geo),
-    geo [n_rows, n_loc, 6] over at least the subset bricks' cell rows, on
-    u_sub's device (the deformed mode takes no RHS axis)."""
+    geo [n_rows, n_loc, 6] (2-D: 3) over at least the subset bricks' cell
+    rows, on u_sub's device (the deformed mode takes no RHS axis)."""
     args = (u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col, fwd_w,
             bwd_ptr, bwd_col, bwd_w)
     _mode(mode)
@@ -188,12 +194,10 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
     B = int(brick_size)
     p, dim = _build.cell_shape(NAME, n_loc)
     _check_tables(args, n_hn, n_loc)
-    if dim == 2 and mode not in MODES:
-        raise NotImplementedError(f"{NAME}: the {mode} mode in dim=2 is not ported yet")
     if (p, B, dim) not in SUPPORTED:
         raise ValueError(f"{NAME}: no {dim}-D instance at p={p}, B={B}")
     if mode == "elastic":
-        return _elastic(args, scale, elastic, n_hn, p, B, dev)
+        return _elastic(args, scale, elastic, n_hn, p, B, dim, dev)
     if _build.brick_dim(NAME, B * p + 1, u_sub.shape[-1]) != dim:
         raise ValueError(f"{NAME}: u_sub {tuple(u_sub.shape)} holds no {dim}-D bricks of "
                          f"{B * p + 1} nodes a side")
@@ -202,7 +206,8 @@ def hn_cell(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr, fwd_col
         S, Dc, geo = deformed
         n = p + 1
         if (u_sub.dim() != 2 or S.shape != (n, n) or Dc.shape != (n, n) or geo.dim() != 3
-                or geo.shape[1:] != (n_loc, 6) or u_sub.shape[0] * B**3 > geo.shape[0]):
+                or geo.shape[1:] != (n_loc, dim * (dim + 1) // 2)
+                or u_sub.shape[0] * B**dim > geo.shape[0]):
             raise ValueError(f"{NAME}: deformed mode shapes u_sub {tuple(u_sub.shape)}, S "
                              f"{tuple(S.shape)}, geo {tuple(geo.shape)}")
         extra = (geo, S, Dc)
@@ -247,34 +252,36 @@ def _check_tables(args, n_hn, n_loc):
                          f"{tuple(bwd_ptr.shape)}")
 
 
-def _elastic(args, scale, elastic, n_hn, p, B, dev):
-    """The elastic mode's launch."""
+def _elastic(args, scale, elastic, n_hn, p, B, dim, dev):
+    """The elastic mode's launch: dim components of rows of (p+1)^dim values."""
     u_sub = args[0]
     S, Dc, quad_w, mu, lam = elastic
-    n, n_loc = p + 1, (p + 1) ** 3
-    if (u_sub.dim() != 3 or u_sub.shape[0] != 3 or u_sub.shape[2] < (B * p + 1) ** 3
+    n, n_loc = p + 1, (p + 1) ** dim
+    if (u_sub.dim() != 3 or u_sub.shape[0] != dim
+            or _build.brick_dim(NAME, B * p + 1, u_sub.shape[2]) != dim
             or scale.shape != (n_hn,) or S.shape != (n, n) or Dc.shape != (n, n)
             or quad_w.shape != (n_loc,)):
         raise ValueError(f"{NAME}: elastic mode shapes u_sub {tuple(u_sub.shape)}, scale "
-                         f"{tuple(scale.shape)}, S {tuple(S.shape)}")
-    out = torch.empty((3, n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
+                         f"{tuple(scale.shape)}, S {tuple(S.shape)} in {dim}-D")
+    out = torch.empty((dim, n_hn, n_loc), dtype=u_sub.dtype, device=u_sub.device)
     if n_hn == 0:
         return out
     ptrs = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in (*args, scale, S, Dc, quad_w)))
     fn = _build.function(NAME, f"{NAME}_elastic_{_build.suffix(u_sub.dtype)}", _ELASTIC_ARGS)
     _build.launch(NAME, fn, dev, ptrs, float(mu), float(lam), u_sub.shape[1] * u_sub.shape[2],
-                  _build.ptr(out), n_hn, p, B, u_sub.shape[2], None)
+                  _build.ptr(out), n_hn, p, B, u_sub.shape[2], None, dim)
     hn_cell.launches += 1
     return out
 
 
-def elastic_plan(dtype, p, B, device=None):
+def elastic_plan(dtype, p, B, dim, device=None):
     """(threads, shared-memory bytes, blocks per SM) of an elastic-mode
-    launch at degree p, brick size B; launches nothing."""
+    launch at degree p, brick size B, in dim dimensions; launches nothing."""
     info = (ctypes.c_int * 3)()
     dev = torch.device("cuda") if device is None else device
     fn = _build.function(NAME, f"{NAME}_elastic_{_build.suffix(dtype)}", _ELASTIC_ARGS)
-    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 17)(), 1.0, 1.0, 0, None, 1, p, B, 0, info)
+    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 17)(), 1.0, 1.0, 0, None, 1, p, B, 0, info,
+                  dim)
     return tuple(info)
 
 
@@ -290,13 +297,14 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
     (the elastic mode: each of these a component, and the coupled
     operator's 36 sweeps of 2 n^4 and ~40 operations a point a row; the
     deformed mode: the rows' metric read, 12 sweeps of 2 n^4 and 15
-    operations a point a row). A RHS
-    axis: the nodes, the rows and the operations k times, the tables
-    once."""
+    operations a point a row; 2-D: two components, 16 sweeps of 2 n^3 and
+    ~16 operations a point, and the deformed mode's 3 metric values, 8
+    sweeps of 2 n^3 and 7 operations a point). A RHS axis: the nodes, the
+    rows and the operations k times, the tables once."""
     n_hn, n_loc = keep.shape
     p, dim = _build.cell_shape(NAME, n_loc)
     n = p + 1
-    k = 3 if _mode(mode) == "elastic" else (u_sub.shape[0] if u_sub.dim() == 3 else 1)
+    k = dim if _mode(mode) == "elastic" else (u_sub.shape[0] if u_sub.dim() == 3 else 1)
     isz = u_sub.element_size()
     own = cell_nodes(hn_sub, brick_size, p, u_sub.shape[-1], u_sub.device)[keep]
     n_read = torch.unique(torch.cat([own, ent_src.long()])).numel()
@@ -314,8 +322,9 @@ def bytes_and_flops(u_sub, hn_sub, keep, row_ptr, ent_slot, ent_src, q, fwd_ptr,
         flops += k * n_hn * ((7 * 2 * n**4 + n**3) if dim == 3 else (4 * 2 * n**3 + n**2))
     elif mode == "elastic":
         nbytes += (n_hn + 2 * n * n + n_loc) * isz
-        flops += n_hn * (3 * 12 * 2 * n**4 + 40 * n_loc)
+        flops += n_hn * ((3 * 12 * 2 * n**4 + 40 * n_loc) if dim == 3
+                         else (2 * 8 * 2 * n**3 + 16 * n_loc))
     elif mode == "deformed":
-        nbytes += (n_hn * n_loc * 6 + 2 * n * n) * isz
-        flops += n_hn * (12 * 2 * n**4 + 15 * n_loc)
+        nbytes += (n_hn * n_loc * dim * (dim + 1) // 2 + 2 * n * n) * isz
+        flops += n_hn * ((12 * 2 * n**4 + 15 * n_loc) if dim == 3 else (8 * 2 * n**3 + 7 * n_loc))
     return nbytes, flops

@@ -26,12 +26,8 @@ from ..matrix_free import MatrixFree, TORCH_DTYPES, resolve_device
 __all__ = ["ElasticityOperator", "check_elastic_mesh"]
 
 
-def check_elastic_mesh(mf: MatrixFree, what: str, dims=(2, 3)) -> None:
-    """The reference's refusals (models/elasticity.py:24-37), and a dim
-    outside dims (the brick engine's elasticity: 3 only)."""
-    if mf.dim not in dims:
-        raise NotImplementedError(f"{what}: dim={mf.dim} is not ported here (the port supports "
-                                  f"dim in {dims})")
+def check_elastic_mesh(mf: MatrixFree, what: str) -> None:
+    """The reference's refusals (models/elasticity.py:24-37)."""
     if mf.high_order_mapping:
         raise NotImplementedError(f"{what} currently uses the Cartesian mapping")
     geo = np.asarray(mf._np["geo"])

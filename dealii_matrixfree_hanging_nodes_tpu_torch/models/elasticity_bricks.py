@@ -3,15 +3,17 @@
 
     a(u, v) = int 2 mu eps(u):eps(v) + lam (div u)(div v)
 
-On Cartesian cube cells every block (c, k) of the 3 x 3 component operator
-is a short sum of Kronecker products of the brick's assembled 1-D factors
-Kb, Mb, Gb = D^T W S and Gb^T, and every factor scales with the cell size
-as h^(dim-2), so the brick's scalar ``geo`` multiplies every term. The
-coupled operator rides the scalar engine's brick structure, hanging-node
-chains, DSS and subset tables (a ``BrickLaplaceMM`` with the per-cell
-tables at every degree and no face planes), with the components on a
-leading axis: brick vectors [3, n_bricks, N3p], cell rows [3, rows, n_loc]
-(the reference carries them on a trailing row axis).
+On Cartesian cube cells every block (c, k) of the dim x dim component
+operator is a short sum of Kronecker products of the brick's assembled 1-D
+factors Kb, Mb, Gb = D^T W S and Gb^T, and every factor scales with the
+cell size as h^(dim-2), so the brick's scalar ``geo`` multiplies every
+term. The coupled operator rides the scalar engine's brick structure,
+hanging-node chains, DSS and subset tables (a ``BrickLaplaceMM`` with the
+per-cell tables at every degree and no face planes), with the components
+on a leading axis: brick vectors [dim, n_bricks, N3p], cell rows [dim,
+rows, n_loc] (the reference carries them on a trailing row axis). dim is
+the mesh's, 3 or 2 (2-D bricks of B^2 cells, two components; the
+reference's 2-D branches).
 
 vmult = cell_elasticity (every subset cell's geo_c Kel u_c from the bricks)
       -> hn_cell, elastic mode (the constrained rows: fill, Q, the coupled
@@ -40,7 +42,7 @@ __all__ = ["BrickElasticity"]
 
 
 class BrickElasticity(nn.Module):
-    """Coupled elasticity vmult on component brick vectors [3, n_bricks,
+    """Coupled elasticity vmult on component brick vectors [dim, n_bricks,
     N3p], on ``device`` (the card unless the caller asks for the CPU).
     ``vmult(bv, plain=True)`` runs the kernels' plain PyTorch versions on
     the operator's device."""
@@ -52,7 +54,7 @@ class BrickElasticity(nn.Module):
         self.mu, self.lam = float(mu), float(lam)
         if mf is None:  # from_tables fills the operator in
             return
-        check_elastic_mesh(mf, "BrickElasticity", dims=(3,))
+        check_elastic_mesh(mf, "BrickElasticity")
         # the scalar engine's tables: the per-cell schedule at every degree, no face planes
         self._setup(BrickLaplaceMM(mf, device=device, dtype=dtype, face_planes=False,
                                    assembled=False))
@@ -82,7 +84,7 @@ class BrickElasticity(nn.Module):
         if mm.assembled or mm.planes:
             raise ValueError("elasticity needs the per-cell tables without face planes")
         if mm.mf is not None:
-            check_elastic_mesh(mm.mf, "BrickElasticity", dims=(3,))
+            check_elastic_mesh(mm.mf, "BrickElasticity")
         op = cls(None, mu, lam)
         op.mf = mm.mf
         op._setup(mm)
@@ -105,11 +107,15 @@ class BrickElasticity(nn.Module):
         self.packed_host = torch.from_numpy(brick_elasticity.pack(fb, p)).to(dt)
         self.register_buffer("S", t(si.S))
         self.register_buffer("Dc", t(si.Dc))
-        self.register_buffer("quad_w", t(si.quad_weights_tensor(3)))
+        self.register_buffer("quad_w", t(si.quad_weights_tensor(mm.dim)))
 
     @property
     def device(self) -> torch.device:
         return self.mm.device
+
+    @property
+    def dim(self) -> int:
+        return self.mm.dim
 
     @property
     def dtype(self) -> torch.dtype:
@@ -117,25 +123,25 @@ class BrickElasticity(nn.Module):
 
     # ------------------------------------------------------------ conversions
     def from_dof_vector(self, u) -> torch.Tensor:
-        """[n_dofs, 3] (NumPy or tensor) -> [3, n_bricks, N3p] on the
+        """[n_dofs, dim] (NumPy or tensor) -> [dim, n_bricks, N3p] on the
         operator's device, each component's hanging entries distributed."""
         if isinstance(u, torch.Tensor):
             u = u.detach().cpu().numpy()
         u = np.asarray(u)
-        return torch.stack([self.mm.from_dof_vector(u[:, c]) for c in range(3)])
+        return torch.stack([self.mm.from_dof_vector(u[:, c]) for c in range(self.dim)])
 
     def to_dof_vector(self, bv: torch.Tensor, zero_hanging: bool = False) -> torch.Tensor:
-        """[3, n_bricks, N3p] -> [n_dofs, 3] (a tensor on the device): each
-        component refilled (hn_cell's fill mode, refill_update) unless
+        """[dim, n_bricks, N3p] -> [n_dofs, dim] (a tensor on the device):
+        each component refilled (hn_cell's fill mode, refill_update) unless
         zero_hanging asks for zero hanging entries."""
-        return torch.stack([self.mm.to_dof_vector(bv[c], zero_hanging) for c in range(3)],
-                           dim=1)
+        return torch.stack([self.mm.to_dof_vector(bv[c], zero_hanging)
+                            for c in range(self.dim)], dim=1)
 
     # ---------------------------------------------------------------- vmult
     def _check(self, bv):
         mm = self.mm
-        if bv.shape != (3, mm.n_bricks, mm.N3p):
-            raise ValueError(f"expected a [3, {mm.n_bricks}, {mm.N3p}] brick vector, got "
+        if bv.shape != (mm.dim, mm.n_bricks, mm.N3p):
+            raise ValueError(f"expected a [{mm.dim}, {mm.n_bricks}, {mm.N3p}] brick vector, got "
                              f"{tuple(bv.shape)}")
         if bv.dtype != self.dtype or bv.device != self.device:
             raise ValueError(f"expected {self.dtype} on {self.device}, got {bv.dtype} on "
@@ -145,7 +151,7 @@ class BrickElasticity(nn.Module):
         return getattr(mod, f"{mod.NAME}_plain" if plain else mod.NAME)
 
     def cell_rows(self, bv, plain: bool = False) -> torch.Tensor:
-        """Every subset cell's geo_c Kel u_c, [3, n_sub*B^3, n_loc]
+        """Every subset cell's geo_c Kel u_c, [dim, n_sub*B^dim, n_loc]
         (cell_elasticity from the bricks; the reference's plain3)."""
         mm = self.mm
         return self._fn(cell_elasticity, plain)(
@@ -157,7 +163,7 @@ class BrickElasticity(nn.Module):
         return (self.S, self.Dc, self.quad_w, self.mu, self.lam)
 
     def hn_rows(self, bv, plain: bool = False) -> torch.Tensor:
-        """The constrained rows [3, n_hn, n_loc]: fill, Q, the coupled
+        """The constrained rows [dim, n_hn, n_loc]: fill, Q, the coupled
         operator times geo, Q^T (hn_cell's elastic mode)."""
         mm = self.mm
         return self._fn(hn_cell, plain)(bv, *mm.hn_tables(), None, None, mm.geo_hn, mm.B,
@@ -172,13 +178,13 @@ class BrickElasticity(nn.Module):
     def vmult(self, bv: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """v = A bv (reference ``_vmult_impl``): the subset's cell rows and
         constrained rows, their fold, the coupled brick operator with the
-        deltas in its epilogue, the DSS. A new [3, n_bricks, N3p]."""
+        deltas in its epilogue, the DSS. A new [dim, n_bricks, N3p]."""
         self._check(bv)
         mm = self.mm
         dcols = None
         if mm.n_sub:
             sub_raw = (self.hn_rows(bv, plain) if mm.n_hn
-                       else bv.new_empty((3, 0, mm.n_loc)))
+                       else bv.new_empty((mm.dim, 0, mm.n_loc)))
             dcols = self._fn(corr_compact, plain)(self.cell_rows(bv, plain), sub_raw,
                                                   *mm.corr_tables())
         return self._fn(dss_surface, plain)(self.brick_apply(bv, dcols, plain),
@@ -194,7 +200,7 @@ class BrickElasticity(nn.Module):
         dcols = None
         if mm.n_sub and mm.n_absent:
             dcols = self._fn(corr_compact, plain)(
-                self.cell_rows(bv, plain), bv.new_empty((3, 0, mm.n_loc)), mm.plain_code,
+                self.cell_rows(bv, plain), bv.new_empty((mm.dim, 0, mm.n_loc)), mm.plain_code,
                 mm.keep_hn[:0], mm.corr_seg_ptr[:1], mm.corr_seg_dst[:0], mm.corr_ent_src[:0],
                 mm.plain_blocks)
         return self._fn(dss_surface, plain)(self.brick_apply(bv, dcols, plain),

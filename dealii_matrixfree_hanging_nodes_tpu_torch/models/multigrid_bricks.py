@@ -52,14 +52,6 @@ __all__ = [
 
 
 # --------------------------------------------------------------------------
-def _check_3d(mm: BrickLaplaceMM, what: str) -> None:
-    """The brick GMG's pieces take 3-D brick operators only: in dim=2 the
-    brick Laplace runs, its GMG (brick_transfer, dof_embed) not yet."""
-    if mm.dim != 3:
-        raise NotImplementedError(f"{what}: the brick GMG in dim={mm.dim} is not ported yet "
-                                  f"(the 2-D brick Laplace is)")
-
-
 class DofEmbed(nn.Module):
     """DoF vector <-> brick vector [nb, N3p] on the device for one brick
     level (the device counterparts of from_dof_vector / to_dof_vector)."""
@@ -68,7 +60,6 @@ class DofEmbed(nn.Module):
         super().__init__()
         if mm is None:  # from_tables fills the tables in
             return
-        _check_3d(mm, "DofEmbed")
         bs, ci = mm.bs, mm.mf.constraints
         self._load(bs.node_dof, ci.slave_dofs, ci.row_ptr, ci.col, ci.weight,
                    bs.owner_node_of_dof, mm.mf.n_dofs, mm.N3, mm.N3p, mm.device, mm.dtype)
@@ -121,7 +112,6 @@ class BrickDirichletLaplace(nn.Module):
 
     def __init__(self, mm: BrickLaplaceMM):
         super().__init__()
-        _check_3d(mm, "BrickDirichletLaplace")
         self.mm = mm
         mf, bs = mm.mf, mm.bs
         bd = mf.dof_handler.boundary_dofs()
@@ -149,27 +139,29 @@ class BrickDirichletLaplace(nn.Module):
 # --------------------------------------------------------------------------
 def brick_transfer_tables(mm_c: BrickLaplaceMM, mm_f: BrickLaplaceMM) -> dict:
     """The reference's host tables of one brick transfer (models/
-    multigrid_bricks.py:166-196, NumPy): src_lin [nlin_f], E_rows [nlin_f, 3,
-    n, n] (identity at absent rows), own_w [nlin_f, n_loc] (one writer a fine
-    node: the smallest covering row), and the fine dot mask wf [nb_f, N3]."""
+    multigrid_bricks.py:166-196, NumPy): src_lin [nlin_f], E_rows [nlin_f,
+    dim, n, n] (identity at absent rows), own_w [nlin_f, n_loc] (one writer
+    a fine node: the smallest covering row), and the fine dot mask wf [nb_f,
+    N3]."""
     mf_c, mf_f = mm_c.mf, mm_f.mf
     bs_c, bs_f = mm_c.bs, mm_f.bs
-    C = bs_f.B**3
+    dim = bs_f.dim
+    C = bs_f.B**dim
     n = mf_f.degree + 1
-    n_loc = n**3
+    n_loc = n**dim
     cover, E = covering_embedding(mf_c, mf_f)
     nlin_f = bs_f.n_bricks * C
     cell_at_f = np.full(nlin_f, -1, dtype=np.int64)
     cell_at_f[bs_f.cell_lin] = np.arange(mf_f.n_cells)
     src_lin = np.zeros(nlin_f, dtype=np.int64)
-    E_rows = np.broadcast_to(np.eye(n), (nlin_f, 3, n, n)).copy()
+    E_rows = np.broadcast_to(np.eye(n), (nlin_f, dim, n, n)).copy()
     present = cell_at_f >= 0
     fc = cell_at_f[present]
     src_lin[present] = bs_c.cell_lin[cover[fc]]
     E_rows[present] = E[fc]
-    nnode_f = bs_f.n_bricks * bs_f.NB**3
+    nnode_f = bs_f.n_bricks * bs_f.NB**dim
     writer = np.full(nnode_f, -1, dtype=np.int64)
-    flat_nodes = (bs_f.brick_of_cell.astype(np.int64)[:, None] * bs_f.NB**3
+    flat_nodes = (bs_f.brick_of_cell.astype(np.int64)[:, None] * bs_f.NB**dim
                   + bs_f.cell_node_index_range(0, mf_f.n_cells))
     lin_of_cell = bs_f.cell_lin
     order = np.argsort(-lin_of_cell, kind="stable")
@@ -189,7 +181,6 @@ class BrickTransfer(nn.Module):
         super().__init__()
         if mm_c is None:  # from_tables fills the tables in
             return
-        _check_3d(mm_c, "BrickTransfer")
         self._load(brick_transfer_tables(mm_c, mm_f), DofEmbed(mm_c), mm_c.B, mm_c.n_bricks,
                    mm_c.N3, mm_f.device, mm_f.dtype)
 
@@ -258,9 +249,6 @@ class BrickGMGPreconditioner:
     def __init__(self, geometry: str, dim: int, n_refinements: int, degree: int,
                  dtype=np.float64, n_smooth: int = 3, min_level: int = 1,
                  coarse: str = "direct", device=None):
-        if dim != 3:
-            raise NotImplementedError(f"BrickGMGPreconditioner: the brick GMG in dim={dim} is "
-                                      f"not ported yet (the 2-D brick Laplace is)")
         if coarse not in ("direct", "cg"):
             raise ValueError(f"unknown coarse solver {coarse!r}")
         device = resolve_device(device)

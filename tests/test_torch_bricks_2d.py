@@ -34,6 +34,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.ops.hanging_nodes import (  # noq
 )
 from torch_port_cases import (  # noqa: E402, F401
     RTOL, one_torch_thread, port, port_tables, reference, reference_meta, rel_err, rng_array,
+    release_module_memory,
 )
 
 DIM = 2

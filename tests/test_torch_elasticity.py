@@ -33,6 +33,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle  # noqa: E402
 from torch_port_cases import (  # noqa: E402,F401
     RTOL, one_torch_thread, reference_meta, rel_err, rng_array,
+    release_module_memory,
 )
 
 # the reference's elasticity tests' 3-D cases, and p=4 (the port's main degree)
@@ -230,7 +231,7 @@ def test_least_schedule_computes_the_operator(p):
     xs, ys, zs = {}, {}, {}
     for c in range(3):
         for k in range(3):
-            for coef, (fx, fy, fz) in brick_elasticity.terms(c, k, MU, LAM):
+            for coef, (fx, fy, fz) in brick_elasticity.terms(c, k, MU, LAM, 3):
                 if (k, fx) not in xs:
                     xs[k, fx] = np.einsum("Xx,zyx->zyX", fac[fx], u[k])
                 if (k, fx, fy) not in ys:
@@ -239,7 +240,7 @@ def test_least_schedule_computes_the_operator(p):
     got = np.zeros_like(u)
     for (c, fz), grouped in zs.items():
         got[c] += np.einsum("Zz,zyx->Zyx", fac[fz], grouped)
-    assert len(xs) + len(ys) + len(zs) == brick_elasticity.least_schedule()[0] == 45
+    assert len(xs) + len(ys) + len(zs) == brick_elasticity.least_schedule(3)[0] == 45
     bv = torch.from_numpy(u.reshape(3, 1, NB**3))
     want = brick_elasticity.brick_elasticity_plain(
         bv, {n: t64(fac[n]) for n in ("K", "M", "G")}, torch.ones(1, dtype=torch.float64), p,

@@ -11,7 +11,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import hn_cell  # noqa: E402
-from torch_port_cases import CASES, IDS, RTOL, port, reference, rel_err, rng_array  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
+    CASES, IDS, RTOL, port, reference, rel_err, rng_array, release_module_memory,
+)
 
 
 @pytest.mark.parametrize("mode", hn_cell.MODES)

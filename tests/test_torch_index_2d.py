@@ -39,7 +39,9 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.ops import sum_factorization as s
 from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import (  # noqa: E402
     elasticity_oracle, vmult_oracle,
 )
-from torch_port_cases import RTOL, one_torch_thread, rel_err, rng_array  # noqa: E402, F401
+from torch_port_cases import (  # noqa: E402, F401
+    RTOL, one_torch_thread, rel_err, rng_array, release_module_memory,
+)
 
 DIM = 2
 RUNNERS = ("compact", "all", "sorted", "matrix")

@@ -27,7 +27,9 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.convert import (  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.models.laplace import LaplaceOperator  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.ops import sum_factorization as sf  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle  # noqa: E402
-from torch_port_cases import RTOL, rel_err, rng_array  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
+    RTOL, rel_err, rng_array, release_module_memory,
+)
 
 RUNNERS = ("compact", "all", "sorted", "matrix")
 # the 3-D cases of the reference's tests/test_matrix_free.py

@@ -103,9 +103,13 @@ def test_unported_branches_raise():
         laplace_diagonal_host(mf_d)
     with pytest.raises(NotImplementedError):  # elasticity on the deformed scalar tables
         mt.BrickElasticity.on_operator(deformed)
-    with pytest.raises(NotImplementedError, match="dim=2"):  # the deformed 2-D brick engine
-        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4, high_order_mapping=True),
-                          device="cpu")
+    # the deformed 2-D brick engine builds; vmult_multi raises there too, as the reference's
+    deformed2 = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4,
+                                                high_order_mapping=True), device="cpu")
+    assert deformed2.dim == 2 and deformed2.deformed
+    with pytest.raises(NotImplementedError, match="high_order_mapping"):
+        deformed2.vmult_multi(torch.zeros(2, deformed2.n_bricks, deformed2.N3p,
+                                          dtype=deformed2.dtype))
     with pytest.raises(NotImplementedError):  # the brick engine reads cells in mesh order
         mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(3, 2), 4, categorize=True),
                           device="cpu")
@@ -114,12 +118,11 @@ def test_unported_branches_raise():
     assert planes.planes
     with pytest.raises(NotImplementedError, match="face_planes"):
         planes.vmult_multi(torch.zeros(2, planes.n_bricks, planes.N3p, dtype=planes.dtype))
-    # the brick engine's solver is 3-D, as the brick engine is
-    with pytest.raises(NotImplementedError):
-        mt.BrickGMGPreconditioner("quadrant", 2, 2, 2, device="cpu")
+    # the brick engine's solver takes 2-D, as the brick engine does
+    assert mt.BrickGMGPreconditioner("quadrant", 2, 2, 2, device="cpu").fine_mm.dim == 2
     mf2 = mt.MatrixFree(mt.create_quadrant(2, 2), 2)
-    # elasticity on both engines: the deformed mapping and non-cube cells raise; dim=2 on the
-    # brick engine
+    # elasticity on both engines: the deformed mapping and non-cube cells raise; dim=2 runs on
+    # both
     for elastic in (mt.ElasticityOperator, mt.BrickElasticity):
         with pytest.raises(NotImplementedError):
             elastic(mt.MatrixFree(mt.create_quadrant(3, 2), 2, high_order_mapping=True),
@@ -128,14 +131,21 @@ def test_unported_branches_raise():
         stretched._np["geo"][:, 0] *= 2.0  # cells twice as long along one axis
         with pytest.raises(NotImplementedError):
             elastic(stretched, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mt.BrickElasticity(mf2, device="cpu")
+        with pytest.raises(NotImplementedError):  # the deformed mapping in 2-D too
+            elastic(mt.MatrixFree(mt.create_quadrant(2, 2), 2, high_order_mapping=True),
+                    device="cpu")
+    assert mt.BrickElasticity(mf2, device="cpu").dim == 2
 
 
 def test_brick_engine_raises_for_2d():
-    """The brick Laplace takes a 2-D mesh (tests/test_torch_bricks_2d.py
-    holds it against the reference); the brick GMG, the brick elasticity
-    and the deformed brick engine still raise for dim=2, on every device."""
+    """The brick engine raises for dim=2 only where the reference does: the
+    brick Laplace, the deformed brick engine, the brick GMG (DofEmbed,
+    BrickDirichletLaplace, BrickTransfer, BrickGMGPreconditioner and its
+    device solver) and BrickElasticity build and run on a 2-D mesh on the
+    CPU (tests/test_torch_bricks_2d*.py, test_torch_multigrid_bricks_2d.py
+    and test_torch_elasticity_bricks_2d.py hold them against the
+    reference); vmult_multi under a deformed mapping and elasticity on the
+    deformed tables still raise, as the reference's do."""
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.models.multigrid_bricks import (
         BrickDirichletLaplace, BrickTransfer, DofEmbed,
@@ -144,20 +154,29 @@ def test_brick_engine_raises_for_2d():
     mf = mt.MatrixFree(mt.create_quadrant(2, 2), 4)
     op = mt.BrickLaplaceMM(mf, device="cpu")
     assert op.dim == 2 and op.N3 == op.NB**2 and op.C == op.B**2
-    assert op.vmult(torch.zeros(op.n_bricks, op.N3p, dtype=op.dtype)).shape == (op.n_bricks,
-                                                                                 op.N3p)
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        mt.BrickGMGPreconditioner("quadrant", 2, 2, 4, device="cpu")
-    for piece in (DofEmbed, BrickDirichletLaplace, lambda mm: BrickTransfer(mm, mm)):
-        with pytest.raises(NotImplementedError, match="dim=2"):
-            piece(op)
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        mt.BrickElasticity(mf, device="cpu")
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        mt.BrickElasticity.on_operator(mt.BrickLaplaceMM(mf, device="cpu", assembled=False))
-    with pytest.raises(NotImplementedError, match="dim=2"):
-        mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4, high_order_mapping=True),
-                          device="cpu")
+    zero = torch.zeros(op.n_bricks, op.N3p, dtype=op.dtype)
+    assert op.vmult(zero).shape == (op.n_bricks, op.N3p)
+    de = DofEmbed(op)
+    assert de.embed(torch.zeros(mf.n_dofs, dtype=op.dtype)).shape == zero.shape
+    assert BrickDirichletLaplace(op).vmult(zero).shape == zero.shape
+    mfc = mt.MatrixFree(mt.create_quadrant(2, 1), 4)
+    tr = BrickTransfer(mt.BrickLaplaceMM(mfc, device="cpu", face_planes=False), op)
+    assert tr.restrict(zero).shape[1] == op.N3p
+    gmg = mt.BrickGMGPreconditioner("quadrant", 2, 2, 4, device="cpu")
+    b = gmg.fine_op.vmult(gmg.fine_mm.from_dof_vector(np.ones(gmg.fine_mf.n_dofs)))
+    assert gmg.make_device_solver(tol=1e-8)(b)[1] > 0
+    el = mt.BrickElasticity(mf, device="cpu")
+    assert el.vmult(torch.zeros(2, op.n_bricks, op.N3p, dtype=op.dtype)).shape == (
+        2, op.n_bricks, op.N3p)
+    assert mt.BrickElasticity.on_operator(mt.BrickLaplaceMM(mf, device="cpu",
+                                                             assembled=False)).dim == 2
+    deformed = mt.BrickLaplaceMM(mt.MatrixFree(mt.create_quadrant(2, 2), 4,
+                                               high_order_mapping=True), device="cpu")
+    assert deformed.vmult(zero).shape == zero.shape
+    with pytest.raises(NotImplementedError, match="high_order_mapping"):
+        deformed.vmult_multi(zero[None])
+    with pytest.raises(NotImplementedError):  # elasticity on the deformed scalar tables
+        mt.BrickElasticity.on_operator(deformed)
     # the index engine takes the same mesh
     assert mt.LaplaceOperator(mf, device="cpu").vmult(
         torch.zeros(mf.n_dofs, dtype=torch.float64)).shape == (mf.n_dofs,)
@@ -185,7 +204,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh",
                  "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh",
                  "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu",
-                 "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu"):
+                 "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu", "brick_band.cuh"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer",
@@ -230,6 +249,13 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
                                             "hn_cell"))
     assert all(quad[n] == last[n] for n in ("brick_apply", "cell_transfer", "brick_transfer",
                                             "cell_elasticity", "brick_elasticity"))
+    # the brick factors' band structure: an edit rebuilds the two brick operators only
+    header = tmp_path / "brick_band.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    band = {n: _build.library_path(n) for n in names}
+    assert band["brick_apply"] != quad["brick_apply"]
+    assert band["brick_elasticity"] != quad["brick_elasticity"]
+    assert all(band[n] == quad[n] for n in names if n not in ("brick_apply", "brick_elasticity"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -994,3 +1020,169 @@ def test_brick_kernels_2d_on_card(cuda, p, nref, dtype):
         u = np.random.default_rng(p).standard_normal(mf.n_dofs)
         out = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
         assert np.abs(out - vmult_oracle(tria, p, u)).max() < 1e-12 * np.abs(out).max()
+
+
+def _counted(fn, want, what):
+    """fn() with the port's kernel launches during it checked to be `want`."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+
+    wrappers = [getattr(m, m.NAME) for m in KERNEL_MODULES]
+    before = sum(w.launches for w in wrappers)
+    out = fn()
+    assert sum(w.launches for w in wrappers) - before == want, what
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", BRICK_2D, ids=[f"p{p}" for p, _ in BRICK_2D])
+def test_brick_deformed_2d_on_card(cuda, p, nref, dtype):
+    """The deformed 2-D brick engine's dim=2 instances against their plain
+    versions (f32 1e-5, f64 1e-12): brick_deformed with and without cell
+    rows, cell_apply's and hn_cell's deformed modes; vmult (5 launches),
+    vmult_plain (2) and refill (2) against the plain path, two vmults
+    bit-identical; the f64 vmult against the 2-D deformed index engine's."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_deformed, cell_apply, hn_cell,
+    )
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    mf = mt.MatrixFree(mt.create_quadrant(2, nref), p, high_order_mapping=True)
+    op = mt.BrickLaplaceMM(mf, device=cuda, dtype=dtype)
+    assert op.dim == 2 and op.deformed and op.n_hn
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=cuda, dtype=dtype)
+    cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=cuda, dtype=dtype)
+    bd = (bv, op.metric, op.present_bits, op.S, op.Dc)
+    hn_args = (bv[: op.n_sub], *op.hn_tables(), None, None, None, op.B)
+    ca_args = (bv[: op.n_sub], None, None, None, op.B)
+    tab = op.deformed_tables(op.n_sub * op.C)
+    pairs = [
+        (brick_deformed.brick_deformed(*bd, brick_size=op.B),
+         brick_deformed.brick_deformed_plain(*bd, brick_size=op.B)),
+        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B),
+         brick_deformed.brick_deformed_plain(*bd, dcols=cols, brick_size=op.B)),
+        (cell_apply.cell_apply(*ca_args, deformed=tab),
+         cell_apply.cell_apply_plain(*ca_args, deformed=tab)),
+        (hn_cell.hn_cell(*hn_args, mode="deformed", deformed=op.deformed_tables()),
+         hn_cell.hn_cell_plain(*hn_args, mode="deformed", deformed=op.deformed_tables())),
+    ]
+    for fn, want in (("vmult", 5), ("vmult_plain", 2), ("refill", 2)):
+        got = _counted(lambda: getattr(op, fn)(bv), want, fn)
+        pairs.append((got, getattr(op, fn)(bv, plain=True)))
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        assert got.shape == ref.shape and _rel(got, ref) < tol, i
+    assert torch.equal(op.vmult(bv), op.vmult(bv))
+    if dtype == torch.float64:
+        u = np.random.default_rng(p).standard_normal(mf.n_dofs)
+        got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+        want = mt.LaplaceOperator(mf, device=cuda).vmult(u).cpu().numpy()
+        want[mf.constraints.constrained_dof_marker()] = 0.0
+        assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", BRICK_2D, ids=[f"p{p}" for p, _ in BRICK_2D])
+def test_brick_elasticity_2d_on_card(cuda, p, nref, dtype):
+    """The 2-D brick elasticity's dim=2 instances against their plain
+    versions (f32 1e-5, f64 1e-12): cell_elasticity's bricks mode, hn_cell's
+    elastic mode, brick_elasticity with and without cell rows, corr_compact
+    and dss_surface on their component axis at k = 2 (each component
+    bit-identical to a scalar call); vmult (5 launches) and vmult_plain (4)
+    against the plain path, two vmults bit-identical; the f64 vmult against
+    the dense oracle (mu=1.3, lam=0.7)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_elasticity, corr_compact, dss_surface,
+    )
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import elasticity_oracle
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    tria = mt.create_quadrant(2, nref)
+    mf = mt.MatrixFree(tria, p)
+    op = mt.BrickElasticity(mf, 1.3, 0.7, device=cuda, dtype=dtype)
+    mm = op.mm
+    assert op.dim == 2 and mm.n_hn and mm.n_sub
+    g = torch.Generator(device=cuda).manual_seed(p)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    bv = rnd(2, mm.n_bricks, mm.N3p)
+    rows, hn = rnd(2, mm.n_sub * mm.C, mm.n_loc), rnd(2, mm.n_hn, mm.n_loc)
+    pairs = [(op.cell_rows(bv), op.cell_rows(bv, plain=True)),
+             (op.hn_rows(bv), op.hn_rows(bv, plain=True)),
+             (corr_compact.corr_compact(rows, hn, *mm.corr_tables()),
+              corr_compact.corr_compact_plain(rows, hn, *mm.corr_tables())),
+             (dss_surface.dss_surface(bv.clone(), *mm.dss_tables()),
+              dss_surface.dss_surface_plain(bv.clone(), *mm.dss_tables()))]
+    dense = dict(K=op.Kb, M=op.Mb, G=op.Gb)
+    m = (mm.n_bricks + 1) // 2
+    cols = rnd(2, m * mm.C, mm.n_loc)
+    for extra in ({}, {"dcols": cols, "brick_size": mm.B}):
+        pairs.append((brick_elasticity.brick_elasticity(bv, op.packed_host, mm.geo, mm.p, 1.3,
+                                                        0.7, **extra),
+                      brick_elasticity.brick_elasticity_plain(bv, dense, mm.geo, mm.p, 1.3,
+                                                              0.7, **extra)))
+    for fn, want in (("vmult", 5), ("vmult_plain", 4)):
+        got = _counted(lambda: getattr(op, fn)(bv), want, fn)
+        pairs.append((got, getattr(op, fn)(bv, plain=True)))
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(pairs):
+        assert got.shape == ref.shape and _rel(got, ref) < tol, i
+    dcols = corr_compact.corr_compact(rows, hn, *mm.corr_tables())
+    v = dss_surface.dss_surface(bv.clone(), *mm.dss_tables())
+    for c in range(2):
+        assert torch.equal(dcols[c], corr_compact.corr_compact(
+            rows[c].contiguous(), hn[c].contiguous(), *mm.corr_tables()))
+        assert torch.equal(v[c], dss_surface.dss_surface(bv[c].clone(), *mm.dss_tables()))
+    assert torch.equal(op.vmult(bv), op.vmult(bv))
+    if dtype == torch.float64:
+        u = np.random.default_rng(p).standard_normal((mf.n_dofs, 2))
+        for c in range(2):
+            u[:, c] = mf.constraints.distribute(u[:, c])
+        ref = elasticity_oracle(tria, p, 1.3, 0.7, u)
+        got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+        assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p,nref", BRICK_2D, ids=[f"p{p}" for p, _ in BRICK_2D])
+def test_brick_transfer_2d_on_card(cuda, p, nref, dtype):
+    """The 2-D brick GMG's kernels between quadrant nref-1 and nref against
+    their plain versions (f32 1e-5, f64 1e-12): brick_transfer's dim=2
+    instances in both modes and dof_embed in both modes on a 2-D level; two
+    calls bit-identical. In f64 the 2-D brick GMG-CG at quadrant nref=4
+    (tol 1e-10) takes the CPU plain path's iteration count."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_transfer, dof_embed
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    mfc, mff = (mt.MatrixFree(mt.create_quadrant(2, n), p, dtype=npdt) for n in (nref - 1, nref))
+    mmc, mmf = (mt.BrickLaplaceMM(mf, device=cuda, face_planes=False) for mf in (mfc, mff))
+    g = torch.Generator(device=cuda).manual_seed(p)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    bt = mt.BrickTransfer(mmc, mmf)
+    assert mmf.dim == 2 and bt.E_rows.shape[1] == 2
+    de = bt.embed_c
+    calls = [(brick_transfer, (rnd(mmc.n_bricks, mmc.N3p), *bt.tables()), dict(mode="prolongate")),
+             (brick_transfer, (rnd(mmf.n_bricks, mmf.N3p), *bt.tables()), dict(mode="restrict")),
+             (dof_embed, (rnd(mfc.n_dofs), *de.tables("embed"), de.shape), {}),
+             (dof_embed, (rnd(*de.shape), *de.tables("embed_t"), (de.n_dofs,)), {})]
+    for mod, args, kw in calls:
+        got = _counted(lambda: getattr(mod, mod.NAME)(*args, **kw), 1, mod.NAME)
+        again = getattr(mod, mod.NAME)(*args, **kw)
+        ref = getattr(mod, f"{mod.NAME}_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and _rel(got, ref) < tol, (mod.NAME, kw)
+        assert torch.equal(got, again), (mod.NAME, kw)
+    if dtype == torch.float64 and p in (2, 4):
+        iters = {}
+        for dev in ("cpu", cuda):
+            gmg = mt.BrickGMGPreconditioner("quadrant", 2, 4, p, device=dev)
+            mm = gmg.fine_mm
+            b = gmg.fine_op.vmult(mm.from_dof_vector(_manufactured(gmg.fine_mf, 0)))
+            _, iters[str(dev)], _ = gmg.make_device_solver(tol=1e-10, max_iter=100)(b)
+        assert iters["cpu"] == iters[str(cuda)] == 7

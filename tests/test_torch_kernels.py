@@ -37,8 +37,9 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
     kernel_tables,
     kronecker_sum,
 )
-from torch_port_cases import (  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
     CASES, IDS, LOW_CASES, RTOL, port, port_tables, reference, rel_err, rng_array,
+    release_module_memory,
 )
 
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)

@@ -11,9 +11,10 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from torch_port_cases import (  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
     CASES, IDS, LOW_CASES, LOW_IDS, RTOL, port, port_tables, reference, reference_meta, rel_err,
     rng_array,
+    release_module_memory,
 )
 
 low = pytest.mark.parametrize("geo,nref,p", LOW_CASES, ids=LOW_IDS)

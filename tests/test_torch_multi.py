@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from torch_port_cases import (  # noqa: E402, F401 (one_torch_thread: an autouse fixture)
     RTOL, one_torch_thread, port, reference, reference_meta, rel_err, rng_array,
+    release_module_memory,
 )
 
 # (geometry, nref, degree, k): the reference's test_vmult_multi_matches_single

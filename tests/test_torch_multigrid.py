@@ -31,6 +31,7 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.models import multigrid as pmg  #
 from dealii_matrixfree_hanging_nodes_tpu_torch.utils.analytic import interpolate  # noqa: E402
 from torch_port_cases import (  # noqa: E402, F401 (one_torch_thread: an autouse fixture)
     GMG_DEGREES as DEGREES, RTOL, gmg_levels as levels, one_torch_thread, rel_err, rng_array,
+    release_module_memory,
 )
 
 

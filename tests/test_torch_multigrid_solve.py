@@ -18,7 +18,9 @@ from dealii_matrixfree_hanging_nodes_tpu.models import multigrid as rmg  # noqa:
 from dealii_matrixfree_hanging_nodes_tpu.models import multigrid_bricks as rmb  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.models import multigrid as pmg  # noqa: E402
 from dealii_matrixfree_hanging_nodes_tpu_torch.models import multigrid_bricks as pmb  # noqa: E402
-from torch_port_cases import RTOL, one_torch_thread, rel_err, rng_array  # noqa: E402, F401
+from torch_port_cases import (  # noqa: E402, F401
+    RTOL, one_torch_thread, rel_err, rng_array, release_module_memory,
+)
 
 NREF, P, TOL = 2, 2, 1e-10
 ENGINES = ("index", "brick")

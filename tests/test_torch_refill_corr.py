@@ -25,7 +25,9 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     corr_compact,
     refill_update,
 )
-from torch_port_cases import CASES, IDS, RTOL, port, port_tables, rel_err, rng_array  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
+    CASES, IDS, RTOL, port, port_tables, rel_err, rng_array, release_module_memory,
+)
 
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)
 T = torch.from_numpy

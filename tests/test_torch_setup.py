@@ -6,8 +6,9 @@ import pytest
 
 pytest.importorskip("torch")
 
-from torch_port_cases import (  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
     CASES, IDS, port, port_tables, reference, reference_meta,
+    release_module_memory,
 )
 
 

@@ -9,8 +9,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from torch_port_cases import (  # noqa: E402
+from torch_port_cases import (  # noqa: E402, F401
     CASES, IDS, RTOL, port, reference, reference_meta, rel_err, rng_array,
+    release_module_memory,
 )
 
 case = pytest.mark.parametrize("geo,nref,p", CASES, ids=IDS)
