@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero before the last line is printed):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. build the 19 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
+2. build the 22 CUDA kernels from ``dealii_matrixfree_hanging_nodes_tpu_torch/csrc``
    (one nvcc per source, all at once), with each kernel's registers and spills,
    refill_update's and corr_compact's stack frames (refill_update must have none),
    brick_apply's shared memory and blocks per SM at each degree (3-D and 2-D),
@@ -217,12 +217,28 @@ Phases (any failure exits non-zero before the last line is printed):
    versions, timed with bounds and library calls: the composed maps as
    CSR, the dense el_A by torch.mm) and float64 against the dense oracle
    at quadrant nref=3 p=2, 4 (1e-12, mu=1.3, lam=0.7);
-17. a JSON line with the vmult's, vmult_plain's and refill's numbers and
+17. the distributed engines (``distributed_phase``) on one NCCL rank (a
+   default group of NCCL for CUDA tensors and gloo for CPU ones): at phase
+   3's mesh, DistributedLaplace (allgather, halo) and DistributedBrickLaplace
+   (halo, replicated) against the single-device engines (1e-5), their
+   launches by kernel (``DIST_LAUNCHES``), two calls bit-identical, timed
+   (ms, GDoF/s, over the single-device vmult) and profiled (the port's
+   kernels, NCCL's launches counted by name apart, nothing else); the
+   deformed brick engine at quadrant nref=6; float64 at nref=4 against the
+   scipy oracle and the single-device engines (1e-12); halo_pack, dss_pools
+   and chain_halo at the main path's shapes with bounds and library calls
+   (CSR products), and on every rank's tables of the 4-rank plans at nref=5
+   in f32 and f64; the distributed GMG-CG (float64 at nref=3 p=2: the CPU
+   plain path's iterations; float32 at nref=5 p=4); 2 gloo ranks on the one
+   card where gloo takes CUDA tensors in every collective the engines use
+   (else the refusals are recorded). ``python3 chip_smoke.py --distributed``
+   runs phases 1, 2 and this one alone;
+18. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
    deformed brick engine's, one with the 2-D index engine's, one with the
-   2-D brick engine's, one with phase 16's, one with the kernels' numbers
-   (all 19; the new instances as parts named by degree;
+   2-D brick engine's, one with phase 16's, one with phase 17's, one with the
+   kernels' numbers (all 22; the new instances as parts named by degree;
    masked_quad's, plane_fill's and plane_fold's totals from p=2; the GMG
    kernels' launches from the solve that runs them; elasticity's calls of
    the existing kernels, the RHS-axis instances, "multi k=8 <kernel>", and
@@ -370,7 +386,7 @@ def launch_class(key: str):
 
 
 def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: int = 0,
-                 classes: dict | None = None):
+                 classes: dict | None = None, collectives: bool = False):
     """Where one call's time goes: device time by kernel from torch.profiler
     over `reps` calls of fn, the port's kernels against everything else, and
     the device's idle share of the wall time. CUPTI has left out whole calls
@@ -388,7 +404,11 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     sessions. A session is whole where it recorded the
     port's kernels of every call and, of the launches outside them that are
     pinned (`copies`, and the kinds that `classes` names), `reps` times the
-    pinned number. The first whole session of ``PROFILE_SESSIONS`` is kept, else the one
+    pinned number. collectives: the backend's collective launches (NCCL's kernels
+    and device-to-device copies, which the distributed engines' own kernels never make) are
+    counted by name apart (``collective_launches``, per call) and left out of the other
+    launches and their checks; their time counts in the device's busy time.
+    The first whole session of ``PROFILE_SESSIONS`` is kept, else the one
     that recorded the most; from such a partial session the device's busy,
     other and idle time are not measured (None: its records, averaged over
     the calls they hold, have read busy above the wall clock, as the 2-D
@@ -444,7 +464,7 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
                     prof.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        rows = []  # device kernels only: the aten ops that launch them would count twice
+        rows, crows = [], []  # device kernels only: the aten ops would count twice
         for ev in prof.key_averages():
             # the schedule's step annotation spans the step on the device's timeline; it
             # is no launch
@@ -454,22 +474,26 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
             if dev_us is None:
                 dev_us = ev.self_cuda_time_total
             if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.count, ev.key))
+                backend = collectives and ("nccl" in ev.key.lower()
+                                           or ev.key.startswith("Memcpy DtoD"))
+                (crows if backend else rows).append((dev_us / 1e3, ev.count, ev.key))
         host_copies = sum(ev.count for ev in prof.key_averages()
                           if ev.device_type == DeviceType.CPU and ev.key == "cudaMemcpyAsync")
         calls = sum(r[1] for r in rows if ours(r[2])) / expect
         whole = bool(rows) and calls == reps and pinned(rows)
         if best is None or (whole, calls) > best[0]:
-            best = ((whole, calls), rows, wall_ms, host_copies)
+            best = ((whole, calls), rows, wall_ms, host_copies, crows)
         if whole:
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
               f"of {reps} calls{'' if calls != reps else ', not every pinned launch'} "
               f"(session {attempt + 1} of {PROFILE_SESSIONS})", flush=True)
-    (whole, calls), rows, wall_ms, host_copies = best
+    (whole, calls), rows, wall_ms, host_copies, crows = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
-    busy = sum(r[0] for r in rows)
+    crows = [(ms / calls, count / calls, key) for ms, count, key in crows]
+    coll_ms = sum(r[0] for r in crows)
+    busy = sum(r[0] for r in rows) + coll_ms
     own_ms = sum(r[0] for r in rows if ours(r[2]))
     n_copies = sum(r[1] for r in rows if not ours(r[2]) and "Memcpy DtoD" in r[2])
     # every session kept each call's kernels and lost a device copy's record, while the host
@@ -478,7 +502,8 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
                  and n_copies < copies == host_copies / reps)
     res = dict(wall_ms=wall_ms, busy_ms=busy if whole else None,
                idle_share=1 - busy / wall_ms if whole else None,
-               port_kernels_ms=own_ms, other_ms=busy - own_ms if whole else None,
+               port_kernels_ms=own_ms,
+               other_ms=busy - own_ms - coll_ms if whole else None,
                calls_recorded=calls, port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
     print(f"profile (per {what}, {calls:g} of {reps} calls recorded): wall {wall_ms:.4f} ms, "
@@ -489,7 +514,13 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
              f"device busy and idle not measured (no whole session of {PROFILE_SESSIONS})")
           + f", port kernels {own_ms:.4f} ms in {res['port_launches']:g} launches, other "
           f"device work {'' if whole else 'not measured, '}"
-          f"{f'{busy - own_ms:.4f} ms ' if whole else ''}in {res['other_launches']:g} launches")
+          f"{f'{busy - own_ms - coll_ms:.4f} ms ' if whole else ''}in "
+          f"{res['other_launches']:g} launches")
+    if collectives:
+        res["collective_ms"] = coll_ms
+        res["collective_launches"] = {kernel_name(key): count for _, count, key in crows}
+        print(f"  the backend's collectives: {coll_ms:.4f} ms, launches by name "
+              f"{res['collective_launches']}", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         print(f"  {ms:9.4f} ms  x{count:<4.3g} {key[:90]}")
     if classes is not None:
@@ -3623,6 +3654,665 @@ def brick2d_paths_phase(mt, mf2, mf2_d, op2, index2d, dev, wrappers, smi):
     return numbers, parts
 
 
+# ---- the distributed engines (phase 17) ------------------------------------------------
+# one NCCL rank on the card at phase 3's mesh (quadrant nref=7 p=4 f32); the deformed brick
+# engine at DIST_DEFORMED_NREF; float64 at DIST_F64_NREF against the oracle; the GMG-CG at
+# DIST_GMG_CHECK in float64 (the CPU plain path's iterations) and at DIST_GMG_F32; the new
+# kernels held on every rank's tables of the DIST_CHECK_RANKS-rank plans at DIST_CHECK_NREF;
+# DIST_GLOO_RANKS gloo ranks on the one card, if gloo takes CUDA tensors in every collective
+DIST_DEFORMED_NREF, DIST_F64_NREF, DIST_CHECK_NREF, DIST_CHECK_RANKS = 6, 4, 5, 4
+DIST_GMG_CHECK, DIST_GMG_F32 = (3, 2), (5, 4)  # (quadrant nref, degree)
+DIST_GMG_F32_TOL = 1e-4
+DIST_GLOO_RANKS, DIST_GLOO_NREF, DIST_GLOO_TIMEOUT = 2, 4, 240
+DIST_NEW = ("halo_pack", "dss_pools", "chain_halo")
+DIST_BRICK_COMMON = {"cell_apply": 1, "hn_interp": 2, "chain_halo": 2, "corr_compact": 1,
+                     "dss_pools": 2, "refill_update": 1}
+DIST_LAUNCHES = {
+    "index allgather": {"cell_laplace": 1, "dof_scatter": 1},
+    "index halo": {"halo_pack": 2, "cell_laplace": 1, "dof_scatter": 1},
+    "brick halo": {**DIST_BRICK_COMMON, "halo_pack": 7, "brick_apply": 1},
+    "brick replicated": {**DIST_BRICK_COMMON, "halo_pack": 2, "brick_apply": 1},
+    "deformed halo": {**DIST_BRICK_COMMON, "halo_pack": 7, "brick_deformed": 1},
+}  # one rank: halo_pack's add has no destination there and launches nothing
+DIST_MAIN = "brick halo"  # the path whose launches the new kernels report
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_run(what, op, x, ref_fn, wrappers, smi, single_ms, n_dofs, tol):
+    """One distributed vmult (one rank): its launches by kernel (counted from
+    0 around one call; DIST_LAUNCHES), against the single-device engine
+    (ref_fn(y) -> (got, ref) as DoF vectors), two calls bit-identical, timed
+    as phase 5 times its vmult, the host's time to issue it (``host_ms``),
+    profiled (the port's kernels and the backend's collectives, nothing
+    else)."""
+    y, counts = counted(wrappers, lambda: op.vmult(x))
+    counts = {k: n for k, n in counts.items() if n}
+    check(counts == DIST_LAUNCHES[what], f"the {what} vmult launched {counts}, not "
+                                         f"{DIST_LAUNCHES[what]}")
+    got, ref = ref_fn(y)
+    check(bool(torch.isfinite(y).all()), f"the {what} vmult gave non-finite values")
+    err = errors(torch.as_tensor(got), torch.as_tensor(ref))[1]
+    check(err <= tol, f"the {what} vmult disagrees with the single-device engine: {err:.3e}")
+    same = bool(torch.equal(op.vmult(x), y))
+    check(same, f"two {what} vmults differ")
+    ms = time_ms(lambda: op.vmult(x), reps=30, warmup=5)
+    issue_ms = host_ms(lambda: op.vmult(x))
+    prof = profile_path(f"distributed {what} vmult", lambda: op.vmult(x), set(wrappers),
+                        sum(DIST_LAUNCHES[what].values()), collectives=True)
+    res = dict(ms=ms, gdofs_per_s=n_dofs / ms / 1e6, over_single_device=ms / single_ms,
+               single_device_ms=single_ms, host_ms=issue_ms, launches=counts, max_rel_err=err,
+               bit_identical=same, profile=prof, card=smi)
+    print(f"distributed {what} vmult on {smi}: {ms:.4f} ms ({res['gdofs_per_s']:.4f} GDoF/s), "
+          f"{res['over_single_device']:.4f} x the single-device vmult ({single_ms:.4f} ms), "
+          f"issued in {issue_ms:.4f} ms; rel err {err:.3e} (tol {tol:g}); launches {counts}",
+          flush=True)
+    return res, y
+
+
+def csr_call(ptr, src, w, n_cols, x):
+    """A CSR product's library call: (call, matrix) for rows (ptr, src, w)."""
+    A = torch.sparse_csr_tensor(ptr.long(), src.long(), w, (ptr.numel() - 1, n_cols))
+    return lambda: (A @ x.reshape(-1, 1)).reshape(-1)
+
+
+def one_hot_csr(idx, valid, n_cols):
+    """The pack as a CSR matrix: row i has valid[i] at column idx[i] (none where
+    valid is 0)."""
+    sel = (valid.reshape(-1) != 0)
+    counts = sel.long()
+    ptr = torch.zeros(counts.numel() + 1, dtype=torch.long, device=idx.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(ptr, idx.reshape(-1)[sel].long(), valid.reshape(-1)[sel],
+                                   (counts.numel(), n_cols))
+
+
+def dss_matrix_csr(op, dev, dt):
+    """dss_pools' whole map (accumulate, then read) on the slab as one CSR
+    matrix: a valid surface node sums its pool's copies, a valid interior
+    node keeps its value, an invalid node is 0."""
+    import scipy.sparse as sps
+
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.dss_pools import valid_mask
+
+    surf_node, ent_off, pool_off, pool_ptr, pool_src, n_slots = (
+        t.cpu().numpy() if torch.is_tensor(t) else t for t in op.dss_acc)
+    node_ent, read_base, valid_bits = (t.cpu().numpy() for t in op.dss_read)
+    nb, N3p = op.nb_max, op.N3p
+    sizes = np.diff(pool_off)
+    slot_pool = np.repeat(np.arange(len(sizes)), sizes)
+    j = np.arange(n_slots) - pool_off[slot_pool]
+    cnt = np.diff(pool_ptr)[slot_pool]
+    rows = np.repeat(np.arange(n_slots), cnt)
+    first = np.repeat(pool_ptr[slot_pool], cnt)
+    e = first + np.arange(len(rows)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    c = pool_src[e].astype(np.int64)
+    cols = (c >> 5) * N3p + surf_node[ent_off[c & 31] + j[rows]]
+    ones = lambda r, c, shape: sps.csr_matrix((np.ones(len(r)), (r, c)), shape=shape)
+    acc = ones(rows, cols, (n_slots, nb * N3p))
+    valid = valid_mask(torch.from_numpy(valid_bits), N3p).numpy()
+    b, node = np.nonzero(valid)
+    code = node_ent[node]
+    surf = code >= 0
+    rd = read_base[b[surf], code[surf] >> 16] + (code[surf] & 0xFFFF)
+    read = ones(np.nonzero(surf)[0], rd, (len(b), n_slots))
+    keep = ones(np.nonzero(~surf)[0], (b * N3p + node)[~surf], (len(b), nb * N3p))
+    M = (read @ acc + keep).tocoo()
+    out_rows = (b * N3p + node)[M.row]
+    return sparse_csr(torch.from_numpy(out_rows).to(dev), torch.from_numpy(M.col).to(dev),
+                      torch.from_numpy(M.data).to(dev, dt), (nb * N3p, nb * N3p))
+
+
+def add_library(tgt, rv, dst, ptr, srcs, w):
+    """halo_pack's add as one library call: torch.addmm of the runs as a CSR
+    matrix [tgt, recv] onto the target."""
+    counts = torch.zeros(tgt.numel(), dtype=torch.long, device=tgt.device).index_add_(
+        0, dst.long(), (ptr[1:] - ptr[:-1]).long())
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    A = torch.sparse_csr_tensor(crow, srcs.long(), w, (tgt.numel(), rv.numel()))
+    return lambda: torch.addmm(tgt.reshape(-1, 1), A, rv.reshape(-1, 1)).reshape(-1)
+
+
+def dist_kernel_parts(op, x, iop, ix, adds):
+    """The new kernels' launches at the shapes the one-rank brick halo vmult
+    gives them (op on slab x), each (mode, kernel, plain, (bytes, flops),
+    fresh, reset) with its library call and whether the kernel's totals count
+    it: halo_pack's 7 (pack: one-hot CSR products; set: none), dss_pools'
+    accumulate and read in one part on a scratch copy (the DSS map composed
+    into one CSR), chain_halo's fold and fill (the composed chain as CSR);
+    beside them, not in the totals, the index halo's pack and set (iop on
+    block ix) and the add mode on `adds`, [(label, target, recv, runs)] of
+    the 4-rank plans (one rank has no add: nothing to add there)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        brick_apply, cell_apply, chain_halo, dss_pools, halo_pack)
+
+    dt, dev = x.dtype, x.device
+    plain = cell_apply.cell_apply(x[: op.n_sub], *op.factors_host, op.geo_cell_sub, op.B)
+    u = brick_apply.brick_apply(x, *op.brick_factors_host, op.geo, op.p)
+    v = op.vmult(x)
+    pools = dss_pools.dss_pools(v, *op.dss_acc, mode="accumulate")
+    parts, libs, main = ({n: [] for n in DIST_NEW} for _ in range(3))
+
+    def part(name, mode, kern, plain_fn, bf, lib, fresh=None, reset=None, in_main=True):
+        parts[name].append((mode, kern, plain_fn, bf, fresh, reset))
+        libs[name].append(lib)
+        main[name].append(in_main)
+
+    hp, hpp = halo_pack.halo_pack, halo_pack.halo_pack_plain
+    block = hp(plain, *op.block, mode="pack")
+    block2 = hp(v, *op.fill_block, mode="pack")
+
+    def pack(mode, src, tabs, in_main=True):
+        A = one_hot_csr(tabs[0], tabs[1], src.numel())
+        part("halo_pack", mode, lambda: hp(src, *tabs, mode="pack"),
+             lambda: hpp(src, *tabs, mode="pack"),
+             halo_pack.bytes_and_flops(src, *tabs, mode="pack"),
+             lambda: (A @ src.reshape(-1, 1)).reshape(-1), in_main=in_main)
+
+    def setp(mode, own, tabs, in_main=True):
+        recv = hp(own, *tabs[:2], mode="pack")
+        part("halo_pack", mode, lambda: hp(own, recv, tabs[2], mode="set"),
+             lambda: hpp(own, recv, tabs[2], mode="set"),
+             halo_pack.bytes_and_flops(own, recv, tabs[2], mode="set"), None, in_main=in_main)
+
+    pack("pack chain block", plain, op.block)
+    pack("pack fold send", block, op.xch["fold"][:2])
+    setp("set fold buffer", block, op.xch["fold"])
+    pack("pack dss send", pools, op.dss_send)
+    pack("pack fill block", v, op.fill_block)
+    pack("pack fill send", block2, op.xch["fill"][:2])
+    setp("set fill buffer", block2, op.xch["fill"])
+    pack("index: pack send", ix, (iop.send_idx, iop.send_valid), in_main=False)
+    setp("index: set [own | ghosts]", ix, (iop.send_idx, iop.send_valid, iop.set_map),
+         in_main=False)
+    for label, tgt, rv, runs in adds:
+        scratch = tgt.clone()
+        part("halo_pack", label, lambda s=scratch, r=rv, t=runs: hp(s, r, *t, mode="add"),
+             lambda s=tgt, r=rv, t=runs: hpp(s.clone(), r, *t, mode="add"),
+             halo_pack.bytes_and_flops(tgt, rv, *runs, mode="add"), add_library(tgt, rv, *runs),
+             fresh=lambda s=tgt, r=rv, t=runs: (hp(s.clone(), r, *t, mode="add"),
+                                                  hpp(s.clone(), r, *t, mode="add")),
+             reset=lambda s=scratch, t=tgt: s.copy_(t), in_main=False)
+    # dss_pools: accumulate then read, on a scratch copy of the brick_apply output
+    scratch = u.clone()
+    both = lambda s: dss_pools.dss_pools(s, dss_pools.dss_pools(s, *op.dss_acc,
+                                                                mode="accumulate"),
+                                         *op.dss_read, mode="read")
+    both_plain = lambda s: dss_pools.dss_pools_plain(
+        s, dss_pools.dss_pools_plain(s, *op.dss_acc, mode="accumulate"), *op.dss_read,
+        mode="read")
+    ba, fa = dss_pools.bytes_and_flops(u, *op.dss_acc, mode="accumulate")
+    br, fr = dss_pools.bytes_and_flops(u, pools, *op.dss_read, mode="read")
+    M = dss_matrix_csr(op, dev, dt)
+    part("dss_pools", "accumulate + read", lambda: both(scratch), lambda: both_plain(u.clone()),
+         (ba + br, fa + fr), lambda: (M @ u.reshape(-1, 1)).reshape(op.nb_max, op.N3p),
+         fresh=lambda: (both(u.clone()), both_plain(u.clone())),
+         reset=lambda: scratch.copy_(u))
+    for mode, m_, b in (("fold", op.fold_map, op._exchange(block, "fold")),
+                        ("fill", op.fill_map, op._exchange(block2, "fill"))):
+        part("chain_halo", mode, lambda b=b, m_=m_: chain_halo.chain_halo(b, *m_),
+             lambda b=b, m_=m_: chain_halo.chain_halo_plain(b, *m_),
+             chain_halo.bytes_and_flops(b, *m_), csr_call(*m_, b.numel(), b))
+    return parts, libs, main
+
+
+def dist_plan_checks(mt, dev):
+    """The new kernels against their plain versions on every rank's tables
+    of the DIST_CHECK_RANKS-rank plans (brick engine, both exchanges; index
+    engine, the halo) at quadrant nref=DIST_CHECK_NREF p=4, float32 (1e-5)
+    and float64 (1e-12); returns (the number of calls held, the add mode's
+    timed parts: [(label, target, recv, runs)] of the ranks with the most
+    entries, float32)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import chain_halo, dss_pools, halo_pack
+    from dealii_matrixfree_hanging_nodes_tpu_torch.parallel import (DistributedBrickPlan,
+                                                                    DistributedLaplacePlan)
+
+    mf = mt.MatrixFree(mt.create_quadrant(3, DIST_CHECK_NREF), 4)
+    R = DIST_CHECK_RANKS
+    plans = [DistributedBrickPlan(mf, R, exchange=ex) for ex in ("halo", "replicated")]
+    iplan = DistributedLaplacePlan(mf, R, exchange="halo")
+    n = 0
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        rand = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dt)
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            dev, dt if np.asarray(a).dtype.kind == "f" else torch.int32)
+        calls = {n_: [] for n_ in DIST_NEW}
+
+        def hold(name, mode, kern, plain):
+            calls[name].append((mode, kern, plain, None, None, None))
+
+        for plan in plans:
+            n_loc = (plan.bs.p + 1) ** 3
+            for r in range(R):
+                t = plan.rank_tables(r)
+                tag = f"{plan.exchange} rank {r}"
+                v = rand(plan.nb_max, plan.const["N3p"])
+                d = t["dss"]
+                acc = (*(on(d[k]) for k in ("surf_node", "ent_off", "pool_off", "pool_ptr",
+                                            "pool_src")), d["n_slots"])
+                pools = dss_pools.dss_pools(v, *acc, mode="accumulate")
+                read = (pools, on(d["node_ent"]), on(d["read_base"]), on(t["valid_bits"]))
+                hold("dss_pools", f"accumulate {tag}",
+                     lambda v=v, a=acc: dss_pools.dss_pools(v, *a, mode="accumulate"),
+                     lambda v=v, a=acc: dss_pools.dss_pools_plain(v, *a, mode="accumulate"))
+                hold("dss_pools", f"read {tag}",
+                     lambda v=v, rd=read: dss_pools.dss_pools(v.clone(), *rd, mode="read"),
+                     lambda v=v, rd=read: dss_pools.dss_pools_plain(v.clone(), *rd, mode="read"))
+                if not plan.has_chain:
+                    continue
+                for key in ("fold_map", "fill_map"):
+                    m = tuple(on(a) for a in t[key])
+                    xb = rand(m[0].numel() - 1)
+                    hold("chain_halo", f"{key} {tag}",
+                         lambda xb=xb, m=m: chain_halo.chain_halo(xb, *m),
+                         lambda xb=xb, m=m: chain_halo.chain_halo_plain(xb, *m))
+                blk = (on(t["fill_idx"]), on(t["block_valid"]))
+                hold("halo_pack", f"pack fill block {tag}",
+                     lambda v=v, b=blk: halo_pack.halo_pack(v, *b, mode="pack"),
+                     lambda v=v, b=blk: halo_pack.halo_pack_plain(v, *b, mode="pack"))
+                if plan.exchange != "halo":
+                    continue
+                block = rand(plan.n_chain_max, n_loc)
+                for tg in ("fold", "fill"):
+                    x_ = t[tg]
+                    snd = (on(x_["send_idx"]), on(x_["send_valid"]))
+                    recv = rand(*x_["send_idx"].shape)
+                    sm = on(x_["set_map"])
+                    hold("halo_pack", f"pack {tg} send {tag}",
+                         lambda b=block, s=snd: halo_pack.halo_pack(b, *s, mode="pack"),
+                         lambda b=block, s=snd: halo_pack.halo_pack_plain(b, *s, mode="pack"))
+                    hold("halo_pack", f"set {tg} {tag}",
+                         lambda b=block, r_=recv, s=sm: halo_pack.halo_pack(b, r_, s, mode="set"),
+                         lambda b=block, r_=recv, s=sm: halo_pack.halo_pack_plain(b, r_, s,
+                                                                                 mode="set"))
+                add = tuple(on(a) for a in t["dss_add"])
+                recv = rand(*t["dss_send"][0].shape)
+                hold("halo_pack", f"add dss {tag}",
+                     lambda p=pools, r_=recv, a=add: halo_pack.halo_pack(p.clone(), r_, *a,
+                                                                       mode="add"),
+                     lambda p=pools, r_=recv, a=add: halo_pack.halo_pack_plain(p.clone(), r_, *a,
+                                                                             mode="add"))
+        for r in range(R):
+            t = iplan.rank_tables(r)
+            src = rand(iplan.n_own_max)
+            recv = rand(R, iplan.halo_max_pair)
+            add = tuple(on(a) for a in t["add"])
+            hold("halo_pack", f"add index owners rank {r}",
+                 lambda s=src, r_=recv, a=add: halo_pack.halo_pack(s.clone(), r_, *a, mode="add"),
+                 lambda s=src, r_=recv, a=add: halo_pack.halo_pack_plain(s.clone(), r_, *a,
+                                                                       mode="add"))
+        check_kernels(calls, tol, f"the new kernels on every rank's tables of the {R}-rank "
+                                  f"plans at quadrant nref={DIST_CHECK_NREF} p=4 {dt}")
+        n += sum(len(c) for c in calls.values())
+    # the add mode's timed parts (float32): the rank with the most entries of each list
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        dev, torch.float32 if np.asarray(a).dtype.kind == "f" else torch.int32)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=torch.float32)
+    tabs = [plans[0].rank_tables(r) for r in range(R)]
+    r = max(range(R), key=lambda k: len(tabs[k]["dss_add"][2]))
+    adds = [(f"add dss pools ({R} ranks, nref={DIST_CHECK_NREF}, rank {r})",
+             rand(tabs[r]["dss"]["n_slots"]), rand(*tabs[r]["dss_send"][0].shape),
+             tuple(on(a) for a in tabs[r]["dss_add"]))]
+    itabs = [iplan.rank_tables(k) for k in range(R)]
+    r = max(range(R), key=lambda k: len(itabs[k]["add"][2]))
+    adds.append((f"add index owners ({R} ranks, nref={DIST_CHECK_NREF}, rank {r})",
+                 rand(iplan.n_own_max), rand(R, iplan.halo_max_pair),
+                 tuple(on(a) for a in itabs[r]["add"])))
+    return n, adds
+
+
+def dist_gloo_worker(rank, n_ranks, init_file, out_file):
+    """One of DIST_GLOO_RANKS gloo ranks on the one card: which collectives
+    gloo takes on CUDA tensors; where it takes all that the engines use,
+    both engines' exchanges at quadrant nref=DIST_GLOO_NREF p=4 float64
+    against the single-device engines (1e-12)."""
+    import torch.distributed as dist
+
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=n_ranks)
+    res = {"ops": {}}
+    try:
+        x = torch.arange(4, dtype=torch.float64, device=dev)
+        probes = {"all_gather": lambda: dist.all_gather_into_tensor(
+                      torch.empty(4 * n_ranks, dtype=x.dtype, device=dev), x),
+                  "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+                      torch.empty(4, dtype=x.dtype, device=dev), x.repeat(n_ranks)),
+                  "all_to_all": lambda: dist.all_to_all_single(
+                      torch.empty(2 * n_ranks, dtype=x.dtype, device=dev),
+                      torch.ones(2 * n_ranks, dtype=x.dtype, device=dev)),
+                  "all_reduce": lambda: dist.all_reduce(x.clone())}
+        for name, fn in probes.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+                res["ops"][name] = "ok"
+            except (RuntimeError, ValueError, NotImplementedError) as e:  # gloo's refusal
+                res["ops"][name] = f"refused: {str(e).splitlines()[0][:160]}"
+        if all(v == "ok" for v in res["ops"].values()):
+            mf = mt.MatrixFree(mt.create_quadrant(3, DIST_GLOO_NREF), 4)
+            u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
+            ref_i = mt.LaplaceOperator(mf, device=dev).vmult(u).cpu().numpy()
+            mm = mt.BrickLaplaceMM(mf, device=dev)
+            ref_b = mm.to_dof_vector(mm.vmult(mm.from_dof_vector(u)),
+                                     zero_hanging=True).cpu().numpy()
+            for ex in ("allgather", "halo"):
+                op = parallel.DistributedLaplace(mf, exchange=ex, device=dev)
+                got = op.gather_vector(op.vmult(op.scatter_vector(u)))
+                res[f"index {ex}"] = float(np.abs(got - ref_i).max() / np.abs(ref_i).max())
+            for ex in ("halo", "replicated"):
+                op = parallel.DistributedBrickLaplace(mf, exchange=ex, device=dev)
+                got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True)
+                res[f"brick {ex}"] = float(np.abs(got - ref_b).max() / np.abs(ref_b).max())
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_file, "w") as fh:
+            json.dump(res, fh)
+
+
+def dist_gloo_phase(tmp):
+    """DIST_GLOO_RANKS spawned gloo ranks on the one card
+    (``dist_gloo_worker``); fails where a run that gloo allowed disagrees.
+    Returns the worker's record."""
+    import torch.multiprocessing as mp
+
+    init_file, out_file = f"{tmp}/gloo-init", f"{tmp}/gloo.json"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_gloo_worker, args=(DIST_GLOO_RANKS, init_file, out_file),
+                             nprocs=DIST_GLOO_RANKS, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DIST_GLOO_TIMEOUT
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"chip_smoke: the gloo ranks did not finish in "
+                               f"{DIST_GLOO_TIMEOUT} s")
+    with open(out_file) as fh:
+        res = json.load(fh)
+    res["seconds"] = time.perf_counter() - t0
+    for key, err in res.items():
+        if key.startswith(("index", "brick")):
+            check(err <= 1e-12, f"{DIST_GLOO_RANKS} gloo ranks on the card: the {key} vmult "
+                                f"disagrees with the single-device engine: {err:.3e}")
+    print(f"{DIST_GLOO_RANKS} gloo ranks on the one card: {json.dumps(res)}", flush=True)
+    return res
+
+
+def dist_transfer(mt, g, dev, wrappers, smi):
+    """The distributed GMG's finest transfer (float32): prolongate and
+    restrict against the single-device Transfer on the card (1e-5), their
+    launches by kernel, their times, and each kernel of theirs alone at
+    these shapes against its plain version, with its bound."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (cell_laplace, cell_transfer,
+                                                                   dof_scatter)
+
+    tr, opc, opf = g.transfers[-1], g.ops[-2], g.ops[-1]
+    mfc, mff = g.levels[-2], g.levels[-1]
+    rng = np.random.default_rng(SEED)
+    uc, uf = rng.standard_normal(mfc.n_dofs), rng.standard_normal(mff.n_dofs)
+    xc, xf = opc.scatter_vector(uc), opf.scatter_vector(uf)
+    single = mt.Transfer(mfc, mff, device=dev)
+    refs = {"prolongate": single.prolongate(torch.from_numpy(uc).to(dev, torch.float32)),
+            "restrict": single.restrict(torch.from_numpy(uf).to(dev, torch.float32))}
+    fns = {"prolongate": lambda: tr.prolongate(xc), "restrict": lambda: tr.restrict(xf)}
+    res = {}
+    for mode, fn in fns.items():
+        y, counts = counted(wrappers, fn)
+        got = (opf if mode == "prolongate" else opc).gather_vector(y)
+        err = errors(torch.from_numpy(got), refs[mode].cpu().double())[1]
+        check(err <= 1e-5, f"the distributed {mode} disagrees with the single-device one: "
+                           f"{err:.3e}")
+        res[mode] = dict(ms=time_ms(fn, reps=20, warmup=3), max_rel_err=err,
+                         launches={k: n for k, n in counts.items() if n})
+    # each kernel alone, at the shapes these calls give it
+    full_c = xc  # one rank: the gathered coarse vector is its block
+    rows = cell_laplace.cell_laplace(full_c, tr.covmap, tr.cov_masks, tr.P, None, None, None,
+                                     None, quad=False, hn_in=True, hn_out=False)
+    vals = cell_transfer.cell_transfer(rows, tr.E, tr.cdf_local, tr.own, tr.ident, tr.ident_ptr,
+                                       tr.ident, tr.n_owned, mode="prolongate")
+    rrows = cell_transfer.cell_transfer(xf, tr.E, tr.cdf, tr.own, tr.ident, tr.ident_ptr,
+                                        tr.ident, tr.n_padded_f, mode="restrict")
+    calls = {
+        "prolongate: cell_laplace (read, HN)": (cell_laplace, (full_c, tr.covmap, tr.cov_masks,
+            tr.P, None, None, None, None), dict(quad=False, hn_in=True, hn_out=False)),
+        "prolongate: cell_transfer": (cell_transfer, (rows, tr.E, tr.cdf_local, tr.own, tr.ident,
+            tr.ident_ptr, tr.ident, tr.n_owned), dict(mode="prolongate")),
+        "prolongate: dof_scatter": (dof_scatter, (vals.view(-1, 1), *tr.prolong_map), {}),
+        "restrict: cell_transfer": (cell_transfer, (xf, tr.E, tr.cdf, tr.own, tr.ident,
+            tr.ident_ptr, tr.ident, tr.n_padded_f), dict(mode="restrict")),
+        "restrict: cell_laplace (HN^T)": (cell_laplace, (rrows, None, tr.cov_masks, tr.P, None,
+            None, None, None), dict(quad=False, hn_in=False, hn_out=True)),
+        "restrict: dof_scatter": (dof_scatter, (rrows, *tr.restrict_map), {}),
+    }
+    res["kernels"] = {}
+    for what, (mod, args, kw) in calls.items():
+        kern = lambda m=mod, a=args, k=kw: getattr(m, m.NAME)(*a, **k)
+        plain = lambda m=mod, a=args, k=kw: getattr(m, f"{m.NAME}_plain")(*a, **k)
+        err = errors(kern(), plain())[1]
+        check(err <= 1e-5, f"{what} disagrees with its plain version: {err:.3e}")
+        b_ms, b_by = bound(*mod.bytes_and_flops(*args, **kw), torch.float32)
+        res["kernels"][what] = dict(ms=time_ms(kern, device_only=True),
+                                    plain_ms=time_ms(plain, device_only=True), bound_ms=b_ms,
+                                    bound_by=b_by, max_rel_err=err)
+    print(f"distributed transfer, quadrant nref {DIST_GMG_F32[0] - 1} -> {DIST_GMG_F32[0]} "
+          f"p={DIST_GMG_F32[1]} f32, on {smi}: {json.dumps(res)}", flush=True)
+    return res
+
+
+def dist_gmg(mt, dev, wrappers, smi):
+    """The distributed GMG-CG on one NCCL rank: at DIST_GMG_CHECK in float64
+    (tol 1e-10) against the same solve on the CPU's plain path (the gloo half
+    of the group): the same iterations; at DIST_GMG_F32 in float32: setup,
+    iterations, time, its residual; its finest transfer (``dist_transfer``)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.parallel import DistributedGMGPreconditioner
+
+    out = {}
+    nref, p = DIST_GMG_CHECK
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        g = DistributedGMGPreconditioner("quadrant", 3, nref, p, device=device)
+        op, mf = g.fine_op, g.fine_mf
+        xs = mf.constraints.distribute(np.random.default_rng(SEED).standard_normal(mf.n_dofs))
+        xs[mf.dof_handler.boundary_dofs()] = 0.0
+        b = op.vmult(op.scatter_vector(xs))
+        x, it, res = mt.solve_cg(op, b, M=g, tol=1e-10, max_iter=100, dot=op.dot)
+        runs[name] = (it, op.gather_vector(x))
+    err = float(np.abs(runs["card"][1] - runs["cpu"][1]).max() / np.abs(runs["cpu"][1]).max())
+    check(runs["card"][0] == runs["cpu"][0], f"the distributed GMG-CG took {runs['card'][0]} "
+                                             f"iterations on the card, {runs['cpu'][0]} on the "
+                                             f"CPU's plain path")
+    check(err <= 1e-8, f"the distributed GMG-CG's solutions differ: {err:.3e}")
+    out["f64_check"] = dict(nref=nref, p=p, iterations=runs["card"][0],
+                            cpu_iterations=runs["cpu"][0], solution_rel_diff=err)
+    nref, p = DIST_GMG_F32
+    t0 = time.perf_counter()
+    g = DistributedGMGPreconditioner("quadrant", 3, nref, p, device=dev, dtype=np.float32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    op, mf = g.fine_op, g.fine_mf
+    xs = mf.constraints.distribute(np.random.default_rng(SEED).standard_normal(mf.n_dofs))
+    xs[mf.dof_handler.boundary_dofs()] = 0.0
+    b = op.vmult(op.scatter_vector(xs))
+    mt.solve_cg(op, b, M=g, tol=DIST_GMG_F32_TOL, max_iter=100, dot=op.dot)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, it, res = mt.solve_cg(op, b, M=g, tol=DIST_GMG_F32_TOL, max_iter=100, dot=op.dot)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    rel = res / float(op.norm(b))
+    check(bool(torch.isfinite(x).all()) and rel <= DIST_GMG_F32_TOL,
+          f"the float32 distributed GMG-CG did not reach {DIST_GMG_F32_TOL:g}: {rel:.3e}")
+    out["f32"] = dict(nref=nref, p=p, n_dofs=mf.n_dofs, tol=DIST_GMG_F32_TOL, iterations=it,
+                      rel_residual=rel, setup_s=setup_s, solve_s=solve_s, card=smi)
+    out["transfer"] = dist_transfer(mt, g, dev, wrappers, smi)
+    print(f"distributed GMG-CG on {smi}: float64 quadrant nref={DIST_GMG_CHECK[0]} "
+          f"p={DIST_GMG_CHECK[1]}: {out['f64_check']['iterations']} iterations (CPU plain path "
+          f"{out['f64_check']['cpu_iterations']}); float32 nref={nref} p={p} ({mf.n_dofs} "
+          f"DoFs): {it} iterations to {DIST_GMG_F32_TOL:g}, solve {solve_s:.3f} s, setup "
+          f"{setup_s:.1f} s", flush=True)
+    return out
+
+
+def distributed_phase(mt, tria, mf, dev, wrappers, smi):
+    """Phase 17: the distributed engines on one NCCL rank (a default group of
+    NCCL for CUDA tensors and gloo for CPU ones, one process). At phase 3's
+    mesh (quadrant nref=7 p=4 f32): DistributedLaplace (allgather, halo) and
+    DistributedBrickLaplace (halo, replicated), each against the
+    single-device engine in this process (1e-5), timed, profiled, counted
+    (``dist_run``); the deformed brick engine (halo) at DIST_DEFORMED_NREF;
+    float64 at DIST_F64_NREF against the scipy oracle and the single-device
+    engines (1e-12); the new kernels at the main path's shapes with bounds and
+    library calls (``dist_kernel_parts``) and on every rank's tables of the
+    4-rank plans (``dist_plan_checks``); the GMG-CG (``dist_gmg``); the gloo
+    ranks on the card (``dist_gloo_phase``). Returns (numbers, {kernel:
+    record} of the new kernels)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dealii_matrixfree_hanging_nodes_tpu_torch import parallel
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import KERNEL_MODULES
+    from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    out, records = {}, {}
+    try:
+        u = np.random.default_rng(SEED).standard_normal(mf.n_dofs)
+        # the single-device engines
+        lap = mt.LaplaceOperator(mf, device=dev)
+        ui = torch.from_numpy(u.astype(np.float32)).to(dev)
+        ref_i = lap.vmult(ui)
+        single_i = time_ms(lambda: lap.vmult(ui), reps=30, warmup=5)
+        t0 = time.perf_counter()
+        mm = mt.BrickLaplaceMM(mf, device=dev)
+        torch.cuda.synchronize()
+        mm_s = time.perf_counter() - t0
+        xb = mm.from_dof_vector(u)
+        ref_b = mm.to_dof_vector(mm.vmult(xb), zero_hanging=True)
+        single_b = time_ms(lambda: mm.vmult(xb), reps=30, warmup=5)
+        del mm, xb
+        torch.cuda.empty_cache()
+        setup = {"single_device_brick_s": mm_s}
+        for ex in ("allgather", "halo"):
+            t0 = time.perf_counter()
+            op = parallel.DistributedLaplace(mf, exchange=ex, device=dev)
+            torch.cuda.synchronize()
+            setup[f"index {ex}_s"] = time.perf_counter() - t0
+            x = op.scatter_vector(u)
+            out[f"index {ex}"], _ = dist_run(
+                f"index {ex}", op, x, lambda y: (op.gather_vector(y), ref_i.cpu().numpy()),
+                wrappers, smi, single_i, mf.n_dofs, 1e-5)
+            if ex == "halo":
+                iop, ix = op, x
+        for ex in ("halo", "replicated"):
+            t0 = time.perf_counter()
+            op = parallel.DistributedBrickLaplace(mf, exchange=ex, device=dev)
+            torch.cuda.synchronize()
+            setup[f"brick {ex}"] = dict(op.setup_s, total=time.perf_counter() - t0)
+            x = op.from_dof_vector(u)
+            out[f"brick {ex}"], _ = dist_run(
+                f"brick {ex}", op, x,
+                lambda y: (op.to_dof_vector(y, zero_hanging=True), ref_b.cpu().numpy()),
+                wrappers, smi, single_b, mf.n_dofs, 1e-5)
+            if ex == "halo":
+                bop, bx = op, x
+        out["setup_s"] = setup
+        print(f"distributed setup (quadrant nref=7 p=4 f32, seconds by step): "
+              f"{json.dumps(setup)}", flush=True)
+        # the new kernels on every rank's tables of the 4-rank plans, then at the main
+        # path's shapes (the add mode, which one rank does not launch, on the plans')
+        out["plan_checks"], adds = dist_plan_checks(mt, dev)
+        parts, libs, main = dist_kernel_parts(bop, bx, iop, ix, adds)
+        main_counts = out[DIST_MAIN]["launches"]
+        for mod in [m for m in KERNEL_MODULES if m.NAME in DIST_NEW]:
+            rec = kernel_record(mod)
+            rec["parts"] = measure_parts(mod.NAME, parts[mod.NAME], libs[mod.NAME], {},
+                                         bx.dtype, 1e-5)
+            on_path = [p_ for p_, m_ in zip(rec["parts"], main[mod.NAME]) if m_]
+            for p_, m_ in zip(rec["parts"], main[mod.NAME]):
+                p_["main_path"] = m_
+            for key in ("ms", "plain_ms", "bound_ms"):
+                rec[key] = sum(p_[key] for p_ in on_path)
+            lib = [p_["library_ms"] for p_ in on_path]
+            rec["library_ms"] = sum(v for v in lib if v is not None) if any(
+                v is not None for v in lib) else None
+            rec["bound_by"] = max((p_["bound_ms"], p_["bound_by"]) for p_ in on_path)[1]
+            rec["max_abs_err"] = max(p_["max_abs_err"] for p_ in rec["parts"])
+            rec["max_rel_err"] = max(p_["max_rel_err"] for p_ in rec["parts"])
+            rec["launches"] = main_counts[mod.NAME]
+            records[mod.NAME] = rec
+        del bop, bx, iop, ix, op, x, parts, libs
+        torch.cuda.empty_cache()
+        # the deformed brick engine
+        trid = mt.create_quadrant(3, DIST_DEFORMED_NREF)
+        mfd = mt.MatrixFree(trid, 4, dtype=np.float32, high_order_mapping=True)
+        ud = np.random.default_rng(SEED).standard_normal(mfd.n_dofs)
+        mmd = mt.BrickLaplaceMM(mfd, device=dev)
+        xd = mmd.from_dof_vector(ud)
+        ref_d = mmd.to_dof_vector(mmd.vmult(xd), zero_hanging=True)
+        single_d = time_ms(lambda: mmd.vmult(xd), reps=30, warmup=5)
+        del mmd, xd
+        op = parallel.DistributedBrickLaplace(mfd, device=dev)
+        out["deformed halo"], _ = dist_run(
+            "deformed halo", op, op.from_dof_vector(ud),
+            lambda y: (op.to_dof_vector(y, zero_hanging=True), ref_d.cpu().numpy()),
+            wrappers, smi, single_d, mfd.n_dofs, 1e-5)
+        out["deformed halo"]["nref"] = DIST_DEFORMED_NREF
+        del op, mfd, trid
+        torch.cuda.empty_cache()
+        # float64 against the oracle and the single-device engines
+        tria4 = mt.create_quadrant(3, DIST_F64_NREF)
+        mf4 = mt.MatrixFree(tria4, 4, dtype=np.float64)
+        u4 = np.random.default_rng(SEED).standard_normal(mf4.n_dofs)
+        oracle = vmult_oracle(tria4, 4, u4)
+        single4 = mt.LaplaceOperator(mf4, device=dev).vmult(u4).cpu().numpy()
+        mm4 = mt.BrickLaplaceMM(mf4, device=dev)
+        single4b = mm4.to_dof_vector(mm4.vmult(mm4.from_dof_vector(u4)),
+                                     zero_hanging=True).cpu().numpy()
+        f64 = {}
+        for engine, ex in (("index", "allgather"), ("index", "halo"), ("brick", "halo"),
+                           ("brick", "replicated")):
+            if engine == "index":
+                op = parallel.DistributedLaplace(mf4, exchange=ex, device=dev)
+                got, single = op.gather_vector(op.vmult(op.scatter_vector(u4))), single4
+            else:
+                op = parallel.DistributedBrickLaplace(mf4, exchange=ex, device=dev)
+                got = op.to_dof_vector(op.vmult(op.from_dof_vector(u4)), zero_hanging=True)
+                single = single4b
+            e_o = float(np.abs(got - oracle).max() / np.abs(oracle).max())
+            e_s = float(np.abs(got - single).max() / np.abs(single).max())
+            check(e_o <= 1e-12 and e_s <= 1e-12,
+                  f"the float64 {engine} {ex} vmult disagrees: oracle {e_o:.3e}, single-device "
+                  f"{e_s:.3e}")
+            f64[f"{engine} {ex}"] = dict(oracle=e_o, single_device=e_s)
+        out["f64"] = dict(nref=DIST_F64_NREF, **f64)
+        print(f"float64 quadrant nref={DIST_F64_NREF} p=4 against the scipy oracle and the "
+              f"single-device engines: {json.dumps(f64)}", flush=True)
+        out["gmg"] = dist_gmg(mt, dev, wrappers, smi)
+    finally:
+        dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["gloo"] = dist_gloo_phase(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -3633,6 +4323,7 @@ def main() -> int:
     if sys.argv[1:] == ["--metric-host"]:
         metric_host_comparison(mt)
         return 0
+    only_distributed = sys.argv[1:] == ["--distributed"]
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, corr_compact,
@@ -3683,6 +4374,17 @@ def main() -> int:
             print(f"  brick_elasticity2_kernel {dt} p={p}: threads, shared memory bytes, blocks "
                   f"per SM {brick_elasticity.plan(dt, p, 2, dev)}; hn_cell_elastic2_kernel "
                   f"{hn_cell.elastic_plan(dt, p, 16 if p <= 3 else 8, 2, dev)}")
+
+    if only_distributed:  # phases 1, 2 and 17 alone, on phase 3's mesh
+        tria = mt.create_quadrant(3, 7)
+        mf = mt.MatrixFree(tria, 4, dtype=np.float32)
+        wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
+        distributed, records = distributed_phase(mt, tria, mf, dev, wrappers, smi)
+        print(json.dumps({"distributed": distributed}))
+        print(json.dumps({"kernels": list(records.values())}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
     t0 = time.perf_counter()
@@ -4017,6 +4719,13 @@ def main() -> int:
     print(f"2-D brick paths phase: {paths2d['phase_s']:.1f} s", flush=True)
     del mf2, mf2_d, op2
     torch.cuda.empty_cache()
+
+    # ---- 17. the distributed engines on one NCCL rank, on phase 3's mesh ------------------
+    t0 = time.perf_counter()
+    distributed, dist_records = distributed_phase(mt, tria, mf, dev, wrappers, smi)
+    print(f"distributed phase: {distributed['phase_s']:.1f} s", flush=True)
+    results.update(dist_records)
+    torch.cuda.empty_cache()
     # existing kernels: their elastic calls, their RHS-axis instances, their deformed
     # modes and their 2-D instances (index and brick engines) as parts
     for name, plist in (list(elastic_parts.items()) + list(multi_parts.items())
@@ -4029,7 +4738,7 @@ def main() -> int:
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
 
-    # ---- 17. the numbers -----------------------------------------------------
+    # ---- 18. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,
                                 "gdofs_per_s": n_dofs4 / vm_ms / 1e6, "launches": counts,
                                 "host_ms": vm_host_ms, "brick_apply_host_ms": ba_host_ms,
@@ -4047,6 +4756,7 @@ def main() -> int:
     print(json.dumps({"index_2d": index2d}))
     print(json.dumps({"brick_2d": brick2d}))
     print(json.dumps({"brick_2d_paths": paths2d}))
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

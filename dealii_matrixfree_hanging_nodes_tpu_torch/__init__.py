@@ -20,7 +20,11 @@ NVIDIA Hopper (H100), in two engines:
   N3p]), on two
   more (``cell_elasticity``, ``brick_elasticity``), hn_cell's elastic mode
   and a component axis on dof_scatter (2 or 3 components), corr_compact and
-  dss_surface. The brick engine, its GMG and its elasticity are 3-D only.
+  dss_surface; the brick engine, its GMG and its elasticity in 3-D and 2-D.
+- the distributed engines (``parallel``: ``DistributedLaplace``,
+  ``DistributedBrickLaplace``, the distributed GMG) on ``torch.distributed``,
+  one process a rank, on three more (``halo_pack``, ``dss_pools``,
+  ``chain_halo``) around the backend's collectives.
 
 The host setup (mesh, DoFs, constraints, tables) is NumPy; the operators
 are ``torch.nn.Module``s whose device work runs in the kernels

@@ -83,7 +83,8 @@ from .kernels.dss_surface import surface_nodes
 from .matrix_free import MatrixFree, resolve_device
 from .ops.hanging_nodes import hn_composite_matrix
 
-__all__ = ["BrickStructure", "BrickLaplaceMM", "auto_brick_size", "operator_tables"]
+__all__ = ["BrickStructure", "BrickLaplaceMM", "auto_brick_size", "brick_constants",
+           "operator_tables"]
 
 
 def _entity_slot_partition(mask: int, dim: int, p: int, lat: np.ndarray):
@@ -700,6 +701,58 @@ def _stage_chain(direction, levels, groups, n_loc):
             cat(mask_all, bool), T_stacks, segs, tails)
 
 
+def brick_constants(mf: MatrixFree, bs: BrickStructure) -> dict:
+    """The per-brick constants of the brick layout (NumPy, float64): the
+    padded row length N3p of NB^dim nodes, the 1-D cell factors K1, M1 and
+    their Kronecker sum K, each cell slot's brick nodes ``slot_idx`` [B^dim,
+    n_loc] (the one-hot E as an index map), the 1-D brick factors Kb, Mb
+    [NB, NB], each brick's geo factor, node_valid [n_bricks, N3p], S, Dc,
+    P and, under a deformed mapping, every brick cell's metric [n_bricks
+    B^dim, n_q, dim (dim+1) / 2] (the reference's ``Gfull``, bricks.py:
+    1931-1943: mf's packed metric at the cells' brick-cell rows, zero at
+    absent slots)."""
+    p, B, NB, dim = bs.p, bs.B, bs.NB, bs.dim
+    n = p + 1
+    n_loc = n**dim
+    N3 = NB**dim
+    N3p = ((N3 + 127) // 128) * 128
+    C = B**dim
+
+    si = shape_info(p)
+    w = si.quad_w
+    M1 = np.einsum("q,qi,qj->ij", w, si.S, si.S)
+    K1 = np.einsum("q,qi,qj->ij", w, si.D, si.D)
+
+    # per-slot node indices within a brick (the one-hot E as an index map)
+    lat = local_lattice(p, dim)
+    slot_lat = local_lattice(B - 1, dim)
+    node_off = sum(lat[:, d] * NB**d for d in range(dim))
+    slot_idx = np.zeros((C, n_loc), dtype=np.int64)
+    for sl in range(C):
+        slot_idx[sl] = sum(int(slot_lat[sl, d]) * p * NB**d for d in range(dim)) + node_off
+
+    # 1-D assembled brick factors: A_brick = sum_d prod_t (Kb if t==d else Mb), t < dim
+    Kb = np.zeros((NB, NB))
+    Mb = np.zeros((NB, NB))
+    for c in range(B):
+        csl = slice(c * p, c * p + n)
+        Kb[csl, csl] += K1
+        Mb[csl, csl] += M1
+
+    h_cell = (mf.tria.right - mf.tria.left) * (0.5 ** bs.brick_level.astype(np.float64))
+    nv_pad = np.zeros((bs.n_bricks, N3p), dtype=bool)
+    nv_pad[:, :N3] = bs.node_valid.reshape(bs.n_bricks, N3)
+    out = dict(N3=N3, N3p=N3p, M1=M1, K1=K1, K=kronecker_sum(K1, M1, dim), slot_idx=slot_idx,
+               Kb=Kb, Mb=Mb, geo=h_cell ** (dim - 2), node_valid=nv_pad, S=si.S, Dc=si.Dc,
+               P=si.P)
+    if mf.high_order_mapping:
+        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, n_pairs]
+        metric = np.zeros((bs.n_bricks * C,) + geo_cells.shape[1:])
+        metric[bs.cell_lin] = geo_cells
+        out["metric"] = metric
+    return out
+
+
 def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None = None):
     """Host tables of the constrained Cartesian vmult, as index maps.
     assembled: the degree <= 3 schedule's fold over the chain bricks (None:
@@ -724,31 +777,11 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
     p, B, NB, dim = bs.p, bs.B, bs.NB, bs.dim
     n = p + 1
     n_loc = n**dim
-    N3 = NB**dim
-    N3p = ((N3 + 127) // 128) * 128
     C = B**dim
-
+    const = brick_constants(mf, bs)
+    N3, N3p, K, slot_idx, Kb, Mb = (const[k] for k in ("N3", "N3p", "K", "slot_idx", "Kb",
+                                                       "Mb"))
     si = shape_info(p)
-    w = si.quad_w
-    M1 = np.einsum("q,qi,qj->ij", w, si.S, si.S)
-    K1 = np.einsum("q,qi,qj->ij", w, si.D, si.D)
-    K = kronecker_sum(K1, M1, dim)
-
-    # per-slot node indices within a brick (the one-hot E as an index map)
-    lat = local_lattice(p, dim)
-    slot_lat = local_lattice(B - 1, dim)
-    node_off = sum(lat[:, d] * NB**d for d in range(dim))
-    slot_idx = np.zeros((C, n_loc), dtype=np.int64)
-    for sl in range(C):
-        slot_idx[sl] = sum(int(slot_lat[sl, d]) * p * NB**d for d in range(dim)) + node_off
-
-    # 1-D assembled brick factors: A_brick = sum_d prod_t (Kb if t==d else Mb), t < dim
-    Kb = np.zeros((NB, NB))
-    Mb = np.zeros((NB, NB))
-    for c in range(B):
-        csl = slice(c * p, c * p + n)
-        Kb[csl, csl] += K1
-        Mb[csl, csl] += M1
 
     surf_idx = surface_nodes(NB, dim)  # the one-hot Es as an index map
     n_surf = len(surf_idx)
@@ -768,10 +801,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
         assert max(g.fine_cells.max(), g.coarse_cells.max()) < n_sub * C
     assert (absent_sub < n_sub * C).all()
 
-    h_cell = (mf.tria.right - mf.tria.left) * (0.5 ** bs.brick_level.astype(np.float64))
-    geo_brick = h_cell ** (dim - 2)
-    nv_pad = np.zeros((bs.n_bricks, N3p), dtype=bool)
-    nv_pad[:, :N3] = bs.node_valid.reshape(bs.n_bricks, N3)
+    geo_brick, nv_pad = const["geo"], const["node_valid"]
 
     arrays = dict(
         Kb=Kb, Mb=Mb, K=K, geo=geo_brick,
@@ -793,10 +823,7 @@ def operator_tables(mf: MatrixFree, bs: BrickStructure, assembled: bool | None =
                 plane_meta=[], plane_levels=[])
     nq1 = si.S.shape[0]
     if deformed:
-        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, n_pairs]
-        metric = np.zeros((bs.n_bricks * C,) + geo_cells.shape[1:])
-        metric[bs.cell_lin] = geo_cells
-        arrays.update(metric=metric, S=si.S, Dc=si.Dc)
+        arrays.update(metric=const["metric"], S=si.S, Dc=si.Dc)
 
     # the degree <= 3 schedule (the reference's defaults, bricks.py:1149-
     # 1182): the absent and constrained cells' unconstrained contributions

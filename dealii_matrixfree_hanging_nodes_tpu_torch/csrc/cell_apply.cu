@@ -376,8 +376,9 @@ int dispatch_deformed(const void* src, const void* geo, const void* S, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (p, B) as the brick size rule gives them: B = 4 at p = 4, B = 2 at p = 5..8; in 2-D B = 8 at
-// p = 4..6
+// (p, B) as the brick size rule gives them: B = 16, 8, 4, 4 at p = 1..4, B = 2 at p = 5..8; in
+// 2-D B = 16 at p = 1..3, 8 at p = 4..6 (p <= 3: the distributed brick step's subset rows; the
+// single-device engine's degree <= 3 schedule reads no plain rows)
 template <typename T>
 int dispatch(const void* src, const void* K1, const void* M1, const void* scale, void* out,
              int rows, int p, int B, int N3p, int k, long long src_stride, int dim,
@@ -385,6 +386,9 @@ int dispatch(const void* src, const void* K1, const void* M1, const void* scale,
 #define CELL_CASE2(p_, b_) \
   if (dim == 2 && p == p_ && B == b_) \
     return launch2<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, k, src_stride, stream);
+  CELL_CASE2(1, 16)
+  CELL_CASE2(2, 16)
+  CELL_CASE2(3, 16)
   CELL_CASE2(4, 8)
   CELL_CASE2(5, 8)
   CELL_CASE2(6, 8)
@@ -393,6 +397,9 @@ int dispatch(const void* src, const void* K1, const void* M1, const void* scale,
 #define CELL_CASE(p_, b_) \
   if (p == p_ && B == b_) \
     return launch<T, p_, b_>(src, K1, M1, scale, out, rows, N3p, k, src_stride, stream);
+  CELL_CASE(1, 16)
+  CELL_CASE(2, 8)
+  CELL_CASE(3, 4)
   CELL_CASE(4, 4)
   CELL_CASE(5, 2)
   CELL_CASE(6, 2)

@@ -12,11 +12,14 @@ from . import (  # noqa: F401
     cell_elasticity,
     cell_laplace,
     cell_transfer,
+    chain_halo,
     constraints_slow,
     corr_compact,
     dof_embed,
     dof_scatter,
+    dss_pools,
     dss_surface,
+    halo_pack,
     hn_cell,
     hn_interp,
     masked_quad,
@@ -28,4 +31,4 @@ from . import (  # noqa: F401
 KERNEL_MODULES = (brick_apply, cell_apply, dss_surface, hn_cell, corr_compact, refill_update,
                   masked_quad, plane_fill, plane_fold, hn_interp, cell_laplace, dof_scatter,
                   constraints_slow, brick_transfer, dof_embed, cell_transfer, cell_elasticity,
-                  brick_elasticity, brick_deformed)
+                  brick_elasticity, brick_deformed, halo_pack, dss_pools, chain_halo)

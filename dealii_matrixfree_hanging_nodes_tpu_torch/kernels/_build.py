@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("brick_apply", "cell_apply", "dss_surface", "hn_cell", "corr_compact", "refill_update",
            "masked_quad", "plane_fill", "plane_fold", "hn_interp", "cell_laplace", "dof_scatter",
            "constraints_slow", "brick_transfer", "dof_embed", "cell_transfer", "cell_elasticity",
-           "brick_elasticity", "brick_deformed")
+           "brick_elasticity", "brick_deformed", "halo_pack", "dss_pools", "chain_halo")
 # -split-compile=0: each source's kernels are optimized in parallel on every core; the largest
 # source (brick_elasticity.cu, its 2-D and 3-D instances) set chip_smoke.py's build at 201.9 s
 # without it and 104.6 s with it (all sources at once on the 8-core host of an H100)

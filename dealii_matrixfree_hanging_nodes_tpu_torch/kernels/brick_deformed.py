@@ -61,10 +61,11 @@ def brick_deformed_plain(bv, geo, present, S, Dc, dcols=None, brick_size=None):
     nb, N3p = bv.shape
     dim = _build.brick_dim(NAME, B * p + 1, N3p)
     cells = present_cells(present, B**dim)
-    nodes = cell_nodes(cells, B, p, N3p, bv.device)
-    rows = laplace_rows(bv.reshape(-1)[nodes], S, Dc, None, geo[cells], dim)
     v = torch.zeros_like(bv)
-    v.view(-1).index_add_(0, nodes.reshape(-1), rows.reshape(-1))
+    if cells.numel():  # a distributed rank's slab may hold pad rows alone
+        nodes = cell_nodes(cells, B, p, N3p, bv.device)
+        rows = laplace_rows(bv.reshape(-1)[nodes], S, Dc, None, geo[cells], dim)
+        v.view(-1).index_add_(0, nodes.reshape(-1), rows.reshape(-1))
     if dcols is not None:
         m, _ = _rows_of(dcols, B, nb, N3p, dim)
         v.view(-1).index_add_(0, overlap_add_index(m, B, p, N3p, v.device), dcols.reshape(-1))

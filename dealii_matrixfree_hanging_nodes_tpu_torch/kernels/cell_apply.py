@@ -24,9 +24,11 @@ scale (``cell_laplace``'s ``laplace_rows``): the reference's
 ``_deformed_cell_apply(cols_u, Gq_sub)`` (bricks.py:2444-2447, 2959-2976).
 One RHS only; in 2-D the metric [m*B^2, n_q, 3] (xx, xy, yy).
 
-2-D bricks (rows of NB^2 nodes, B^2 cells of (p+1)^2 values, p = 4..6 at
-B = 8): K = M1⊗K1 + K1⊗M1, two sweeps; the dimension is read from the
-row width (``_build.brick_dim``) or, for rows, their width.
+2-D bricks (rows of NB^2 nodes, B^2 cells of (p+1)^2 values, p = 1..3 at
+B = 16, 4..6 at B = 8): K = M1⊗K1 + K1⊗M1, two sweeps; the dimension is
+read from the row width (``_build.brick_dim``) or, for rows, their width.
+The instances at p <= 3 serve the distributed brick step (its subset's
+plain rows at every degree).
 
 CUDA source: ``csrc/cell_apply.cu`` (the sweeps in
 ``csrc/sum_factorization.cuh``, shared with ``hn_cell``; the deformed
@@ -113,10 +115,12 @@ def cell_apply_plain(src, K1, M1, scale, brick_size=None, *, deformed=None):
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
          + [ctypes.c_void_p])
-# (p, B, dim) of the kernel's instances: the per-cell schedule's degrees (p >= 4) with the
-# brick size rule's B, 3-D (B = 4 at p = 4, 2 at p = 5..8) and 2-D (B = 8 at p = 4..6)
-SUPPORTED = {(4, 4, 3), (5, 2, 3), (6, 2, 3), (7, 2, 3), (8, 2, 3), (4, 8, 2), (5, 8, 2),
-             (6, 8, 2)}
+# (p, B, dim) of the kernel's instances, the brick size rule's B at every degree: 3-D (B = 16,
+# 8, 4, 4 at p = 1..4, 2 at p = 5..8) and 2-D (B = 16 at p = 1..3, 8 at p = 4..6); the
+# single-device engine runs p >= 4 (its degree <= 3 schedule reads no plain rows), the
+# distributed brick step every degree
+SUPPORTED = {(1, 16, 3), (2, 8, 3), (3, 4, 3), (4, 4, 3), (5, 2, 3), (6, 2, 3), (7, 2, 3),
+             (8, 2, 3), (1, 16, 2), (2, 16, 2), (3, 16, 2), (4, 8, 2), (5, 8, 2), (6, 8, 2)}
 
 
 _DEFORMED_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

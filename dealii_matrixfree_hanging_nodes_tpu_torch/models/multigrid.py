@@ -109,9 +109,13 @@ class ChebyshevSmoother:
 
     def __init__(self, op, diag: torch.Tensor = None, degree: int = 4, eig_ratio: float = 1.2,
                  n_power_iters: int = 12, inv_diag: torch.Tensor = None,
-                 x_init: torch.Tensor = None):
+                 x_init: torch.Tensor = None, dot=None):
+        """dot: the inner product of the vectors (None: the local one); a
+        rank-local vector of the distributed operators passes the group's
+        (the rank's sum, then an all_reduce), so every norm is global."""
         self.op = op
         self.degree = degree
+        self._dot = dot
         if inv_diag is None:
             safe = torch.where(diag > 0, diag, 1.0)
             inv_diag = torch.where(diag > 0, 1.0 / safe, 0.0)
@@ -134,6 +138,8 @@ class ChebyshevSmoother:
         return self.inv_diag * r
 
     def _norm(self, v):
+        if self._dot is not None:
+            return torch.sqrt(self._dot(v, v))
         return torch.linalg.vector_norm(v.reshape(-1))
 
     def apply(self, b: torch.Tensor, x0=None) -> torch.Tensor:

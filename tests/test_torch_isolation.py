@@ -38,6 +38,11 @@ def test_port_imports_no_jax():
         "import dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_elasticity\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.kernels.brick_elasticity\n"
         "import dealii_matrixfree_hanging_nodes_tpu_torch.utils.analytic\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.parallel.partition\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.parallel.comm\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.parallel.distributed\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.parallel.bricks_distributed\n"
+        "import dealii_matrixfree_hanging_nodes_tpu_torch.parallel.multigrid_distributed\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'dealii_matrixfree_hanging_nodes_tpu']\n"
@@ -86,6 +91,46 @@ def test_solver_entry_points_default_to_cuda():
             with pytest.raises(RuntimeError, match="CUDA"):
                 entry()
         assert entry(device="cpu").device.type == "cpu"
+
+
+def one_rank_group(tmp_path):
+    """A one-rank process group in this process (NCCL for CUDA tensors and
+    gloo for CPU ones with a card, gloo without), initialised from a file in
+    tmp_path."""
+    import torch.distributed as dist
+
+    backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    return dist
+
+
+def test_distributed_entry_points_default_to_cuda(tmp_path):
+    """The distributed engines run on the card (cuda:<LOCAL_RANK>) unless
+    the caller passes device="cpu"; without a card and without a device they
+    raise before they need a process group."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch import parallel
+
+    mf = mt.MatrixFree(mt.create_quadrant(3, 2), 4)
+    entries = (lambda **kw: parallel.DistributedLaplace(mf, **kw).device,
+               lambda **kw: parallel.DistributedLaplace(mf, exchange="halo", **kw).device,
+               lambda **kw: parallel.DistributedBrickLaplace(mf, **kw).device,
+               lambda **kw: parallel.DistributedDirichletLaplace(mf, **kw).device,
+               lambda **kw: parallel.DistributedGMGPreconditioner(
+                   "quadrant", 3, 2, 2, **kw).fine_op.device)
+    if not torch.cuda.is_available():
+        for entry in entries:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                entry()
+    dist = one_rank_group(tmp_path)
+    try:
+        for entry in entries:
+            if torch.cuda.is_available():
+                assert entry().type == "cuda"
+            assert entry(device="cpu").type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 def test_unported_branches_raise():
@@ -1186,3 +1231,133 @@ def test_brick_transfer_2d_on_card(cuda, p, nref, dtype):
             b = gmg.fine_op.vmult(mm.from_dof_vector(_manufactured(gmg.fine_mf, 0)))
             _, iters[str(dev)], _ = gmg.make_device_solver(tol=1e-10, max_iter=100)(b)
         assert iters["cpu"] == iters[str(cuda)] == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_distributed_kernels_on_card(cuda, dtype):
+    """halo_pack (pack, set, add), dss_pools (accumulate, read) and
+    chain_halo (fold, fill) against their plain versions on every rank's
+    tables of the R=4 plans (brick engine: both exchanges; index engine:
+    the halo)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import chain_halo, dss_pools, halo_pack
+    from dealii_matrixfree_hanging_nodes_tpu_torch.parallel import (DistributedBrickPlan,
+                                                                    DistributedLaplacePlan)
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    mf = mt.MatrixFree(mt.create_quadrant(3, 4), 4)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device=cuda, dtype=dtype)
+    on = lambda a: torch.from_numpy(np.asarray(a)).to(cuda, dtype if np.asarray(a).dtype.kind
+                                                       == "f" else torch.int32)
+    pairs = []
+    for exchange in ("halo", "replicated"):
+        plan = DistributedBrickPlan(mf, 4, exchange=exchange)
+        n_loc = (plan.bs.p + 1) ** 3
+        for r in range(4):
+            t = plan.rank_tables(r)
+            v = rand(plan.nb_max, plan.const["N3p"])
+            d = t["dss"]
+            acc = (*(on(d[k]) for k in ("surf_node", "ent_off", "pool_off", "pool_ptr",
+                                        "pool_src")), d["n_slots"])
+            pools = dss_pools.dss_pools(v, *acc, mode="accumulate")
+            pairs.append((pools, dss_pools.dss_pools_plain(v, *acc, mode="accumulate")))
+            read = (pools, on(d["node_ent"]), on(d["read_base"]), on(t["valid_bits"]))
+            pairs.append((dss_pools.dss_pools(v.clone(), *read, mode="read"),
+                          dss_pools.dss_pools_plain(v.clone(), *read, mode="read")))
+            if not plan.has_chain:
+                continue
+            for key in ("fold_map", "fill_map"):
+                m = tuple(on(a) for a in t[key])
+                x = rand(m[0].numel() - 1)
+                pairs.append((chain_halo.chain_halo(x, *m), chain_halo.chain_halo_plain(x, *m)))
+            blk = (on(t["fill_idx"]), on(t["block_valid"]))
+            pairs.append((halo_pack.halo_pack(v, *blk, mode="pack"),
+                          halo_pack.halo_pack_plain(v, *blk, mode="pack")))
+            if exchange == "halo":
+                block = rand(plan.n_chain_max, n_loc)
+                x = t["fold"]
+                send = (on(x["send_idx"]), on(x["send_valid"]))
+                pairs.append((halo_pack.halo_pack(block, *send, mode="pack"),
+                              halo_pack.halo_pack_plain(block, *send, mode="pack")))
+                recv = rand(*x["send_idx"].shape)
+                pairs.append((halo_pack.halo_pack(block, recv, on(x["set_map"]), mode="set"),
+                              halo_pack.halo_pack_plain(block, recv, on(x["set_map"]),
+                                                        mode="set")))
+                add = tuple(on(a) for a in t["dss_add"])
+                recv = rand(*t["dss_send"][0].shape)
+                pairs.append((halo_pack.halo_pack(pools.clone(), recv, *add, mode="add"),
+                              halo_pack.halo_pack_plain(pools.clone(), recv, *add, mode="add")))
+    plan = DistributedLaplacePlan(mf, 4, exchange="halo")
+    for r in range(4):
+        t = plan.rank_tables(r)
+        src = rand(plan.n_own_max)
+        recv = rand(4, plan.halo_max_pair)
+        add = tuple(on(a) for a in t["add"])
+        pairs.append((halo_pack.halo_pack(src.clone(), recv, *add, mode="add"),
+                      halo_pack.halo_pack_plain(src.clone(), recv, *add, mode="add")))
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        scale = max(float(ref.abs().max()), 1e-30)
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_distributed_engines_on_card_match_single_device(cuda, tmp_path):
+    """One NCCL rank on the card: both distributed engines, both exchanges,
+    float64, against the single-device engines on the card (1e-12)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch import parallel
+
+    mf = mt.MatrixFree(mt.create_quadrant(3, 3), 4)
+    u = np.random.default_rng(0).standard_normal(mf.n_dofs)
+    ref_i = mt.LaplaceOperator(mf, device=cuda).vmult(u).cpu().numpy()
+    mm = mt.BrickLaplaceMM(mf, device=cuda, face_planes=False)
+    ref_b = mm.to_dof_vector(mm.vmult(mm.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+    dist = one_rank_group(tmp_path)
+    try:
+        for ex in ("allgather", "halo"):
+            op = parallel.DistributedLaplace(mf, exchange=ex, device=cuda)
+            got = op.gather_vector(op.vmult(op.scatter_vector(u)))
+            assert np.abs(got - ref_i).max() <= 1e-12 * np.abs(ref_i).max()
+        for ex in ("halo", "replicated"):
+            op = parallel.DistributedBrickLaplace(mf, exchange=ex, device=cuda)
+            got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True)
+            assert np.abs(got - ref_b).max() <= 1e-12 * np.abs(ref_b).max()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,p,nref", [(3, 1, 4), (3, 2, 3), (3, 3, 3), (2, 1, 5), (2, 2, 4),
+                                        (2, 3, 4)])
+def test_distributed_brick_low_degree_on_card(cuda, tmp_path, dim, p, nref):
+    """cell_apply's instances at p <= 3 (the distributed brick step's
+    subset rows) against their plain version in f32 and f64, and one NCCL
+    rank's DistributedBrickLaplace (both exchanges, float64) against the
+    single-device engine on the card (1e-12)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch import parallel
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_apply
+
+    mf = mt.MatrixFree(mt.create_quadrant(dim, nref), p)
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        op = mt.BrickLaplaceMM(mf, device=cuda, dtype=dt, face_planes=False, assembled=False)
+        g = torch.Generator(device=cuda).manual_seed(p)
+        u = torch.randn(op.n_sub, op.N3p, generator=g, device=cuda, dtype=dt)
+        got = cell_apply.cell_apply(u, *op.factors_host, op.geo_cell_sub, brick_size=op.B)
+        ref = cell_apply.cell_apply_plain(u, op.K1, op.M1, op.geo_cell_sub, op.B)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max() / ref.abs().max()) < tol
+    u = np.random.default_rng(p).standard_normal(mf.n_dofs)
+    mm = mt.BrickLaplaceMM(mf, device=cuda, face_planes=False)
+    ref = mm.to_dof_vector(mm.vmult(mm.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
+    dist = one_rank_group(tmp_path)
+    try:
+        for ex in ("halo", "replicated"):
+            op = parallel.DistributedBrickLaplace(mf, exchange=ex, device=cuda)
+            got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True)
+            assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+    finally:
+        dist.destroy_process_group()

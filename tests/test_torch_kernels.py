@@ -30,7 +30,9 @@ from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (  # noqa: E402
     corr_compact,
     dof_embed,
     dof_scatter,
+    dss_pools,
     dss_surface,
+    halo_pack,
     hn_cell,
 )
 from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import (  # noqa: E402
@@ -249,7 +251,20 @@ CPU_CASES = [pytest.param(mod, False, id=mod.NAME) for mod in KERNEL_MODULES] + 
     pytest.param(dss_surface, "components", id="dss_surface-components"),
     pytest.param(brick_deformed, True, id="brick_deformed-dcols"),
     pytest.param(cell_apply, "deformed", id="cell_apply-deformed"),
-    pytest.param(hn_cell, "deformed", id="hn_cell-deformed")]
+    pytest.param(hn_cell, "deformed", id="hn_cell-deformed"),
+    pytest.param(halo_pack, "set", id="halo_pack-set"),
+    pytest.param(halo_pack, "add", id="halo_pack-add"),
+    pytest.param(dss_pools, "read", id="dss_pools-read")]
+
+
+@functools.lru_cache(maxsize=None)
+def rank_tables(geo, nref, p):
+    """Rank 1's kernel tables of the 2-rank distributed brick plan (halo
+    exchange) on the case's mesh, and the plan."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.parallel import DistributedBrickPlan
+
+    plan = DistributedBrickPlan(port(geo, nref, p)[1], 2)
+    return plan.rank_tables(1), plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -371,12 +386,47 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
             {"brick_size": dop().B,
              **({"dcols": T(rng_array(37, dop().n_sub * dop().C, dop().n_loc))} if variant
                 else {})}),
+        "halo_pack": lambda: halo_pack_args(geo, nref, p, variant),
+        "dss_pools": lambda: dss_pools_args(geo, nref, p, variant),
+        "chain_halo": lambda: (
+            (T(rng_array(42, rank_tables(geo, nref, p)[0]["fold_map"][0].size - 1)),
+             *(T(a) for a in rank_tables(geo, nref, p)[0]["fold_map"])), {}),
     }[mod.NAME]()
     clone = lambda xs: [x.clone() if isinstance(x, torch.Tensor) else x for x in xs]
     got = wrapper(*clone(args), **kw)
     want = plain(*clone(args), **kw)
     assert torch.equal(got, want)
     assert wrapper.launches == before
+
+
+def halo_pack_args(geo, nref, p, mode):
+    """halo_pack's arguments in a mode (False: pack) on rank 1's tables of
+    the 2-rank plan: the fold exchange's send lists on its chain block, its
+    set map, the DSS pools' add runs."""
+    t, plan = rank_tables(geo, nref, p)
+    n_loc = (p + 1) ** 3
+    block = T(rng_array(40, plan.n_chain_max, n_loc))
+    if mode == "set":
+        return (block, T(rng_array(41, *t["fold"]["send_idx"].shape)),
+                T(t["fold"]["set_map"])), {"mode": "set"}
+    if mode == "add":
+        return (T(rng_array(41, t["dss"]["n_slots"])), T(rng_array(43, *t["dss_send"][0].shape)),
+                *(T(a) for a in t["dss_add"])), {"mode": "add"}
+    return (block, T(t["fold"]["send_idx"]), T(t["fold"]["send_valid"])), {"mode": "pack"}
+
+
+def dss_pools_args(geo, nref, p, mode):
+    """dss_pools' arguments (accumulate, or read) on rank 1's tables."""
+    t, plan = rank_tables(geo, nref, p)
+    d = t["dss"]
+    v = T(rng_array(44, plan.nb_max, plan.const["N3p"]))
+    acc = (v, *(T(d[k]) for k in ("surf_node", "ent_off", "pool_off", "pool_ptr", "pool_src")),
+           d["n_slots"])
+    if mode == "read":
+        pools = dss_pools.dss_pools_plain(*acc, mode="accumulate")
+        return (v, pools, T(d["node_ent"]), T(d["read_base"]), T(t["valid_bits"])), {
+            "mode": "read"}
+    return acc, {"mode": "accumulate"}
 
 
 # ---- the index engine's dim=2 instances ------------------------------------------------
