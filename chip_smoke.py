@@ -64,7 +64,10 @@ Phases (any failure exits non-zero before the last line is printed):
    each runner's vmult (the four share one cell_laplace kernel) and
    apply_hanging_node_constraints (hn_interp by that runner); the HN overhead
    (vmult over constraints=False, fast and slow); the deformed vmult at
-   quadrant nref=6 against the plain float64 path (1e-5);
+   quadrant nref=6 against the plain float64 path (1e-5); dof_scatter's
+   schedule (its chunks, the shares of DoFs and entries local to a chunk,
+   from the host tables) and beside it (a) a coalesced read of the rows and
+   (b) the gather rows[ent] alone, timed with their bounds;
 8. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3 on
    the nref=7 mesh, p=2 and p=1 at quadrant nref=8), float32 through the
    kernels: its sizes (masked cells against the subset's, plane-covered
@@ -169,7 +172,7 @@ Phases (any failure exits non-zero before the last line is printed):
    component axis of 2 (``index_add_``), constraints_slow, cell_elasticity
    (no library call: its coupled map's 2.63 G nonzeros need int64 indices,
    on which cuSPARSE's SpMV failed; the count printed), cell_transfer at
-   the 2-D GMG's finest transfer;
+   the 2-D GMG's finest transfer; dof_scatter's schedule shares (host);
    the vmult (fast, slow, constraints=False), the deformed vmult, the
    elasticity vmult and apply_hanging_node_constraints against the plain
    float64 path (1e-5), launches checked exactly (2, 4, 2, 2, 2, 1 and the
@@ -1450,6 +1453,44 @@ def index_yardsticks(mfs, inter, n_parts):
     return lib, nnz
 
 
+def scatter_shares(mf):
+    """dof_scatter's schedule on mf's fast DoF map, from its host tables:
+    the chunk's cells, the chunks, the shares of the DoFs and entries local
+    to one chunk (summed from shared memory), of the crossing DoFs and of
+    the DoFs with no entry."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dof_scatter
+
+    ptr, ent, sched = mf._sources["scatter"]
+    n = mf.n_dofs
+    cstart, dptr, ids, _, _ = dof_scatter.schedule_parts(sched, n, ent.size)
+    n_chunks = cstart.size - 1
+    counts = np.diff(ptr.astype(np.int64))
+    block = np.repeat(np.arange(2 * n_chunks), np.diff(dptr.astype(np.int64)))
+    local = ids[block % 2 == 0]
+    empty = int((counts == 0).sum())
+    return dict(chunk_cells=int(cstart[1] - cstart[0]), chunks=n_chunks,
+                local_dofs=local.size / n, local_entries=float(counts[local].sum() / ent.size),
+                crossing_dofs=(n - local.size - empty) / n, empty_dofs=empty / n)
+
+
+def scatter_side_timings(rows, ent):
+    """dof_scatter's costs apart, on the card: (a) a coalesced read of the
+    rows (``rows.sum()``: the floor of reading them), (b) the gather
+    rows[ent] alone into an entry-ordered buffer (``torch.index_select``
+    with the transposed map's ent: the row sectors each entry touches and
+    the index chain ent -> rows, without the sums by destination). Each with
+    its bound (bytes: the rows; the rows, ent and the buffer)."""
+    flat = rows.reshape(-1)
+    buf = torch.empty_like(flat)
+    read_ms = time_ms(lambda: flat.sum(), device_only=True)
+    gather_ms = time_ms(lambda: torch.index_select(flat, 0, ent, out=buf), device_only=True)
+    check(torch.equal(buf, flat[ent.long()]), "the side gather rows[ent] is wrong")
+    nbytes = flat.numel() * flat.element_size()
+    return dict(read_ms=read_ms, read_bound_ms=bound(nbytes, None, flat.dtype)[0],
+                gather_ms=gather_ms,
+                gather_bound_ms=bound(2 * nbytes + 4 * ent.numel(), None, flat.dtype)[0])
+
+
 def index_phase(mt, tria, mf, dev, wrappers, smi):
     """The index engine at quadrant nref=7 p=4 float32 (mf: phase 3's
     MatrixFree, the compact runner): its sizes; every index kernel against
@@ -1467,7 +1508,7 @@ def index_phase(mt, tria, mf, dev, wrappers, smi):
                              for mode in INDEX_RUNNERS[1:]}}
     runners_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ptr, ent = mf.scatter_tables(False, dev)
+    ptr, ent, _ = mf.scatter_tables(False, dev)
     ent_plain = mf.scatter_tables(True, dev)[1]
     tables = mf.slow_tables(dev, f32)
     tables_s = time.perf_counter() - t0
@@ -1508,6 +1549,12 @@ def index_phase(mt, tria, mf, dev, wrappers, smi):
           flush=True)
     parts = {name: measure_parts(name, cparts, lib[name], {}, f32, tol)
              for name, cparts in calls.items()}
+    scatter = dict(shares=scatter_shares(mf),
+                   side=scatter_side_timings(inter["rows_fast"], ent))
+    print(f"dof_scatter at quadrant nref=7 p=4 f32 on {smi}: its schedule's chunks and local "
+          f"shares (host) {json.dumps(scatter['shares'])}; beside the kernel, (a) a coalesced "
+          f"read of the rows and (b) the gather rows[ent] alone (ms, bound ms): "
+          f"{json.dumps(scatter['side'])}", flush=True)
     del calls, inter, lib
     torch.cuda.empty_cache()
 
@@ -1600,7 +1647,8 @@ def index_phase(mt, tria, mf, dev, wrappers, smi):
         rec["launches"] = counts[call].get(mod.NAME, 0)
         records[mod.NAME] = rec
     numbers = dict(sizes=sizes, setup_s=dict(runners=runners_s, tables=tables_s), **res,
-                   runners=runners, hn_overhead=overhead, deformed=deformed, card=smi)
+                   runners=runners, hn_overhead=overhead, deformed=deformed,
+                   dof_scatter=scatter, card=smi)
     del mfs, ops, op_d, mf_d
     torch.cuda.empty_cache()
     return numbers, records
@@ -1701,7 +1749,7 @@ def cell_transfer_calls(tr_i, dev):
     one CSR matrix) and the matrices' nonzeros: (parts, libs, nnz)."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_transfer
 
-    E, cdf, own, cover, child_ptr, child, n_fine = tr_i.tables()
+    E, cdf, own, cover, child_ptr, child, n_fine, _ = tr_i.tables()
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=E.dtype)
     NL = cdf.shape[1]
@@ -3239,9 +3287,13 @@ def index2d_phase(mt, dev, wrappers, smi):
                 part["call"] = f"2-D {call}"
             if not part["mode"].startswith("2-D"):
                 part["mode"] = f"2-D {part['mode']}"
+    shares = scatter_shares(mf)
+    print(f"dof_scatter's schedule at 2-D quadrant nref={INDEX2D_NREF} p={p} (host): "
+          f"{json.dumps(shares)}", flush=True)
     numbers = dict(nref=INDEX2D_NREF, degree=p, dtype="float32", setup_s=setup, sizes=sizes,
                    **res, runners=runners, hn_overhead=overhead, f64_oracle=oracle,
-                   f64_oracle_s=oracle_s, gmg=gmg, library_nnz=nnz, card=smi)
+                   f64_oracle_s=oracle_s, gmg=gmg, library_nnz=nnz,
+                   dof_scatter_shares=shares, card=smi)
     return numbers, parts, mf, mf_d
 
 
@@ -4082,17 +4134,17 @@ def dist_transfer(mt, g, dev, wrappers, smi):
     rows = cell_laplace.cell_laplace(full_c, tr.covmap, tr.cov_masks, tr.P, None, None, None,
                                      None, quad=False, hn_in=True, hn_out=False)
     vals = cell_transfer.cell_transfer(rows, tr.E, tr.cdf_local, tr.own, tr.ident, tr.ident_ptr,
-                                       tr.ident, tr.n_owned, mode="prolongate")
+                                       tr.ident, tr.n_owned, tr.blocks, mode="prolongate")
     rrows = cell_transfer.cell_transfer(xf, tr.E, tr.cdf, tr.own, tr.ident, tr.ident_ptr,
-                                        tr.ident, tr.n_padded_f, mode="restrict")
+                                        tr.ident, tr.n_padded_f, tr.blocks, mode="restrict")
     calls = {
         "prolongate: cell_laplace (read, HN)": (cell_laplace, (full_c, tr.covmap, tr.cov_masks,
             tr.P, None, None, None, None), dict(quad=False, hn_in=True, hn_out=False)),
         "prolongate: cell_transfer": (cell_transfer, (rows, tr.E, tr.cdf_local, tr.own, tr.ident,
-            tr.ident_ptr, tr.ident, tr.n_owned), dict(mode="prolongate")),
+            tr.ident_ptr, tr.ident, tr.n_owned, tr.blocks), dict(mode="prolongate")),
         "prolongate: dof_scatter": (dof_scatter, (vals.view(-1, 1), *tr.prolong_map), {}),
         "restrict: cell_transfer": (cell_transfer, (xf, tr.E, tr.cdf, tr.own, tr.ident,
-            tr.ident_ptr, tr.ident, tr.n_padded_f), dict(mode="restrict")),
+            tr.ident_ptr, tr.ident, tr.n_padded_f, tr.blocks), dict(mode="restrict")),
         "restrict: cell_laplace (HN^T)": (cell_laplace, (rrows, None, tr.cov_masks, tr.P, None,
             None, None, None), dict(quad=False, hn_in=False, hn_out=True)),
         "restrict: dof_scatter": (dof_scatter, (rrows, *tr.restrict_map), {}),

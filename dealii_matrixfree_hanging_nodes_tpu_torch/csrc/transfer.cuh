@@ -6,7 +6,8 @@
 // the reference's Transfer._embed / _embed_t (models/multigrid.py:253-271). Thread j of a cell
 // handles line j (0 .. N^2-1) of each sweep in place, as hanging_nodes.cuh's sweep_line does for
 // the hanging-node interpolation (one barrier a sweep). embed_sweeps2 is the 2-D form
-// (cell_transfer's dim=2 instances).
+// (cell_transfer's dim=2 instances). cell_transfer's restrict takes whole families a block
+// (Families, below).
 
 #pragma once
 
@@ -64,6 +65,22 @@ struct Group {
   static constexpr int LINES = DIM == 3 ? N * N : N;
   static constexpr int G = (256 / LINES) > 0 ? 256 / LINES : 1;
   static constexpr int THREADS = (G * LINES + 31) / 32 * 32;
+};
+
+// ---- whole families (cell_transfer) --------------------------------------------------------
+// A block of cell_transfer's restrict takes whole families: coarse cells with all their fine
+// children (1, or 2^DIM where the coarse cell is refined). Its line budget is the most refined
+// families within 256 lines, at least one (3-D p=4: 200 lines, 224 threads; p=5: 288; p=6:
+// 392, 416 threads: such a block takes more threads, one a line, not two rounds; 2-D p=4: 12
+// families, 240 lines). MAXF fine cells at most a block (the host schedule,
+// cell_transfer.schedule, packs by the same numbers).
+template <int N, int DIM>
+struct Families {
+  static constexpr int LINES = DIM == 3 ? N * N : N;
+  static constexpr int FAMILY = (1 << DIM) * LINES;
+  static constexpr int BUDGET = FAMILY * (256 / FAMILY > 1 ? 256 / FAMILY : 1);
+  static constexpr int MAXF = BUDGET / LINES;
+  static constexpr int THREADS = (MAXF * LINES + 31) / 32 * 32;
 };
 
 }  // namespace xfer

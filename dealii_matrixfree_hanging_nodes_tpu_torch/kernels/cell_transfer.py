@@ -20,6 +20,12 @@ slot) (``own``, the first writer in cell order).
   coarse ``distribute_local_to_global`` (cell_laplace's HN^T, dof_scatter)
   follows.
 
+The restrict takes whole families (a coarse cell and its children) a
+block, by a host schedule ``blocks`` (``schedule``: where each block starts
+in the coarse cells, the child lists and the fine cells; about 256 lines a
+block), the prolongate consecutive fine cells; the plain version takes the
+schedule and ignores it.
+
 Replaces the reference's ``Transfer.prolongate`` and ``Transfer.restrict``
 (models/multigrid.py:274-296: the cover gather, ``_embed`` / ``_embed_t``
 einsums, ``.at[cdf].add`` and ``.at[cover].add``).
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -37,6 +44,55 @@ NAME = "cell_transfer"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/multigrid.py:274"
 MODES = ("prolongate", "restrict")
 DEGREES = (1, 2, 3, 4, 5, 6)  # the index engine's
+
+
+LINE_BUDGET = 256  # lines a block: the most refined families within it, at least one
+
+
+def block_shape(n: int, dim: int):
+    """(lines a fine cell, the most fine cells a block) of the kernel's
+    instance for n = p+1 nodes a side (transfer.cuh's Families)."""
+    lines = n ** (dim - 1)
+    family = 2**dim * lines
+    return lines, family * max(1, LINE_BUDGET // family) // lines
+
+
+def schedule(child_ptr, child, n: int, dim: int) -> np.ndarray:
+    """The restrict's blocks: int32 [n_blocks+1, 3], each block's first
+    coarse cell, its first position in the child lists and its first fine
+    cell where its children are consecutive fine cells (else -1); the last
+    row (n_c, n_f, -1) closes the ranges. Whole families (a coarse cell and
+    its children, child_ptr's ranges) are packed in order, a block taking
+    the next family while its fine cells stay within the instance's most
+    (``block_shape``) and its coarse cells too (a childless coarse cell
+    counts one). Raises where a family alone exceeds it."""
+    child_ptr = np.asarray(child_ptr, dtype=np.int64)
+    child = np.asarray(child, dtype=np.int64)
+    counts = np.diff(child_ptr)
+    _, maxf = block_shape(n, dim)
+    if counts.size and counts.max() > maxf:
+        raise ValueError(f"{NAME}: a family of {int(counts.max())} fine cells exceeds a block's "
+                         f"{maxf}")
+    bounds, nf, nc = [0], 0, 0
+    for c, k in enumerate(counts.tolist()):
+        if nc and (nf + k > maxf or nc == maxf):
+            bounds.append(c)
+            nf, nc = 0, 0
+        nf += k
+        nc += 1
+    if nc:
+        bounds.append(counts.size)
+    c0 = np.asarray(bounds, dtype=np.int64)
+    p0 = child_ptr[c0]
+    # breaks[i]: the steps other than +1 among the child list's positions 0 .. i; a block's
+    # children are consecutive fine cells where none lies inside its range
+    breaks = np.concatenate([[0], np.cumsum(np.diff(child) != 1)])
+    lo, hi = p0[:-1], p0[1:]
+    run = hi > lo
+    run[run] = breaks[hi[run] - 1] == breaks[lo[run]]
+    first = np.full(c0.size, -1, dtype=np.int64)
+    first[:-1][run] = child[lo[run]]
+    return np.stack([c0, p0, first], axis=1).astype(np.int32)
 
 
 def embed_rows(u, E, transpose):
@@ -58,9 +114,9 @@ def _mode(mode):
     return mode
 
 
-def cell_transfer_plain(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs,
+def cell_transfer_plain(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, blocks=None,
                         mode="prolongate"):
-    """Plain PyTorch version (a new tensor)."""
+    """Plain PyTorch version (a new tensor); the schedule is not read."""
     if _mode(mode) == "prolongate":
         u = embed_rows(x[cover.long()], E, False)
         out = torch.zeros(n_fine_dofs, dtype=x.dtype, device=x.device)
@@ -76,23 +132,27 @@ def cell_transfer_plain(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs,
         0, parent, u)
 
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="prolongate"):
+def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, blocks,
+                  mode="prolongate"):
     """prolongate: x [n_c, n^dim] -> new [n_fine_dofs]; restrict: x
     [n_fine_dofs] -> new [n_c, n^dim]. E [n_f, dim, n, n] of x's dtype (dim
     2 or 3), cdf int32 [n_f, n^dim], own bool [n_f, n^dim], cover int32
-    [n_f], child_ptr int32 [n_c+1], child int32 [n_f]."""
+    [n_f], child_ptr int32 [n_c+1], child int32 [n_f] (cover's inverse,
+    ascending in each family), blocks int32 [n_blocks+1, 3] (``schedule(
+    child_ptr, child, n, dim)``)."""
     args = (x, E, cdf, own, cover, child_ptr, child, n_fine_dofs)
     restrict = _mode(mode) == "restrict"
     if x.device.type == "cpu":
         return cell_transfer_plain(*args, mode=mode)
     dev = _build.check_cuda(NAME, x.dtype, x=x, E=E, cdf=cdf, own=own, cover=cover,
-                            child_ptr=child_ptr, child=child)
-    if any(t.dtype != torch.int32 for t in (cdf, cover, child_ptr, child)) or (
+                            child_ptr=child_ptr, child=child, blocks=blocks)
+    if any(t.dtype != torch.int32 for t in (cdf, cover, child_ptr, child, blocks)) or (
             own.dtype != torch.bool):
-        raise TypeError(f"{NAME}: cdf, cover, child_ptr and child must be int32, own bool")
+        raise TypeError(f"{NAME}: cdf, cover, child_ptr, child and blocks must be int32, "
+                        f"own bool")
     n_f, n_loc = cdf.shape
     n, dim = E.shape[-1], E.shape[1]
     n_c = child_ptr.numel() - 1
@@ -100,15 +160,18 @@ def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="pr
             or E.shape != (n_f, dim, n, n)
             or own.shape != cdf.shape or cover.shape != (n_f,) or child.shape != (n_f,)
             or x.shape != ((n_fine_dofs,) if restrict else (n_c, n_loc))
+            or blocks.dim() != 2 or blocks.shape[1] != 3
+            or not 1 <= blocks.shape[0] <= n_c + 1
             or n_f * n_loc >= 2**31):
         raise ValueError(f"{NAME}: shapes x {tuple(x.shape)}, E {tuple(E.shape)}, cdf "
                          f"{tuple(cdf.shape)}, cover {tuple(cover.shape)}, child_ptr "
-                         f"{tuple(child_ptr.shape)}")
+                         f"{tuple(child_ptr.shape)}, blocks {tuple(blocks.shape)}")
     out = torch.empty((n_c, n_loc) if restrict else (n_fine_dofs,), dtype=x.dtype,
                       device=x.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(x.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, *(_build.ptr(t) for t in args[:7]), _build.ptr(out), n_f, n_c,
-                  n_fine_dofs, n - 1, int(restrict), dim)
+    _build.launch(NAME, fn, dev, *(_build.ptr(t) for t in (x, E, cdf, own, cover, child_ptr,
+                                                           child, blocks, out)),
+                  n_f, blocks.shape[0] - 1, n - 1, int(restrict), dim)
     cell_transfer.launches += 1
     return out
 
@@ -116,7 +179,8 @@ def cell_transfer(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="pr
 cell_transfer.launches = 0
 
 
-def bytes_and_flops(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, mode="prolongate"):
+def bytes_and_flops(x, E, cdf, own, cover, child_ptr, child, n_fine_dofs, blocks=None,
+                    mode="prolongate"):
     """Least traffic: x read once, out written once, E and the lists read
     once (own at one bit a slot; cover in prolongate, child_ptr and child in
     restrict), cdf only at the owned slots (one a fine DoF). Operations: the

@@ -367,7 +367,8 @@ class MatrixFree:
         return self._on("constraints_slow", device, dtype)
 
     def scatter_tables(self, slow: bool, device):
-        """dof_scatter's (ptr, ent) for the plain (slow) or the fast DoF map."""
+        """dof_scatter's (ptr, ent, sched) for the plain (slow) or the fast DoF
+        map."""
         return self._on("scatter_plain" if slow else "scatter", device)
 
     def cell_laplace_args(self, device, dtype, slow: bool = False, hn: bool = True):

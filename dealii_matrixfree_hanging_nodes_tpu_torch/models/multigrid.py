@@ -269,12 +269,14 @@ class Transfer(nn.Module):
         self.register_buffer("cover", i32(cover))
         self.register_buffer("child_ptr", i32(child_ptr))
         self.register_buffer("child", i32(child))
+        n, dim = self.E.shape[-1], self.E.shape[1]
+        self.register_buffer("blocks", i32(cell_transfer.schedule(child_ptr, child, n, dim)))
         self.n_fine_dofs = int(n_fine_dofs)
 
     def tables(self):
-        """cell_transfer's arguments after x."""
+        """cell_transfer's arguments after x (the block schedule last)."""
         return (self.E, self.cdf, self.own, self.cover, self.child_ptr, self.child,
-                self.n_fine_dofs)
+                self.n_fine_dofs, self.blocks)
 
     def prolongate(self, xc: torch.Tensor) -> torch.Tensor:
         """Coarse DoF vector -> fine DoF vector (the consistent embedding;

@@ -159,8 +159,9 @@ class DistributedLaplacePlan:
     def rank_tables(self, r: int) -> dict:
         """Rank r's kernel tables (NumPy): its real cells' DoF map (the padded
         global numbering, or the halo's local one), masks and geo, the DoF
-        map transposed for dof_scatter, and for the halo the send lists,
-        their by-destination add runs and the [own | ghosts] set map."""
+        map transposed for dof_scatter with its schedule, and for the halo the
+        send lists, their by-destination add runs and the [own | ghosts] set
+        map."""
         n = int(self.n_cells_r[r])
         t = dict(masks=self.masks_r[r, :n], geo=self.geo_r[r, :n])
         if self.exchange == "halo":
@@ -227,6 +228,7 @@ class DistributedLaplace(nn.Module):
         self.register_buffer("geo", f(t["geo"]))
         self.register_buffer("scatter_ptr", i32(t["scatter"][0]))
         self.register_buffer("scatter_ent", i32(t["scatter"][1]))
+        self.register_buffer("scatter_sched", i32(t["scatter"][2]))
         if exchange == "halo":
             self.local_size = self.plan.halo["local_size"]
             self.register_buffer("send_idx", i32(t["send_idx"]))
@@ -234,6 +236,10 @@ class DistributedLaplace(nn.Module):
             self.register_buffer("set_map", i32(t["set_map"]))
             dst, ptr, srcs, w = t["add"]
             self.add_tables = (i32(dst), i32(ptr), i32(srcs), f(w))
+
+    def scatter_tables(self):
+        """dof_scatter's tables after the rows: (ptr, ent, sched)."""
+        return (self.scatter_ptr, self.scatter_ent, self.scatter_sched)
 
     def cell_args(self):
         """cell_laplace's positional arguments after the source vector."""
@@ -256,7 +262,7 @@ class DistributedLaplace(nn.Module):
         else:
             full = comm.all_gather(src, g, c)
         rows = cell_laplace.cell_laplace(full, *self.cell_args())
-        contrib = dof_scatter.dof_scatter(rows, self.scatter_ptr, self.scatter_ent)
+        contrib = dof_scatter.dof_scatter(rows, *self.scatter_tables())
         if c and sm:
             return comm.psum_scatter(comm.psum_scatter(contrib, self.inter), self.intra)
         return comm.psum_scatter(contrib, g, c)
@@ -266,7 +272,7 @@ class DistributedLaplace(nn.Module):
         recv = comm.all_to_all(send, self.group)
         local = halo_pack.halo_pack(src, recv, self.set_map, mode="set")
         rows = cell_laplace.cell_laplace(local, *self.cell_args())
-        acc = dof_scatter.dof_scatter(rows, self.scatter_ptr, self.scatter_ent)
+        acc = dof_scatter.dof_scatter(rows, *self.scatter_tables())
         own = acc[: self.n_own_max]
         back = comm.all_to_all(acc[self.n_own_max:].view(self.n_ranks, -1), self.group)
         return halo_pack.halo_pack(own, back, *self.add_tables, mode="add")

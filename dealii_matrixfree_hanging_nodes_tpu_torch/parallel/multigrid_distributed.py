@@ -145,6 +145,9 @@ class DistributedTransfer(nn.Module):
         ident = np.arange(n)
         self.register_buffer("ident", i32(ident))
         self.register_buffer("ident_ptr", i32(np.arange(n + 1)))
+        # every fine cell a family of one: cell_transfer's blocks take about 256 lines of them
+        self.register_buffer("blocks", i32(cell_transfer.schedule(
+            np.arange(n + 1), ident, self.E.shape[-1], self.E.shape[1])))
         owned_ids = cdf[own].reshape(-1, 1)
         self.prolong_map = tuple(i32(a) for a in dof_scatter.transpose_map(owned_ids,
                                                                            self.n_padded_f))
@@ -161,7 +164,7 @@ class DistributedTransfer(nn.Module):
         rows = self._hn(full, self.covmap, hn_in=True, hn_out=False)
         vals = cell_transfer.cell_transfer(rows, self.E, self.cdf_local, self.own, self.ident,
                                            self.ident_ptr, self.ident, self.n_owned,
-                                           mode="prolongate")
+                                           self.blocks, mode="prolongate")
         contrib = dof_scatter.dof_scatter(vals.view(-1, 1), *self.prolong_map)
         return comm.psum_scatter(contrib, self.group)
 
@@ -171,7 +174,7 @@ class DistributedTransfer(nn.Module):
         full = comm.all_gather(xf, self.group)
         rows = cell_transfer.cell_transfer(full, self.E, self.cdf, self.own, self.ident,
                                            self.ident_ptr, self.ident, self.n_padded_f,
-                                           mode="restrict")
+                                           self.blocks, mode="restrict")
         rows = self._hn(rows, None, hn_in=False, hn_out=True)
         contrib = dof_scatter.dof_scatter(rows, *self.restrict_map)
         return comm.psum_scatter(contrib, self.group)

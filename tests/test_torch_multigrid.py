@@ -135,7 +135,7 @@ def test_cell_transfer_bound_counts_cdf_at_the_owned_slots(p):
     a slot) and the mode's lists."""
     lv = levels(p)
     ptr = transfers(p)[1]
-    E, cdf, own, cover, child_ptr, child, n_fine = ptr.tables()
+    E, cdf, own, cover, child_ptr, child, n_fine, _ = ptr.tables()
     assert torch.equal(torch.sort(cdf[own].long()).values, torch.arange(n_fine))
     n_c, n_loc = child_ptr.numel() - 1, (p + 1) ** 3
     bits = (own.numel() + 7) // 8
