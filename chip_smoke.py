@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
    refill_update's and corr_compact's stack frames (refill_update must have none),
    brick_apply's shared memory and blocks per SM at each degree (3-D and 2-D),
    brick_deformed's threads, shared memory and blocks per SM at each (p, B, dim),
-   and the 2-D brick_elasticity's and hn_cell elastic mode's at p = 1..6;
+   the 2-D brick_elasticity's and hn_cell elastic mode's at p = 1..6, and
+   brick_transfer's in both modes at each (dim, p), with the restriction's
+   thread block clusters resident at once;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists and the subset cell rows by kind,
    and on the host hold the kernels'
@@ -100,10 +102,15 @@ Phases (any failure exits non-zero before the last line is printed):
    each kind counted, anything else fails); the index GMG of solve_01.run
    (quadrant nref=3, p=2, float64, tol 1e-10) on the card against the plain
    path on the CPU (the same iteration count, solutions within 1e-9,
-   cell_transfer checked launched); brick_transfer, dof_embed and
-   cell_transfer (the last between the same nref 5 and 6 levels' index
-   engines) in both modes against their plain versions (1e-5), timed with
-   their bounds and library calls (each map composed into one CSR matrix);
+   cell_transfer checked launched); brick_transfer and dof_embed at every
+   transfer of the V-cycle, and cell_transfer (beside it between the same
+   nref 5 and 6 levels' index engines), in both modes against their plain
+   versions (1e-5; the brick kernels' two calls bit-identical), timed with
+   their bounds and library calls (each map composed into one CSR matrix),
+   a V-cycle's device time in each brick kernel from those times and from
+   the profile, and their side timings at the finest transfer (dof_embed on
+   the CSR of its long rows alone and of its short rows alone,
+   brick_transfer's rounds a block before and now);
 11. linear elasticity (elasticity_01.py's operator, mu = lam = 1) on both
    engines, float32 through the kernels: at quadrant nref=7 p=4 (phase 3's
    mesh, 3 x 17.55 M component DoFs; the brick operators wrap phase 3's and
@@ -209,8 +216,9 @@ Phases (any failure exits non-zero before the last line is printed):
    reference's 2-D deformed case and one a (p, B) class (1e-12); the 2-D
    brick GMG-CG at quadrant nref=10 p=4 (tol 1e-5: iterations, residual,
    seconds, a V-cycle's launches and profile; brick_transfer and dof_embed
-   at the finest transfer against their plain versions, timed with bounds
-   and library calls) and at nref=4 p=2 in float64 (tol 1e-10, the CPU
+   at every transfer against their plain versions, timed with bounds
+   and library calls, and their side timings, as in phase 10) and at nref=4
+   p=2 in float64 (tol 1e-10, the CPU
    plain path's count); the 2-D brick elasticity on phase 15's p=4
    operator (mu = lam = 1: vmult 5 launches, vmult_plain 4, the index
    vmults beside them, against the plain float64 path, timed, GDoF/s over
@@ -235,7 +243,9 @@ Phases (any failure exits non-zero before the last line is printed):
    plain path's iterations; float32 at nref=5 p=4); 2 gloo ranks on the one
    card where gloo takes CUDA tensors in every collective the engines use
    (else the refusals are recorded). ``python3 chip_smoke.py --distributed``
-   runs phases 1, 2 and this one alone;
+   runs phases 1, 2 and this one alone; ``python3 chip_smoke.py --gmg``
+   phases 1, 2, 10 and phase 16's 2-D brick GMG alone (a partial run: it
+   prints their JSON and a "partial" line, not the device line);
 18. a JSON line with the vmult's, vmult_plain's and refill's numbers and
    each degree's, one with the index engine's, one with the GMG solve's,
    one with elasticity's, one with the multi-RHS vmult's, one with the
@@ -503,9 +513,11 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     # issued every copy: the copies count from the host, and busy and idle are not measured
     lost_copy = (classes is None and not whole and calls == reps
                  and n_copies < copies == host_copies / reps)
+    by_kernel = {name: sum(r[0] for r in rows if name in r[2]) for name in sorted(kernel_names)}
     res = dict(wall_ms=wall_ms, busy_ms=busy if whole else None,
                idle_share=1 - busy / wall_ms if whole else None,
                port_kernels_ms=own_ms,
+               port_kernels_by_name={k: v for k, v in by_kernel.items() if v > 0},
                other_ms=busy - own_ms - coll_ms if whole else None,
                calls_recorded=calls, port_launches=sum(r[1] for r in rows if ours(r[2])),
                other_launches=sum(r[1] for r in rows if not ours(r[2])))
@@ -551,6 +563,33 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
           f"({n_copies} of them device copies, the host issued {res['host_copies']:g}; "
           f"{copies} expected)")
     return res
+
+
+def prime_profiler(what, fn, sessions=PROFILE_SESSIONS):
+    """Throwaway torch.profiler sessions over fn (the schedule of
+    ``profile_path``, nothing kept) until one records device time, at most
+    `sessions`; fails, as ``profile_path`` does, where none did. Returns how
+    many ran. After the process group's NCCL setup the first profile has
+    lost up to ten sessions in a row on an H100, so phase 17 primes the
+    tracer before its first profile: a larger session budget for that
+    profile, whose count is printed and kept in phase 17's JSON."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for n in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=2, active=3)) as prof:
+            for _ in range(5):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if any(ev.device_type == DeviceType.CUDA and not ev.key.startswith("ProfilerStep")
+               for ev in prof.key_averages()):
+            break
+    else:
+        check(False, f"the profiler saw no device time in {sessions} sessions priming the {what}")
+    print(f"profiler primed for the {what}: {n} throwaway session(s)", flush=True)
+    return n
 
 
 def sparse_csr(rows, cols, vals, shape):
@@ -1045,7 +1084,7 @@ def degree_phase(mt, tria, nref, p, dev, wrappers, smi, keep=None, mf=None, tag=
     prefix of the parts' modes and of the printed lines; p >= 4 runs the
     per-cell schedule's kernels, as phases 4-6 do), on a MatrixFree mf it
     was given or builds. Returns (numbers, {kernel: [part]})."""
-    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
 
     tol = 1e-5
     t0 = time.perf_counter()
@@ -1694,19 +1733,20 @@ def transfer_library(out_idx, in_idx, K, weight, n_out, n_in):
     return P, R
 
 
-def gmg_kernel_calls(gmg, dev):
-    """The brick GMG kernels' calls at the shapes the solve gives them, f32:
-    the finest brick transfer (levels GMG_NREF-1 -> GMG_NREF) in both modes
-    and its coarse level's dof_embed in both modes. Each with its library
-    call (the map composed into one CSR matrix) and the matrices'
-    nonzeros."""
+def gmg_kernel_calls(gmg, dev, i=-1):
+    """The brick GMG kernels' calls at the shapes the solve gives them, in
+    the levels' dtype: transfer i of the V-cycle (levels i -> i+1; -1 the
+    finest) in both modes and its coarse level's dof_embed in both modes.
+    Each with its library call (the map composed into one CSR matrix) and
+    the matrices' nonzeros."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_transfer, dof_embed
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels.cell_apply import cell_nodes
 
-    mmc, mmf = gmg.mms[-2], gmg.mms[-1]
-    tr = gmg.transfers[-1]
+    i = i % len(gmg.transfers)
+    mmc, mmf = gmg.mms[i], gmg.mms[i + 1]
+    tr = gmg.transfers[i]
     de = tr.embed_c
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + i)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=mmf.dtype)
     calls = {name: [] for name in GMG_KERNELS[:2]}
     lib = {name: [] for name in GMG_KERNELS[:2]}
@@ -1735,12 +1775,158 @@ def gmg_kernel_calls(gmg, dev):
     xd, bv = rnd(de.n_dofs), rnd(*de.shape)
     for mode, x, shape in (("embed", xd, de.shape), ("embed_t", bv, (de.n_dofs,))):
         part("dof_embed", mode, dof_embed, (x, *de.tables(mode), shape), {})
-        ptr, idx, w = de.tables(mode)
+        ptr, idx, w, _ = de.tables(mode)
         M = torch.sparse_csr_tensor(ptr, idx, w, (ptr.numel() - 1, x.numel()))
         nnz[f"dof_embed[{mode}]"] = M._nnz()
         lib["dof_embed"].append(lambda M=M, x=x: M @ x.reshape(-1))
     torch.cuda.synchronize()
     return calls, lib, nnz
+
+
+def gmg_rounds(tr, dim, p):
+    """brick_transfer's rounds a block, host counts from the tables, under
+    the one-block-a-brick schedule ("before") and the kernel's ("now"):
+    restrict, before one block a coarse brick taking G = 256 / lines cells
+    of a parity class at a time, a round for each row position (the most
+    rows of the group's cells), now one block a (coarse brick, class)
+    taking up to ``round_rows`` of the class's rows a round; prolongate,
+    before G rows a round a fine brick, now the host schedule's rounds.
+    Returns {mode: {"before": (blocks, mean, max), "now": (...)}}."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_transfer
+
+    n = p + 1
+    G = max(1, 256 // (n * n if dim == 3 else n))
+    ncls = 2**dim
+    r_ptr = tr.r_ptr.cpu().numpy()
+    cnt = np.diff(tr.c_ptr.cpu().numpy())
+    before, now = [], []
+    cap = brick_transfer.round_rows(dim, p, tr.B, "restrict")
+    for b in range(r_ptr.shape[0]):
+        rounds = 0
+        for c in range(ncls):
+            cells = cnt[r_ptr[b, c]:r_ptr[b, c + 1]]
+            rounds += sum(int(cells[g0:g0 + G].max()) for g0 in range(0, len(cells), G))
+            now.append(-(-int(cells.sum()) // cap))
+        before.append(rounds)
+    rows_b = np.diff(tr.p_ptr.cpu().numpy())
+    summary = lambda a: (len(a), float(np.mean(a)) if len(a) else 0.0, int(max(a, default=0)))
+    return {"restrict": {"before": summary(before), "now": summary(now)},
+            "prolongate": {"before": summary(-(-rows_b // G)),
+                           "now": summary(np.diff(tr.p_bround.cpu().numpy()))}}
+
+
+def embed_rows_csr(ptr, idx, w, rows):
+    """dof_embed's lists of the given rows alone (ascending), in their
+    order: (ptr, idx, w) of a table with len(rows) rows."""
+    start = ptr[:-1].long()[rows]
+    length = ptr[1:].long()[rows] - start
+    sub = torch.zeros(len(rows) + 1, dtype=torch.int64, device=ptr.device)
+    sub[1:] = torch.cumsum(length, 0)
+    ent = (torch.arange(int(sub[-1]), device=ptr.device)
+           + torch.repeat_interleave(start - sub[:-1], length))
+    return sub.to(torch.int32), idx[ent], w[ent]
+
+
+def gmg_side_timings(gmg, dev, tag):
+    """Beside the GMG kernels (printed, not in the kernels line), at the
+    finest transfer: dof_embed's whole call in each mode, and the wrapper on
+    the CSR of the long rows alone (every row listed long: the warps'
+    blocks, and thread blocks that skip every row) and of the short rows
+    alone (no row listed: the thread-a-row instance), with the rows' and
+    entries' counts; brick_transfer's rounds a block before and now
+    (``gmg_rounds``)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import dof_embed
+
+    tr = gmg.transfers[-1]
+    de, mm = tr.embed_c, gmg.mms[-1]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for mode, shape, n_in in (("embed", de.shape, de.n_dofs),
+                              ("embed_t", (de.n_dofs,), int(np.prod(de.shape)))):
+        x = torch.randn(n_in, generator=g, device=dev, dtype=mm.dtype)
+        tabs = de.tables(mode)
+        length = (tabs[0][1:] - tabs[0][:-1]).long()
+        is_long = length > dof_embed.LONG_ROW
+        long_rows, short_rows = (torch.nonzero(m).reshape(-1) for m in (is_long, ~is_long))
+        sub = {"long": (*embed_rows_csr(*tabs[:3], long_rows),
+                        torch.arange(len(long_rows), dtype=torch.int32, device=dev)),
+               "short": (*embed_rows_csr(*tabs[:3], short_rows),
+                         torch.zeros(0, dtype=torch.int32, device=dev))}
+        calls = {"all": lambda: dof_embed.dof_embed(x, *tabs, shape)}
+        for part, t in sub.items():
+            calls[part] = lambda t=t: dof_embed.dof_embed(x, *t, (t[0].numel() - 1,))
+        whole = calls["all"]().reshape(-1)
+        for part, rows in (("long", long_rows), ("short", short_rows)):
+            check(torch.equal(calls[part](), whole[rows]),
+                  f"dof_embed[{mode}] on its {part} rows alone differs from the whole call")
+        n_rows = {"all": len(length), "long": len(long_rows), "short": len(short_rows)}
+        ms = {part: time_ms(fn, device_only=True) if n_rows[part] else None  # none: no launch
+              for part, fn in calls.items()}
+        show = lambda part: f"{ms[part]:.4f} ms" if ms[part] is not None else "no rows"
+        out[mode] = dict(ms=ms, long_rows=int(is_long.sum()),
+                         long_entries=int(length[is_long].sum()),
+                         short_rows=int((~is_long).sum()),
+                         short_entries=int(length[~is_long].sum()),
+                         longest=int(length.max()))
+        print(f"{tag}dof_embed[{mode}] at the finest transfer's coarse level: all "
+              f"{show('all')}, long rows alone {show('long')} ({out[mode]['long_rows']} rows of "
+              f"more than {dof_embed.LONG_ROW} entries, {out[mode]['long_entries']} entries, the "
+              f"longest {out[mode]['longest']}), short rows alone {show('short')} "
+              f"({out[mode]['short_rows']} rows, {out[mode]['short_entries']} entries)",
+              flush=True)
+    out["rounds"] = gmg_rounds(tr, mm.dim, mm.p)
+    for mode, r in out["rounds"].items():
+        print(f"{tag}brick_transfer[{mode}] rounds a block (blocks, mean, max): before "
+              f"{r['before']}, now {r['now']}", flush=True)
+    return out
+
+
+def gmg_transfer_sweep(gmg, dev, tag, tol):
+    """brick_transfer and dof_embed at every transfer of the V-cycle (levels
+    i -> i+1, the finest last), both modes each, against their plain
+    versions (tol), two calls bit-identical, timed with bounds and library
+    calls; the V-cycle's device time in each kernel from these times (a
+    V-cycle runs each transfer's restrict, embed_t, embed and prolongate
+    once, and the coarse solve's embed on level 0's DofEmbed). Returns
+    ({kernel: finest transfer's parts}, {kernel: the other transfers'
+    parts}, numbers)."""
+    finest, others = {}, {}
+    per = []
+    n_tr = len(gmg.transfers)
+    for i in range(n_tr):
+        calls, lib, nnz = gmg_kernel_calls(gmg, dev, i)
+        label = f"{tag}transfer {i} -> {i + 1}"
+        row = {"transfer": label, "nnz": nnz}
+        for name in ("brick_transfer", "dof_embed"):
+            for mode, kern, *_ in calls[name]:
+                a, b2 = kern(), kern()
+                torch.cuda.synchronize()
+                check(torch.equal(a, b2), f"two {name}[{mode}] calls at {label} differ")
+            parts = measure_parts(name, calls[name], lib[name], {}, gmg.mms[-1].dtype, tol)
+            for part in parts:
+                row[f"{name}[{part['mode']}]"] = {k: part[k] for k in (
+                    "ms", "bound_ms", "library_ms", "plain_ms")}
+                if i < n_tr - 1:
+                    part["mode"] = f"{label} {part['mode']}"
+            (finest if i == n_tr - 1 else others).setdefault(name, []).extend(parts)
+        per.append(row)
+        del calls, lib
+        torch.cuda.empty_cache()
+    ms = lambda row, key, k="ms": row[key][k]
+    busy = {"brick_transfer": sum(ms(r, "brick_transfer[prolongate]")
+                                  + ms(r, "brick_transfer[restrict]") for r in per),
+            "dof_embed": sum(ms(r, "dof_embed[embed]") + ms(r, "dof_embed[embed_t]") for r in per)
+            + ms(per[0], "dof_embed[embed]")}
+    bound_busy = {"brick_transfer": sum(ms(r, "brick_transfer[prolongate]", "bound_ms")
+                                        + ms(r, "brick_transfer[restrict]", "bound_ms")
+                                        for r in per),
+                  "dof_embed": sum(ms(r, "dof_embed[embed]", "bound_ms")
+                                   + ms(r, "dof_embed[embed_t]", "bound_ms") for r in per)
+                  + ms(per[0], "dof_embed[embed]", "bound_ms")}
+    print(f"{tag}a V-cycle's device time in the GMG kernels, from each transfer's times: "
+          + ", ".join(f"{k} {v:.4f} ms (bound {bound_busy[k]:.4f} ms)" for k, v in busy.items()),
+          flush=True)
+    return finest, others, dict(transfers=per, vcycle_kernel_ms=busy, vcycle_bound_ms=bound_busy)
 
 
 def cell_transfer_calls(tr_i, dev):
@@ -1760,14 +1946,35 @@ def cell_transfer_calls(tr_i, dev):
         parts.append((mode, lambda args=args, mode=mode: cell_transfer.cell_transfer(
             *args, mode=mode), lambda args=args, mode=mode: cell_transfer.cell_transfer_plain(
             *args, mode=mode), cell_transfer.bytes_and_flops(*args, mode=mode), None, None))
-    f_i, j = torch.nonzero(own, as_tuple=True)
-    K = kron_rows(E)[f_i, j]
-    in_idx = cover.long()[f_i, None] * NL + torch.arange(NL, device=dev)[None, :]
-    Pi, Ri = transfer_library(cdf.long()[f_i, j], in_idx, K,
-                              torch.ones(len(f_i), dtype=torch.bool, device=dev), n_fine, uc.numel())
-    del K, in_idx
+    Pi, Ri = cell_transfer_maps(E, cdf, own, cover, n_fine, uc.shape[0])
     torch.cuda.synchronize()
     return parts, [lambda: Pi @ uc.reshape(-1), lambda: Ri @ xf], (Pi._nnz(), Ri._nnz())
+
+
+def cell_transfer_maps(E, cdf, own, cover, n_fine, n_rows):
+    """cell_transfer's maps as two CSR matrices (its library calls): the
+    prolongation [n_fine, n_rows NL] (a fine DoF gets its owned slot's
+    embedding of its coarse row, cover) and the restriction, its
+    transpose."""
+    NL = cdf.shape[1]
+    f_i, j = torch.nonzero(own, as_tuple=True)
+    K = kron_rows(E)[f_i, j]
+    in_idx = cover.long()[f_i, None] * NL + torch.arange(NL, device=E.device)[None, :]
+    return transfer_library(cdf.long()[f_i, j], in_idx, K,
+                            torch.ones(len(f_i), dtype=torch.bool, device=E.device), n_fine,
+                            n_rows * NL)
+
+
+def scatter_library(rows, ptr, ent):
+    """dof_scatter's library call: one index_add_ of the rows' values at
+    their DoFs (each entry's DoF from the transposed map) into a zero
+    vector."""
+    n = ptr.numel() - 1
+    dof = torch.empty(ent.numel(), dtype=torch.long, device=ent.device)
+    dof[ent.long()] = torch.repeat_interleave(torch.arange(n, device=ent.device),
+                                              (ptr[1:] - ptr[:-1]).long())
+    out, vals = torch.zeros(n, dtype=rows.dtype, device=rows.device), rows.reshape(-1)
+    return lambda: out.zero_().index_add_(0, dof, vals)
 
 
 def index_gmg_solves(mt, dim, nref, p, tol, dev, wrappers):
@@ -1871,7 +2078,8 @@ def gmg_phase(mt, dev, wrappers, smi):
     v_prof = profile_path("V-cycle", lambda: gmg(b), set(wrappers), sum(vcounts.values()), reps=5,
                           classes={"index": 1, "dense product": 1, "reduction": 0})
     v_host_ms = host_ms(lambda: gmg(b), reps=5, warmup=1)
-    print(f"host time to issue one V-cycle: {v_host_ms:.4f} ms", flush=True)
+    print(f"host time to issue one V-cycle: {v_host_ms:.4f} ms; its device time by port kernel "
+          f"(profile): {v_prof['port_kernels_by_name']}", flush=True)
 
     # the index GMG of solve_01.run, float64, on the card and on the CPU
     its, dx, erri, icounts, gi = index_gmg_solves(mt, 3, INDEX_GMG_NREF, INDEX_GMG_DEGREE,
@@ -1881,13 +2089,17 @@ def gmg_phase(mt, dev, wrappers, smi):
     # the brick GMG's finest transfer (f32); cell_transfer at the index GMG's finest
     # (nref INDEX_GMG_NREF-1 -> INDEX_GMG_NREF, f64), and beside it, outside the kernels
     # line, between the brick GMG's two finest levels' index engines (f32)
+    # brick_transfer and dof_embed at every transfer of the V-cycle (the kernels line's totals
+    # are the finest transfer's), and their side timings
+    finest, others, sweep = gmg_transfer_sweep(gmg, dev, "", tol32)
+    side = gmg_side_timings(gmg, dev, "")
     t0 = time.perf_counter()
-    calls, lib, nnz = gmg_kernel_calls(gmg, dev)
+    calls, lib, nnz = {}, {}, {}
     calls["cell_transfer"], lib["cell_transfer"], nnz["cell_transfer"] = cell_transfer_calls(
         gi.transfers[-1], dev)
     tr_i = mt.Transfer(gmg.levels[-2], gmg.levels[-1], device=dev)
     big_calls, big_lib, nnz["cell_transfer (nref 6, p 4)"] = cell_transfer_calls(tr_i, dev)
-    print(f"GMG kernels' library matrices ({time.perf_counter() - t0:.1f} s), nonzeros: "
+    print(f"cell_transfer's library matrices ({time.perf_counter() - t0:.1f} s), nonzeros: "
           f"{nnz}", flush=True)
     results = {}
     for mod in [m for m in KERNEL_MODULES if m.NAME in GMG_KERNELS]:
@@ -1895,7 +2107,8 @@ def gmg_phase(mt, dev, wrappers, smi):
         rec = kernel_record(mod)
         dt, tol = ((torch.float64, 1e-12) if name == "cell_transfer"
                    else (torch.float32, tol32))
-        rec["parts"] = measure_parts(name, calls[name], lib[name], {}, dt, tol)
+        rec["parts"] = (measure_parts(name, calls[name], lib[name], {}, dt, tol)
+                        if name == "cell_transfer" else finest[name])
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             rec[key] = sum(part[key] for part in rec["parts"])
         rec["bound_by"] = max((part["bound_ms"], part["bound_by"]) for part in rec["parts"])[1]
@@ -1912,6 +2125,10 @@ def gmg_phase(mt, dev, wrappers, smi):
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} "
               f"ms; launches {rec['launches']} in the {rec['launches_path']}, "
               f"{rec['launches_per_vcycle']} a brick V-cycle", flush=True)
+        rec["parts"] = rec["parts"] + others.get(name, [])
+        for part in rec["parts"]:
+            for key in ("max_abs_err", "max_rel_err"):
+                rec[key] = max(rec[key], part[key])
         results[name] = rec
     big = measure_parts("cell_transfer", big_calls, big_lib, {}, torch.float32, tol32)
     big = {key: sum(part[key] for part in big) for key in ("ms", "plain_ms", "bound_ms",
@@ -1928,6 +2145,7 @@ def gmg_phase(mt, dev, wrappers, smi):
                    rel_res_recomputed=true_res, err_max=err, solve_s=solve_s,
                    s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s, launches=counts,
                    vcycle=dict(launches=vcounts, host_ms=v_host_ms, profile=v_prof),
+                   transfers=sweep, side=side,
                    index=dict(nref=INDEX_GMG_NREF, degree=INDEX_GMG_DEGREE, dtype="float64",
                               iterations=its[str(dev)], iterations_cpu=its["cpu"],
                               solution_diff=dx, err=erri, launches=icounts),
@@ -2433,7 +2651,7 @@ def multi_phase(mt, op, op64, op3, mats, dev, wrappers, smi):
     MULTI_ORACLE (1e-12); the degree <= 3 schedule without face planes at
     k=MULTI_K (phase 8's p=3 operator, MULTI_LOW), masked_quad's instance
     from p=3. Returns (numbers, {kernel: [part]})."""
-    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
     numbers, parts = {}, {}
@@ -3540,13 +3758,16 @@ def brick2d_gmg(mt, dev, wrappers, smi):
     v_host = host_ms(lambda: gmg(b), reps=5, warmup=1)
     print(f"2-D brick V-cycle: port launches {vcounts}, host time to issue {v_host:.4f} ms",
           flush=True)
-    calls, lib, nnz = gmg_kernel_calls(gmg, dev)
-    print(f"2-D brick GMG kernels' library matrices, nonzeros: {nnz}", flush=True)
+    print(f"2-D brick V-cycle's device time by port kernel (profile): "
+          f"{v_prof['port_kernels_by_name']}", flush=True)
+    finest, others, sweep = gmg_transfer_sweep(gmg, dev, "2-D ", 1e-5)
+    side = gmg_side_timings(gmg, dev, "2-D ")
     parts = {}
     for name in ("brick_transfer", "dof_embed"):
-        parts[name] = measure_parts(name, calls[name], lib[name], {}, torch.float32, 1e-5)
-        for part in parts[name]:
+        for part in finest[name]:
             part["mode"] = f"2-D {part['mode']} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}"
+        parts[name] = finest[name] + others[name]
+        for part in parts[name]:
             part["launches"] = counts.get(name, 0)
             part["call"] = "2-D brick GMG-CG solve"
     numbers = dict(nref=INDEX2D_GMG_NREF, degree=p, dtype="float32", tol=1e-5, setup_s=setup_s,
@@ -3554,8 +3775,8 @@ def brick2d_gmg(mt, dev, wrappers, smi):
                    rel_res_recomputed=true_res, solve_s=solve_s,
                    s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s, launches=counts,
                    vcycle=dict(launches=vcounts, host_ms=v_host, profile=v_prof),
-                   library_nnz=nnz, card=smi)
-    del gmg, op, mm, b, x, x0, vc, r, calls, lib
+                   transfers=sweep, side=side, card=smi)
+    del gmg, op, mm, b, x, x0, vc, r
     torch.cuda.empty_cache()
 
     nref, p = BRICK2D_GMG_CHECK
@@ -4149,16 +4370,34 @@ def dist_transfer(mt, g, dev, wrappers, smi):
             None, None, None), dict(quad=False, hn_in=False, hn_out=True)),
         "restrict: dof_scatter": (dof_scatter, (rrows, *tr.restrict_map), {}),
     }
+    # library calls at these shapes: cell_transfer's maps as CSR products, dof_scatter's
+    # index_add_ (none for cell_laplace, as in phase 7)
+    P_pro = cell_transfer_maps(tr.E, tr.cdf_local, tr.own, tr.ident, tr.n_owned,
+                               rows.shape[0])[0]
+    R_res = cell_transfer_maps(tr.E, tr.cdf, tr.own, tr.ident, tr.n_padded_f,
+                               rrows.shape[0])[1]
+    libs = {"prolongate: cell_transfer": lambda: P_pro @ rows.reshape(-1),
+            "prolongate: dof_scatter": scatter_library(vals.view(-1, 1), *tr.prolong_map[:2]),
+            "restrict: cell_transfer": lambda: R_res @ xf,
+            "restrict: dof_scatter": scatter_library(rrows, *tr.restrict_map[:2])}
     res["kernels"] = {}
     for what, (mod, args, kw) in calls.items():
         kern = lambda m=mod, a=args, k=kw: getattr(m, m.NAME)(*a, **k)
         plain = lambda m=mod, a=args, k=kw: getattr(m, f"{m.NAME}_plain")(*a, **k)
-        err = errors(kern(), plain())[1]
+        ref = plain()
+        err = errors(kern(), ref)[1]
         check(err <= 1e-5, f"{what} disagrees with its plain version: {err:.3e}")
         b_ms, b_by = bound(*mod.bytes_and_flops(*args, **kw), torch.float32)
+        lib = libs.get(what)
+        if lib is not None:
+            lib_err = errors(lib().reshape(-1), ref.reshape(-1))[1]
+            check(lib_err <= LIBRARY_TOL, f"{what}'s library call disagrees with its plain "
+                                          f"version: {lib_err:.3e}")
         res["kernels"][what] = dict(ms=time_ms(kern, device_only=True),
                                     plain_ms=time_ms(plain, device_only=True), bound_ms=b_ms,
-                                    bound_by=b_by, max_rel_err=err)
+                                    bound_by=b_by, max_rel_err=err,
+                                    library_ms=None if lib is None else time_ms(
+                                        lib, device_only=True))
     print(f"distributed transfer, quadrant nref {DIST_GMG_F32[0] - 1} -> {DIST_GMG_F32[0]} "
           f"p={DIST_GMG_F32[1]} f32, on {smi}: {json.dumps(res)}", flush=True)
     return res
@@ -4261,6 +4500,8 @@ def distributed_phase(mt, tria, mf, dev, wrappers, smi):
         del mm, xb
         torch.cuda.empty_cache()
         setup = {"single_device_brick_s": mm_s}
+        out["profiler_priming_sessions"] = prime_profiler("distributed engines",
+                                                          lambda: lap.vmult(ui))
         for ex in ("allgather", "halo"):
             t0 = time.perf_counter()
             op = parallel.DistributedLaplace(mf, exchange=ex, device=dev)
@@ -4376,10 +4617,11 @@ def main() -> int:
         metric_host_comparison(mt)
         return 0
     only_distributed = sys.argv[1:] == ["--distributed"]
-    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import kronecker_sum
+    only_gmg = sys.argv[1:] == ["--gmg"]
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, corr_compact,
-        dss_surface, hn_cell, refill_update,
+        KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, brick_transfer,
+        corr_compact, dss_surface, hn_cell, refill_update,
     )
     from dealii_matrixfree_hanging_nodes_tpu_torch.oracle import vmult_oracle
 
@@ -4426,6 +4668,16 @@ def main() -> int:
             print(f"  brick_elasticity2_kernel {dt} p={p}: threads, shared memory bytes, blocks "
                   f"per SM {brick_elasticity.plan(dt, p, 2, dev)}; hn_cell_elastic2_kernel "
                   f"{hn_cell.elastic_plan(dt, p, 16 if p <= 3 else 8, 2, dev)}")
+        for d, degrees in _build.BRICK_DEGREES.items():
+            for p in degrees:
+                plans = {m: brick_transfer.plan(dt, p, d, m, dev) for m in brick_transfer.MODES}
+                print(f"  brick_transfer {dt} dim={d} p={p}: threads, shared memory bytes, blocks "
+                      f"per SM, clusters resident, rows a round: prolongate "
+                      f"{plans['prolongate']}, restrict {plans['restrict']}")
+                for m, plan in plans.items():  # the host's schedules use round_rows
+                    host = brick_transfer.round_rows(d, p, auto_brick_size(p, d), m)
+                    check(plan[4] == host, f"brick_transfer {m} dim={d} p={p}: the kernel takes "
+                                           f"{plan[4]} rows a round, round_rows {host}")
 
     if only_distributed:  # phases 1, 2 and 17 alone, on phase 3's mesh
         tria = mt.create_quadrant(3, 7)
@@ -4436,6 +4688,19 @@ def main() -> int:
         print(json.dumps({"kernels": list(records.values())}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only_gmg:  # phases 1, 2, 10 and phase 16's 2-D brick GMG alone
+        wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
+        gmg_numbers, records = gmg_phase(mt, dev, wrappers, smi)
+        gmg2d, parts2d = brick2d_gmg(mt, dev, wrappers, smi)
+        for name, plist in parts2d.items():
+            records[name]["parts"].extend(plist)
+        print(json.dumps({"gmg": gmg_numbers}))
+        print(json.dumps({"brick_2d_gmg": gmg2d}))
+        print(json.dumps({"gmg_kernels": [records[name] for name in GMG_KERNELS]}))
+        print(json.dumps({"partial": "phases 1, 2, 10 and phase 16's 2-D brick GMG; no smoke "
+                                     "result (run without arguments for that)"}))
         return 0
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------

@@ -7,7 +7,8 @@
 // handles line j (0 .. N^2-1) of each sweep in place, as hanging_nodes.cuh's sweep_line does for
 // the hanging-node interpolation (one barrier a sweep). embed_sweeps2 is the 2-D form
 // (cell_transfer's dim=2 instances). cell_transfer's restrict takes whole families a block
-// (Families, below).
+// (Families, below); brick_transfer sweeps any number of cells a block, several lines a
+// thread (embed_rows_from, embed_rows_t, below).
 
 #pragma once
 
@@ -82,5 +83,45 @@ struct Families {
   static constexpr int MAXF = BUDGET / LINES;
   static constexpr int THREADS = (MAXF * LINES + 31) / 32 * 32;
 };
+
+// ---- any number of cells a block (brick_transfer) ------------------------------------------
+// Sweep t (TR: transposed) on `rows` cells of a block in either dimension, the lines dealt out
+// to the THREADS threads in turn (thread i takes lines i, i + THREADS, ...), then one barrier.
+// Cell k sits at buf + k NL with its E at e + k EL (EL = DIM N^2). With src, line j of cell k is
+// read from cell slot[k] of src (its parent, which several cells may share) and written into
+// buf; without, the sweep works in place. Each line goes through hn::sweep_line(2) as in
+// embed_sweeps, so a cell's values are the same bits.
+template <typename T, int DIM, int N, int t, bool TR, int THREADS>
+__device__ __forceinline__ void sweep_rows(const T* src, const int* slot, T* buf, const T* e,
+                                           int rows) {
+  constexpr int LINES = DIM == 3 ? N * N : N, NL = LINES * N, NN = N * N, EL = DIM * NN;
+  for (int i = threadIdx.x; i < rows * LINES; i += THREADS) {
+    const int k = i / LINES, j = i - k * LINES;
+    const T* in = src ? src + slot[k] * NL : buf + k * NL;
+    if constexpr (DIM == 3) {
+      hn::sweep_line<T, N, t, TR>(in, buf + k * NL, e + k * EL + t * NN, j);
+    } else {
+      hn::sweep_line2<T, N, t, TR>(in, buf + k * NL, e + k * EL + t * NN, j);
+    }
+  }
+  __syncthreads();
+}
+
+// prolongation: E[0] along x from the parents into buf, then E[1] along y (then E[2] along z)
+template <typename T, int DIM, int N, int THREADS>
+__device__ __forceinline__ void embed_rows_from(const T* src, const int* slot, T* buf,
+                                                const T* e, int rows) {
+  sweep_rows<T, DIM, N, 0, false, THREADS>(src, slot, buf, e, rows);
+  sweep_rows<T, DIM, N, 1, false, THREADS>(nullptr, nullptr, buf, e, rows);
+  if constexpr (DIM == 3) sweep_rows<T, DIM, N, 2, false, THREADS>(nullptr, nullptr, buf, e, rows);
+}
+
+// restriction: (E[2]^T along z, then) E[1]^T along y, then E[0]^T along x, in place
+template <typename T, int DIM, int N, int THREADS>
+__device__ __forceinline__ void embed_rows_t(T* buf, const T* e, int rows) {
+  if constexpr (DIM == 3) sweep_rows<T, DIM, N, 2, true, THREADS>(nullptr, nullptr, buf, e, rows);
+  sweep_rows<T, DIM, N, 1, true, THREADS>(nullptr, nullptr, buf, e, rows);
+  sweep_rows<T, DIM, N, 0, true, THREADS>(nullptr, nullptr, buf, e, rows);
+}
 
 }  // namespace xfer

@@ -20,8 +20,10 @@ the host, [nb N3p, n_dofs], and builds both modes from it:
   ``.at[slave].set`` gives). The slave fold is composed into the lists, so
   this mode too is one launch.
 
-Each destination has one owner thread that sums its entries in list order:
-no atomics, bit-identical calls.
+Each destination has one owner that sums its entries in list order: no
+atomics, bit-identical calls. The owner is a thread for a row of at most
+``LONG_ROW`` entries and a warp for a longer one: ``tables`` lists each
+mode's long rows (``long_rows``), which the kernel's first blocks take.
 
 Replaces the reference's ``DofEmbed.embed`` (models/multigrid_bricks.py:89-
 105) and its ``jax.linear_transpose`` inside ``BrickTransfer._restrict_impl``
@@ -41,6 +43,9 @@ from . import _build
 NAME = "dof_embed"
 REPLACES = "dealii_matrixfree_hanging_nodes_tpu/models/multigrid_bricks.py:89"
 MODES = ("embed", "embed_t")
+# a row of more entries is long: a warp sums it (csrc/dof_embed.cu). At 8, embed's slave rows
+# (3-D p=4: 25 entries) took warps and ran slower than a thread each
+LONG_ROW = 32
 
 
 def embedding_matrix(node_dof, slave, row_ptr, col, weight, n_dofs, N3, N3p):
@@ -68,24 +73,31 @@ def embedding_matrix(node_dof, slave, row_ptr, col, weight, n_dofs, N3, N3p):
     return M
 
 
+def long_rows(ptr, split=LONG_ROW):
+    """The rows of more than `split` entries (int32, ascending): the ones a
+    warp sums."""
+    return np.nonzero(np.diff(np.asarray(ptr, dtype=np.int64)) > split)[0].astype(np.int32)
+
+
 def _csr(M):
     if M.nnz >= 2**31 or M.shape[0] >= 2**31:
         raise NotImplementedError(f"{NAME}: entries exceed int32")
-    return (M.indptr.astype(np.int32), M.indices.astype(np.int32), M.data.astype(np.float64))
+    return (M.indptr.astype(np.int32), M.indices.astype(np.int32), M.data.astype(np.float64),
+            long_rows(M.indptr))
 
 
 def tables(node_dof, slave, row_ptr, col, weight, n_dofs, N3, N3p):
-    """{"embed": (ptr, idx, w), "embed_t": (ptr, idx, w)} as NumPy arrays
-    (int32 indices, float64 weights)."""
+    """{"embed": (ptr, idx, w, long), "embed_t": (ptr, idx, w, long)} as
+    NumPy arrays (int32 indices, float64 weights; ``long_rows`` of ptr)."""
     M = embedding_matrix(node_dof, slave, row_ptr, col, weight, n_dofs, N3, N3p)
     Mt = M.T.tocsr()
     Mt.sort_indices()
     return {"embed": _csr(M), "embed_t": _csr(Mt)}
 
 
-def dof_embed_plain(x, ptr, idx, w, shape):
+def dof_embed_plain(x, ptr, idx, w, long, shape):
     """Plain PyTorch version: every entry's w * x[idx] added at its row, in
-    list order (a new tensor of `shape`)."""
+    list order (a new tensor of `shape`); the long-row list is not read."""
     n = ptr.numel() - 1
     row = torch.repeat_interleave(torch.arange(n, device=x.device), (ptr[1:] - ptr[:-1]).long())
     out = torch.zeros(n, dtype=x.dtype, device=x.device)
@@ -93,26 +105,29 @@ def dof_embed_plain(x, ptr, idx, w, shape):
     return out.reshape(shape)
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def dof_embed(x, ptr, idx, w, shape):
-    """x (any shape, contiguous), ptr int32 [n+1], idx int32, w of x's dtype
+def dof_embed(x, ptr, idx, w, long, shape):
+    """x (any shape, contiguous), ptr int32 [n+1], idx int32, w of x's dtype,
+    long int32 (``long_rows(ptr)``: the rows of more than LONG_ROW entries)
     -> new tensor of `shape` (n elements)."""
     if x.device.type == "cpu":
-        return dof_embed_plain(x, ptr, idx, w, shape)
-    dev = _build.check_cuda(NAME, x.dtype, x=x, ptr=ptr, idx=idx, w=w)
-    if ptr.dtype != torch.int32 or idx.dtype != torch.int32:
-        raise TypeError(f"{NAME}: ptr and idx must be int32")
+        return dof_embed_plain(x, ptr, idx, w, long, shape)
+    dev = _build.check_cuda(NAME, x.dtype, x=x, ptr=ptr, idx=idx, w=w, long=long)
+    if ptr.dtype != torch.int32 or idx.dtype != torch.int32 or long.dtype != torch.int32:
+        raise TypeError(f"{NAME}: ptr, idx and long must be int32")
     n = ptr.numel() - 1
-    if (ptr.dim() != 1 or idx.shape != w.shape or idx.dim() != 1 or int(np.prod(shape)) != n
-            or x.numel() >= 2**31 or n >= 2**31):
+    if (ptr.dim() != 1 or idx.shape != w.shape or idx.dim() != 1 or long.dim() != 1
+            or long.numel() > n or int(np.prod(shape)) != n or x.numel() >= 2**31
+            or n >= 2**31):
         raise ValueError(f"{NAME}: shapes x {tuple(x.shape)}, ptr {tuple(ptr.shape)}, idx "
-                         f"{tuple(idx.shape)}, w {tuple(w.shape)}, out {tuple(shape)}")
+                         f"{tuple(idx.shape)}, w {tuple(w.shape)}, long {tuple(long.shape)}, out "
+                         f"{tuple(shape)}")
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(x.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, _build.ptr(x), _build.ptr(ptr), _build.ptr(idx), _build.ptr(w),
-                  _build.ptr(out), n)
+                  _build.ptr(long), _build.ptr(out), n, long.numel(), LONG_ROW)
     dof_embed.launches += 1
     return out
 
@@ -120,9 +135,11 @@ def dof_embed(x, ptr, idx, w, shape):
 dof_embed.launches = 0
 
 
-def bytes_and_flops(x, ptr, idx, w, shape):
+def bytes_and_flops(x, ptr, idx, w, long, shape):
     """Least traffic: the x values the entries name read once, ptr, idx and w
-    read once, out written once. Operations: a multiply and an add an entry."""
+    read once, out written once (the long-row list is the kernel's schedule,
+    not the function's input: not counted). Operations: a multiply and an
+    add an entry."""
     n_read = int(torch.unique(idx).numel())
     nbytes = (n_read + w.numel() + ptr.numel() - 1) * x.element_size() + 4 * (
         ptr.numel() + idx.numel())

@@ -77,10 +77,11 @@ class DofEmbed(nn.Module):
     def _load(self, node_dof, slave, row_ptr, col, weight, owner, n_dofs, N3, N3p, device,
               dtype):
         t = dof_embed.tables(node_dof, slave, row_ptr, col, weight, n_dofs, N3, N3p)
-        for mode, (ptr, idx, w) in t.items():
+        for mode, (ptr, idx, w, long) in t.items():
             self.register_buffer(f"{mode}_ptr", torch.from_numpy(ptr).to(device))
             self.register_buffer(f"{mode}_idx", torch.from_numpy(idx).to(device))
             self.register_buffer(f"{mode}_w", torch.from_numpy(w).to(device, dtype))
+            self.register_buffer(f"{mode}_long", torch.from_numpy(long).to(device))
         owner = np.asarray(owner, dtype=np.int64)
         self.register_buffer("owner", torch.from_numpy((owner // N3) * N3p + owner % N3).to(
             device))
@@ -88,8 +89,9 @@ class DofEmbed(nn.Module):
         self.shape = (np.asarray(node_dof).size // N3, N3p)
 
     def tables(self, mode: str):
-        """dof_embed's ptr, idx and w of a mode ("embed", "embed_t")."""
-        return tuple(getattr(self, f"{mode}_{k}") for k in ("ptr", "idx", "w"))
+        """dof_embed's ptr, idx, w and long-row list of a mode ("embed",
+        "embed_t")."""
+        return tuple(getattr(self, f"{mode}_{k}") for k in ("ptr", "idx", "w", "long"))
 
     def embed(self, x_dof: torch.Tensor) -> torch.Tensor:
         """DoF vector -> a new brick vector (slaves interpolated)."""
@@ -206,8 +208,8 @@ class BrickTransfer(nn.Module):
 
     def tables(self):
         """brick_transfer's arguments after x."""
-        return (self.src_lin, self.E_rows, self.own, self.p_ptr, self.p_rows, self.r_ptr,
-                self.r_slot, self.c_ptr, self.c_rows, self.B)
+        return (self.src_lin, self.E_rows, self.own,
+                *(getattr(self, k) for k in brick_transfer.LISTS), self.B)
 
     def prolongate(self, xc_b: torch.Tensor) -> torch.Tensor:
         """Coarse brick vector -> fine brick vector."""

@@ -883,6 +883,86 @@ def test_transfer_kernels_on_card(cuda, p, dtype):
         assert torch.equal(got, again), (mod.NAME, kw)
 
 
+def _embed_rows_csr(ptr, idx, w, rows):
+    """dof_embed's lists of the given rows alone, in their order."""
+    start = ptr[:-1].long()[rows]
+    length = ptr[1:].long()[rows] - start
+    sub = torch.zeros(len(rows) + 1, dtype=torch.int64, device=ptr.device)
+    sub[1:] = torch.cumsum(length, 0)
+    ent = (torch.arange(int(sub[-1]), device=ptr.device)
+           + torch.repeat_interleave(start - sub[:-1], length))
+    return sub.to(torch.int32), idx[ent], w[ent]
+
+
+def _hold_brick_gmg_kernels(bt, mmc, mmf, dtype, seed):
+    """brick_transfer (both modes) and dof_embed (both modes) on bt's tables
+    against their plain versions (f32 1e-5, f64 1e-12), one launch a call,
+    two calls bit-identical; dof_embed on the lists of its long rows alone
+    (every row listed long) and of its short rows alone (none listed) gives
+    the whole call's bits at those rows."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_transfer, dof_embed
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    dev = mmf.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    de = bt.embed_c
+    calls = [(brick_transfer, (rnd(mmc.n_bricks, mmc.N3p), *bt.tables()), dict(mode="prolongate")),
+             (brick_transfer, (rnd(mmf.n_bricks, mmf.N3p), *bt.tables()), dict(mode="restrict")),
+             (dof_embed, (rnd(de.n_dofs), *de.tables("embed"), de.shape), {}),
+             (dof_embed, (rnd(*de.shape), *de.tables("embed_t"), (de.n_dofs,)), {})]
+    for mod, args, kw in calls:
+        got = _counted(lambda: getattr(mod, mod.NAME)(*args, **kw), 1, mod.NAME)
+        again = getattr(mod, mod.NAME)(*args, **kw)
+        ref = getattr(mod, f"{mod.NAME}_plain")(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and _rel(got, ref) < tol, (mod.NAME, kw)
+        assert torch.equal(got, again), (mod.NAME, kw)
+        if mod is dof_embed:
+            x, ptr, idx, w, long = args[:5]
+            short = torch.ones(ptr.numel() - 1, dtype=torch.bool, device=dev)
+            short[long.long()] = False
+            for rows, listed in ((long.long(), True), (torch.nonzero(short).reshape(-1), False)):
+                sub = _embed_rows_csr(ptr, idx, w, rows)
+                sub_long = (torch.arange(len(rows), dtype=torch.int32, device=dev) if listed
+                            else torch.zeros(0, dtype=torch.int32, device=dev))
+                part = dof_embed.dof_embed(x, *sub, sub_long, (len(rows),))
+                assert torch.equal(part, got.reshape(-1)[rows]), (kw, listed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["prolongate", "restrict"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_brick_transfer_round_rows_match_the_kernel(cuda, dtype, mode):
+    """The rows a round that the host's schedules assume (round_rows) are
+    the compiled kernel's (plan's last entry), at every dim and degree."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build, brick_transfer
+
+    for dim, degrees in _build.BRICK_DEGREES.items():
+        for p in degrees:
+            host = brick_transfer.round_rows(dim, p, auto_brick_size(p, dim), mode)
+            assert brick_transfer.plan(dtype, p, dim, mode, cuda)[4] == host, (dim, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_transfer_kernels_on_card_nref5(cuda, dtype):
+    """brick_transfer and dof_embed between quadrant nref 4 and 5 at p=4 (the
+    coarse level's embed_t rows hold up to 296 entries, 1,285 of them more
+    than LONG_ROW, so both kinds of dof_embed blocks run; a fine brick's
+    rows take one prolongation round): against their plain versions, two
+    calls bit-identical (``_hold_brick_gmg_kernels``)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    mfc, mff = (mt.MatrixFree(mt.create_quadrant(3, n), 4, dtype=npdt) for n in (4, 5))
+    mmc, mmf = (mt.BrickLaplaceMM(mf, device=cuda, face_planes=False) for mf in (mfc, mff))
+    bt = mt.BrickTransfer(mmc, mmf)
+    assert int(bt.embed_c.embed_t_long.numel()) > 0
+    _hold_brick_gmg_kernels(bt, mmc, mmf, dtype, 4)
+
+
 def _manufactured(mf, seed):
     x = mf.constraints.distribute(np.random.default_rng(seed).standard_normal(mf.n_dofs))
     x[mf.dof_handler.boundary_dofs()] = 0.0
@@ -1231,6 +1311,22 @@ def test_brick_transfer_2d_on_card(cuda, p, nref, dtype):
             b = gmg.fine_op.vmult(mm.from_dof_vector(_manufactured(gmg.fine_mf, 0)))
             _, iters[str(dev)], _ = gmg.make_device_solver(tol=1e-10, max_iter=100)(b)
         assert iters["cpu"] == iters[str(cuda)] == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6])
+def test_brick_transfer_2d_on_card_nref6(cuda, p, dtype):
+    """The 2-D brick GMG's kernels between quadrant nref 5 and 6 at every 2-D
+    degree (the coarse level's embed_t rows hold up to 28 entries at p=4 and
+    44 at p=6, one of them more than LONG_ROW at p = 5, 6): against their
+    plain versions, two calls bit-identical (``_hold_brick_gmg_kernels``)."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    mfc, mff = (mt.MatrixFree(mt.create_quadrant(2, n), p, dtype=npdt) for n in (5, 6))
+    mmc, mmf = (mt.BrickLaplaceMM(mf, device=cuda, face_planes=False) for mf in (mfc, mff))
+    _hold_brick_gmg_kernels(mt.BrickTransfer(mmc, mmf), mmc, mmf, dtype, p)
 
 
 @pytest.mark.cuda
