@@ -130,7 +130,14 @@ Phases (any failure exits non-zero before the last line is printed):
    Kel a cell, 9.2 G nonzeros, and hn_cell's elastic mode); at nref=5 p=2 the
    same kernels against their plain versions; float64 on both engines
    against the dense oracle (1e-12, mu=1.3, lam=0.7) at quadrant nref=2
-   p=2, nref=3 p=3, step nref=2 p=1 and quadrant nref=2 p=4;
+   p=2, nref=3 p=3, step nref=2 p=1 and quadrant nref=2 p=4; every instance
+   of cell_elasticity (index mode with codes, bricks mode) and
+   brick_elasticity (with and without cell rows) at 3-D p=1..8 and 2-D
+   p=1..6 in float32 and float64 against its plain version (1e-5, 1e-12),
+   two calls bit-identical (``elastic_instance_checks``).
+   ``python3 chip_smoke.py --elasticity`` runs phases 1, 2, this one and
+   the 2-D elasticity of phases 14 and 16 alone (a partial run: it prints
+   their JSON and a "partial" line, not the device line);
 12. the multi-RHS vmult (``BrickLaplaceMM.vmult_multi``) at quadrant nref=7
    p=4 f32 (phase 3's mesh, phase 5's operators) for k = 1, 3, 8 against k
    back-to-back vmults: launches checked (5 a call at every k), every RHS
@@ -148,8 +155,9 @@ Phases (any failure exits non-zero before the last line is printed):
    bit-identity, time per vector; masked_quad's RHS-axis instance at p=3;
 13. the deformed brick engine (``BrickLaplaceMM`` under high_order_mapping)
    at quadrant nref=7 p=4 f32 on phase 3's mesh: the setup by step (the
-   host metric's seconds and traced peak bytes, the operator's structure,
-   tables and transfer) and the metric's device bytes; brick_deformed (with
+   metric's seconds, built on the card in float64 and kept on the host, and
+   the traced peak bytes of the host's allocations meanwhile; the
+   operator's structure, tables and transfer) and the metric's device bytes; brick_deformed (with
    and without cell rows) and the deformed modes of cell_apply and hn_cell
    against their plain versions (1e-5), timed with their bounds and library
    calls (cell_apply's and hn_cell's maps as one CSR product each, none for
@@ -287,6 +295,14 @@ LOW_MAIN_DEGREE = 2
 LIBRARY_TOL = 1e-4  # a library yardstick against the plain version, float32, relative
 # profile_path's sessions at most, to record every call of a profile (see profile_path)
 PROFILE_SESSIONS = 10
+
+
+def session_reps(reps: int, attempt: int, recorded: bool) -> int:
+    """Calls in profile session `attempt` (from 0): `reps`, and where no session so far
+    recorded a call, 2, 4, then 8 times as many (``profile_path``)."""
+    return reps if recorded or attempt == 0 else reps * 2 ** min(attempt, 3)
+
+
 # parts timed in phase 4 that refill launches and the vmult does not: in the
 # kernels line they stand in "parts" only, and a kernel's totals are those
 # of its vmult launches
@@ -414,7 +430,12 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     lost the same first calls; neither an idle lead nor a spin kernel across
     the window's start stopped that (``profiler_probe.py`` counts such
     sessions by variant), so a profile runs up to ``PROFILE_SESSIONS``
-    sessions. A session is whole where it recorded the
+    sessions. Late in the process sessions have kept only a call's last
+    records, the same number in every session of a profile (2.25 of 10
+    calls of 4 launches, 3 of 10 of 2), and a short call none at all in ten
+    sessions in a row: after a session that recorded no call, the next ones
+    run 2, 4, then 8 times `reps` calls (``session_reps``), so that the
+    window outlasts what is lost. A session is whole where it recorded the
     port's kernels of every call and, of the launches outside them that are
     pinned (`copies`, and the kinds that `classes` names), `reps` times the
     pinned number. collectives: the backend's collective launches (NCCL's kernels
@@ -449,34 +470,39 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     # a session is run again, up to PROFILE_SESSIONS in all, as is one that left out calls
     ours = lambda key: any(k in key for k in kernel_names)
 
-    def pinned(rows):
+    def pinned(rows, n):
         """The pinned launches outside the port's kernels that a session recorded,
-        against the number that `reps` whole calls make."""
+        against the number that n whole calls make."""
         if classes is None:
             got = sum(c for _, c, key in rows if not ours(key) and "Memcpy DtoD" in key)
-            return got == copies * reps
+            return got == copies * n
         kinds = {}
         for _, c, key in rows:
             if not ours(key):
                 kinds[launch_class(key)] = kinds.get(launch_class(key), 0) + c
-        return all(kinds.get(k, 0) == n * reps
-                   for k, n in classes.items() if k != "elementwise" and n is not None)
+        return all(kinds.get(k, 0) == m * n
+                   for k, m in classes.items() if k != "elementwise" and m is not None)
 
     best = None
     for attempt in range(PROFILE_SESSIONS):
+        n = session_reps(reps, attempt, best is not None and best[0][1] > 0)
+        # hand the allocator's cached device memory back first: CUPTI allocates its own device
+        # buffers for the kernel records, and the sessions that lost records came late in the
+        # process, after the phases that hold tens of GB
+        torch.cuda.empty_cache()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True, schedule=schedule(wait=0, warmup=warm, active=reps)) as prof:
+                     acc_events=True, schedule=schedule(wait=0, warmup=warm, active=n)) as prof:
             for _ in range(warm):
                 fn()
                 torch.cuda.synchronize()  # recording starts at the last step: nothing running
                 prof.step()
             t0 = time.perf_counter()
-            for i in range(reps):
+            for i in range(n):
                 fn()
-                if i < reps - 1:  # the last active step ends with the session
+                if i < n - 1:  # the last active step ends with the session
                     prof.step()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
         rows, crows = [], []  # device kernels only: the aten ops would count twice
         for ev in prof.key_averages():
             # the schedule's step annotation spans the step on the device's timeline; it
@@ -493,15 +519,15 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
         host_copies = sum(ev.count for ev in prof.key_averages()
                           if ev.device_type == DeviceType.CPU and ev.key == "cudaMemcpyAsync")
         calls = sum(r[1] for r in rows if ours(r[2])) / expect
-        whole = bool(rows) and calls == reps and pinned(rows)
+        whole = bool(rows) and calls == n and pinned(rows, n)
         if best is None or (whole, calls) > best[0]:
-            best = ((whole, calls), rows, wall_ms, host_copies, crows)
+            best = ((whole, calls), rows, wall_ms, host_copies, crows, n)
         if whole:
             break
         print(f"profile of the {what}: the profiler recorded the port's kernels of {calls:g} "
-              f"of {reps} calls{'' if calls != reps else ', not every pinned launch'} "
+              f"of {n} calls{'' if calls != n else ', not every pinned launch'} "
               f"(session {attempt + 1} of {PROFILE_SESSIONS})", flush=True)
-    (whole, calls), rows, wall_ms, host_copies, crows = best
+    (whole, calls), rows, wall_ms, host_copies, crows, reps = best
     check(bool(rows) and calls > 0, f"the profiler saw no device time in the {what}")
     rows = [(ms / calls, count / calls, key) for ms, count, key in rows]
     crows = [(ms / calls, count / calls, key) for ms, count, key in crows]
@@ -577,6 +603,7 @@ def prime_profiler(what, fn, sessions=PROFILE_SESSIONS):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for n in range(1, sessions + 1):
+        torch.cuda.empty_cache()  # as profile_path: room for CUPTI's device buffers
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
                      schedule=schedule(wait=0, warmup=2, active=3)) as prof:
             for _ in range(5):
@@ -1360,7 +1387,7 @@ INDEX_LAUNCHES = {
 INDEX_MAIN = {"hn_interp": ({"compact"}, "apply_hanging_node_constraints"),
               "cell_laplace": ({"vmult"}, "vmult"), "dof_scatter": ({"fast map"}, "vmult"),
               "constraints_slow": ({"distribute", "compress"}, "vmult slow")}
-DEFORMED_NREF = 6  # the deformed mapping's mesh: the metric's host setup (PERF.md section 4)
+DEFORMED_NREF = 6  # the deformed index vmult's mesh (PERF.md section 4)
 
 
 def index_kernel_calls(mfs, x, rows, deformed=None, deformed_nref=DEFORMED_NREF):
@@ -2269,12 +2296,13 @@ def elastic_kernel_calls(opb, mf, x, xi, with_libs=True):
     dcols = corr_compact.corr_compact(plain3, sub_raw, *mm.corr_tables())
     v1 = opb.brick_apply(x, dcols)
     ci_args = (xi, *mf.cell_laplace_args(dev, dt), opb.mu, opb.lam)
-    rows3 = cell_elasticity.cell_elasticity(*ci_args)
+    fac = opb.cell_kernel_factors  # the index mode's too: the same degree
+    rows3 = cell_elasticity.cell_elasticity(*ci_args, factors=fac)
     scatter = mf.scatter_tables(False, dev)
     cb_args = (x, None, None, None, opb.S, opb.Dc, opb.quad_w, mm.geo_cell_sub, opb.mu, opb.lam)
     calls = {
         "cell_elasticity": [
-            ("index", lambda: cell_elasticity.cell_elasticity(*ci_args),
+            ("index", lambda: cell_elasticity.cell_elasticity(*ci_args, factors=fac),
              lambda: cell_elasticity.cell_elasticity_plain(*ci_args),
              cell_elasticity.bytes_and_flops(*ci_args), None, None),
             ("bricks", lambda: opb.cell_rows(x), lambda: opb.cell_rows(x, plain=True),
@@ -2417,6 +2445,64 @@ def elastic_oracle_checks(mt, dev, dim=3, cases=ELASTIC_ORACLE):
     return worst
 
 
+# every instance of the two elastic kernels: (dim, degree, quadrant nref), small meshes with
+# constrained and subset cells
+ELASTIC_INSTANCES = tuple((3, p, 2) for p in range(1, 9)) + tuple((2, p, 3) for p in range(1, 7))
+
+
+def elastic_instance_checks(mt, dev):
+    """Every instance of cell_elasticity (index mode with the cells' codes,
+    bricks mode) and brick_elasticity (with and without cell rows) at
+    ELASTIC_INSTANCES, float32 and float64 (mu=1.3, lam=0.7, seeded inputs):
+    against its plain version on the same inputs (1e-5, 1e-12) and two calls
+    bit-identical. Returns {"<dim>-D p=<p> <dtype>": worst relative error}."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_elasticity, cell_elasticity
+
+    out = {}
+    for dim, p, nref in ELASTIC_INSTANCES:
+        mf = mt.MatrixFree(mt.create_quadrant(dim, nref), p)
+        for dt in (torch.float32, torch.float64):
+            tol = 1e-5 if dt == torch.float32 else 1e-12
+            op = mt.BrickElasticity(mf, 1.3, 0.7, device=dev, dtype=dt)
+            mm = op.mm
+            g = torch.Generator(device=dev).manual_seed(SEED + p)
+            bv = torch.randn(dim, mm.n_bricks, mm.N3p, generator=g, device=dev, dtype=dt)
+            x = torch.randn(mf.n_dofs, dim, generator=g, device=dev, dtype=dt)
+            args = mf.cell_laplace_args(dev, dt)
+            check(mm.n_sub > 0 and args[1] is not None and bool((args[1] != 0).any()),
+                  f"elastic instance {dim}-D p={p}: no subset or constrained cells")
+            cols = op.cell_rows(bv)
+            calls = {
+                "cell_elasticity index": (
+                    lambda: cell_elasticity.cell_elasticity(x, *args, 1.3, 0.7,
+                                                            factors=op.cell_kernel_factors),
+                    lambda: cell_elasticity.cell_elasticity_plain(x, *args, 1.3, 0.7)),
+                "cell_elasticity bricks": (lambda: op.cell_rows(bv),
+                                           lambda: op.cell_rows(bv, plain=True)),
+                "brick_elasticity": (lambda: op.brick_apply(bv, None),
+                                     lambda: op.brick_apply(bv, None, True)),
+                "brick_elasticity with cell rows": (lambda: op.brick_apply(bv, cols),
+                                                    lambda: op.brick_apply(bv, cols, True))}
+            worst = 0.0
+            for what, (fn, plain) in calls.items():
+                got, again, ref = fn(), fn(), plain()
+                err = errors(got, ref)[1]
+                same = bool(torch.equal(got, again))
+                worst = max(worst, err)
+                check(got.shape == ref.shape and err <= tol and same,
+                      f"{what} {dim}-D p={p} {dt}: rel err {err:.3e} (tol {tol:g}), two calls "
+                      f"bit-identical {same}")
+            key = f"{dim}-D p={p} {str(dt).split('.')[-1]}"
+            out[key] = worst
+            del op, bv, x, cols
+        print(f"elastic kernel instances {dim}-D p={p} (quadrant nref={nref}): every mode within "
+              f"tolerance of its plain version, two calls bit-identical; worst rel err f32 "
+              f"{out[f'{dim}-D p={p} float32']:.3e}, f64 {out[f'{dim}-D p={p} float64']:.3e}",
+              flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def elasticity_phase(mt, mf7, op7, op7_64, dev, wrappers, smi):
     """Linear elasticity (elasticity_01.py's operator, mu = lam = 1) on both
     engines: at quadrant nref=7 p=4 f32 (phase 3's mesh; the brick
@@ -2505,6 +2591,9 @@ def elasticity_phase(mt, mf7, op7, op7_64, dev, wrappers, smi):
     t0 = time.perf_counter()
     numbers["oracle_max_rel_err"] = elastic_oracle_checks(mt, dev)
     numbers["oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numbers["instances"] = elastic_instance_checks(mt, dev)
+    numbers["instances_s"] = time.perf_counter() - t0
     return numbers, records, parts
 
 
@@ -2739,16 +2828,17 @@ DEFORMED_F64 = (("quadrant", 3, 2), ("annulus", 4, 2), ("quadrant", 4, 1), ("qua
 DEFORMED_LOW = (2, 7)  # degree, quadrant nref: the per-cell schedule at B=8, float32
 
 
-def metric_host(mf):
-    """Build mf's deformed metric on the host (float64,
-    ``mapping.deformed_laplace_factors`` in chunks of cells) at its first
-    use: (seconds, peak bytes of the allocations made meanwhile, traced by
-    tracemalloc, which sees NumPy's, and the metric's bytes)."""
+def metric_build(mf, dev):
+    """Build mf's deformed metric on dev, as a card operator's first use does
+    (``MatrixFree.deformed_metric``: float64, ``mapping.deformed_laplace_factors``
+    in chunks of cells on the card, copied to the host): (seconds, peak bytes
+    of the host allocations made meanwhile, traced by tracemalloc, which sees
+    NumPy's, and the metric's bytes)."""
     import tracemalloc
 
     tracemalloc.start()
     t0 = time.perf_counter()
-    geo = mf._sources["geo"]
+    geo = mf.deformed_metric(dev)
     seconds = time.perf_counter() - t0
     peak = tracemalloc.get_traced_memory()[1]
     tracemalloc.stop()
@@ -2997,7 +3087,7 @@ def deformed_run(op, op64, x, wrappers, smi, what, profile=True):
 def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
     """The deformed brick engine (BrickLaplaceMM under high_order_mapping)
     at quadrant nref=DEFORMED_NREF_BRICK p=DEFORMED_DEGREE f32 on phase 3's
-    mesh: the setup's seconds by step (the metric's host seconds and peak
+    mesh: the setup's seconds by step (the metric's seconds on the card and peak
     bytes; the operator's structure, tables and transfer) and the metric's
     device bytes; each deformed kernel instance against its plain version
     (1e-5), timed with its bound and library call; vmult, vmult_plain and
@@ -3012,13 +3102,14 @@ def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
     t0 = time.perf_counter()
     mf = mt.MatrixFree(tria, DEFORMED_DEGREE, dtype=np.float32, high_order_mapping=True)
     mf_s = time.perf_counter() - t0
-    metric_s, metric_peak, metric_bytes = metric_host(mf)
+    metric_s, metric_peak, metric_bytes = metric_build(mf, dev)
     op = mt.BrickLaplaceMM(mf, device=dev)
     torch.cuda.synchronize()
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
     torch.cuda.synchronize()
-    setup = dict(matrix_free=mf_s, metric_host=metric_s, metric_host_peak_bytes=metric_peak,
-                 metric_host_bytes=metric_bytes, operator=op.setup_s,
+    setup = dict(matrix_free=mf_s, metric=metric_s, metric_device=str(dev),
+                 metric_host_peak_bytes=metric_peak, metric_host_bytes=metric_bytes,
+                 operator=op.setup_s,
                  metric_device_bytes=op.metric.numel() * op.metric.element_size(),
                  total=time.perf_counter() - t0)
     print(f"deformed setup (quadrant nref={DEFORMED_NREF_BRICK} p={DEFORMED_DEGREE} f32, "
@@ -3103,7 +3194,7 @@ def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
 
 # ---- 2-D on the index engine -------------------------------------------------------------
 INDEX2D_NREF, INDEX2D_DEGREE = 11, 4  # quadrant nref=11 p=4 f32: 16,841,157 DoFs, uncut
-INDEX2D_DEFORMED_NREF = 11  # the deformed vmult's mesh (PERF.md section 4: its host metric)
+INDEX2D_DEFORMED_NREF = 11  # the deformed vmult's mesh (PERF.md section 4)
 INDEX2D_GMG_NREF = 10  # the GMG-CG solve at quadrant nref=10 p=4 f32 (PERF.md section 4)
 INDEX2D_GMG_CHECK = (4, 2)  # quadrant nref, degree of the float64 solve held to the CPU's count
 INDEX2D_ORACLE = (("quadrant", 3, 2), ("step", 3, 3), ("quadrant", 3, 5), ("quadrant", 3, 6))
@@ -3321,6 +3412,50 @@ def index2d_oracle_checks(mt, dev):
     return out
 
 
+def index2d_elasticity(mt, mf, xe, dev, wrappers, smi, nnz):
+    """The 2-D index elasticity of phase 14 on mf (quadrant nref=INDEX2D_NREF
+    p=4 f32) and the displacement xe [n_dofs, 2]: cell_elasticity's 2-D index
+    instance and dof_scatter's component axis at k = 2 against their plain
+    versions, timed with their bounds and library calls (none for
+    cell_elasticity: its coupled map's nonzeros go into nnz, not built;
+    ``index_add_`` for dof_scatter); the elastic vmult (``index2d_run``: 2
+    launches, the plain float64 path, timed, GDoF/s over 2 n_dofs, the
+    profile). Returns ({kernel: [part]}, the vmult's numbers)."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_elasticity, dof_scatter
+
+    tol, f32, p = 1e-5, torch.float32, mf.degree
+    el_args = (xe, *mf.cell_laplace_args(dev, f32), 1.0, 1.0)
+    fac = cell_elasticity.factor_tables(mf._sources["S"], mf._sources["Dc"])
+    rows2 = cell_elasticity.cell_elasticity(*el_args, factors=fac)
+    scatter = mf.scatter_tables(False, dev)
+    # the coupled map composed: a dense (2 n_loc)^2 block a cell
+    nnz["cell_elasticity (not built)"] = mf.n_cells * (2 * (p + 1) ** 2) ** 2
+    print(f"2-D elasticity's coupled map, not built: {nnz['cell_elasticity (not built)']} "
+          f"nonzeros (int64 indices from 2^31 on; cuSPARSE's SpMV raised an internal error on "
+          f"this matrix, 2,629,172,500 nonzeros at quadrant nref=11 p=4, on an H100)",
+          flush=True)
+    dof = mf._on("dofmap", dev).reshape(-1).long()
+    src2 = rows2.reshape(2, -1).T.contiguous()
+    out2 = torch.zeros((mf.n_dofs, 2), dtype=f32, device=dev)
+    el_parts = [("2-D index", lambda: cell_elasticity.cell_elasticity(*el_args, factors=fac),
+                 lambda: cell_elasticity.cell_elasticity_plain(*el_args),
+                 cell_elasticity.bytes_and_flops(*el_args), None, None)]
+    sc_parts = [("2-D components k=2", lambda: dof_scatter.dof_scatter(rows2, *scatter),
+                 lambda: dof_scatter.dof_scatter_plain(rows2, *scatter),
+                 dof_scatter.bytes_and_flops(rows2, *scatter), None, None)]
+    parts = {"cell_elasticity": measure_parts("cell_elasticity", el_parts, [None], {}, f32, tol),
+             "dof_scatter": measure_parts("dof_scatter", sc_parts,
+                                          [lambda: out2.zero_().index_add_(0, dof, src2)], {},
+                                          f32, tol)}
+    del rows2, src2, out2
+    torch.cuda.empty_cache()
+    op_e = mt.ElasticityOperator(mf, device=dev)
+    res = index2d_run("elasticity", lambda: op_e.vmult(xe),
+                      lambda: op_e.vmult(xe.double(), plain=True), wrappers,
+                      INDEX2D_LAUNCHES["elasticity"], tol, n_dofs=2 * mf.n_dofs)
+    return parts, res
+
+
 def index2d_phase(mt, dev, wrappers, smi):
     """2-D on the index engine at quadrant nref=INDEX2D_NREF p=4 float32:
     the setup by step and the sizes; every 2-D kernel instance against its
@@ -3360,7 +3495,7 @@ def index2d_phase(mt, dev, wrappers, smi):
         2, INDEX2D_DEFORMED_NREF)
     mf_d = mt.MatrixFree(tria_d, p, dtype=np.float32, high_order_mapping=True)
     setup["deformed matrix_free"] = time.perf_counter() - t0
-    setup["deformed metric host"], peak, metric_bytes = metric_host(mf_d)
+    setup["deformed metric"], peak, metric_bytes = metric_build(mf_d, dev)
     setup["deformed metric host peak bytes"] = peak
     masks = np.asarray(mf._np["masks"])
     sizes = dict(cells=mf.n_cells, n_dofs=mf.n_dofs, constrained_cells=mf.n_hn_cells,
@@ -3400,51 +3535,27 @@ def index2d_phase(mt, dev, wrappers, smi):
     del calls, inter, lib, mats
     torch.cuda.empty_cache()
 
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_elasticity, dof_scatter
-
-    el_args = (xe, *mf.cell_laplace_args(dev, f32), 1.0, 1.0)
-    rows2 = cell_elasticity.cell_elasticity(*el_args)
-    scatter = mf.scatter_tables(False, dev)
-    # the coupled map composed: a dense (2 n_loc)^2 block a cell
-    nnz["cell_elasticity (not built)"] = mf.n_cells * (2 * (p + 1) ** 2) ** 2
-    print(f"2-D elasticity's coupled map, not built: {nnz['cell_elasticity (not built)']} "
-          f"nonzeros (int64 indices from 2^31 on; cuSPARSE's SpMV raised an internal error on "
-          f"this matrix, 2,629,172,500 nonzeros at quadrant nref=11 p=4, on an H100)",
-          flush=True)
-    dof = mf._on("dofmap", dev).reshape(-1).long()
-    src2 = rows2.reshape(2, -1).T.contiguous()
-    out2 = torch.zeros((mf.n_dofs, 2), dtype=f32, device=dev)
-    el_parts = [("2-D index", lambda: cell_elasticity.cell_elasticity(*el_args),
-                 lambda: cell_elasticity.cell_elasticity_plain(*el_args),
-                 cell_elasticity.bytes_and_flops(*el_args), None, None)]
-    sc_parts = [("2-D components k=2", lambda: dof_scatter.dof_scatter(rows2, *scatter),
-                 lambda: dof_scatter.dof_scatter_plain(rows2, *scatter),
-                 dof_scatter.bytes_and_flops(rows2, *scatter), None, None)]
-    parts["cell_elasticity"] = measure_parts("cell_elasticity", el_parts, [None], {}, f32, tol)
-    parts["dof_scatter"] += measure_parts(
-        "dof_scatter", sc_parts, [lambda: out2.zero_().index_add_(0, dof, src2)], {}, f32, tol)
-    del rows2, src2, out2
-    torch.cuda.empty_cache()
+    el_parts, res_e = index2d_elasticity(mt, mf, xe, dev, wrappers, smi, nnz)
+    for name, plist in el_parts.items():
+        parts[name] = parts.get(name, []) + plist
 
     # ---- the end-to-end calls
     LO = mt.LaplaceOperator
     ops = {"vmult": LO(mf, device=dev), "vmult slow": LO(mf, slow=True, device=dev),
            "vmult constraints=False": LO(mf, constraints=False, device=dev)}
     op_d = LO(mf_d, device=dev)
-    op_e = mt.ElasticityOperator(mf, device=dev)
     x64, rows64 = x.double(), rows.double()
     runs = {call: (lambda o=o: o.vmult(x), lambda o=o: o.vmult(x64, plain=True), mf.n_dofs, 0)
             for call, o in ops.items()}
     runs["vmult deformed"] = (lambda: op_d.vmult(x_d),
                               lambda: op_d.vmult(x_d.double(), plain=True), mf_d.n_dofs, 0)
-    runs["elasticity"] = (lambda: op_e.vmult(xe), lambda: op_e.vmult(xe.double(), plain=True),
-                          2 * mf.n_dofs, 0)
     runs["apply_hanging_node_constraints"] = (
         lambda: mf.apply_hanging_node_constraints(rows, False),
         lambda: mf.apply_hanging_node_constraints(rows64, False, plain=True), None, 1)
     res = {call: index2d_run(call, fn, plain, wrappers, INDEX2D_LAUNCHES[call], tol,
                              copies=copies, n_dofs=n)
            for call, (fn, plain, n, copies) in runs.items()}
+    res["elasticity"] = res_e
     runners = {}
     for mode, m in mfs.items():
         op = LO(m, device=dev)
@@ -3467,7 +3578,7 @@ def index2d_phase(mt, dev, wrappers, smi):
           f"{res['vmult deformed']['ms']:.4f} ms; elasticity {res['elasticity']['ms']:.4f} ms "
           f"({res['elasticity']['gdofs_per_s']:.4f} GDoF/s over 2 n_dofs); runners "
           f"{json.dumps(runners)}", flush=True)
-    del ops, op_d, op_e, mfs, x64, rows64
+    del ops, op_d, mfs, x64, rows64
     torch.cuda.empty_cache()
 
     # ---- float64 against the oracles, and the GMG-CG solve
@@ -4606,6 +4717,52 @@ def distributed_phase(mt, tria, mf, dev, wrappers, smi):
     return out, records
 
 
+def elasticity_alone(mt, dev, wrappers, smi):
+    """``python3 chip_smoke.py --elasticity``: phase 11 on phase 3's mesh
+    (quadrant nref=7 p=4 f32, its scalar brick operators built here), then
+    the 2-D elasticity of phase 14 (``index2d_elasticity``) and phase 16
+    (``brick2d_elasticity`` on a p=4 brick operator of phase 14's mesh), each
+    as in the whole run. Returns (numbers, the records of cell_elasticity and
+    brick_elasticity with their 2-D parts, {kernel: [part]} of the others)."""
+    t0 = time.perf_counter()
+    mf = mt.MatrixFree(mt.create_quadrant(3, 7), 4, dtype=np.float32)
+    op = mt.BrickLaplaceMM(mf, device=dev)
+    op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elastic, records, parts = elasticity_phase(mt, mf, op, op64, dev, wrappers, smi)
+    elastic["phase_s"] = time.perf_counter() - t0
+    elastic["setup_s"] = setup_s
+    print(f"elasticity phase: {elastic['phase_s']:.1f} s", flush=True)
+    del mf, op, op64
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mf2 = mt.MatrixFree(mt.create_quadrant(2, INDEX2D_NREF), INDEX2D_DEGREE, dtype=np.float32)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xe = torch.randn(mf2.n_dofs, 2, generator=g, device=dev, dtype=torch.float32)
+    nnz = {}
+    parts14, res14 = index2d_elasticity(mt, mf2, xe, dev, wrappers, smi, nnz)
+    for name, plist in parts14.items():
+        for part in plist:
+            part["launches"] = res14["launches"].get(name, 0)
+            part["call"] = "2-D elasticity"
+    elastic["index_2d"] = dict(res14, library_nnz=nnz, phase_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    op2 = mt.BrickLaplaceMM(mf2, device=dev)
+    elastic["brick_2d"], parts16 = brick2d_elasticity(mt, mf2, op2, res14["ms"], dev, wrappers,
+                                                      smi)
+    elastic["brick_2d"]["phase_s"] = time.perf_counter() - t0
+    for name, plist in list(parts14.items()) + list(parts16.items()):
+        if name in records:
+            records[name]["parts"].extend(plist)
+        else:
+            parts.setdefault(name, []).extend(plist)
+    del mf2, op2, xe
+    torch.cuda.empty_cache()
+    return elastic, records, parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -4618,6 +4775,7 @@ def main() -> int:
         return 0
     only_distributed = sys.argv[1:] == ["--distributed"]
     only_gmg = sys.argv[1:] == ["--gmg"]
+    only_elasticity = sys.argv[1:] == ["--elasticity"]
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, brick_transfer,
@@ -4701,6 +4859,15 @@ def main() -> int:
         print(json.dumps({"gmg_kernels": [records[name] for name in GMG_KERNELS]}))
         print(json.dumps({"partial": "phases 1, 2, 10 and phase 16's 2-D brick GMG; no smoke "
                                      "result (run without arguments for that)"}))
+        return 0
+
+    if only_elasticity:  # phases 1, 2, 11 and the 2-D elasticity of phases 14 and 16 alone
+        wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
+        elastic, records, _ = elasticity_alone(mt, dev, wrappers, smi)
+        print(json.dumps({"elasticity": elastic}))
+        print(json.dumps({"elastic_kernels": list(records.values())}))
+        print(json.dumps({"partial": "phases 1, 2, 11 and the 2-D elasticity of phases 14 and "
+                                     "16; no smoke result (run without arguments for that)"}))
         return 0
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------

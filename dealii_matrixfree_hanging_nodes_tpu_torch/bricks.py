@@ -746,7 +746,7 @@ def brick_constants(mf: MatrixFree, bs: BrickStructure) -> dict:
                Kb=Kb, Mb=Mb, geo=h_cell ** (dim - 2), node_valid=nv_pad, S=si.S, Dc=si.Dc,
                P=si.P)
     if mf.high_order_mapping:
-        geo_cells = np.asarray(mf._sources["geo"])  # float64 [n_cells, n_q, n_pairs]
+        geo_cells = mf.deformed_metric()  # float64 [n_cells, n_q, n_pairs]
         metric = np.zeros((bs.n_bricks * C,) + geo_cells.shape[1:])
         metric[bs.cell_lin] = geo_cells
         out["metric"] = metric
@@ -1622,6 +1622,7 @@ class BrickLaplaceMM(nn.Module):
                 raise NotImplementedError("a deformed mapping runs the per-cell schedule: no "
                                           "face planes, no assembled removal")
             face_planes = assembled = False
+            mf.deformed_metric(resolve_device(device))  # on the card for a card operator
         if mf.categorize:
             raise NotImplementedError("the brick engine reads the cells in mesh order; build "
                                       "its MatrixFree without categorize")

@@ -25,33 +25,49 @@
 //   input's 4 distinct factors, along y its 7 distinct (x, y) pairs, along z each output's 4
 //   distinct factors with its terms grouped across inputs; brick_elasticity.least_schedule):
 //   12.1 GFLOP, 0.181 ms at 67 TFLOP/s (f32 outside the tensor cores), under the bytes' time.
-//   The sweeps below take 57 applications a brick (19 an output component: 7 for the diagonal
-//   block, 6 for each other), 14.4 GFLOP.
 //
-// Design: brick_apply.cu's, one block per (brick, output component), blocks of a brick adjacent
-//   (blockIdx = 3 b + c), so the three read the brick's components close in time and L2 serves
-//   two of the three reads. For each input component k the block stages u_k's brick in shared
-//   memory (cp.async) and runs three rounds of 1-D sweeps, one line per thread (NB^2 lines):
+// Design: one block per (brick, output component c), blocks of a brick adjacent (blockIdx =
+//   3 b + c), so the three read the brick's components close in time and L2 serves two of the
+//   three reads. For each input component k the block stages u_k's brick in shared memory
+//   (cp.async) and runs three rounds of 1-D sweeps, one line per thread (NB^2 lines):
 //     x round, line (z, y): a = X_a u, b = X_b u          (in place over u, and a second buffer)
 //     y round, line (z, x): c1 = s_a Y_1a a + s_b Y_1b b, c2 = Y_2 b   (in place)
 //     z round, line (y, x): acc += t_1 Z_1 c1 + t_2 Z_2 c2 (acc in registers across the k's)
 //   with, for k == c: X = (K, M), c1 = alpha_x M a + alpha_y K b, c2 = M b, acc += M c1 +
 //   alpha_z K c2 (alpha_a = mu, plus mu + lam on axis c); for k != c with F1 (mu's term: G on k,
 //   GT on c, M on m) and F2 (lam's: G on c, GT on k): X = (F1_x, F2_x), c1 = F1_y a, c2 = F2_y b,
-//   acc += mu F1_z c1 + lam F2_z c2. After the three k's: v = geo acc plus the cell rows'
-//   entries (summed in brick_apply's fixed order, read from device memory), stored coalesced.
-//   The (c, k) pairs are template parameters, so each pair's factor choice folds at compile
-//   time: the structural nonzeros of Kb, Mb, Gb and Gb^T, packed row by row on the host, travel
-//   with the launch as its parameters (the constant bank; 6.2 KB in f64 at p=8, past 4 KB:
-//   CUDA 12.1 or later), every factor entry an operand of its FMA.
+//   acc += mu F1_z c1 + lam F2_z c2. Where both terms of an off-diagonal block have M along x
+//   (the blocks (1, 2), (2, 1)) the x round sweeps u once (b = a); where they have M along z
+//   ((0, 1), (1, 0)) the z round sweeps mu c1 + lam c2 once: 53 line applications a brick,
+//   against the 57 of the same schedule without the merges (and the least schedule's 45).
+//   After the three k's: v = geo acc plus the cell rows' entries (summed in brick_apply's fixed
+//   order, read from device memory), stored coalesced. The (c, k) pairs are template
+//   parameters, so each pair's factor choice folds at compile time. The factors travel with
+//   the launch as its parameters (the constant bank), every entry an operand of its FMA, and
+//   as the 1-D cell factors K1, M1, G1, G1^T the brick's factors are assembled from (the
+//   operator's cell_factor_tables, passed by the wrapper): a row of a brick factor is a cell
+//   block's row, or two on a cell boundary (cell_dot), written out at compile time. So a sweep
+//   reads (p+1)^2 constants a factor, not the brick band's 1 + B p (p+2) (97 at p=4, 193 in
+//   2-D at NB=33): with the band's entries as its constants the constant cache missed, and
+//   this kernel took 0.7093-0.7155 ms, the 2-D one 0.4852-0.4965, against 0.5705-0.5756 and 0.3381-0.3394 with the cell factors
+//   (A/B timings, both builds in one process, as kernel_ab.py times a variant; quadrant
+//   nref=7 p=4 f32 and 2-D nref=11, H100 80GB HBM3 at 700 W).
 //   Resources (ptxas, sm_90a; chip_smoke.py phase 2 prints every instance's): 2 buffers of N3
 //   values (39.3 KB in f32, 78.6 KB in f64 at NB=17), 320 threads; the launch bounds ask for 3
-//   blocks an SM in f32 (64 registers at p=4, no spills) and 2 in f64 (96). Left to itself ptxas
-//   took 116 and 168 registers, one block an SM: 1.375 ms at quadrant nref=7 p=4 f32 on an H100
-//   against 0.730 ms now (chip_smoke.py), the same results bit for bit.
-//   What holds it back: each of a brick's three blocks stages the brick's three components and
-//   sweeps them (a block for all three outputs would share the x and y rounds of an input);
-//   the cell rows are read from device memory, not staged.
+//   blocks an SM in f32 (64 registers at p=4, no spills).
+//   Designs measured and not kept (A/B timings of working versions of this source, quadrant
+//   nref=7 p=4 f32, H100 80GB HBM3 at 700 W; the design above, still on the band's constants,
+//   0.7093-0.7155 ms, without the shared sweeps 0.7356-0.7428 ms in the same calls): one block a
+//   brick for all three outputs on the least schedule, the brick streamed plane by plane in z
+//   (x and y rounds a plane, the z round into a register window by the cell factors),
+//   2.7256-2.7396 ms; a cluster of the brick's three blocks each staging one input and the
+//   others reading it through distributed shared memory, 2.6667-2.6773 ms reading lines in
+//   place and 0.8337-0.8372 ms copying the brick first; each input prefetched by cp.async
+//   while the last one computes, 0.7523-0.7590 ms; one block a brick for its three outputs
+//   with the inputs in turn (49 line applications, the x round's four factors and one y round
+//   a group of terms in shared memory, the outputs' accumulators in registers),
+//   9.9609-9.9643 ms. The plane and per-input designs run more, shorter rounds a brick with a
+//   barrier each.
 //
 // 2-D (brick_elasticity2_kernel; the reference's 2-D branch, models/elasticity_bricks.py:205-213,
 // one dense [NB^2, NB^2] el_A{c}{k} a block on the MXU): two components on bricks of NB^2 nodes
@@ -59,17 +75,19 @@
 //   A_cc = (mu + [c == 0](mu + lam)) My (x) Kx + (mu + [c == 1](mu + lam)) Ky (x) Mx,
 //   A_ck = mu F1y (x) F1x + lam F2y (x) F2x   (k != c; F1: G on k, GT on c; F2: G on c, GT on k),
 // computed as brick_apply2_kernel computes the Laplace, not as the dense product: a block takes
-// G bricks (about 256 lines, its shared memory at most 96 KB) and one output component c
-// (blockIdx = 2 group + c), stages both input components of its bricks (cp.async), and runs
-//   x round, line (g, y), for each input k: a_k = XA_k u_k, b_k = XB_k u_k (XA, XB the x factors
-//     of block (c, k): K, M on the diagonal; F1x, F2x off it), the line in registers, a_k
-//     written back over u_k, b_k into a second buffer;
-//   y round, line (g, x): v_c = geo (sum over k of cA_k YA_k a_k + cB_k YB_k b_k) plus the cell
-//     rows' 1-4 entries (y cells outer, then x), straight to device memory;
-// 16 factor applications a brick and output pair, the least schedule's (least_schedule(2)). The
-// rows and each row's band are written out at compile time (brick_band.cuh's each_row, band, as
-// brick_apply.cu's 2-D rounds: left to #pragma unroll the NB = 33..49 band loops stay rolled),
-// four sums a row in the y round, combined with the coefficients at the row's end.
+// G bricks (Cfg2; its shared memory about 110 KB at most: 3 bricks in f32 at NB=33) and both
+// outputs, stages both inputs (cp.async), and runs
+//   x round, line (k, g, y): X_kf = F_x u_k for the four x factors of input k (X_kK over u_k);
+//   y round, line (c, g, x): v_c = geo (sum of the output's four terms coef F_y X_kf) plus the
+//     cell rows' 1-4 entries (y cells outer, then x), straight to device memory;
+// 16 factor applications a brick, the least schedule's (least_schedule(2)), each input's x round
+// once for both outputs (the design it replaces took a block per output and swept each input's
+// x round for each: 0.5517-0.5627 ms against 0.4852-0.4965 at 2-D quadrant nref=11 p=4 f32,
+// both on the band's constants; 0.3381-0.3394 on the cell factors; A/B timings, H100).
+// Threads take their lines output-major, so a warp straddles the two outputs' code in one
+// place only; 1 and 2 bricks a block measured 0.5273-0.5323 and 0.4988-0.5080 ms. The rows
+// are written out at compile time (brick_band.cuh's each_row: left to #pragma unroll the
+// NB = 33..49 loops stay rolled).
 // Bound at 2-D quadrant nref=11 p=4 f32 (16,646 bricks, NB=33, N3p=1152, 517 bricks with cell
 //   rows; brick_elasticity.bytes_and_flops): bytes. u's 2 NB^2 nodes read once, v written with
 //   its padding, the cell rows: 305.1 MB, 0.091 ms at 3.35 TB/s; the least schedule's 3.72 GFLOP,
@@ -78,58 +96,59 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cstring>
 
 #include "brick_band.cuh"
 
+
 namespace {
 
-constexpr int FK = 0, FM = 1, FG = 2, FGT = 3, NONE = -1;
+constexpr int FK = 0, FM = 1, FG = 2, FGT = 3;
 
-template <typename T, int NB, int P>
-struct Cfg {
-  static constexpr int B = (NB - 1) / P;
-  static constexpr int N2 = NB * NB;
-  static constexpr int N3 = N2 * NB;
-  static constexpr int VW = 16 / sizeof(T);
-  static constexpr int N3R = (N3 + VW - 1) / VW * VW;
-  static constexpr int NL = (P + 1) * (P + 1) * (P + 1);
-  static constexpr int DC = B * B * B * NL;  // a brick's cell rows of one component
-  static constexpr int NNZ = row_offset<NB, P>(NB);
-  static constexpr int THREADS = (N2 + 31) / 32 * 32;
-  // blocks an SM the registers must allow (ptxas caps them): at NB=17, 3 in f32 (64 registers),
-  // 2 in f64 (96); left to itself ptxas takes 116 and 168, one block an SM
-  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 3 : 2;
-  static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
-};
-
-// The structural nonzeros of Kb, Mb, Gb and Gb^T (FK, FM, FG, FGT), packed row by row.
-template <typename T, int NNZ>
-struct Factors {
-  T F[4][NNZ];
-};
-
-// the factor of axis ax in the mu term (F1: G on k, GT on c) and the lam term (F2: G on c, GT on
-// k) of an off-diagonal block (c, k), M on the third axis
-__host__ __device__ constexpr int f1(int ax, int c, int k) {
-  return ax == k ? FG : ax == c ? FGT : FM;
-}
-__host__ __device__ constexpr int f2(int ax, int c, int k) {
-  return ax == c ? FG : ax == k ? FGT : FM;
+// the factor along axis ax of D_a^T W D_b (brick_elasticity.axis_factors)
+__host__ __device__ constexpr int axis_factor(int ax, int a, int b) {
+  return ax == a && ax == b ? FK : ax == a ? FG : ax == b ? FGT : FM;
 }
 
-// row i of factor F (packed) times the line r
-template <typename T, int NB, int P, int F, int NNZ>
-__device__ __forceinline__ T row_dot(const Factors<T, NNZ>& f, const T (&r)[NB], int i) {
-  T acc = T(0);
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    if (j >= lo<NB, P>(i) && j <= hi<NB, P>(i))
-      acc += f.F[F][row_offset<NB, P>(i) + j - lo<NB, P>(i)] * r[j];
+// A 2-D Kronecker term of an output: input k, its x factor, coefficient cmu mu + clam lam
+struct Term {
+  int k, fx, cmu, clam;
+};
+struct Terms {
+  Term t[4];
+  int n;
+};
+
+// add the term (coefficient cmu mu + clam lam) D_a^T W D_b of input k to L if its factor along
+// y is fy; a term with the same factors adds to the coefficient
+__host__ __device__ constexpr void add_term(Terms& L, int fy, int k, int a, int b, int cmu,
+                                            int clam) {
+  if (axis_factor(1, a, b) != fy) return;
+  const int fx = axis_factor(0, a, b);
+  for (int i = 0; i < L.n; ++i) {
+    if (L.t[i].k == k && L.t[i].fx == fx) {
+      L.t[i].cmu += cmu;
+      L.t[i].clam += clam;
+      return;
+    }
   }
-  return acc;
+  L.t[L.n++] = Term{k, fx, cmu, clam};
 }
 
+// The 2-D terms of output c whose y factor is fy, over the inputs k (brick_elasticity.terms: mu
+// along each axis on the diagonal block, mu D_k^T W D_c and lam D_c^T W D_k)
+__host__ __device__ constexpr Terms terms_of(int c, int fy) {
+  Terms L{};
+  for (int k = 0; k < 2; ++k) {
+    if (k == c) {
+      for (int ax = 0; ax < 2; ++ax) add_term(L, fy, k, ax, ax, 1, 0);
+    }
+    add_term(L, fy, k, k, c, 1, 0);
+    add_term(L, fy, k, c, k, 0, 1);
+  }
+  return L;
+}
+
+// cp.async 16-byte copies into shared memory
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
@@ -170,16 +189,83 @@ __device__ __forceinline__ int axis_terms(int c, int cell_stride, int loc_stride
   return 1;
 }
 
-// The rounds of block (C, K) on the staged u_K (s0), accumulating into acc (line (y, x) = l).
-// Every thread calls it (it holds the barriers).
-template <typename T, int NB, int P, int C, int K>
-__device__ __forceinline__ void pair(const Factors<T, Cfg<T, NB, P>::NNZ>& f, T* s0, T* s1,
-                                     T (&acc)[NB], T mu, T lam, bool active) {
+// Row I of the brick factor FI times the line r, from its cell factor F1[FI] (the brick factor
+// is F1's blocks summed along the brick): a node inside cell q = I / P takes row I - q P of F1
+// on the cell's p+1 nodes; a node on the boundary of cells q-1 and q takes row P on cell q-1's
+// nodes, then row 0 on cell q's. The constants are F1's (p+1)^2 a factor, not the brick band's.
+template <typename T, int NB, int P, int FI, int I, typename Fac>
+__device__ __forceinline__ T cell_dot(const Fac& f, const T (&r)[NB]) {
+  constexpr int B = (NB - 1) / P, q = I / P, s = I - q * P;
+  T a = T(0);
+  if constexpr (s == 0 && q > 0) {
+#pragma unroll
+    for (int j = 0; j <= P; ++j) a += f.F1[FI][P][j] * r[(q - 1) * P + j];
+  }
+  if constexpr (q < B) {
+#pragma unroll
+    for (int j = 0; j <= P; ++j) a += f.F1[FI][s][j] * r[q * P + j];
+  }
+  return a;
+}
+
+// out[i * OS] = row i of factor FI times r, for every row i
+template <typename T, int NB, int P, int FI, int OS, typename Fac>
+__device__ __forceinline__ void factor_rows(const Fac& f, const T (&r)[NB], T* out) {
+  each_row<NB>([&](auto ic) {
+    out[decltype(ic)::value * OS] = cell_dot<T, NB, P, FI, decltype(ic)::value>(f, r);
+  });
+}
+
+// The 1-D cell factors K1, M1, G1, G1^T (FK, FM, FG, FGT) of a brick's factors, the kernels'
+// launch parameters.
+template <typename T, int P>
+struct Factors {
+  T F1[4][P + 1][P + 1];
+};
+
+// F1 from the host's float64 cell factors [4][P+1][P+1] (brick_elasticity.cell_factor_tables)
+template <typename T, int P>
+Factors<T, P> factors_from(const double* host) {
+  Factors<T, P> f;
+  for (int fi = 0; fi < 4; ++fi)
+    for (int i = 0; i <= P; ++i)
+      for (int j = 0; j <= P; ++j)
+        f.F1[fi][i][j] = static_cast<T>(host[(fi * (P + 1) + i) * (P + 1) + j]);
+  return f;
+}
+
+template <typename T, int NB, int P>
+struct Cfg {
+  static constexpr int B = (NB - 1) / P;
+  static constexpr int N2 = NB * NB;
+  static constexpr int N3 = N2 * NB;
+  static constexpr int VW = 16 / sizeof(T);
+  static constexpr int N3R = (N3 + VW - 1) / VW * VW;
+  static constexpr int NL = (P + 1) * (P + 1) * (P + 1);
+  static constexpr int DC = B * B * B * NL;  // a brick's cell rows of one component
+  static constexpr int THREADS = (N2 + 31) / 32 * 32;
+  // blocks an SM the registers must allow in f32: 3 at NB=17 (64 registers; 2 blocks, 96
+  // registers, measured 0.608 ms against 0.571; left to itself ptxas took 116 registers, one
+  // block an SM); f64 takes the registers its lines need (at 2 blocks, 96, it spilled)
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 3 : 1;
+};
+
+
+// the factor of axis ax in the mu term (F1: G on k, GT on c) and the lam term (F2: G on c, GT on
+// k) of an off-diagonal block (c, k), M on the third axis
+__host__ __device__ constexpr int f1(int ax, int c, int k) { return axis_factor(ax, k, c); }
+__host__ __device__ constexpr int f2(int ax, int c, int k) { return axis_factor(ax, c, k); }
+
+// The rounds of block (C, K) on input K's brick, staged in s0, accumulating into acc (line
+// (y, x) = l). Every thread calls it (it holds the barriers).
+template <typename T, int NB, int P, int C, int K, typename Fac>
+__device__ __forceinline__ void pair(const Fac& f, T* s0, T* s1, T (&acc)[NB], T mu, T lam,
+                                     bool active) {
   using S = Cfg<T, NB, P>;
-  constexpr int N2 = S::N2, NNZ = S::NNZ;
+  constexpr int N2 = S::N2;
   constexpr bool DIAG = C == K;
   constexpr int XA = DIAG ? FK : f1(0, C, K), XB = DIAG ? FM : f2(0, C, K);
-  constexpr int Y1A = DIAG ? FM : f1(1, C, K), Y1B = DIAG ? FK : NONE;
+  constexpr int Y1A = DIAG ? FM : f1(1, C, K), Y1B = DIAG ? FK : -1;
   constexpr int Y2B = DIAG ? FM : f2(1, C, K);
   constexpr int Z1 = DIAG ? FM : f1(2, C, K), Z2 = DIAG ? FK : f2(2, C, K);
   // coefficients: the diagonal block's alpha_a = mu (+ mu + lam on axis C)
@@ -189,18 +275,18 @@ __device__ __forceinline__ void pair(const Factors<T, Cfg<T, NB, P>::NNZ>& f, T*
   const T t1 = DIAG ? T(1) : mu, t2 = DIAG ? al[2] : lam;
   const int l = threadIdx.x;
 
+  // blocks whose two terms share the x factor (the third axis x: (1, 2), (2, 1)) sweep it once
+  constexpr bool SAME_X = XA == XB;
+  // and whose two terms share the z factor (the third axis z: (0, 1), (1, 0)) sum before it
+  constexpr bool SAME_Z = Z1 == Z2;
+
   // x round: line l = (z, y), contiguous
   if (active) {
     T r[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) r[j] = s0[l * NB + j];
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const T a = row_dot<T, NB, P, XA, NNZ>(f, r, i);
-      const T b = row_dot<T, NB, P, XB, NNZ>(f, r, i);
-      s0[l * NB + i] = a;
-      s1[l * NB + i] = b;
-    }
+    factor_rows<T, NB, P, XA, 1>(f, r, s0 + l * NB);
+    if constexpr (!SAME_X) factor_rows<T, NB, P, XB, 1>(f, r, s1 + l * NB);
   }
   __syncthreads();
   // y round: line l = (z, x), stride NB
@@ -211,16 +297,15 @@ __device__ __forceinline__ void pair(const Factors<T, Cfg<T, NB, P>::NNZ>& f, T*
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       a[j] = s0[o + j * NB];
-      b[j] = s1[o + j * NB];
+      b[j] = SAME_X ? a[j] : s1[o + j * NB];
     }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      T c1 = s1a * row_dot<T, NB, P, Y1A, NNZ>(f, a, i);
-      if constexpr (Y1B != NONE) c1 += s1b * row_dot<T, NB, P, Y1B, NNZ>(f, b, i);
-      const T c2 = row_dot<T, NB, P, Y2B, NNZ>(f, b, i);
+    each_row<NB>([&](auto ic) {
+      constexpr int i = decltype(ic)::value;
+      T c1 = s1a * cell_dot<T, NB, P, Y1A, i>(f, a);
+      if constexpr (Y1B >= 0) c1 += s1b * cell_dot<T, NB, P, Y1B, i>(f, b);
       s0[o + i * NB] = c1;
-      s1[o + i * NB] = c2;
-    }
+      s1[o + i * NB] = cell_dot<T, NB, P, Y2B, i>(f, b);
+    });
   }
   __syncthreads();
   // z round: line l = (y, x), stride N2, into the accumulators
@@ -231,41 +316,46 @@ __device__ __forceinline__ void pair(const Factors<T, Cfg<T, NB, P>::NNZ>& f, T*
       c1[j] = s0[l + j * N2];
       c2[j] = s1[l + j * N2];
     }
+    if constexpr (SAME_Z) {
 #pragma unroll
-    for (int i = 0; i < NB; ++i)
-      acc[i] += t1 * row_dot<T, NB, P, Z1, NNZ>(f, c1, i) + t2 * row_dot<T, NB, P, Z2, NNZ>(f, c2, i);
+      for (int j = 0; j < NB; ++j) c1[j] = t1 * c1[j] + t2 * c2[j];
+      each_row<NB>([&](auto ic) {
+        constexpr int i = decltype(ic)::value;
+        acc[i] += cell_dot<T, NB, P, Z1, i>(f, c1);
+      });
+    } else {
+      each_row<NB>([&](auto ic) {
+        constexpr int i = decltype(ic)::value;
+        acc[i] += t1 * cell_dot<T, NB, P, Z1, i>(f, c1) + t2 * cell_dot<T, NB, P, Z2, i>(f, c2);
+      });
+    }
   }
   __syncthreads();  // s0, s1 free for the next input component
 }
 
-template <typename T, int NB, int P, int C>
-__device__ __forceinline__ void component(const T* __restrict__ u, long long cstride,
-                                          const Factors<T, Cfg<T, NB, P>::NNZ>& f, T* s0, T* s1,
-                                          T (&acc)[NB], T mu, T lam, int b, int N3p, bool vec,
-                                          bool active) {
-  using S = Cfg<T, NB, P>;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    stage(s0, u + k * cstride + static_cast<size_t>(b) * N3p, S::N3, vec);
+// output C's rounds over the three inputs, each staged into s0 (cp.async) in turn
+template <typename T, int NB, int P, int C, typename Fac>
+__device__ __forceinline__ void output(const Fac& f, const T* ub, long long cstride, T* s0, T* s1,
+                                       T (&acc)[NB], T mu, T lam, bool vec, bool active) {
+  each_row<3>([&](auto kc) {
+    stage(s0, ub + decltype(kc)::value * cstride, Cfg<T, NB, P>::N3, vec);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    if (k == 0) pair<T, NB, P, C, 0>(f, s0, s1, acc, mu, lam, active);
-    if (k == 1) pair<T, NB, P, C, 1>(f, s0, s1, acc, mu, lam, active);
-    if (k == 2) pair<T, NB, P, C, 2>(f, s0, s1, acc, mu, lam, active);
-  }
+    pair<T, NB, P, C, decltype(kc)::value>(f, s0, s1, acc, mu, lam, active);
+  });
 }
 
 template <typename T, int NB, int P>
 __global__ void __launch_bounds__(Cfg<T, NB, P>::THREADS, Cfg<T, NB, P>::MIN_BLOCKS)
-brick_elasticity_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>::NNZ> f,
+brick_elasticity_kernel(const T* __restrict__ u, const Factors<T, P> f,
                         const T* __restrict__ geo, const T* __restrict__ dcols,
                         T* __restrict__ v, T mu, T lam, int nb, int m, int N3p, int vec_u) {
   using S = Cfg<T, NB, P>;
   constexpr int N2 = S::N2, N3 = S::N3, N = P + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const s0 = reinterpret_cast<T*>(smem_raw);  // u_k, then a, then c1
-  T* const s1 = s0 + S::N3R;                     // b, then c2
+  T* const s1 = s0 + S::N3R;                      // b, then c2
 
   const int b = blockIdx.x / 3, c = blockIdx.x - 3 * b;
   const long long cstride = static_cast<long long>(nb) * N3p;
@@ -276,9 +366,10 @@ brick_elasticity_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>:
   T acc[NB];
 #pragma unroll
   for (int i = 0; i < NB; ++i) acc[i] = T(0);
-  if (c == 0) component<T, NB, P, 0>(u, cstride, f, s0, s1, acc, mu, lam, b, N3p, vec_u, active);
-  if (c == 1) component<T, NB, P, 1>(u, cstride, f, s0, s1, acc, mu, lam, b, N3p, vec_u, active);
-  if (c == 2) component<T, NB, P, 2>(u, cstride, f, s0, s1, acc, mu, lam, b, N3p, vec_u, active);
+  const T* const ub = u + static_cast<size_t>(b) * N3p;
+  if (c == 0) output<T, NB, P, 0>(f, ub, cstride, s0, s1, acc, mu, lam, vec_u, active);
+  if (c == 1) output<T, NB, P, 1>(f, ub, cstride, s0, s1, acc, mu, lam, vec_u, active);
+  if (c == 2) output<T, NB, P, 2>(f, ub, cstride, s0, s1, acc, mu, lam, vec_u, active);
   if (!active) return;
 
   // v = geo acc, plus the cell rows' entries on the first m bricks
@@ -308,30 +399,36 @@ brick_elasticity_kernel(const T* __restrict__ u, const Factors<T, Cfg<T, NB, P>:
   }
 }
 
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(done & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    done |= bit;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int NB, int P>
-int launch(const void* u, const void* packed, const void* geo, const void* dcols, void* v,
+int launch(const void* u, const double* factors, const void* geo, const void* dcols, void* v,
            double mu, double lam, int nb, int m, int N3p, int* info, cudaStream_t stream) {
   using S = Cfg<T, NB, P>;
   const int smem = static_cast<int>(2 * S::N3R * sizeof(T));
   auto kernel = brick_elasticity_kernel<T, NB, P>;
   static unsigned long long done = 0;  // bit d: the shared-memory limit raised on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(done & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    done |= bit;
-  }
   if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
     info[0] = S::THREADS;
     info[1] = smem;
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, S::THREADS, smem));
   }
-  Factors<T, S::NNZ> f;
-  std::memcpy(f.F, packed, sizeof(f.F));
+  const Factors<T, P> f = factors_from<T, P>(factors);
   const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0;
   if (nb > 0) {
     kernel<<<3 * nb, S::THREADS, smem, stream>>>(
@@ -346,90 +443,63 @@ template <typename T, int NB, int P>
 struct Cfg2 {
   static constexpr int B = (NB - 1) / P;
   static constexpr int N2 = NB * NB;
-  static constexpr int N2R = (N2 + 3) / 4 * 4;  // a brick buffer, 16-byte aligned
+  static constexpr int N2R = (N2 + 3) / 4 * 4;  // a brick plane, 16-byte aligned
   static constexpr int NL = (P + 1) * (P + 1);
   static constexpr int DC = B * B * NL;  // a brick's cell rows of one component
-  static constexpr int NNZ = row_offset<NB, P>(NB);
-  static constexpr int BYTES = 4 * N2R * static_cast<int>(sizeof(T));  // u_k, b_k (k = 0, 1)
-  static constexpr int G0 = 256 / NB;
-  static constexpr int G_SMEM = 96 * 1024 / BYTES > 0 ? 96 * 1024 / BYTES : 1;
-  static constexpr int G = G0 * BYTES <= 96 * 1024 ? G0 : G_SMEM;  // bricks a block
-  static constexpr int THREADS = (G * NB + 31) / 32 * 32;
-  static_assert(NNZ == 1 + B * P * (P + 2), "packed factor size");
+  static constexpr int BRICK = 8 * N2R * static_cast<int>(sizeof(T));  // X_kf, k = 0, 1
+  // bricks a block: at most 8, about 110 KB of shared memory, at most 512 threads
+  static constexpr int G_SMEM = 110 * 1024 / BRICK > 0 ? 110 * 1024 / BRICK : 1;
+  static constexpr int G_THREADS = 256 / NB;  // 2 G NB threads at most 512
+  static constexpr int G = G_SMEM < G_THREADS ? (G_SMEM < 8 ? G_SMEM : 8)
+                                              : (G_THREADS < 8 ? G_THREADS : 8);
+  static constexpr int THREADS = (2 * G * NB + 31) / 32 * 32;
 };
 
-// The x factors (XA, XB) and y factors (YA, YB) of block (C, K) in 2-D
-template <int C, int K>
-struct Pair2 {
-  static constexpr bool DIAG = C == K;
-  static constexpr int XA = DIAG ? FK : f1(0, C, K), XB = DIAG ? FM : f2(0, C, K);
-  static constexpr int YA = DIAG ? FM : f1(1, C, K), YB = DIAG ? FK : f2(1, C, K);
-};
 
-// x round of input K for output C: line (g, y) of the staged u_K (su) -> a over it, b into sb
-template <typename T, int NB, int P, int C, int K>
-__device__ __forceinline__ void x_round2(const Factors<T, Cfg2<T, NB, P>::NNZ>& f, T* su, T* sb) {
-  using Pr = Pair2<C, K>;
+// 2-D x round, line (k, y) of brick g: u_k's line y (over X_kK) through the four x factors
+template <typename T, int NB, int P, typename Fac>
+__device__ __forceinline__ void x_line2(const Fac& f, T* Xg, int k, int y) {
+  using S = Cfg2<T, NB, P>;
+  T* const base = Xg + 4 * k * S::N2R + y * NB;
   T r[NB];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) r[j] = su[j];
-  each_row<NB>([&](auto ic) {
-    constexpr int i = decltype(ic)::value;
-    T a = T(0), b = T(0);
-    band<NB, P, i>([&](auto e, auto j) {
-      a += f.F[Pr::XA][decltype(e)::value] * r[decltype(j)::value];
-      b += f.F[Pr::XB][decltype(e)::value] * r[decltype(j)::value];
-    });
-    su[i] = a;
-    sb[i] = b;
-  });
+  for (int j = 0; j < NB; ++j) r[j] = base[j];
+  factor_rows<T, NB, P, FK, 1>(f, r, base);
+  factor_rows<T, NB, P, FM, 1>(f, r, base + S::N2R);
+  factor_rows<T, NB, P, FG, 1>(f, r, base + 2 * S::N2R);
+  factor_rows<T, NB, P, FGT, 1>(f, r, base + 3 * S::N2R);
 }
 
-// The two rounds of output C on the G bricks staged in s0 (u_0, u_1 by brick) and s1 (b_0, b_1),
-// line (g, c) of thread l; the y round stores v_C straight to device memory.
-template <typename T, int NB, int P, int C>
-__device__ __forceinline__ void output2(const Factors<T, Cfg2<T, NB, P>::NNZ>& f, T* s0, T* s1,
-                                        const T* __restrict__ geo, const T* __restrict__ dcols,
-                                        T* __restrict__ vc, T mu, T lam, int b0, int nbk, int m,
-                                        int N3p) {
+// 2-D y round of output C on column x of brick g: the output's terms summed down the column,
+// times geo, plus the cell rows, to v_C's brick row
+template <typename T, int NB, int P, int C, typename Fac>
+__device__ __forceinline__ void y_line2(const Fac& f, const T* Xg, T* __restrict__ vb,
+                                        const T* __restrict__ db, int x, T gb, T mu, T lam,
+                                        bool rows) {
   using S = Cfg2<T, NB, P>;
-  using P0 = Pair2<C, 0>;
-  using P1 = Pair2<C, 1>;
   constexpr int N = P + 1;
-  const int l = threadIdx.x, g = l / NB, c = l - g * NB;
-  const bool active = g < nbk;
-  T* const u0 = s0 + (2 * g) * S::N2R;  // u_0 then a_0
-  T* const u1 = u0 + S::N2R;            // u_1 then a_1
-  T* const w0 = s1 + (2 * g) * S::N2R;  // b_0
-  T* const w1 = w0 + S::N2R;            // b_1
-  if (active) {
-    x_round2<T, NB, P, C, 0>(f, u0 + c * NB, w0 + c * NB);
-    x_round2<T, NB, P, C, 1>(f, u1 + c * NB, w1 + c * NB);
-  }
-  __syncthreads();
-  if (!active) return;
-  // the coefficients of the four sums: a diagonal block's alpha (mu, plus mu + lam on axis C)
-  const T al_x = C == 0 ? 2 * mu + lam : mu, al_y = C == 1 ? 2 * mu + lam : mu;
-  const T cA0 = P0::DIAG ? al_x : mu, cB0 = P0::DIAG ? al_y : lam;
-  const T cA1 = P1::DIAG ? al_x : mu, cB1 = P1::DIAG ? al_y : lam;
-  const int brick = b0 + g;
-  const T gb = geo[brick];
-  const bool rows = brick < m;
-  int ox[2] = {0, 0};
-  const int nx = axis_terms<NB, P>(c, S::NL, 1, ox);
-  const T* const db = dcols + (static_cast<size_t>(C) * m + brick) * S::DC;
-  T* const vb = vc + static_cast<size_t>(brick) * N3p + c;
-  each_row<NB>([&](auto ic) {
-    constexpr int i = decltype(ic)::value;
-    T sA0 = T(0), sB0 = T(0), sA1 = T(0), sB1 = T(0);
-    band<NB, P, i>([&](auto e, auto j) {
-      constexpr int o = decltype(j)::value * NB;
-      sA0 += f.F[P0::YA][decltype(e)::value] * u0[o + c];
-      sB0 += f.F[P0::YB][decltype(e)::value] * w0[o + c];
-      sA1 += f.F[P1::YA][decltype(e)::value] * u1[o + c];
-      sB1 += f.F[P1::YB][decltype(e)::value] * w1[o + c];
+  T o[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) o[i] = T(0);
+  each_row<4>([&](auto fc) {  // the terms by their y factor
+    constexpr Terms L = terms_of(C, decltype(fc)::value);
+    each_row<L.n>([&](auto tc) {
+      constexpr Term tm = L.t[decltype(tc)::value];
+      const T coef = T(tm.cmu) * mu + T(tm.clam) * lam;
+      T col[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) col[j] = Xg[(4 * tm.k + tm.fx) * S::N2R + j * NB + x];
+      each_row<NB>([&](auto ic) {
+        constexpr int i = decltype(ic)::value;
+        o[i] += coef * cell_dot<T, NB, P, decltype(fc)::value, i>(f, col);
+      });
     });
-    T out = gb * (cA0 * sA0 + cB0 * sB0 + cA1 * sA1 + cB1 * sB1);
+  });
+  int ox[2] = {0, 0};
+  const int nx = rows ? axis_terms<NB, P>(x, S::NL, 1, ox) : 0;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    T out = gb * o[i];
     if (rows) {
       int oy[2] = {0, 0};
       const int ny = axis_terms<NB, P>(i, S::B * S::NL, N, oy);
@@ -441,71 +511,75 @@ __device__ __forceinline__ void output2(const Factors<T, Cfg2<T, NB, P>::NNZ>& f
           if (a < ny && q < nx) corr += __ldg(db + oy[a] + ox[q]);
       out += corr;
     }
-    vb[i * NB] = out;
-  });
+    vb[i * NB + x] = out;
+  }
 }
 
 template <typename T, int NB, int P>
 __global__ void __launch_bounds__(Cfg2<T, NB, P>::THREADS)
-brick_elasticity2_kernel(const T* __restrict__ u, const Factors<T, Cfg2<T, NB, P>::NNZ> f,
+brick_elasticity2_kernel(const T* __restrict__ u, const Factors<T, P> f,
                          const T* __restrict__ geo, const T* __restrict__ dcols,
                          T* __restrict__ v, T mu, T lam, int nb, int m, int N3p, int vec_u) {
   using S = Cfg2<T, NB, P>;
   constexpr int N2 = S::N2, G = S::G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const s0 = reinterpret_cast<T*>(smem_raw);  // [G][2][N2R] u_0, u_1 of each brick
-  T* const s1 = s0 + 2 * G * S::N2R;             // [G][2][N2R] b_0, b_1
+  T* const X = reinterpret_cast<T*>(smem_raw);  // [G][2][4][N2R]: X_kf of each brick
 
-  const int grp = blockIdx.x / 2, c = blockIdx.x - 2 * grp;
-  const int b0 = grp * G;
+  const int b0 = blockIdx.x * G;
   const int nbk = min(G, nb - b0);
   const long long cstride = static_cast<long long>(nb) * N3p;
   for (int g = 0; g < nbk; ++g)
     for (int k = 0; k < 2; ++k)
-      stage(s0 + (2 * g + k) * S::N2R, u + k * cstride + static_cast<size_t>(b0 + g) * N3p, N2,
-            vec_u);
+      stage(X + (8 * g + 4 * k) * S::N2R, u + k * cstride + static_cast<size_t>(b0 + g) * N3p,
+            N2, vec_u);
   cp_async_commit();
-  T* const vc = v + c * cstride;
   for (int g = 0; g < nbk; ++g) {  // the padding
-    T* const vp = vc + static_cast<size_t>(b0 + g) * N3p;
-    for (int i = N2 + threadIdx.x; i < N3p; i += S::THREADS) vp[i] = T(0);
+    for (int c = 0; c < 2; ++c) {
+      T* const vp = v + c * cstride + static_cast<size_t>(b0 + g) * N3p;
+      for (int i = N2 + threadIdx.x; i < N3p; i += S::THREADS) vp[i] = T(0);
+    }
   }
   cp_async_wait_all();
   __syncthreads();
-  if (c == 0) output2<T, NB, P, 0>(f, s0, s1, geo, dcols, vc, mu, lam, b0, nbk, m, N3p);
-  if (c == 1) output2<T, NB, P, 1>(f, s0, s1, geo, dcols, vc, mu, lam, b0, nbk, m, N3p);
+  // thread l: input (x round) and output (y round) kc, brick g, line: kc outermost, so a warp's
+  // lines share their output's code but where it straddles the two
+  const int l = threadIdx.x, kc = l / (G * NB), rem = l - kc * G * NB, g = rem / NB;
+  const int line = rem - g * NB;
+  const bool active = l < 2 * G * NB && g < nbk;
+  T* const Xg = X + 8 * (active ? g : 0) * S::N2R;
+  if (active) x_line2<T, NB, P>(f, Xg, kc, line);  // input kc, line y
+  __syncthreads();
+  if (!active) return;
+  const int brick = b0 + g;
+  const bool rows = brick < m;
+  T* const vb = v + kc * cstride + static_cast<size_t>(brick) * N3p;  // output kc, column x
+  const T* const db = dcols + (static_cast<size_t>(kc) * m + brick) * S::DC;
+  if (kc == 0) y_line2<T, NB, P, 0>(f, Xg, vb, db, line, geo[brick], mu, lam, rows);
+  else y_line2<T, NB, P, 1>(f, Xg, vb, db, line, geo[brick], mu, lam, rows);
 }
 
 template <typename T, int NB, int P>
-int launch2(const void* u, const void* packed, const void* geo, const void* dcols, void* v,
+int launch2(const void* u, const double* factors, const void* geo, const void* dcols, void* v,
             double mu, double lam, int nb, int m, int N3p, int* info, cudaStream_t stream) {
   using S = Cfg2<T, NB, P>;
-  const int smem = S::G * S::BYTES;
+  const int smem = S::G * S::BRICK;
   auto kernel = brick_elasticity2_kernel<T, NB, P>;
   static unsigned long long done = 0;  // bit d: the shared-memory limit raised on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(done & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    done |= bit;
-  }
   if (info) {  // a dry run: threads, shared memory and blocks per SM, launch nothing
     info[0] = S::THREADS;
     info[1] = smem;
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, S::THREADS, smem));
   }
-  Factors<T, S::NNZ> f;
-  std::memcpy(f.F, packed, sizeof(f.F));
+  const Factors<T, P> f = factors_from<T, P>(factors);
   // 16-byte copies need 16-byte rows; a brick's whole words stay inside its row
   const int vec_u = reinterpret_cast<uintptr_t>(u) % 16 == 0 && (N3p * sizeof(T)) % 16 == 0 &&
                     S::N2R <= N3p;
   const int groups = (nb + S::G - 1) / S::G;
   if (groups > 0) {
-    kernel<<<2 * groups, S::THREADS, smem, stream>>>(
+    kernel<<<groups, S::THREADS, smem, stream>>>(
         static_cast<const T*>(u), f, static_cast<const T*>(geo), static_cast<const T*>(dcols),
         static_cast<T*>(v), static_cast<T>(mu), static_cast<T>(lam), nb, m, N3p, vec_u);
   }
@@ -513,13 +587,13 @@ int launch2(const void* u, const void* packed, const void* geo, const void* dcol
 }
 
 template <typename T>
-int dispatch(const void* u, const void* packed, const void* geo, const void* dcols, void* v,
+int dispatch(const void* u, const double* factors, const void* geo, const void* dcols, void* v,
              double mu, double lam, int nb, int m, int NB, int p, int N3p, int* info, int dim,
              cudaStream_t stream) {
   // 2-D: B = 16 at p = 1..3, 8 at p = 4..6
 #define EL_CASE2(nb_, p_) \
   if (dim == 2 && NB == nb_ && p == p_) \
-    return launch2<T, nb_, p_>(u, packed, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
+    return launch2<T, nb_, p_>(u, factors, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
   EL_CASE2(17, 1)
   EL_CASE2(33, 2)
   EL_CASE2(49, 3)
@@ -530,7 +604,7 @@ int dispatch(const void* u, const void* packed, const void* geo, const void* dco
   if (dim != 3) return static_cast<int>(cudaErrorInvalidValue);
 #define EL_CASE(nb_, p_) \
   if (NB == nb_ && p == p_) \
-    return launch<T, nb_, p_>(u, packed, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
+    return launch<T, nb_, p_>(u, factors, geo, dcols, v, mu, lam, nb, m, N3p, info, stream);
   EL_CASE(17, 1)
   EL_CASE(17, 2)
   EL_CASE(13, 3)
@@ -547,21 +621,22 @@ int dispatch(const void* u, const void* packed, const void* geo, const void* dco
 
 extern "C" {
 
-// packed: host pointer to [4][NNZ] (Kb, Mb, Gb, Gb^T packed row by row), copied into the launch's
+// factors: host pointer to the float64 cell factors [4][p+1][p+1] (K1, M1, G1, G1^T) the brick
+// factors are assembled from (brick_elasticity.cell_factor_tables), copied into the launch's
 // parameters. info: null to launch; else [threads, shared-memory bytes, blocks per SM], not
 // launched. dim: 3 (u, v [3][nb][N3p], dcols [3][m*B^3][(p+1)^3]) or 2 ([2][nb][N3p],
 // [2][m*B^2][(p+1)^2]).
-int brick_elasticity_f32(const void* u, const void* packed, const void* geo, const void* dcols,
-                         void* v, double mu, double lam, int nb, int m, int NB, int p, int N3p,
-                         int* info, int dim, void* stream) {
-  return dispatch<float>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
+int brick_elasticity_f32(const void* u, const double* factors, const void* geo,
+                         const void* dcols, void* v, double mu, double lam, int nb, int m,
+                         int NB, int p, int N3p, int* info, int dim, void* stream) {
+  return dispatch<float>(u, factors, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
                          static_cast<cudaStream_t>(stream));
 }
 
-int brick_elasticity_f64(const void* u, const void* packed, const void* geo, const void* dcols,
-                         void* v, double mu, double lam, int nb, int m, int NB, int p, int N3p,
-                         int* info, int dim, void* stream) {
-  return dispatch<double>(u, packed, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
+int brick_elasticity_f64(const void* u, const double* factors, const void* geo,
+                         const void* dcols, void* v, double mu, double lam, int nb, int m,
+                         int NB, int p, int N3p, int* info, int dim, void* stream) {
+  return dispatch<double>(u, factors, geo, dcols, v, mu, lam, nb, m, NB, p, N3p, info, dim,
                           static_cast<cudaStream_t>(stream));
 }
 

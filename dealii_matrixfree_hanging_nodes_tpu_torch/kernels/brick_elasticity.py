@@ -17,9 +17,11 @@ Replaces ``BrickElasticity._main_apply`` (models/elasticity_bricks.py:
 184-213, the dense plane operators on the MXU; in 2-D one dense [NB^2,
 NB^2] el_A{c}{k} a block, 205-213) times ``geo`` and the subset's
 ``_scatter_cols`` / ``_subset_scatter_add_multi`` (250-254).
-CUDA source: ``csrc/brick_elasticity.cu``. The kernel takes the structural
-nonzeros of the four factors, packed row by row (``pack``), as launch
-parameters: on the kernel path they are a host tensor."""
+CUDA source: ``csrc/brick_elasticity.cu``. On the kernel path the wrapper
+takes the 1-D cell factors K1, M1, G1, G1^T that the brick factors are
+assembled from (``cell_factor_tables``, a host tensor the operator builds
+once) as the launch's parameters, and the kernels sweep a brick factor's
+rows as its cells' blocks; the plain version takes the brick factors."""
 
 from __future__ import annotations
 
@@ -59,10 +61,12 @@ def least_schedule(dim: int):
     along x one a distinct (input, x factor), along y one a distinct
     (input, x, y factors), along z one a distinct (output, z factor), the
     terms of an output grouped across its inputs; 12 + 21 + 12 = 45
-    applications and 21 terms (the kernel's own schedule re-sweeps each
-    input for every output: 57 applications). 2-D: along x one a distinct
-    (input, x factor), along y one a distinct (output, y factor); 8 + 8 =
-    16 applications and 8 terms (the kernel's: 16 as well)."""
+    applications and 21 terms. The 3-D kernel sweeps each block (c, k) on
+    its own (x: 2, y: 2-3, z: 2 applications), 57 a brick, 53 with the x
+    sweep of the blocks (1, 2), (2, 1) and the z sweep of (0, 1), (1, 0)
+    shared by their two terms. 2-D: along x one a
+    distinct (input, x factor), along y one a distinct (output, y factor);
+    8 + 8 = 16 applications and 8 terms, the 2-D kernel's."""
     xs, ys, zs, ts = set(), set(), set(), set()
     for c in range(dim):
         for k in range(dim):
@@ -90,6 +94,14 @@ def brick_factors(K1, M1, G1, B: int):
         out[name] = Fb
     out["GT"] = out["G"].T.copy()
     return out
+
+
+def cell_factor_tables(K1, M1, G1) -> torch.Tensor:
+    """The kernel's launch parameters: float64 [4, p+1, p+1] host tensor of
+    the cell factors K1, M1, G1 and G1^T (``FACTORS`` order) from which
+    ``brick_factors`` assembles the brick's."""
+    F = [np.asarray(a, dtype=np.float64) for a in (K1, M1, G1)]
+    return torch.from_numpy(np.ascontiguousarray(np.stack([*F, F[2].T])))
 
 
 def pack(factors: dict, p: int) -> np.ndarray:
@@ -142,27 +154,28 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_double] * 2 + [ctypes.c_int] * 5
          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
-def brick_elasticity(bv, packed, geo, p, mu, lam, dcols=None, brick_size=None):
+def brick_elasticity(bv, factors, geo, p, mu, lam, dcols=None, brick_size=None):
     """bv [dim, nb, N3p] (dim 3, or 2 on 2-D bricks), geo [nb], dcols [dim,
     m*B^dim, n_loc] or None -> v [dim, nb, N3p]. On the kernel path
-    ``packed`` is the host tensor [4, nnz] (``pack``); on CPU tensors the
-    plain version takes it, or the dense factors {K, M, G} in its place."""
+    ``factors`` is the host float64 tensor [4, p+1, p+1] of the cell
+    factors (``cell_factor_tables``); on CPU tensors the plain version
+    takes the brick factors, packed [4, nnz] or dense {K, M, G}."""
     if bv.device.type == "cpu":
-        return brick_elasticity_plain(bv, packed, geo, p, mu, lam, dcols, brick_size)
+        return brick_elasticity_plain(bv, factors, geo, p, mu, lam, dcols, brick_size)
     extra = {} if dcols is None else {"dcols": dcols}
     dev = _build.check_cuda(NAME, bv.dtype, bv=bv, geo=geo, **extra)
-    if not isinstance(packed, torch.Tensor) or packed.device.type != "cpu" or packed.dim() != 2:
-        raise ValueError(f"{NAME}: the kernel takes the packed factors as a host tensor [4, nnz]")
-    Fp = packed.detach().to(bv.dtype).contiguous()
+    if (not isinstance(factors, torch.Tensor) or factors.device.type != "cpu"
+            or factors.dtype != torch.float64 or factors.shape != (4, p + 1, p + 1)
+            or not factors.is_contiguous()):
+        raise ValueError(f"{NAME}: the kernel takes the cell factors as a float64 host tensor "
+                         f"[4, {p + 1}, {p + 1}] (cell_factor_tables)")
     if bv.dim() != 3:
         raise ValueError(f"{NAME}: bv must be [dim, nb, N3p], got {tuple(bv.shape)}")
     dim, nb, N3p = bv.shape
-    B = (round((Fp.shape[1] - 1) / (p * (p + 2))))
-    NB = B * p + 1
-    if ((NB, p) not in (SUPPORTED if dim == 3 else SUPPORTED_2D)
-            or Fp.shape != (4, 1 + B * p * (p + 2))):
-        raise ValueError(f"{NAME}: unsupported packed factors {tuple(Fp.shape)} at p={p} in "
-                         f"{dim}-D")
+    NB = next((w for w, q in (SUPPORTED if dim == 3 else SUPPORTED_2D) if q == p), None)
+    if NB is None:
+        raise ValueError(f"{NAME}: no {dim}-D instance at p={p}")
+    B = (NB - 1) // p
     if _build.brick_dim(NAME, NB, N3p) != dim or geo.shape != (nb,):
         raise ValueError(f"{NAME}: shapes bv {tuple(bv.shape)}, geo {tuple(geo.shape)}")
     m = 0
@@ -174,7 +187,7 @@ def brick_elasticity(bv, packed, geo, p, mu, lam, dcols=None, brick_size=None):
                              f"bricks of {tuple(bv.shape)}")
     out = torch.empty_like(bv)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(bv.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, _build.ptr(bv), _build.ptr(Fp), _build.ptr(geo),
+    _build.launch(NAME, fn, dev, _build.ptr(bv), _build.ptr(factors), _build.ptr(geo),
                   None if dcols is None else _build.ptr(dcols), _build.ptr(out), float(mu),
                   float(lam), nb, m, NB, p, N3p, None, dim)
     brick_elasticity.launches += 1
@@ -198,7 +211,7 @@ def plan(dtype, p, dim, device=None):
 
 def bytes_and_flops(nb, NB, p, N3p, itemsize, m=0):
     """Least traffic (read u's dim NB^dim nodes once, write v with its
-    padding once, the packed factors, geo, and the m bricks' cell rows)
+    padding once, the four cell factors, geo, and the m bricks' cell rows)
     and the operation count of the least sum-factorized schedule
     (``least_schedule``, not the kernel's): each factor application a
     multiply and an add per structural nonzero of every line, a multiply
@@ -208,7 +221,7 @@ def bytes_and_flops(nb, NB, p, N3p, itemsize, m=0):
     dim = _build.brick_dim(NAME, NB, N3p)
     nnz = len(factor_structure(NB, p)[0])
     n_rows = dim * m * ((NB - 1) // p) ** dim * (p + 1) ** dim
-    nbytes = (dim * nb * NB**dim + dim * nb * N3p + 4 * nnz + nb + n_rows) * itemsize
+    nbytes = (dim * nb * NB**dim + dim * nb * N3p + 4 * (p + 1) ** 2 + nb + n_rows) * itemsize
     sweeps, n_terms = least_schedule(dim)
     flops = (sweeps * 2 * nnz * NB ** (dim - 1) + (2 * n_terms + dim) * NB**dim) * nb + n_rows
     return nbytes, flops

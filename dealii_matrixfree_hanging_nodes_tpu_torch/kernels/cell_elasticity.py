@@ -16,21 +16,27 @@ to component-major cell rows [dim, n_cells, n_loc], in one of two modes:
   is read from the row width (``_build.brick_dim``) and must equal the
   component count.
 
-The operator runs in the collocation form of the Laplace kernel (values by
-S, gradients by Dc, the coupled operator at each Gauss point, the
+The plain version runs the collocation form of the Laplace kernel (values
+by S, gradients by Dc, the coupled operator at each Gauss point, the
 transposes): on cube cells with p+1 Gauss points it equals the reference's
-cell matrix ``el_Kel`` times geo up to rounding.
+cell matrix ``el_Kel`` times geo up to rounding. The kernel computes the
+same operator with the basis derivatives D = Dc S, a z-column (2-D: a
+y-column) of a cell a thread, each sweep even-odd; the even-odd splits of
+S, D and their transposes (``factor_tables``, ``even_odd``) travel as the
+launch's parameters: the operators build them once and pass them to the
+wrapper (``factors=``).
 
 Replaces the reference's elasticity ``kernel`` and ``_vmult``'s reads and
 HN^T (models/elasticity.py:44-98) and BrickElasticity's subset gather with
 the ``el_Kel`` einsum (models/elasticity_bricks.py:229-240, in 2-D on its
-[2, 2, n^2, n^2] blocks). CUDA source:
-``csrc/cell_elasticity.cu`` (the operator in ``csrc/elasticity.cuh``)."""
+[2, 2, n^2, n^2] blocks). CUDA source: ``csrc/cell_elasticity.cu`` (the
+point operator in ``csrc/elasticity.cuh``)."""
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -73,6 +79,7 @@ def brick_rows(src, brick_size, m, p):
 def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
                           brick_size=None):
     """Plain PyTorch version: the steps one after another (a new tensor)."""
+    S, Dc = (t.to(src.device, src.dtype) for t in (S, Dc))
     n = S.shape[-1]
     if dofmap is None:
         dim = src.shape[0]
@@ -90,23 +97,63 @@ def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
     return u
 
 
-_ARGS = [ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong] \
+SIGNS = (1, -1, 1, -1)  # S, D = Dc S, S^T, D^T: M[n-1-i, n-1-j] = sign M[i, j]
+
+
+def even_odd(M, sign: int):
+    """(A, B, C) of a 1-D factor M [n, n] (float64 NumPy) with M[n-1-i,
+    n-1-j] = sign M[i, j], the kernel's even-odd split: for rows i <
+    (n+1)//2 and columns j < n//2, A = (M[i, j] + M[i, n-1-j]) / 2, B =
+    (M[i, j] - M[i, n-1-j]) / 2, and C[i] = M[i, n//2] (odd n; zero for
+    even n). Raises where M lacks the mirror symmetry (beyond 1e-12 of its
+    largest entry)."""
+    M = np.asarray(M, dtype=np.float64)
+    n = M.shape[0]
+    h, hh = n // 2, (n + 1) // 2
+    if np.abs(M - sign * M[::-1, ::-1]).max() > 1e-12 * max(np.abs(M).max(), 1e-300):
+        raise ValueError(f"{NAME}: a factor lacks the mirror symmetry of sign {sign}")
+    mirror = M[:hh, ::-1][:, :h]  # M[i, n-1-j]
+    C = M[:hh, h].copy() if n % 2 else np.zeros(hh)
+    return (M[:hh, :h] + mirror) / 2, (M[:hh, :h] - mirror) / 2, C
+
+
+def factor_tables(S, Dc):
+    """The kernel's factors as its launch parameters (the wrapper's
+    ``factors``): float64 [4 F] of S, D = Dc S (the derivatives of the
+    nodal basis at the Gauss points) and their transposes, each its
+    even-odd split A, B, C (``even_odd``), F = 2 ((n+1)//2) (n//2) +
+    (n+1)//2 values. S and Dc: float64 arrays [n, n] (the shape info's)."""
+    S, Dc = np.asarray(S, dtype=np.float64), np.asarray(Dc, dtype=np.float64)
+    D = Dc @ S
+    out = [x.ravel() for M, sign in zip((S, D, S.T, D.T), SIGNS) for x in even_odd(M, sign)]
+    return np.ascontiguousarray(np.concatenate(out))
+
+
+def factor_size(n: int) -> int:
+    """F, the values of one factor's even-odd split (``factor_tables``)."""
+    return 2 * ((n + 1) // 2) * (n // 2) + (n + 1) // 2
+
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong] \
     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
-def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None):
+def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None,
+                    factors=None):
     """Index mode: src [n_dofs, dim] (dim 2 or 3), dofmap int32 [n_cells,
     n^dim], codes int32 [n_cells] or None, P [2, n, n], geo [n_cells, dim].
     Bricks mode: src [dim, nb, N3p] (dim 3 or 2, the rows' dimension),
-    dofmap and codes None (P may be None), geo [m*B^dim] with m <= nb. S, Dc
-    [n, n], quad_w [n^dim] of src's dtype on its device -> new [dim,
-    n_cells, n^dim]."""
+    dofmap and codes None (P may be None), geo [m*B^dim] with m <= nb.
+    quad_w [n^dim] of src's dtype on its device; S, Dc [n, n] (the plain
+    version's; the kernel reads only their shape). factors: the kernel's
+    launch parameters, ``factor_tables(S, Dc)`` (float64 NumPy), required
+    on the kernel path -> new [dim, n_cells, n^dim]."""
     args = (src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam)
     if src.device.type == "cpu":
         return cell_elasticity_plain(*args, brick_size=brick_size)
-    names = ("src", "dofmap", "codes", "P", "S", "Dc", "quad_w", "geo")
-    dev = _build.check_cuda(NAME, src.dtype, **{k: t for k, t in zip(names, args[:8])
-                                                if t is not None})
+    names = ("src", "dofmap", "codes", "P", "quad_w", "geo")
+    dev = _build.check_cuda(NAME, src.dtype, **{k: t for k, t in zip(
+        names, (src, dofmap, codes, P, quad_w, geo)) if t is not None})
     if any(t is not None and t.dtype != torch.int32 for t in (dofmap, codes)):
         raise TypeError(f"{NAME}: dofmap and codes must be int32")
     n = S.shape[-1]
@@ -126,8 +173,12 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
                or dofmap.shape != (n_cells, n_loc) or geo.shape != (n_cells, dim)
                or (codes is not None and (codes.shape != (n_cells,) or P is None
                                           or P.shape != (2, n, n))))
-    if (bad or n - 1 not in (DEGREES if dim == 3 else DEGREES_2D) or Dc.shape != (n, n)
-            or quad_w.shape != (n_loc,)
+    if (not isinstance(factors, np.ndarray) or factors.dtype != np.float64
+            or factors.shape != (4 * factor_size(n),) or not factors.flags.c_contiguous):
+        raise ValueError(f"{NAME}: the kernel takes factors=factor_tables(S, Dc), float64 "
+                         f"[{4 * factor_size(n)}]")
+    if (bad or n - 1 not in (DEGREES if dim == 3 else DEGREES_2D) or S.shape != (n, n)
+            or Dc.shape != (n, n) or quad_w.shape != (n_loc,)
             or dim * n_cells * n_loc >= 2**31):
         raise ValueError(f"{NAME}: shapes src {tuple(src.shape)}, dofmap "
                          f"{None if dofmap is None else tuple(dofmap.shape)}, geo "
@@ -137,11 +188,11 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
         return out
     # bricks mode: the component bricks' row length and the values between components
     N3p, cstride = (src.shape[2], src.shape[1] * src.shape[2]) if dofmap is None else (0, 0)
-    ptrs = (ctypes.c_void_p * 9)(*(None if t is None else t.data_ptr()
-                                   for t in (*args[:8], out)))
+    ptrs = (ctypes.c_void_p * 7)(*(None if t is None else t.data_ptr()
+                                   for t in (src, dofmap, codes, P, quad_w, geo, out)))
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, ptrs, float(mu), float(lam), cstride, int(brick_size or 0), N3p,
-                  n_cells, n - 1, dim, None)
+    _build.launch(NAME, fn, dev, ptrs, factors.ctypes.data_as(ctypes.c_void_p), float(mu),
+                  float(lam), cstride, int(brick_size or 0), N3p, n_cells, n - 1, dim, None)
     cell_elasticity.launches += 1
     return out
 
@@ -155,18 +206,39 @@ def plan(dtype, p, device=None, dim=3):
     info = (ctypes.c_int * 3)()
     dev = torch.device("cuda") if device is None else device
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(dtype)}", _ARGS)
-    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 9)(), 1.0, 1.0, 0, 0, 0, 1, p, dim, info)
+    _build.launch(NAME, fn, dev, (ctypes.c_void_p * 7)(), None, 1.0, 1.0, 0, 0, 0, 1, p, dim,
+                  info)
     return tuple(info)
+
+
+# the kernel's sweeps of a line and component by the factor's mirror sign (+1: S, S^T; -1: D,
+# D^T), 16 in 3-D and 8 in 2-D, and the pairs of lines it adds (T1, the result)
+SWEEPS = {3: {1: 10, -1: 6}, 2: {1: 4, -1: 4}}
+LINE_ADDS = {3: 2, 2: 1}
+
+
+def sweep_flops(n: int, sign: int) -> int:
+    """Operations of one even-odd sweep of a line of n values as the kernel
+    runs it: the n//2 mirrored sums and differences (2 h), for each of the
+    h outer row pairs the even and odd products and their sum and difference
+    (4 h, 2 more with a middle column), and the middle row of odd n (2 h + 1
+    even, 2 h - 1 odd)."""
+    h, odd = n // 2, n % 2
+    return 2 * h + h * (4 * h + 2 * odd) + odd * (2 * h + (1 if sign > 0 else -1))
 
 
 def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick_size=None):
     """Least traffic: the distinct source values read once (the DoFs that
-    dofmap names, dim components each, or the subset cells' brick nodes),
-    dofmap, codes and geo read once, the rows written once, the factors read
-    once. Operations: per cell and component the 4 dim sweeps of 2 n^(dim+1)
-    (dim of S and dim of Dc forward, their transposes), the coupled
-    operator's ~40 a point in 3-D (~16 in 2-D), and the interpolation's 2
-    n^2 a masked line, component and direction."""
+    dofmap names, dim components each, or the subset cell's brick nodes),
+    dofmap, codes and geo read once, the rows written once, the factors S,
+    Dc and P read once (the function's inputs; not the kernel's even-odd
+    tables). Operations, the least of the kernels that compute the
+    operator (this one's, since hn_cell's elastic mode runs 12 whole sweeps
+    where this one runs 16 even-odd ones): per cell and component the
+    kernel's sweeps of its n^(dim-1) lines (``SWEEPS``, ``sweep_flops``) and
+    their line additions, the coupled operator's ~40 a point in 3-D (~16 in
+    2-D), and the interpolation's 2 n^2 a masked line, component and
+    direction."""
     n = S.shape[-1]
     dim = src.shape[0] if dofmap is None else src.shape[-1]
     n_loc, isz = n**dim, src.element_size()
@@ -180,7 +252,9 @@ def bytes_and_flops(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
         n_src = dim * int(torch.unique(dofmap).numel())
     nbytes = (n_src + dim * n_cells * n_loc + 4 * n * n + n_loc + geo.numel()) * isz
     nbytes += 4 * (0 if dofmap is None else dofmap.numel())
-    flops = n_cells * (dim * 4 * dim * 2 * n ** (dim + 1) + (40 if dim == 3 else 16) * n_loc)
+    per_line = (sum(sweep_flops(n, sign) * k for sign, k in SWEEPS[dim].items())
+                + LINE_ADDS[dim] * n)
+    flops = n_cells * (dim * n ** (dim - 1) * per_line + (40 if dim == 3 else 16) * n_loc)
     if codes is not None:
         nbytes += 4 * n_cells
         per_dir = dim * 2 * n * n * int(masked_lines(codes.cpu().numpy(), n - 1, dim).sum())

@@ -8,7 +8,9 @@ geometry factors (Cartesian, or the deformed metric), the 1-D shape
 matrices and the slow-path constraint CSR. The brick operator reads only
 the masks and the Cartesian geometry; every table that only the index
 engine reads (the DoF maps under ``categorize``, the deformed metric, the
-slow CSR) is built at its first use. ``_sources`` holds what the device
+slow CSR) is built at its first use; the deformed metric on the device of
+its first user (``deformed_metric``: in PyTorch on the card for a card
+operator, in NumPy on the host otherwise) and kept on the host. ``_sources`` holds what the device
 tables are staged from beyond ``_np``: the float64 sources of the floating
 tables and the kernels' own tables (the transposed DoF maps, the constraint
 tables by destination, the ``matrix`` runner's composite Q's), also built at
@@ -114,6 +116,7 @@ class MatrixFree:
         self.hn_mode = hn_mode
         self.categorize = bool(categorize)
         self.high_order_mapping = bool(high_order_mapping)
+        self._metric = None  # the deformed metric, built by its first user (deformed_metric)
         self.shape = shape_info(degree)
         self.dof_handler = DoFHandler(tria, degree)
         self.constraints = ci = build_constraints(self.dof_handler)
@@ -131,9 +134,9 @@ class MatrixFree:
         sh = self.shape
 
         def geo64():
-            g = (deformed_laplace_factors(tria, sh) if self.high_order_mapping
-                 else cartesian_laplace_factors(tria))
-            return perm(g)
+            if self.high_order_mapping:
+                return self.deformed_metric()
+            return perm(cartesian_laplace_factors(tria))
 
         def slow():
             return dict(
@@ -194,6 +197,7 @@ class MatrixFree:
         self.hn_mode = hn_mode
         self.categorize = bool(categorize) or hn_mode == "sorted"
         self.high_order_mapping = np.asarray(t["geo"]).ndim == 3
+        self._metric = np.asarray(t["geo"], dtype=np.float64) if self.high_order_mapping else None
         self.n_cells = np.asarray(t["dofmap"]).shape[0]
         self.n_dofs = int(n_dofs)
         plain = np.asarray(t["dofmap_plain"])
@@ -231,6 +235,21 @@ class MatrixFree:
 
     def _permute(self, a):
         return a[self.cell_permutation] if self.categorize else a
+
+    def deformed_metric(self, device=None) -> np.ndarray:
+        """The deformed mapping's metric, float64 [n_cells, n_q, dim (dim+1)
+        / 2] on the host in the cells' order, built at the first call
+        (``mapping.deformed_laplace_factors``): on a CUDA device in PyTorch
+        there, else in NumPy on the host. The operators call it with their
+        device before they stage the metric, so a card operator's metric is
+        computed on the card."""
+        if self._metric is None:
+            if not self.high_order_mapping:
+                raise ValueError("deformed_metric: the MatrixFree has no deformed mapping")
+            dev = None if device is None or torch.device(device).type == "cpu" else device
+            self._metric = self._permute(deformed_laplace_factors(self.tria, self.shape,
+                                                                  device=dev))
+        return self._metric
 
     def _set_sources(self, f64: dict):
         """``_sources``: f64, the float64 sources of the floating tables, and
@@ -294,6 +313,8 @@ class MatrixFree:
         ``_sources[key]`` (else ``_np[key]``)."""
         ck = (key, str(device), dtype)
         if ck not in self._device:
+            if key == "geo" and self.high_order_mapping:
+                self.deformed_metric(device)
             source = self._sources[key] if key in self._sources else self._np[key]
             self._device[ck] = self._stage(source, device, dtype)
         return self._device[ck]

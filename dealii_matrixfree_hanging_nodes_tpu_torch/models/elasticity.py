@@ -55,6 +55,8 @@ class ElasticityOperator(nn.Module):
         self.constraints = bool(constraints)
         self.device = resolve_device(device)
         self.dtype = TORCH_DTYPES[mf.dtype]
+        # cell_elasticity's launch parameters, built once on the host
+        self.kernel_factors = cell_elasticity.factor_tables(mf._sources["S"], mf._sources["Dc"])
 
     def vmult(self, src, plain: bool = False) -> torch.Tensor:
         """src [n_dofs, dim] (a tensor on the operator's device, or NumPy,
@@ -69,8 +71,11 @@ class ElasticityOperator(nn.Module):
         src = src.contiguous()
         dofmap, codes, P, S, Dc, quad_w, geo = mf.cell_laplace_args(dev, dt,
                                                                     hn=self.constraints)
-        cell = cell_elasticity.cell_elasticity_plain if plain else cell_elasticity.cell_elasticity
-        rows = cell(src, dofmap, codes, P, S, Dc, quad_w, geo, self.mu, self.lam)
+        args = (src, dofmap, codes, P, S, Dc, quad_w, geo, self.mu, self.lam)
+        if plain:
+            rows = cell_elasticity.cell_elasticity_plain(*args)
+        else:
+            rows = cell_elasticity.cell_elasticity(*args, factors=self.kernel_factors)
         scatter = dof_scatter.dof_scatter_plain if plain else dof_scatter.dof_scatter
         return scatter(rows, *mf.scatter_tables(False, dev))
 

@@ -107,6 +107,10 @@ class BrickElasticity(nn.Module):
         self.packed_host = torch.from_numpy(brick_elasticity.pack(fb, p)).to(dt)
         self.register_buffer("S", t(si.S))
         self.register_buffer("Dc", t(si.Dc))
+        # the two kernels' launch parameters, built once on the host
+        self.brick_kernel_factors = brick_elasticity.cell_factor_tables(cell["K"], cell["M"],
+                                                                        cell["G"])
+        self.cell_kernel_factors = cell_elasticity.factor_tables(si.S, si.Dc)
         self.register_buffer("quad_w", t(si.quad_weights_tensor(mm.dim)))
 
     @property
@@ -154,9 +158,12 @@ class BrickElasticity(nn.Module):
         """Every subset cell's geo_c Kel u_c, [dim, n_sub*B^dim, n_loc]
         (cell_elasticity from the bricks; the reference's plain3)."""
         mm = self.mm
-        return self._fn(cell_elasticity, plain)(
-            bv, None, None, None, self.S, self.Dc, self.quad_w, mm.geo_cell_sub, self.mu,
-            self.lam, brick_size=mm.B)
+        args = (bv, None, None, None, self.S, self.Dc, self.quad_w, mm.geo_cell_sub, self.mu,
+                self.lam)
+        if plain:
+            return cell_elasticity.cell_elasticity_plain(*args, brick_size=mm.B)
+        return cell_elasticity.cell_elasticity(*args, brick_size=mm.B,
+                                               factors=self.cell_kernel_factors)
 
     def elastic_tables(self):
         """hn_cell's elastic-mode argument: (S, Dc, quad_w, mu, lam)."""
@@ -171,7 +178,8 @@ class BrickElasticity(nn.Module):
 
     def brick_apply(self, bv, dcols, plain: bool = False) -> torch.Tensor:
         mm = self.mm
-        factors = dict(K=self.Kb, M=self.Mb, G=self.Gb) if plain else self.packed_host
+        factors = (dict(K=self.Kb, M=self.Mb, G=self.Gb) if plain or bv.device.type == "cpu"
+                   else self.brick_kernel_factors)
         return self._fn(brick_elasticity, plain)(bv, factors, mm.geo, mm.p, self.mu, self.lam,
                                                  dcols=dcols, brick_size=mm.B)
 

@@ -1,0 +1,139 @@
+"""The port's elastic kernels against a variant of their CUDA sources, in one
+process on one NVIDIA GPU, through the port's own wrappers, at the elastic
+vmults' shapes.
+
+    python3 kernel_ab.py VARIANT_CSRC [rounds]
+
+VARIANT_CSRC is a directory holding a cell_elasticity.cu and/or a
+brick_elasticity.cu with the port's current C entries (a design under
+trial; its headers are looked up there first, then in the port's csrc).
+The script builds each with the port's nvcc flags into ``build/kernel_ab``
+and the port's kernels, each nvcc in a process of its own, all at once. At
+quadrant nref=7 p=4 f32 (3-D: cell_elasticity's index mode with the cells'
+codes and its bricks mode, brick_elasticity with the subset's cell rows)
+and 2-D quadrant nref=11 p=4 f32 (the index mode, brick_elasticity with
+cell rows), mu = lam = 1 on seeded inputs, it times each wrapper call with
+the port's library ("port") and with the variant's ("variant") on the same
+inputs in the order port, variant, variant, port, `rounds` times (default
+3); each time is the median of 20 calls timed with CUDA events behind a
+device spin (``chip_smoke.time_ms(device_only=True)``). Prints the card's
+name and power limit, one line an instance with every time in order, the
+variant's largest difference from the port's output relative to its
+largest value and whether two variant calls are bit-identical, and one
+JSON line; exits non-zero without a card.
+"""
+import contextlib
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+KERNELS = ("cell_elasticity", "brick_elasticity")
+
+
+def build_variant(src: Path):
+    """The variant library of src's kernel, built with the port's flags."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
+
+    out = ROOT / "build" / "kernel_ab" / f"lib{src.stem}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
+                           str(_build.CSRC), "-o", str(out), str(src)], capture_output=True,
+                          text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(out))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def library(name, lib):
+    """The port's wrappers of kernel `name` launch from `lib` meanwhile."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
+
+    saved = _build._libs.get(name)
+    _build._libs[name] = lib
+    try:
+        yield
+    finally:
+        _build._libs[name] = saved
+
+
+def main() -> int:
+    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    import chip_smoke
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build, cell_elasticity
+
+    variant_csrc = Path(sys.argv[1])
+    rounds = int(sys.argv[2]) if len(sys.argv) == 3 else 3
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    srcs = {k: variant_csrc / f"{k}.cu" for k in KERNELS if (variant_csrc / f"{k}.cu").exists()}
+    with ThreadPoolExecutor(len(srcs) + 1) as pool:
+        built = pool.submit(_build.build, KERNELS)
+        libs = dict(zip(srcs, pool.map(build_variant, srcs.values())))
+        built.result()
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for dim, nref in ((3, 7), (2, 11)):
+        mf = mt.MatrixFree(mt.create_quadrant(dim, nref), 4, dtype=np.float32)
+        op = mt.BrickElasticity(mf, 1.0, 1.0, device=dev)
+        mm = op.mm
+        bv = torch.randn(dim, mm.n_bricks, mm.N3p, generator=g, device=dev)
+        x = torch.randn(mf.n_dofs, dim, generator=g, device=dev)
+        index = (x, *mf.cell_laplace_args(dev, torch.float32), 1.0, 1.0)
+        dcols = op.cell_rows(bv)
+        cases = [("cell_elasticity", f"{dim}-D cell_elasticity index",
+                  lambda a=index: cell_elasticity.cell_elasticity(
+                      *a, factors=op.cell_kernel_factors))]
+        if dim == 3:
+            cases.append(("cell_elasticity", "3-D cell_elasticity bricks",
+                          lambda: op.cell_rows(bv)))
+        cases.append(("brick_elasticity", f"{dim}-D brick_elasticity with cell rows",
+                      lambda: op.brick_apply(bv, dcols)))
+        for name, label, fn in cases:
+            if name in libs:
+                results.append(ab(chip_smoke, label, name, libs[name], fn, rounds))
+        del op, mm, bv, x, dcols, index, mf, cases
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": smi, "kernel_ab": results}))
+    return 0
+
+
+def ab(chip_smoke, label, name, lib, fn, rounds):
+    """fn with the port's library and with lib in the order port, variant,
+    variant, port, `rounds` times; the variant's output against the port's."""
+    ref = fn()
+    with library(name, lib):
+        got, again = fn(), fn()
+    scale = float(ref.abs().max())
+    row = dict(instance=label, ms={"port": [], "variant": []},
+               rel_diff=float((got - ref).abs().max()) / scale,
+               variant_bit_identical=bool(torch.equal(got, again)))
+    for _ in range(rounds):
+        for which in ("port", "variant", "variant", "port"):
+            with library(name, lib) if which == "variant" else contextlib.nullcontext():
+                row["ms"][which].append(chip_smoke.time_ms(fn, device_only=True))
+    print(f"{label}: " + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)} ms"
+                                   for k, v in row["ms"].items())
+          + f"; variant relative difference {row['rel_diff']:.3e}, two variant calls "
+          f"bit-identical {row['variant_bit_identical']}", flush=True)
+    return row
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -766,8 +766,8 @@ def _elastic_pairs(mf, dev, dtype, seed):
     m = (mm.n_bricks + 1) // 2
     cols = torch.randn(3, m * mm.C, mm.n_loc, generator=g, device=dev, dtype=dtype)
     for extra in ({}, {"dcols": cols, "brick_size": mm.B}):
-        pairs.append((brick_elasticity.brick_elasticity(bv, op.packed_host, mm.geo, mm.p, 1.3,
-                                                        0.7, **extra),
+        pairs.append((brick_elasticity.brick_elasticity(bv, op.brick_kernel_factors, mm.geo,
+                                                        mm.p, 1.3, 0.7, **extra),
                       brick_elasticity.brick_elasticity_plain(bv, dense, mm.geo, mm.p, 1.3,
                                                               0.7, **extra)))
     x = torch.randn(mf.n_dofs, 3, generator=g, device=dev, dtype=dtype)
@@ -775,7 +775,8 @@ def _elastic_pairs(mf, dev, dtype, seed):
         opi = mt.ElasticityOperator(mf, 1.3, 0.7, constraints=cons, device=dev)
         pairs.append((opi.vmult(x.to(opi.dtype)), opi.vmult(x.to(opi.dtype), plain=True)))
     args = mf.cell_laplace_args(dev, dtype)
-    pairs.append((cell_elasticity.cell_elasticity(x, *args, 1.3, 0.7),
+    pairs.append((cell_elasticity.cell_elasticity(x, *args, 1.3, 0.7,
+                                                  factors=op.cell_kernel_factors),
                   cell_elasticity.cell_elasticity_plain(x, *args, 1.3, 0.7)))
     cells = torch.randn(3, mf.n_cells, mm.n_loc, generator=g, device=dev, dtype=dtype)
     t = mf.scatter_tables(False, dev)
@@ -840,6 +841,46 @@ def test_elasticity_on_card_matches_oracle(cuda, geo, nref, p):
     op = mt.BrickElasticity(mf, 1.3, 0.7, device=cuda)
     got = op.to_dof_vector(op.vmult(op.from_dof_vector(u)), zero_hanging=True).cpu().numpy()
     assert np.abs(got - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+ELASTIC_INSTANCES = [(3, p) for p in range(1, 9)] + [(2, p) for p in range(1, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("dim,p", ELASTIC_INSTANCES,
+                         ids=[f"{d}d-p{p}" for d, p in ELASTIC_INSTANCES])
+def test_elastic_kernel_instances_on_card(cuda, dim, p, dtype):
+    """Every instance of the two elastic kernels (3-D p=1..8, 2-D p=1..6):
+    cell_elasticity in its index mode (the cells' codes) and its bricks
+    mode, brick_elasticity with and without cell rows, and hn_cell's
+    elastic mode, against their plain versions (f32 1e-5, f64 1e-12) at
+    quadrant nref=2 (3-D) or 3 (2-D); two calls of each bit-identical."""
+    import dealii_matrixfree_hanging_nodes_tpu_torch as mt
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import cell_elasticity
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    mf = mt.MatrixFree(mt.create_quadrant(dim, 2 if dim == 3 else 3), p)
+    op = mt.BrickElasticity(mf, 1.3, 0.7, device=cuda, dtype=dtype)
+    mm = op.mm
+    g = torch.Generator(device=cuda).manual_seed(p)
+    bv = torch.randn(dim, mm.n_bricks, mm.N3p, generator=g, device=cuda, dtype=dtype)
+    x = torch.randn(mf.n_dofs, dim, generator=g, device=cuda, dtype=dtype)
+    args = mf.cell_laplace_args(cuda, dtype)
+    assert mm.n_sub > 0 and mm.n_hn > 0 and bool((args[1] != 0).any())
+    cols = op.cell_rows(bv)
+    calls = [(lambda: cell_elasticity.cell_elasticity(x, *args, 1.3, 0.7,
+                                                      factors=op.cell_kernel_factors),
+              lambda: cell_elasticity.cell_elasticity_plain(x, *args, 1.3, 0.7)),
+             (lambda: op.cell_rows(bv), lambda: op.cell_rows(bv, plain=True)),
+             (lambda: op.hn_rows(bv), lambda: op.hn_rows(bv, plain=True)),
+             (lambda: op.brick_apply(bv, None), lambda: op.brick_apply(bv, None, True)),
+             (lambda: op.brick_apply(bv, cols), lambda: op.brick_apply(bv, cols, True))]
+    for k, (fn, plain) in enumerate(calls):
+        got, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and _rel(got, ref) < tol, k
+        assert torch.equal(got, again), k
 
 
 # ---- the GMG transfers and solves on the card ------------------------------------
@@ -1245,8 +1286,8 @@ def test_brick_elasticity_2d_on_card(cuda, p, nref, dtype):
     m = (mm.n_bricks + 1) // 2
     cols = rnd(2, m * mm.C, mm.n_loc)
     for extra in ({}, {"dcols": cols, "brick_size": mm.B}):
-        pairs.append((brick_elasticity.brick_elasticity(bv, op.packed_host, mm.geo, mm.p, 1.3,
-                                                        0.7, **extra),
+        pairs.append((brick_elasticity.brick_elasticity(bv, op.brick_kernel_factors, mm.geo,
+                                                        mm.p, 1.3, 0.7, **extra),
                       brick_elasticity.brick_elasticity_plain(bv, dense, mm.geo, mm.p, 1.3,
                                                               0.7, **extra)))
     for fn, want in (("vmult", 5), ("vmult_plain", 4)):
