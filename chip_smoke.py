@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the last line is printed):
    brick_deformed's threads, shared memory and blocks per SM at each (p, B, dim),
    the 2-D brick_elasticity's and hn_cell elastic mode's at p = 1..6, and
    brick_transfer's in both modes at each (dim, p), with the restriction's
-   thread block clusters resident at once;
+   thread block clusters resident at once; a whole run makes phase 3's mesh
+   and MatrixFree on the host while the nvcc processes run;
 3. set up the bench workload: quadrant mesh, nref=7, degree 4, float32, on the card,
    print the sizes of dss_surface's work lists and the subset cell rows by kind,
    and on the host hold the kernels'
@@ -70,8 +71,9 @@ Phases (any failure exits non-zero before the last line is printed):
    schedule (its chunks, the shares of DoFs and entries local to a chunk,
    from the host tables) and beside it (a) a coalesced read of the rows and
    (b) the gather rows[ent] alone, timed with their bounds;
-8. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3 on
-   the nref=7 mesh, p=2 and p=1 at quadrant nref=8), float32 through the
+8. the degree <= 3 schedule, one phase a degree (``LOW_DEGREES``: p=3, 2
+   and 1 on the nref=7 mesh, so that the whole run fits its time limit),
+   float32 through the
    kernels: its sizes (masked cells against the subset's, plane-covered
    cells, levels), every kernel against its plain version (1e-5) and timed
    with its bound and library call, vmult, vmult_plain and refill against
@@ -151,7 +153,7 @@ Phases (any failure exits non-zero before the last line is printed):
    torch.mm over k x n_bricks rows); float64 bit-identical to stacked
    vmults at nref=7, and against the scipy oracle at quadrant nref=4 p=4
    k=3 (1e-12); the degree <= 3 schedule without face planes at k=8 (p=3
-   on phase 8's nref=7 operator, p=2 and p=1 at nref=7): launches,
+   on phase 8's nref=7 operator, p=2 and p=1 at nref=6): launches,
    bit-identity, time per vector; masked_quad's RHS-axis instance at p=3;
 13. the deformed brick engine (``BrickLaplaceMM`` under high_order_mapping)
    at quadrant nref=7 p=4 f32 on phase 3's mesh: the setup by step (the
@@ -170,7 +172,8 @@ Phases (any failure exits non-zero before the last line is printed):
    two cases and one case a (p, B) class (every kernel instance against its
    plain version, the vmult against the plain path and the deformed index
    engine, vmult_plain and refill against the plain path; 1e-12); p=2 at
-   nref=7 (vmult, vmult_plain and refill, launches checked, timed).
+   nref=6 (``DEFORMED_LOW``; vmult, vmult_plain and refill, launches
+   checked, timed).
    ``python3 chip_smoke.py --metric-host`` instead times the deformed metric
    on the host at once and in chunks (seconds, traced peak bytes, checked
    bit-identical) and prints one JSON line;
@@ -222,7 +225,7 @@ Phases (any failure exits non-zero before the last line is printed):
    timed, profiled; GDoF/s; over phase 14's deformed index vmult; against
    the deformed index vmult, 1e-5), p=2 at nref=11, and float64 at the
    reference's 2-D deformed case and one a (p, B) class (1e-12); the 2-D
-   brick GMG-CG at quadrant nref=10 p=4 (tol 1e-5: iterations, residual,
+   brick GMG-CG at quadrant nref=9 p=4 (tol 1e-5: iterations, residual,
    seconds, a V-cycle's launches and profile; brick_transfer and dof_embed
    at every transfer against their plain versions, timed with bounds
    and library calls, and their side timings, as in phase 10) and at nref=4
@@ -268,6 +271,12 @@ Phases (any failure exits non-zero before the last line is printed):
    brick engine's "2-D brick p=<d> ...", phase 16's "2-D ..."), then the
    device line.
 
+Each phase prints its wall seconds on a line of its own, ``phase N (name):
+S s``. ``python3 chip_smoke.py --index`` runs phases 1, 2, 7, phase 9's
+index-engine float64 checks and phase 14's Laplace paths (no elasticity, no
+GMG-CG) alone (a partial run: it prints their JSON and a "partial" line,
+not the device line).
+
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -278,6 +287,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -287,8 +297,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor 
 SEED = 0
 VMULT_LAUNCHES, REFILL_LAUNCHES = 5, 2
 PLAIN_LAUNCHES = {"cell_apply": 1, "corr_compact": 1, "brick_apply": 1, "dss_surface": 1}
-# the degree <= 3 phases: (degree, quadrant nref), each in float32 through the kernels
-LOW_DEGREES = ((3, 7), (2, 8), (1, 8))
+# the degree <= 3 phases: (degree, quadrant nref), each in float32 through the kernels, at
+# nref=7 so that the whole run fits its time limit
+LOW_DEGREES = ((3, 7), (2, 7), (1, 7))
 MASKED_CSR_CAP = 300_000_000  # masked_quad's library matrix: entries before summation
 # the kernel of the degree <= 3 schedule whose parts give a new kernel's totals
 LOW_MAIN_DEGREE = 2
@@ -307,6 +318,13 @@ def session_reps(reps: int, attempt: int, recorded: bool) -> int:
 # kernels line they stand in "parts" only, and a kernel's totals are those
 # of its vmult launches
 REFILL_PARTS = {("hn_cell", "fill")}
+
+
+def phase_seconds(n, what, t0) -> float:
+    """Print phase n's wall seconds since t0 on a line of its own; return them."""
+    seconds = time.perf_counter() - t0
+    print(f"phase {n} ({what}): {seconds:.1f} s", flush=True)
+    return seconds
 
 
 def check(ok: bool, what: str) -> None:
@@ -591,22 +609,26 @@ def profile_path(what, fn, kernel_names, expect: int, reps: int = 10, copies: in
     return res
 
 
-def prime_profiler(what, fn, sessions=PROFILE_SESSIONS):
+def prime_profiler(what, fn, sessions=2 * PROFILE_SESSIONS):
     """Throwaway torch.profiler sessions over fn (the schedule of
     ``profile_path``, nothing kept) until one records device time, at most
-    `sessions`; fails, as ``profile_path`` does, where none did. Returns how
-    many ran. After the process group's NCCL setup the first profile has
-    lost up to ten sessions in a row on an H100, so phase 17 primes the
-    tracer before its first profile: a larger session budget for that
-    profile, whose count is printed and kept in phase 17's JSON."""
+    `sessions`, each after the first running 2, 4, then 8 times the calls
+    (``session_reps``, as ``profile_path`` does after an empty session);
+    fails, as ``profile_path`` does, where none did. Returns how many ran.
+    After the process group's NCCL setup the first profile has lost up to
+    ten sessions in a row on an H100 (and all ten priming sessions of three
+    calls once), so phase 17 primes the tracer before its first
+    profile: a larger session budget for that profile, whose count is
+    printed and kept in phase 17's JSON."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for n in range(1, sessions + 1):
+        active = session_reps(3, n - 1, False)
         torch.cuda.empty_cache()  # as profile_path: room for CUPTI's device buffers
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
-                     schedule=schedule(wait=0, warmup=2, active=3)) as prof:
-            for _ in range(5):
+                     schedule=schedule(wait=0, warmup=2, active=active)) as prof:
+            for _ in range(2 + active):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -1426,11 +1448,13 @@ def index_kernel_calls(mfs, x, rows, deformed=None, deformed_nref=DEFORMED_NREF)
     for part, m, src, slow, hn in launches:
         args = (src, *m.cell_laplace_args(dev, dt, slow=slow, hn=hn))
         calls["cell_laplace"].append((
-            part, lambda a=args: cell_laplace.cell_laplace(*a),
+            part, lambda a=args, f=m.kernel_factors: cell_laplace.cell_laplace(*a, factors=f),
             lambda a=args: cell_laplace.cell_laplace_plain(*a),
             cell_laplace.bytes_and_flops(*args), None, None))
-    rows_fast = cell_laplace.cell_laplace(x, *mf.cell_laplace_args(dev, dt))
-    rows_slow = cell_laplace.cell_laplace(x_dist, *mf.cell_laplace_args(dev, dt, slow=True))
+    fac = mf.kernel_factors
+    rows_fast = cell_laplace.cell_laplace(x, *mf.cell_laplace_args(dev, dt), factors=fac)
+    rows_slow = cell_laplace.cell_laplace(x_dist, *mf.cell_laplace_args(dev, dt, slow=True),
+                                          factors=fac)
     for part, r, slow in (("fast map", rows_fast, False), ("plain map", rows_slow, True)):
         t = mf.scatter_tables(slow, dev)
         calls["dof_scatter"].append((
@@ -2602,7 +2626,7 @@ MULTI_KS = (1, 3, 8)  # right-hand sides a call, timed at quadrant nref=7 p=4 f3
 MULTI_K = 8  # the kernels line's instances and the degree <= 3 runs
 MULTI_LAUNCHES = 5  # a vmult_multi at every k, both schedules
 # the degree <= 3 schedule without face planes, beside phase 8's p=3 operator: (degree, nref)
-MULTI_LOW = ((2, 7), (1, 7))
+MULTI_LOW = ((2, 6), (1, 6))  # at nref=6 so that the whole run fits its time limit
 MULTI_ORACLE = (4, 4, 3)  # float64 against the oracle: quadrant nref, degree, k
 
 
@@ -2825,7 +2849,9 @@ DEFORMED_LAUNCHES = {
 # float64 (1e-12): the reference's deformed brick cases, then one a (p, B) class
 DEFORMED_F64 = (("quadrant", 3, 2), ("annulus", 4, 2), ("quadrant", 4, 1), ("quadrant", 3, 3),
                 ("quadrant", 3, 4), ("quadrant", 2, 6))
-DEFORMED_LOW = (2, 7)  # degree, quadrant nref: the per-cell schedule at B=8, float32
+# degree, quadrant nref: the per-cell schedule at B=8, float32 (at nref=6 so that the whole
+# run fits its time limit)
+DEFORMED_LOW = (2, 6)
 
 
 def metric_build(mf, dev):
@@ -3456,7 +3482,7 @@ def index2d_elasticity(mt, mf, xe, dev, wrappers, smi, nnz):
     return parts, res
 
 
-def index2d_phase(mt, dev, wrappers, smi):
+def index2d_phase(mt, dev, wrappers, smi, index_only=False):
     """2-D on the index engine at quadrant nref=INDEX2D_NREF p=4 float32:
     the setup by step and the sizes; every 2-D kernel instance against its
     plain version (1e-5), timed with its bound and library call (each map
@@ -3466,7 +3492,8 @@ def index2d_phase(mt, dev, wrappers, smi):
     constraints=False), the deformed vmult, the elasticity vmult and
     apply_hanging_node_constraints against the plain float64 path (1e-5),
     launches checked, bit-identical, timed, profiled; the HN overhead;
-    float64 against the oracles; the GMG-CG solve. Returns (numbers,
+    float64 against the oracles; the GMG-CG solve. index_only: the Laplace
+    paths alone (no elasticity, no GMG-CG; ``--index``). Returns (numbers,
     {kernel: [part]}, the compact engine's MatrixFree, which phase 15 reuses,
     and the deformed MatrixFree, which phase 16 reuses)."""
     tol, f32 = 1e-5, torch.float32
@@ -3535,9 +3562,10 @@ def index2d_phase(mt, dev, wrappers, smi):
     del calls, inter, lib, mats
     torch.cuda.empty_cache()
 
-    el_parts, res_e = index2d_elasticity(mt, mf, xe, dev, wrappers, smi, nnz)
-    for name, plist in el_parts.items():
-        parts[name] = parts.get(name, []) + plist
+    if not index_only:
+        el_parts, res_e = index2d_elasticity(mt, mf, xe, dev, wrappers, smi, nnz)
+        for name, plist in el_parts.items():
+            parts[name] = parts.get(name, []) + plist
 
     # ---- the end-to-end calls
     LO = mt.LaplaceOperator
@@ -3555,7 +3583,8 @@ def index2d_phase(mt, dev, wrappers, smi):
     res = {call: index2d_run(call, fn, plain, wrappers, INDEX2D_LAUNCHES[call], tol,
                              copies=copies, n_dofs=n)
            for call, (fn, plain, n, copies) in runs.items()}
-    res["elasticity"] = res_e
+    if not index_only:
+        res["elasticity"] = res_e
     runners = {}
     for mode, m in mfs.items():
         op = LO(m, device=dev)
@@ -3575,9 +3604,10 @@ def index2d_phase(mt, dev, wrappers, smi):
           f"{res['vmult']['ms']:.4f} ms ({res['vmult']['gdofs_per_s']:.4f} GDoF/s), slow "
           f"{res['vmult slow']['ms']:.4f}, constraints=False {base:.4f}; HN overhead fast "
           f"{overhead['fast']:.4f}, slow {overhead['slow']:.4f}; deformed "
-          f"{res['vmult deformed']['ms']:.4f} ms; elasticity {res['elasticity']['ms']:.4f} ms "
-          f"({res['elasticity']['gdofs_per_s']:.4f} GDoF/s over 2 n_dofs); runners "
-          f"{json.dumps(runners)}", flush=True)
+          f"{res['vmult deformed']['ms']:.4f} ms; "
+          + ("" if index_only else f"elasticity {res['elasticity']['ms']:.4f} ms "
+             f"({res['elasticity']['gdofs_per_s']:.4f} GDoF/s over 2 n_dofs); ")
+          + f"runners {json.dumps(runners)}", flush=True)
     del ops, op_d, mfs, x64, rows64
     torch.cuda.empty_cache()
 
@@ -3585,15 +3615,17 @@ def index2d_phase(mt, dev, wrappers, smi):
     t0 = time.perf_counter()
     oracle = index2d_oracle_checks(mt, dev)
     oracle_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gmg, tr = index2d_gmg(mt, dev, wrappers, smi)
-    gmg["phase_s"] = time.perf_counter() - t0
-    tr_calls, tr_lib, nnz["cell_transfer"] = cell_transfer_calls(tr, dev)
-    parts["cell_transfer"] = measure_parts("cell_transfer", [
-        (f"2-D {mode} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}", *rest)
-        for mode, *rest in tr_calls], tr_lib, {}, f32, tol)
-    del tr, tr_calls, tr_lib
-    torch.cuda.empty_cache()
+    gmg = None
+    if not index_only:
+        t0 = time.perf_counter()
+        gmg, tr = index2d_gmg(mt, dev, wrappers, smi)
+        gmg["phase_s"] = time.perf_counter() - t0
+        tr_calls, tr_lib, nnz["cell_transfer"] = cell_transfer_calls(tr, dev)
+        parts["cell_transfer"] = measure_parts("cell_transfer", [
+            (f"2-D {mode} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}", *rest)
+            for mode, *rest in tr_calls], tr_lib, {}, f32, tol)
+        del tr, tr_calls, tr_lib
+        torch.cuda.empty_cache()
 
     # each part named 2-D, with the launches of the call that runs it
     def call_of(name, mode):
@@ -3714,10 +3746,13 @@ def brick2d_phase(mt, mf, index_vmult_ms, dev, wrappers, smi):
 # the deformed 2-D brick engine on phase 14's deformed MatrixFree (quadrant nref=
 # INDEX2D_DEFORMED_NREF, p=4) and at BRICK2D_DEFORMED_LOW (the B=16 class); float64 at the
 # reference's 2-D deformed case (tests/test_bricks.py: quadrant nref=4 p=3) and one case a
-# (p, B) class; the 2-D brick GMG-CG at quadrant nref=INDEX2D_GMG_NREF p=4 f32 (phase 14's index
-# GMG mesh) and at BRICK2D_GMG_CHECK in float64; the 2-D brick elasticity on phase 15's p=4
+# (p, B) class; the 2-D brick GMG-CG at quadrant nref=BRICK2D_GMG_NREF p=4 f32 and at
+# BRICK2D_GMG_CHECK in float64; the 2-D brick elasticity on phase 15's p=4
 # operator (quadrant nref=INDEX2D_NREF) and against the dense oracle at BRICK2D_ELASTIC_ORACLE
 BRICK2D_DEFORMED_LOW = (2, 11)  # degree, quadrant nref
+# the 2-D brick GMG-CG's quadrant nref, one below the index GMG's so that the whole run fits
+# its time limit
+BRICK2D_GMG_NREF = 9
 BRICK2D_DEFORMED_F64 = (("quadrant", 4, 3), ("quadrant", 6, 1), ("quadrant", 4, 2),
                         ("quadrant", 4, 4), ("quadrant", 3, 5), ("quadrant", 3, 6))
 BRICK2D_GMG_CHECK = (4, 2)  # quadrant nref, degree of the float64 solve held to the CPU's count
@@ -3814,7 +3849,7 @@ def brick2d_deformed(mt, mf_d, index_ms, dev, wrappers, smi):
 
 def brick2d_gmg(mt, dev, wrappers, smi):
     """The 2-D brick GMG-CG (BrickGMGPreconditioner in 2-D, its device
-    solver) at quadrant nref=INDEX2D_GMG_NREF p=4 f32, tol 1e-5: the setup
+    solver) at quadrant nref=BRICK2D_GMG_NREF p=4 f32, tol 1e-5: the setup
     and levels, a warm-up solve, then the counted solve (iterations,
     relative residual, seconds a solve and an iteration, two solves
     bit-identical, brick_transfer and dof_embed launched); one V-cycle's
@@ -3826,7 +3861,7 @@ def brick2d_gmg(mt, dev, wrappers, smi):
     Returns (numbers, {kernel: [part]})."""
     p = INDEX2D_DEGREE
     t0 = time.perf_counter()
-    gmg = mt.BrickGMGPreconditioner("quadrant", 2, INDEX2D_GMG_NREF, p, dtype=np.float32,
+    gmg = mt.BrickGMGPreconditioner("quadrant", 2, BRICK2D_GMG_NREF, p, dtype=np.float32,
                                     device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -3834,7 +3869,7 @@ def brick2d_gmg(mt, dev, wrappers, smi):
                    subset_bricks=mm.n_sub, constrained_rows=mm.n_hn)
               for mf, mm in zip(gmg.levels, gmg.mms)]
     op, mm, mf = gmg.fine_op, gmg.fine_mm, gmg.fine_mf
-    print(f"2-D brick GMG setup: {setup_s:.1f} s (quadrant nref={INDEX2D_GMG_NREF} p={p} f32, "
+    print(f"2-D brick GMG setup: {setup_s:.1f} s (quadrant nref={BRICK2D_GMG_NREF} p={p} f32, "
           f"B={mm.B}, {len(levels)} levels: {levels})", flush=True)
     xs = mf.constraints.distribute(np.random.default_rng(SEED).standard_normal(mf.n_dofs))
     xs[mf.dof_handler.boundary_dofs()] = 0.0
@@ -3851,7 +3886,7 @@ def brick2d_gmg(mt, dev, wrappers, smi):
     b_norm = float(torch.sqrt(mm.dot(b, b)))
     r = b - op.vmult(x)
     true_res = float(torch.sqrt(mm.dot(r, r))) / b_norm
-    print(f"2-D brick GMG-CG quadrant nref={INDEX2D_GMG_NREF} p={p} f32 on {smi}: {iters} "
+    print(f"2-D brick GMG-CG quadrant nref={BRICK2D_GMG_NREF} p={p} f32 on {smi}: {iters} "
           f"iterations, relative residual {res / b_norm:.3e} (recomputed b - A x: "
           f"{true_res:.3e}); solve {solve_s:.4f} s, {solve_s / max(iters, 1):.4f} s an "
           f"iteration (warm-up {warm_s:.2f} s); launches {counts}", flush=True)
@@ -3876,12 +3911,12 @@ def brick2d_gmg(mt, dev, wrappers, smi):
     parts = {}
     for name in ("brick_transfer", "dof_embed"):
         for part in finest[name]:
-            part["mode"] = f"2-D {part['mode']} nref {INDEX2D_GMG_NREF - 1} -> {INDEX2D_GMG_NREF}"
+            part["mode"] = f"2-D {part['mode']} nref {BRICK2D_GMG_NREF - 1} -> {BRICK2D_GMG_NREF}"
         parts[name] = finest[name] + others[name]
         for part in parts[name]:
             part["launches"] = counts.get(name, 0)
             part["call"] = "2-D brick GMG-CG solve"
-    numbers = dict(nref=INDEX2D_GMG_NREF, degree=p, dtype="float32", tol=1e-5, setup_s=setup_s,
+    numbers = dict(nref=BRICK2D_GMG_NREF, degree=p, dtype="float32", tol=1e-5, setup_s=setup_s,
                    levels=levels, iterations=iters, rel_res=res / b_norm,
                    rel_res_recomputed=true_res, solve_s=solve_s,
                    s_per_iter=solve_s / max(iters, 1), warmup_s=warm_s, launches=counts,
@@ -4763,12 +4798,45 @@ def elasticity_alone(mt, dev, wrappers, smi):
     return elastic, records, parts
 
 
+def index_alone(mt, dev, wrappers, smi):
+    """``python3 chip_smoke.py --index``: phase 7 on phase 3's mesh (quadrant
+    nref=7 p=4 f32), phase 9's index-engine float64 checks (quadrant nref=4
+    p=4 and the oracle cases) and the Laplace paths of phase 14 (2-D
+    quadrant nref=11: every instance of the index kernels, the vmults, the
+    runners, the oracles; no elasticity, no GMG-CG), each as in the whole
+    run. Returns (numbers, the records of the index kernels with their 2-D
+    parts)."""
+    t0 = time.perf_counter()
+    tria = mt.create_quadrant(3, 7)
+    mf = mt.MatrixFree(tria, 4, dtype=np.float32)
+    index, records = index_phase(mt, tria, mf, dev, wrappers, smi)
+    index["phase_s"] = phase_seconds(7, "the index engine", t0)
+    del tria, mf
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tria4 = mt.create_quadrant(3, 4)
+    index_f64_checks(mt, tria4, mt.MatrixFree(tria4, 4, dtype=np.float64), dev)
+    index["f64_checks_s"] = phase_seconds(9, "the index engine's float64 checks", t0)
+    t0 = time.perf_counter()
+    index2d, parts, _, _ = index2d_phase(mt, dev, wrappers, smi, index_only=True)
+    index2d["phase_s"] = phase_seconds(14, "2-D index paths", t0)
+    for name, plist in parts.items():
+        records[name]["parts"].extend(plist)
+        for part in plist:
+            for key in ("max_abs_err", "max_rel_err"):
+                records[name][key] = max(records[name][key], part[key])
+    index["index_2d"] = index2d
+    torch.cuda.empty_cache()
+    return index, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
         return 2
 
+    t_phase = time.perf_counter()
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     if sys.argv[1:] == ["--metric-host"]:
         metric_host_comparison(mt)
@@ -4776,6 +4844,7 @@ def main() -> int:
     only_distributed = sys.argv[1:] == ["--distributed"]
     only_gmg = sys.argv[1:] == ["--gmg"]
     only_elasticity = sys.argv[1:] == ["--elasticity"]
+    only_index = sys.argv[1:] == ["--index"]
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, brick_transfer,
@@ -4792,10 +4861,19 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
     dev = torch.device("cuda", 0)
+    phase_seconds(1, "the card", t_phase)
 
-    # ---- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    logs = _build.build()
+    # ---- 2. build (a whole run makes phase 3's mesh and MatrixFree meanwhile) --
+    t0 = t_phase = time.perf_counter()
+    whole = not (only_distributed or only_gmg or only_index or only_elasticity)
+    with ThreadPoolExecutor(1) as pool:  # the nvcc processes run while this one works
+        building = pool.submit(_build.build)
+        if whole:  # host work only: neither launches nor loads a kernel
+            tria = mt.create_quadrant(3, 7)
+            mf = mt.MatrixFree(tria, 4, dtype=np.float32)
+            print(f"phase 3's mesh and MatrixFree during the build: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        logs = building.result()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(logs)} kernel libraries")
     for name, log in logs.items():
         for kernel, usage in _build.ptxas_usage(log):
@@ -4836,6 +4914,7 @@ def main() -> int:
                     host = brick_transfer.round_rows(d, p, auto_brick_size(p, d), m)
                     check(plan[4] == host, f"brick_transfer {m} dim={d} p={p}: the kernel takes "
                                            f"{plan[4]} rows a round, round_rows {host}")
+    phase_seconds(2, "build and plans", t_phase)
 
     if only_distributed:  # phases 1, 2 and 17 alone, on phase 3's mesh
         tria = mt.create_quadrant(3, 7)
@@ -4861,6 +4940,16 @@ def main() -> int:
                                      "result (run without arguments for that)"}))
         return 0
 
+    if only_index:  # phases 1, 2, 7, 9's index checks and phase 14's index paths alone
+        wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
+        index, records = index_alone(mt, dev, wrappers, smi)
+        print(json.dumps({"index": index}))
+        print(json.dumps({"index_kernels": list(records.values())}))
+        print(json.dumps({"partial": "phases 1, 2, 7, phase 9's index checks and phase 14's "
+                                     "index paths; no smoke result (run without arguments for "
+                                     "that)"}))
+        return 0
+
     if only_elasticity:  # phases 1, 2, 11 and the 2-D elasticity of phases 14 and 16 alone
         wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
         elastic, records, _ = elasticity_alone(mt, dev, wrappers, smi)
@@ -4871,12 +4960,11 @@ def main() -> int:
         return 0
 
     # ---- 3. setup: quadrant nref=7, p=4, float32 ----------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    tria = mt.create_quadrant(3, 7)
-    mf = mt.MatrixFree(tria, 4, dtype=np.float32)
     op = mt.BrickLaplaceMM(mf, device=dev)
     torch.cuda.synchronize()
-    print(f"setup: {time.perf_counter() - t0:.1f} s  (quadrant nref=7 p=4 f32: "
+    print(f"setup: {time.perf_counter() - t0:.1f} s after the mesh  (quadrant nref=7 p=4 f32: "
           f"{mf.n_dofs} DoFs, {tria.n_active_cells} cells, {op.n_bricks} bricks, "
           f"{op.n_sub} subset bricks, {op.n_hn} constrained rows, "
           f"{op.fill_ent_src.numel()} fill and {op.corr_ent_src.numel()} fold entries; the fold "
@@ -4907,7 +4995,10 @@ def main() -> int:
     x = op.from_dof_vector(u)
     y = op.vmult(x)  # refill's input: a vmult output (reduced)
 
+    phase_seconds(3, "setup", t_phase)
+
     # ---- 4. each kernel against its plain version ---------------------------
+    t_phase = time.perf_counter()
     tol32 = 1e-5
     calls, inter = kernel_calls(op, x, y)
     check_kernels(calls, tol32, "nref=7 f32")
@@ -4986,7 +5077,10 @@ def main() -> int:
               f"(kernel {dss['ms']:.4f} ms, bound {dss['bound_ms']:.4f} ms in words)", flush=True)
     del calls, inter, library, lib_calls, hn_steps, out
 
+    phase_seconds(4, "each kernel against its plain version", t_phase)
+
     # ---- 5. end-to-end vmult, nref=7, float32, through the kernels ---------
+    t_phase = time.perf_counter()
     op64 = mt.BrickLaplaceMM(mf, device=dev, dtype=torch.float64)
     x64 = x.double()
     ref = op64.to_dof_vector(op64.vmult(x64, plain=True), zero_hanging=True)
@@ -5030,7 +5124,10 @@ def main() -> int:
     print(f"vmult_plain nref=7 p=4 f32 on {smi}: {vp_ms:.4f} ms; HN overhead (vmult / "
           f"vmult_plain) {vm_ms / vp_ms:.4f}", flush=True)
 
+    phase_seconds(5, "vmult", t_phase)
+
     # ---- 6. refill, nref=7, float32, through the kernels --------------------
+    t_phase = time.perf_counter()
     ref = op64.refill(y.double(), plain=True)
     got, rcounts = counted(wrappers, lambda: op.refill(y))
     abs_err, rf_err = errors(got, ref)
@@ -5054,14 +5151,20 @@ def main() -> int:
     del x64, ref, got, x, y, yp  # op and op64 stay for the elasticity phase
     torch.cuda.empty_cache()
 
+    phase_seconds(6, "refill", t_phase)
+
     # ---- 7. the index engine, nref=7, float32, through the kernels ----------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     index, index_records = index_phase(mt, tria, mf, dev, wrappers, smi)
     index["phase_s"] = time.perf_counter() - t0
     print(f"index engine phase: {index['phase_s']:.1f} s", flush=True)
     results.update(index_records)
 
+    phase_seconds(7, "the index engine", t_phase)
+
     # ---- 8. the degree <= 3 schedule, float32 through the kernels -----------
+    t_phase = time.perf_counter()
     low, low_parts, low_ops = {}, {}, {}
     trias = {7: tria}
     for p, nref in LOW_DEGREES:
@@ -5097,7 +5200,10 @@ def main() -> int:
           + ", ".join([f"p=4 {vm_ms / vp_ms:.4f}"]
                       + [f"{k} {v['hn_overhead']:.4f}" for k, v in low.items()]), flush=True)
 
+    phase_seconds(8, "the degree <= 3 schedule", t_phase)
+
     # ---- 9. float64 through the kernels --------------------------------------
+    t_phase = time.perf_counter()
     tria4 = mt.create_quadrant(3, 4)
     mf4 = mt.MatrixFree(tria4, 4, dtype=np.float64)
     op4 = mt.BrickLaplaceMM(mf4, device=dev)
@@ -5146,14 +5252,20 @@ def main() -> int:
                   flush=True)
             check(e <= 1e-12, f"float64 p={p} {call} disagrees with its plain path: {e:.3e}")
 
+    phase_seconds(9, "float64", t_phase)
+
     # ---- 10. the GMG-CG solve, quadrant nref=6 p=4 float32, and the index GMG --
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     gmg_numbers, gmg_records = gmg_phase(mt, dev, wrappers, smi)
     gmg_numbers["phase_s"] = time.perf_counter() - t0
     print(f"GMG phase: {gmg_numbers['phase_s']:.1f} s", flush=True)
     results.update(gmg_records)
 
+    phase_seconds(10, "GMG-CG", t_phase)
+
     # ---- 11. linear elasticity on both engines ---------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     elastic, elastic_records, elastic_parts = elasticity_phase(mt, mf, op, op64, dev, wrappers,
                                                                 smi)
@@ -5161,7 +5273,10 @@ def main() -> int:
     print(f"elasticity phase: {elastic['phase_s']:.1f} s", flush=True)
     results.update(elastic_records)
 
+    phase_seconds(11, "elasticity", t_phase)
+
     # ---- 12. the multi-RHS vmult ------------------------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     multi, multi_parts = multi_phase(mt, op, op64, low_ops.pop(3), multi_mats, dev, wrappers,
                                      smi)
@@ -5171,7 +5286,10 @@ def main() -> int:
     del op64, multi_mats
     torch.cuda.empty_cache()
 
+    phase_seconds(12, "multi-RHS vmult", t_phase)
+
     # ---- 13. the deformed brick engine ------------------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     deformed, results["brick_deformed"], deformed_parts = deformed_phase(mt, tria, op, dev,
                                                                          wrappers, smi)
@@ -5180,14 +5298,20 @@ def main() -> int:
     del op
     torch.cuda.empty_cache()
 
+    phase_seconds(13, "the deformed brick engine", t_phase)
+
     # ---- 14. 2-D on the index engine ----------------------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     index2d, index2d_parts, mf2, mf2_d = index2d_phase(mt, dev, wrappers, smi)
     index2d["phase_s"] = time.perf_counter() - t0
     print(f"2-D index engine phase: {index2d['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    phase_seconds(14, "2-D index engine", t_phase)
+
     # ---- 15. 2-D on the brick engine, on phase 14's mesh ---------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     brick2d, brick2d_parts, op2 = brick2d_phase(mt, mf2, index2d["vmult"]["ms"], dev, wrappers,
                                                 smi)
@@ -5195,7 +5319,10 @@ def main() -> int:
     print(f"2-D brick engine phase: {brick2d['phase_s']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
+    phase_seconds(15, "2-D brick engine", t_phase)
+
     # ---- 16. the rest of 2-D on the brick engine, on phase 14's and 15's meshes ---------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     paths2d, paths2d_parts = brick2d_paths_phase(mt, mf2, mf2_d, op2, index2d, dev, wrappers,
                                                  smi)
@@ -5204,7 +5331,10 @@ def main() -> int:
     del mf2, mf2_d, op2
     torch.cuda.empty_cache()
 
+    phase_seconds(16, "2-D brick paths", t_phase)
+
     # ---- 17. the distributed engines on one NCCL rank, on phase 3's mesh ------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     distributed, dist_records = distributed_phase(mt, tria, mf, dev, wrappers, smi)
     print(f"distributed phase: {distributed['phase_s']:.1f} s", flush=True)
@@ -5221,6 +5351,8 @@ def main() -> int:
                 results[name][key] = max(results[name][key], part[key])
     check(sorted(results) == sorted(m.NAME for m in KERNEL_MODULES),
           f"the kernels line lacks {set(m.NAME for m in KERNEL_MODULES) - set(results)}")
+
+    phase_seconds(17, "distributed", t_phase)
 
     # ---- 18. the numbers -----------------------------------------------------
     print(json.dumps({"vmult": {"ms": vm_ms, "plain_ms": vm_plain_ms, "n_dofs": n_dofs4,

@@ -65,7 +65,8 @@
 //   runs even-odd: S[N-1-i][N-1-j] = S[i][j] and D[N-1-i][N-1-j] =
 //   -D[i][j] on the symmetric Gauss points and nodes, so a sweep forms the sums and differences
 //   of the mirrored inputs and takes (N/2 + N%2) (N/2) + (N/2)^2 products, not N^2 (13 not 25 at
-//   p=4); the factors' even and odd halves come from cell_elasticity.factor_tables (whole
+//   p=4; the sweeps and their tables in even_odd.cuh, shared with cell_laplace.cu; the tables
+//   from _even_odd.factor_tables) (whole
 //   sweeps measured 0.7904-0.7967, 0.1676-0.1703 and 0.3378-0.3409 ms against the even-odd
 //   0.7574-0.7646, 0.1569-0.1596 and 0.2950-0.3020 in the 3-D index, 3-D bricks and 2-D index
 //   modes at quadrant nref=7 p=4 f32, 2-D nref=11, H100 80GB HBM3 at 700 W). In the index mode
@@ -94,10 +95,24 @@
 #include <cstddef>
 
 #include "elasticity.cuh"
+#include "even_odd.cuh"
 #include "hanging_nodes.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
+
+using eo::Factors;
+using eo::FD;
+using eo::FDT;
+using eo::FS;
+using eo::FST;
+using eo::cp_async;
+using eo::cp_async_commit;
+using eo::cp_async_wait;
+using eo::factors_from;
+using eo::load;
+using eo::mat;
+using eo::store;
 
 template <typename T>
 struct Args {
@@ -112,75 +127,6 @@ struct Args {
   long long cstride;  // bricks: values between the components' brick vectors
   int B, N3p;         // bricks: cells a brick side, a brick's padded length
 };
-
-// A 1-D factor M [N][N] (row: output point or node) split even-odd: with M[N-1-i][N-1-j] =
-// s M[i][j] (s = +1 for S and S^T, -1 for D and D^T), for rows i < (N+1)/2
-//   A[i][j] = (M[i][j] + M[i][N-1-j]) / 2,  B[i][j] = (M[i][j] - M[i][N-1-j]) / 2  (j < N/2),
-//   C[i] = M[i][N/2] (odd N; zero for even N),
-// cell_elasticity.factor_tables' packing, value for value.
-template <typename T, int N>
-struct Fac1 {
-  static constexpr int H = N / 2, HH = (N + 1) / 2;
-  T A[HH][H];
-  T B[HH][H];
-  T C[HH];
-};
-
-constexpr int FS = 0, FD = 1, FST = 2, FDT = 3;  // S, D = Dc S, S^T, D^T
-
-template <typename T, int N>
-struct Factors {
-  Fac1<T, N> m[4];
-};
-
-// out = M in on a line in registers (in and out distinct), M's mirror sign SIGN
-template <typename T, int N, int SIGN>
-__device__ __forceinline__ void mat(const Fac1<T, N>& M, const T (&in)[N], T (&out)[N]) {
-  constexpr int H = N / 2;
-  T e[H], o[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    e[j] = in[j] + in[N - 1 - j];
-    o[j] = in[j] - in[N - 1 - j];
-  }
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    T E = M.A[i][0] * e[0], O = M.B[i][0] * o[0];
-#pragma unroll
-    for (int j = 1; j < H; ++j) {
-      E += M.A[i][j] * e[j];
-      O += M.B[i][j] * o[j];
-    }
-    if constexpr (N % 2 == 1) E += M.C[i] * in[H];
-    out[i] = E + O;
-    out[N - 1 - i] = SIGN > 0 ? E - O : O - E;
-  }
-  if constexpr (N % 2 == 1) {  // the middle row: even for SIGN +1, odd for -1
-    if constexpr (SIGN > 0) {
-      T E = M.C[H] * in[H];
-#pragma unroll
-      for (int j = 0; j < H; ++j) E += M.A[H][j] * e[j];
-      out[H] = E;
-    } else {
-      T O = M.B[H][0] * o[0];
-#pragma unroll
-      for (int j = 1; j < H; ++j) O += M.B[H][j] * o[j];
-      out[H] = O;
-    }
-  }
-}
-
-template <typename T, int N, int STRIDE>
-__device__ __forceinline__ void load(const T* p, T (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = p[i * STRIDE];
-}
-
-template <typename T, int N, int STRIDE>
-__device__ __forceinline__ void store(T* p, const T (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) p[i * STRIDE] = r[i];
-}
 
 // cells a block and its layout: a z-column a thread (N^2 threads a cell), G N^2 close to a
 // multiple of 32; twelve regions of G N^3 values (at most 161 KB in f64, at p = 6): kinds 0,
@@ -229,24 +175,6 @@ __device__ __forceinline__ void interp3(T* cell, const T* P2, int mask, int j, b
     }
   }
   __syncthreads();
-}
-
-// cp.async copies of sizeof(T) bytes into shared memory
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // groups of G cells a block in the index mode, in turn, the next one's gather in flight (the
@@ -640,16 +568,6 @@ cell_elasticity2_kernel(const Args<T> a, const Factors<T, P + 1> f, int n_cells)
     T* dst = a.out + static_cast<size_t>(comp) * n_cells * NL + row0;
     for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) dst[idx] = buf[comp * R + idx];
   }
-}
-
-// the launch parameters' factors from the host's float64 tables (factor_tables' order)
-template <typename T, int N>
-Factors<T, N> factors_from(const double* host) {
-  Factors<T, N> f;
-  T* dst = reinterpret_cast<T*>(&f);
-  static_assert(sizeof(Factors<T, N>) % sizeof(T) == 0, "factor tables hold T values only");
-  for (size_t i = 0; i < sizeof(Factors<T, N>) / sizeof(T); ++i) dst[i] = static_cast<T>(host[i]);
-  return f;
 }
 
 template <typename T, int P, typename C, typename K>

@@ -6,12 +6,12 @@
 //   2. with codes and flag HN_IN: the hanging-node interpolation, by the cell's mask through the
 //      sweeps (hanging_nodes.cuh; mask 0: none). All four runners of MatrixFree (compact, all,
 //      sorted, matrix) compute this one function, so their vmults share this one kernel;
-//   3. with flag QUAD: the Laplace by sum factorization in the collocation form of the
-//      reference: values at the Gauss points by DIM sweeps of S, the reference gradient
-//      component t by a sweep of Dc along t; at each point g_d * geo[c, d] * w (Cartesian geo
-//      [n_cells, DIM], quadrature weights w [N^DIM]) or the packed symmetric metric times g
-//      (DEFORMED: geo [n_cells, N^DIM, 6 or 3], which holds w detJ J^-1 J^-T; xx, xy, yy in
-//      2-D); then the transposes: Dc^T along t on component t, their sum, S^T along z, y, x;
+//   3. with flag QUAD: the Laplace by sum factorization: the reference gradients at the Gauss
+//      points, at each point g_d * geo[c, d] * w (Cartesian geo [n_cells, DIM], quadrature
+//      weights w [N^DIM]) or the packed symmetric metric times g (DEFORMED: geo [n_cells,
+//      N^DIM, 6 or 3], which holds w detJ J^-1 J^-T; xx, xy, yy in 2-D), integrated back. The
+//      reference's collocation form (values by S, gradients by Dc, ops/sum_factorization.py)
+//      is the plain version's; the kernel computes the same operator with D = Dc S (below);
 //   4. with codes and flag HN_OUT: the transposed interpolation (reversed sweeps, P^T);
 //   5. write the row.
 //
@@ -24,31 +24,58 @@
 // Bound on an H100 SXM at quadrant nref=7, p=4, f32 (cell_laplace.bytes_and_flops): memory. The
 //   distinct DoFs the map names read once (17.55 M, 70 MB), the dofmap (269,991 x 125 int32,
 //   135 MB) and geo read once, the rows written once (135 MB): ~0.10 ms at 3.35 TB/s, against
-//   12 sweeps of 2 N^4 a cell (4.1 GFLOP, 0.061 ms at 67 TFLOP/s f32 outside the tensor cores).
-//   The brick engine moves neither the dofmap nor the cell rows (PERF.md compares the two).
+//   the collocation form's 12 sweeps of 2 N^4 a cell (4.1 GFLOP, 0.061 ms at 67 TFLOP/s f32
+//   outside the tensor cores). The brick engine moves neither the dofmap nor the cell rows.
 //   The dim=2 instances at quadrant nref=11, p=4, f32: the distinct DoFs (16.84 M, 67 MB), the
 //   dofmap (1,051,669 x 25 int32, 105 MB), geo (8.4 MB) and the rows (105 MB): ~286 MB,
 //   ~0.085 ms at 3.35 TB/s; 8 sweeps of 2 N^3 a cell (2.1 GFLOP) are far below.
 //
-// Design: one thread a line of a cell, G cells a block (16 at p <= 4, 8 at p = 5, 6, 32 at p = 1;
-//   G N^2 threads; in 2-D a cell has N lines, so G = 256 / N cells, 128 at p = 1 and 51 at
-//   p = 4, keep a block at >= 128 threads). The block's G cells are gathered into shared memory
-//   (the dofmap read
-//   coalesced, src gathered), then every step is a sweep over the cells' lines in place in
-//   shared memory, one barrier a sweep: values in V, the gradient components in G0..G2 (G0, G1
-//   in 2-D; the quadrature in laplace_quad.cuh, shared with the brick engine's deformed
-//   kernels, whose 3-D forms the 2-D ones stand beside).
-//   S, Dc, P and w are staged in shared memory once a block;
-//   every thread of a warp reads one factor entry at a time (a broadcast). A block with no
-//   constrained cell skips the interpolation (one __syncthreads_or). Each row is written by its
-//   block alone and every sum runs in a fixed order: no atomics, bit-identical calls. The
-//   scatter-add is dof_scatter's launch (fusing it needs a coloring or atomics).
+// Design: with QUAD (cell_laplace_col_kernel), the layout of Kronbichler and Ljungkvist (2019),
+//   deal.II's CUDA matrix-free path, as cell_elasticity.cu's, for one component. A thread owns a
+//   z-column (x, y) of a cell, N^2 threads a cell, G cells a group (Col3: G N^2 close to a
+//   multiple of 32); the group's values sit in shared memory in regions of G N^3 values (kinds
+//   0, 1, 2), and the operator runs in five phases, a thread's lines in registers, one barrier
+//   after each:
+//     z1, its column:     a = S_z u, c = D_z u                                 (kinds 0, 2)
+//     x1, x-line (y, z):  a' = S_x a, b = D_x a, c' = S_x c                    (kinds 0, 1, 2)
+//     y,  y-line (x, z):  the gradients S_y b, D_y a', S_y c'; the geometry at the line's N
+//                         points (geo w, w folded in, or the metric read from device memory);
+//                         P = D_y^T o_y, Q = S_y^T o_x, R = S_y^T o_z         (kinds 0, 1, 2)
+//     x2, x-line:         T1 = D_x^T Q + S_x^T P, T2 = S_x^T R                 (kinds 0, 2)
+//     z2, its column:     S_z^T T1 + D_z^T T2                                  (kind 0)
+//   16 sweeps of a line where the collocation form takes 12, but 5 barriers where the earlier
+//   design (a line of a cell a thread, every value in shared memory, S, Dc and w staged there
+//   and read by every FMA) took 9 and 12 sweeps. S, D and their transposes ride the launch as
+//   its parameters (the constant bank), each sweep even-odd (even_odd.cuh, shared with
+//   cell_elasticity.cu: 13 products a sweep at p=4, not 25). A block takes one group: its
+//   dofmap entries are read first, all in flight, then its src values gathered by cp.async
+//   (the rows path, dofmap null, copies its rows the same way) while each thread reads its
+//   weights, code and geo. 2-D (Col2): a y-column of a cell a thread, N
+//   threads a cell, G = 256 / N cells a group, three phases: y1 (a = S_y u, c = D_y u), x (the
+//   gradients D_x a, S_x c; the geometry; Q = D_x^T o_x, R = S_x^T o_y), y2 (S_y^T Q + D_y^T R):
+//   8 sweeps, 3 barriers. The interpolation (blocks with a constrained cell only) sweeps lines in
+//   shared memory with P staged there (hanging_nodes.cuh; a thread's index in its cell is the
+//   line it sweeps), 3 barriers each way (2-D: 2). At quadrant nref=7 p=4 f32 on an H100 80GB
+//   HBM3 at 700 W (kernel_ab.py, one process): 0.2485-0.2516 ms with the cells' codes, where
+//   the earlier design took 0.5427-0.5446; deformed at nref=6 0.0647-0.0663 (0.0979-0.0990);
+//   2-D nref=11 0.1504-0.1511 (0.2724-0.2736), deformed 0.2092-0.2098 (0.3283-0.3296). Tried
+//   and slower in one process: two to eight groups a block with the next group's gather in
+//   flight (cell_elasticity's index mode; 2-10 %), the collocation form on this layout (13
+//   sweeps, 8 barriers; 6 % in 3-D), 10 cells a 3-D block (9 %). The gather and write alone
+//   take 0.17 ms of the 3-D 0.25.
+// Without QUAD (cell_laplace_read_kernel): one thread a line of a cell, the block's cells
+//   gathered into shared memory, the interpolation's sweeps there, the rows written.
+// Each row is written by its block alone and every sum runs in a fixed order: no atomics,
+//   bit-identical calls. The scatter-add is dof_scatter's launch (fusing it needs a coloring or
+//   atomics).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
-#include "laplace_quad.cuh"
+#include "even_odd.cuh"
+#include "hanging_nodes.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -68,38 +95,22 @@ struct Args {
   T* out;
 };
 
-// the values a block keeps in shared memory: V and the DIM gradient components, P, S, Dc, w
-template <typename T, int DIM, int P>
-constexpr int smem_values() {
-  using C = hn::Shape<DIM, P>;
-  return (DIM + 1) * C::G * C::NL + 4 * C::N * C::N + C::NL;
-}
-
+// The read kernel (no QUAD: read_dof_values, the transposed runner of distribute_local_to_global
+// and the distributed GMG's reads): one thread a line of a cell, G cells a block (hn::Shape).
+// The block's cells are gathered into shared memory (the dofmap read coalesced, src gathered),
+// then each interpolation asked for sweeps their lines in place (hanging_nodes.cuh; P staged in
+// shared memory), and the rows are written. A block with no constrained cell skips the sweeps
+// (one __syncthreads_or).
 template <typename T, int DIM, int P>
 __global__ void __launch_bounds__(hn::Shape<DIM, P>::THREADS)
-cell_laplace_kernel(const Args<T> a, int n_cells, int flags) {
+cell_laplace_read_kernel(const Args<T> a, int n_cells, int flags) {
   using C = hn::Shape<DIM, P>;
   constexpr int N = C::N, LINES = C::LINES, NL = C::NL, G = C::G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* V = reinterpret_cast<T*>(smem_raw);
-  T* G0 = V + G * NL;
-  T* G1 = G0 + G * NL;
-  T* sP = G0 + DIM * G * NL;  // after G0 .. G(DIM-1)
-  T* sS = sP + 2 * N * N;
-  T* sD = sS + N * N;
-  T* sW = sD + N * N;
-  const bool quad = flags & QUAD, deformed = flags & DEFORMED;
+  T* sP = V + G * NL;
 
   for (int i = threadIdx.x; i < 2 * N * N; i += blockDim.x) sP[i] = __ldg(a.P + i);
-  if (quad) {
-    for (int i = threadIdx.x; i < N * N; i += blockDim.x) {
-      sS[i] = __ldg(a.S + i);
-      sD[i] = __ldg(a.Dc + i);
-    }
-    if (!deformed) {
-      for (int i = threadIdx.x; i < NL; i += blockDim.x) sW[i] = __ldg(a.w + i);
-    }
-  }
   const int c0 = blockIdx.x * G;
   const size_t row0 = static_cast<size_t>(c0) * NL;
   const int n_vals = min(G, n_cells - c0) * NL;
@@ -113,68 +124,301 @@ cell_laplace_kernel(const Args<T> a, int n_cells, int flags) {
   const bool hn_work = active && code != 0;
   const bool any_hn = __syncthreads_or(hn_work);  // also the barrier after the gather
   T* cell = V + g * NL;
-
-  if ((flags & HN_IN) && any_hn) {
-    hn::interp_cells_d<T, DIM, N, false>(cell, sP, code, j, hn_work);
-  }
-
-  if constexpr (DIM == 2) {
-    if (quad) {
-      T* g0 = G0 + g * NL;
-      T* g1 = G1 + g * NL;
-      if (deformed) {  // the packed metric (xx, xy, yy) of cell c at each point
-        const T* m = a.geo + static_cast<size_t>(c) * NL * 3;
-        lq::laplace_cells2<T, N>(cell, g0, g1, sS, sD, j, active, [=](T* x, T* y) {
-          lq::metric_line2<T, N>(m, x, y, j);
-        });
-      } else {  // the Cartesian factors of cell c times the weights: points j, j + N, ...
-        lq::laplace_cells2<T, N>(cell, g0, g1, sS, sD, j, active, [=](T* x, T* y) {
-          const T gx = __ldg(a.geo + 2 * c), gy = __ldg(a.geo + 2 * c + 1);
-#pragma unroll
-          for (int k = 0; k < N; ++k) {
-            const int q = j + k * N;
-            x[q] = x[q] * gx * sW[q];
-            y[q] = y[q] * gy * sW[q];
-          }
-        });
-      }
-    }
-  } else if (quad) {
-    T* G2 = G1 + G * NL;
-    T* g0 = G0 + g * NL;
-    T* g1 = G1 + g * NL;
-    T* g2 = G2 + g * NL;
-    if (deformed) {  // the packed metric of cell c at each point
-      const T* m = a.geo + static_cast<size_t>(c) * NL * 6;
-      lq::laplace_cells<T, N>(cell, g0, g1, g2, sS, sD, j, active, [=](T* x, T* y, T* z) {
-        lq::metric_line<T, N>(m, x, y, z, j);
-      });
-    } else {  // the Cartesian factors of cell c times the weights: points j, j + N^2, ...
-      lq::laplace_cells<T, N>(cell, g0, g1, g2, sS, sD, j, active, [=](T* x, T* y, T* z) {
-        const T gx = __ldg(a.geo + 3 * c), gy = __ldg(a.geo + 3 * c + 1),
-                gz = __ldg(a.geo + 3 * c + 2);
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-          const int q = j + k * LINES;
-          x[q] = x[q] * gx * sW[q];
-          y[q] = y[q] * gy * sW[q];
-          z[q] = z[q] * gz * sW[q];
-        }
-      });
-    }
-  }
-
-  if ((flags & HN_OUT) && any_hn) {
-    hn::interp_cells_d<T, DIM, N, true>(cell, sP, code, j, hn_work);
-  }
+  if ((flags & HN_IN) && any_hn) hn::interp_cells_d<T, DIM, N, false>(cell, sP, code, j, hn_work);
+  if ((flags & HN_OUT) && any_hn) hn::interp_cells_d<T, DIM, N, true>(cell, sP, code, j, hn_work);
   for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) a.out[row0 + idx] = V[idx];
 }
 
+// ---- the columns design (QUAD): a z-column (2-D: a y-column) of a cell a thread --------------
+using eo::Factors;
+using eo::FD;
+using eo::FDT;
+using eo::FS;
+using eo::FST;
+using eo::load;
+using eo::mat;
+using eo::store;
+
+// 3-D: N^2 threads a cell, G cells a block (G N^2 close to a multiple of 32), three regions of
+// G N^3 values (kinds 0, 1, 2)
+template <int P>
+struct Col3 {
+  static constexpr int N = P + 1, N2 = N * N, NL = N2 * N, LINES = N2;
+  static constexpr int G = P == 1 ? 32 : P == 2 ? 14 : P == 3 ? 8 : P == 4 ? 5 : P == 5 ? 7 : 5;
+  static constexpr int THREADS = (G * N2 + 31) / 32 * 32;
+  static constexpr int R = G * NL;
+  static constexpr int VALUES = 3 * R;
+};
+
+// 2-D: N threads a cell, G = 256 / N cells a block, two regions of G N^2 values (kinds 0, 1)
+template <int P>
+struct Col2 {
+  static constexpr int N = P + 1, NL = N * N, LINES = N;
+  static constexpr int G = 256 / N;
+  static constexpr int THREADS = (G * N + 31) / 32 * 32;
+  static constexpr int R = G * NL;
+  static constexpr int VALUES = 2 * R;
+};
+
+template <int DIM, int P>
+using Col = std::conditional_t<DIM == 3, Col3<P>, Col2<P>>;
+
+// blocks an SM the registers must allow: in f32 up to p = 4, 1536 threads in 3-D (40 registers)
+// and 2048 in 2-D (32), 768 above; 512 in f64 up to p = 4 (128), 384 above. At p = 4 f32 3-D
+// 1024 threads measured 1-5 % slower and 2048 2-10 %, 2-D 1536 4-7 % slower (kernel_ab.py)
 template <typename T, int DIM, int P>
-int launch(const Args<T>& a, int n_cells, int flags, cudaStream_t stream) {
+constexpr int min_blocks() {
+  constexpr int threads = sizeof(T) == 4 ? (P <= 4 ? (DIM == 3 ? 1536 : 2048) : 768)
+                                         : (P <= 4 ? 512 : 384);
+  return threads / Col<DIM, P>::THREADS > 0 ? threads / Col<DIM, P>::THREADS : 1;
+}
+
+// issue the cp.async gather of the block's cells from c0 into dst: src[dofmap] (the indices
+// read first, all in flight together), or the rows src[c] (dofmap null)
+template <typename T, int DIM, int P>
+__device__ __forceinline__ void gather(const Args<T>& a, T* dst, int c0, int n_cells) {
+  using C = Col<DIM, P>;
+  constexpr int NL = C::NL;
+  const int n_vals = min(C::G, n_cells - c0) * NL;
+  const size_t row0 = static_cast<size_t>(c0) * NL;
+  if (a.dofmap == nullptr) {
+    for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) {
+      eo::cp_async(dst + idx, a.src + row0 + idx);
+    }
+  } else {
+    constexpr int K = (C::G * NL + C::THREADS - 1) / C::THREADS;
+    int d[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int idx = threadIdx.x + q * C::THREADS;
+      d[q] = idx < n_vals ? __ldg(a.dofmap + row0 + idx) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int idx = threadIdx.x + q * C::THREADS;
+      if (idx < n_vals) eo::cp_async(dst + idx, a.src + d[q]);
+    }
+  }
+  eo::cp_async_commit();
+}
+
+// The columns kernel (flag QUAD): gather, HN, the Laplace in five phases (2-D: three), HN^T,
+// write, for the block's G cells.
+template <typename T, int DIM, int P>
+__global__ void __launch_bounds__(Col<DIM, P>::THREADS, (min_blocks<T, DIM, P>()))
+cell_laplace_col_kernel(const Args<T> a, const Factors<T, P + 1> f, int n_cells, int flags) {
+  using C = Col<DIM, P>;
+  constexpr int N = C::N, NL = C::NL, G = C::G, R = C::R, LINES = C::LINES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  T* sP = buf + C::VALUES;
+  const bool deformed = flags & DEFORMED;
+  const bool hn_in = (flags & HN_IN) && a.codes, hn_out = (flags & HN_OUT) && a.codes;
+
+  if (a.codes) {
+    for (int i = threadIdx.x; i < 2 * N * N; i += blockDim.x) sP[i] = __ldg(a.P + i);
+  }
+  const int c0 = blockIdx.x * G;
+  gather<T, DIM, P>(a, buf, c0, n_cells);
+  const int l = threadIdx.x, g = l / LINES, j = l - g * LINES;
+  const int jx = j % N, jz = j / N;  // 3-D: the column's (x, y); the y-line's (x, z)
+  T wq[N];  // Cartesian: the weights at the points of the thread's y-line (2-D: x-line y = j)
+  if (!deformed && l < G * LINES) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      wq[i] = DIM == 3 ? __ldg(a.w + jx + N * i + N * N * jz) : __ldg(a.w + i + N * j);
+    }
+  }
+  const size_t row0 = static_cast<size_t>(c0) * NL;
+  const int n_vals = min(G, n_cells - c0) * NL;
+  const int cell = c0 + g;
+  const bool active = l < G * LINES && cell < n_cells;
+  const int code = (a.codes && active) ? __ldg(a.codes + cell) : 0;
+  T geo[DIM] = {};  // Cartesian: the cell's factors
+  if (active && !deformed) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) geo[d] = __ldg(a.geo + DIM * cell + d);
+  }
+  const bool hn_work = active && code != 0;
+  eo::cp_async_wait<0>();
+  const bool any_hn = __syncthreads_or(hn_work);  // also the barrier after the gather
+  const int go = (active ? g : 0) * NL;
+  T* const k0 = buf + go;
+  T* const k1 = buf + R + go;
+
+  if (hn_in && any_hn) hn::interp_cells_d<T, DIM, N, false>(k0, sP, code, j, hn_work);
+  if constexpr (DIM == 3) {
+    constexpr int N2 = N * N;
+    T* const k2 = buf + 2 * R + go;
+    // z1: column (x, y) = (j % N, j / N), nodes N^2 apart: a = S_z u, c = D_z u
+    if (active) {
+      T u[N], r[N];
+      load<T, N, N2>(k0 + j, u);
+      mat<T, N, 1>(f.m[FS], u, r);
+      store<T, N, N2>(k0 + j, r);
+      mat<T, N, -1>(f.m[FD], u, r);
+      store<T, N, N2>(k2 + j, r);
+    }
+    __syncthreads();
+    // x1: x-line (y, z) = (j % N, j / N) at N j: a' = S_x a, b = D_x a, c' = S_x c
+    if (active) {
+      T v[N], r[N];
+      load<T, N, 1>(k0 + N * j, v);
+      mat<T, N, 1>(f.m[FS], v, r);
+      store<T, N, 1>(k0 + N * j, r);
+      mat<T, N, -1>(f.m[FD], v, r);
+      store<T, N, 1>(k1 + N * j, r);
+      load<T, N, 1>(k2 + N * j, v);
+      mat<T, N, 1>(f.m[FS], v, r);
+      store<T, N, 1>(k2 + N * j, r);
+    }
+    __syncthreads();
+    // y: y-line (x, z) at x + N^2 z, nodes N apart: the gradients S_y b, D_y a', S_y c'; the
+    // geometry at the line's points; D_y^T o_y, S_y^T o_x, S_y^T o_z
+    if (active) {
+      const int o = jx + N2 * jz;
+      T gx[N], gy[N], gz[N], v[N];
+      load<T, N, N>(k1 + o, v);
+      mat<T, N, 1>(f.m[FS], v, gx);
+      load<T, N, N>(k0 + o, v);
+      mat<T, N, -1>(f.m[FD], v, gy);
+      load<T, N, N>(k2 + o, v);
+      mat<T, N, 1>(f.m[FS], v, gz);
+      if (deformed) {  // the packed metric of the cell at the points o + N i
+        const T* m = a.geo + (static_cast<size_t>(cell) * NL + o) * 6;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const T* mi = m + i * N * 6;
+          const T m0 = __ldg(mi), m1 = __ldg(mi + 1), m2 = __ldg(mi + 2), m3 = __ldg(mi + 3),
+                  m4 = __ldg(mi + 4), m5 = __ldg(mi + 5);
+          const T x = gx[i], y = gy[i], z = gz[i];
+          gx[i] = m0 * x + m1 * y + m2 * z;
+          gy[i] = m1 * x + m3 * y + m4 * z;
+          gz[i] = m2 * x + m4 * y + m5 * z;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          gx[i] = gx[i] * geo[0] * wq[i];
+          gy[i] = gy[i] * geo[1] * wq[i];
+          gz[i] = gz[i] * geo[2] * wq[i];
+        }
+      }
+      mat<T, N, -1>(f.m[FDT], gy, v);
+      store<T, N, N>(k0 + o, v);
+      mat<T, N, 1>(f.m[FST], gx, v);
+      store<T, N, N>(k1 + o, v);
+      mat<T, N, 1>(f.m[FST], gz, v);
+      store<T, N, N>(k2 + o, v);
+    }
+    __syncthreads();
+    // x2: x-line: T1 = D_x^T Q + S_x^T P, T2 = S_x^T R
+    if (active) {
+      T v[N], r[N], s[N];
+      load<T, N, 1>(k1 + N * j, v);
+      mat<T, N, -1>(f.m[FDT], v, r);
+      load<T, N, 1>(k0 + N * j, v);
+      mat<T, N, 1>(f.m[FST], v, s);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] += s[i];
+      store<T, N, 1>(k0 + N * j, r);
+      load<T, N, 1>(k2 + N * j, v);
+      mat<T, N, 1>(f.m[FST], v, r);
+      store<T, N, 1>(k2 + N * j, r);
+    }
+    __syncthreads();
+    // z2: column: S_z^T T1 + D_z^T T2
+    if (active) {
+      T v[N], r[N], s[N];
+      load<T, N, N2>(k0 + j, v);
+      mat<T, N, 1>(f.m[FST], v, r);
+      load<T, N, N2>(k2 + j, v);
+      mat<T, N, -1>(f.m[FDT], v, s);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] += s[i];
+      store<T, N, N2>(k0 + j, r);
+    }
+    __syncthreads();
+  } else {
+    // y1: column x = j, nodes N apart: a = S_y u, c = D_y u
+    if (active) {
+      T u[N], r[N];
+      load<T, N, N>(k0 + j, u);
+      mat<T, N, 1>(f.m[FS], u, r);
+      store<T, N, N>(k0 + j, r);
+      mat<T, N, -1>(f.m[FD], u, r);
+      store<T, N, N>(k1 + j, r);
+    }
+    __syncthreads();
+    // x: x-line y = j at N j: the gradients D_x a, S_x c; the geometry at the line's points;
+    // D_x^T o_x, S_x^T o_y
+    if (active) {
+      T gx[N], gy[N], v[N];
+      load<T, N, 1>(k0 + N * j, v);
+      mat<T, N, -1>(f.m[FD], v, gx);
+      load<T, N, 1>(k1 + N * j, v);
+      mat<T, N, 1>(f.m[FS], v, gy);
+      if (deformed) {  // the packed metric (xx, xy, yy) of the cell at the points N j + i
+        const T* m = a.geo + (static_cast<size_t>(cell) * NL + N * j) * 3;
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const T m0 = __ldg(m + 3 * i), m1 = __ldg(m + 3 * i + 1), m2 = __ldg(m + 3 * i + 2);
+          const T x = gx[i], y = gy[i];
+          gx[i] = m0 * x + m1 * y;
+          gy[i] = m1 * x + m2 * y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          gx[i] = gx[i] * geo[0] * wq[i];
+          gy[i] = gy[i] * geo[1] * wq[i];
+        }
+      }
+      mat<T, N, -1>(f.m[FDT], gx, v);
+      store<T, N, 1>(k0 + N * j, v);
+      mat<T, N, 1>(f.m[FST], gy, v);
+      store<T, N, 1>(k1 + N * j, v);
+    }
+    __syncthreads();
+    // y2: column x = j: S_y^T Q + D_y^T R
+    if (active) {
+      T v[N], r[N], s[N];
+      load<T, N, N>(k0 + j, v);
+      mat<T, N, 1>(f.m[FST], v, r);
+      load<T, N, N>(k1 + j, v);
+      mat<T, N, -1>(f.m[FDT], v, s);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] += s[i];
+      store<T, N, N>(k0 + j, r);
+    }
+    __syncthreads();
+  }
+  if (hn_out && any_hn) hn::interp_cells_d<T, DIM, N, true>(k0, sP, code, j, hn_work);
+  for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) a.out[row0 + idx] = buf[idx];
+}
+
+template <typename T, int DIM, int P>
+int launch_col(const Args<T>& a, const double* fac, int n_cells, int flags,
+               cudaStream_t stream) {
+  using C = Col<DIM, P>;
+  const int smem = static_cast<int>((C::VALUES + 2 * C::N * C::N) * sizeof(T));
+  auto kernel = cell_laplace_col_kernel<T, DIM, P>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n_cells + C::G - 1) / C::G;
+  if (blocks > 0) {
+    kernel<<<blocks, C::THREADS, smem, stream>>>(a, eo::factors_from<T, P + 1>(fac), n_cells,
+                                                 flags);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DIM, int P>
+int launch_read(const Args<T>& a, int n_cells, int flags, cudaStream_t stream) {
   using C = hn::Shape<DIM, P>;
-  const int smem = static_cast<int>(smem_values<T, DIM, P>() * sizeof(T));
-  auto kernel = cell_laplace_kernel<T, DIM, P>;
+  const int smem = static_cast<int>((C::G * C::NL + 2 * C::N * C::N) * sizeof(T));
+  auto kernel = cell_laplace_read_kernel<T, DIM, P>;
   static unsigned long long smem_set = 0;
   cudaError_t err = sf::allow_smem_once(kernel, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -183,15 +427,27 @@ int launch(const Args<T>& a, int n_cells, int flags, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the columns kernel with QUAD (its factors from fac), the read kernel without
+template <typename T, int DIM, int P>
+int launch_any(const Args<T>& a, const double* fac, int n_cells, int flags,
+               cudaStream_t stream) {
+  if (flags & QUAD) {
+    if (fac == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_col<T, DIM, P>(a, fac, n_cells, flags, stream);
+  }
+  return launch_read<T, DIM, P>(a, n_cells, flags, stream);
+}
+
 template <typename T, int DIM>
-int by_degree(const Args<T>& a, int n_cells, int degree, int flags, cudaStream_t stream) {
+int by_degree(const Args<T>& a, const double* fac, int n_cells, int degree, int flags,
+              cudaStream_t stream) {
   switch (degree) {
-    case 1: return launch<T, DIM, 1>(a, n_cells, flags, stream);
-    case 2: return launch<T, DIM, 2>(a, n_cells, flags, stream);
-    case 3: return launch<T, DIM, 3>(a, n_cells, flags, stream);
-    case 4: return launch<T, DIM, 4>(a, n_cells, flags, stream);
-    case 5: return launch<T, DIM, 5>(a, n_cells, flags, stream);
-    case 6: return launch<T, DIM, 6>(a, n_cells, flags, stream);
+    case 1: return launch_any<T, DIM, 1>(a, fac, n_cells, flags, stream);
+    case 2: return launch_any<T, DIM, 2>(a, fac, n_cells, flags, stream);
+    case 3: return launch_any<T, DIM, 3>(a, fac, n_cells, flags, stream);
+    case 4: return launch_any<T, DIM, 4>(a, fac, n_cells, flags, stream);
+    case 5: return launch_any<T, DIM, 5>(a, fac, n_cells, flags, stream);
+    case 6: return launch_any<T, DIM, 6>(a, fac, n_cells, flags, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -204,8 +460,9 @@ int dispatch(const void* const* p, int n_cells, int degree, int flags, int dim,
                   static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
                   static_cast<const T*>(p[6]), static_cast<const T*>(p[7]),
                   static_cast<T*>(const_cast<void*>(p[8]))};
-  if (dim == 3) return by_degree<T, 3>(a, n_cells, degree, flags, stream);
-  if (dim == 2) return by_degree<T, 2>(a, n_cells, degree, flags, stream);
+  const double* fac = static_cast<const double*>(p[9]);
+  if (dim == 3) return by_degree<T, 3>(a, fac, n_cells, degree, flags, stream);
+  if (dim == 2) return by_degree<T, 2>(a, fac, n_cells, degree, flags, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -213,7 +470,10 @@ int dispatch(const void* const* p, int n_cells, int degree, int flags, int dim,
 
 extern "C" {
 
-// dim: 3 or 2 (the rows' N^dim values, the masks' layout and geo's width)
+// ptrs: src, dofmap, codes, P, S, Dc, w, geo, out (device pointers; dofmap null: src holds the
+// rows; codes null: no HN), then the host float64 tables of S, D = Dc S, S^T, D^T, each its
+// even-odd split (_even_odd.factor_tables; read with QUAD only, and copied into the launch's
+// parameters). dim: 3 or 2 (the rows' N^dim values, the masks' layout and geo's width)
 int cell_laplace_f32(const void* const* ptrs, int n_cells, int degree, int flags, int dim,
                      void* stream) {
   return dispatch<float>(ptrs, n_cells, degree, flags, dim, static_cast<cudaStream_t>(stream));

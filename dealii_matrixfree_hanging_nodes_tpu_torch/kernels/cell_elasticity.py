@@ -36,10 +36,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import _build
+from ._even_odd import SIGNS, check_factors, even_odd, factor_size, factor_tables  # noqa: F401
 from ..ops.sum_factorization import evaluate_gradients, integrate_gradients
 from .cell_apply import cell_nodes
 from .cell_laplace import hn_rows
@@ -77,8 +77,10 @@ def brick_rows(src, brick_size, m, p):
 
 
 def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
-                          brick_size=None):
-    """Plain PyTorch version: the steps one after another (a new tensor)."""
+                          brick_size=None, factors=None):
+    """Plain PyTorch version: the steps one after another (a new tensor);
+    it reads S and Dc, and takes the kernel's factors only to share the
+    wrapper's signature."""
     S, Dc = (t.to(src.device, src.dtype) for t in (S, Dc))
     n = S.shape[-1]
     if dofmap is None:
@@ -95,43 +97,6 @@ def cell_elasticity_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *,
     if codes is not None:
         u = torch.stack([hn_rows(u[c], codes, P, True, dim) for c in range(dim)])
     return u
-
-
-SIGNS = (1, -1, 1, -1)  # S, D = Dc S, S^T, D^T: M[n-1-i, n-1-j] = sign M[i, j]
-
-
-def even_odd(M, sign: int):
-    """(A, B, C) of a 1-D factor M [n, n] (float64 NumPy) with M[n-1-i,
-    n-1-j] = sign M[i, j], the kernel's even-odd split: for rows i <
-    (n+1)//2 and columns j < n//2, A = (M[i, j] + M[i, n-1-j]) / 2, B =
-    (M[i, j] - M[i, n-1-j]) / 2, and C[i] = M[i, n//2] (odd n; zero for
-    even n). Raises where M lacks the mirror symmetry (beyond 1e-12 of its
-    largest entry)."""
-    M = np.asarray(M, dtype=np.float64)
-    n = M.shape[0]
-    h, hh = n // 2, (n + 1) // 2
-    if np.abs(M - sign * M[::-1, ::-1]).max() > 1e-12 * max(np.abs(M).max(), 1e-300):
-        raise ValueError(f"{NAME}: a factor lacks the mirror symmetry of sign {sign}")
-    mirror = M[:hh, ::-1][:, :h]  # M[i, n-1-j]
-    C = M[:hh, h].copy() if n % 2 else np.zeros(hh)
-    return (M[:hh, :h] + mirror) / 2, (M[:hh, :h] - mirror) / 2, C
-
-
-def factor_tables(S, Dc):
-    """The kernel's factors as its launch parameters (the wrapper's
-    ``factors``): float64 [4 F] of S, D = Dc S (the derivatives of the
-    nodal basis at the Gauss points) and their transposes, each its
-    even-odd split A, B, C (``even_odd``), F = 2 ((n+1)//2) (n//2) +
-    (n+1)//2 values. S and Dc: float64 arrays [n, n] (the shape info's)."""
-    S, Dc = np.asarray(S, dtype=np.float64), np.asarray(Dc, dtype=np.float64)
-    D = Dc @ S
-    out = [x.ravel() for M, sign in zip((S, D, S.T, D.T), SIGNS) for x in even_odd(M, sign)]
-    return np.ascontiguousarray(np.concatenate(out))
-
-
-def factor_size(n: int) -> int:
-    """F, the values of one factor's even-odd split (``factor_tables``)."""
-    return 2 * ((n + 1) // 2) * (n // 2) + (n + 1) // 2
 
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double, ctypes.c_double, ctypes.c_longlong] \
@@ -173,10 +138,7 @@ def cell_elasticity(src, dofmap, codes, P, S, Dc, quad_w, geo, mu, lam, *, brick
                or dofmap.shape != (n_cells, n_loc) or geo.shape != (n_cells, dim)
                or (codes is not None and (codes.shape != (n_cells,) or P is None
                                           or P.shape != (2, n, n))))
-    if (not isinstance(factors, np.ndarray) or factors.dtype != np.float64
-            or factors.shape != (4 * factor_size(n),) or not factors.flags.c_contiguous):
-        raise ValueError(f"{NAME}: the kernel takes factors=factor_tables(S, Dc), float64 "
-                         f"[{4 * factor_size(n)}]")
+    check_factors(NAME, factors, n)
     if (bad or n - 1 not in (DEGREES if dim == 3 else DEGREES_2D) or S.shape != (n, n)
             or Dc.shape != (n, n) or quad_w.shape != (n_loc,)
             or dim * n_cells * n_loc >= 2**31):

@@ -22,7 +22,12 @@ Replaces the reference's ``read_dof_values(_plain)`` (matrix_free.py:
 ops/sum_factorization.py:57-89) and the transposed runner inside
 ``distribute_local_to_global`` (matrix_free.py:295). The scatter-add is
 ``dof_scatter``. CUDA source: ``csrc/cell_laplace.cu`` (the HN sweeps in
-``csrc/hanging_nodes.cuh``)."""
+``csrc/hanging_nodes.cuh``). With the quadrature the kernel owns a z-column
+of a cell a thread (2-D: a y-column) and computes the same operator with
+the basis derivatives D = Dc S, every sweep even-odd; the even-odd splits of
+S, D and their transposes (``_even_odd.factor_tables``, ``MatrixFree.kernel_factors``)
+travel as the launch's parameters (``factors=``). The plain version runs
+the collocation form."""
 
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._even_odd import check_factors
 from ..ops.hanging_nodes import masked_sweeps
 from ..ops.sum_factorization import evaluate_gradients, integrate_gradients
 from .hn_interp import DEGREES, masked_lines
@@ -90,8 +96,10 @@ def hn_rows(u, codes, P, transpose, dim=3):
 
 
 def cell_laplace_plain(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=True,
-                       hn_out=True):
-    """Plain PyTorch version: the steps one after another (a new tensor)."""
+                       hn_out=True, factors=None):
+    """Plain PyTorch version: the steps one after another (a new tensor);
+    it reads S and Dc, and takes the kernel's factors only to share the
+    wrapper's signature."""
     dim = cell_dim(src, dofmap, P)
     u = src[dofmap.long()] if dofmap is not None else src.clone()
     if codes is not None and hn_in:
@@ -108,13 +116,16 @@ HN_IN, QUAD, HN_OUT, DEFORMED = 1, 2, 4, 8
 
 
 def cell_laplace(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=True,
-                 hn_out=True):
+                 hn_out=True, factors=None):
     """src [n_dofs] with dofmap int32 [n_cells, n_loc], or rows [n_cells,
     n_loc] with dofmap None (n_loc = n^dim, dim 2 or 3, read from n_loc);
     codes int32 [n_cells] (masks) or None; P [2, n, n], S, Dc [n, n],
     quad_w [n^dim], geo [n_cells, dim] or [n_cells, n^dim, dim (dim+1) / 2],
     all of src's dtype on its device (geo, S, Dc, quad_w are not read
-    without quad) -> new [n_cells, n_loc]."""
+    without quad; the kernel reads S and Dc through ``factors``). factors:
+    the kernel's launch parameters, ``factor_tables(S, Dc)`` (float64 NumPy,
+    ``MatrixFree.kernel_factors``), required on the kernel path with quad
+    -> new [n_cells, n_loc]."""
     args = (src, dofmap, codes, P, S, Dc, quad_w, geo)
     flags = dict(hn_in=hn_in, quad=quad, hn_out=hn_out)
     if src.device.type == "cpu":
@@ -139,11 +150,13 @@ def cell_laplace(src, dofmap, codes, P, S, Dc, quad_w, geo, *, hn_in=True, quad=
         raise ValueError(f"{NAME}: shapes src {tuple(src.shape)}, dofmap "
                          f"{None if dofmap is None else tuple(dofmap.shape)}, P {tuple(P.shape)}, "
                          f"geo {None if geo is None else tuple(geo.shape)}")
+    if quad:
+        check_factors(NAME, factors, n)
     out = torch.empty((n_cells, n_loc), dtype=src.dtype, device=src.device)
     if n_cells == 0:
         return out
-    ptrs = (ctypes.c_void_p * 9)(*(None if t is None else t.data_ptr() for t in args),
-                                  out.data_ptr())
+    ptrs = (ctypes.c_void_p * 10)(*(None if t is None else t.data_ptr() for t in args),
+                                   out.data_ptr(), factors.ctypes.data if quad else None)
     bits = ((HN_IN if hn_in else 0) | (QUAD if quad else 0) | (HN_OUT if hn_out else 0)
             | (DEFORMED if deformed else 0))
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(src.dtype)}", _ARGS)

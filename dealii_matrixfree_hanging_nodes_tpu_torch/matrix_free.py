@@ -46,6 +46,7 @@ their own masks: the four runners share one vmult kernel.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 
 import numpy as np
@@ -55,6 +56,7 @@ from .constraints import build_constraints
 from .dof_handler import DoFHandler
 from .elements import shape_info
 from .kernels import cell_laplace, constraints_slow, dof_scatter, hn_interp
+from .kernels._even_odd import factor_tables
 from .mapping import cartesian_laplace_factors, deformed_laplace_factors
 from .mesh import Triangulation
 from .ops.hanging_nodes import hn_composite_matrix
@@ -391,6 +393,14 @@ class MatrixFree:
         """dof_scatter's (ptr, ent, sched) for the plain (slow) or the fast DoF
         map."""
         return self._on("scatter_plain" if slow else "scatter", device)
+
+    @functools.cached_property
+    def kernel_factors(self):
+        """The launch parameters (``factors``) of cell_laplace and of
+        cell_elasticity's index mode: the even-odd tables of S, D = Dc S and
+        their transposes, float64 NumPy, built once from the float64
+        sources."""
+        return factor_tables(self._sources["S"], self._sources["Dc"])
 
     def cell_laplace_args(self, device, dtype, slow: bool = False, hn: bool = True):
         """cell_laplace's positional arguments after src for the cell loop:

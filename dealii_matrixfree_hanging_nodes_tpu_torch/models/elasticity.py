@@ -55,8 +55,7 @@ class ElasticityOperator(nn.Module):
         self.constraints = bool(constraints)
         self.device = resolve_device(device)
         self.dtype = TORCH_DTYPES[mf.dtype]
-        # cell_elasticity's launch parameters, built once on the host
-        self.kernel_factors = cell_elasticity.factor_tables(mf._sources["S"], mf._sources["Dc"])
+        self.kernel_factors = mf.kernel_factors  # cell_elasticity's launch parameters
 
     def vmult(self, src, plain: bool = False) -> torch.Tensor:
         """src [n_dofs, dim] (a tensor on the operator's device, or NumPy,

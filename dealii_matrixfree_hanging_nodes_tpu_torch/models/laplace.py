@@ -35,7 +35,8 @@ class LaplaceCellKernel:
         """Rows u [n_cells, n_loc] -> their Laplace rows (a new tensor); a:
         the device tables (``mf.device_tables``)."""
         return cell_laplace.cell_laplace(u, None, None, a["P"], a["S"], a["Dc"], a["quad_w"],
-                                         a["geo"], hn_in=False, quad=True, hn_out=False)
+                                         a["geo"], hn_in=False, quad=True, hn_out=False,
+                                         factors=self.mf.kernel_factors)
 
     def fused(self, mf: MatrixFree, src: torch.Tensor, *, constraints: bool, slow: bool,
               plain: bool) -> torch.Tensor:
@@ -48,7 +49,7 @@ class LaplaceCellKernel:
         dev, dt = mf.check_input(src)
         x = mf.distribute_slow(src, plain) if constraints and slow else src
         fn = cell_laplace.cell_laplace_plain if plain else cell_laplace.cell_laplace
-        rows = fn(x, *mf.cell_laplace_args(dev, dt, slow, constraints))
+        rows = fn(x, *mf.cell_laplace_args(dev, dt, slow, constraints), factors=mf.kernel_factors)
         dst = mf.distribute_local_to_global_plain(rows, slow=slow, plain=plain)
         return mf.compress_slow(dst, plain) if constraints and slow else dst
 

@@ -225,6 +225,7 @@ class DistributedLaplace(nn.Module):
         self.register_buffer("codes", i32(t["masks"]) if mf.n_hn_cells else None)
         for k in ("P", "S", "Dc", "quad_w"):
             self.register_buffer(k, f(src[k]))
+        self.kernel_factors = mf.kernel_factors  # cell_laplace's launch parameters
         self.register_buffer("geo", f(t["geo"]))
         self.register_buffer("scatter_ptr", i32(t["scatter"][0]))
         self.register_buffer("scatter_ent", i32(t["scatter"][1]))
@@ -261,7 +262,7 @@ class DistributedLaplace(nn.Module):
             full = comm.all_gather(comm.all_gather(src, self.intra), self.inter)
         else:
             full = comm.all_gather(src, g, c)
-        rows = cell_laplace.cell_laplace(full, *self.cell_args())
+        rows = cell_laplace.cell_laplace(full, *self.cell_args(), factors=self.kernel_factors)
         contrib = dof_scatter.dof_scatter(rows, *self.scatter_tables())
         if c and sm:
             return comm.psum_scatter(comm.psum_scatter(contrib, self.inter), self.intra)
@@ -271,7 +272,7 @@ class DistributedLaplace(nn.Module):
         send = halo_pack.halo_pack(src, self.send_idx, self.send_valid, mode="pack")
         recv = comm.all_to_all(send, self.group)
         local = halo_pack.halo_pack(src, recv, self.set_map, mode="set")
-        rows = cell_laplace.cell_laplace(local, *self.cell_args())
+        rows = cell_laplace.cell_laplace(local, *self.cell_args(), factors=self.kernel_factors)
         acc = dof_scatter.dof_scatter(rows, *self.scatter_tables())
         own = acc[: self.n_own_max]
         back = comm.all_to_all(acc[self.n_own_max:].view(self.n_ranks, -1), self.group)

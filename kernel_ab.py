@@ -1,25 +1,33 @@
-"""The port's elastic kernels against a variant of their CUDA sources, in one
-process on one NVIDIA GPU, through the port's own wrappers, at the elastic
-vmults' shapes.
+"""The port's cell kernels against a variant of their CUDA sources, in one
+process on one NVIDIA GPU, through the port's own wrappers, at the vmults'
+shapes.
 
     python3 kernel_ab.py VARIANT_CSRC [rounds]
 
-VARIANT_CSRC is a directory holding a cell_elasticity.cu and/or a
-brick_elasticity.cu with the port's current C entries (a design under
-trial; its headers are looked up there first, then in the port's csrc).
-The script builds each with the port's nvcc flags into ``build/kernel_ab``
-and the port's kernels, each nvcc in a process of its own, all at once. At
-quadrant nref=7 p=4 f32 (3-D: cell_elasticity's index mode with the cells'
-codes and its bricks mode, brick_elasticity with the subset's cell rows)
-and 2-D quadrant nref=11 p=4 f32 (the index mode, brick_elasticity with
-cell rows), mu = lam = 1 on seeded inputs, it times each wrapper call with
-the port's library ("port") and with the variant's ("variant") on the same
+VARIANT_CSRC is a directory holding a cell_laplace.cu, a cell_elasticity.cu
+and/or a brick_elasticity.cu with the port's current C entries (a design
+under trial, or an earlier tree's csrc: `git archive <commit>
+<package>/csrc`; a variant's headers are looked up in its own directory
+first, then in the port's csrc). The script builds each with the port's
+nvcc flags into ``build/kernel_ab`` and the port's kernels, each nvcc in a
+process of its own, all at once. It times each wrapper call with the port's
+library ("port") and with the variant's ("variant") on the same seeded
 inputs in the order port, variant, variant, port, `rounds` times (default
 3); each time is the median of 20 calls timed with CUDA events behind a
-device spin (``chip_smoke.time_ms(device_only=True)``). Prints the card's
-name and power limit, one line an instance with every time in order, the
-variant's largest difference from the port's output relative to its
-largest value and whether two variant calls are bit-identical, and one
+device spin (``chip_smoke.time_ms(device_only=True)``). The instances, all
+f32 at p=4:
+
+- cell_laplace: 3-D quadrant nref=7 on the fast map with the cells' codes
+  (the index vmult's launch), 3-D deformed at nref=6, 2-D quadrant nref=11
+  fast, 2-D deformed at nref=11;
+- cell_elasticity: 3-D nref=7 index mode with the codes and bricks mode,
+  2-D nref=11 index mode (mu = lam = 1);
+- brick_elasticity: 3-D nref=7 and 2-D nref=11 with the subset's cell rows.
+
+Prints the card's name and power limit, one line an instance with every
+time in order, the largest difference of the variant's output from the
+port's (absolute, and relative to the port's largest value), whether the
+two outputs are bit-identical and whether two variant calls are, and one
 JSON line; exits non-zero without a card.
 """
 import contextlib
@@ -34,7 +42,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("cell_elasticity", "brick_elasticity")
+KERNELS = ("cell_laplace", "cell_elasticity", "brick_elasticity")
 
 
 def build_variant(src: Path):
@@ -73,7 +81,9 @@ def main() -> int:
         return 2
     import chip_smoke
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
-    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build, cell_elasticity
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
+        _build, cell_elasticity, cell_laplace,
+    )
 
     variant_csrc = Path(sys.argv[1])
     rounds = int(sys.argv[2]) if len(sys.argv) == 3 else 3
@@ -89,13 +99,29 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(0)
     results = []
+    f32 = torch.float32
+    if "cell_laplace" in libs:
+        for dim, nref, deformed in ((3, 7, False), (3, 6, True), (2, 11, False), (2, 11, True)):
+            mf = mt.MatrixFree(mt.create_quadrant(dim, nref), 4, dtype=np.float32,
+                               high_order_mapping=deformed)
+            x = torch.randn(mf.n_dofs, generator=g, device=dev)
+            args = (x, *mf.cell_laplace_args(dev, f32))
+            label = (f"{dim}-D cell_laplace {'deformed' if deformed else 'fast, codes'} "
+                     f"nref={nref}")
+            results.append(ab(chip_smoke, label, "cell_laplace", libs["cell_laplace"],
+                              lambda a=args, f=mf.kernel_factors:
+                              cell_laplace.cell_laplace(*a, factors=f), rounds))
+            del mf, x, args
+            torch.cuda.empty_cache()
     for dim, nref in ((3, 7), (2, 11)):
+        if not {"cell_elasticity", "brick_elasticity"} & set(libs):
+            break
         mf = mt.MatrixFree(mt.create_quadrant(dim, nref), 4, dtype=np.float32)
         op = mt.BrickElasticity(mf, 1.0, 1.0, device=dev)
         mm = op.mm
         bv = torch.randn(dim, mm.n_bricks, mm.N3p, generator=g, device=dev)
         x = torch.randn(mf.n_dofs, dim, generator=g, device=dev)
-        index = (x, *mf.cell_laplace_args(dev, torch.float32), 1.0, 1.0)
+        index = (x, *mf.cell_laplace_args(dev, f32), 1.0, 1.0)
         dcols = op.cell_rows(bv)
         cases = [("cell_elasticity", f"{dim}-D cell_elasticity index",
                   lambda a=index: cell_elasticity.cell_elasticity(
@@ -121,8 +147,9 @@ def ab(chip_smoke, label, name, lib, fn, rounds):
     with library(name, lib):
         got, again = fn(), fn()
     scale = float(ref.abs().max())
-    row = dict(instance=label, ms={"port": [], "variant": []},
-               rel_diff=float((got - ref).abs().max()) / scale,
+    diff = float((got - ref).abs().max())
+    row = dict(instance=label, ms={"port": [], "variant": []}, max_abs_diff=diff,
+               rel_diff=diff / scale, bit_identical=bool(torch.equal(got, ref)),
                variant_bit_identical=bool(torch.equal(got, again)))
     for _ in range(rounds):
         for which in ("port", "variant", "variant", "port"):
@@ -130,7 +157,8 @@ def ab(chip_smoke, label, name, lib, fn, rounds):
                 row["ms"][which].append(chip_smoke.time_ms(fn, device_only=True))
     print(f"{label}: " + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)} ms"
                                    for k, v in row["ms"].items())
-          + f"; variant relative difference {row['rel_diff']:.3e}, two variant calls "
+          + f"; variant against port: largest difference {diff:.3e} (relative "
+          f"{row['rel_diff']:.3e}), bit-identical {row['bit_identical']}; two variant calls "
           f"bit-identical {row['variant_bit_identical']}", flush=True)
     return row
 

@@ -249,7 +249,8 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     for name in ("cell_apply.cu", "hn_cell.cu", "brick_apply.cu", "sum_factorization.cuh",
                  "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh",
                  "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu",
-                 "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu", "brick_band.cuh"):
+                 "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu", "brick_band.cuh",
+                 "even_odd.cuh"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer",
@@ -259,7 +260,8 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
         "hn_cell.cu", "elasticity.cuh", "hanging_nodes.cuh", "laplace_quad.cuh",
         "sum_factorization.cuh"]
     assert [p.name for p in _build._sources(tmp_path / "cell_elasticity.cu", [])] == [
-        "cell_elasticity.cu", "elasticity.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
+        "cell_elasticity.cu", "elasticity.cuh", "hanging_nodes.cuh", "even_odd.cuh",
+        "sum_factorization.cuh"]
     assert [p.name for p in _build._sources(tmp_path / "cell_transfer.cu", [])] == [
         "cell_transfer.cu", "transfer.cuh", "hanging_nodes.cuh"]
     header = tmp_path / "sum_factorization.cuh"
@@ -285,15 +287,16 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert last["hn_cell"] != final["hn_cell"]
     assert all(last[n] == final[n] for n in ("cell_apply", "brick_apply", "cell_transfer",
                                              "brick_transfer", "brick_elasticity"))
-    # the Laplace quadrature at the Gauss points: an edit rebuilds the four kernels that run
-    # it (cell_laplace, brick_deformed, and cell_apply's and hn_cell's deformed modes)
+    # the Laplace quadrature at the Gauss points: an edit rebuilds the three kernels that run
+    # it (brick_deformed, and cell_apply's and hn_cell's deformed modes); cell_laplace runs its
+    # own schedule on the even-odd sweeps since its redesign
     header = tmp_path / "laplace_quad.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     quad = {n: _build.library_path(n) for n in names}
-    assert all(quad[n] != last[n] for n in ("cell_laplace", "brick_deformed", "cell_apply",
-                                            "hn_cell"))
+    assert all(quad[n] != last[n] for n in ("brick_deformed", "cell_apply", "hn_cell"))
     assert all(quad[n] == last[n] for n in ("brick_apply", "cell_transfer", "brick_transfer",
-                                            "cell_elasticity", "brick_elasticity"))
+                                            "cell_elasticity", "brick_elasticity",
+                                            "cell_laplace"))
     # the brick factors' band structure: an edit rebuilds the two brick operators only
     header = tmp_path / "brick_band.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -301,6 +304,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert band["brick_apply"] != quad["brick_apply"]
     assert band["brick_elasticity"] != quad["brick_elasticity"]
     assert all(band[n] == quad[n] for n in names if n not in ("brick_apply", "brick_elasticity"))
+    # the even-odd sweeps: an edit rebuilds the two cell kernels that sweep by them only
+    assert [p.name for p in _build._sources(tmp_path / "cell_laplace.cu", [])] == [
+        "cell_laplace.cu", "even_odd.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
+    header = tmp_path / "even_odd.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    eo = {n: _build.library_path(n) for n in names}
+    assert eo["cell_laplace"] != band["cell_laplace"]
+    assert eo["cell_elasticity"] != band["cell_elasticity"]
+    assert all(eo[n] == band[n] for n in names if n not in ("cell_laplace", "cell_elasticity"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -679,7 +691,7 @@ def _index_pairs(mf, dev, dtype, seed):
         for hn, flags in ((True, {}), (False, {}), (True, dict(quad=False, hn_out=False)),
                           (True, dict(hn_in=False, quad=False))):
             args = (src, dmap, fast[1] if hn else None, *fast[2:])
-            pairs.append((cell_laplace.cell_laplace(*args, **flags),
+            pairs.append((cell_laplace.cell_laplace(*args, **flags, factors=mf.kernel_factors),
                           cell_laplace.cell_laplace_plain(*args, **flags)))
     for t in (mf.scatter_tables(False, dev), mf.scatter_tables(True, dev)):
         pairs.append((dof_scatter.dof_scatter(rows, *t), dof_scatter.dof_scatter_plain(rows, *t)))

@@ -465,7 +465,8 @@ def index_2d_calls(p, dev, dt, seed):
     for part, m, slow, hn in (("fast", mf, False, True), ("slow", mf, True, False),
                               ("constraints=False", mf, False, False),
                               ("deformed", md, False, True)):
-        calls["cell_laplace"].append((part, (x, *m.cell_laplace_args(dev, dt, slow, hn)), {}))
+        calls["cell_laplace"].append((part, (x, *m.cell_laplace_args(dev, dt, slow, hn)),
+                                      {"factors": m.kernel_factors}))
     mc = mt.MatrixFree(mt.create_quadrant(2, 2), p, dtype=npdt)
     tr = pmg.Transfer(mc, mf, device=dev)
     calls["cell_transfer"] += [("prolongate", (rnd(mc.n_cells, n_loc), *tr.tables()),
@@ -474,7 +475,7 @@ def index_2d_calls(p, dev, dt, seed):
     for hn in (True, False):
         calls["cell_elasticity"].append((f"hn={hn}", (rnd(mf.n_dofs, 2),
                                                       *mf.cell_laplace_args(dev, dt, hn=hn),
-                                                      1.3, 0.7), {}))
+                                                      1.3, 0.7), {"factors": mf.kernel_factors}))
     calls["dof_scatter"].append(("k=2", (rnd(2, mf.n_cells, n_loc),
                                          *mf.scatter_tables(False, dev)), {}))
     return calls
