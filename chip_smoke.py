@@ -173,7 +173,8 @@ Phases (any failure exits non-zero before the last line is printed):
    plain version, the vmult against the plain path and the deformed index
    engine, vmult_plain and refill against the plain path; 1e-12); p=2 at
    nref=6 (``DEFORMED_LOW``; vmult, vmult_plain and refill, launches
-   checked, timed).
+   checked, timed); brick_deformed's plan (threads, shared-memory bytes,
+   blocks per SM) printed beside its times and bounds, as in phase 16.
    ``python3 chip_smoke.py --metric-host`` instead times the deformed metric
    on the host at once and in chunks (seconds, traced peak bytes, checked
    bit-identical) and prints one JSON line;
@@ -274,8 +275,10 @@ Phases (any failure exits non-zero before the last line is printed):
 Each phase prints its wall seconds on a line of its own, ``phase N (name):
 S s``. ``python3 chip_smoke.py --index`` runs phases 1, 2, 7, phase 9's
 index-engine float64 checks and phase 14's Laplace paths (no elasticity, no
-GMG-CG) alone (a partial run: it prints their JSON and a "partial" line,
-not the device line).
+GMG-CG) alone; ``python3 chip_smoke.py --deformed`` phases 1, 2, 13 and
+phase 16's deformed mapping alone (its own 2-D deformed MatrixFree, the
+deformed index vmult timed for the ratio); both are partial runs: they print
+their JSON and a "partial" line, not the device line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2981,8 +2984,8 @@ def deformed_kernel_calls(op, x, with_libs=True):
     bd = (x, op.metric, op.present_bits, op.S, op.Dc)
     calls = {
         "brick_deformed": [(
-            f"{tag} p={op.p}", lambda d=d: brick_deformed.brick_deformed(*bd, dcols=d,
-                                                                        brick_size=op.B),
+            f"{tag} p={op.p}", lambda d=d: brick_deformed.brick_deformed(
+                *bd, dcols=d, brick_size=op.B, factors=op.kernel_factors),
             lambda d=d: brick_deformed.brick_deformed_plain(*bd, dcols=d, brick_size=op.B),
             brick_deformed.bytes_and_flops(*bd, dcols=d, brick_size=op.B), None, None)
             for tag, d in (("vmult (cell rows)", dcols), ("vmult_plain", None))],
@@ -3032,6 +3035,21 @@ def deformed_kernel_calls(op, x, with_libs=True):
         libs["brick_deformed"] = [(lambda: bd_lib @ x_b, bare)] * 2
     torch.cuda.synchronize()
     return calls, libs, nnz
+
+
+def deformed_plan(op, parts, dev, smi):
+    """Print brick_deformed's plan (threads, shared-memory bytes, blocks per
+    SM) at op's instance beside its measured parts' times and bounds, and
+    keep it in each part."""
+    from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import brick_deformed
+
+    plan = list(brick_deformed.plan(op.dtype, op.p, op.B, op.dim, device=dev))
+    for part in parts:
+        part["plan"] = plan
+    print(f"brick_deformed {op.dim}-D p={op.p} B={op.B} on {smi}: threads, shared memory bytes, "
+          f"blocks per SM {plan}; " + "; ".join(
+              f"{q['mode']} {q['ms']:.4f} ms (bound {q['bound_ms']:.4f} ms, plain "
+              f"{q['plain_ms']:.4f})" for q in parts), flush=True)
 
 
 def deformed_f64_checks(mt, dev, wrappers, dim=3, cases=DEFORMED_F64):
@@ -3151,6 +3169,7 @@ def deformed_phase(mt, tria, op_c, dev, wrappers, smi):
           f"into the bricks", flush=True)
     parts = {name: measure_parts(name, cparts, libs[name], {}, x.dtype, 1e-5)
              for name, cparts in calls.items()}
+    deformed_plan(op, parts["brick_deformed"], dev, smi)
     del calls, libs
     torch.cuda.empty_cache()
 
@@ -3796,6 +3815,7 @@ def brick2d_deformed(mt, mf_d, index_ms, dev, wrappers, smi):
           f"where they share a node", flush=True)
     parts = {name: measure_parts(name, cparts, libs[name], {}, x.dtype, 1e-5)
              for name, cparts in calls.items()}
+    deformed_plan(op, parts["brick_deformed"], dev, smi)
     del calls, libs
     torch.cuda.empty_cache()
     what = f"2-D deformed p={op.p} nref={INDEX2D_DEFORMED_NREF}"
@@ -4830,6 +4850,43 @@ def index_alone(mt, dev, wrappers, smi):
     return index, records
 
 
+def deformed_alone(mt, dev, wrappers, smi):
+    """``python3 chip_smoke.py --deformed``: phase 13 on phase 3's mesh
+    (quadrant nref=7 p=4 f32, with its Cartesian operator for the deformed /
+    Cartesian ratio) and phase 16's deformed mapping (2-D quadrant nref=11
+    p=4 f32, with the deformed index vmult timed for its ratio as phase 14
+    times it), each as in the whole run. Returns (numbers, brick_deformed's
+    record with its 2-D parts)."""
+    t0 = time.perf_counter()
+    tria = mt.create_quadrant(3, DEFORMED_NREF_BRICK)
+    mf = mt.MatrixFree(tria, DEFORMED_DEGREE, dtype=np.float32)
+    op_c = mt.BrickLaplaceMM(mf, device=dev)
+    deformed, record, _ = deformed_phase(mt, tria, op_c, dev, wrappers, smi)
+    deformed["phase_s"] = phase_seconds(13, "the deformed brick engine", t0)
+    del tria, mf, op_c
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mf_d = mt.MatrixFree(mt.create_quadrant(2, INDEX2D_DEFORMED_NREF), INDEX2D_DEGREE,
+                         dtype=np.float32, high_order_mapping=True)
+    metric_build(mf_d, dev)
+    op_d = mt.LaplaceOperator(mf_d, device=dev)
+    x_d = torch.from_numpy(np.random.default_rng(SEED).standard_normal(mf_d.n_dofs)
+                           .astype(np.float32)).to(dev)
+    index_ms = time_ms(lambda: op_d.vmult(x_d), reps=20, warmup=3)
+    print(f"2-D deformed index vmult nref={INDEX2D_DEFORMED_NREF} p={INDEX2D_DEGREE} f32 on "
+          f"{smi}: {index_ms:.4f} ms", flush=True)
+    del op_d, x_d
+    paths2d, parts2d = brick2d_deformed(mt, mf_d, index_ms, dev, wrappers, smi)
+    paths2d["phase_s"] = phase_seconds(16, "2-D deformed bricks", t0)
+    for part in parts2d["brick_deformed"]:
+        record["parts"].append(part)
+        for key in ("max_abs_err", "max_rel_err"):
+            record[key] = max(record[key], part[key])
+    del mf_d
+    torch.cuda.empty_cache()
+    return {"deformed": deformed, "brick_2d_deformed": paths2d}, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -4845,6 +4902,7 @@ def main() -> int:
     only_gmg = sys.argv[1:] == ["--gmg"]
     only_elasticity = sys.argv[1:] == ["--elasticity"]
     only_index = sys.argv[1:] == ["--index"]
+    only_deformed = sys.argv[1:] == ["--deformed"]
     from dealii_matrixfree_hanging_nodes_tpu_torch.bricks import auto_brick_size, kronecker_sum
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
         KERNEL_MODULES, _build, brick_apply, brick_deformed, brick_elasticity, brick_transfer,
@@ -4865,7 +4923,7 @@ def main() -> int:
 
     # ---- 2. build (a whole run makes phase 3's mesh and MatrixFree meanwhile) --
     t0 = t_phase = time.perf_counter()
-    whole = not (only_distributed or only_gmg or only_index or only_elasticity)
+    whole = not (only_distributed or only_gmg or only_index or only_elasticity or only_deformed)
     with ThreadPoolExecutor(1) as pool:  # the nvcc processes run while this one works
         building = pool.submit(_build.build)
         if whole:  # host work only: neither launches nor loads a kernel
@@ -4948,6 +5006,15 @@ def main() -> int:
         print(json.dumps({"partial": "phases 1, 2, 7, phase 9's index checks and phase 14's "
                                      "index paths; no smoke result (run without arguments for "
                                      "that)"}))
+        return 0
+
+    if only_deformed:  # phases 1, 2, 13 and phase 16's deformed mapping alone
+        wrappers = {mod.NAME: getattr(mod, mod.NAME) for mod in KERNEL_MODULES}
+        numbers, record = deformed_alone(mt, dev, wrappers, smi)
+        print(json.dumps(numbers))
+        print(json.dumps({"deformed_kernels": [record]}))
+        print(json.dumps({"partial": "phases 1, 2, 13 and phase 16's deformed mapping; no smoke "
+                                     "result (run without arguments for that)"}))
         return 0
 
     if only_elasticity:  # phases 1, 2, 11 and the 2-D elasticity of phases 14 and 16 alone

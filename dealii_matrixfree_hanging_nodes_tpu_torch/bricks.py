@@ -79,6 +79,7 @@ from .kernels import (
     plane_fold,
     refill_update,
 )
+from .kernels._even_odd import factor_tables
 from .kernels.dss_surface import surface_nodes
 from .matrix_free import MatrixFree, resolve_device
 from .ops.hanging_nodes import hn_composite_matrix
@@ -1606,7 +1607,9 @@ class BrickLaplaceMM(nn.Module):
     both schedules off (bricks.py:1149-1182): the per-cell schedule at every
     degree with each cell's metric in place of K x geo (face_planes and
     assembled must be None or False); vmult_multi raises, as the
-    reference's does."""
+    reference's does. ``kernel_factors`` then holds brick_deformed's launch
+    parameters: the even-odd tables of S, D = Dc S and their transposes,
+    float64 NumPy, built once from the float64 S and Dc (None otherwise)."""
 
     def __init__(self, mf: MatrixFree | None, device=None, dtype=None,
                  face_planes: bool | None = None, assembled: bool | None = None):
@@ -1689,6 +1692,8 @@ class BrickLaplaceMM(nn.Module):
         # as launch parameters
         self.brick_factors_host = tuple(torch.from_numpy(tables.pop(f"{n}_packed")).to(dtype)
                                         for n in ("Kb", "Mb"))
+        self.kernel_factors = (factor_tables(tables["S"], tables["Dc"]) if self.deformed
+                               else None)
         for name, a in tables.items():
             a = np.ascontiguousarray(a)
             t = torch.from_numpy(np.asarray(a, np.float64) if a.dtype.kind == "f" else a)
@@ -1957,7 +1962,7 @@ class BrickLaplaceMM(nn.Module):
         if self.deformed:
             return self._kernel(brick_deformed, plain)(
                 u, self.metric, self.present_bits, self.S, self.Dc, dcols=dcols,
-                brick_size=self.B)
+                brick_size=self.B, factors=self.kernel_factors)
         return self._kernel(brick_apply, plain)(
             u, *((self.Kb, self.Mb) if plain else self.brick_factors_host), self.geo, self.p,
             dcols=dcols, brick_size=self.B)

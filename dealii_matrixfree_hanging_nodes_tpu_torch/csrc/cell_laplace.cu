@@ -34,8 +34,8 @@
 //   deal.II's CUDA matrix-free path, as cell_elasticity.cu's, for one component. A thread owns a
 //   z-column (x, y) of a cell, N^2 threads a cell, G cells a group (Col3: G N^2 close to a
 //   multiple of 32); the group's values sit in shared memory in regions of G N^3 values (kinds
-//   0, 1, 2), and the operator runs in five phases, a thread's lines in registers, one barrier
-//   after each:
+//   0, 1, 2), and the operator runs in five phases (laplace_cols.cuh, shared with
+//   brick_deformed.cu), a thread's lines in registers, one barrier after each:
 //     z1, its column:     a = S_z u, c = D_z u                                 (kinds 0, 2)
 //     x1, x-line (y, z):  a' = S_x a, b = D_x a, c' = S_x c                    (kinds 0, 1, 2)
 //     y,  y-line (x, z):  the gradients S_y b, D_y a', S_y c'; the geometry at the line's N
@@ -76,6 +76,7 @@
 
 #include "even_odd.cuh"
 #include "hanging_nodes.cuh"
+#include "laplace_cols.cuh"
 #include "sum_factorization.cuh"
 
 namespace {
@@ -131,13 +132,6 @@ cell_laplace_read_kernel(const Args<T> a, int n_cells, int flags) {
 
 // ---- the columns design (QUAD): a z-column (2-D: a y-column) of a cell a thread --------------
 using eo::Factors;
-using eo::FD;
-using eo::FDT;
-using eo::FS;
-using eo::FST;
-using eo::load;
-using eo::mat;
-using eo::store;
 
 // 3-D: N^2 threads a cell, G cells a block (G N^2 close to a multiple of 32), three regions of
 // G N^3 values (kinds 0, 1, 2)
@@ -162,6 +156,23 @@ struct Col2 {
 
 template <int DIM, int P>
 using Col = std::conditional_t<DIM == 3, Col3<P>, Col2<P>>;
+
+// the packed symmetric metric (xx, xy, xz, yy, yz, zz; x the fastest axis) of w detJ J^-1 J^-T
+// at the points m + 6 N i of a y-line (device memory), times the gradients there
+template <typename T, int N>
+__device__ __forceinline__ void metric3(const T* __restrict__ m, T (&gx)[N], T (&gy)[N],
+                                        T (&gz)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const T* mi = m + i * N * 6;
+    const T m0 = __ldg(mi), m1 = __ldg(mi + 1), m2 = __ldg(mi + 2), m3 = __ldg(mi + 3),
+            m4 = __ldg(mi + 4), m5 = __ldg(mi + 5);
+    const T x = gx[i], y = gy[i], z = gz[i];
+    gx[i] = m0 * x + m1 * y + m2 * z;
+    gy[i] = m1 * x + m3 * y + m4 * z;
+    gz[i] = m2 * x + m4 * y + m5 * z;
+  }
+}
 
 // blocks an SM the registers must allow: in f32 up to p = 4, 1536 threads in 3-D (40 registers)
 // and 2048 in 2-D (32), 768 above; 512 in f64 up to p = 4 (128), 384 above. At p = 4 f32 3-D
@@ -248,125 +259,25 @@ cell_laplace_col_kernel(const Args<T> a, const Factors<T, P + 1> f, int n_cells,
 
   if (hn_in && any_hn) hn::interp_cells_d<T, DIM, N, false>(k0, sP, code, j, hn_work);
   if constexpr (DIM == 3) {
-    constexpr int N2 = N * N;
     T* const k2 = buf + 2 * R + go;
-    // z1: column (x, y) = (j % N, j / N), nodes N^2 apart: a = S_z u, c = D_z u
-    if (active) {
-      T u[N], r[N];
-      load<T, N, N2>(k0 + j, u);
-      mat<T, N, 1>(f.m[FS], u, r);
-      store<T, N, N2>(k0 + j, r);
-      mat<T, N, -1>(f.m[FD], u, r);
-      store<T, N, N2>(k2 + j, r);
-    }
-    __syncthreads();
-    // x1: x-line (y, z) = (j % N, j / N) at N j: a' = S_x a, b = D_x a, c' = S_x c
-    if (active) {
-      T v[N], r[N];
-      load<T, N, 1>(k0 + N * j, v);
-      mat<T, N, 1>(f.m[FS], v, r);
-      store<T, N, 1>(k0 + N * j, r);
-      mat<T, N, -1>(f.m[FD], v, r);
-      store<T, N, 1>(k1 + N * j, r);
-      load<T, N, 1>(k2 + N * j, v);
-      mat<T, N, 1>(f.m[FS], v, r);
-      store<T, N, 1>(k2 + N * j, r);
-    }
-    __syncthreads();
-    // y: y-line (x, z) at x + N^2 z, nodes N apart: the gradients S_y b, D_y a', S_y c'; the
-    // geometry at the line's points; D_y^T o_y, S_y^T o_x, S_y^T o_z
-    if (active) {
-      const int o = jx + N2 * jz;
-      T gx[N], gy[N], gz[N], v[N];
-      load<T, N, N>(k1 + o, v);
-      mat<T, N, 1>(f.m[FS], v, gx);
-      load<T, N, N>(k0 + o, v);
-      mat<T, N, -1>(f.m[FD], v, gy);
-      load<T, N, N>(k2 + o, v);
-      mat<T, N, 1>(f.m[FS], v, gz);
-      if (deformed) {  // the packed metric of the cell at the points o + N i
-        const T* m = a.geo + (static_cast<size_t>(cell) * NL + o) * 6;
+    lc::laplace3<T, N, N * N>(k0 + j, k0, k1, k2, f, j, active,
+                              [&](T(&gx)[N], T(&gy)[N], T(&gz)[N], int o) {
+                                if (deformed) {  // the cell's metric at the points o + N i
+                                  metric3<T, N>(a.geo + (static_cast<size_t>(cell) * NL + o) * 6,
+                                                gx, gy, gz);
+                                } else {
 #pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const T* mi = m + i * N * 6;
-          const T m0 = __ldg(mi), m1 = __ldg(mi + 1), m2 = __ldg(mi + 2), m3 = __ldg(mi + 3),
-                  m4 = __ldg(mi + 4), m5 = __ldg(mi + 5);
-          const T x = gx[i], y = gy[i], z = gz[i];
-          gx[i] = m0 * x + m1 * y + m2 * z;
-          gy[i] = m1 * x + m3 * y + m4 * z;
-          gz[i] = m2 * x + m4 * y + m5 * z;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          gx[i] = gx[i] * geo[0] * wq[i];
-          gy[i] = gy[i] * geo[1] * wq[i];
-          gz[i] = gz[i] * geo[2] * wq[i];
-        }
-      }
-      mat<T, N, -1>(f.m[FDT], gy, v);
-      store<T, N, N>(k0 + o, v);
-      mat<T, N, 1>(f.m[FST], gx, v);
-      store<T, N, N>(k1 + o, v);
-      mat<T, N, 1>(f.m[FST], gz, v);
-      store<T, N, N>(k2 + o, v);
-    }
-    __syncthreads();
-    // x2: x-line: T1 = D_x^T Q + S_x^T P, T2 = S_x^T R
-    if (active) {
-      T v[N], r[N], s[N];
-      load<T, N, 1>(k1 + N * j, v);
-      mat<T, N, -1>(f.m[FDT], v, r);
-      load<T, N, 1>(k0 + N * j, v);
-      mat<T, N, 1>(f.m[FST], v, s);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] += s[i];
-      store<T, N, 1>(k0 + N * j, r);
-      load<T, N, 1>(k2 + N * j, v);
-      mat<T, N, 1>(f.m[FST], v, r);
-      store<T, N, 1>(k2 + N * j, r);
-    }
-    __syncthreads();
-    // z2: column: S_z^T T1 + D_z^T T2
-    if (active) {
-      T v[N], r[N], s[N];
-      load<T, N, N2>(k0 + j, v);
-      mat<T, N, 1>(f.m[FST], v, r);
-      load<T, N, N2>(k2 + j, v);
-      mat<T, N, -1>(f.m[FDT], v, s);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] += s[i];
-      store<T, N, N2>(k0 + j, r);
-    }
-    __syncthreads();
+                                  for (int i = 0; i < N; ++i) {
+                                    gx[i] = gx[i] * geo[0] * wq[i];
+                                    gy[i] = gy[i] * geo[1] * wq[i];
+                                    gz[i] = gz[i] * geo[2] * wq[i];
+                                  }
+                                }
+                              });
   } else {
-    // y1: column x = j, nodes N apart: a = S_y u, c = D_y u
-    if (active) {
-      T u[N], r[N];
-      load<T, N, N>(k0 + j, u);
-      mat<T, N, 1>(f.m[FS], u, r);
-      store<T, N, N>(k0 + j, r);
-      mat<T, N, -1>(f.m[FD], u, r);
-      store<T, N, N>(k1 + j, r);
-    }
-    __syncthreads();
-    // x: x-line y = j at N j: the gradients D_x a, S_x c; the geometry at the line's points;
-    // D_x^T o_x, S_x^T o_y
-    if (active) {
-      T gx[N], gy[N], v[N];
-      load<T, N, 1>(k0 + N * j, v);
-      mat<T, N, -1>(f.m[FD], v, gx);
-      load<T, N, 1>(k1 + N * j, v);
-      mat<T, N, 1>(f.m[FS], v, gy);
-      if (deformed) {  // the packed metric (xx, xy, yy) of the cell at the points N j + i
-        const T* m = a.geo + (static_cast<size_t>(cell) * NL + N * j) * 3;
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          const T m0 = __ldg(m + 3 * i), m1 = __ldg(m + 3 * i + 1), m2 = __ldg(m + 3 * i + 2);
-          const T x = gx[i], y = gy[i];
-          gx[i] = m0 * x + m1 * y;
-          gy[i] = m1 * x + m2 * y;
-        }
+    lc::laplace2<T, N, N>(k0 + j, k0, k1, f, j, active, [&](T(&gx)[N], T(&gy)[N], int o) {
+      if (deformed) {  // the cell's metric (xx, xy, yy) at the points N j + i
+        lc::metric2<T, N>(a.geo + (static_cast<size_t>(cell) * NL + o) * 3, gx, gy);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) {
@@ -374,25 +285,9 @@ cell_laplace_col_kernel(const Args<T> a, const Factors<T, P + 1> f, int n_cells,
           gy[i] = gy[i] * geo[1] * wq[i];
         }
       }
-      mat<T, N, -1>(f.m[FDT], gx, v);
-      store<T, N, 1>(k0 + N * j, v);
-      mat<T, N, 1>(f.m[FST], gy, v);
-      store<T, N, 1>(k1 + N * j, v);
-    }
-    __syncthreads();
-    // y2: column x = j: S_y^T Q + D_y^T R
-    if (active) {
-      T v[N], r[N], s[N];
-      load<T, N, N>(k0 + j, v);
-      mat<T, N, 1>(f.m[FST], v, r);
-      load<T, N, N>(k1 + j, v);
-      mat<T, N, -1>(f.m[FDT], v, s);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] += s[i];
-      store<T, N, N>(k0 + j, r);
-    }
-    __syncthreads();
+    });
   }
+  __syncthreads();
   if (hn_out && any_hn) hn::interp_cells_d<T, DIM, N, true>(k0, sP, code, j, hn_work);
   for (int idx = threadIdx.x; idx < n_vals; idx += blockDim.x) a.out[row0 + idx] = buf[idx];
 }

@@ -1,6 +1,6 @@
-"""The even-odd tables of the 1-D factors that ``cell_elasticity`` and
-``cell_laplace`` take as their launch parameters (``csrc/even_odd.cuh``
-holds the sweeps that read them).
+"""The even-odd tables of the 1-D factors that ``cell_elasticity``,
+``cell_laplace`` and ``brick_deformed`` take as their launch parameters
+(``csrc/even_odd.cuh`` holds the sweeps that read them).
 
 On the symmetric Gauss points and nodes, S (the values of the nodal basis
 at the Gauss points) and D = Dc S (their derivatives there) satisfy

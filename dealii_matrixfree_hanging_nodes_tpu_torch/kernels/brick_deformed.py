@@ -22,8 +22,14 @@ bricks with the metric on the brick-quad lattice (zero at absent slots),
 which per cell is ``_deformed_cell_apply`` (2959-2976) summed over the
 present cells (2985-2989), and in the epilogue ``_scatter_cols``
 (2196-2241) with the merge ``v.at[:n_sub].add(corr)`` (2553-2559). CUDA
-source: ``csrc/brick_deformed.cu`` (the quadrature in
-``csrc/laplace_quad.cuh``)."""
+source: ``csrc/brick_deformed.cu`` (the column phases in
+``csrc/laplace_cols.cuh``, shared with ``cell_laplace``). The kernel owns a
+z-column of a cell a thread (2-D: a y-column) and computes the same
+operator with D = Dc S, every sweep even-odd: the even-odd splits of S, D
+and their transposes (``_even_odd.factor_tables``,
+``BrickLaplaceMM.kernel_factors``) travel as the launch's parameters
+(``factors=``, required on the card). The plain version runs the
+collocation form."""
 
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._even_odd import check_factors
 from .brick_apply import _rows_of, overlap_add_index
 from .cell_apply import cell_nodes
 from .cell_laplace import laplace_rows
@@ -51,11 +58,12 @@ def present_cells(present, C):
     return torch.nonzero(valid_mask(present, C).reshape(-1))[:, 0]
 
 
-def brick_deformed_plain(bv, geo, present, S, Dc, dcols=None, brick_size=None):
+def brick_deformed_plain(bv, geo, present, S, Dc, dcols=None, brick_size=None, factors=None):
     """Plain PyTorch version: the present cells' rows gathered from the
     bricks, their quadrature (``laplace_rows`` with their metric), one
     ``index_add_`` into a zero vector; then dcols, as brick_apply's plain
-    version adds them."""
+    version adds them. It reads S and Dc, and takes the kernel's factors
+    only to share the wrapper's signature."""
     B = int(brick_size)
     p = S.shape[1] - 1
     nb, N3p = bv.shape
@@ -74,13 +82,16 @@ def brick_deformed_plain(bv, geo, present, S, Dc, dcols=None, brick_size=None):
 
 _ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
                                                       ctypes.c_void_p]
+_PTRS = 7  # u, geo, present, S, Dc, dcols (device), the factors (host)
 
 
-def brick_deformed(bv, geo, present, S, Dc, dcols=None, brick_size=None):
+def brick_deformed(bv, geo, present, S, Dc, dcols=None, brick_size=None, factors=None):
     """bv [nb, N3p], geo [nb*B^3, (p+1)^3, 6], present [nb, ceil(B^3/32)]
     int32, S, Dc [p+1, p+1], dcols [m*B^3, (p+1)^3] or None -> new v [nb,
     N3p] (the padded tail zero). 2-D: geo [nb*B^2, (p+1)^2, 3], present [nb,
-    ceil(B^2/32)], dcols [m*B^2, (p+1)^2]."""
+    ceil(B^2/32)], dcols [m*B^2, (p+1)^2]. factors: the kernel's launch
+    parameters, ``factor_tables(S, Dc)`` (float64 NumPy,
+    ``BrickLaplaceMM.kernel_factors``), required on the card."""
     if bv.device.type == "cpu":
         return brick_deformed_plain(bv, geo, present, S, Dc, dcols, brick_size)
     extra = {} if dcols is None else {"dcols": dcols}
@@ -102,9 +113,14 @@ def brick_deformed(bv, geo, present, S, Dc, dcols=None, brick_size=None):
         m, pc = _rows_of(dcols, B, nb, N3p, dim)
         if pc != p:
             raise ValueError(f"{NAME}: dcols of p={pc} for p={p}")
+    if dim == 3 and geo.data_ptr() % (2 * geo.element_size()):
+        raise ValueError(f"{NAME}: the 3-D kernel reads the metric in aligned pairs; geo starts "
+                         f"{geo.data_ptr() % 16} bytes past a 16-byte boundary")
+    check_factors(NAME, factors, p + 1)
     out = torch.empty_like(bv)
-    ptrs = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr()
-                                   for t in (bv, geo, present, S, Dc, dcols)))
+    ptrs = (ctypes.c_void_p * _PTRS)(*(None if t is None else t.data_ptr()
+                                       for t in (bv, geo, present, S, Dc, dcols)),
+                                     factors.ctypes.data)
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(bv.dtype)}", _ARGS)
     _build.launch(NAME, fn, dev, ptrs, _build.ptr(out), nb, m, p, B, N3p, None, dim)
     brick_deformed.launches += 1
@@ -120,7 +136,7 @@ def plan(dtype, p, B, dim, device=None):
     info = (ctypes.c_int * 3)()
     fn = _build.function(NAME, f"{NAME}_{_build.suffix(dtype)}", _ARGS)
     _build.launch(NAME, fn, torch.device("cuda") if device is None else device,
-                  (ctypes.c_void_p * 6)(), None, 1, 0, p, B, 0, info, dim)
+                  (ctypes.c_void_p * _PTRS)(), None, 1, 0, p, B, 0, info, dim)
     return tuple(info)
 
 

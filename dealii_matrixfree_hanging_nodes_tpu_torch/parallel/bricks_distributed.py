@@ -61,6 +61,7 @@ from torch import nn
 from ..bricks import BrickStructure, _brick_factors, _cell_factors, _pack_bits, brick_constants
 from ..kernels import (brick_apply, brick_deformed, cell_apply, chain_halo, corr_compact,
                        dss_pools, halo_pack, hn_interp, refill_update)
+from ..kernels._even_odd import factor_tables
 from ..kernels.dss_pools import surface_entities
 from ..matrix_free import TORCH_DTYPES, MatrixFree
 from ..mesh import _interleave_bits
@@ -748,6 +749,8 @@ class DistributedBrickLaplace(nn.Module):
         if self.deformed:
             self.register_buffer("metric", f(t["metric"]))
             self.register_buffer("present_bits", i32(t["present_bits"]))
+            # brick_deformed's launch parameters (BrickLaplaceMM.kernel_factors)
+            self.kernel_factors = factor_tables(c["S"], c["Dc"])
         d = t["dss"]
         self.dss_acc = (i32(d["surf_node"]), i32(d["ent_off"]), i32(d["pool_off"]),
                         i32(d["pool_ptr"]), i32(d["pool_src"]), d["n_slots"])
@@ -839,7 +842,8 @@ class DistributedBrickLaplace(nn.Module):
                                               *self.corr_runs)
         if self.deformed:
             v = brick_deformed.brick_deformed(bv, self.metric, self.present_bits, self.S, self.Dc,
-                                              dcols=dcols, brick_size=B)
+                                              dcols=dcols, brick_size=B,
+                                              factors=self.kernel_factors)
         else:
             v = brick_apply.brick_apply(bv, *self.brick_factors_host, self.geo, self.p,
                                         dcols=dcols, brick_size=B)

@@ -2,18 +2,19 @@
 process on one NVIDIA GPU, through the port's own wrappers, at the vmults'
 shapes.
 
-    python3 kernel_ab.py VARIANT_CSRC [rounds]
+    python3 kernel_ab.py VARIANT_CSRC [VARIANT_CSRC ...] [rounds]
 
-VARIANT_CSRC is a directory holding a cell_laplace.cu, a cell_elasticity.cu
-and/or a brick_elasticity.cu with the port's current C entries (a design
+Each VARIANT_CSRC is a directory holding a cell_laplace.cu, a cell_elasticity.cu,
+a brick_elasticity.cu and/or a brick_deformed.cu with the port's current C
+entries (a design
 under trial, or an earlier tree's csrc: `git archive <commit>
 <package>/csrc`; a variant's headers are looked up in its own directory
 first, then in the port's csrc). The script builds each with the port's
 nvcc flags into ``build/kernel_ab`` and the port's kernels, each nvcc in a
 process of its own, all at once. It times each wrapper call with the port's
-library ("port") and with the variant's ("variant") on the same seeded
+library ("port") and with each variant's ("variant") on the same seeded
 inputs in the order port, variant, variant, port, `rounds` times (default
-3); each time is the median of 20 calls timed with CUDA events behind a
+3), variant after variant on the same operators; each time is the median of 20 calls timed with CUDA events behind a
 device spin (``chip_smoke.time_ms(device_only=True)``). The instances, all
 f32 at p=4:
 
@@ -22,10 +23,13 @@ f32 at p=4:
   fast, 2-D deformed at nref=11;
 - cell_elasticity: 3-D nref=7 index mode with the codes and bricks mode,
   2-D nref=11 index mode (mu = lam = 1);
-- brick_elasticity: 3-D nref=7 and 2-D nref=11 with the subset's cell rows.
+- brick_elasticity: 3-D nref=7 and 2-D nref=11 with the subset's cell rows;
+- brick_deformed (``high_order_mapping=True``): 3-D quadrant nref=7 with
+  seeded cell rows for the subset bricks (the deformed vmult's launch) and
+  without (vmult_plain's), 2-D nref=11 with cell rows.
 
-Prints the card's name and power limit, one line an instance with every
-time in order, the largest difference of the variant's output from the
+Prints the card's name and power limit, one line an instance and variant
+with every time in order, the largest difference of the variant's output from the
 port's (absolute, and relative to the port's largest value), whether the
 two outputs are bit-identical and whether two variant calls are, and one
 JSON line; exits non-zero without a card.
@@ -42,14 +46,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("cell_laplace", "cell_elasticity", "brick_elasticity")
+KERNELS = ("cell_laplace", "cell_elasticity", "brick_elasticity", "brick_deformed")
 
 
-def build_variant(src: Path):
-    """The variant library of src's kernel, built with the port's flags."""
+def build_variant(src: Path, tag: str):
+    """The variant library of src's kernel, built with the port's flags into
+    build/kernel_ab/<tag>."""
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import _build
 
-    out = ROOT / "build" / "kernel_ab" / f"lib{src.stem}.so"
+    out = ROOT / "build" / "kernel_ab" / tag / f"lib{src.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
                            str(_build.CSRC), "-o", str(out), str(src)], capture_output=True,
@@ -76,25 +81,29 @@ def library(name, lib):
 
 
 def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+    args = sys.argv[1:]
+    rounds = int(args.pop()) if args and args[-1].isdigit() else 3
+    if not torch.cuda.is_available() or not args:
         print(__doc__, file=sys.stderr)
         return 2
     import chip_smoke
     import dealii_matrixfree_hanging_nodes_tpu_torch as mt
     from dealii_matrixfree_hanging_nodes_tpu_torch.kernels import (
-        _build, cell_elasticity, cell_laplace,
+        _build, brick_deformed, cell_elasticity, cell_laplace,
     )
 
-    variant_csrc = Path(sys.argv[1])
-    rounds = int(sys.argv[2]) if len(sys.argv) == 3 else 3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    srcs = {k: variant_csrc / f"{k}.cu" for k in KERNELS if (variant_csrc / f"{k}.cu").exists()}
+    srcs = [(d, k, Path(d) / f"{k}.cu") for d in args for k in KERNELS
+            if (Path(d) / f"{k}.cu").exists()]
+    libs = {}  # kernel: [(variant directory, library)]
     with ThreadPoolExecutor(len(srcs) + 1) as pool:
         built = pool.submit(_build.build, KERNELS)
-        libs = dict(zip(srcs, pool.map(build_variant, srcs.values())))
+        made = pool.map(lambda i: build_variant(srcs[i][2], str(i)), range(len(srcs)))
+        for (d, k, _), lib in zip(srcs, made):
+            libs.setdefault(k, []).append((d, lib))
         built.result()
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -105,13 +114,13 @@ def main() -> int:
             mf = mt.MatrixFree(mt.create_quadrant(dim, nref), 4, dtype=np.float32,
                                high_order_mapping=deformed)
             x = torch.randn(mf.n_dofs, generator=g, device=dev)
-            args = (x, *mf.cell_laplace_args(dev, f32))
+            cargs = (x, *mf.cell_laplace_args(dev, f32))
             label = (f"{dim}-D cell_laplace {'deformed' if deformed else 'fast, codes'} "
                      f"nref={nref}")
-            results.append(ab(chip_smoke, label, "cell_laplace", libs["cell_laplace"],
-                              lambda a=args, f=mf.kernel_factors:
-                              cell_laplace.cell_laplace(*a, factors=f), rounds))
-            del mf, x, args
+            results += ab(chip_smoke, label, "cell_laplace", libs["cell_laplace"],
+                          lambda a=cargs, f=mf.kernel_factors:
+                          cell_laplace.cell_laplace(*a, factors=f), rounds)
+            del mf, x, cargs
             torch.cuda.empty_cache()
     for dim, nref in ((3, 7), (2, 11)):
         if not {"cell_elasticity", "brick_elasticity"} & set(libs):
@@ -133,34 +142,57 @@ def main() -> int:
                       lambda: op.brick_apply(bv, dcols)))
         for name, label, fn in cases:
             if name in libs:
-                results.append(ab(chip_smoke, label, name, libs[name], fn, rounds))
+                results += ab(chip_smoke, label, name, libs[name], fn, rounds)
         del op, mm, bv, x, dcols, index, mf, cases
+        torch.cuda.empty_cache()
+    for dim, nref in ((3, 7), (2, 11)):
+        if "brick_deformed" not in libs:
+            break
+        mf = mt.MatrixFree(mt.create_quadrant(dim, nref), 4, dtype=np.float32,
+                           high_order_mapping=True)
+        op = mt.BrickLaplaceMM(mf, device=dev)
+        bv = torch.randn(op.n_bricks, op.N3p, generator=g, device=dev)
+        cols = torch.randn(op.n_sub * op.C, op.n_loc, generator=g, device=dev)
+        bd = (bv, op.metric, op.present_bits, op.S, op.Dc)
+        for d in (cols, None) if dim == 3 else (cols,):
+            label = f"{dim}-D brick_deformed {'with' if d is not None else 'without'} cell rows"
+            results += ab(chip_smoke, label, "brick_deformed", libs["brick_deformed"],
+                          lambda d=d: brick_deformed.brick_deformed(
+                              *bd, dcols=d, brick_size=op.B, factors=op.kernel_factors),
+                          rounds)
+        del op, mf, bv, cols, bd
         torch.cuda.empty_cache()
     print(json.dumps({"card": smi, "kernel_ab": results}))
     return 0
 
 
-def ab(chip_smoke, label, name, lib, fn, rounds):
-    """fn with the port's library and with lib in the order port, variant,
-    variant, port, `rounds` times; the variant's output against the port's."""
+def ab(chip_smoke, label, name, variants, fn, rounds):
+    """fn with the port's library and with each variant's [(directory,
+    library)] in the order port, variant, variant, port, `rounds` times; the
+    variant's output against the port's. Returns a row a variant."""
+    rows = []
     ref = fn()
-    with library(name, lib):
-        got, again = fn(), fn()
     scale = float(ref.abs().max())
-    diff = float((got - ref).abs().max())
-    row = dict(instance=label, ms={"port": [], "variant": []}, max_abs_diff=diff,
-               rel_diff=diff / scale, bit_identical=bool(torch.equal(got, ref)),
-               variant_bit_identical=bool(torch.equal(got, again)))
-    for _ in range(rounds):
-        for which in ("port", "variant", "variant", "port"):
-            with library(name, lib) if which == "variant" else contextlib.nullcontext():
-                row["ms"][which].append(chip_smoke.time_ms(fn, device_only=True))
-    print(f"{label}: " + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)} ms"
-                                   for k, v in row["ms"].items())
-          + f"; variant against port: largest difference {diff:.3e} (relative "
-          f"{row['rel_diff']:.3e}), bit-identical {row['bit_identical']}; two variant calls "
-          f"bit-identical {row['variant_bit_identical']}", flush=True)
-    return row
+    for where, lib in variants:
+        with library(name, lib):
+            got, again = fn(), fn()
+        diff = float((got - ref).abs().max())
+        row = dict(instance=label, variant=where, ms={"port": [], "variant": []},
+                   max_abs_diff=diff, rel_diff=diff / scale,
+                   bit_identical=bool(torch.equal(got, ref)),
+                   variant_bit_identical=bool(torch.equal(got, again)))
+        del got, again
+        for _ in range(rounds):
+            for which in ("port", "variant", "variant", "port"):
+                with library(name, lib) if which == "variant" else contextlib.nullcontext():
+                    row["ms"][which].append(chip_smoke.time_ms(fn, device_only=True))
+        print(f"{label} [{where}]: " + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)} ms"
+                                                 for k, v in row["ms"].items())
+              + f"; variant against port: largest difference {diff:.3e} (relative "
+              f"{row['rel_diff']:.3e}), bit-identical {row['bit_identical']}; two variant calls "
+              f"bit-identical {row['variant_bit_identical']}", flush=True)
+        rows.append(row)
+    return rows
 
 
 if __name__ == "__main__":

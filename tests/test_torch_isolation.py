@@ -250,7 +250,7 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
                  "cell_transfer.cu", "brick_transfer.cu", "transfer.cuh", "hanging_nodes.cuh",
                  "elasticity.cuh", "cell_elasticity.cu", "brick_elasticity.cu",
                  "laplace_quad.cuh", "cell_laplace.cu", "brick_deformed.cu", "brick_band.cuh",
-                 "even_odd.cuh"):
+                 "even_odd.cuh", "laplace_cols.cuh"):
         shutil.copy(PKG / "csrc" / name, tmp_path)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("cell_apply", "hn_cell", "brick_apply", "cell_transfer", "brick_transfer",
@@ -287,16 +287,16 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert last["hn_cell"] != final["hn_cell"]
     assert all(last[n] == final[n] for n in ("cell_apply", "brick_apply", "cell_transfer",
                                              "brick_transfer", "brick_elasticity"))
-    # the Laplace quadrature at the Gauss points: an edit rebuilds the three kernels that run
-    # it (brick_deformed, and cell_apply's and hn_cell's deformed modes); cell_laplace runs its
-    # own schedule on the even-odd sweeps since its redesign
+    # the Laplace quadrature at the Gauss points: an edit rebuilds the two kernels that run
+    # it (cell_apply's and hn_cell's deformed modes); cell_laplace and brick_deformed run the
+    # column phases on the even-odd sweeps since their redesigns
     header = tmp_path / "laplace_quad.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     quad = {n: _build.library_path(n) for n in names}
-    assert all(quad[n] != last[n] for n in ("brick_deformed", "cell_apply", "hn_cell"))
+    assert all(quad[n] != last[n] for n in ("cell_apply", "hn_cell"))
     assert all(quad[n] == last[n] for n in ("brick_apply", "cell_transfer", "brick_transfer",
                                             "cell_elasticity", "brick_elasticity",
-                                            "cell_laplace"))
+                                            "cell_laplace", "brick_deformed"))
     # the brick factors' band structure: an edit rebuilds the two brick operators only
     header = tmp_path / "brick_band.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
@@ -304,15 +304,24 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     assert band["brick_apply"] != quad["brick_apply"]
     assert band["brick_elasticity"] != quad["brick_elasticity"]
     assert all(band[n] == quad[n] for n in names if n not in ("brick_apply", "brick_elasticity"))
-    # the even-odd sweeps: an edit rebuilds the two cell kernels that sweep by them only
+    # the even-odd sweeps: an edit rebuilds the three kernels that sweep by them only
     assert [p.name for p in _build._sources(tmp_path / "cell_laplace.cu", [])] == [
-        "cell_laplace.cu", "even_odd.cuh", "hanging_nodes.cuh", "sum_factorization.cuh"]
+        "cell_laplace.cu", "even_odd.cuh", "hanging_nodes.cuh", "laplace_cols.cuh",
+        "sum_factorization.cuh"]
+    assert [p.name for p in _build._sources(tmp_path / "brick_deformed.cu", [])] == [
+        "brick_deformed.cu", "laplace_cols.cuh", "even_odd.cuh", "sum_factorization.cuh"]
     header = tmp_path / "even_odd.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     eo = {n: _build.library_path(n) for n in names}
-    assert eo["cell_laplace"] != band["cell_laplace"]
-    assert eo["cell_elasticity"] != band["cell_elasticity"]
-    assert all(eo[n] == band[n] for n in names if n not in ("cell_laplace", "cell_elasticity"))
+    sweepers = ("cell_laplace", "cell_elasticity", "brick_deformed")
+    assert all(eo[n] != band[n] for n in sweepers)
+    assert all(eo[n] == band[n] for n in names if n not in sweepers)
+    # the Laplace's column phases: an edit rebuilds the two kernels that run them only
+    header = tmp_path / "laplace_cols.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    cols = {n: _build.library_path(n) for n in names}
+    assert all(cols[n] != eo[n] for n in ("cell_laplace", "brick_deformed"))
+    assert all(cols[n] == eo[n] for n in names if n not in ("cell_laplace", "brick_deformed"))
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -1083,10 +1092,11 @@ def test_deformed_kernels_on_card(cuda, p, nref, dtype):
     hn_args = (bv[: op.n_sub], *op.hn_tables(), None, None, None, op.B)
     ca_args = (bv[: op.n_sub], None, None, None, op.B)
     tab = op.deformed_tables(op.n_sub * op.C)
+    fac = op.kernel_factors
     pairs = [
-        (brick_deformed.brick_deformed(*bd, brick_size=op.B),
+        (brick_deformed.brick_deformed(*bd, brick_size=op.B, factors=fac),
          brick_deformed.brick_deformed_plain(*bd, brick_size=op.B)),
-        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B),
+        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B, factors=fac),
          brick_deformed.brick_deformed_plain(*bd, dcols=cols, brick_size=op.B)),
         (cell_apply.cell_apply(*ca_args, deformed=tab),
          cell_apply.cell_apply_plain(*ca_args, deformed=tab)),
@@ -1236,10 +1246,11 @@ def test_brick_deformed_2d_on_card(cuda, p, nref, dtype):
     hn_args = (bv[: op.n_sub], *op.hn_tables(), None, None, None, op.B)
     ca_args = (bv[: op.n_sub], None, None, None, op.B)
     tab = op.deformed_tables(op.n_sub * op.C)
+    fac = op.kernel_factors
     pairs = [
-        (brick_deformed.brick_deformed(*bd, brick_size=op.B),
+        (brick_deformed.brick_deformed(*bd, brick_size=op.B, factors=fac),
          brick_deformed.brick_deformed_plain(*bd, brick_size=op.B)),
-        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B),
+        (brick_deformed.brick_deformed(*bd, dcols=cols, brick_size=op.B, factors=fac),
          brick_deformed.brick_deformed_plain(*bd, dcols=cols, brick_size=op.B)),
         (cell_apply.cell_apply(*ca_args, deformed=tab),
          cell_apply.cell_apply_plain(*ca_args, deformed=tab)),

@@ -383,7 +383,7 @@ def test_cpu_tensors_take_the_plain_version(mod, variant):
         "brick_deformed": lambda: (
             (T(rng_array(36, dop().n_bricks, dop().N3p)), dop().metric, dop().present_bits,
              dop().S, dop().Dc),
-            {"brick_size": dop().B,
+            {"brick_size": dop().B, "factors": dop().kernel_factors,
              **({"dcols": T(rng_array(37, dop().n_sub * dop().C, dop().n_loc))} if variant
                 else {})}),
         "halo_pack": lambda: halo_pack_args(geo, nref, p, variant),
